@@ -1,0 +1,264 @@
+"""Wrappers of the band-cross kernels, and their plain PyTorch versions.
+
+Two kernels carry the global permutation null's hot loop, one draw each:
+
+``band_cross_int8`` (``csrc/band_cross_int8.cu``; replaces Pallas K1–K3)
+    cross_q[g] = Σ_i sw_i · z1_i[g] · lag_i[g], with the exact integer lag
+    lag_i = Σ_slots wq·z[window + local_idx] (+ Σ_far q_e·zf_e[g]) over
+    int8 codes, or int4 codes nibble-packed two genes per byte.
+``band_cross_float`` (``csrc/band_cross_float.cu``; replaces Pallas K4)
+    cross[g] = Σ_i z1_i[g] · lag_i[g], bf16 or f32 values, f32 lag.
+
+Both take the compact band — ``local_idx`` [Npad, k] (window-relative
+neighbour rows in [0, 3B)) and per-slot weights — instead of the
+reference's dense ``A[nb, B, 3B]``; the lag is the same sum, exactly, for
+the integer kernels. ``Zp`` is the draw's gathered value table, flat
+[(nb+2)·B, cols]: block n's window is rows [n·B, n·B + 3B) and its own
+rows are [n·B + B, n·B + 2B).
+
+Each wrapper checks device, dtype, shape and contiguity, and then:
+
+* on a CPU tensor, returns the plain version (same inputs, same result up
+  to float32 summation order; the integer lags are equal bitwise);
+* on a CUDA tensor, launches the kernel on the current stream and adds one
+  to its entry in :data:`LAUNCHES` — or raises. There is no fallback.
+
+Preconditions the wrappers do not check (they would need a device
+readback per launch; ``ops.banded`` checks them once per call):
+``local_idx`` values lie in [0, 3B), and ``far_row_ptr`` is non-decreasing
+with ``far_row_ptr[-1]`` ≤ the far-list length.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import build
+
+#: kernel launches by mode, counted where each wrapper launches its kernel
+LAUNCHES = {"int4_win": 0, "int4_band": 0, "int8_win": 0, "int8_band": 0,
+            "float": 0}
+
+#: rows per chunk of the plain versions' [rows, G] temps (times G ≤ 2**27)
+_PLAIN_CHUNK_ELEMS = 1 << 27
+#: largest block the kernels' shared-memory staging of 3B rows takes
+MAX_BLOCK = 512
+
+
+def reset_launch_counts() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def unpack_nibbles(Zpk: torch.Tensor) -> torch.Tensor:
+    """int8 packed [..., Gp2] → int8 codes [..., 2·Gp2] in natural order.
+
+    Packed column j holds gene j in its high nibble and gene j + Gp2 in its
+    low nibble, each stored as code + 8. Arithmetic shift + mask reads the
+    nibbles right for either sign of the byte.
+    """
+    hi = ((Zpk >> 4) & 15) - 8
+    lo = (Zpk & 15) - 8
+    return torch.cat([hi, lo], dim=-1).to(torch.int8)
+
+
+def _rows(Zp: torch.Tensor, idx, packed: bool) -> torch.Tensor:
+    """Rows of a value table as float32 codes (unpacked when ``packed``)."""
+    z = Zp[idx]
+    return (unpack_nibbles(z) if packed else z).to(torch.float32)
+
+
+def _row_chunks(n_rows: int, block: int, G: int):
+    step = max(block, (_PLAIN_CHUNK_ELEMS // max(G, 1)) // block * block)
+    return [(r0, min(r0 + step, n_rows)) for r0 in range(0, n_rows, step)]
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (compact band form)
+# ---------------------------------------------------------------------------
+
+
+def band_lag_int8_plain(local_idx, wq, Zp, block: int, *, packed: bool,
+                        far_row_ptr=None, far_q=None, Zf=None,
+                        r0: int = 0, r1: Optional[int] = None) -> torch.Tensor:
+    """Integer lag of padded rows [r0, r1) as float32 [rows, G].
+
+    float32 holds every lag exactly: a row has at most k nonzero weight
+    codes ≤ 127 times value codes ≤ 127, so |lag| ≤ k·127² < 2²⁴ for
+    k < 1040, and each partial sum is an exactly representable integer —
+    these lags equal the kernel's int32 lags bitwise.
+    """
+    r1 = local_idx.shape[0] if r1 is None else r1
+    dev = Zp.device
+    rows = torch.arange(r0, r1, device=dev)
+    win0 = (rows // block) * block                   # window start: n·B
+    li = local_idx[r0:r1].to(torch.int64)
+    w = wq[r0:r1].to(torch.float32)
+    lag = None
+    for s in range(li.shape[1]):
+        term = w[:, s:s + 1] * _rows(Zp, win0 + li[:, s], packed)
+        lag = term if lag is None else lag + term
+    if far_row_ptr is not None:
+        ptr = far_row_ptr.to(torch.int64)
+        p0, p1 = int(ptr[r0]), int(ptr[r1])
+        dst = torch.repeat_interleave(torch.arange(r1 - r0, device=dev),
+                                      ptr[r0 + 1:r1 + 1] - ptr[r0:r1])
+        vals = far_q[p0:p1].to(torch.float32)[:, None] * _rows(
+            Zf, slice(p0, p1), packed)
+        lag.index_add_(0, dst, vals)    # integer-valued: exact in any order
+    return lag
+
+
+def band_cross_int8_plain(local_idx, wq, sw, Zp, block: int, *, packed: bool,
+                          far_row_ptr=None, far_q=None, Zf=None) -> torch.Tensor:
+    """Plain version of :func:`band_cross_int8` (same inputs)."""
+    n_rows = local_idx.shape[0]
+    G = Zp.shape[1] * (2 if packed else 1)
+    cross = torch.zeros(G, dtype=torch.float32, device=Zp.device)
+    for r0, r1 in _row_chunks(n_rows, block, G):
+        lag = band_lag_int8_plain(local_idx, wq, Zp, block, packed=packed,
+                                  far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf,
+                                  r0=r0, r1=r1)
+        z1 = _rows(Zp, slice(block + r0, block + r1), packed)
+        cross += ((sw[r0:r1, None] * z1) * lag).sum(dim=0)
+    return cross
+
+
+def band_lag_float_plain(local_idx, w, Zp, block: int, r0: int = 0,
+                         r1: Optional[int] = None) -> torch.Tensor:
+    """float32 lag of padded rows [r0, r1): Σ_slots w·z, slot by slot."""
+    r1 = local_idx.shape[0] if r1 is None else r1
+    rows = torch.arange(r0, r1, device=Zp.device)
+    win0 = (rows // block) * block
+    li = local_idx[r0:r1].to(torch.int64)
+    wf = w[r0:r1].to(torch.float32)
+    lag = None
+    for s in range(li.shape[1]):
+        term = wf[:, s:s + 1] * Zp[win0 + li[:, s]].to(torch.float32)
+        lag = term if lag is None else lag + term
+    return lag
+
+
+def band_cross_float_plain(local_idx, w, Zp, block: int) -> torch.Tensor:
+    """Plain version of :func:`band_cross_float` (same inputs)."""
+    n_rows = local_idx.shape[0]
+    G = Zp.shape[1]
+    cross = torch.zeros(G, dtype=torch.float32, device=Zp.device)
+    for r0, r1 in _row_chunks(n_rows, block, G):
+        lag = band_lag_float_plain(local_idx, w, Zp, block, r0, r1)
+        cross += (Zp[block + r0:block + r1].to(torch.float32) * lag).sum(dim=0)
+    return cross
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_band(local_idx, w, w_dtypes, Zp, block: int):
+    _check(local_idx.dtype == torch.int32 and local_idx.ndim == 2,
+           "local_idx must be int32 [Npad, k]")
+    n_rows, k = local_idx.shape
+    _check(k >= 1, "the band needs at least one slot")
+    _check(1 <= block <= MAX_BLOCK and n_rows % block == 0,
+           f"block must be in [1, {MAX_BLOCK}] and divide Npad={n_rows}")
+    _check(w.dtype in w_dtypes and tuple(w.shape) == (n_rows, k),
+           f"band weights must be {w_dtypes} [Npad, k]")
+    _check(Zp.ndim == 2 and Zp.shape[0] == n_rows + 2 * block,
+           "Zp must be [(nb+2)·B, cols]")
+    for t in (local_idx, w, Zp):
+        _check(t.device == Zp.device, "all operands must share one device")
+        _check(t.is_contiguous(), "operands must be contiguous")
+    _check(Zp.device.type in ("cpu", "cuda"),
+           f"unsupported device {Zp.device}")
+    return n_rows // block, k
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def band_cross_int8(local_idx, wq, sw, Zp, block: int, *, packed: bool,
+                    far_row_ptr=None, far_q=None, Zf=None) -> torch.Tensor:
+    """cross_q[g] (z_q·w_q units) of one draw in the int8 / int4 system.
+
+    ``local_idx`` int32 [Npad, k]; ``wq`` int8 [Npad, k] weight codes;
+    ``sw`` f32 [Npad] row scales; ``Zp`` int8 [(nb+2)·B, G] codes, or
+    [(nb+2)·B, G/2] nibble-packed bytes when ``packed``. With far edges:
+    ``far_row_ptr`` int32 [Npad+1] (row r's entries are
+    [ptr[r], ptr[r+1])), ``far_q`` int8 [F] weight codes and ``Zf`` [F, cols]
+    the gathered far values. Returns f32 [G].
+    """
+    nb, k = _check_band(local_idx, wq, (torch.int8,), Zp, block)
+    _check(Zp.dtype == torch.int8, "Zp must be int8")
+    _check(Zp.shape[1] % 4 == 0 and Zp.data_ptr() % 4 == 0,
+           "Zp's rows must be 4-byte aligned: a multiple of 4 columns")
+    _check(sw.dtype == torch.float32 and tuple(sw.shape) == (local_idx.shape[0],)
+           and sw.device == Zp.device and sw.is_contiguous(),
+           "sw must be contiguous f32 [Npad] on Zp's device")
+    has_far = far_row_ptr is not None
+    if has_far:
+        _check(far_row_ptr.dtype == torch.int32
+               and tuple(far_row_ptr.shape) == (local_idx.shape[0] + 1,),
+               "far_row_ptr must be int32 [Npad+1]")
+        _check(far_q.dtype == torch.int8 and far_q.ndim == 1,
+               "far_q must be int8 [F]")
+        _check(Zf.dtype == torch.int8 and Zf.ndim == 2
+               and Zf.shape[0] == far_q.shape[0] and Zf.shape[1] == Zp.shape[1],
+               "Zf must be int8 [F, cols] matching far_q and Zp")
+        _check(Zf.data_ptr() % 4 == 0, "Zf must be 4-byte aligned")
+        for t in (far_row_ptr, far_q, Zf):
+            _check(t.device == Zp.device and t.is_contiguous(),
+                   "far operands must be contiguous on Zp's device")
+    else:
+        _check(far_q is None and Zf is None,
+               "far_q and Zf need far_row_ptr")
+    if Zp.device.type == "cpu":
+        return band_cross_int8_plain(local_idx, wq, sw, Zp, block,
+                                     packed=packed, far_row_ptr=far_row_ptr,
+                                     far_q=far_q, Zf=Zf)
+    gcols = Zp.shape[1]
+    G = 2 * gcols if packed else gcols
+    lib = build.load_library()
+    with torch.cuda.device(Zp.device):
+        partial = torch.empty((nb, G), dtype=torch.float32, device=Zp.device)
+        err = lib.sct_band_cross_int8(
+            _ptr(local_idx), _ptr(wq), _ptr(sw), _ptr(Zp), _ptr(far_row_ptr),
+            _ptr(far_q), _ptr(Zf), _ptr(partial), nb, block, k, gcols,
+            int(packed), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"band_cross_int8 launch failed: CUDA error {err}")
+    LAUNCHES[f"{'int4' if packed else 'int8'}_{'win' if has_far else 'band'}"] += 1
+    # per-block partials reduce in a fixed order: no float atomics
+    return partial.sum(dim=0)
+
+
+def band_cross_float(local_idx, w, Zp, block: int) -> torch.Tensor:
+    """cross[g] of one draw in bf16 / f32: Σ_i z1_i·lag_i, f32 lag.
+
+    ``local_idx`` int32 [Npad, k]; ``w`` [Npad, k] and ``Zp``
+    [(nb+2)·B, G], both bf16 or both f32. Returns f32 [G].
+    """
+    nb, k = _check_band(local_idx, w, (torch.bfloat16, torch.float32), Zp, block)
+    _check(Zp.dtype == w.dtype, "w and Zp must share a dtype (bf16 or f32)")
+    if Zp.device.type == "cpu":
+        return band_cross_float_plain(local_idx, w, Zp, block)
+    G = Zp.shape[1]
+    lib = build.load_library()
+    with torch.cuda.device(Zp.device):
+        partial = torch.empty((nb, G), dtype=torch.float32, device=Zp.device)
+        err = lib.sct_band_cross_float(
+            _ptr(local_idx), _ptr(w), _ptr(Zp), _ptr(partial), nb, block, k,
+            G, int(Zp.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"band_cross_float launch failed: CUDA error {err}")
+    LAUNCHES["float"] += 1
+    return partial.sum(dim=0)

@@ -1,0 +1,112 @@
+"""Build and load the package's CUDA kernels (nvcc + ctypes).
+
+Every ``spatialcore_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
+Hopper (``sm_90a``) into one shared library with a plain C interface, at
+first use, under ``kernels/_build/``. The library's name carries a hash of
+the sources and flags, so an edited ``.cu`` builds anew. ``nvcc``'s output
+(with ``-Xptxas -v``: registers, shared memory and spills per kernel) is
+kept beside the library as ``<name>.log``.
+
+Nothing here runs at import time: the CPU tests import every module on a
+machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C entry points and their argument types; each returns cudaGetLastError()
+_SIGNATURES = {
+    # local_idx, wq, sw, zp, far_ptr, far_q, zf, partial, nb, B, k, gcols,
+    # packed, stream
+    "sct_band_cross_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _P],
+    # local_idx, w, zp, partial, nb, B, k, G, is_bf16, stream
+    "sct_band_cross_float": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+_library: Optional[ctypes.CDLL] = None
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libspatialcore_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from csrc/ at first use")
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists.
+
+    The build writes to a temporary name and renames it into place, so
+    concurrent processes never load a half-written library. Raises with
+    nvcc's output if the compile fails.
+    """
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+                              capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log[-4000:]}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def build_log() -> str:
+    """nvcc's output for the current library (empty if not built here)."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, once per process."""
+    global _library
+    if _library is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _library = lib
+    return _library
