@@ -1,27 +1,47 @@
-"""One run of the PyTorch port's main path on one CUDA GPU.
+"""One run of the PyTorch port's main paths on one CUDA GPU.
 
     python3 chip_smoke.py
 
 Phases (the script stops with a non-zero exit at the first failure):
 
 1. Device and build: the card's name and power limit (nvidia-smi), and the
-   nvcc build of ``spatialcore_tpu_torch/csrc/*.cu`` with its time.
-2. Each band-cross kernel against its plain PyTorch version, on the card,
-   at B=256 on 300 blocks of a real kNN plan (int4/int8 windowed far at
-   G=4096, int8 band-only at G=4096, bf16 at G=1024, f32 at G=512), with
-   both times.
-3. The headline workload through the ops entry points: 1,000,000 cells
-   uniform on [0, 6000]², k=6, B=256; graph, null plan, standardize,
-   observed I, int4 quantization and packing; then
+   nvcc build of ``spatialcore_tpu_torch/csrc/*.cu`` (one nvcc per source,
+   in parallel) with its time.
+2. Each kernel against its plain PyTorch version, on the card, at B=256 on
+   300 blocks of a real kNN plan at the 1M-cell density: the band-cross
+   kernel (int4/int8 windowed far at G=4096, int8 band-only at G=4096,
+   bf16 at G=1024, f32 at G=512; agreement within 1e-5·Σ|terms|) and the
+   LISA draw-step kernel at G=1024 (row-pointer far with int8 and int16
+   counters, dense far, band only, and the observed entry; counts and
+   observed values equal). Each with its time, its plain version's time,
+   its bound on this card, and ``torch.sparse.mm`` of the band as a
+   float32 CSR matrix against the float32 table as a library yardstick.
+3. The global null's headline workload through the ops entry points:
+   1,000,000 cells uniform on [0, 6000]², k=6, B=256; graph, null plan,
+   standardize, observed I, int4 quantization and packing; then
    ``banded_permutation_test(precision="int4")`` over 8,192 genes as two
    4,096-gene tiles with draws chunked through ``draw_offset``, the plain
    version for 2 draws on one tile, a bitwise re-run of one chunk, and one
    int8 exact-far chunk (the band-only kernel).
-4. The public API: ``morans_i(null_method="banded_int8")`` and
+4. The global public API: ``morans_i(null_method="banded_int8")`` and
    ``gearys_c(null_method="banded")`` on a SpatialData of 1,000,000 cells ×
    1,024 genes whose X is a CUDA tensor; and a small input against the
-   port's CPU path, which the CPU tests hold against the JAX package.
-5. Proof of path: every kernel launched during phases 3–4.
+   port's CPU path. Proof of path: every band-cross kernel mode launched
+   during phases 3–4.
+5. Local Moran (LISA). The main path, with the launch counts set to 0
+   just before it and read just after:
+   ``local_morans_i(null_method="banded_int8", n_permutations=99)`` at
+   1,000,000 cells × 1,024 genes (CUDA X, k=6) in ``output_mode="full"``
+   and "compact" (compact p / p_adj / I equal to the full run's cast); it
+   must launch the row-pointer draw step once per draw and the observed
+   entry. Then the per-draw split by CUDA events, and the other routes,
+   each with counts of its own: the reference vignette's shape (366,938
+   cells, k=50, 128 genes, 99 draws) through local_morans_i's default
+   route ("auto" -> the float32 null in torch ops), and the int8 null's
+   dense-far route (``band_impl="pallas"``) against its row-pointer route
+   ("auto"), counts bitwise equal; a plan without far edges (cells on a
+   line: the band-only draw step); a small input on the card against the
+   port's CPU path (p, p_adj, quadrants bitwise).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it a
 JSON summary of every kernel, and the one before that nvidia-smi's name
@@ -34,15 +54,21 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
-from spatialcore_tpu_torch import SpatialData, gearys_c, morans_i
+from spatialcore_tpu_torch import (SpatialData, build_spatial_weights,
+                                   gearys_c, local_morans_i, morans_i)
+from spatialcore_tpu_torch.core.rng import feistel_apply, fold_in, key_for
 from spatialcore_tpu_torch.kernels import band_cross as kern
 from spatialcore_tpu_torch.kernels import build
+from spatialcore_tpu_torch.kernels import lisa_count as kern_lisa
 from spatialcore_tpu_torch.ops import banded
-from spatialcore_tpu_torch.ops.banded import banded_permutation_test, build_null_plan
+from spatialcore_tpu_torch.ops.banded import (banded_local_moran_pvalues,
+                                              banded_permutation_test,
+                                              build_null_plan)
 from spatialcore_tpu_torch.ops.graph import build_graph
 from spatialcore_tpu_torch.ops.moran import moran_observed, standardize
 from spatialcore_tpu_torch.ops.streaming import tile_widths
@@ -68,6 +94,21 @@ KERNELS = {
               "spatialcore_tpu_torch/csrc/band_cross_float.cu",
               "spatialcore_tpu/ops/banded.py:511"),
 }
+LISA_SRC = "spatialcore_tpu_torch/csrc/lisa_count_int8.cu"
+LISA_KERNELS = {
+    "lisa_win": ("lisa_count (draw step, row-pointer far; K7 moran tail)",
+                 LISA_SRC, "spatialcore_tpu/ops/banded.py:1389"),
+    "lisa_dense": ("lisa_count (draw step, dense far layer; K8)",
+                   LISA_SRC, "spatialcore_tpu/ops/banded.py:1291"),
+    "lisa_band": ("lisa_count (draw step, no far edges; K8 without far)",
+                  LISA_SRC, "spatialcore_tpu/ops/banded.py:1291"),
+    "lisa_obs": ("lisa_observed (observed |z*lag|; the XLA abs_ip pass)",
+                 LISA_SRC, "spatialcore_tpu/ops/banded.py:2369"),
+}
+#: the card's published peaks (H100 SXM data sheet): HBM bytes/s, and
+#: operations/s of the unit that could do each kernel's work
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -91,9 +132,12 @@ def timed(fn, dev, reps: int = 1):
 
 
 def event_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call by CUDA events, after two warm-up calls."""
+    """Mean milliseconds per call by CUDA events, after two warm-up calls
+    (NaN without a card: a CPU rehearsal of the phases times nothing)."""
     for _ in range(2):
         fn()
+    if not torch.cuda.is_available():
+        return float("nan")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -108,21 +152,94 @@ def uniform_coords(n: int, side: float, gen, dev) -> torch.Tensor:
     return torch.rand((n, 2), generator=gen, device=dev) * side
 
 
+def bound(nbytes: float, ops: float, unit: str):
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over the HBM rate and the operations over the unit's peak."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[unit]
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def cross_work(plan, mode: str, G: int):
+    """(bytes, operations, unit) one band-cross call must move and compute
+    on ``plan`` at G genes: each input read once (the gathered table, the
+    live far values, the compact band, row scales), the [G] output written
+    once; a multiply-add per band slot, live far edge and row value."""
+    n, k = plan.local_idx.shape
+    nnz = int((plan.w_local != 0).sum())
+    if mode in ("bf16", "f32"):
+        esz = 2 if mode == "bf16" else 4
+        return ((n + 2 * B) * G * esz + n * k * (4 + esz) + 4 * G,
+                2 * (nnz + n) * G, mode)
+    cols = G // 2 if mode == "int4_win" else G
+    n_live = int(plan.far_starts[-1]) if mode != "int8_band" else 0
+    far = n_live * (cols + 1) + 4 * (n + 1) if n_live else 0
+    return ((n + 2 * B) * cols + n * k * 5 + 4 * n + 4 * G + far,
+            2 * (nnz + n_live + n) * G, "int8")
+
+
+def lisa_work(plan, G: int, far_form: str, cnt_bytes: int = 1,
+              observed: bool = False):
+    """(bytes, operations, unit) of one LISA draw step (or the observed
+    pass) on ``plan`` at G genes: gathered codes, compact band and far
+    operands read once; int32 obs read and the counters read and written
+    (or the int32 output written); a multiply-add per band slot and live
+    far edge, and the |z·lag| test per value."""
+    n, k = plan.local_idx.shape
+    nnz = int((plan.w_local != 0).sum())
+    n_live = banded._n_live_far(plan)
+    far_in = {"rows": 4 * (n + 1) + n_live * (G + 1), "dense": 4 * n * G,
+              "none": 0}[far_form]
+    planes = 4 * n * G if observed else 4 * n * G + 2 * cnt_bytes * n * G
+    far_ops = n_live if far_form == "rows" else 0
+    return ((n + 2 * B) * G + n * k * 5 + far_in + planes,
+            2 * (nnz + far_ops) * G + (2 if observed else 4) * n * G, "int8")
+
+
+def band_csr(plan, dev):
+    """The band as a float32 CSR matrix [Npad, (nb+2)·B] over the padded
+    value table (the library yardstick's operand)."""
+    n_rows, k = plan.local_idx.shape
+    rows = torch.arange(n_rows, device=dev).repeat_interleave(k)
+    cols = (rows // B) * B + plan.local_idx.reshape(-1)
+    vals = plan.w_local.reshape(-1)
+    keep = vals != 0
+    with warnings.catch_warnings():     # sparse CSR "in beta" notices
+        warnings.simplefilter("ignore", UserWarning)
+        coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
+                                      vals[keep], (n_rows, n_rows + 2 * B))
+        return coo.coalesce().to_sparse_csr()
+
+
+def library_ms(csr, table, reps: int = 10):
+    """torch.sparse.mm (cuSPARSE SpMM) of the band against the float32
+    table: the band lag alone, the nearest one-call yardstick."""
+    zf = table.to(torch.float32)
+    return event_ms(lambda: torch.sparse.mm(csr, zf), reps)
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 
-def kernel_cases(dev, n_blocks: int, gen, widths):
-    """Operands of every kernel mode on a real plan of ``n_blocks`` blocks
-    at the 1M-cell density. Yields (mode, label, kernel_fn, plain_fn,
-    scale_fn): scale_fn gives Σ_i |term_i| per gene for the tolerance."""
+def real_plan(dev, n_blocks: int, gen, k: int = K):
+    """A kNN plan of ``n_blocks`` blocks at the 1M-cell density."""
     n = n_blocks * B
     coords = uniform_coords(n, SIDE * (n / 1e6) ** 0.5, gen, dev)
-    plan = build_null_plan(build_graph(coords, n_neighbors=K, device=dev),
+    return build_null_plan(build_graph(coords, n_neighbors=k, device=dev),
                            coords, block=B)
+
+
+def kernel_cases(dev, plan, gen, widths):
+    """Operands of every band-cross kernel mode on ``plan``. Yields
+    (mode, label, kernel_fn, plain_fn, scale_fn, nbytes, ops, unit, table):
+    scale_fn gives Σ_i |term_i| per gene for the tolerance; nbytes / ops
+    are what one call must move and compute; table is the value table the
+    library yardstick multiplies."""
+    n_blocks = plan.n_padded // B
+    n = plan.n_padded
     rows_idx = torch.arange((n_blocks + 2) * B, device=dev) - B
-    rows_idx = plan.order[rows_idx.clamp(0, n - 1)]
+    rows_idx = plan.order[rows_idx.clamp(0, plan.n - 1)]
     li = plan.local_idx.to(torch.int32)
     for mode, G in widths.items():
         if mode in ("bf16", "f32"):
@@ -138,7 +255,7 @@ def kernel_cases(dev, n_blocks: int, gen, widths):
             yield ("float", f"{mode} G={G}",
                    lambda zp=zp, w=w: kern.band_cross_float(li, w, zp, B),
                    lambda zp=zp, w=w: kern.band_cross_float_plain(li, w, zp, B),
-                   scale)
+                   scale, *cross_work(plan, mode, G), zp)
             continue
         packed = mode == "int4_win"
         far_mode = "exact" if mode == "int8_band" else "win"
@@ -170,40 +287,117 @@ def kernel_cases(dev, n_blocks: int, gen, widths):
             return kern.band_cross_int8_plain(li, ops.wq, sw, absc(zp), B,
                                               packed=packed, **fabs).double()
 
+        table = kern.unpack_nibbles(zp) if packed else zp
         yield (mode, f"{mode} G={G}",
                lambda zp=zp, far=far, sw=sw, packed=packed: kern.band_cross_int8(
                    li, ops.wq, sw, zp, B, packed=packed, **far),
                lambda zp=zp, far=far, sw=sw, packed=packed: kern.band_cross_int8_plain(
                    li, ops.wq, sw, zp, B, packed=packed, **far),
-               scale)
+               scale, *cross_work(plan, mode, G), table)
 
 
-def phase_kernels(dev, n_blocks: int, gen, widths, reps: int):
-    """Kernel vs plain on the card; returns {mode: (err, ms, plain_ms)}."""
+def report(results, mode, label, err, ms, plain_ms, nbytes, ops, unit, lib_ms,
+           first: bool = True):
+    """Print one kernel line and keep its numbers (the first case of a mode
+    gives its times; every case adds to its largest error)."""
+    b_ms, b_by = bound(nbytes, ops, unit)
+    print(f"[kernels] {label}: max_abs_err={err:.3e} kernel {ms:.4f} ms  plain "
+          f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e9:.4f} GB, "
+          f"{ops / 1e9:.3f} Gop)  library {lib_ms:.4f} ms")
+    old = results.get(mode)
+    if old is None or first:
+        results[mode] = dict(max_abs_err=max(err, old["max_abs_err"] if old else 0.0),
+                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib_ms)
+    else:
+        old["max_abs_err"] = max(old["max_abs_err"], err)
+
+
+def phase_kernels(dev, plan, gen, widths, reps: int):
+    """Band-cross kernels vs plain on the card; returns {mode: numbers}."""
     results = {}
-    for mode, label, kfn, pfn, scale_fn in kernel_cases(dev, n_blocks, gen, widths):
+    csr = band_csr(plan, dev)
+    for (mode, label, kfn, pfn, scale_fn, nbytes, ops, unit,
+         table) in kernel_cases(dev, plan, gen, widths):
         got, want = kfn(), pfn()
         sync(dev)
         err = (got.double() - want.double()).abs()
-        bound = REL_TOL * scale_fn() + 1e-30
+        tol = REL_TOL * scale_fn() + 1e-30
         check(bool(torch.isfinite(got).all()), f"{label}: non-finite cross")
-        check(bool((err <= bound).all()),
+        check(bool((err <= tol).all()),
               f"{label}: kernel disagrees with plain (max err "
-              f"{float(err.max()):.3e}, bound {float(bound.min()):.3e})")
-        if torch.device(dev).type == "cuda":
-            ms, plain_ms = event_ms(kfn, reps), event_ms(pfn, max(1, reps // 5))
-        else:
-            ms = plain_ms = float("nan")
-        print(f"[kernels] {label}: max_abs_err={float(err.max()):.3e} "
-              f"(bound {REL_TOL:g}·Σ|terms|, min {float(bound.min()):.3e}) "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-              f"({n_blocks} blocks, B={B})")
-        old = results.get(mode)
-        if old is None or mode != "float" or label.startswith("bf16"):
-            results[mode] = (max(float(err.max()), old[0] if old else 0.0),
-                             ms, plain_ms)
-        else:
-            results[mode] = (max(old[0], float(err.max())), old[1], old[2])
+              f"{float(err.max()):.3e}, bound {float(tol.min()):.3e})")
+        ms, plain_ms = event_ms(kfn, reps), event_ms(pfn, max(1, reps // 5))
+        lib = library_ms(csr, table)
+        report(results, mode, f"{label} (tolerance {REL_TOL:g}·Σ|terms|)",
+               float(err.max()), ms, plain_ms, nbytes, ops, unit, lib,
+               first=mode != "float" or label.startswith("bf16"))
+    return results
+
+
+def phase_lisa_kernels(dev, plan, gen, G: int, reps: int):
+    """The LISA kernel's modes against its plain version on the card:
+    counts and observed values must be equal. Returns {mode: numbers}."""
+    nbk = plan.n_padded // B
+    n = plan.n_padded
+    wq, _, far_q = banded._full_row_codes(plan)
+    li = plan.local_idx.to(torch.int32).contiguous()
+    n_live = banded._n_live_far(plan)
+    ptr = banded._row_ptr(plan.far_src, n_live, B, n)
+    fq8 = far_q[:n_live].to(torch.int8).contiguous()
+    src, dst = plan.far_src[:n_live] - B, plan.far_dst[:n_live]
+
+    def codes(rows):
+        return torch.randint(-127, 128, (rows, G), generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def dense(zp):
+        layer = torch.zeros((n, G), dtype=torch.int32, device=dev)
+        return layer.index_add_(0, src, zp[dst].to(torch.int32)
+                                * far_q[:n_live].to(torch.int32)[:, None])
+
+    zp, zf = codes(n + 2 * B), codes(n_live)
+    rows_far = dict(far_row_ptr=ptr, far_q=fq8, Zf=zf)
+    # observed values of another placement: draws that tie, win and lose
+    obs = kern_lisa.lisa_observed_plain(li, wq, codes(n + 2 * B), B,
+                                        far_row_ptr=ptr, far_q=fq8,
+                                        Zf=codes(n_live))
+    cases = [("lisa_win", "rows", torch.int8, rows_far),
+             ("lisa_win", "rows", torch.int16, rows_far),
+             ("lisa_dense", "dense", torch.int8, dict(far=dense(zp))),
+             ("lisa_band", "none", torch.int8, {})]
+    csr = band_csr(plan, dev)
+    lib = library_ms(csr, zp)
+    results = {}
+    for mode, form, cdt, far in cases:
+        cnt0 = torch.randint(0, 60, (n, G), generator=gen, device=dev).to(cdt)
+        got = kern_lisa.lisa_count(li, wq, zp, B, obs, cnt0.clone(), **far)
+        want = kern_lisa.lisa_count_plain(li, wq, zp, B, obs, cnt0.clone(), **far)
+        sync(dev)
+        err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        check(torch.equal(got, want), f"{mode} {cdt}: counts differ from plain "
+              f"(max |diff| {err})")
+        moved = (int((got != cnt0).sum()))
+        check(0 < moved < got.numel(), f"{mode}: degenerate comparison case")
+        scratch = cnt0.clone()
+        ms = event_ms(lambda: kern_lisa.lisa_count(li, wq, zp, B, obs, scratch,
+                                                   **far), reps)
+        plain_ms = event_ms(lambda: kern_lisa.lisa_count_plain(
+            li, wq, zp, B, obs, scratch, **far), max(1, reps // 10))
+        report(results, mode, f"{mode} {str(cdt)[6:]} counters G={G} "
+               f"({nbk} blocks, {moved:,} counts moved; equal)", err, ms,
+               plain_ms, *lisa_work(plan, G, form, cnt0.element_size()), lib,
+               first=cdt == torch.int8)
+    got = kern_lisa.lisa_observed(li, wq, zp, B, **rows_far)
+    want = kern_lisa.lisa_observed_plain(li, wq, zp, B, **rows_far)
+    sync(dev)
+    err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    check(torch.equal(got, want), f"lisa_obs: observed differs from plain ({err})")
+    ms = event_ms(lambda: kern_lisa.lisa_observed(li, wq, zp, B, **rows_far), reps)
+    plain_ms = event_ms(lambda: kern_lisa.lisa_observed_plain(
+        li, wq, zp, B, **rows_far), max(1, reps // 10))
+    report(results, "lisa_obs", f"lisa_obs G={G} ({nbk} blocks; equal)", err,
+           ms, plain_ms, *lisa_work(plan, G, "rows", observed=True), lib)
     return results
 
 
@@ -260,6 +454,11 @@ def phase_workload(dev, n_cells: int, n_genes: int, tile: int, n_perms: int,
           f"{int(plan.far_starts[-1]):,}, far_bmax {plan.far_bmax})")
     S0 = float(n_cells)        # row-normalized kNN: every row sums to 1
     widths = tile_widths(n_genes, tile)
+    for mode, G in (("int4_win", tile), ("int8_win", 1024), ("int8_band", tile),
+                    ("bf16", 1024), ("f32", 1024)):
+        b_ms, by = bound(*cross_work(plan, mode, G))
+        print(f"[bound] {mode}, one draw of {G} genes at {n_cells:,} cells: "
+              f"{b_ms:.4f} ms ({by})")
     p_all, draw_s, prep_s = [], 0.0, 0.0
     first = None
     for ti, width in enumerate(widths):
@@ -393,6 +592,230 @@ def phase_small_reference(dev, gen):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: local Moran (LISA)
+# ---------------------------------------------------------------------------
+
+
+def lisa_adata(n_cells: int, n_genes: int, gen, dev) -> SpatialData:
+    """1M-density uniform cells; the first eighth of the genes carry a
+    strong smooth signal (8·sin(x/300) over unit noise)."""
+    coords = uniform_coords(n_cells, SIDE * (n_cells / 1e6) ** 0.5, gen, dev)
+    X = torch.randn((n_cells, n_genes), generator=gen, device=dev)
+    X[:, :n_genes // 8] += 8.0 * torch.sin(coords[:, :1] / 300.0)
+    d = SpatialData(X=X)
+    d.obsm["spatial"] = coords
+    return d
+
+
+def phase_lisa_public(dev, n_cells: int, n_genes: int, n_perms: int, gen):
+    """local_morans_i(banded_int8) in full, then compact, output mode."""
+    d = lisa_adata(n_cells, n_genes, gen, dev)
+    out = {}
+    kw = dict(null_method="banded_int8", n_permutations=n_perms, seed=3,
+              batch_size=n_genes, device=dev)
+    _, out["full_s"] = timed(lambda: local_morans_i(d, output_mode="full", **kw),
+                             dev)
+    p, q = d.obsm["local_morans_p"], d.obsm["local_morans_quadrant"]
+    check(isinstance(p, torch.Tensor) and p.device == torch.device(dev)
+          and tuple(p.shape) == (n_cells, n_genes), "full p: a tensor on the card")
+    check(bool(torch.isfinite(d.obsm["local_morans_I"]).all()), "non-finite I")
+    check(bool(((p > 0) & (p <= 1)).all()), "LISA p outside (0, 1]")
+    sig_share, noise_share = hh_ll_shares(q, n_genes // 8)
+    print(f"[lisa] local_morans_i(banded_int8, full) {n_cells:,} cells x "
+          f"{n_genes} genes x {n_perms} draws: {out['full_s']:.3f} s; HH/LL "
+          f"after FDR: smooth genes {sig_share:.4f} of cells, noise genes "
+          f"{noise_share:.6f}; p min {float(p.min()):.4f}")
+    # the total-permutation null at k=6 caps the share below one half:
+    # a cell needs z² well above its mean of 1 to reach p = 1/(P+1)
+    check(sig_share > 0.3, "smooth genes: too few significant HH/LL cells")
+    check(noise_share < 1e-3, "noise genes: significant cells after FDR")
+    _, out["compact_s"] = timed(lambda: local_morans_i(
+        d, output_mode="compact", key_added="lm_c", use_existing_graph=True,
+        **kw), dev)
+    full = {k: d.obsm.pop(f"local_morans_{k}") for k in
+            ("I", "z", "lag", "p", "p_adj", "quadrant")}
+    comp = {k: d.obsm.pop(f"lm_c_{k}") for k in ("I", "p", "p_adj", "quadrant")}
+    check(comp["p"].dtype == torch.float16 and comp["I"].dtype == torch.bfloat16,
+          "compact dtypes")
+    for k in ("p", "p_adj"):
+        check(torch.equal(comp[k], full[k].to(torch.float16)),
+              f"compact {k} differs from the full run's float16 cast")
+    check(torch.equal(comp["I"], full["I"].to(torch.bfloat16)),
+          "compact I differs from the full run's bf16 cast")
+    check(torch.equal(comp["quadrant"], full["quadrant"]), "compact quadrants")
+    print(f"[lisa] output_mode='compact' (stored graph and plan): "
+          f"{out['compact_s']:.3f} s; p, p_adj, I equal the full run's casts, "
+          f"quadrants equal")
+    del full, comp
+    return d, out
+
+
+def lisa_draw_split(dev, d, reps: int = 5):
+    """One LISA draw at the public run's shape, part by part (CUDA events):
+    Feistel rows, row gather, far gather, the draw-step kernel."""
+    plan = d._null_plan_cache["value"]
+    Zq = banded._quantize_z(standardize(d.X)[0])[0]
+    G = Zq.shape[1]
+    wq, _, far_q = banded._full_row_codes(plan)
+    li = plan.local_idx.to(torch.int32).contiguous()
+    n_live = banded._n_live_far(plan)
+    far = dict(far_row_ptr=banded._row_ptr(plan.far_src, n_live, B, plan.n_padded),
+               far_q=far_q[:n_live].to(torch.int8).contiguous())
+    rows_idx = banded._padded_rows(plan, Zq.device)
+    dst = plan.far_dst[:n_live]
+    Zp0 = Zq[rows_idx]
+    obs = kern_lisa.lisa_observed(li, wq, Zp0, B, Zf=Zp0[dst], **far)
+    cnt = torch.zeros(obs.shape, dtype=torch.int8, device=Zq.device)
+    base = key_for(3, "perm_feistel_local", 0)
+    perm = feistel_apply(fold_in(base, 0), rows_idx, plan.n)
+    Zp = Zq[perm]
+    Zf = Zp[dst]
+    split = dict(
+        feistel=event_ms(lambda: feistel_apply(fold_in(base, 1), rows_idx, plan.n),
+                         reps),
+        row_gather=event_ms(lambda: Zq[perm], reps),
+        far_gather=event_ms(lambda: Zp[dst], reps),
+        kernel=event_ms(lambda: kern_lisa.lisa_count(li, wq, Zp, B, obs, cnt,
+                                                     Zf=Zf, **far), reps),
+        observed=event_ms(lambda: kern_lisa.lisa_observed(
+            li, wq, Zp0, B, Zf=Zp0[dst], **far), 2))
+    steps = iter(range(1, 1 << 20))
+
+    def draw():
+        zp = Zq[feistel_apply(fold_in(base, next(steps)), rows_idx, plan.n)]
+        kern_lisa.lisa_count(li, wq, zp, B, obs, cnt, Zf=zp[dst], **far)
+
+    split["whole_draw"] = event_ms(draw, reps)
+    split["bound"], by = bound(*lisa_work(plan, G, "rows"))
+    split["observed_bound"], _ = bound(*lisa_work(plan, G, "rows", observed=True))
+    print(f"[lisa] one draw at {plan.n:,} cells x {G} genes (CUDA events, ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f" ({by}-bound); far edges {n_live:,}, far_bmax {plan.far_bmax}")
+    return split
+
+
+def hh_ll_shares(q: torch.Tensor, n_sig: int):
+    """Share of cells at HH/LL among the smooth genes and the noise genes."""
+    hl = (q == 1) | (q == 2)
+    return float(hl[:, :n_sig].float().mean()), float(hl[:, n_sig:].float().mean())
+
+
+def phase_lisa_vignette(dev, gen, n_cells: int = 366_938, k: int = 50,
+                        n_genes: int = 128, n_perms: int = 99):
+    """The reference vignette's shape (k=50, far_bmax > 1024 there), each
+    route with launch counts of its own: local_morans_i's default route
+    (null_method "auto" -> the float32 null in torch ops, no LISA kernel),
+    then the int8 null's dense-far route (band_impl="pallas", K8's
+    function) against its row-pointer route ("auto"), counts bitwise
+    equal. Returns times, far_bmax and {band_impl: launch counts}."""
+    d = lisa_adata(n_cells, n_genes, gen, dev)
+    _, t_graph = timed(lambda: build_spatial_weights(d, n_neighbors=k,
+                                                     device=dev), dev)
+    kern_lisa.reset_launch_counts()
+    _, t_f32 = timed(lambda: local_morans_i(
+        d, n_neighbors=k, n_permutations=n_perms, seed=5, batch_size=n_genes,
+        output_mode="full", use_existing_graph=True, device=dev), dev)
+    f32_launches = dict(kern_lisa.LAUNCHES)
+    check(d.uns["local_morans_params"]["null_precision"] == "f32",
+          "null_method='auto' did not resolve to the float32 null at k=50")
+    check(not any(f32_launches.values()),
+          f"the float32 null launched an int8 LISA kernel: {f32_launches}")
+    p = d.obsm["local_morans_p"]
+    check(bool(torch.isfinite(d.obsm["local_morans_I"]).all()), "f32: non-finite I")
+    check(bool(((p > 0) & (p <= 1)).all()), "f32: LISA p outside (0, 1]")
+    sig, noise = hh_ll_shares(d.obsm["local_morans_quadrant"], n_genes // 8)
+    check(sig > 0.3 and noise < 1e-3, f"f32: HH/LL shares {sig}, {noise}")
+    for key in ("I", "z", "lag", "p", "p_adj", "quadrant"):
+        del d.obsm[f"local_morans_{key}"]
+    plan = d._null_plan_cache["value"]
+    Z = standardize(d.X)[0]
+    res, launches = {}, {}
+    for impl, mode in (("pallas", "lisa_dense"), ("auto", "lisa_win")):
+        kern_lisa.reset_launch_counts()
+        res[impl] = timed(lambda: banded_local_moran_pvalues(
+            plan, Z, 5, n_perms, band_impl=impl), dev)
+        launches[impl] = dict(kern_lisa.LAUNCHES)
+        check(launches[impl][mode] == n_perms,
+              f"band_impl={impl!r} did not run the {mode} kernel per draw: "
+              f"{launches[impl]}")
+    check(torch.equal(res["pallas"][0], res["auto"][0]),
+          "dense-far and row-pointer routes differ")
+    print(f"[lisa] vignette shape {n_cells:,} cells k={k} (graph {t_graph:.3f} s, "
+          f"far edges {banded._n_live_far(plan):,}, far_bmax {plan.far_bmax}), "
+          f"{n_genes} genes x {n_perms} draws: local_morans_i('auto' -> float32 "
+          f"null, torch ops; plan included) {t_f32:.3f} s, HH/LL smooth {sig:.4f} "
+          f"noise {noise:.6f}; int8 dense far (band_impl='pallas') "
+          f"{res['pallas'][1]:.3f} s, row-pointer far ('auto') "
+          f"{res['auto'][1]:.3f} s; p bitwise equal")
+    print(f"[path] vignette launches: float32 null {f32_launches}, "
+          f"band_impl='pallas' {launches['pallas']}, 'auto' {launches['auto']}")
+    return {"f32_s": t_f32, "dense_s": res["pallas"][1],
+            "rows_s": res["auto"][1], "far_bmax": plan.far_bmax,
+            "launches": launches}
+
+
+def exact_pair(coords: np.ndarray, n_genes: int, seed: int, dev):
+    """The same integer-valued input for the card and the CPU path.
+
+    With 4,096 cells, integer coordinates below 2¹¹ and integer values
+    whose columns sum to 0, every float32 mean and variance the pipeline
+    takes is exact on both devices, whatever their summation order: the
+    graphs, plans and z-scores are then bitwise equal, and so are the
+    integer LISA counts."""
+    rng = np.random.default_rng(seed)
+    n = coords.shape[0]
+    X = (np.round(3 * np.sin(coords[:, :1] / 40.0 + np.arange(n_genes)))
+         + rng.integers(-2, 3, (n, n_genes))).astype(np.float32)
+    X[-1] -= X.sum(axis=0)
+    pair = []
+    for where in (dev, "cpu"):
+        d = SpatialData(X=torch.as_tensor(X).to(where))
+        d.obsm["spatial"] = torch.as_tensor(coords).to(where)
+        pair.append(d)
+    return pair
+
+
+def phase_lisa_vs_cpu(dev, label: str, coords: np.ndarray, n_genes: int,
+                      seed: int, n_perms: int = 49):
+    """local_morans_i on the card against the port's CPU path: p, p_adj and
+    quadrants bitwise, I rtol 1e-5. Returns the card's SpatialData and the
+    LISA launch counts of its run alone."""
+    card, host = exact_pair(coords, n_genes, seed, dev)
+    kw = dict(null_method="banded_int8", n_permutations=n_perms, seed=seed,
+              batch_size=n_genes)
+    kern_lisa.reset_launch_counts()
+    local_morans_i(card, device=dev, **kw)
+    sync(dev)
+    launches = dict(kern_lisa.LAUNCHES)
+    local_morans_i(host, device="cpu", **kw)
+    got = {k: torch.as_tensor(card.obsm[f"local_morans_{k}"]).cpu().numpy()
+           for k in ("I", "p", "p_adj", "quadrant")}
+    want = {k: host.obsm[f"local_morans_{k}"] for k in got}
+    for k in ("p", "p_adj", "quadrant"):
+        check(np.array_equal(got[k], want[k]), f"{label}: card {k} differs "
+              "from the CPU path")
+    check(np.allclose(got["I"], want["I"], rtol=1e-5, atol=1e-7),
+          f"{label}: card I differs from the CPU path")
+    sig = float(((got["quadrant"] == 1) | (got["quadrant"] == 2)).mean())
+    print(f"[lisa] {label}: card equals the CPU path (p, p_adj, quadrants "
+          f"bitwise; I rtol 1e-5); HH/LL share {sig:.3f}; launches {launches}")
+    return card, launches
+
+
+def line_coords(n: int = 4096) -> np.ndarray:
+    """Cells on a line at integer spacing, centred on 0: every kNN edge
+    stays within the band, so the plan has no far edges."""
+    x = np.arange(n, dtype=np.float32) - n // 2
+    return np.stack([x, np.zeros_like(x)], axis=1)
+
+
+def scattered_coords(n: int = 4096, seed: int = 0) -> np.ndarray:
+    """Distinct integer points in [0, 2048)²."""
+    flat = np.random.default_rng(seed).choice(2048 * 2048, n, replace=False)
+    return np.stack([flat // 2048, flat % 2048], axis=1).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
 
 
 def nvidia_smi() -> str:
@@ -423,24 +846,60 @@ def main() -> None:
         print(f"[build] {ln.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    kres = phase_kernels(dev, 300, gen, {"int4_win": 4096, "int8_win": 4096,
-                                         "int8_band": 4096, "bf16": 1024,
-                                         "f32": 512}, reps=20)
+    plan300 = real_plan(dev, 300, gen)
+    kres = phase_kernels(dev, plan300, gen, {"int4_win": 4096, "int8_win": 4096,
+                                             "int8_band": 4096, "bf16": 1024,
+                                             "f32": 512}, reps=20)
+    kres.update(phase_lisa_kernels(dev, plan300, gen, 1024, reps=20))
+    del plan300
 
+    # the global null's path
     kern.reset_launch_counts()
-    phase_workload(dev, 1_000_000, 8192, 4096, 32, 16, gen)
+    kern_lisa.reset_launch_counts()
+    phase_workload(dev, 1_000_000, 8192, 4096, 16, 16, gen)
     phase_public(dev, 1_000_000, 1024, 19, gen)
     launches = dict(kern.LAUNCHES)
-    print(f"[path] kernel launches in phases 3-4: {launches}")
+    print(f"[path] band-cross launches in phases 3-4: {launches}")
     for mode in KERNELS:
         check(launches[mode] > 0, f"kernel mode {mode} never launched")
     phase_small_reference(dev, gen)
+    torch.cuda.empty_cache()
+
+    # the local Moran path: the counts are its own
+    n_perms = 99
+    kern_lisa.reset_launch_counts()
+    d, _ = phase_lisa_public(dev, 1_000_000, 1024, n_perms, gen)
+    main_lisa = dict(kern_lisa.LAUNCHES)
+    print(f"[path] LISA launches of local_morans_i(banded_int8) full + "
+          f"compact: {main_lisa}")
+    check(main_lisa["lisa_win"] == 2 * n_perms and main_lisa["lisa_obs"] > 0,
+          "the LISA main path did not run the row-pointer draw step per draw "
+          "and the observed entry")
+    lisa_draw_split(dev, d)
+    del d
+    torch.cuda.empty_cache()
+    # the other routes, each with counts of its own
+    vig = phase_lisa_vignette(dev, gen)
+    card, line = phase_lisa_vs_cpu(dev, "4,096 cells on a line x 32 genes (no "
+                                   "far edges)", line_coords(), 32, 7)
+    check(banded._n_live_far(card._null_plan_cache["value"]) == 0,
+          "the line's plan has far edges")
+    check(line["lisa_band"] == 49, f"the line did not run the band-only draw "
+          f"step per draw: {line}")
+    phase_lisa_vs_cpu(dev, "4,096 scattered cells x 64 genes",
+                      scattered_coords(), 64, 8)
+    launches.update(lisa_win=main_lisa["lisa_win"],
+                    lisa_obs=main_lisa["lisa_obs"],
+                    lisa_dense=vig["launches"]["pallas"]["lisa_dense"],
+                    lisa_band=line["lisa_band"])
+    print("[path] launches in the kernels line: lisa_win and lisa_obs from "
+          "the 1M-cell main path; lisa_dense from the vignette's "
+          "band_impl='pallas' route; lisa_band from the line's run")
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[mode], "max_abs_err": kres[mode][0],
-         "ms": kres[mode][1], "plain_ms": kres[mode][2]}
-        for mode, (name, src, rep) in KERNELS.items()]}
+         "launches": launches[mode], **kres[mode]}
+        for mode, (name, src, rep) in {**KERNELS, **LISA_KERNELS}.items()]}
     print(smi)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

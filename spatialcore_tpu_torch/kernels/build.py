@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels (nvcc + ctypes).
 
 Every ``spatialcore_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface, at
-first use, under ``kernels/_build/``. The library's name carries a hash of
+Hopper (``sm_90a``), one process per source started together, and linked
+into one shared library with a plain C interface, at first use, under
+``kernels/_build/``. The library's name carries a hash of
 the sources and flags, so an edited ``.cu`` builds anew. ``nvcc``'s output
 (with ``-Xptxas -v``: registers, shared memory and spills per kernel) is
 kept beside the library as ``<name>.log``.
@@ -38,6 +39,14 @@ _SIGNATURES = {
                             _I, _P],
     # local_idx, w, zp, partial, nb, B, k, G, is_bf16, stream
     "sct_band_cross_float": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # local_idx, wq, zp, far_ptr, far_q, zf, far_dense, obs, cnt, nb, B, k,
+    # G, far_form, cnt_bytes, stream
+    "sct_lisa_count": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _P],
+    # local_idx, wq, zp, far_ptr, far_q, zf, far_dense, out, nb, B, k, G,
+    # far_form, stream
+    "sct_lisa_observed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _P],
 }
 
 _library: Optional[ctypes.CDLL] = None
@@ -77,19 +86,34 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    nvcc = _nvcc()
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    objs = [f"{tmp}.{i}.o" for i in range(len(cu))]
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+        # one nvcc per source, all started together, then one link
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        procs = [subprocess.Popen([nvcc, *compile_flags, "-c", "-o", o, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, o in zip(cu, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed.append(link.returncode)
         out.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log[-4000:]}")
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log[-4000:]}")
         os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for path in [tmp, *objs]:
+            if os.path.exists(path):
+                os.unlink(path)
     return out
 
 

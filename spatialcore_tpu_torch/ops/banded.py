@@ -1,6 +1,7 @@
-"""Banded permutation null for global Moran's I / Geary's C.
+"""Banded permutation nulls: global Moran's I / Geary's C, and local Moran.
 
-Port of the global part of ``spatialcore_tpu/ops/banded.py``:
+Port of the global part and of the local Moran (LISA) part of
+``spatialcore_tpu/ops/banded.py``:
 
 1. Relabel cells along a Hilbert curve (or reverse Cuthill-McKee on the
    graph) so kNN edges become near-diagonal: with block size B, most edges
@@ -19,6 +20,17 @@ the plain PyTorch twins below instead, which keep the reference's dense
 band layout ``A[nb, B, 3B]`` (``_plain`` suffix; counterparts of the
 reference's ``_xla`` functions).
 
+LISA (:func:`banded_local_moran`, :func:`banded_local_moran_pvalues`): the
+same relabel and draws, but the statistic is per cell. In the int8 system
+each draw step is ``count += |z·lag| ≥ obs`` over exact integers, on a CUDA
+tensor in the hand-written kernel of ``kernels/lisa_count.py``
+(``csrc/lisa_count_int8.cu``, replacing Pallas K7's moran tail and K8).
+Departure from the reference: ``band_impl="auto"`` always takes that kernel
+on a CUDA tensor (row-pointer far edges, or the dense far layer when the
+plan has no run structure); the reference's auto rule drops to XLA beyond
+the TPU kernels' VMEM limits (far_bmax > 1024), which a row-pointer read
+does not have. The counts are bitwise equal either way.
+
 Determinism: every reduction has a fixed order and no float atomics are
 used, so counts are bitwise reproducible run to run; draws are keyed by
 their global index (``draw_offset``), so chunked runs equal unchunked ones.
@@ -34,12 +46,16 @@ import torch
 from ..core.logging import get_logger
 from ..core.rng import feistel_apply, fold_in, key_for
 from ..kernels import band_cross as kern
+from ..kernels import lisa_count as kern_lisa
 from .graph import SpatialGraph
 
 logger = get_logger("ops.banded")
 
 #: elements of one [rows, G] temp in the plain twins' block chunks
 _PLAIN_CHUNK_ELEMS = 1 << 27
+_SORT_NOT_PORTED = (
+    "perm_method='sort' draws with jax.random.permutation, which is not "
+    "ported yet (ROADMAP Queue 1 item 4, the slot null)")
 
 
 # ---------------------------------------------------------------------------
@@ -453,7 +469,11 @@ def _far_row_ptr(far_src, far_starts, block: int, n_padded: int) -> torch.Tensor
     non-decreasing and row r's entries are ``[ptr[r], ptr[r+1])``; a list
     in any other order is refused (one flag read back per call).
     """
-    n_live = int(far_starts[-1])
+    return _row_ptr(far_src, int(far_starts[-1]), block, n_padded)
+
+
+def _row_ptr(far_src, n_live: int, block: int, n_padded: int) -> torch.Tensor:
+    """Row pointers over the first ``n_live`` (live) entries of the far list."""
     rows = far_src[:n_live] - block
     if n_live > 1 and bool((rows[1:] < rows[:-1]).any()):
         raise ValueError("far-edge list is not sorted by source row; "
@@ -673,6 +693,30 @@ def _extreme(v, o, alt: str):
     return v.abs() >= o.abs()
 
 
+def _full_row_codes(plan: NullPlan):
+    """int8 band and far weight codes under the FULL-row weight scale.
+
+    The row scale is the row's largest weight over band AND far edges, so
+    a far edge carrying the row's maximum does not clip at 127 (the
+    reference's windowed-far and LISA systems, ops/banded.py:2355-2365).
+    Returns ``(wq int8 [Npad, k], sw f32 [nb, B, 1], far_q f32 [F])``; the
+    far codes are integers in [0, 127] (0 on padding entries).
+    """
+    block = plan.block
+    local_max = plan.w_local.max(dim=1).values
+    live = plan.far_w > 0
+    far_max = torch.zeros(plan.n_padded, dtype=torch.float32,
+                          device=plan.w_local.device).scatter_reduce_(
+        0, plan.far_src[live] - block, plan.far_w[live], "amax")
+    rowmax = torch.maximum(local_max, far_max)
+    sw_row = torch.where(rowmax > 0, rowmax / 127.0, torch.ones_like(rowmax))
+    wq, sw = _band_codes_i8(plan.local_idx, plan.w_local, block,
+                            row_scale=sw_row.reshape(-1, block, 1))
+    far_q = torch.clamp(torch.round(
+        plan.far_w / sw_row[(plan.far_src - block).clamp_min(0)]), 0, 127)
+    return wq, sw, far_q
+
+
 def _int_ops(plan: NullPlan, precision: str, far_mode: str, rows_idx,
              use_plain: bool):
     """Build the int8/int4 operator once per call: band codes, row scales
@@ -683,18 +727,7 @@ def _int_ops(plan: NullPlan, precision: str, far_mode: str, rows_idx,
     rif = None
     far_ptr = win_ops = far_exact = None
     if win:
-        # full-row weight scale (band + far rowmax) so far codes don't clip
-        local_max = plan.w_local.max(dim=1).values
-        live = plan.far_w > 0
-        far_max = torch.zeros(plan.n_padded, dtype=torch.float32,
-                              device=plan.w_local.device).scatter_reduce_(
-            0, plan.far_src[live] - block, plan.far_w[live], "amax")
-        rowmax = torch.maximum(local_max, far_max)
-        sw_row = torch.where(rowmax > 0, rowmax / 127.0, torch.ones_like(rowmax))
-        wq, sw = _band_codes_i8(plan.local_idx, plan.w_local, block,
-                                row_scale=sw_row.reshape(nbb, block, 1))
-        far_q = torch.clamp(torch.round(
-            plan.far_w / sw_row[(plan.far_src - block).clamp_min(0)]), 0, 127)
+        wq, sw, far_q = _full_row_codes(plan)
         S, nw, rowp, qp, rif, w_idx, starts0, runs = _win_far_pack(
             plan.far_src, plan.far_dst, plan.far_w, far_q, plan.far_starts,
             rows_idx, block, plan.far_bmax)
@@ -837,13 +870,7 @@ def banded_permutation_test(
     its far-run structure. Integer draws compare against the observed
     value of the same quantized operator (``observed`` is ignored).
     """
-    if perm_method == "sort":
-        raise NotImplementedError(
-            "perm_method='sort' draws with jax.random.permutation, which is "
-            "not ported yet (ROADMAP Queue 1 item 4, the slot null)")
-    if perm_method != "feistel":
-        raise ValueError("perm_method must be 'feistel' or 'sort', "
-                         f"got {perm_method!r}")
+    _check_perm_method(perm_method)
     if band_impl in ("pallas", "pallas_halo4"):
         raise NotImplementedError(
             f"band_impl={band_impl!r} (Pallas kernel "
@@ -904,3 +931,315 @@ def banded_permutation_test(
     if pad_g:
         p, mean, std = p[:G], mean[:G], std[:G]
     return p, mean, std
+
+
+# ---------------------------------------------------------------------------
+# Banded LOCAL Moran (LISA)
+# ---------------------------------------------------------------------------
+
+#: gene-column chunk width of the one-time observed pass
+_OBS_CHUNK = 256
+#: the int8 LISA null's exactness bound: |z·lag| ≤ k·127³ < 2³¹
+_LISA_MAX_K = 1000
+
+
+def _chunked_cols(fn, arrs, G: int, width: Optional[int] = None):
+    """Evaluate ``fn`` over gene-column chunks of its ``[:, G]`` operands
+    and concatenate its outputs on the last (gene) axis: bounds the
+    one-time observed pass's temps to one chunk's."""
+    width = _OBS_CHUNK if width is None else width
+    if G <= width:
+        return fn(*arrs)
+    return torch.cat([fn(*(a[:, s:s + width] for a in arrs))
+                      for s in range(0, G, width)], dim=-1)
+
+
+def _check_perm_method(perm_method: str, draws: bool = True) -> None:
+    """Validate ``perm_method`` up front, so a typo fails loudly. The
+    reference's legacy "sort" stream needs the slot null's shuffle, so it
+    is refused where draws are made (``draws``)."""
+    if perm_method not in ("feistel", "sort"):
+        raise ValueError("perm_method must be 'feistel' or 'sort', "
+                         f"got {perm_method!r}")
+    if draws and perm_method == "sort":
+        raise NotImplementedError(_SORT_NOT_PORTED)
+
+
+def _n_live_far(plan: NullPlan) -> int:
+    """Number of live far edges (both plan builders put them first)."""
+    if plan.far_starts is not None:
+        return int(plan.far_starts[-1])
+    return int((plan.far_w > 0).sum())
+
+
+def _padded_rows(plan: NullPlan, device) -> torch.Tensor:
+    """Original-space row of every padded table position (fixed relabel
+    composition; per draw the rows are ``perm[rows_idx]``)."""
+    B = plan.block
+    gidx = torch.clamp(torch.arange(plan.n_padded + 2 * B, device=device) - B,
+                       0, plan.n - 1)
+    return plan.order[gidx]
+
+
+def _p_from_counts(count: torch.Tensor, n_permutations: int) -> torch.Tensor:
+    """p = (count + 1)/(P + 1) as the reference computes it: XLA folds the
+    division by the constant into a multiplication by its float32
+    reciprocal, which lands 1 ulp off the direct quotient for part of the
+    counts; the same expression here keeps p bitwise."""
+    inv = torch.tensor(1.0, dtype=torch.float32) / (n_permutations + 1.0)
+    return (count.to(torch.float32) + 1.0) * inv.to(count.device)
+
+
+def _lisa_far_form(plan: NullPlan, band_impl: str, n_live: int) -> str:
+    """How the int8 LISA draw step receives the far edges.
+
+    "rows": row pointers into the compact far list (K7's function);
+    "dense": a dense int32 far layer per draw (K8's function); "none": the
+    plan has no far edges. "pallas" follows the reference's rule (windowed
+    when 0 < far_bmax and round_up(far_bmax, 128) ≤ 1024, else the dense
+    kernel); "auto" and "xla" take row pointers whenever the plan has
+    ``far_starts`` — the reference's far_bmax cap and VMEM gate are TPU
+    limits that a row-pointer read does not have.
+    """
+    has_runs = plan.far_starts is not None
+    if band_impl == "pallas":
+        return ("rows" if has_runs and 0 < plan.far_bmax
+                and _round_up(plan.far_bmax, 128) <= 1024 else "dense")
+    if n_live == 0:
+        return "none"
+    return "rows" if has_runs else "dense"
+
+
+def _banded_local_moran_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
+                             n_permutations: int, band_impl: str = "auto",
+                             return_counts: bool = False) -> torch.Tensor:
+    """LISA permutation p via the int8 null system (reference
+    ``_banded_local_moran_p_i8``, ops/banded.py:2314).
+
+    z quantizes per gene (:func:`_quantize_z`), band AND far weights per
+    row with the full-row scale (:func:`_full_row_codes`). Each draw's
+    local statistic is the exact int32 ``|z_code · Σ w_code z_code|``; the
+    observed value comes from the same operator at the identity placement,
+    so the per-gene and per-row scales cancel inside the comparison and
+    the counts are exact integers. Counters are int8 for P ≤ 127, int16
+    for P ≤ 32767, int32 above.
+
+    Per draw: one Feistel evaluation of the padded rows, one int8 row
+    gather ``Zp = Zq[rows]``, one compact far gather ``Zp[far_dst]``
+    (row-pointer form), and the draw-step kernel
+    (``kernels.lisa_count``), which updates the counters in place.
+    ``band_impl="xla"`` runs the kernel's plain version instead, on any
+    device. Returns p [n, G] in the original cell order, or the integer
+    counts with ``return_counts``.
+    """
+    B = plan.block
+    n_padded = plan.n_padded
+    n = plan.n
+    k_total = plan.local_idx.shape[1]
+    if k_total > _LISA_MAX_K:
+        raise ValueError(
+            f"int8 LISA null supports k <= {_LISA_MAX_K} (int32 bound "
+            f"k*127^3), got k={k_total}; use precision='bf16'")
+    Zq = Z if Z.dtype == torch.int8 else _quantize_z(Z)[0]
+    G = Zq.shape[1]
+    Gp = _round_up(max(G, 1), 4)    # the kernel reads 4 genes per thread
+    Zq = torch.nn.functional.pad(Zq, (0, Gp - G)).contiguous()
+    dev = Zq.device
+    wq, _, far_q = _full_row_codes(plan)
+    li32 = plan.local_idx.to(torch.int32).contiguous()
+    rows_idx = _padded_rows(plan, dev)
+    n_live = _n_live_far(plan)
+    form = _lisa_far_form(plan, band_impl, n_live)
+    use_plain = band_impl == "xla"
+    count_fn = kern_lisa.lisa_count_plain if use_plain else kern_lisa.lisa_count
+    obs_fn = kern_lisa.lisa_observed_plain if use_plain else kern_lisa.lisa_observed
+
+    # far targets' values come from the gathered table itself:
+    # Zp[far_dst] = Zq[perm(rows_idx[far_dst])], the reference's separate
+    # Feistel evaluation of the far targets (rif) gives the same rows
+    dst = plan.far_dst[:n_live]
+    if form == "rows":
+        ptr = _row_ptr(plan.far_src, n_live, B, n_padded)
+        fq8 = far_q[:n_live].to(torch.int8)
+
+        def far_of(Zp):
+            return dict(far_row_ptr=ptr, far_q=fq8, Zf=Zp[dst])
+    elif form == "dense":
+        src = plan.far_src[:n_live] - B
+        fq32 = far_q[:n_live].to(torch.int32)[:, None]
+
+        def far_of(Zp):
+            layer = torch.zeros((n_padded, Zp.shape[1]), dtype=torch.int32,
+                                device=dev)
+            # integer adds: exact in any order
+            return dict(far=layer.index_add_(0, src, Zp[dst].to(torch.int32)
+                                             * fq32))
+    else:
+        def far_of(Zp):
+            return {}
+
+    def abs_ip(Zc):
+        Zp = Zc[rows_idx]                         # ONE int8 row gather
+        return obs_fn(li32, wq, Zp, B, **far_of(Zp))
+
+    # observed via the SAME quantized operator, at the identity placement;
+    # the kernel takes any width, the plain version goes a column chunk at
+    # a time to bound its temps
+    abs_obs = (_chunked_cols(abs_ip, (Zq,), Gp).contiguous() if use_plain
+               else abs_ip(Zq))
+
+    base = key_for(seed, "perm_feistel_local", 0)
+    count = torch.zeros((n_padded, Gp), dtype=kern_lisa.counter_dtype(
+        n_permutations), device=dev)
+    for step in range(n_permutations):
+        Zp = Zq[feistel_apply(fold_in(base, step), rows_idx, n)]  # ONE gather
+        count_fn(li32, wq, Zp, B, abs_obs, count, **far_of(Zp))
+    count = count[plan.rank, :G]                  # original order
+    if return_counts:
+        return count
+    return _p_from_counts(count, n_permutations)
+
+
+def banded_local_moran_pvalues(
+    plan: NullPlan,
+    Z: torch.Tensor,
+    seed: int,
+    n_permutations: int,
+    perm_method: str = "feistel",
+    band_impl: str = "auto",
+    return_counts: bool = False,
+) -> torch.Tensor:
+    """LISA null p-values only, int8 quantized-operator system.
+
+    Runs on the device of ``Z`` and ``plan`` (a CUDA tensor goes through
+    the Hopper kernel ``csrc/lisa_count_int8.cu``). ``Z`` may be
+    pre-quantized int8 codes (:func:`_quantize_z`): the per-gene scale
+    cancels inside the comparison. With ``return_counts`` the integer
+    extreme counts come back instead of f32 p.
+
+    ``band_impl``: "auto" runs the kernel with row-pointer far edges
+    whenever the plan has ``far_starts`` and the dense far layer (K8's
+    function) otherwise — unlike the reference, whose auto rule falls back
+    to XLA beyond the TPU kernels' VMEM limits; "pallas" follows the
+    reference's choice between the windowed (K7) and dense (K8) kernels;
+    "xla" runs the kernel's plain version on any device. All three give
+    bitwise-equal counts: integer adds commute.
+    """
+    _check_perm_method(perm_method)
+    if band_impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown band_impl {band_impl!r}")
+    return _banded_local_moran_p_i8(
+        plan, Z, int(seed) & 0xFFFFFFFF, n_permutations=n_permutations,
+        band_impl=band_impl, return_counts=return_counts)
+
+
+def _far_slots(plan: NullPlan, n_live: int):
+    """The live far edges as slots: ``(dst, w)`` [n_padded, R], where slot t
+    of a row holds its t-th far edge in list order (value row, weight) and
+    R is the most far edges any row has. Empty slots read row 0 with weight
+    0. Built once per call, so the draw loop reads nothing back."""
+    B = plan.block
+    dev = plan.far_dst.device
+    rows = (plan.far_src[:n_live] - B).to(torch.int64)
+    ptr = _row_ptr(plan.far_src, n_live, B, plan.n_padded)
+    rank = torch.arange(n_live, device=dev) - ptr[rows].to(torch.int64)
+    R = int(rank.max()) + 1 if n_live else 0
+    dst = torch.zeros((plan.n_padded, R), dtype=torch.int64, device=dev)
+    w = torch.zeros((plan.n_padded, R), dtype=torch.float32, device=dev)
+    dst[rows, rank] = plan.far_dst[:n_live].to(torch.int64)
+    w[rows, rank] = plan.far_w[:n_live].to(torch.float32)
+    return dst, w
+
+
+def _banded_lag(local_idx, w, Zp, block: int, far, r0: int, r1: int
+                ) -> torch.Tensor:
+    """float32 spatial lag of padded rows [r0, r1): band slot by slot on the
+    compact band, then the far slots of :func:`_far_slots` (``far``) in
+    rank order. Every row adds its terms in one fixed order, so the sum is
+    bitwise reproducible; an empty far slot adds ±0."""
+    rows = torch.arange(r0, r1, device=Zp.device)
+    win0 = (rows // block) * block
+    lag = None
+    for s in range(local_idx.shape[1]):
+        term = (w[r0:r1, s:s + 1].to(torch.float32)
+                * Zp[win0 + local_idx[r0:r1, s]].to(torch.float32))
+        lag = term if lag is None else lag + term
+    fdst, fw = far
+    for t in range(fdst.shape[1]):
+        lag = lag + Zp[fdst[r0:r1, t]].to(torch.float32) * fw[r0:r1, t:t + 1]
+    return lag
+
+
+def _banded_local_moran_p(plan: NullPlan, Z: torch.Tensor, abs_obs_new,
+                          seed: int, *, n_permutations: int,
+                          precision: str) -> torch.Tensor:
+    """LISA permutation p through the bf16/f32 banded null (reference
+    ``_banded_local_moran_p``, ops/banded.py:2487; XLA there, torch ops
+    here): per draw one row gather and the band + far lag on the compact
+    band, compared with the exact observed |I| (``abs_obs_new``, relabeled
+    order, padded rows +inf). Products accumulate in float32."""
+    B = plan.block
+    n_padded = plan.n_padded
+    G = Z.shape[1]
+    wdt = torch.bfloat16 if precision == "bf16" else Z.dtype
+    w = plan.w_local.to(wdt)
+    Ztab = Z if Z.dtype == wdt else Z.to(wdt)
+    rows_idx = _padded_rows(plan, Z.device)
+    far = _far_slots(plan, _n_live_far(plan))
+    base = key_for(seed, "perm_feistel_local", 0)
+    cdt = torch.int16 if n_permutations <= 32767 else torch.int32
+    count = torch.zeros((n_padded, G), dtype=cdt, device=Z.device)
+    step_rows = max(B, (_PLAIN_CHUNK_ELEMS // max(G, 1)) // B * B)
+    for step in range(n_permutations):
+        Zp = Ztab[feistel_apply(fold_in(base, step), rows_idx, plan.n)]
+        for r0 in range(0, n_padded, step_rows):
+            r1 = min(r0 + step_rows, n_padded)
+            lag = _banded_lag(plan.local_idx, w, Zp, B, far, r0, r1)
+            Ip = Zp[B + r0:B + r1].to(torch.float32) * lag
+            count[r0:r1] += (Ip.abs() >= abs_obs_new[r0:r1]).to(cdt)
+    return _p_from_counts(count[plan.rank], n_permutations)
+
+
+def banded_local_moran(
+    plan: NullPlan,
+    graph: SpatialGraph,
+    Z: torch.Tensor,
+    seed: int,
+    n_permutations: int,
+    precision: str = "bf16",
+    perm_method: str = "feistel",
+    band_impl: str = "auto",
+):
+    """Drop-in ``ops.moran.local_moran`` with the banded permutation null.
+
+    Observed I/z/lag come from the exact direct pass (one ``spatial_lag``
+    over ``graph``); only the null runs through the banded machinery.
+    Returns a ``LocalMoranResult`` in the original cell order, on the
+    device of ``Z``. ``precision="int8"`` runs the null in the per-gene
+    quantized operator (:func:`banded_local_moran_pvalues`, the Hopper
+    kernel on a CUDA tensor); "bf16" / "f32" run the float null in torch
+    ops.
+    """
+    from .moran import LocalMoranResult, local_moran
+
+    _check_perm_method(perm_method, draws=False)
+    if precision not in ("bf16", "f32", "int8"):
+        raise ValueError(f"unknown precision {precision!r}")
+    obs = local_moran(graph, Z, seed, 0)
+    if n_permutations == 0:
+        return obs
+    _check_perm_method(perm_method)
+    if precision == "int8":
+        p = banded_local_moran_pvalues(plan, Z, seed, n_permutations,
+                                       perm_method=perm_method,
+                                       band_impl=band_impl)
+        return LocalMoranResult(obs.local_I, obs.z, obs.lag, p)
+    abs_obs_new = obs.local_I.abs()[plan.order]
+    if plan.n_padded > plan.n:
+        # padded rows never win a comparison (inf observed)
+        abs_obs_new = torch.nn.functional.pad(
+            abs_obs_new, (0, 0, 0, plan.n_padded - plan.n), value=float("inf"))
+    p = _banded_local_moran_p(plan, Z, abs_obs_new, int(seed) & 0xFFFFFFFF,
+                              n_permutations=n_permutations,
+                              precision=precision)
+    return LocalMoranResult(obs.local_I, obs.z, obs.lag, p)

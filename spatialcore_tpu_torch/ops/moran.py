@@ -1,21 +1,22 @@
-"""Global Moran's I and Geary's C: standardization, observed statistics,
-analytic moments and normal-tail p-values.
+"""Moran's I and Geary's C: standardization, observed statistics, analytic
+moments, normal-tail p-values, and the local Moran (LISA) observed part.
 
-Port of the global part of ``spatialcore_tpu/ops/moran.py``. Estimator
-conventions (squidpy/esda):
+Port of the global part and of ``local_moran`` / ``classify_quadrants`` of
+``spatialcore_tpu/ops/moran.py``. Estimator conventions (squidpy/esda):
 
     I   = (n / S0) · zᵀ W z / zᵀz,               E[I] = −1/(n−1)
     C   = (n−1) Σ_ij w_ij (z_i−z_j)² / (2 S0 Σ z²), E[C] = 1
     VarN / VarR : Cliff & Ord (1981) normality / randomization formulas.
 
-The slot permutation null ``permutation_test_global`` is not ported yet
-(ROADMAP Queue 1 item 4); the banded null in ``ops/banded.py`` serves the
-permutation p-values.
+The slot permutation nulls (``permutation_test_global``, and
+``local_moran`` with ``n_permutations > 0``) draw with
+``jax.random.permutation`` and are not ported yet (ROADMAP Queue 1 item 4);
+the banded nulls in ``ops/banded.py`` serve the permutation p-values.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -105,3 +106,66 @@ def p_from_z(z: torch.Tensor, alternative: str = "greater") -> torch.Tensor:
     if alternative == "less":
         return torch.special.ndtr(z)
     return 2.0 * (1.0 - torch.special.ndtr(torch.abs(z)))
+
+
+# ---------------------------------------------------------------------------
+# Local Moran's I
+# ---------------------------------------------------------------------------
+
+
+class LocalMoranResult(NamedTuple):
+    local_I: torch.Tensor   # [N, G]
+    z: torch.Tensor         # [N, G]
+    lag: torch.Tensor       # [N, G]
+    p_value: torch.Tensor   # [N, G] permutation two-tailed (ones if P=0)
+
+
+def local_moran(graph: SpatialGraph, Z: torch.Tensor, seed: int,
+                n_permutations: int = 0, chunk: int = 8,
+                null: str = "total") -> LocalMoranResult:
+    """Local Moran's I: I_i = z_i · (Wz)_i, one exact ``spatial_lag`` pass.
+
+    With ``n_permutations=0`` (the observed statistics; p is all ones) as
+    the reference. Its slot permutation null draws with
+    ``jax.random.permutation`` and is not ported yet: ``n_permutations > 0``
+    raises ``NotImplementedError``; ``ops.banded.banded_local_moran`` serves
+    the permutation p-values. ``chunk`` and ``seed`` are accepted for API
+    compatibility.
+    """
+    del chunk, seed
+    if null not in ("total", "conditional"):
+        raise ValueError(
+            f"null must be 'total' or 'conditional', got {null!r}")
+    if n_permutations > 0:
+        raise NotImplementedError(
+            "the slot LISA null (local_moran with n_permutations > 0) draws "
+            "with jax.random.permutation, which is not ported yet (ROADMAP "
+            "Queue 1 item 4); use ops.banded.banded_local_moran")
+    lag = spatial_lag(graph, Z)
+    I_obs = Z * lag
+    return LocalMoranResult(I_obs, Z, lag, torch.ones_like(I_obs))
+
+
+# ---------------------------------------------------------------------------
+# Quadrants
+# ---------------------------------------------------------------------------
+
+QUADRANT_LABELS = {0: "NS", 1: "HH", 2: "LL", 3: "HL", 4: "LH"}
+
+
+def classify_quadrants(z: torch.Tensor, lag: torch.Tensor,
+                       p_values: Optional[torch.Tensor] = None,
+                       alpha: float = 0.05) -> torch.Tensor:
+    """LISA quadrant codes (int8): 0=NS, 1=HH, 2=LL, 3=HL, 4=LH.
+
+    sign(z) × sign(lag) picks the quadrant; cells with p ≥ alpha are forced
+    to NS. Exact zeros in z or lag are NS.
+    """
+    zp, zn, lp, ln = z > 0, z < 0, lag > 0, lag < 0
+    q = (zp & lp).to(torch.int8)
+    q += (zn & ln).to(torch.int8) * 2
+    q += (zp & ln).to(torch.int8) * 3
+    q += (zn & lp).to(torch.int8) * 4
+    if p_values is not None:
+        q = torch.where(p_values >= alpha, torch.zeros_like(q), q)
+    return q

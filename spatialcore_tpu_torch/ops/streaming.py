@@ -1,10 +1,41 @@
-"""Gene-tile schedule shared by the streaming driver and the benchmarks.
+"""Gene-tile schedule, and the streaming local-statistic null (LISA).
 
-Port of ``tile_widths`` from ``spatialcore_tpu/ops/streaming.py:46-68``;
-the streaming null itself is not ported yet (ROADMAP Queue 1 item 9).
+Port of ``tile_widths`` and of the local Moran part of
+``streaming_local_null`` (``spatialcore_tpu/ops/streaming.py:46-68,
+279-745``): gene tiles flow through the banded LISA null and each tile's
+[N, tile] output planes go to a sink, so 1M cells × thousands of genes of
+local nulls never hold the full [N, G] float32 planes at once.
+
+Not ported yet (``NotImplementedError``, ROADMAP Queue 1 item 10): the
+``stat``s "geary", "getis" and "lee", which come with their kernels' tails
+(K7), and ``obs_dtype="bf16"``, the wide-tile recipe that fits a 16 GB chip
+by keeping only int8 codes and a bf16 copy of Z per tile.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+#: compact device dtypes of the local outputs: p as float16 keeps a
+#: 1/(P+1)-grained value to < 0.1%, quadrant is categorical, observed
+#: statistics downcast to bf16 (the precision class of the int8 null)
+_COMPACT_DTYPES = {
+    "I": torch.bfloat16, "z": torch.bfloat16, "lag": torch.bfloat16,
+    "C": torch.bfloat16, "G": torch.bfloat16, "z_score": torch.bfloat16,
+    "L": torch.bfloat16,
+    "p": torch.float16, "p_adj": torch.float16, "p_sim": torch.float16,
+    "quadrant": torch.int8, "hotspot": torch.int8,
+}
+
+_ALL_KEYS = {"moran": ("I", "z", "lag", "p", "p_adj", "quadrant"),
+             "geary": ("C", "p", "p_adj"),
+             "getis": ("G", "z_score", "p", "p_sim", "p_adj", "hotspot"),
+             "lee": ("L", "lag", "p", "p_adj", "quadrant")}
+
+Device = Union[str, torch.device]
 
 
 def tile_widths(n_genes: int, tile: int) -> list:
@@ -28,3 +59,174 @@ def tile_widths(n_genes: int, tile: int) -> list:
             widths.append(tile // 2 if rem <= tile // 2 else tile)
             rem = 0
     return widths
+
+
+def host_local_sink(n_cells: int, n_genes: int):
+    """(sink, store) pair flushing each tile's outputs to host numpy.
+
+    The store maps key -> [N, n_genes] float32 (int8 for quadrants) numpy
+    arrays, allocated on the first tile.
+    """
+    store: Dict[str, np.ndarray] = {}
+
+    def sink(start: int, avail: int, outs: Dict[str, torch.Tensor]) -> None:
+        for key, arr in outs.items():
+            if key not in store:
+                dt = np.int8 if key == "quadrant" else np.float32
+                fill = np.ones if key.startswith("p") else np.zeros
+                store[key] = fill((n_cells, n_genes), dt)
+            store[key][:, start:start + avail] = (
+                arr[:, :avail].cpu().numpy().astype(store[key].dtype))
+
+    return sink, store
+
+
+def device_local_sink(n_genes: int, keys: Optional[tuple] = None):
+    """(sink, finalize) pair keeping outputs on the device in compact dtypes
+    (:data:`_COMPACT_DTYPES`).
+
+    ``keys`` limits what is kept; ``None`` keeps everything the statistic
+    produces. ``finalize()`` returns the concatenated [N, n_genes] tensors,
+    freeing the per-tile parts as they are consumed.
+    """
+    parts: Dict[str, list] = {}
+
+    def sink(start: int, avail: int, outs: Dict[str, torch.Tensor]) -> None:
+        for key, arr in outs.items():
+            if keys is not None and key not in keys:
+                continue
+            dt = _COMPACT_DTYPES.get(key, torch.bfloat16)
+            parts.setdefault(key, []).append(arr[:, :avail].to(dt))
+
+    def finalize() -> Dict[str, torch.Tensor]:
+        out = {}
+        for key in list(parts):
+            cols = parts.pop(key)
+            out[key] = cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
+            cols.clear()
+        return out
+
+    return sink, finalize
+
+
+def _moran_planes(graph, Z, p, zero_var, n_permutations: int, fdr: str,
+                  alpha: float) -> Dict[str, torch.Tensor]:
+    """The six LISA output planes of one set of gene columns: observed
+    I/z/lag from one exact lag pass, p and its per-gene FDR, quadrants;
+    zero-variance genes masked to 0 / p 1 / NS."""
+    from .fdr import apply_fdr
+    from .moran import classify_quadrants, local_moran
+
+    zv = zero_var[None, :]
+    obs = local_moran(graph, Z, 0, 0)
+    p = torch.where(zv, 1.0, p)
+    p_adj = apply_fdr(p, fdr, axis=0, n_levels=n_permutations + 1)
+    quad = classify_quadrants(obs.z, obs.lag, p_adj, alpha)
+    return {"I": torch.where(zv, 0.0, obs.local_I),
+            "z": torch.where(zv, 0.0, obs.z),
+            "lag": torch.where(zv, 0.0, obs.lag),
+            "p": p, "p_adj": p_adj,
+            "quadrant": torch.where(zv, torch.zeros_like(quad), quad)}
+
+
+def streaming_local_null(
+    graph,
+    plan,
+    get_tile: Callable[[int, int], object],
+    n_genes: int,
+    sink: Callable[[int, int, Dict[str, torch.Tensor]], None],
+    stat: str = "moran",
+    seed: int = 0,
+    n_permutations: int = 100,
+    tile: int = 512,
+    fdr: str = "fdr_bh",
+    alpha: float = 0.05,
+    precision: str = "int8",
+    keys: Optional[Tuple[str, ...]] = None,
+    post_chunk: int = 128,
+    obs_dtype: str = "f32",
+    device: Device = "cuda",
+) -> None:
+    """Local-statistic permutation nulls over a streamed gene axis.
+
+    Runs LISA (``stat="moran"``) in ``tile``-wide gene tiles through the
+    banded null (``ops.banded``; int8 by default, the Hopper draw-step
+    kernel on the card) and hands each tile's [N, tile] outputs to
+    ``sink(start, avail, outs)``. Tiles come from ``get_tile(start, width)``
+    (numpy or a tensor) and are moved to ``device``.
+
+    * the last tile is as wide as the genes left (the reference pads it to
+      ``tile`` so one compiled program serves every tile; eager PyTorch
+      compiles nothing, and an unpadded tile standardizes exactly the
+      columns a full-width batch of the same genes does);
+    * draw d of every tile uses the permutation keyed by (seed, d), so
+      results do not depend on the tile split;
+    * the per-gene FDR (axis 0) is tile-separable and computed on device;
+    * the host waits once per tile, which bounds the memory in flight.
+
+    The reference's ``star`` and ``alternative`` belong to the Getis
+    statistic and come with it. Output keys: I, z, lag, p, p_adj, quadrant.
+    ``keys`` selects the lean
+    path: only the named planes are computed, ``post_chunk`` gene columns
+    at a time, and emitted already in the compact dtypes of
+    :data:`_COMPACT_DTYPES`; p-values are the same kernel call, bitwise.
+    """
+    from .banded import banded_local_moran, banded_local_moran_pvalues
+    from .moran import standardize
+
+    if stat not in _ALL_KEYS:
+        raise ValueError(f"stat must be 'moran', 'geary', 'getis' or 'lee', "
+                         f"got {stat!r}")
+    if stat != "moran":
+        raise NotImplementedError(
+            f"streaming_local_null(stat={stat!r}) is not ported yet (ROADMAP "
+            "Queue 1 item 10: local Geary, Getis and Lee come with their "
+            "K7 kernel tails)")
+    if obs_dtype not in ("f32", "bf16"):
+        raise ValueError(f"obs_dtype must be 'f32' or 'bf16', got {obs_dtype!r}")
+    if obs_dtype == "bf16":
+        raise NotImplementedError(
+            "obs_dtype='bf16' (the wide-tile recipe for a 16 GB chip) is not "
+            "ported yet (ROADMAP Queue 1 item 10)")
+    if keys is not None:
+        bad = [k for k in keys if k not in _ALL_KEYS[stat]]
+        if bad:
+            raise ValueError(f"unknown keys {bad} for stat={stat!r}; "
+                             f"available: {_ALL_KEYS[stat]}")
+    n_cells = graph.neighbor_idx.shape[0]
+    c = max(1, post_chunk)
+
+    for start in range(0, n_genes, tile):
+        avail = min(tile, n_genes - start)
+        Z, zero_var = standardize(torch.as_tensor(get_tile(start, avail)).to(
+            device=device, dtype=torch.float32))
+        Z_dev = Z.device
+        if keys is None:
+            res = banded_local_moran(plan, graph, Z, seed, n_permutations,
+                                     precision=precision)
+            outs = _moran_planes(graph, Z, res.p_value, zero_var,
+                                 n_permutations, fdr, alpha)
+            del res
+        else:
+            if precision == "int8":
+                p_raw = banded_local_moran_pvalues(plan, Z, seed,
+                                                   n_permutations)
+            else:
+                p_raw = banded_local_moran(plan, graph, Z, seed,
+                                           n_permutations,
+                                           precision=precision).p_value
+            outs = {k: torch.empty((n_cells, avail), dtype=_COMPACT_DTYPES[k],
+                                   device=Z.device) for k in keys}
+            for s in range(0, avail, c):
+                part = _moran_planes(graph, Z[:, s:s + c], p_raw[:, s:s + c],
+                                     zero_var[s:s + c], n_permutations, fdr,
+                                     alpha)
+                for k in keys:
+                    outs[k][:, s:s + c] = part[k].to(_COMPACT_DTYPES[k])
+                del part
+            del p_raw
+        del Z
+        if Z_dev.type == "cuda":
+            torch.cuda.synchronize(Z_dev)   # one host wait per tile
+        sink(start, avail, outs)
+        del outs

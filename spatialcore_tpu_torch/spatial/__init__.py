@@ -1,5 +1,6 @@
-"""Public spatial-statistics API (global Moran's I and Geary's C)."""
+"""Public spatial-statistics API (global Moran's I and Geary's C, local
+Moran's I)."""
 
-from .autocorrelation import build_spatial_weights, gearys_c, morans_i
+from .autocorrelation import build_spatial_weights, gearys_c, local_morans_i, morans_i
 
-__all__ = ["build_spatial_weights", "gearys_c", "morans_i"]
+__all__ = ["build_spatial_weights", "gearys_c", "local_morans_i", "morans_i"]

@@ -1,9 +1,13 @@
-"""Public global spatial autocorrelation: Moran's I and Geary's C.
+"""Public spatial autocorrelation: global Moran's I and Geary's C, and local
+Moran's I (LISA).
 
-Port of the global part of ``spatialcore_tpu/spatial/autocorrelation.py``
-(``build_spatial_weights``, ``morans_i``, ``gearys_c`` and their helpers).
-Same parameters, same ``uns`` output DataFrames (``gene, I|C,
-expected_I|expected_C, z_score, p_value``), plus an explicit ``device``.
+Port of ``build_spatial_weights``, ``morans_i``, ``gearys_c`` and
+``local_morans_i`` of ``spatialcore_tpu/spatial/autocorrelation.py`` and
+their helpers. Same parameters and outputs (the global ``uns`` DataFrames
+``gene, I|C, expected_I|expected_C, z_score, p_value``; the six LISA
+``obsm`` planes and ``uns[f"{key}_params"]``), plus an explicit ``device``.
+"Device mode" of ``local_morans_i`` — outputs kept on the card — is "X is a
+CUDA tensor".
 
 Permutation p-values come from the banded null (``ops/banded.py``). Not
 ported yet, and refused loudly: the slot null (``null_method="slots"``, and
@@ -24,11 +28,16 @@ import torch
 
 from ..core.logging import get_logger
 from ..core.metadata import update_metadata
-from ..ops.banded import banded_permutation_test, build_null_plan
+from ..ops.banded import (banded_local_moran, banded_permutation_test,
+                          build_null_plan)
+from ..ops.fdr import apply_fdr
 from ..ops.graph import SpatialGraph, build_graph, graph_from_numpy, graph_moments
-from ..ops.moran import (geary_analytic_moments, geary_observed,
+from ..ops.moran import (QUADRANT_LABELS, classify_quadrants,
+                         geary_analytic_moments, geary_observed, local_moran,
                          moran_analytic_moments, moran_observed, p_from_z,
                          standardize)
+from ..ops.streaming import (device_local_sink, host_local_sink,
+                             streaming_local_null)
 
 logger = get_logger("spatial.autocorrelation")
 
@@ -322,3 +331,307 @@ def gearys_c(adata, genes: Optional[Union[str, List[str]]] = None,
         adata, "geary", genes, layer, spatial_key, n_neighbors, n_permutations,
         seed, key_added, copy, use_existing_graph, assumption, alternative,
         gene_batch_size, mesh=mesh, null_method=null_method, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Local Moran's I
+# ---------------------------------------------------------------------------
+
+LOCAL_KEYS = ("I", "z", "lag", "p", "p_adj", "quadrant")
+COMPACT_KEYS = ("I", "p", "p_adj", "quadrant")
+
+
+def _concat_device_batches(batches: list) -> tuple:
+    """Concatenate per-batch output tuples along the gene axis (axis 0 for
+    1-D fields), freeing each field's sources as it is consumed so the
+    peak stays near the final output set rather than twice it."""
+    cols = [list(t) for t in zip(*batches)]
+    batches.clear()
+    outs = []
+    for i, col in enumerate(cols):
+        outs.append(col[0] if len(col) == 1 else
+                    torch.cat(col, dim=1 if col[0].ndim > 1 else 0))
+        cols[i] = None
+    return tuple(outs)
+
+
+def _x_is_device(adata, layer) -> bool:
+    X = (adata.layers[layer] if layer and layer in getattr(adata, "layers", {})
+         else getattr(adata, "X", None))
+    return isinstance(X, torch.Tensor) and X.is_cuda
+
+
+def _local_morans_compact(adata, gene_names, layer, graph, plan, n_neighbors,
+                          n_permutations, fdr_correction, alpha, seed, tile,
+                          key_added, null_precision, X_is_device, start,
+                          device: Device):
+    """Memory-bounded LISA: stream gene tiles through the banded null
+    (``ops.streaming.streaming_local_null``).
+
+    A CUDA ``X`` keeps compact outputs on the card (I bf16, p/p_adj f16,
+    quadrant int8: 7 bytes per cell and gene, ~7 GB at 1M × 1,024 against
+    24 GB of float32 planes), through the lean post-pass that computes only
+    those planes; any other ``X`` flushes float32 host arrays per tile.
+    """
+    n_cells, n_genes = adata.n_obs, len(gene_names)
+
+    def get_tile(s, w):
+        return _dense_expression(adata, gene_names[s:s + w], layer, device)
+
+    if X_is_device:
+        sink, finalize = device_local_sink(n_genes, keys=COMPACT_KEYS)
+        stream_keys = COMPACT_KEYS
+    else:
+        sink, store = host_local_sink(n_cells, n_genes)
+        stream_keys = None
+    streaming_local_null(
+        graph, plan, get_tile, n_genes, sink, stat="moran", seed=seed,
+        n_permutations=n_permutations, tile=tile, fdr=fdr_correction,
+        alpha=alpha, precision=null_precision, keys=stream_keys, device=device)
+    out = finalize() if X_is_device else store
+    for k in COMPACT_KEYS:
+        adata.obsm[f"{key_added}_{k}"] = out[k]
+    elapsed = time.time() - start
+    adata.uns[f"{key_added}_params"] = {
+        "genes": gene_names,
+        "n_neighbors": n_neighbors,
+        "n_permutations": n_permutations,
+        "fdr_correction": fdr_correction,
+        "alpha": alpha,
+        "seed": seed,
+        "null": "total",
+        "null_method": ("banded_int8" if null_precision == "int8"
+                        else "banded"),
+        "null_precision": null_precision,
+        "output_mode": "compact",
+        "tile": tile,
+        "quadrant_labels": dict(QUADRANT_LABELS),
+        "computation_time_seconds": elapsed,
+    }
+    logger.info(f"Local Moran's I (compact streaming) completed in "
+                f"{elapsed:.1f}s")
+    update_metadata(
+        adata, "local_morans_i",
+        parameters={"genes": gene_names[:10], "n_genes": n_genes,
+                    "n_neighbors": n_neighbors,
+                    "n_permutations": n_permutations,
+                    "fdr_correction": fdr_correction, "alpha": alpha,
+                    "seed": seed, "output_mode": "compact",
+                    "backend": "spatialcore_tpu_torch",
+                    "device": str(device)},
+        outputs={f"obsm_{s}": f"{key_added}_{s}" for s in COMPACT_KEYS}
+        | {"uns_params": f"{key_added}_params"},
+    )
+    return adata
+
+
+def local_morans_i(
+    adata,
+    genes: Optional[Union[str, List[str]]] = None,
+    layer: Optional[str] = None,
+    spatial_key: str = "spatial",
+    n_neighbors: int = 6,
+    n_permutations: int = 10,
+    fdr_correction: Literal["bonferroni", "fdr_bh", "none"] = "fdr_bh",
+    alpha: float = 0.05,
+    seed: int = 0,
+    batch_size: int = 100,
+    key_added: str = "local_morans",
+    copy: bool = False,
+    use_existing_graph: bool = False,
+    null_method: str = "auto",
+    null: str = "total",
+    output_mode: str = "auto",
+    device: Device = "cuda",
+):
+    """Local Moran's I (LISA) with permutation p-values.
+
+    Writes six ``obsm`` planes, ``{key}_I, {key}_z, {key}_lag, {key}_p,
+    {key}_p_adj, {key}_quadrant`` (quadrant codes int8 0=NS, 1=HH, 2=LL,
+    3=HL, 4=LH after FDR at ``alpha``) and ``uns[f"{key}_params"]``. When
+    ``X`` (or ``layer``) is a CUDA tensor the planes stay CUDA tensors;
+    otherwise they are host numpy arrays. The observed I/z/lag come from
+    one exact lag pass.
+
+    ``null_method``: "banded" (bf16 null) or "banded_int8" (the per-gene
+    int8 null: exact integer draw steps in the Hopper kernel, int8
+    counters for P ≤ 127; pair it with a large ``batch_size``). "auto"
+    resolves as the reference: the banded f32 null on graphs with k ≥ 16
+    at ≥ 100k cells, else the slot null. The slot null (``"slots"``, and
+    ``null="conditional"``, which falls back to it) is not ported yet and
+    raises ``NotImplementedError`` when ``n_permutations > 0``.
+
+    ``output_mode``: "full" keeps the six float32 planes; "compact"
+    streams gene tiles of ``max(batch_size, 256)`` through
+    ``ops.streaming.streaming_local_null`` and keeps I (bf16), p and p_adj
+    (f16) and quadrant (int8) on the card for a CUDA ``X`` (float32 host
+    arrays otherwise); "auto" picks "compact" when the six planes of a
+    CUDA ``X`` would exceed ~8 GB on the banded path.
+    """
+    start = time.time()
+    if null_method not in NULL_METHODS:
+        raise ValueError(f"null_method must be one of {NULL_METHODS}, "
+                         f"got {null_method!r}")
+    if null not in ("total", "conditional"):
+        raise ValueError(f"null must be 'total' or 'conditional', got {null!r}")
+    if output_mode not in ("auto", "full", "compact"):
+        raise ValueError(f"output_mode must be 'auto', 'full' or "
+                         f"'compact', got {output_mode!r}")
+    if copy:
+        adata = adata.copy()
+    if spatial_key not in adata.obsm:
+        raise ValueError(f"adata.obsm['{spatial_key}'] not found. "
+                         "Spatial coordinates are required.")
+    gene_names = _resolve_genes(adata, genes)
+    n_cells, n_genes = adata.n_obs, len(gene_names)
+    logger.info(f"Local Moran's I: {n_cells:,} cells × {n_genes} genes, "
+                f"k={n_neighbors}, P={n_permutations}")
+
+    graph = _get_graph(adata, n_neighbors, spatial_key, use_existing_graph,
+                       device)
+
+    null_precision = "bf16"
+    if null_method == "auto":
+        k_eff = int(graph.neighbor_idx.shape[1])
+        if (n_permutations > 0 and null == "total"
+                and n_cells >= 100_000 and k_eff >= 16):
+            null_method, null_precision = "banded", "f32"
+        else:
+            null_method = "slots"
+    if null_method == "banded_int8":
+        null_method, null_precision = "banded", "int8"
+    plan = None
+    if null_method == "banded" and n_permutations > 0:
+        if null == "conditional":
+            logger.warning("null='conditional' is not supported by the "
+                           "banded path; using the direct kernel")
+            null_method, null_precision = "slots", "bf16"
+        else:
+            plan = _get_null_plan(adata, graph, spatial_key)
+    if null_method == "slots" and n_permutations > 0:
+        raise NotImplementedError(
+            "the slot LISA null (local_moran with permutations) is not "
+            "ported yet (ROADMAP Queue 1 item 4); pass null_method='banded' "
+            "or 'banded_int8' with null='total'")
+
+    X_is_device = _x_is_device(adata, layer)
+    if output_mode == "auto":
+        output_mode = ("compact" if plan is not None and X_is_device
+                       and n_cells * n_genes * 24 > 8e9 else "full")
+    if output_mode == "compact":
+        if plan is None or n_permutations <= 0:
+            raise ValueError(
+                "output_mode='compact' streams through the banded null "
+                "path — use null_method='banded'/'banded_int8' with "
+                "n_permutations > 0")
+        return _local_morans_compact(
+            adata, gene_names, layer, graph, plan, n_neighbors,
+            n_permutations, fdr_correction, alpha, seed,
+            max(batch_size, 256), key_added, null_precision, X_is_device,
+            start, device)
+
+    batches = []    # device mode: per-batch (I, z, lag, p, zero_var)
+    planes = None   # host mode: six numpy planes
+    zero_var_all = np.zeros(n_genes, bool)
+    for bs in range(0, n_genes, batch_size):
+        batch = gene_names[bs:bs + batch_size]
+        Z, zero_var = standardize(_dense_expression(adata, batch, layer, device))
+        if plan is not None:
+            res = banded_local_moran(plan, graph, Z, seed=seed,
+                                     n_permutations=n_permutations,
+                                     precision=null_precision)
+        else:
+            res = local_moran(graph, Z, seed, 0, null=null)
+        del Z
+        if X_is_device:
+            batches.append((res.local_I, res.z, res.lag, res.p_value,
+                            zero_var))
+            continue
+        if planes is None:
+            planes = [np.zeros((n_cells, n_genes), np.float32)
+                      for _ in range(3)] + [np.ones((n_cells, n_genes),
+                                                    np.float32)]
+        sl = slice(bs, bs + len(batch))
+        for plane, t in zip(planes, res):
+            plane[:, sl] = t.cpu().numpy()
+        zero_var_all[sl] = zero_var.cpu().numpy()
+
+    if X_is_device and batches:
+        I_all, z_all, lag_all, p_all, zv = _concat_device_batches(batches)
+        zv2 = zv[None, :]
+        I_all = torch.where(zv2, 0.0, I_all)
+        z_all = torch.where(zv2, 0.0, z_all)
+        lag_all = torch.where(zv2, 0.0, lag_all)
+        p_all = torch.where(zv2, 1.0, p_all)
+        zero_var_all = zv.cpu().numpy()
+    else:
+        X_is_device = False      # no genes: documented [N, 0] host planes
+        if planes is None:
+            planes = [np.zeros((n_cells, n_genes), np.float32)
+                      for _ in range(3)] + [np.ones((n_cells, n_genes),
+                                                    np.float32)]
+        I_all, z_all, lag_all, p_all = planes
+    if zero_var_all.any():
+        logger.warning(f"{int(zero_var_all.sum())} zero-variance genes set "
+                       "to 0/NS")
+        if not X_is_device:
+            for plane in (I_all, z_all, lag_all):
+                plane[:, zero_var_all] = 0.0
+            p_all[:, zero_var_all] = 1.0
+
+    def dev(a):
+        return a if X_is_device else torch.as_tensor(a, device=device)
+
+    def out(t):
+        return t if X_is_device else t.cpu().numpy()
+
+    if n_permutations > 0:
+        p_adj_t = apply_fdr(dev(p_all), fdr_correction, axis=0,
+                            n_levels=n_permutations + 1)
+        quadrants = out(classify_quadrants(dev(z_all), dev(lag_all), p_adj_t,
+                                           alpha))
+        p_adj = out(p_adj_t)
+        del p_adj_t
+    else:
+        logger.warning(
+            "n_permutations=0: quadrants classified by z/lag signs only, "
+            "without significance filtering.")
+        p_adj = p_all
+        quadrants = out(classify_quadrants(dev(z_all), dev(lag_all), None,
+                                           alpha))
+
+    adata.obsm[f"{key_added}_I"] = I_all
+    adata.obsm[f"{key_added}_z"] = z_all
+    adata.obsm[f"{key_added}_lag"] = lag_all
+    adata.obsm[f"{key_added}_p"] = p_all
+    adata.obsm[f"{key_added}_p_adj"] = p_adj
+    adata.obsm[f"{key_added}_quadrant"] = quadrants
+
+    elapsed = time.time() - start
+    adata.uns[f"{key_added}_params"] = {
+        "genes": gene_names,
+        "n_neighbors": n_neighbors,
+        "n_permutations": n_permutations,
+        "fdr_correction": fdr_correction,
+        "alpha": alpha,
+        "seed": seed,
+        "null": null,
+        "null_method": ("banded_int8" if null_precision == "int8"
+                        else null_method),
+        "null_precision": null_precision if null_method == "banded" else "f32",
+        "quadrant_labels": dict(QUADRANT_LABELS),
+        "computation_time_seconds": elapsed,
+    }
+    logger.info(f"Local Moran's I completed in {elapsed:.1f}s")
+    update_metadata(
+        adata, "local_morans_i",
+        parameters={"genes": gene_names[:10], "n_genes": n_genes,
+                    "n_neighbors": n_neighbors,
+                    "n_permutations": n_permutations,
+                    "fdr_correction": fdr_correction, "alpha": alpha,
+                    "seed": seed, "backend": "spatialcore_tpu_torch",
+                    "device": str(device)},
+        outputs={f"obsm_{s}": f"{key_added}_{s}" for s in LOCAL_KEYS}
+        | {"uns_params": f"{key_added}_params"},
+    )
+    return adata

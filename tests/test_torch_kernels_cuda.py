@@ -6,14 +6,16 @@ without the JAX package's test configuration:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
-Tolerance: |Δcross_g| ≤ 1e-5 · Σ_i |term_i| — float32 summation order only;
-the integer lags are exact in both versions.
+Tolerance: band cross |Δcross_g| ≤ 1e-5 · Σ_i |term_i| — float32 summation
+order only; the integer lags are exact in both versions. The LISA kernel's
+counts and observed values are exact integers: equal.
 """
 
 import pytest
 import torch
 
 from spatialcore_tpu_torch.kernels import band_cross as kern
+from spatialcore_tpu_torch.kernels import lisa_count as kern_lisa
 from spatialcore_tpu_torch.ops import banded
 from spatialcore_tpu_torch.ops.graph import build_graph
 
@@ -115,3 +117,87 @@ def test_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda_device, plan):
                      device=cuda_device)
     with pytest.raises(ValueError):
         kern.band_cross_float(li, w, zp, B)
+
+
+# ---------------------------------------------------------------------------
+# The LISA draw-step kernel (csrc/lisa_count_int8.cu): exact, so equality
+# ---------------------------------------------------------------------------
+
+
+def _lisa_operands(nb: int, G: int, k: int = 6, seed: int = 3):
+    """Synthetic LISA operands: a compact band with some zero weights, and
+    a far list whose rows include every block's first and last row."""
+    gen = torch.Generator().manual_seed(seed)
+    n = nb * B
+    li = torch.randint(0, 3 * B, (n, k), generator=gen, dtype=torch.int32)
+    wq = torch.randint(0, 128, (n, k), generator=gen).to(torch.int8)
+    wq[torch.rand((n, k), generator=gen) < 0.2] = 0
+
+    def codes(rows):
+        return torch.randint(-127, 128, (rows, G), generator=gen, dtype=torch.int8)
+
+    per_row = torch.randint(0, 3, (n,), generator=gen)
+    per_row[0::B] = 2                               # each block's first row
+    per_row[B - 1::B] = 3                           # ... and last row
+    ptr = torch.zeros(n + 1, dtype=torch.int32)
+    ptr[1:] = torch.cumsum(per_row, 0).to(torch.int32)
+    F = int(ptr[-1])
+    far_q = torch.randint(0, 128, (F,), generator=gen).to(torch.int8)
+    zp, zf = codes(n + 2 * B), codes(F)
+    dense = torch.randint(-k * 127 * 127, k * 127 * 127, (n, G), generator=gen,
+                          dtype=torch.int32)
+    obs = kern_lisa.lisa_observed(li, wq, codes(n + 2 * B), B,
+                                  far_row_ptr=ptr, far_q=far_q, Zf=codes(F))
+    return dict(li=li, wq=wq, zp=zp, obs=obs,
+                far={"rows": dict(far_row_ptr=ptr, far_q=far_q, Zf=zf),
+                     "dense": dict(far=dense), "none": {}})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,G", [(1, 64), (5, 260)], ids=["one_block", "G260"])
+@pytest.mark.parametrize("form", ["rows", "dense", "none"])
+@pytest.mark.parametrize("cdt", [torch.int8, torch.int16, torch.int32])
+def test_lisa_count_kernel_equals_plain(cuda_device, nb, G, form, cdt):
+    o = _lisa_operands(nb, G)
+    far = o["far"][form]
+    cnt0 = torch.randint(0, 100, o["obs"].shape).to(cdt)
+    want = kern_lisa.lisa_count(o["li"], o["wq"], o["zp"], B, o["obs"],
+                                cnt0.clone(), **far)
+    assert 0 < int((want != cnt0).sum()) < want.numel()
+    on = lambda t: t.to(cuda_device)  # noqa: E731
+    mode = {"rows": "lisa_win", "dense": "lisa_dense", "none": "lisa_band"}[form]
+    before = kern_lisa.LAUNCHES[mode]
+    got = kern_lisa.lisa_count(on(o["li"]), on(o["wq"]), on(o["zp"]), B,
+                               on(o["obs"]), on(cnt0), **{k: on(v) for k, v in far.items()})
+    torch.cuda.synchronize()
+    assert kern_lisa.LAUNCHES[mode] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["rows", "dense", "none"])
+def test_lisa_observed_kernel_equals_plain(cuda_device, form):
+    o = _lisa_operands(3, 132)
+    far = o["far"][form]
+    want = kern_lisa.lisa_observed(o["li"], o["wq"], o["zp"], B, **far)
+    before = kern_lisa.LAUNCHES["lisa_obs"]
+    got = kern_lisa.lisa_observed(o["li"].to(cuda_device), o["wq"].to(cuda_device),
+                                  o["zp"].to(cuda_device), B,
+                                  **{k: v.to(cuda_device) for k, v in far.items()})
+    torch.cuda.synchronize()
+    assert kern_lisa.LAUNCHES["lisa_obs"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_lisa_pvalues_on_the_card_equal_the_cpu(cuda_device, plan):
+    """The whole int8 LISA null on the card (kernel route) against the CPU
+    (plain route) on one plan: p bitwise, through both far forms."""
+    Z = torch.randn((plan.n, 40), generator=torch.Generator().manual_seed(4))
+    want = banded.banded_local_moran_pvalues(plan, Z, 9, 19)
+    on_card = banded.NullPlan(*[t.to(cuda_device) if isinstance(t, torch.Tensor)
+                                else t for t in plan])
+    for impl in ("auto", "pallas"):
+        got = banded.banded_local_moran_pvalues(on_card, Z.to(cuda_device), 9, 19,
+                                                band_impl=impl)
+        assert torch.equal(got.cpu(), want)
