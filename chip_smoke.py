@@ -11,9 +11,11 @@ Phases (the script stops with a non-zero exit at the first failure):
    300 blocks of a real kNN plan at the 1M-cell density: the band-cross
    kernel (int4/int8 windowed far at G=4096, int8 band-only at G=4096,
    bf16 at G=1024, f32 at G=512; agreement within 1e-5·Σ|terms|) and the
-   LISA draw-step kernel at G=1024 (row-pointer far with int8 and int16
-   counters, dense far, band only, and the observed entry; counts and
-   observed values equal). Each with its time, its plain version's time,
+   local statistics' draw-step kernel at G=1024 (LISA: row-pointer far
+   with int8 and int16 counters, dense far, band only, and the observed
+   entry; the geary tail and its observed entry; the getis_star and
+   getis_g tails under every alternative, and the Getis observed entry;
+   counts and observed values equal). Each with its time, its plain version's time,
    its bound on this card, and ``torch.sparse.mm`` of the band as a
    float32 CSR matrix against the float32 table as a library yardstick.
 3. The global null's headline workload through the ops entry points:
@@ -42,6 +44,18 @@ Phases (the script stops with a non-zero exit at the first failure):
    ("auto"), counts bitwise equal; a plan without far edges (cells on a
    line: the band-only draw step); a small input on the card against the
    port's CPU path (p, p_adj, quadrants bitwise).
+6. Local Geary and Getis-Ord, each main path with counts of its own:
+   ``local_gearys_c(null="total", null_method="banded_int8",
+   n_permutations=99)`` and ``getis_ord_gi(null_method="banded_int8",
+   n_permutations=99)`` (Gi*, two-sided; raw non-negative counts with a
+   smooth hot region) at 1,000,000 cells × 1,024 genes (CUDA X, k=6), full
+   and compact (compact planes equal to the full run's casts); each must
+   launch its draw step once per draw and its observed entry once per
+   call. Then each one's per-draw split, Gi (``star=False``,
+   ``alternative="greater"``) at 1M × 256 genes, both float32 routes at a
+   shape where "auto" takes them (200,000 cells, k=16, 128 genes, no
+   kernel), and 4,096 scattered cells on the card against the port's CPU
+   path (p / p_sim, p_adj, hotspots bitwise).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it a
 JSON summary of every kernel, and the one before that nvidia-smi's name
@@ -60,7 +74,8 @@ import numpy as np
 import torch
 
 from spatialcore_tpu_torch import (SpatialData, build_spatial_weights,
-                                   gearys_c, local_morans_i, morans_i)
+                                   gearys_c, getis_ord_gi, local_gearys_c,
+                                   local_morans_i, morans_i)
 from spatialcore_tpu_torch.core.rng import feistel_apply, fold_in, key_for
 from spatialcore_tpu_torch.kernels import band_cross as kern
 from spatialcore_tpu_torch.kernels import build
@@ -104,6 +119,17 @@ LISA_KERNELS = {
                   LISA_SRC, "spatialcore_tpu/ops/banded.py:1291"),
     "lisa_obs": ("lisa_observed (observed |z*lag|; the XLA abs_ip pass)",
                  LISA_SRC, "spatialcore_tpu/ops/banded.py:2369"),
+    "geary_win": ("geary_count (draw step, row-pointer far; K7 geary tail)",
+                  LISA_SRC, "spatialcore_tpu/ops/banded.py:1497"),
+    "geary_obs": ("geary_observed (observed geary value; the XLA geary_q pass)",
+                  LISA_SRC, "spatialcore_tpu/ops/banded.py:2899"),
+    "getis_star_win": ("getis_star_count (draw step, row-pointer far; K7 "
+                       "getis_star tail)", LISA_SRC,
+                       "spatialcore_tpu/ops/banded.py:1517"),
+    "getis_g_win": ("getis_g_count (draw step, row-pointer far; K7 getis_g tail)",
+                    LISA_SRC, "spatialcore_tpu/ops/banded.py:1535"),
+    "getis_obs": ("getis_lag (observed binary lag; the XLA lag_me_q pass)",
+                  LISA_SRC, "spatialcore_tpu/ops/banded.py:3184"),
 }
 #: the card's published peaks (H100 SXM data sheet): HBM bytes/s, and
 #: operations/s of the unit that could do each kernel's work
@@ -152,10 +178,15 @@ def uniform_coords(n: int, side: float, gen, dev) -> torch.Tensor:
     return torch.rand((n, 2), generator=gen, device=dev) * side
 
 
-def bound(nbytes: float, ops: float, unit: str):
+def bound(nbytes: float, ops, unit: str = ""):
     """(least ms the card could take, what bounds it): the larger of the
-    bytes over the HBM rate and the operations over the unit's peak."""
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[unit]
+    bytes over the HBM rate and the operations over the unit's peak
+    (``ops`` a count on ``unit``, or {unit: count} for mixed work, whose
+    times add)."""
+    if not isinstance(ops, dict):
+        ops = {unit: ops}
+    tb = nbytes / HBM_BYTES_PER_S
+    to = sum(count / PEAK_OPS[u] for u, count in ops.items())
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
@@ -193,6 +224,32 @@ def lisa_work(plan, G: int, far_form: str, cnt_bytes: int = 1,
     far_ops = n_live if far_form == "rows" else 0
     return ((n + 2 * B) * G + n * k * 5 + far_in + planes,
             2 * (nnz + far_ops) * G + (2 if observed else 4) * n * G, "int8")
+
+
+def tail_work(plan, G: int, mode: str):
+    """(bytes, {unit: operations}, "") of one draw step (or observed pass) of
+    the geary / Getis tails on ``plan`` at G genes: gathered codes, compact
+    band, far row pointers and values read once; the per-stat planes
+    (int32 or f32 observed, int8 counters read and written, Gi's observed
+    lag and own codes) and vectors; a multiply-add per band slot and live
+    far edge per lag (two lags for geary), and the tail per value."""
+    n, k = plan.local_idx.shape
+    nnz = int((plan.w_local != 0).sum())
+    n_live = banded._n_live_far(plan)
+    common = (n + 2 * B) * G + n * k * 5 + 4 * (n + 1) + n_live * (G + 1)
+    lag_ops = 2 * (nnz + n_live) * G
+    plane = {"geary_win": 4 * n * G + 2 * n * G + 4 * n,
+             "geary_obs": 4 * n * G + 4 * n,
+             "getis_star_win": 4 * n * G + 2 * n * G + 4 * n + 4 * G,
+             "getis_g_win": 9 * n * G + 2 * n * G + 4 * n + 8 * G,
+             "getis_obs": 4 * n * G}[mode]
+    ops = {"int8": (2 if mode.startswith("geary") else 1) * lag_ops
+           + 6 * n * G}
+    if mode == "getis_g_win":
+        ops["f32"] = 14 * n * G
+    elif mode == "getis_star_win":
+        ops["f32"] = 5 * n * G
+    return common + plane, ops, ""
 
 
 def band_csr(plan, dev):
@@ -301,9 +358,10 @@ def report(results, mode, label, err, ms, plain_ms, nbytes, ops, unit, lib_ms,
     """Print one kernel line and keep its numbers (the first case of a mode
     gives its times; every case adds to its largest error)."""
     b_ms, b_by = bound(nbytes, ops, unit)
+    n_ops = sum(ops.values()) if isinstance(ops, dict) else ops
     print(f"[kernels] {label}: max_abs_err={err:.3e} kernel {ms:.4f} ms  plain "
           f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e9:.4f} GB, "
-          f"{ops / 1e9:.3f} Gop)  library {lib_ms:.4f} ms")
+          f"{n_ops / 1e9:.3f} Gop)  library {lib_ms:.4f} ms")
     old = results.get(mode)
     if old is None or first:
         results[mode] = dict(max_abs_err=max(err, old["max_abs_err"] if old else 0.0),
@@ -398,6 +456,138 @@ def phase_lisa_kernels(dev, plan, gen, G: int, reps: int):
         li, wq, zp, B, **rows_far), max(1, reps // 10))
     report(results, "lisa_obs", f"lisa_obs G={G} ({nbk} blocks; equal)", err,
            ms, plain_ms, *lisa_work(plan, G, "rows", observed=True), lib)
+    return results
+
+
+def tail_operands(plan, gen, G: int, dev):
+    """Operands of the geary and Getis entries on ``plan`` at G genes:
+    full-row weight codes and the total weight code (geary), 0/1 codes and
+    W (Getis), the far list as row pointers; random codes (non-negative
+    for Getis), and an observed placement of other codes."""
+    n = plan.n_padded
+    li = plan.local_idx.to(torch.int32).contiguous()
+    n_live = banded._n_live_far(plan)
+    ptr = banded._row_ptr(plan.far_src, n_live, B, n)
+    src = plan.far_src[:n_live] - B
+    wq, _, far_q = banded._full_row_codes(plan)
+    w_code = wq.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
+        0, src, far_q[:n_live].to(torch.int32))
+    wb = (plan.w_local > 0).to(torch.int8)
+    ones = torch.ones(n_live, dtype=torch.int32, device=dev)
+    w_bin = wb.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
+        0, src, ones).to(torch.float32)
+
+    def codes(rows, lo):
+        return torch.randint(lo, 128, (rows, G), generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    geary = dict(li=li, w=wq, zp=codes(n + 2 * B, -127), other=codes(n + 2 * B, -127),
+                 far=dict(far_row_ptr=ptr, far_q=far_q[:n_live].to(torch.int8),
+                          Zf=codes(n_live, -127)),
+                 far_other=dict(far_row_ptr=ptr,
+                                far_q=far_q[:n_live].to(torch.int8),
+                                Zf=codes(n_live, -127)))
+    getis = dict(li=li, w=wb, zp=codes(n + 2 * B, 0), other=codes(n + 2 * B, 0),
+                 far=dict(far_row_ptr=ptr, far_q=ones.to(torch.int8),
+                          Zf=codes(n_live, 0)),
+                 far_other=dict(far_row_ptr=ptr, far_q=ones.to(torch.int8),
+                                Zf=codes(n_live, 0)))
+    return geary, w_code, getis, w_bin
+
+
+def phase_tail_kernels(dev, plan, gen, G: int, reps: int):
+    """The geary, getis_star and getis_g tails and the two observed
+    entries against their plain versions on the card: counts and observed
+    values must be equal (getis_star and getis_g under every alternative;
+    the two-sided case gives the mode's times). Returns {mode: numbers}."""
+    nbk = plan.n_padded // B
+    n = plan.n_padded
+    ge, w_code, gt, w_bin = tail_operands(plan, gen, G, dev)
+    lib = library_ms(band_csr(plan, dev), ge["zp"])
+    results = {}
+
+    def equal(mode, label, got, want, first=True, moved=None):
+        sync(dev)
+        err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        check(torch.equal(got, want), f"{label}: differs from plain (max |diff| "
+              f"{err})")
+        if moved is not None:
+            check(0 < moved < got.numel(), f"{label}: degenerate comparison case")
+        return err
+
+    def timed_pair(kfn, pfn):
+        return event_ms(kfn, reps), event_ms(pfn, max(1, reps // 10))
+
+    # geary: observed entry, then the draw step against another placement
+    args = (ge["li"], ge["w"], ge["zp"], B)
+    obs = kern_lisa.geary_observed_plain(ge["li"], ge["w"], ge["other"], B, w_code,
+                                         **ge["far_other"])
+    got = kern_lisa.geary_observed(*args, w_code, **ge["far"])
+    want = kern_lisa.geary_observed_plain(*args, w_code, **ge["far"])
+    err = equal("geary_obs", "geary_obs", got, want)
+    ms, pms = timed_pair(lambda: kern_lisa.geary_observed(*args, w_code, **ge["far"]),
+                         lambda: kern_lisa.geary_observed_plain(*args, w_code,
+                                                                **ge["far"]))
+    report(results, "geary_obs", f"geary_obs G={G} ({nbk} blocks; equal)", err,
+           ms, pms, *tail_work(plan, G, "geary_obs"), lib)
+    cnt0 = torch.randint(0, 60, (n, G), generator=gen, device=dev).to(torch.int8)
+    got = kern_lisa.geary_count(*args, obs, cnt0.clone(), w_code, **ge["far"])
+    want = kern_lisa.geary_count_plain(*args, obs, cnt0.clone(), w_code, **ge["far"])
+    moved = int((got != cnt0).sum())
+    err = equal("geary_win", "geary_win", got, want, moved=moved)
+    scratch = cnt0.clone()
+    ms, pms = timed_pair(
+        lambda: kern_lisa.geary_count(*args, obs, scratch, w_code, **ge["far"]),
+        lambda: kern_lisa.geary_count_plain(*args, obs, scratch, w_code, **ge["far"]))
+    report(results, "geary_win", f"geary_win int8 counters G={G} ({nbk} blocks, "
+           f"{moved:,} counts moved; equal)", err, ms, pms,
+           *tail_work(plan, G, "geary_win"), lib)
+
+    # Getis: the binary-lag observed entry, then Gi* and Gi draw steps
+    args = (gt["li"], gt["w"], gt["zp"], B)
+    got = kern_lisa.getis_lag(*args, **gt["far"])
+    want = kern_lisa.getis_lag_plain(*args, **gt["far"])
+    err = equal("getis_obs", "getis_obs", got, want)
+    ms, pms = timed_pair(lambda: kern_lisa.getis_lag(*args, **gt["far"]),
+                         lambda: kern_lisa.getis_lag_plain(*args, **gt["far"]))
+    report(results, "getis_obs", f"getis_obs G={G} ({nbk} blocks; equal)", err,
+           ms, pms, *tail_work(plan, G, "getis_obs"), lib)
+    lag_o = kern_lisa.getis_lag_plain(gt["li"], gt["w"], gt["other"], B,
+                                      **gt["far_other"])
+    me_o = gt["other"][B:B + n].contiguous()
+    codes = gt["zp"][B:B + plan.n].to(torch.int64)
+    tot = codes.sum(0).to(torch.float32)
+    sq = (codes * codes).sum(0).to(torch.float32)
+    for star, mode, fn, pfn in (
+            (True, "getis_star_win", kern_lisa.getis_star_count,
+             kern_lisa.getis_star_count_plain),
+            (False, "getis_g_win", kern_lisa.getis_g_count,
+             kern_lisa.getis_g_count_plain)):
+        inv_m = banded._inv_m(plan.n, star)
+        for alt in ("two-sided", "greater", "less"):
+            if star:
+                obs = lag_o + me_o.to(torch.int32)
+                kw = (dict(wp1=w_bin + 1.0, tm=tot * inv_m)
+                      if alt == "two-sided" else {})
+            else:
+                obs = kern_lisa.gi_center(lag_o, me_o, w_bin, tot, sq, inv_m)
+                kw = dict(w_row=w_bin, tot=tot, sq=sq, inv_m=inv_m, lag_o=lag_o,
+                          me_o=me_o)
+            got = fn(*args, obs, cnt0.clone(), alternative=alt, **gt["far"], **kw)
+            want = pfn(*args, obs, cnt0.clone(), alternative=alt, **gt["far"], **kw)
+            moved = int((got != cnt0).sum())
+            err = equal(mode, f"{mode} {alt}", got, want, moved=moved)
+            ms = pms = float("nan")
+            if alt == "two-sided":
+                scratch = cnt0.clone()
+                ms, pms = timed_pair(
+                    lambda: fn(*args, obs, scratch, alternative=alt, **gt["far"],
+                               **kw),
+                    lambda: pfn(*args, obs, scratch, alternative=alt,
+                                **gt["far"], **kw))
+            report(results, mode, f"{mode} {alt} int8 counters G={G} ({nbk} "
+                   f"blocks, {moved:,} counts moved; equal)", err, ms, pms,
+                   *tail_work(plan, G, mode), lib, first=alt == "two-sided")
     return results
 
 
@@ -816,6 +1006,272 @@ def scattered_coords(n: int = 4096, seed: int = 0) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: local Geary and Getis-Ord
+# ---------------------------------------------------------------------------
+
+
+def hot_adata(n_cells: int, n_genes: int, gen, dev) -> SpatialData:
+    """1M-density uniform cells with raw, non-negative counts: Poisson(2)
+    noise, and over the first eighth of the genes a smooth hot region
+    (+round(12·max(sin(x/300), 0)); at half that, Gi's leave-one-out
+    statistic puts too few cells at p = 1/(P+1) for BH to keep any)."""
+    coords = uniform_coords(n_cells, SIDE * (n_cells / 1e6) ** 0.5, gen, dev)
+    X = torch.poisson(torch.full((n_cells, n_genes), 2.0, device=dev),
+                      generator=gen)
+    X[:, :n_genes // 8] += torch.round(
+        12.0 * torch.clamp_min(torch.sin(coords[:, :1] / 300.0), 0.0))
+    d = SpatialData(X=X)
+    d.obsm["spatial"] = coords
+    return d
+
+
+def compact_equals_full(d, key_full: str, key_comp: str, suffixes):
+    """The compact run's planes equal the full run's casts (then both are
+    dropped from ``d``)."""
+    for sfx in suffixes:
+        full = d.obsm.pop(f"{key_full}_{sfx}")
+        comp = d.obsm.pop(f"{key_comp}_{sfx}")
+        check(torch.equal(comp, full.to(comp.dtype)),
+              f"compact {key_comp}_{sfx} differs from the full run's "
+              f"{str(comp.dtype)[6:]} cast")
+
+
+def phase_geary_public(dev, n_cells: int, n_genes: int, n_perms: int, gen):
+    """local_gearys_c(null="total", banded_int8) in full, then compact,
+    output mode, on a CUDA X (the LISA input: smooth genes and noise)."""
+    d = lisa_adata(n_cells, n_genes, gen, dev)
+    out = {}
+    kw = dict(null="total", null_method="banded_int8", n_permutations=n_perms,
+              seed=3, batch_size=n_genes, device=dev)
+    _, out["full_s"] = timed(lambda: local_gearys_c(d, output_mode="full", **kw),
+                             dev)
+    C, p = d.obsm["local_geary_C"], d.obsm["local_geary_p"]
+    pa = d.obsm["local_geary_p_adj"]
+    check(isinstance(p, torch.Tensor) and p.device == torch.device(dev)
+          and tuple(p.shape) == (n_cells, n_genes), "full p: a tensor on the card")
+    check(bool(torch.isfinite(C).all()), "non-finite local C")
+    check(bool(((p > 0) & (p <= 1)).all()), "local Geary p outside (0, 1]")
+    sig = pa < 0.05
+    smooth, noise = (float(sig[:, :n_genes // 8].float().mean()),
+                     float(sig[:, n_genes // 8:].float().mean()))
+    print(f"[geary] local_gearys_c(total, banded_int8, full) {n_cells:,} cells x "
+          f"{n_genes} genes x {n_perms} draws: {out['full_s']:.3f} s; p_adj < "
+          f"0.05: smooth genes {smooth:.4f} of cells, noise genes {noise:.6f}")
+    check(smooth > 0.3, "smooth genes: too few significant local-Geary cells")
+    check(noise < 1e-3, "noise genes: significant local-Geary cells after FDR")
+    _, out["compact_s"] = timed(lambda: local_gearys_c(
+        d, output_mode="compact", key_added="lg_c", use_existing_graph=True,
+        **kw), dev)
+    compact_equals_full(d, "local_geary", "lg_c", ("C", "p", "p_adj"))
+    print(f"[geary] output_mode='compact' (stored graph and plan): "
+          f"{out['compact_s']:.3f} s; C, p, p_adj equal the full run's casts")
+    return d, out
+
+
+def hot_shares(hot: torch.Tensor, n_sig: int):
+    """Share of hot cells (code 1) among the hot-region genes, and of any
+    nonzero code among the noise genes."""
+    return (float((hot[:, :n_sig] == 1).float().mean()),
+            float((hot[:, n_sig:] != 0).float().mean()))
+
+
+def phase_getis_public(dev, n_cells: int, n_genes: int, n_perms: int, gen):
+    """getis_ord_gi(banded_int8) with its defaults (Gi*, two-sided) in
+    full, then compact, output mode, on raw non-negative CUDA X."""
+    d = hot_adata(n_cells, n_genes, gen, dev)
+    out = {}
+    kw = dict(null_method="banded_int8", n_permutations=n_perms, seed=3,
+              batch_size=n_genes, device=dev)
+    _, out["full_s"] = timed(lambda: getis_ord_gi(d, output_mode="full", **kw),
+                             dev)
+    ps = d.obsm["getis_ord_p_sim"]
+    check(isinstance(ps, torch.Tensor) and ps.device == torch.device(dev)
+          and tuple(ps.shape) == (n_cells, n_genes),
+          "full p_sim: a tensor on the card")
+    for k in ("G", "z"):
+        check(bool(torch.isfinite(d.obsm[f"getis_ord_{k}"]).all()),
+              f"non-finite Getis {k}")
+    check(bool(((ps > 0) & (ps <= 1)).all()), "p_sim outside (0, 1]")
+    hot, noise = hot_shares(d.obsm["getis_ord_hotspot"], n_genes // 8)
+    print(f"[getis] getis_ord_gi(Gi*, two-sided, banded_int8, full) {n_cells:,} "
+          f"cells x {n_genes} genes x {n_perms} draws: {out['full_s']:.3f} s; "
+          f"hot cells: hot-region genes {hot:.4f}, noise genes {noise:.6f}")
+    check(hot > 0.1, "hot-region genes: too few hot cells")
+    check(noise < 1e-3, "noise genes: hot or cold cells after FDR")
+    _, out["compact_s"] = timed(lambda: getis_ord_gi(
+        d, output_mode="compact", key_added="go_c", use_existing_graph=True,
+        **kw), dev)
+    compact_equals_full(d, "getis_ord", "go_c",
+                        ("G", "z", "p", "p_sim", "p_adj", "hotspot"))
+    print(f"[getis] output_mode='compact' (stored graph and plan): "
+          f"{out['compact_s']:.3f} s; G, z, p, p_sim, p_adj, hotspot equal the "
+          f"full run's casts")
+    return d, out
+
+
+def phase_gi_greater(dev, n_cells: int, n_genes: int, n_perms: int, gen):
+    """Gi (star=False) with alternative="greater" through getis_ord_gi."""
+    d = hot_adata(n_cells, n_genes, gen, dev)
+    _, t = timed(lambda: getis_ord_gi(
+        d, star=False, alternative="greater", null_method="banded_int8",
+        n_permutations=n_perms, seed=4, batch_size=n_genes, output_mode="full",
+        device=dev), dev)
+    hot, noise = hot_shares(d.obsm["getis_ord_hotspot"], n_genes // 8)
+    print(f"[getis] getis_ord_gi(Gi, greater, banded_int8) {n_cells:,} cells x "
+          f"{n_genes} genes x {n_perms} draws: {t:.3f} s; hot cells: hot-region "
+          f"genes {hot:.4f}, noise genes {noise:.6f}")
+    check(hot > 0.1 and noise < 1e-3, f"Gi greater: hot shares {hot}, {noise}")
+    return t
+
+
+def phase_local_float_routes(dev, gen, n_cells: int = 200_000, k: int = 16,
+                             n_genes: int = 128, n_perms: int = 99):
+    """local_gearys_c(null="total") and getis_ord_gi(n_permutations > 0) at
+    a shape where "auto" takes the float32 banded null (torch ops, no
+    kernel); each with launch counts of its own."""
+    out = {}
+    for name, make, fn, kw, key in (
+            ("local_gearys_c", lisa_adata, local_gearys_c, dict(null="total"),
+             "local_geary"),
+            ("getis_ord_gi", hot_adata, getis_ord_gi, {}, "getis_ord")):
+        d = make(n_cells, n_genes, gen, dev)
+        build_spatial_weights(d, n_neighbors=k, device=dev)
+        kern_lisa.reset_launch_counts()
+        _, t = timed(lambda: fn(d, n_neighbors=k, n_permutations=n_perms, seed=5,
+                                batch_size=n_genes, output_mode="full",
+                                use_existing_graph=True, device=dev, **kw), dev)
+        launches = dict(kern_lisa.LAUNCHES)
+        check(d.uns[f"{key}_params"]["null_method"] == "banded",
+              f"{name}: 'auto' did not take the banded float32 null")
+        check(not any(launches.values()),
+              f"{name}: the float32 null launched a kernel: {launches}")
+        p = d.obsm[f"{key}_p_sim" if key == "getis_ord" else f"{key}_p"]
+        check(bool(((p > 0) & (p <= 1)).all()), f"{name}: p outside (0, 1]")
+        low = p <= 1.0 / (n_perms + 1) + 1e-6
+        sig, noise = (float(low[:, :n_genes // 8].float().mean()),
+                      float(low[:, n_genes // 8:].float().mean()))
+        check(sig > 5 * noise, f"{name}: smallest p not concentrated on the "
+              f"signal genes ({sig}, {noise})")
+        out[name] = t
+        print(f"[float] {name}('auto' -> float32 banded null, torch ops) "
+              f"{n_cells:,} cells k={k} x {n_genes} genes x {n_perms} draws: "
+              f"{t:.3f} s (plan included); p at 1/(P+1): signal genes "
+              f"{sig:.4f}, noise genes {noise:.4f}; launches {launches}")
+        del d
+    return out
+
+
+def phase_local_vs_cpu(dev, coords: np.ndarray, n_genes: int, seed: int,
+                       n_perms: int = 49):
+    """local_gearys_c and getis_ord_gi (banded_int8) on the card against the
+    port's CPU path on the same integer-valued input: p / p_sim, p_adj and
+    hotspots bitwise; C, G, z rtol 1e-5. Returns each card run's launch
+    counts."""
+    launches = {}
+    for name, fn, kw, key, exact, close in (
+            ("local_gearys_c", local_gearys_c, dict(null="total"), "local_geary",
+             ("p", "p_adj"), ("C",)),
+            ("getis_ord_gi", getis_ord_gi, {}, "getis_ord",
+             ("p_sim", "p_adj", "hotspot"), ("G", "z"))):
+        card, host = exact_pair(coords, n_genes, seed, dev)
+        run = dict(null_method="banded_int8", n_permutations=n_perms, seed=seed,
+                   batch_size=n_genes, **kw)
+        kern_lisa.reset_launch_counts()
+        fn(card, device=dev, **run)
+        sync(dev)
+        launches[name] = dict(kern_lisa.LAUNCHES)
+        fn(host, device="cpu", **run)
+        for k in exact + close:
+            got = torch.as_tensor(card.obsm[f"{key}_{k}"]).cpu().numpy()
+            want = host.obsm[f"{key}_{k}"]
+            ok = (np.array_equal(got, want) if k in exact else
+                  np.allclose(got, want, rtol=1e-5, atol=1e-5))
+            check(ok, f"{name}: card {k} differs from the CPU path")
+        print(f"[local] {name} {coords.shape[0]:,} cells x {n_genes} genes: card "
+              f"equals the CPU path ({', '.join(exact)} bitwise; "
+              f"{', '.join(close)} rtol 1e-5); launches {launches[name]}")
+    return launches
+
+
+def tail_draw_split(dev, d, stat: str, reps: int = 5):
+    """One draw of local Geary ("geary") or Gi* two-sided ("getis_star") at
+    the public run's shape, part by part (CUDA events): Feistel rows, row
+    gather, far gather, the draw-step kernel; the observed pass once."""
+    plan = d._null_plan_cache["value"]
+    n, n_pad = plan.n, plan.n_padded
+    li = plan.local_idx.to(torch.int32).contiguous()
+    n_live = banded._n_live_far(plan)
+    ptr, dst = banded._rows_far(plan, n_live)
+    src = plan.far_src[:n_live] - B
+    rows_idx = banded._padded_rows(plan, d.X.device)
+    if stat == "geary":
+        Zq = banded._pad_cols4(banded._quantize_z(standardize(d.X)[0])[0])
+        w, _, far_q = banded._full_row_codes(plan)
+        fq = far_q[:n_live].to(torch.int8)
+        w_code = w.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
+            0, src, fq.to(torch.int32))
+        key = "perm_feistel_local_geary"
+
+        def observed(Zp):
+            return kern_lisa.geary_observed(li, w, Zp, B, w_code, far_row_ptr=ptr,
+                                            far_q=fq, Zf=Zp[dst])
+        obs = observed(Zq[rows_idx])
+
+        def step(Zp, Zf, cnt):
+            kern_lisa.geary_count(li, w, Zp, B, obs, cnt, w_code, far_row_ptr=ptr,
+                                  far_q=fq, Zf=Zf)
+    else:
+        Zq = banded._pad_cols4(banded._quantize_x(d.X)[0])
+        w = (plan.w_local > 0).to(torch.int8)
+        fq = torch.ones(n_live, dtype=torch.int8, device=d.X.device)
+        w_bin = w.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
+            0, src, fq.to(torch.int32)).to(torch.float32)
+        tot, _ = banded._code_moments(Zq)
+        inv_m = banded._inv_m(n, True)
+        key = "perm_feistel_getis"
+
+        def observed(Zp):
+            return kern_lisa.getis_lag(li, w, Zp, B, far_row_ptr=ptr, far_q=fq,
+                                       Zf=Zp[dst])
+        Zp0 = Zq[rows_idx]
+        obs = observed(Zp0) + Zp0[B:B + n_pad].to(torch.int32)
+        del Zp0
+        tail = dict(wp1=w_bin + 1.0, tm=tot * inv_m)
+
+        def step(Zp, Zf, cnt):
+            kern_lisa.getis_star_count(li, w, Zp, B, obs, cnt,
+                                       alternative="two-sided", far_row_ptr=ptr,
+                                       far_q=fq, Zf=Zf, **tail)
+    G = Zq.shape[1]
+    cnt = torch.zeros(obs.shape, dtype=torch.int8, device=d.X.device)
+    base = key_for(3, key, 0)
+    perm = feistel_apply(fold_in(base, 0), rows_idx, n)
+    Zp = Zq[perm]
+    Zf = Zp[dst]
+    split = dict(
+        feistel=event_ms(lambda: feistel_apply(fold_in(base, 1), rows_idx, n), reps),
+        row_gather=event_ms(lambda: Zq[perm], reps),
+        far_gather=event_ms(lambda: Zp[dst], reps),
+        kernel=event_ms(lambda: step(Zp, Zf, cnt), reps),
+        observed=event_ms(lambda: observed(Zq[rows_idx]), 2))
+    steps = iter(range(1, 1 << 20))
+
+    def draw():
+        zp = Zq[feistel_apply(fold_in(base, next(steps)), rows_idx, n)]
+        step(zp, zp[dst], cnt)
+
+    split["whole_draw"] = event_ms(draw, reps)
+    mode = "geary_win" if stat == "geary" else "getis_star_win"
+    split["bound"], by = bound(*tail_work(plan, G, mode))
+    split["observed_bound"], _ = bound(*tail_work(
+        plan, G, "geary_obs" if stat == "geary" else "getis_obs"))
+    print(f"[{stat}] one draw at {n:,} cells x {G} genes (CUDA events, ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f" ({by}-bound); far edges {n_live:,}")
+    return split
+
+
+# ---------------------------------------------------------------------------
 
 
 def nvidia_smi() -> str:
@@ -851,6 +1307,7 @@ def main() -> None:
                                              "int8_band": 4096, "bf16": 1024,
                                              "f32": 512}, reps=20)
     kres.update(phase_lisa_kernels(dev, plan300, gen, 1024, reps=20))
+    kres.update(phase_tail_kernels(dev, plan300, gen, 1024, reps=20))
     del plan300
 
     # the global null's path
@@ -895,6 +1352,54 @@ def main() -> None:
     print("[path] launches in the kernels line: lisa_win and lisa_obs from "
           "the 1M-cell main path; lisa_dense from the vignette's "
           "band_impl='pallas' route; lisa_band from the line's run")
+    del card
+    torch.cuda.empty_cache()
+
+    # local Geary's main path: the counts are its own
+    kern_lisa.reset_launch_counts()
+    d, _ = phase_geary_public(dev, 1_000_000, 1024, n_perms, gen)
+    geary = dict(kern_lisa.LAUNCHES)
+    print(f"[path] launches of local_gearys_c(banded_int8) full + compact: {geary}")
+    check(geary["geary_win"] == 2 * n_perms and geary["geary_obs"] == 2
+          and sum(geary.values()) == 2 * n_perms + 2,
+          "the local Geary main path did not run the geary draw step once per "
+          "draw and the observed entry once per call")
+    tail_draw_split(dev, d, "geary")
+    del d
+    torch.cuda.empty_cache()
+    # Getis-Ord Gi*'s main path
+    kern_lisa.reset_launch_counts()
+    d, _ = phase_getis_public(dev, 1_000_000, 1024, n_perms, gen)
+    getis = dict(kern_lisa.LAUNCHES)
+    print(f"[path] launches of getis_ord_gi(banded_int8) full + compact: {getis}")
+    check(getis["getis_star_win"] == 2 * n_perms and getis["getis_obs"] == 2
+          and sum(getis.values()) == 2 * n_perms + 2,
+          "the Getis main path did not run the getis_star draw step once per "
+          "draw and the observed entry once per call")
+    tail_draw_split(dev, d, "getis_star")
+    del d
+    torch.cuda.empty_cache()
+    # Gi with a one-sided alternative
+    kern_lisa.reset_launch_counts()
+    phase_gi_greater(dev, 1_000_000, 256, n_perms, gen)
+    gi = dict(kern_lisa.LAUNCHES)
+    print(f"[path] launches of getis_ord_gi(star=False, greater): {gi}")
+    check(gi["getis_g_win"] == n_perms and gi["getis_obs"] == 1,
+          f"the Gi run did not run the getis_g draw step per draw: {gi}")
+    torch.cuda.empty_cache()
+    # the float32 routes and the card-vs-CPU checks, each with counts of
+    # their own
+    phase_local_float_routes(dev, gen)
+    vs_cpu = phase_local_vs_cpu(dev, scattered_coords(seed=1), 64, 9)
+    check(vs_cpu["local_gearys_c"]["geary_win"] == 49
+          and vs_cpu["getis_ord_gi"]["getis_star_win"] == 49,
+          f"the 4,096-cell card runs did not run their draw steps: {vs_cpu}")
+    launches.update(geary_win=geary["geary_win"], geary_obs=geary["geary_obs"],
+                    getis_star_win=getis["getis_star_win"],
+                    getis_obs=getis["getis_obs"], getis_g_win=gi["getis_g_win"])
+    print("[path] launches in the kernels line: geary_win and geary_obs from "
+          "local Geary's 1M-cell main path; getis_star_win and getis_obs from "
+          "Getis-Ord's; getis_g_win from the Gi run")
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

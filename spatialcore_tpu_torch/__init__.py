@@ -1,8 +1,9 @@
 """spatialcore_tpu_torch: the PyTorch / CUDA port of spatialcore_tpu.
 
-The global permutation null for Moran's I and Geary's C, and local
-Moran's I (LISA) with its permutation null, FDR and compact streaming, from
-coordinates to p-values, with their kernels written by hand for Hopper
+The global permutation null for Moran's I and Geary's C, and the local
+statistics local Moran's I (LISA), local Geary's C and Getis-Ord Gi* / Gi
+with their permutation nulls, FDR and compact streaming, from coordinates
+to p-values, with their kernels written by hand for Hopper
 (``csrc/``). The JAX package ``spatialcore_tpu`` is the reference every
 part of this package is tested against; this package imports ``torch``
 and never ``jax``.
@@ -15,8 +16,9 @@ the kernel, or the call raises.
 __version__ = "0.1.0"
 
 from .core import SpatialData, get_logger, key_for, update_metadata
-from .spatial import build_spatial_weights, gearys_c, local_morans_i, morans_i
+from .spatial import (build_spatial_weights, gearys_c, getis_ord_gi,
+                      local_gearys_c, local_morans_i, morans_i)
 
 __all__ = ["SpatialData", "__version__", "build_spatial_weights", "gearys_c",
-           "get_logger", "key_for", "local_morans_i", "morans_i",
-           "update_metadata"]
+           "get_logger", "getis_ord_gi", "key_for", "local_gearys_c",
+           "local_morans_i", "morans_i", "update_metadata"]

@@ -47,6 +47,14 @@ _SIGNATURES = {
     # far_form, stream
     "sct_lisa_observed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P],
+    # stat, alt, local_idx, wq, zp, far_ptr, far_q, zf, obs, cnt, row_i,
+    # row_f, col_a, col_b, lag_o, me_o, inv_m, nb, B, k, G, cnt_bytes, stream
+    "sct_local_count": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _P],
+    # stat, local_idx, wq, zp, far_ptr, far_q, zf, row_i, out, nb, B, k, G,
+    # stream
+    "sct_local_observed": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _P],
 }
 
 _library: Optional[ctypes.CDLL] = None

@@ -1,42 +1,62 @@
-"""Wrappers of the local Moran (LISA) draw-step kernel, and its plain version.
+"""Wrappers of the local statistics' draw-step kernel, and its plain version.
 
 One CUDA source, ``csrc/lisa_count_int8.cu``, replaces the Pallas kernels
-K7 (``_make_fused_win_kernel``, ``stat="moran"`` tail) and K8
-(``_band_lag_count_kernel_i8``) of ``spatialcore_tpu/ops/banded.py``, and
-the reference's XLA observed pass. Per padded row i and gene g, over int8
-codes:
+K7 (``_make_fused_win_kernel``: its ``moran``, ``geary``, ``getis_star``
+and ``getis_g`` tails) and K8 (``_band_lag_count_kernel_i8``) of
+``spatialcore_tpu/ops/banded.py``, and the reference's XLA observed
+passes. Per padded row i and gene g, over int8 codes:
 
-    lag_i[g] = Σ_slots wq·z[window + local_idx][g] + far_i[g]   (exact int32)
-    val_i[g] = |z_i[g] · lag_i[g]|
+    lag_i[g]  = Σ_slots wq·z[window + local_idx][g] + far_i[g]   (exact int32)
+    lag2_i[g] = the same sum over z²                              (geary)
 
-:func:`lisa_count` (draw step)
-    ``cnt += (val >= obs)``, in place, int8 / int16 / int32 counters.
-:func:`lisa_observed`
-    returns ``val`` as int32 [Npad, G] (the observed statistic when ``Zp``
-    holds the identity placement).
+and per statistic:
 
-Both take the compact band — ``local_idx`` int32 [Npad, k] (window-relative
-rows in [0, 3B)) and ``wq`` int8 [Npad, k] weight codes — and ``Zp`` int8
-[(nb+2)·B, G], the draw's gathered codes (block n's window is rows
-[n·B, n·B + 3B), its own rows [n·B + B, n·B + 2B)). The far term comes in
-one of three forms:
+=============  ==========================================  ==================
+statistic      draw step: ``cnt += extreme``               observed entry
+=============  ==========================================  ==================
+local Moran    ``|z·lag| ≥ obs``                           ``|z·lag|``
+local Geary    ``z²·W + lag2 − 2·z·lag ≤ obs`` (W: the     the geary value
+               row's total weight code)
+Gi*            A = lag + z: ``A ≥ A_o`` / ``A ≤ A_o`` /    the binary lag
+               ``f32(A−A_o)·(f32(A+A_o) − 2·c2) ≥ 0``
+Gi             leave-one-out centred cp (f32) against      the binary lag
+               cp_o, or an exact (lag, z) tie
+=============  ==========================================  ==================
+
+with c2 = f32(tot/m)·(W+1) (Gi*, two-sided) and, for Gi,
+
+    xbar = (tot − z)·f32(1/m),  s² = max((sq − z²)·f32(1/m) − xbar², 0)
+    cp   = (lag − xbar·W) / sqrt(s² > 0 ? s² : 1)
+
+every f32 operation rounded once, in this order, in both versions (the
+kernel writes them as ``__f*_rn`` intrinsics, so nvcc contracts nothing
+into an FMA). The divisions by the constant m are multiplications by its
+float32 reciprocal, as XLA compiles the reference's ``x / m``.
+
+All take the compact band — ``local_idx`` int32 [Npad, k] (window-relative
+rows in [0, 3B)) and ``wq`` int8 [Npad, k] weight codes (0/1 for Getis) —
+and ``Zp`` int8 [(nb+2)·B, G], the draw's gathered codes (block n's window
+is rows [n·B, n·B + 3B), its own rows [n·B + B, n·B + 2B)). The far term
+comes in one of three forms:
 
 * row pointers (K7's function): ``far_row_ptr`` int32 [Npad+1] into the
   compact far list, ``far_q`` int8 [F] weight codes, ``Zf`` int8 [F, G] the
-  gathered far values; row r's entries are ``[ptr[r], ptr[r+1])``;
-* a dense int32 far layer ``far`` [Npad, G] (K8's function);
-* none (a plan without far edges).
+  gathered far values; row r's entries are ``[ptr[r], ptr[r+1])``. Geary
+  and Getis always take this form (an empty list when a plan has none);
+* a dense int32 far layer ``far`` [Npad, G] (K8's function; Moran only);
+* none (Moran, a plan without far edges).
 
 Each wrapper checks device, dtype, shape, contiguity and alignment, then:
 
 * on a CPU tensor, runs the plain version (bitwise the kernel's result:
-  all arithmetic is exact integer arithmetic);
+  integer arithmetic, and the f32 tails round at the same places);
 * on a CUDA tensor, launches the kernel on the current stream and adds one
   to its entry in :data:`LAUNCHES` — or raises. There is no fallback.
 
 Preconditions the wrappers do not check (a device readback per launch):
 ``local_idx`` values lie in [0, 3B), ``far_row_ptr`` is non-decreasing with
-``far_row_ptr[-1]`` ≤ F, and k ≤ 1000 so that |z·lag| ≤ k·127³ < 2³¹.
+``far_row_ptr[-1]`` ≤ F, and k ≤ 1000 (Moran: |z·lag| ≤ k·127³ < 2³¹) or
+k ≤ 256 (Geary: Σ w·(Δz)² ≤ k·127·254² < 2³¹; checked).
 """
 
 from __future__ import annotations
@@ -48,11 +68,20 @@ import torch
 from . import build
 from .band_cross import MAX_BLOCK, band_lag_int8_plain
 
-#: kernel launches by far form (draw step) and of the observed entry
-LAUNCHES = {"lisa_win": 0, "lisa_dense": 0, "lisa_band": 0, "lisa_obs": 0}
+#: kernel launches: LISA's draw step by far form and its observed entry;
+#: the geary, getis_star and getis_g draw steps; geary's and Getis's
+#: observed entries
+LAUNCHES = {"lisa_win": 0, "lisa_dense": 0, "lisa_band": 0, "lisa_obs": 0,
+            "geary_win": 0, "geary_obs": 0, "getis_star_win": 0,
+            "getis_g_win": 0, "getis_obs": 0}
 
 #: far forms as the C entry points number them
 _FAR_NONE, _FAR_ROWS, _FAR_DENSE = 0, 1, 2
+#: statistics and alternatives as sct_local_count numbers them
+_GEARY, _GETIS_STAR, _GETIS_G = 1, 2, 3
+_ALTS = {"two-sided": 0, "greater": 1, "less": 2}
+#: the int8 local-Geary null's exactness bound: Σ w·(Δz)² ≤ k·127·254² < 2³¹
+GEARY_MAX_K = 256
 _COUNTER_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 #: elements of one [rows, G] temp in the plain version's row chunks
@@ -117,6 +146,137 @@ def lisa_observed_plain(local_idx, wq, Zp, block: int, *, far_row_ptr=None,
         out[r0:r1] = _abs_ip_plain(local_idx, wq, Zp, block, far_row_ptr,
                                    far_q, Zf, far, r0, r1)
     return out
+
+
+def _int_lag_plain(local_idx, wq, Zp, block: int, far_row_ptr, far_q, Zf,
+                   r0: int, r1: int, square: bool = False) -> torch.Tensor:
+    """int32 lag of padded rows [r0, r1) over the codes (``square``: over
+    the squared codes, whose lag passes float32's 2²⁴ at k ≥ 9, so every
+    term and sum here is int32). Far entries add into their rows."""
+    def vals(t):
+        t = t.to(torch.int32)
+        return t * t if square else t
+
+    dev = Zp.device
+    rows = torch.arange(r0, r1, device=dev)
+    win0 = (rows // block) * block                   # window start: n·B
+    li = local_idx[r0:r1].to(torch.int64)
+    w = wq[r0:r1].to(torch.int32)
+    lag = torch.zeros((r1 - r0, Zp.shape[1]), dtype=torch.int32, device=dev)
+    for s in range(li.shape[1]):
+        lag += w[:, s:s + 1] * vals(Zp[win0 + li[:, s]])
+    ptr = far_row_ptr.to(torch.int64)
+    p0, p1 = int(ptr[r0]), int(ptr[r1])
+    dst = torch.repeat_interleave(torch.arange(r1 - r0, device=dev),
+                                  ptr[r0 + 1:r1 + 1] - ptr[r0:r1])
+    return lag.index_add_(0, dst, far_q[p0:p1].to(torch.int32)[:, None]
+                          * vals(Zf[p0:p1]))
+
+
+def _geary_plain(local_idx, wq, Zp, block: int, w_row, far_row_ptr, far_q, Zf,
+                 r0: int, r1: int) -> torch.Tensor:
+    """Geary value z²·W + lag(z²) − 2·z·lag of rows [r0, r1), exact int32."""
+    lag = _int_lag_plain(local_idx, wq, Zp, block, far_row_ptr, far_q, Zf, r0, r1)
+    lag2 = _int_lag_plain(local_idx, wq, Zp, block, far_row_ptr, far_q, Zf,
+                          r0, r1, square=True)
+    z = Zp[block + r0:block + r1].to(torch.int32)
+    return z * z * w_row[r0:r1, None] + lag2 - 2 * z * lag
+
+
+def geary_count_plain(local_idx, wq, Zp, block: int, obs, cnt, w_row, *,
+                      far_row_ptr, far_q, Zf) -> torch.Tensor:
+    """Plain version of :func:`geary_count`: updates ``cnt`` in place."""
+    for r0, r1 in _row_chunks(local_idx.shape[0], block, Zp.shape[1]):
+        val = _geary_plain(local_idx, wq, Zp, block, w_row, far_row_ptr, far_q,
+                           Zf, r0, r1)
+        cnt[r0:r1] += (val <= obs[r0:r1]).to(cnt.dtype)
+    return cnt
+
+
+def geary_observed_plain(local_idx, wq, Zp, block: int, w_row, *, far_row_ptr,
+                         far_q, Zf) -> torch.Tensor:
+    """Plain version of :func:`geary_observed`."""
+    n_rows, G = local_idx.shape[0], Zp.shape[1]
+    out = torch.empty((n_rows, G), dtype=torch.int32, device=Zp.device)
+    for r0, r1 in _row_chunks(n_rows, block, G):
+        out[r0:r1] = _geary_plain(local_idx, wq, Zp, block, w_row, far_row_ptr,
+                                  far_q, Zf, r0, r1)
+    return out
+
+
+def getis_lag_plain(local_idx, wb, Zp, block: int, *, far_row_ptr, far_q, Zf
+                    ) -> torch.Tensor:
+    """Plain version of :func:`getis_lag`."""
+    n_rows, G = local_idx.shape[0], Zp.shape[1]
+    out = torch.empty((n_rows, G), dtype=torch.int32, device=Zp.device)
+    for r0, r1 in _row_chunks(n_rows, block, G):
+        out[r0:r1] = _int_lag_plain(local_idx, wb, Zp, block, far_row_ptr,
+                                    far_q, Zf, r0, r1)
+    return out
+
+
+def _alt_test(v, o, alternative: str):
+    if alternative == "greater":
+        return v >= o
+    if alternative == "less":
+        return v <= o
+    return v.abs() >= o.abs()
+
+
+def _gi_rows(lag, z, w_row, tot, sq, inv_m: float) -> torch.Tensor:
+    """Gi's centred lag cp of one row chunk (float32, the kernel's order)."""
+    zf = z.to(torch.float32)
+    xbar = (tot - zf) * inv_m
+    s2 = torch.clamp_min((sq - zf * zf) * inv_m - xbar * xbar, 0.0)
+    s = torch.sqrt(torch.where(s2 > 0, s2, torch.ones_like(s2)))
+    return (lag.to(torch.float32) - xbar * w_row[:, None]) / s
+
+
+def gi_center(lag, me, w_row, tot, sq, inv_m: float) -> torch.Tensor:
+    """Gi's leave-one-out centred lag cp [Npad, G] float32 from the binary
+    lag (int32) and own codes (int8), in row chunks; the same expression
+    the Gi draw step evaluates (module docstring)."""
+    n_rows, G = lag.shape
+    out = torch.empty((n_rows, G), dtype=torch.float32, device=lag.device)
+    for r0, r1 in _row_chunks(n_rows, 1, G):
+        out[r0:r1] = _gi_rows(lag[r0:r1], me[r0:r1], w_row[r0:r1], tot, sq,
+                              inv_m)
+    return out
+
+
+def getis_star_count_plain(local_idx, wb, Zp, block: int, obs, cnt, *,
+                           alternative: str, far_row_ptr, far_q, Zf, wp1=None,
+                           tm=None) -> torch.Tensor:
+    """Plain version of :func:`getis_star_count`: updates ``cnt`` in place."""
+    for r0, r1 in _row_chunks(local_idx.shape[0], block, Zp.shape[1]):
+        A = (_int_lag_plain(local_idx, wb, Zp, block, far_row_ptr, far_q, Zf,
+                            r0, r1) + Zp[block + r0:block + r1].to(torch.int32))
+        o = obs[r0:r1]
+        if alternative == "greater":
+            ext = A >= o
+        elif alternative == "less":
+            ext = A <= o
+        else:
+            c2 = tm * wp1[r0:r1, None]
+            x = (A + o).to(torch.float32) - 2.0 * c2
+            ext = (A - o).to(torch.float32) * x >= 0.0
+        cnt[r0:r1] += ext.to(cnt.dtype)
+    return cnt
+
+
+def getis_g_count_plain(local_idx, wb, Zp, block: int, obs, cnt, *,
+                        alternative: str, far_row_ptr, far_q, Zf, w_row, tot,
+                        sq, inv_m: float, lag_o, me_o) -> torch.Tensor:
+    """Plain version of :func:`getis_g_count`: updates ``cnt`` in place."""
+    for r0, r1 in _row_chunks(local_idx.shape[0], block, Zp.shape[1]):
+        lag = _int_lag_plain(local_idx, wb, Zp, block, far_row_ptr, far_q, Zf,
+                             r0, r1)
+        z = Zp[block + r0:block + r1]
+        cp = _gi_rows(lag, z, w_row[r0:r1], tot, sq, inv_m)
+        ext = (_alt_test(cp, obs[r0:r1], alternative)
+               | ((lag == lag_o[r0:r1]) & (z == me_o[r0:r1])))
+        cnt[r0:r1] += ext.to(cnt.dtype)
+    return cnt
 
 
 # ---------------------------------------------------------------------------
@@ -232,3 +392,160 @@ def lisa_observed(local_idx, wq, Zp, block: int, *, far_row_ptr=None,
         raise RuntimeError(f"lisa_observed launch failed: CUDA error {err}")
     LAUNCHES["lisa_obs"] += 1
     return out
+
+
+def _check_rows_far(local_idx, wq, Zp, block: int, far_row_ptr, far_q, Zf):
+    """Common checks of the geary / Getis entries: far edges as row
+    pointers, possibly an empty list."""
+    _check(far_row_ptr is not None, "geary and Getis take the far edges as "
+                                    "row pointers (far_row_ptr, far_q, Zf)")
+    _check_operands(local_idx, wq, Zp, block, far_row_ptr, far_q, Zf, None)
+    return local_idx.shape[0], local_idx.shape[1], Zp.shape[1]
+
+
+def _launch_count(stat: int, alternative: str, mode: str, local_idx, wq, Zp,
+                  block: int, obs, cnt, far_row_ptr, far_q, Zf, row_i=None,
+                  row_f=None, col_a=None, col_b=None, lag_o=None, me_o=None,
+                  inv_m: float = 0.0):
+    n_rows, k = local_idx.shape
+    lib = build.load_library()
+    with torch.cuda.device(Zp.device):
+        err = lib.sct_local_count(
+            stat, _ALTS[alternative], _ptr(local_idx), _ptr(wq), _ptr(Zp),
+            _ptr(far_row_ptr), _ptr(far_q), _ptr(Zf), _ptr(obs), _ptr(cnt),
+            _ptr(row_i), _ptr(row_f), _ptr(col_a), _ptr(col_b), _ptr(lag_o),
+            _ptr(me_o), inv_m, n_rows // block, block, k, Zp.shape[1],
+            cnt.element_size(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{mode} launch failed: CUDA error {err}")
+    LAUNCHES[mode] += 1
+    return cnt
+
+
+def _launch_observed(stat: int, mode: str, local_idx, wq, Zp, block: int,
+                     far_row_ptr, far_q, Zf, row_i=None) -> torch.Tensor:
+    n_rows, k = local_idx.shape
+    G = Zp.shape[1]
+    lib = build.load_library()
+    with torch.cuda.device(Zp.device):
+        out = torch.empty((n_rows, G), dtype=torch.int32, device=Zp.device)
+        err = lib.sct_local_observed(
+            stat, _ptr(local_idx), _ptr(wq), _ptr(Zp), _ptr(far_row_ptr),
+            _ptr(far_q), _ptr(Zf), _ptr(row_i), _ptr(out), n_rows // block,
+            block, k, G, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{mode} launch failed: CUDA error {err}")
+    LAUNCHES[mode] += 1
+    return out
+
+
+def _check_geary(local_idx, wq, Zp, block, w_row, far_row_ptr, far_q, Zf):
+    n_rows, k, _ = _check_rows_far(local_idx, wq, Zp, block, far_row_ptr,
+                                   far_q, Zf)
+    _check(k <= GEARY_MAX_K, f"the int8 geary value is exact int32 for k <= "
+                             f"{GEARY_MAX_K} (k*127*254^2 < 2^31), got k={k}")
+    _plane(w_row, "w_row", (torch.int32,), (n_rows,), 4, Zp.device)
+
+
+def geary_count(local_idx, wq, Zp, block: int, obs, cnt, w_row, *, far_row_ptr,
+                far_q, Zf) -> torch.Tensor:
+    """One local-Geary draw's counter update, in place:
+    ``cnt += (z²·W + lag(z²) − 2·z·lag ≤ obs)``, exact int32.
+
+    ``w_row`` int32 [Npad]: each row's total weight code (band + far);
+    ``obs`` int32 [Npad, G]; ``cnt`` int8 / int16 / int32 [Npad, G]. Far
+    edges as row pointers (module docstring). Returns ``cnt``.
+    """
+    _check_geary(local_idx, wq, Zp, block, w_row, far_row_ptr, far_q, Zf)
+    n_rows, G = local_idx.shape[0], Zp.shape[1]
+    _plane(obs, "obs", (torch.int32,), (n_rows, G), 16, Zp.device)
+    _plane(cnt, "cnt", _COUNTER_DTYPES, (n_rows, G), 4 * cnt.element_size(),
+           Zp.device)
+    if Zp.device.type == "cpu":
+        return geary_count_plain(local_idx, wq, Zp, block, obs, cnt, w_row,
+                                 far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
+    return _launch_count(_GEARY, "two-sided", "geary_win", local_idx, wq, Zp,
+                         block, obs, cnt, far_row_ptr, far_q, Zf, row_i=w_row)
+
+
+def geary_observed(local_idx, wq, Zp, block: int, w_row, *, far_row_ptr, far_q,
+                   Zf) -> torch.Tensor:
+    """The int32 geary value [Npad, G] at the placement gathered into ``Zp``."""
+    _check_geary(local_idx, wq, Zp, block, w_row, far_row_ptr, far_q, Zf)
+    if Zp.device.type == "cpu":
+        return geary_observed_plain(local_idx, wq, Zp, block, w_row,
+                                    far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
+    return _launch_observed(_GEARY, "geary_obs", local_idx, wq, Zp, block,
+                            far_row_ptr, far_q, Zf, row_i=w_row)
+
+
+def getis_lag(local_idx, wb, Zp, block: int, *, far_row_ptr, far_q, Zf
+              ) -> torch.Tensor:
+    """The binary lag int32 [Npad, G] at the placement gathered into ``Zp``
+    (Getis's observed entry; ``wb`` holds 0/1 codes)."""
+    _check_rows_far(local_idx, wb, Zp, block, far_row_ptr, far_q, Zf)
+    if Zp.device.type == "cpu":
+        return getis_lag_plain(local_idx, wb, Zp, block,
+                               far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
+    return _launch_observed(_GETIS_STAR, "getis_obs", local_idx, wb, Zp, block,
+                            far_row_ptr, far_q, Zf)
+
+
+def getis_star_count(local_idx, wb, Zp, block: int, obs, cnt, *,
+                     alternative: str, far_row_ptr, far_q, Zf, wp1=None,
+                     tm=None) -> torch.Tensor:
+    """One Gi* draw's counter update, in place, with A = lag + z against
+    ``obs`` = A_o (int32 [Npad, G]): ``A ≥ A_o`` ("greater"), ``A ≤ A_o``
+    ("less"), or the two-sided sign test with c2 = ``tm[g]·wp1[r]``
+    (``tm`` f32 [G] = f32(tot/m), ``wp1`` f32 [Npad] = W + 1). Returns
+    ``cnt``."""
+    _check(alternative in _ALTS, f"invalid alternative {alternative!r}")
+    n_rows, _, G = _check_rows_far(local_idx, wb, Zp, block, far_row_ptr,
+                                   far_q, Zf)
+    _plane(obs, "obs", (torch.int32,), (n_rows, G), 16, Zp.device)
+    _plane(cnt, "cnt", _COUNTER_DTYPES, (n_rows, G), 4 * cnt.element_size(),
+           Zp.device)
+    if alternative == "two-sided":
+        _check(wp1 is not None and tm is not None,
+               "the two-sided Gi* test needs wp1 and tm")
+        _plane(wp1, "wp1", (torch.float32,), (n_rows,), 4, Zp.device)
+        _plane(tm, "tm", (torch.float32,), (G,), 16, Zp.device)
+    if Zp.device.type == "cpu":
+        return getis_star_count_plain(local_idx, wb, Zp, block, obs, cnt,
+                                      alternative=alternative,
+                                      far_row_ptr=far_row_ptr, far_q=far_q,
+                                      Zf=Zf, wp1=wp1, tm=tm)
+    return _launch_count(_GETIS_STAR, alternative, "getis_star_win", local_idx,
+                         wb, Zp, block, obs, cnt, far_row_ptr, far_q, Zf,
+                         row_f=wp1, col_a=tm)
+
+
+def getis_g_count(local_idx, wb, Zp, block: int, obs, cnt, *, alternative: str,
+                  far_row_ptr, far_q, Zf, w_row, tot, sq, inv_m: float, lag_o,
+                  me_o) -> torch.Tensor:
+    """One Gi draw's counter update, in place: the centred lag cp (module
+    docstring) against ``obs`` = cp_o (f32 [Npad, G]) per ``alternative``,
+    or an exact tie of (lag, z) with (``lag_o`` int32, ``me_o`` int8
+    [Npad, G]). ``w_row`` f32 [Npad] (W), ``tot`` / ``sq`` f32 [G] (the
+    codes' column sums), ``inv_m`` = f32(1/m). Returns ``cnt``."""
+    _check(alternative in _ALTS, f"invalid alternative {alternative!r}")
+    n_rows, _, G = _check_rows_far(local_idx, wb, Zp, block, far_row_ptr,
+                                   far_q, Zf)
+    dev = Zp.device
+    _plane(obs, "obs", (torch.float32,), (n_rows, G), 16, dev)
+    _plane(cnt, "cnt", _COUNTER_DTYPES, (n_rows, G), 4 * cnt.element_size(), dev)
+    _plane(lag_o, "lag_o", (torch.int32,), (n_rows, G), 16, dev)
+    _plane(me_o, "me_o", (torch.int8,), (n_rows, G), 4, dev)
+    _plane(w_row, "w_row", (torch.float32,), (n_rows,), 4, dev)
+    _plane(tot, "tot", (torch.float32,), (G,), 16, dev)
+    _plane(sq, "sq", (torch.float32,), (G,), 16, dev)
+    if dev.type == "cpu":
+        return getis_g_count_plain(local_idx, wb, Zp, block, obs, cnt,
+                                   alternative=alternative,
+                                   far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf,
+                                   w_row=w_row, tot=tot, sq=sq, inv_m=inv_m,
+                                   lag_o=lag_o, me_o=me_o)
+    return _launch_count(_GETIS_G, alternative, "getis_g_win", local_idx, wb, Zp,
+                         block, obs, cnt, far_row_ptr, far_q, Zf, row_f=w_row,
+                         col_a=tot, col_b=sq, lag_o=lag_o, me_o=me_o,
+                         inv_m=inv_m)

@@ -990,6 +990,25 @@ def _p_from_counts(count: torch.Tensor, n_permutations: int) -> torch.Tensor:
     return (count.to(torch.float32) + 1.0) * inv.to(count.device)
 
 
+def _pad_cols4(T: torch.Tensor) -> torch.Tensor:
+    """Pad the gene axis to a multiple of 4 (the kernel reads 4 genes per
+    thread); padded columns are zero codes and are sliced off after."""
+    G = T.shape[1]
+    return torch.nn.functional.pad(T, (0, _round_up(max(G, 1), 4) - G)).contiguous()
+
+
+def _row_spans(n_padded: int, block: int, G: int):
+    """Whole-block row ranges of the float nulls' per-draw work, each
+    holding about ``_PLAIN_CHUNK_ELEMS`` values of [rows, G] temps."""
+    step = max(block, (_PLAIN_CHUNK_ELEMS // max(G, 1)) // block * block)
+    return [(r0, min(r0 + step, n_padded)) for r0 in range(0, n_padded, step)]
+
+
+def _check_impl(band_impl: str) -> None:
+    if band_impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown band_impl {band_impl!r}")
+
+
 def _lisa_far_form(plan: NullPlan, band_impl: str, n_live: int) -> str:
     """How the int8 LISA draw step receives the far edges.
 
@@ -1042,8 +1061,8 @@ def _banded_local_moran_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
             f"k*127^3), got k={k_total}; use precision='bf16'")
     Zq = Z if Z.dtype == torch.int8 else _quantize_z(Z)[0]
     G = Zq.shape[1]
-    Gp = _round_up(max(G, 1), 4)    # the kernel reads 4 genes per thread
-    Zq = torch.nn.functional.pad(Zq, (0, Gp - G)).contiguous()
+    Zq = _pad_cols4(Zq)
+    Gp = Zq.shape[1]
     dev = Zq.device
     wq, _, far_q = _full_row_codes(plan)
     li32 = plan.local_idx.to(torch.int32).contiguous()
@@ -1126,8 +1145,7 @@ def banded_local_moran_pvalues(
     bitwise-equal counts: integer adds commute.
     """
     _check_perm_method(perm_method)
-    if band_impl not in ("auto", "pallas", "xla"):
-        raise ValueError(f"unknown band_impl {band_impl!r}")
+    _check_impl(band_impl)
     return _banded_local_moran_p_i8(
         plan, Z, int(seed) & 0xFFFFFFFF, n_permutations=n_permutations,
         band_impl=band_impl, return_counts=return_counts)
@@ -1189,11 +1207,10 @@ def _banded_local_moran_p(plan: NullPlan, Z: torch.Tensor, abs_obs_new,
     base = key_for(seed, "perm_feistel_local", 0)
     cdt = torch.int16 if n_permutations <= 32767 else torch.int32
     count = torch.zeros((n_padded, G), dtype=cdt, device=Z.device)
-    step_rows = max(B, (_PLAIN_CHUNK_ELEMS // max(G, 1)) // B * B)
+    spans = _row_spans(n_padded, B, G)
     for step in range(n_permutations):
         Zp = Ztab[feistel_apply(fold_in(base, step), rows_idx, plan.n)]
-        for r0 in range(0, n_padded, step_rows):
-            r1 = min(r0 + step_rows, n_padded)
+        for r0, r1 in spans:
             lag = _banded_lag(plan.local_idx, w, Zp, B, far, r0, r1)
             Ip = Zp[B + r0:B + r1].to(torch.float32) * lag
             count[r0:r1] += (Ip.abs() >= abs_obs_new[r0:r1]).to(cdt)
@@ -1243,3 +1260,343 @@ def banded_local_moran(
                               n_permutations=n_permutations,
                               precision=precision)
     return LocalMoranResult(obs.local_I, obs.z, obs.lag, p)
+
+
+# ---------------------------------------------------------------------------
+# Banded LOCAL Geary and Getis-Ord Gi / Gi*
+# ---------------------------------------------------------------------------
+
+
+def _rows_far(plan: NullPlan, n_live: int):
+    """The live far list as the kernels' row-pointer form: ``(ptr int32
+    [Npad+1], far targets [n_live])``. Per draw the far values are the
+    gathered table's rows ``Zp[dst]``."""
+    return (_row_ptr(plan.far_src, n_live, plan.block, plan.n_padded),
+            plan.far_dst[:n_live])
+
+
+def _banded_local_geary_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
+                             n_permutations: int, band_impl: str = "auto"):
+    """Local Geary total-null p, fully integer (reference
+    ``_banded_local_geary_p_i8``, ops/banded.py:2846).
+
+    The expansion c_i = z_i²·W_i + Σ_j w_ij z_j² − 2 z_i Σ_j w_ij z_j is
+    exact in the quantized domain: z codes per gene (:func:`_quantize_z`),
+    band and far weights per row under the full-row scale
+    (:func:`_full_row_codes`), W_i the row's total weight code. Every term
+    shares the positive factor s_g²·sw_row, so ``c_perm ≤ c_obs`` is an
+    exact int32 comparison (k ≤ 256). The observed value comes from the
+    same operator at the identity placement. Per draw: one Feistel
+    evaluation, one int8 row gather, the far values ``Zp[far_dst]``, and
+    the geary draw step (``kernels.lisa_count.geary_count``; its plain
+    version with ``band_impl="xla"``). Counters are int8 for P ≤ 127.
+    Returns ``(c_obs in code units, p)`` [n, G] in the original order.
+    """
+    B = plan.block
+    k_total = plan.local_idx.shape[1]
+    if k_total > kern_lisa.GEARY_MAX_K:
+        raise ValueError(
+            f"int8 local-Geary null supports k <= {kern_lisa.GEARY_MAX_K} "
+            f"(int32 bound k*127*254^2), got k={k_total}; use precision='f32'")
+    Zq = Z if Z.dtype == torch.int8 else _quantize_z(Z)[0]
+    G = Zq.shape[1]
+    Zq = _pad_cols4(Zq)
+    dev = Zq.device
+    wq, _, far_q = _full_row_codes(plan)
+    li32 = plan.local_idx.to(torch.int32).contiguous()
+    rows_idx = _padded_rows(plan, dev)
+    n_live = _n_live_far(plan)
+    ptr, dst = _rows_far(plan, n_live)
+    fq8 = far_q[:n_live].to(torch.int8)
+    # each row's TOTAL weight code: band codes + far codes
+    w_code = wq.to(torch.int32).sum(dim=1, dtype=torch.int32).index_add_(
+        0, plan.far_src[:n_live] - B, far_q[:n_live].to(torch.int32))
+    use_plain = band_impl == "xla"
+    count_fn = (kern_lisa.geary_count_plain if use_plain
+                else kern_lisa.geary_count)
+    obs_fn = (kern_lisa.geary_observed_plain if use_plain
+              else kern_lisa.geary_observed)
+
+    def far_of(Zp):
+        return dict(far_row_ptr=ptr, far_q=fq8, Zf=Zp[dst])
+
+    def geary_q(Zc):
+        Zp = Zc[rows_idx]                          # ONE int8 row gather
+        return obs_fn(li32, wq, Zp, B, w_code, **far_of(Zp))
+
+    c_obs = (_chunked_cols(geary_q, (Zq,), Zq.shape[1]).contiguous()
+             if use_plain else geary_q(Zq))
+    base = key_for(seed, "perm_feistel_local_geary", 0)
+    count = torch.zeros(c_obs.shape, dtype=kern_lisa.counter_dtype(
+        n_permutations), device=dev)
+    for step in range(n_permutations):
+        Zp = Zq[feistel_apply(fold_in(base, step), rows_idx, plan.n)]
+        count_fn(li32, wq, Zp, B, c_obs, count, w_code, **far_of(Zp))
+    return (c_obs[plan.rank, :G],
+            _p_from_counts(count[plan.rank, :G], n_permutations))
+
+
+def _banded_local_geary_p(plan: NullPlan, Z: torch.Tensor, seed: int, *,
+                          n_permutations: int, precision: str):
+    """Local Geary total-null p through the bf16/f32 banded null (reference
+    ``_banded_local_geary_p``, ops/banded.py:2779; XLA there, torch ops on
+    the compact band here): per draw one row gather, the band + far lags of
+    z and of z² (rounded to the table dtype, as the reference), and
+    ``c = z²·W + lag(z²) − 2·z·lag`` compared with the same operator's
+    observed value. Returns ``(c_obs, p)`` [n, G] in the original order."""
+    B = plan.block
+    n_padded = plan.n_padded
+    wdt = torch.bfloat16 if precision == "bf16" else torch.float32
+    w = plan.w_local.to(wdt)
+    Ztab = Z.to(wdt)
+    dev = Z.device
+    rows_idx = _padded_rows(plan, dev)
+    n_live = _n_live_far(plan)
+    far = _far_slots(plan, n_live)
+    # each row's TOTAL weight (band + far)
+    row_w = plan.w_local.to(torch.float32).sum(dim=1).index_add_(
+        0, plan.far_src[:n_live] - B, plan.far_w[:n_live].to(torch.float32))
+    chunks = _row_spans(n_padded, B, Z.shape[1])
+
+    def geary(rows):
+        Zp = Ztab[rows]
+        Zp2 = (Zp.to(torch.float32) * Zp.to(torch.float32)).to(wdt)
+        for r0, r1 in chunks:
+            lag1 = _banded_lag(plan.local_idx, w, Zp, B, far, r0, r1)
+            lag2 = _banded_lag(plan.local_idx, w, Zp2, B, far, r0, r1)
+            me = Zp[B + r0:B + r1].to(torch.float32)
+            yield r0, r1, me * me * row_w[r0:r1, None] + lag2 - 2.0 * me * lag1
+
+    c_obs = torch.empty((n_padded, Z.shape[1]), dtype=torch.float32, device=dev)
+    for r0, r1, c in geary(rows_idx):
+        c_obs[r0:r1] = c
+    base = key_for(seed, "perm_feistel_local_geary", 0)
+    cdt = torch.int16 if n_permutations <= 32767 else torch.int32
+    count = torch.zeros(c_obs.shape, dtype=cdt, device=dev)
+    for step in range(n_permutations):
+        for r0, r1, c in geary(feistel_apply(fold_in(base, step), rows_idx,
+                                             plan.n)):
+            count[r0:r1] += (c <= c_obs[r0:r1]).to(cdt)
+    return c_obs[plan.rank], _p_from_counts(count[plan.rank], n_permutations)
+
+
+def banded_local_geary(plan: NullPlan, Z: torch.Tensor, seed: int,
+                       n_permutations: int, precision: str = "f32",
+                       perm_method: str = "feistel", band_impl: str = "auto"):
+    """Local Geary total-null p-values via the banded plan (reference
+    ``banded_local_geary``). Returns ``(c_obs_operator, p)`` [n, G] in the
+    original cell order; callers take the observed C from the exact direct
+    pass (``ops.moran.local_geary``) and only ``p`` from here (the int8
+    route's first value is in integer code units).
+
+    ``precision``: "f32" / "bf16" run the float null in torch ops; "int8"
+    the fully integer null (k ≤ 256), whose draw step on a CUDA tensor is
+    the Hopper kernel's geary tail with row-pointer far edges for
+    ``band_impl`` "auto" and "pallas" alike (the reference's non-windowed
+    alternative is its XLA body, whose function that kernel computes);
+    "xla" runs the kernel's plain version on any device. Counts are
+    bitwise equal either way.
+    """
+    if precision not in ("bf16", "f32", "int8"):
+        raise ValueError(
+            f"banded_local_geary supports precision 'bf16', 'f32' or "
+            f"'int8', got {precision!r}")
+    _check_perm_method(perm_method)
+    _check_impl(band_impl)
+    seed = int(seed) & 0xFFFFFFFF
+    if precision == "int8":
+        return _banded_local_geary_p_i8(plan, Z, seed,
+                                        n_permutations=n_permutations,
+                                        band_impl=band_impl)
+    return _banded_local_geary_p(plan, Z, seed, n_permutations=n_permutations,
+                                 precision=precision)
+
+
+def _quantize_x(X: torch.Tensor):
+    """Per-gene int8 quantization of RAW values (reference ``_quantize_x``):
+    s_g = max|x_g|/127, no clip beyond the int8 range. ``(Xq int8, s)``."""
+    Xf = X.to(torch.float32)
+    s = Xf.abs().max(dim=0).values / 127.0
+    s = torch.where(s > 0, s, torch.ones_like(s))
+    return torch.clamp(torch.round(Xf / s), -127, 127).to(torch.int8), s
+
+
+def _code_moments(Xq: torch.Tensor):
+    """Column sums of the codes and of their squares, exact in int64 and
+    rounded once to float32 ([G] each). The reference sums float32 codes;
+    the two agree wherever its partial sums stay below 2²⁴."""
+    G = Xq.shape[1]
+    tot = torch.zeros(G, dtype=torch.int64, device=Xq.device)
+    sq = torch.zeros(G, dtype=torch.int64, device=Xq.device)
+    step = max(1, _PLAIN_CHUNK_ELEMS // max(G, 1))
+    for r0 in range(0, Xq.shape[0], step):
+        x = Xq[r0:r0 + step].to(torch.int32)
+        tot += x.sum(dim=0, dtype=torch.int64)
+        sq += (x * x).sum(dim=0, dtype=torch.int64)
+    return tot.to(torch.float32), sq.to(torch.float32)
+
+
+def _inv_m(n: int, star: bool) -> float:
+    """f32(1/m), m = n (Gi*) or n − 1 (Gi): XLA compiles the reference's
+    ``x / m`` into a multiplication by this reciprocal."""
+    return float(torch.tensor(1.0, dtype=torch.float32) / (n if star else n - 1))
+
+
+def _banded_getis_p_i8(plan: NullPlan, X: torch.Tensor, seed: int, *,
+                       n_permutations: int, star: bool, alternative: str,
+                       band_impl: str = "auto") -> torch.Tensor:
+    """Getis-Ord Gi/Gi* permutation p_sim, int8 quantized operator
+    (reference ``_banded_getis_p_i8``, ops/banded.py:3144).
+
+    Getis adjacency is binary (band codes ``w_local > 0``, every live far
+    edge 1), so the only quantization is per gene on raw X
+    (:func:`_quantize_x`); the binary lag is an exact int32 sum of codes.
+    Gi*: A = lag + own is exact, one-sided decisions are integer
+    comparisons and two-sided the sign test against c2 = f32(tot/m)·(W+1).
+    Gi: the leave-one-out centred lag cp in float32, with an exact
+    (lag, own) tie counted as extreme (``kernels.lisa_count``). Per draw:
+    one Feistel evaluation, one int8 row gather, the far values and the
+    Getis draw step. Returns p_sim [n, G] in the original order.
+    """
+    B = plan.block
+    n_padded = plan.n_padded
+    Xq = _quantize_x(X)[0]
+    G = Xq.shape[1]
+    Xq = _pad_cols4(Xq)
+    dev = Xq.device
+    wb = (plan.w_local > 0).to(torch.int8)
+    li32 = plan.local_idx.to(torch.int32).contiguous()
+    rows_idx = _padded_rows(plan, dev)
+    n_live = _n_live_far(plan)
+    ptr, dst = _rows_far(plan, n_live)
+    fb = torch.ones(n_live, dtype=torch.int8, device=dev)
+    w_row = wb.to(torch.int32).sum(dim=1, dtype=torch.int32).index_add_(
+        0, plan.far_src[:n_live] - B,
+        torch.ones(n_live, dtype=torch.int32, device=dev)).to(torch.float32)
+    tot, sq = _code_moments(Xq)
+    inv_m = _inv_m(plan.n, star)
+    use_plain = band_impl == "xla"
+
+    def far_of(Xp):
+        return dict(far_row_ptr=ptr, far_q=fb, Zf=Xp[dst])
+
+    def lag_of(Xc):
+        Xp = Xc[rows_idx]                          # ONE int8 row gather
+        lag_fn = kern_lisa.getis_lag_plain if use_plain else kern_lisa.getis_lag
+        return lag_fn(li32, wb, Xp, B, **far_of(Xp))
+
+    lag_o = (_chunked_cols(lag_of, (Xq,), Xq.shape[1]).contiguous()
+             if use_plain else lag_of(Xq))
+    me_o = Xq[rows_idx[B:B + n_padded]]
+    if star:
+        obs = lag_o + me_o.to(torch.int32)          # A_o, exact
+        del lag_o, me_o
+        kw = {}
+        if alternative == "two-sided":
+            kw = dict(wp1=w_row + 1.0, tm=tot * inv_m)
+        count_fn = (kern_lisa.getis_star_count_plain if use_plain
+                    else kern_lisa.getis_star_count)
+    else:
+        obs = kern_lisa.gi_center(lag_o, me_o, w_row, tot, sq, inv_m)
+        kw = dict(w_row=w_row, tot=tot, sq=sq, inv_m=inv_m, lag_o=lag_o,
+                  me_o=me_o)
+        count_fn = (kern_lisa.getis_g_count_plain if use_plain
+                    else kern_lisa.getis_g_count)
+    base = key_for(seed, "perm_feistel_getis", 0)
+    count = torch.zeros(obs.shape, dtype=kern_lisa.counter_dtype(
+        n_permutations), device=dev)
+    for step in range(n_permutations):
+        Xp = Xq[feistel_apply(fold_in(base, step), rows_idx, plan.n)]
+        count_fn(li32, wb, Xp, B, obs, count, alternative=alternative,
+                 **far_of(Xp), **kw)
+    return _p_from_counts(count[plan.rank, :G], n_permutations)
+
+
+def _banded_getis_p(plan: NullPlan, X: torch.Tensor, seed: int, *,
+                    n_permutations: int, star: bool, alternative: str,
+                    precision: str) -> torch.Tensor:
+    """Getis-Ord Gi/Gi* permutation p_sim through the bf16/f32 banded null
+    (reference ``_banded_getis_p``, ops/banded.py:3033; torch ops on the
+    compact band here). The per-gene column statistics are invariant under
+    the column shuffle and the per-cell scale cancels, so Gi* compares the
+    centred binary lag ``(lag + x) − (tot/m)·(W+1)`` and Gi the
+    leave-one-out ``(lag − x̄_(i)·W)/s_(i)``. Returns p_sim [n, G]."""
+    B = plan.block
+    n_padded = plan.n_padded
+    wdt = torch.bfloat16 if precision == "bf16" else torch.float32
+    wb = (plan.w_local > 0).to(torch.float32)
+    w = wb.to(wdt)
+    Xf = X.to(torch.float32)
+    Xtab = Xf.to(wdt)
+    dev = X.device
+    rows_idx = _padded_rows(plan, dev)
+    n_live = _n_live_far(plan)
+    fdst, fw = _far_slots(plan, n_live)
+    far = (fdst, (fw > 0).to(torch.float32))        # binary far weights
+    w_row = wb.sum(dim=1).index_add_(
+        0, plan.far_src[:n_live] - B,
+        torch.ones(n_live, dtype=torch.float32, device=dev))[:, None]
+    tot = Xf.sum(dim=0)
+    sq = (Xf * Xf).sum(dim=0)
+    del Xf
+    inv_m = _inv_m(plan.n, star)
+    chunks = _row_spans(n_padded, B, X.shape[1])
+
+    def center(rows):
+        Xp = Xtab[rows]
+        for r0, r1 in chunks:
+            lag = _banded_lag(plan.local_idx, w, Xp, B, far, r0, r1)
+            me = Xp[B + r0:B + r1].to(torch.float32)
+            W = w_row[r0:r1]
+            if star:
+                yield r0, r1, (lag + me) - (tot * inv_m) * (W + 1.0)
+                continue
+            xbar = (tot - me) * inv_m
+            s2 = torch.clamp_min((sq - me * me) * inv_m - xbar * xbar, 0.0)
+            s = torch.sqrt(torch.where(s2 > 0, s2, torch.ones_like(s2)))
+            yield r0, r1, (lag - xbar * W) / s
+
+    obs_c = torch.empty((n_padded, X.shape[1]), dtype=torch.float32, device=dev)
+    for r0, r1, c in center(rows_idx):
+        obs_c[r0:r1] = c
+    base = key_for(seed, "perm_feistel_getis", 0)
+    cdt = torch.int16 if n_permutations <= 32767 else torch.int32
+    count = torch.zeros(obs_c.shape, dtype=cdt, device=dev)
+    for step in range(n_permutations):
+        for r0, r1, c in center(feistel_apply(fold_in(base, step), rows_idx,
+                                              plan.n)):
+            count[r0:r1] += _extreme(c, obs_c[r0:r1], alternative).to(cdt)
+    return _p_from_counts(count[plan.rank], n_permutations)
+
+
+def banded_getis(plan: NullPlan, X: torch.Tensor, seed: int,
+                 n_permutations: int, star: bool = True,
+                 alternative: str = "two-sided", precision: str = "f32",
+                 perm_method: str = "feistel", band_impl: str = "auto"
+                 ) -> torch.Tensor:
+    """Getis-Ord permutation p_sim via the banded plan (reference
+    ``banded_getis``), on raw ``X``. Observed G / z / analytic p come from
+    the exact direct pass (``ops.getis.getis_ord`` with P=0).
+
+    ``precision``: "f32" / "bf16" run the float null in torch ops; "int8"
+    quantizes X per gene against the exact binary adjacency, its draw step
+    on a CUDA tensor the Hopper kernel's getis_star / getis_g tail with
+    row-pointer far edges (``band_impl`` "auto" or "pallas"); "xla" runs
+    the kernel's plain version on any device.
+    """
+    if precision not in ("bf16", "f32", "int8"):
+        raise ValueError(
+            f"banded_getis supports precision 'bf16', 'f32' or 'int8', "
+            f"got {precision!r}")
+    if alternative not in ("two-sided", "greater", "less"):
+        raise ValueError(f"invalid alternative {alternative!r}")
+    _check_perm_method(perm_method)
+    _check_impl(band_impl)
+    seed = int(seed) & 0xFFFFFFFF
+    if precision == "int8":
+        return _banded_getis_p_i8(plan, X, seed, n_permutations=n_permutations,
+                                  star=star, alternative=alternative,
+                                  band_impl=band_impl)
+    return _banded_getis_p(plan, X, seed, n_permutations=n_permutations,
+                           star=star, alternative=alternative,
+                           precision=precision)

@@ -1,15 +1,16 @@
 """Moran's I and Geary's C: standardization, observed statistics, analytic
-moments, normal-tail p-values, and the local Moran (LISA) observed part.
+moments, normal-tail p-values, and the observed parts of local Moran (LISA)
+and local Geary.
 
-Port of the global part and of ``local_moran`` / ``classify_quadrants`` of
-``spatialcore_tpu/ops/moran.py``. Estimator conventions (squidpy/esda):
+Port of the global part and of ``local_moran`` / ``classify_quadrants`` /
+``local_geary`` of ``spatialcore_tpu/ops/moran.py``. Estimator conventions (squidpy/esda):
 
     I   = (n / S0) · zᵀ W z / zᵀz,               E[I] = −1/(n−1)
     C   = (n−1) Σ_ij w_ij (z_i−z_j)² / (2 S0 Σ z²), E[C] = 1
     VarN / VarR : Cliff & Ord (1981) normality / randomization formulas.
 
 The slot permutation nulls (``permutation_test_global``, and
-``local_moran`` with ``n_permutations > 0``) draw with
+``local_moran`` / ``local_geary`` with ``n_permutations > 0``) draw with
 ``jax.random.permutation`` and are not ported yet (ROADMAP Queue 1 item 4);
 the banded nulls in ``ops/banded.py`` serve the permutation p-values.
 """
@@ -144,6 +145,45 @@ def local_moran(graph: SpatialGraph, Z: torch.Tensor, seed: int,
     lag = spatial_lag(graph, Z)
     I_obs = Z * lag
     return LocalMoranResult(I_obs, Z, lag, torch.ones_like(I_obs))
+
+
+# ---------------------------------------------------------------------------
+# Local Geary's C
+# ---------------------------------------------------------------------------
+
+
+class LocalGearyResult(NamedTuple):
+    local_C: torch.Tensor   # [N, G]
+    p_value: torch.Tensor   # [N, G] one-sided (low C = positive autocorr)
+
+
+def local_geary(graph: SpatialGraph, Z: torch.Tensor, seed: int = 0,
+                n_permutations: int = 0, null: str = "conditional"
+                ) -> LocalGearyResult:
+    """Local Geary's C (Anselin 1995): c_i = Σ_j w_ij (z_i − z_j)², one
+    pass over the k neighbour slots in slot order (the reference's).
+
+    Small c_i: the cell resembles its neighbours. With
+    ``n_permutations=0`` p is all ones, as in the reference. Its slot nulls
+    ("conditional" and "total") draw with ``jax.random.permutation`` and
+    are not ported yet: ``n_permutations > 0`` raises
+    ``NotImplementedError``; ``ops.banded.banded_local_geary`` serves the
+    total-null p-values.
+    """
+    del seed
+    if null not in ("total", "conditional"):
+        raise ValueError(
+            f"null must be 'total' or 'conditional', got {null!r}")
+    if n_permutations > 0:
+        raise NotImplementedError(
+            "the slot local-Geary null (local_geary with n_permutations > 0) "
+            "draws with jax.random.permutation, which is not ported yet "
+            "(ROADMAP Queue 1 item 4); use ops.banded.banded_local_geary")
+    c = torch.zeros_like(Z)
+    for j in range(graph.neighbor_idx.shape[1]):
+        d = Z - Z[graph.neighbor_idx[:, j]]
+        c = c + graph.neighbor_w[:, j:j + 1] * d * d
+    return LocalGearyResult(c, torch.ones_like(c))
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,21 @@
-"""Public spatial autocorrelation: global Moran's I and Geary's C, and local
-Moran's I (LISA).
+"""Public spatial autocorrelation: global Moran's I and Geary's C, local
+Moran's I (LISA), local Geary's C and Getis-Ord Gi* / Gi.
 
-Port of ``build_spatial_weights``, ``morans_i``, ``gearys_c`` and
-``local_morans_i`` of ``spatialcore_tpu/spatial/autocorrelation.py`` and
-their helpers. Same parameters and outputs (the global ``uns`` DataFrames
-``gene, I|C, expected_I|expected_C, z_score, p_value``; the six LISA
-``obsm`` planes and ``uns[f"{key}_params"]``), plus an explicit ``device``.
-"Device mode" of ``local_morans_i`` — outputs kept on the card — is "X is a
-CUDA tensor".
+Port of ``build_spatial_weights``, ``morans_i``, ``gearys_c``,
+``local_morans_i``, ``local_gearys_c`` and ``getis_ord_gi`` of
+``spatialcore_tpu/spatial/autocorrelation.py`` and their helpers. Same
+parameters and outputs (the global ``uns`` DataFrames ``gene, I|C,
+expected_I|expected_C, z_score, p_value``; the local ``obsm`` planes and
+``uns[f"{key}_params"]``), plus an explicit ``device``. "Device mode" of
+the local functions — outputs kept on the card — is "X is a CUDA tensor".
 
-Permutation p-values come from the banded null (``ops/banded.py``). Not
-ported yet, and refused loudly: the slot null (``null_method="slots"``, and
-"auto" where it resolves to it; ROADMAP Queue 1 item 4) and gene sharding
-over a ``mesh`` (Queue 1 item 15). Unknown ``null_method`` strings raise
-``ValueError`` (the reference runs the slot null for them, ROADMAP Queue 3).
+Permutation p-values come from the banded nulls (``ops/banded.py``). Not
+ported yet, and refused loudly: the slot nulls (``null_method="slots"`` or
+"direct" with permutations, "auto" where it resolves to them, and
+``null="conditional"``; ROADMAP Queue 1 item 4) and gene sharding over a
+``mesh`` (Queue 1 item 15). Unknown ``null_method`` strings raise
+``ValueError`` (the reference's global path runs the slot null for them,
+ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -28,14 +30,16 @@ import torch
 
 from ..core.logging import get_logger
 from ..core.metadata import update_metadata
-from ..ops.banded import (banded_local_moran, banded_permutation_test,
+from ..ops.banded import (banded_getis, banded_local_geary,
+                          banded_local_moran, banded_permutation_test,
                           build_null_plan)
 from ..ops.fdr import apply_fdr
 from ..ops.graph import SpatialGraph, build_graph, graph_from_numpy, graph_moments
+from ..ops.getis import getis_ord
 from ..ops.moran import (QUADRANT_LABELS, classify_quadrants,
-                         geary_analytic_moments, geary_observed, local_moran,
-                         moran_analytic_moments, moran_observed, p_from_z,
-                         standardize)
+                         geary_analytic_moments, geary_observed, local_geary,
+                         local_moran, moran_analytic_moments, moran_observed,
+                         p_from_z, standardize)
 from ..ops.streaming import (device_local_sink, host_local_sink,
                              streaming_local_null)
 
@@ -361,34 +365,67 @@ def _x_is_device(adata, layer) -> bool:
     return isinstance(X, torch.Tensor) and X.is_cuda
 
 
+def _check_output_mode(output_mode: str) -> None:
+    if output_mode not in ("auto", "full", "compact"):
+        raise ValueError(f"output_mode must be 'auto', 'full' or "
+                         f"'compact', got {output_mode!r}")
+
+
+def _resolve_output_mode(output_mode: str, plan, X_is_device: bool, n_cells,
+                         n_genes, bytes_per_value: int, n_permutations: int,
+                         hint: str) -> str:
+    """"auto" streams (compact) when the full planes of a CUDA ``X`` would
+    exceed ~8 GB on the banded path; "compact" needs that path."""
+    if output_mode == "auto":
+        output_mode = ("compact" if plan is not None and X_is_device
+                       and n_cells * n_genes * bytes_per_value > 8e9 else "full")
+    if output_mode == "compact" and (plan is None or n_permutations <= 0):
+        raise ValueError("output_mode='compact' streams through the banded "
+                         f"null path — use {hint} and n_permutations > 0")
+    return output_mode
+
+
+def _run_compact_stream(adata, stat: str, names, layer, graph, plan,
+                        n_permutations, fdr, alpha, seed, tile, precision,
+                        X_is_device, device_keys, device: Device, star=True,
+                        alternative="two-sided"):
+    """Shared memory-bounded local-statistic runner: stream gene tiles
+    through ``ops.streaming.streaming_local_null`` and return the output
+    planes. A CUDA ``X`` keeps compact planes on the card (``device_keys``
+    only, through the lean post-pass that computes just those); any other
+    ``X`` flushes float32 host arrays per tile. Serves the
+    ``output_mode="compact"`` paths of ``local_morans_i``,
+    ``local_gearys_c`` and ``getis_ord_gi``."""
+    def get_tile(s, w):
+        return _dense_expression(adata, names[s:s + w], layer, device)
+
+    if X_is_device:
+        sink, finalize = device_local_sink(len(names), keys=device_keys)
+        stream_keys = device_keys
+    else:
+        sink, store = host_local_sink(adata.n_obs, len(names))
+        stream_keys = None
+    streaming_local_null(
+        graph, plan, get_tile, len(names), sink, stat=stat, seed=seed,
+        n_permutations=n_permutations, tile=tile, fdr=fdr, alpha=alpha,
+        star=star, alternative=alternative, precision=precision,
+        keys=stream_keys, device=device)
+    return finalize() if X_is_device else store
+
+
 def _local_morans_compact(adata, gene_names, layer, graph, plan, n_neighbors,
                           n_permutations, fdr_correction, alpha, seed, tile,
                           key_added, null_precision, X_is_device, start,
                           device: Device):
-    """Memory-bounded LISA: stream gene tiles through the banded null
-    (``ops.streaming.streaming_local_null``).
-
-    A CUDA ``X`` keeps compact outputs on the card (I bf16, p/p_adj f16,
-    quadrant int8: 7 bytes per cell and gene, ~7 GB at 1M × 1,024 against
-    24 GB of float32 planes), through the lean post-pass that computes only
-    those planes; any other ``X`` flushes float32 host arrays per tile.
-    """
-    n_cells, n_genes = adata.n_obs, len(gene_names)
-
-    def get_tile(s, w):
-        return _dense_expression(adata, gene_names[s:s + w], layer, device)
-
-    if X_is_device:
-        sink, finalize = device_local_sink(n_genes, keys=COMPACT_KEYS)
-        stream_keys = COMPACT_KEYS
-    else:
-        sink, store = host_local_sink(n_cells, n_genes)
-        stream_keys = None
-    streaming_local_null(
-        graph, plan, get_tile, n_genes, sink, stat="moran", seed=seed,
-        n_permutations=n_permutations, tile=tile, fdr=fdr_correction,
-        alpha=alpha, precision=null_precision, keys=stream_keys, device=device)
-    out = finalize() if X_is_device else store
+    """Memory-bounded LISA (:func:`_run_compact_stream`): a CUDA ``X``
+    keeps I (bf16), p/p_adj (f16) and quadrant (int8) on the card, 7 bytes
+    per cell and gene (~7 GB at 1M × 1,024 against 24 GB of float32
+    planes)."""
+    n_genes = len(gene_names)
+    out = _run_compact_stream(
+        adata, "moran", gene_names, layer, graph, plan, n_permutations,
+        fdr_correction, alpha, seed, tile, null_precision, X_is_device,
+        COMPACT_KEYS, device)
     for k in COMPACT_KEYS:
         adata.obsm[f"{key_added}_{k}"] = out[k]
     elapsed = time.time() - start
@@ -474,9 +511,7 @@ def local_morans_i(
                          f"got {null_method!r}")
     if null not in ("total", "conditional"):
         raise ValueError(f"null must be 'total' or 'conditional', got {null!r}")
-    if output_mode not in ("auto", "full", "compact"):
-        raise ValueError(f"output_mode must be 'auto', 'full' or "
-                         f"'compact', got {output_mode!r}")
+    _check_output_mode(output_mode)
     if copy:
         adata = adata.copy()
     if spatial_key not in adata.obsm:
@@ -515,15 +550,10 @@ def local_morans_i(
             "or 'banded_int8' with null='total'")
 
     X_is_device = _x_is_device(adata, layer)
-    if output_mode == "auto":
-        output_mode = ("compact" if plan is not None and X_is_device
-                       and n_cells * n_genes * 24 > 8e9 else "full")
+    output_mode = _resolve_output_mode(
+        output_mode, plan, X_is_device, n_cells, n_genes, 24, n_permutations,
+        "null_method='banded'/'banded_int8'")
     if output_mode == "compact":
-        if plan is None or n_permutations <= 0:
-            raise ValueError(
-                "output_mode='compact' streams through the banded null "
-                "path — use null_method='banded'/'banded_int8' with "
-                "n_permutations > 0")
         return _local_morans_compact(
             adata, gene_names, layer, graph, plan, n_neighbors,
             n_permutations, fdr_correction, alpha, seed,
@@ -634,4 +664,336 @@ def local_morans_i(
         outputs={f"obsm_{s}": f"{key_added}_{s}" for s in LOCAL_KEYS}
         | {"uns_params": f"{key_added}_params"},
     )
+    return adata
+
+
+# ---------------------------------------------------------------------------
+# Local Geary's C and Getis-Ord Gi* / Gi
+# ---------------------------------------------------------------------------
+
+LOCAL_NULL_METHODS = ("auto", "banded", "banded_int8", "direct")
+
+
+def _check_local_null_method(null_method: str) -> None:
+    if null_method not in LOCAL_NULL_METHODS:
+        raise ValueError("null_method must be 'auto', 'banded', "
+                         f"'banded_int8' or 'direct', got {null_method!r}")
+
+
+def _local_null(null_method: str, n_cells: int, k_eff: int, n_permutations: int,
+                total_null: bool = True):
+    """Resolve a local statistic's ``null_method`` as the reference does:
+    ``(use_banded, precision)``. The banded null needs permutations and the
+    total null; "auto" takes it (float32) at ≥ 100k cells on k ≥ 16
+    graphs."""
+    precision = "int8" if null_method == "banded_int8" else "f32"
+    banded = null_method in ("banded", "banded_int8")
+    use = (total_null and n_permutations > 0 and null_method != "direct"
+           and (banded or (n_cells >= 100_000 and k_eff >= 16)))
+    return use, precision
+
+
+def local_gearys_c(
+    adata,
+    genes: Optional[Union[str, List[str]]] = None,
+    layer: Optional[str] = None,
+    spatial_key: str = "spatial",
+    n_neighbors: int = 6,
+    n_permutations: int = 99,
+    fdr_correction: Literal["bonferroni", "fdr_bh", "none"] = "fdr_bh",
+    seed: int = 0,
+    batch_size: int = 100,
+    key_added: str = "local_geary",
+    use_existing_graph: bool = False,
+    null: str = "conditional",
+    copy: bool = False,
+    null_method: str = "auto",
+    output_mode: str = "auto",
+    device: Device = "cuda",
+):
+    """Local Geary's C per cell × gene: c_i = Σ_j w_ij (z_i − z_j)².
+
+    Small C with small p: the cell sits in a coherent neighbourhood for
+    that gene. Writes ``obsm[f"{key}_C"]``, ``obsm[f"{key}_p"]`` (one-sided,
+    low tail), ``obsm[f"{key}_p_adj"]`` and ``uns[f"{key}_params"]``; CUDA
+    tensors when ``X`` (or ``layer``) is a CUDA tensor, host numpy arrays
+    otherwise. The observed C comes from one exact pass.
+
+    ``null``: "total" (whole-column shuffle) or "conditional" (the
+    reference's default, GeoDa's convention). ``null_method``: with
+    ``null="total"``, "banded" (float32 banded null, torch ops) or
+    "banded_int8" (the fully integer null, k ≤ 256: the Hopper kernel's
+    geary tail on the card); "auto" takes the float32 banded null at
+    ≥ 100k cells on k ≥ 16 graphs. The conditional null and "direct" run
+    the slot null, which is not ported yet: with ``n_permutations > 0``
+    they raise ``NotImplementedError``; ``n_permutations=0`` gives C with
+    p = 1.
+
+    ``output_mode``: "full" keeps three float32 [N, G] planes; "compact"
+    streams gene tiles of ``max(batch_size, 256)`` through
+    ``ops.streaming.streaming_local_null`` (banded path only) and keeps C
+    (bf16) and p/p_adj (f16) on the card for a CUDA ``X``; "auto" picks
+    "compact" when the full planes of a CUDA ``X`` would exceed ~8 GB.
+    """
+    _check_local_null_method(null_method)
+    _check_output_mode(output_mode)
+    start = time.time()
+    if copy:
+        adata = adata.copy()
+    if spatial_key not in adata.obsm:
+        raise ValueError(f"adata.obsm['{spatial_key}'] not found. "
+                         "Spatial coordinates are required.")
+    gene_names = _resolve_genes(adata, genes)
+    n_cells, n_genes = adata.n_obs, len(gene_names)
+    graph = _get_graph(adata, n_neighbors, spatial_key, use_existing_graph,
+                       device)
+    use_banded, band_prec = _local_null(
+        null_method, n_cells, int(graph.neighbor_idx.shape[1]), n_permutations,
+        total_null=null == "total")
+    if null_method in ("banded", "banded_int8") and null != "total":
+        logger.warning("null='conditional' is not supported by the banded "
+                       "path; using the direct kernel")
+    if n_permutations > 0 and not use_banded:
+        raise NotImplementedError(
+            "the slot local-Geary null (null='conditional', or "
+            "null_method='direct') is not ported yet (ROADMAP Queue 1 item "
+            "4); pass null='total' with null_method='banded' or "
+            "'banded_int8'")
+    plan = _get_null_plan(adata, graph, spatial_key) if use_banded else None
+    X_is_device = _x_is_device(adata, layer)
+    output_mode = _resolve_output_mode(
+        output_mode, plan, X_is_device, n_cells, n_genes, 12, n_permutations,
+        "null='total' with null_method='banded'/'banded_int8'")
+    method_name = ("banded_int8" if band_prec == "int8" else "banded")
+    keys = ("C", "p", "p_adj")
+    if output_mode == "compact":
+        out = _run_compact_stream(
+            adata, "geary", gene_names, layer, graph, plan, n_permutations,
+            fdr_correction, 0.05, seed, max(batch_size, 256), band_prec,
+            X_is_device, keys, device)
+        for k in keys:
+            adata.obsm[f"{key_added}_{k}"] = out[k]
+        adata.uns[f"{key_added}_params"] = {
+            "genes": gene_names, "n_neighbors": n_neighbors,
+            "n_permutations": n_permutations, "seed": seed,
+            "fdr_correction": fdr_correction, "null": null,
+            "null_method": method_name, "output_mode": "compact",
+            "computation_time_seconds": round(time.time() - start, 2),
+        }
+        logger.info(f"Local Geary's C (compact streaming): {n_cells:,} cells "
+                    f"× {n_genes} genes ({time.time() - start:.1f}s)")
+        update_metadata(adata, "local_gearys_c",
+                        parameters={"n_genes": n_genes,
+                                    "n_permutations": n_permutations,
+                                    "seed": seed, "output_mode": "compact",
+                                    "backend": "spatialcore_tpu_torch",
+                                    "device": str(device)},
+                        outputs={"obsm": [f"{key_added}_{k}" for k in keys],
+                                 "uns": f"{key_added}_params"})
+        return adata
+
+    batches = []
+    for bs in range(0, n_genes, batch_size):
+        batch = gene_names[bs:bs + batch_size]
+        Z, zero_var = standardize(_dense_expression(adata, batch, layer, device))
+        C = local_geary(graph, Z, seed, 0, null=null).local_C
+        if plan is not None:
+            p = banded_local_geary(plan, Z, seed, n_permutations,
+                                   precision=band_prec)[1]
+        else:
+            p = torch.ones_like(C)
+        del Z
+        zv = zero_var[None, :]
+        batches.append((torch.where(zv, 0.0, C), torch.where(zv, 1.0, p)))
+        del C, p
+    if batches:
+        C_all, p_all = _concat_device_batches(batches)
+    else:
+        C_all = torch.zeros((n_cells, 0), device=device)
+        p_all = torch.ones((n_cells, 0), device=device)
+    p_adj = (apply_fdr(p_all, fdr_correction, axis=0,
+                       n_levels=n_permutations + 1)
+             if n_permutations > 0 else p_all)
+    out = (lambda t: t) if X_is_device else (lambda t: t.cpu().numpy())
+    adata.obsm[f"{key_added}_C"] = out(C_all)
+    adata.obsm[f"{key_added}_p"] = out(p_all)
+    adata.obsm[f"{key_added}_p_adj"] = out(p_adj)
+    adata.uns[f"{key_added}_params"] = {
+        "genes": gene_names, "n_neighbors": n_neighbors,
+        "n_permutations": n_permutations, "seed": seed,
+        "fdr_correction": fdr_correction, "null": null,
+        "null_method": method_name if plan is not None else "direct",
+        "computation_time_seconds": round(time.time() - start, 2),
+    }
+    logger.info(f"Local Geary's C: {n_cells:,} cells × {n_genes} genes "
+                f"({time.time() - start:.1f}s)")
+    update_metadata(adata, "local_gearys_c",
+                    parameters={"n_genes": n_genes,
+                                "n_permutations": n_permutations,
+                                "seed": seed,
+                                "backend": "spatialcore_tpu_torch",
+                                "device": str(device)},
+                    outputs={"obsm": [f"{key_added}_{k}" for k in keys],
+                             "uns": f"{key_added}_params"})
+    return adata
+
+
+def getis_ord_gi(
+    adata,
+    genes: Optional[Union[str, List[str]]] = None,
+    layer: Optional[str] = None,
+    spatial_key: str = "spatial",
+    n_neighbors: int = 6,
+    star: bool = True,
+    alternative: Literal["two-sided", "greater", "less"] = "two-sided",
+    n_permutations: int = 0,
+    fdr_correction: Literal["bonferroni", "fdr_bh", "none"] = "fdr_bh",
+    alpha: float = 0.05,
+    seed: int = 0,
+    batch_size: int = 100,
+    key_added: str = "getis_ord",
+    copy: bool = False,
+    use_existing_graph: bool = False,
+    null_method: str = "auto",
+    output_mode: str = "auto",
+    device: Device = "cuda",
+):
+    """Getis-Ord Gi* (``star``) / Gi hot-spot z-scores per cell × gene, on
+    RAW expression (binary kNN adjacency).
+
+    Writes ``obsm[f"{key}_G" / "_z" / "_p" / "_p_adj" / "_hotspot"]`` (and
+    ``_p_sim`` with permutations; hotspot int8: 1 hot, −1 cold, 0 NS after
+    FDR at ``alpha``) and ``uns[f"{key}_params"]``; CUDA tensors when ``X``
+    is a CUDA tensor, host numpy arrays otherwise. G, z and the analytic p
+    come from one exact pass. The default ``n_permutations=0`` is the
+    analytic path alone (BH over the analytic p, no kernel).
+
+    With permutations, ``null_method`` "banded" (float32 banded null,
+    torch ops) or "banded_int8" (per-gene int8 codes against the exact
+    binary adjacency: the Hopper kernel's getis_star / getis_g tail on the
+    card) gives p_sim, and BH runs over p_sim; "auto" takes the float32
+    banded null at ≥ 100k cells on k ≥ 16 graphs. "direct" (and "auto"
+    below that) is the slot null, which is not ported yet
+    (``NotImplementedError``).
+
+    ``output_mode``: "full" keeps float32 planes; "compact" streams gene
+    tiles through ``ops.streaming.streaming_local_null`` (banded path
+    only), keeping G / z (bf16), p / p_sim / p_adj (f16) and hotspot
+    (int8) on the card for a CUDA ``X``; "auto" picks "compact" when the
+    full planes of a CUDA ``X`` would exceed ~8 GB.
+    """
+    start = time.time()
+    if copy:
+        adata = adata.copy()
+    if spatial_key not in adata.obsm:
+        raise ValueError(f"adata.obsm['{spatial_key}'] not found. Spatial "
+                         "coordinates are required.")
+    if alternative not in ("two-sided", "greater", "less"):
+        raise ValueError("alternative must be 'two-sided', 'greater' or "
+                         f"'less', got {alternative!r}")
+    _check_local_null_method(null_method)
+    _check_output_mode(output_mode)
+    gene_names = _resolve_genes(adata, genes)
+    n_cells, n_genes = adata.n_obs, len(gene_names)
+    logger.info(f"Getis-Ord {'Gi*' if star else 'Gi'}: {n_cells:,} cells × "
+                f"{n_genes} genes, k={n_neighbors}, P={n_permutations}")
+    graph = _get_graph(adata, n_neighbors, spatial_key, use_existing_graph,
+                       device)
+    use_banded, band_prec = _local_null(
+        null_method, n_cells, int(graph.neighbor_idx.shape[1]), n_permutations)
+    if n_permutations > 0 and not use_banded:
+        raise NotImplementedError(
+            "the slot Getis-Ord null (null_method='direct', or 'auto' below "
+            "100k cells / k=16) is not ported yet (ROADMAP Queue 1 item 4); "
+            "pass null_method='banded' or 'banded_int8'")
+    plan = _get_null_plan(adata, graph, spatial_key) if use_banded else None
+    X_is_device = _x_is_device(adata, layer)
+    output_mode = _resolve_output_mode(
+        output_mode, plan, X_is_device, n_cells, n_genes, 24, n_permutations,
+        "null_method='banded'/'banded_int8'")
+    method_name = ("banded_int8" if band_prec == "int8" else "banded")
+    suffix = {"G": "G", "z_score": "z", "p": "p", "p_sim": "p_sim",
+              "p_adj": "p_adj", "hotspot": "hotspot"}
+    if output_mode == "compact":
+        out = _run_compact_stream(
+            adata, "getis", gene_names, layer, graph, plan, n_permutations,
+            fdr_correction, alpha, seed, max(batch_size, 256), band_prec,
+            X_is_device, tuple(suffix), device, star=star,
+            alternative=alternative)
+        for k, sfx in suffix.items():
+            adata.obsm[f"{key_added}_{sfx}"] = out[k]
+        elapsed = time.time() - start
+        adata.uns[f"{key_added}_params"] = {
+            "genes": gene_names, "n_neighbors": n_neighbors, "star": star,
+            "alternative": alternative, "n_permutations": n_permutations,
+            "fdr_correction": fdr_correction, "alpha": alpha, "seed": seed,
+            "null_method": method_name, "output_mode": "compact",
+            "computation_time_seconds": elapsed,
+        }
+        update_metadata(
+            adata, "getis_ord_gi",
+            parameters={"genes": gene_names[:10], "n_genes": n_genes,
+                        "n_neighbors": n_neighbors, "star": star,
+                        "n_permutations": n_permutations, "alpha": alpha,
+                        "seed": seed, "output_mode": "compact",
+                        "backend": "spatialcore_tpu_torch",
+                        "device": str(device)},
+            outputs={f"obsm_{s}": f"{key_added}_{s}" for s in suffix.values()}
+            | {"uns_params": f"{key_added}_params"})
+        logger.info(f"Getis-Ord (compact streaming) completed in "
+                    f"{elapsed:.1f}s")
+        return adata
+
+    batches = []
+    for bs in range(0, n_genes, batch_size):
+        X = _dense_expression(adata, gene_names[bs:bs + batch_size], layer,
+                              device)
+        res = getis_ord(graph, X, star=star, alternative=alternative)
+        p_sim = (banded_getis(plan, X, seed, n_permutations, star=star,
+                              alternative=alternative, precision=band_prec)
+                 if plan is not None else res.p_sim)
+        del X
+        batches.append((res.G, res.z_score, res.p_value, p_sim))
+        del res, p_sim
+    if batches:
+        G_all, z_all, p_all, psim_all = _concat_device_batches(batches)
+    else:
+        G_all = torch.zeros((n_cells, 0), device=device)
+        z_all = torch.zeros_like(G_all)
+        p_all = torch.ones_like(G_all)
+        psim_all = torch.ones_like(G_all)
+    # p_sim lies on the (c+1)/(P+1) grid -> the sort-free discrete BH; the
+    # analytic p is continuous and keeps the sort path
+    p_adj = apply_fdr(psim_all if n_permutations > 0 else p_all,
+                      fdr_correction, axis=0,
+                      n_levels=n_permutations + 1 if n_permutations > 0 else 0)
+    hotspot = torch.where(p_adj < alpha, torch.sign(z_all).to(torch.int8),
+                          torch.zeros((), dtype=torch.int8, device=z_all.device))
+    out = (lambda t: t) if X_is_device else (lambda t: t.cpu().numpy())
+    adata.obsm[f"{key_added}_G"] = out(G_all)
+    adata.obsm[f"{key_added}_z"] = out(z_all)
+    adata.obsm[f"{key_added}_p"] = out(p_all)
+    if n_permutations > 0:
+        adata.obsm[f"{key_added}_p_sim"] = out(psim_all)
+    adata.obsm[f"{key_added}_p_adj"] = out(p_adj)
+    adata.obsm[f"{key_added}_hotspot"] = out(hotspot)
+    elapsed = time.time() - start
+    adata.uns[f"{key_added}_params"] = {
+        "genes": gene_names, "n_neighbors": n_neighbors, "star": star,
+        "alternative": alternative, "n_permutations": n_permutations,
+        "fdr_correction": fdr_correction, "alpha": alpha, "seed": seed,
+        "null_method": method_name if plan is not None else "direct",
+        "computation_time_seconds": elapsed,
+    }
+    update_metadata(
+        adata, "getis_ord_gi",
+        parameters={"genes": gene_names[:10], "n_genes": n_genes,
+                    "n_neighbors": n_neighbors, "star": star,
+                    "n_permutations": n_permutations, "alpha": alpha,
+                    "seed": seed, "backend": "spatialcore_tpu_torch",
+                    "device": str(device)},
+        outputs={f"obsm_{s}": f"{key_added}_{s}"
+                 for s in ("G", "z", "p", "p_adj", "hotspot")}
+        | {"uns_params": f"{key_added}_params"})
+    logger.info(f"Getis-Ord completed in {elapsed:.1f}s")
     return adata

@@ -7,8 +7,10 @@ without the JAX package's test configuration:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Tolerance: band cross |Δcross_g| ≤ 1e-5 · Σ_i |term_i| — float32 summation
-order only; the integer lags are exact in both versions. The LISA kernel's
-counts and observed values are exact integers: equal.
+order only; the integer lags are exact in both versions. The local
+statistics' draw-step kernel (LISA, local Geary, Gi*, Gi): counts and
+observed values equal — exact integers, and Gi's float32 centring rounds
+at the plain version's places.
 """
 
 import pytest
@@ -200,4 +202,140 @@ def test_lisa_pvalues_on_the_card_equal_the_cpu(cuda_device, plan):
     for impl in ("auto", "pallas"):
         got = banded.banded_local_moran_pvalues(on_card, Z.to(cuda_device), 9, 19,
                                                 band_impl=impl)
+        assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# The geary, getis_star and getis_g tails of the same kernel: exact
+# integers, or float32 rounded at the plain version's places, so equality
+# ---------------------------------------------------------------------------
+
+
+def _tail_operands(nb: int, G: int, getis: bool, seed: int = 5):
+    """Operands of the geary / Getis entries: LISA's synthetic band and far
+    list, with 0/1 codes and non-negative values for Getis."""
+    o = _lisa_operands(nb, G, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    far = dict(o["far"]["rows"])
+    n = o["li"].shape[0]
+    src = torch.repeat_interleave(torch.arange(n), far["far_row_ptr"].diff().long())
+    wq = o["wq"]
+    if getis:
+        wq = (wq != 0).to(torch.int8)
+        far["far_q"] = torch.ones_like(far["far_q"])
+        o["zp"] = o["zp"].abs()
+        far["Zf"] = far["Zf"].abs()
+    w_row = wq.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
+        0, src, far["far_q"].to(torch.int32))
+    other = torch.randint(0 if getis else -127, 128, o["zp"].shape, generator=gen,
+                          dtype=torch.int8)
+    other_far = dict(far, Zf=torch.randint(0 if getis else -127, 128,
+                                           far["Zf"].shape, generator=gen,
+                                           dtype=torch.int8))
+    return dict(li=o["li"], wq=wq, zp=o["zp"], far=far, w_row=w_row,
+                other=other, other_far=other_far)
+
+
+def _on(t, dev):
+    return t.to(dev) if isinstance(t, torch.Tensor) else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,G", [(1, 64), (5, 260)], ids=["one_block", "G260"])
+@pytest.mark.parametrize("cdt", [torch.int8, torch.int16, torch.int32])
+def test_geary_kernel_equals_plain(cuda_device, nb, G, cdt):
+    o = _tail_operands(nb, G, getis=False)
+    obs = kern_lisa.geary_observed(o["li"], o["wq"], o["other"], B, o["w_row"],
+                                   **o["other_far"])
+    cnt0 = torch.randint(0, 100, obs.shape).to(cdt)
+    want = kern_lisa.geary_count(o["li"], o["wq"], o["zp"], B, obs, cnt0.clone(),
+                                 o["w_row"], **o["far"])
+    assert 0 < int((want != cnt0).sum()) < want.numel()
+    before = kern_lisa.LAUNCHES["geary_win"]
+    got = kern_lisa.geary_count(*[_on(t, cuda_device) for t in (
+        o["li"], o["wq"], o["zp"])], B, obs.to(cuda_device), cnt0.to(cuda_device),
+        o["w_row"].to(cuda_device), **{k: _on(v, cuda_device) for k, v in o["far"].items()})
+    torch.cuda.synchronize()
+    assert kern_lisa.LAUNCHES["geary_win"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("getis", [False, True], ids=["geary", "getis_lag"])
+def test_geary_and_getis_observed_kernels_equal_plain(cuda_device, getis):
+    o = _tail_operands(3, 132, getis=getis)
+    far_dev = {k: _on(v, cuda_device) for k, v in o["far"].items()}
+    args = [o["li"], o["wq"], o["zp"]]
+    args_dev = [t.to(cuda_device) for t in args]
+    mode = "getis_obs" if getis else "geary_obs"
+    before = kern_lisa.LAUNCHES[mode]
+    if getis:
+        want = kern_lisa.getis_lag(*args, B, **o["far"])
+        got = kern_lisa.getis_lag(*args_dev, B, **far_dev)
+    else:
+        want = kern_lisa.geary_observed(*args, B, o["w_row"], **o["far"])
+        got = kern_lisa.geary_observed(*args_dev, B, o["w_row"].to(cuda_device),
+                                       **far_dev)
+    torch.cuda.synchronize()
+    assert kern_lisa.LAUNCHES[mode] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def _getis_moments(zp, n_rows: int, star: bool):
+    codes = zp[B:B + n_rows].to(torch.int64)
+    tot, sq = codes.sum(0).float(), (codes * codes).sum(0).float()
+    inv_m = float(torch.tensor(1.0) / (n_rows if star else n_rows - 1))
+    return tot, sq, inv_m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alternative", ["two-sided", "greater", "less"])
+@pytest.mark.parametrize("star", [True, False], ids=["getis_star", "getis_g"])
+def test_getis_count_kernels_equal_plain(cuda_device, star, alternative):
+    o = _tail_operands(5, 260, getis=True)
+    n = o["li"].shape[0]
+    lag_o = kern_lisa.getis_lag(o["li"], o["wq"], o["other"], B, **o["other_far"])
+    me_o = o["other"][B:B + n].contiguous()
+    tot, sq, inv_m = _getis_moments(o["zp"], n, star)
+    w = o["w_row"].to(torch.float32)
+    if star:
+        obs = lag_o + me_o.to(torch.int32)
+        kw = dict(wp1=w + 1.0, tm=tot * inv_m) if alternative == "two-sided" else {}
+        fn, mode = kern_lisa.getis_star_count, "getis_star_win"
+    else:
+        obs = kern_lisa.gi_center(lag_o, me_o, w, tot, sq, inv_m)
+        kw = dict(w_row=w, tot=tot, sq=sq, inv_m=inv_m, lag_o=lag_o, me_o=me_o)
+        fn, mode = kern_lisa.getis_g_count, "getis_g_win"
+    cnt0 = torch.randint(0, 100, obs.shape).to(torch.int8)
+    want = fn(o["li"], o["wq"], o["zp"], B, obs, cnt0.clone(),
+              alternative=alternative, **o["far"], **kw)
+    assert 0 < int((want != cnt0).sum()) < want.numel()
+    before = kern_lisa.LAUNCHES[mode]
+    got = fn(*[t.to(cuda_device) for t in (o["li"], o["wq"], o["zp"])], B,
+             obs.to(cuda_device), cnt0.to(cuda_device), alternative=alternative,
+             **{k: _on(v, cuda_device) for k, v in {**o["far"], **kw}.items()})
+    torch.cuda.synchronize()
+    assert kern_lisa.LAUNCHES[mode] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_geary_and_getis_pvalues_on_the_card_equal_the_cpu(cuda_device, plan):
+    """The int8 local-Geary and Getis nulls on the card (kernel route)
+    against the CPU (plain route) on one plan: p bitwise."""
+    gen = torch.Generator().manual_seed(6)
+    Z = torch.randn((plan.n, 40), generator=gen)
+    X = torch.poisson(torch.full((plan.n, 40), 3.0), generator=gen)
+    on_card = banded.NullPlan(*[t.to(cuda_device) if isinstance(t, torch.Tensor)
+                                else t for t in plan])
+    want = banded.banded_local_geary(plan, Z, 9, 19, precision="int8")
+    got = banded.banded_local_geary(on_card, Z.to(cuda_device), 9, 19,
+                                    precision="int8")
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    for star, alt in ((True, "two-sided"), (False, "less")):
+        want = banded.banded_getis(plan, X, 9, 19, star=star, alternative=alt,
+                                   precision="int8")
+        got = banded.banded_getis(on_card, X.to(cuda_device), 9, 19, star=star,
+                                  alternative=alt, precision="int8")
         assert torch.equal(got.cpu(), want)
