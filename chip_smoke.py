@@ -56,6 +56,23 @@ Phases (the script stops with a non-zero exit at the first failure):
    shape where "auto" takes them (200,000 cells, k=16, 128 genes, no
    kernel), and 4,096 scattered cells on the card against the port's CPU
    path (p / p_sim, p_adj, hotspots bitwise).
+7. Local Lee's L (phase 2 also holds the lee tail's draw step, observed
+   entry and partial-only entry, and the kNN kernel at 65,536 cells, k=6
+   and k=50, against their plain versions). The main path, with counts of
+   its own: ``lees_l_local(null_method="banded_int8", n_permutations=99,
+   compute_cell_pvalues=True)`` at 1,000,000 cells (CUDA X, k=6) over
+   1,024 gene pairs in ``output_mode="compact"`` and 64 pairs in "full"
+   (compact p / p_adj / L on the shared pairs equal to the full run's
+   casts), then ``lees_l`` at 1,024 pairs through "banded_int8" (the
+   partial-only entry) and "auto" (the float32 null in torch ops, no
+   kernel); the direct null (``jax.random.permutation``'s stream) through
+   "auto" at 50,000 cells × 64 pairs; the per-draw split; 4,096 scattered
+   cells on the card against the port's CPU path (p, p_adj, quadrants and
+   the global p bitwise).
+8. The graph path through the kNN kernel: ``build_graph(method="pallas")``
+   at 1,000,000 cells (k=6) and at the vignette's 366,938 cells (k=50),
+   timed, with the rows whose neighbour set differs from
+   ``method="grid"`` counted.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it a
 JSON summary of every kernel, and the one before that nvidia-smi's name
@@ -74,16 +91,19 @@ import numpy as np
 import torch
 
 from spatialcore_tpu_torch import (SpatialData, build_spatial_weights,
-                                   gearys_c, getis_ord_gi, local_gearys_c,
-                                   local_morans_i, morans_i)
-from spatialcore_tpu_torch.core.rng import feistel_apply, fold_in, key_for
+                                   gearys_c, getis_ord_gi, lees_l, lees_l_local,
+                                   local_gearys_c, local_morans_i, morans_i)
+from spatialcore_tpu_torch.core.rng import (feistel_apply, fold_in, key_for,
+                                            permutation)
 from spatialcore_tpu_torch.kernels import band_cross as kern
 from spatialcore_tpu_torch.kernels import build
+from spatialcore_tpu_torch.kernels import knn as kern_knn
 from spatialcore_tpu_torch.kernels import lisa_count as kern_lisa
 from spatialcore_tpu_torch.ops import banded
 from spatialcore_tpu_torch.ops.banded import (banded_local_moran_pvalues,
                                               banded_permutation_test,
                                               build_null_plan)
+from spatialcore_tpu_torch.ops.fdr import apply_fdr
 from spatialcore_tpu_torch.ops.graph import build_graph
 from spatialcore_tpu_torch.ops.moran import moran_observed, standardize
 from spatialcore_tpu_torch.ops.streaming import tile_widths
@@ -130,6 +150,18 @@ LISA_KERNELS = {
                     LISA_SRC, "spatialcore_tpu/ops/banded.py:1535"),
     "getis_obs": ("getis_lag (observed binary lag; the XLA lag_me_q pass)",
                   LISA_SRC, "spatialcore_tpu/ops/banded.py:3184"),
+    "lee_win": ("lee_count (draw step, row-pointer far; K7 lee tail)",
+                LISA_SRC, "spatialcore_tpu/ops/banded.py:1511"),
+    "lee_obs": ("lee_observed (observed |x*lag| and block partials; the XLA "
+                "lees_q pass)", LISA_SRC, "spatialcore_tpu/ops/banded.py:2661"),
+    "lee_partial": ("lee_partial (block partials of the global L; the "
+                    "global-only XLA body)", LISA_SRC,
+                    "spatialcore_tpu/ops/banded.py:2674"),
+}
+KNN_KERNELS = {
+    "knn": ("knn_topk (exact 2D all-pairs kNN, running top-k; K9)",
+            "spatialcore_tpu_torch/csrc/knn_topk.cu",
+            "spatialcore_tpu/ops/pallas_knn.py:29"),
 }
 #: the card's published peaks (H100 SXM data sheet): HBM bytes/s, and
 #: operations/s of the unit that could do each kernel's work
@@ -588,6 +620,133 @@ def phase_tail_kernels(dev, plan, gen, G: int, reps: int):
             report(results, mode, f"{mode} {alt} int8 counters G={G} ({nbk} "
                    f"blocks, {moved:,} counts moved; equal)", err, ms, pms,
                    *tail_work(plan, G, mode), lib, first=alt == "two-sided")
+    return results
+
+
+def lee_work(plan, G: int, mode: str, cnt_bytes: int = 1):
+    """(bytes, {unit: operations}, "") of one Lee entry on ``plan`` at G
+    pairs: gathered y codes, compact band, far row pointers and values, the
+    fixed x codes and row scales read once; the draw step's int32 obs read
+    and counters read and written, or the observed entry's int32 plane
+    written; the [nb, G] f32 partials written. A multiply-add per band slot
+    and live far edge, the x product and test per value (int), and the
+    partial's multiply-add per value (f32)."""
+    n, k = plan.local_idx.shape
+    nnz = int((plan.w_local != 0).sum())
+    n_live = banded._n_live_far(plan)
+    common = ((n + 2 * B) * G + n * k * 5 + 4 * (n + 1) + n_live * (G + 1)
+              + n * G + 4 * n + 4 * (n // B) * G)
+    plane = {"lee_win": 4 * n * G + 2 * cnt_bytes * n * G,
+             "lee_obs": 4 * n * G, "lee_partial": 0}[mode]
+    ops = {"int8": 2 * (nnz + n_live) * G + (3 if mode == "lee_win" else 1) * n * G,
+           "f32": 2 * n * G}
+    return common + plane, ops, ""
+
+
+def phase_lee_kernels(dev, plan, gen, G: int, reps: int):
+    """The lee tail's draw step (int8 and int16 counters), observed entry
+    and partial-only entry against their plain versions on the card:
+    counts, observed values and the block partials must be equal. Returns
+    {mode: numbers}."""
+    nbk = plan.n_padded // B
+    n = plan.n_padded
+    wq, sw, far_q = banded._full_row_codes(plan)
+    sw_row = sw.reshape(-1).contiguous()
+    li = plan.local_idx.to(torch.int32).contiguous()
+    n_live = banded._n_live_far(plan)
+    ptr = banded._row_ptr(plan.far_src, n_live, B, n)
+    fq8 = far_q[:n_live].to(torch.int8).contiguous()
+
+    def codes(rows):
+        return torch.randint(-127, 128, (rows, G), generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    zp, zx = codes(n + 2 * B), codes(n)
+    far = dict(far_row_ptr=ptr, far_q=fq8, Zf=codes(n_live))
+    args = (li, wq, zp, B, zx, sw_row)
+    # observed values of another placement: draws that tie, win and lose
+    obs, _ = kern_lisa.lee_observed_plain(li, wq, codes(n + 2 * B), B, zx,
+                                          sw_row, far_row_ptr=ptr, far_q=fq8,
+                                          Zf=codes(n_live))
+    lib = library_ms(band_csr(plan, dev), zp)
+    results = {}
+
+    def equal(label, got, want):
+        sync(dev)
+        err = float((got.double() - want.double()).abs().max())
+        check(torch.equal(got, want), f"{label}: differs from plain (max |diff| "
+              f"{err})")
+        return err
+
+    def timed_pair(kfn, pfn):
+        return event_ms(kfn, reps), event_ms(pfn, max(1, reps // 10))
+
+    for cdt in (torch.int8, torch.int16):
+        cnt0 = torch.randint(0, 60, (n, G), generator=gen, device=dev).to(cdt)
+        got_c, want_c = cnt0.clone(), cnt0.clone()
+        got_p = kern_lisa.lee_count(*args, obs, got_c, **far)
+        want_p = kern_lisa.lee_count_plain(*args, obs, want_c, **far)
+        err = max(equal("lee_win counts", got_c, want_c),
+                  equal("lee_win partials", got_p, want_p))
+        moved = int((got_c != cnt0).sum())
+        check(0 < moved < got_c.numel(), "lee_win: degenerate comparison case")
+        ms = pms = float("nan")
+        if cdt == torch.int8:
+            scratch = cnt0.clone()
+            ms, pms = timed_pair(
+                lambda: kern_lisa.lee_count(*args, obs, scratch, **far),
+                lambda: kern_lisa.lee_count_plain(*args, obs, scratch, **far))
+        report(results, "lee_win", f"lee_win {str(cdt)[6:]} counters G={G} "
+               f"({nbk} blocks, {moved:,} counts moved; counts and partials "
+               f"equal)", err, ms, pms,
+               *lee_work(plan, G, "lee_win", cnt0.element_size()), lib,
+               first=cdt == torch.int8)
+    got_o, got_p = kern_lisa.lee_observed(*args, **far)
+    want_o, want_p = kern_lisa.lee_observed_plain(*args, **far)
+    err = max(equal("lee_obs", got_o, want_o),
+              equal("lee_obs partials", got_p, want_p))
+    ms, pms = timed_pair(lambda: kern_lisa.lee_observed(*args, **far),
+                         lambda: kern_lisa.lee_observed_plain(*args, **far))
+    report(results, "lee_obs", f"lee_obs G={G} ({nbk} blocks; |Lq| and "
+           f"partials equal)", err, ms, pms, *lee_work(plan, G, "lee_obs"), lib)
+    got_p = kern_lisa.lee_partial(*args, **far)
+    err = equal("lee_partial", got_p, want_p)
+    ms, pms = timed_pair(lambda: kern_lisa.lee_partial(*args, **far),
+                         lambda: kern_lisa.lee_partial_plain(*args, **far))
+    report(results, "lee_partial", f"lee_partial G={G} ({nbk} blocks; partials "
+           f"equal)", err, ms, pms, *lee_work(plan, G, "lee_partial"), lib)
+    return results
+
+
+def knn_library(xy: torch.Tensor, k: int, chunk: int = 4096) -> None:
+    """torch.cdist + torch.topk over query chunks: the one-call yardstick
+    of the kNN (self included and its distances through cuBLAS; its ties
+    are not ordered by id)."""
+    for q0 in range(0, xy.shape[0], chunk):
+        torch.topk(torch.cdist(xy[q0:q0 + chunk], xy), k + 1, dim=1,
+                   largest=False)
+
+
+def phase_knn_kernel(dev, gen, n: int = 65_536, ks=(6, 50), reps: int = 3):
+    """The kNN kernel against its plain version on the card at ``n``
+    uniform cells (1M density) for each k: indices and squared distances
+    equal. The first k gives the mode's times. Returns {"knn": numbers}."""
+    xy = uniform_coords(n, SIDE * (n / 1e6) ** 0.5, gen, dev)
+    xy = (xy - xy.mean(dim=0)).contiguous()
+    results = {}
+    for k in ks:
+        got_d, got_i = kern_knn.knn_topk(xy, k)
+        want_d, want_i = kern_knn.knn_topk_plain(xy, k)
+        sync(dev)
+        check(torch.equal(got_i, want_i), f"knn k={k}: indices differ from plain "
+              f"({int((got_i != want_i).any(1).sum())} rows)")
+        check(torch.equal(got_d, want_d), f"knn k={k}: distances differ")
+        ms = event_ms(lambda: kern_knn.knn_topk(xy, k), reps)
+        pms = event_ms(lambda: kern_knn.knn_topk_plain(xy, k), 1)
+        lms = event_ms(lambda: knn_library(xy, k), 1)
+        report(results, "knn", f"knn k={k} at {n:,} cells (indices and d2 "
+               f"equal)", 0.0, ms, pms, 8 * n + 8 * n * k, 6 * n * n, "f32",
+               lms, first=k == ks[0])
     return results
 
 
@@ -1272,6 +1431,274 @@ def tail_draw_split(dev, d, stat: str, reps: int = 5):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: local Lee's L
+# ---------------------------------------------------------------------------
+
+
+def lee_adata(n_cells: int, n_pairs: int, gen, dev):
+    """1M-density uniform cells and 2·``n_pairs`` genes, pair i = genes
+    (2i, 2i+1); both genes of the first eighth of the pairs share a smooth
+    signal. Values are small integers (noise in {−1, 0, 1}, signal
+    round(3·sin(x/300))), and each column's sum is brought to 0 by moving
+    |sum| of its cells one step (the first cells of one random order), so
+    each column's mean (0) and sum of squares (< 2²⁴) are exact in float32
+    in any order: the z-scores do not depend on how wide a batch of
+    columns is, and the compact and full runs quantize the same codes.
+    Returns (SpatialData, pairs, number of signal pairs)."""
+    coords = uniform_coords(n_cells, SIDE * (n_cells / 1e6) ** 0.5, gen, dev)
+    X = torch.randint(-1, 2, (n_cells, 2 * n_pairs), generator=gen,
+                      device=dev).to(torch.float32)
+    n_sig = max(1, n_pairs // 8)
+    X[:, :2 * n_sig] += torch.round(3.0 * torch.sin(coords[:, :1] / 300.0))
+    tot = X.sum(dim=0)                              # exact: |partials| < 2^24
+    rank = torch.empty(n_cells, dtype=torch.int64, device=dev)
+    rank[torch.randperm(n_cells, generator=gen, device=dev)] = torch.arange(
+        n_cells, device=dev)
+    X -= torch.sign(tot) * (rank[:, None] < tot.abs()[None, :])
+    d = SpatialData(X=X)
+    d.obsm["spatial"] = coords
+    return d, [(str(2 * i), str(2 * i + 1)) for i in range(n_pairs)], n_sig
+
+
+def phase_lee_public(dev, n_cells: int, n_pairs: int, n_full: int,
+                     n_perms: int, gen):
+    """lees_l_local(banded_int8, cell p-values) compact over ``n_pairs``,
+    then full over the first ``n_full`` (its host obs columns); compact p,
+    p_adj and L on the shared pairs equal the full run's casts."""
+    d, pairs, n_sig = lee_adata(n_cells, n_pairs, gen, dev)
+    out = {}
+    kw = dict(null_method="banded_int8", n_permutations=n_perms, seed=3,
+              compute_cell_pvalues=True, device=dev)
+    _, out["compact_s"] = timed(lambda: lees_l_local(
+        d, pairs, output_mode="compact", **kw), dev)
+    comp = {k: d.obsm[f"lees_local_{k}"] for k in ("L", "p", "p_adj",
+                                                   "quadrant")}
+    check(comp["p"].dtype == torch.float16 and comp["p"].device == torch.device(dev)
+          and tuple(comp["p"].shape) == (n_cells, n_pairs),
+          "compact p: float16 [N, pairs] on the card")
+    check(bool(torch.isfinite(comp["L"].float()).all()), "non-finite compact L")
+    check(bool(((comp["p"] > 0) & (comp["p"] <= 1)).all()), "Lee p outside (0, 1]")
+    sig = comp["p_adj"] < 0.05
+    smooth = float(sig[:, :n_sig].float().mean())
+    noise = float(sig[:, n_sig:].float().mean())
+    print(f"[lee] lees_l_local(banded_int8, compact) {n_cells:,} cells x "
+          f"{n_pairs} pairs x {n_perms} draws: {out['compact_s']:.3f} s; p_adj "
+          f"< 0.05: signal pairs {smooth:.4f} of cells, noise pairs {noise:.6f}")
+    check(smooth > 0.2, "signal pairs: too few significant Lee cells")
+    check(noise < 1e-3, "noise pairs: significant Lee cells after FDR")
+    _, out["full_s"] = timed(lambda: lees_l_local(
+        d, pairs[:n_full], output_mode="full", use_existing_graph=True, **kw),
+        dev)
+    cols = [f"{gx}_{gy}" for gx, gy in pairs[:n_full]]
+    p_full = torch.as_tensor(np.stack([d.obs[f"{c}_pvalue"].to_numpy()
+                                       for c in cols], 1)).to(dev)
+    L_full = torch.as_tensor(np.stack([d.obs[f"{c}_lees_l"].to_numpy()
+                                       for c in cols], 1)).to(dev)
+    check(torch.equal(comp["p"][:, :n_full], p_full.to(torch.float16)),
+          "compact p differs from the full run's float16 cast")
+    check(torch.equal(comp["p_adj"][:, :n_full], apply_fdr(
+        p_full, "fdr_bh", axis=0, n_levels=n_perms + 1).to(torch.float16)),
+        "compact p_adj differs from BH over the full run's p")
+    check(torch.equal(comp["L"][:, :n_full], L_full.to(torch.bfloat16)),
+          "compact L differs from the full run's bf16 cast")
+    glob = [d.uns[f"{c}_lees_l_params"]["global_pvalue"] for c in cols]
+    print(f"[lee] output_mode='full' over the first {n_full} pairs (stored graph "
+          f"and plan): {out['full_s']:.3f} s; compact p, p_adj, L equal the "
+          f"full run's casts; global p of the signal pairs "
+          f"{max(glob[:max(1, n_full // 8)]):.4f} (max)")
+    for c in cols:
+        for sfx in ("lees_l", "quadrant", "pvalue"):
+            del d.obs[f"{c}_{sfx}"]
+    return d, pairs, n_sig, out
+
+
+def phase_lee_global(dev, d, pairs, n_sig: int, n_perms: int):
+    """lees_l at every pair through the int8 null (the partial-only entry)
+    and through "auto" (the float32 null in torch ops at >= 100k cells),
+    each with counts of its own."""
+    out, launches = {}, {}
+    for nm in ("banded_int8", "auto"):
+        kern_lisa.reset_launch_counts()
+        res, out[nm] = timed(lambda: lees_l(d, pairs, n_permutations=n_perms,
+                                            seed=4, null_method=nm,
+                                            use_existing_graph=True,
+                                            device=dev), dev)
+        launches[nm] = dict(kern_lisa.LAUNCHES)
+        p = np.array([r["p_value"] for r in res])
+        L = np.array([r["L"] for r in res])
+        check(np.isfinite(L).all() and ((p > 0) & (p <= 1)).all(),
+              f"lees_l({nm}): L or p out of range")
+        check(float((p[:n_sig] <= 1 / (n_perms + 1) + 1e-9).mean()) > 0.9,
+              f"lees_l({nm}): signal pairs not at the smallest p")
+        print(f"[lee] lees_l({nm}) {d.n_obs:,} cells x {len(pairs)} pairs x "
+              f"{n_perms} draws: {out[nm]:.3f} s; signal L mean "
+              f"{L[:n_sig].mean():.1f}, noise L mean {L[n_sig:].mean():.2f}, "
+              f"noise mean p {p[n_sig:].mean():.3f}; launches {launches[nm]}")
+    check(launches["banded_int8"]["lee_partial"] == n_perms + 1
+          and sum(launches["banded_int8"].values()) == n_perms + 1,
+          "lees_l(banded_int8) did not run the partial-only entry per draw")
+    check(not any(launches["auto"].values()),
+          f"lees_l('auto') launched a kernel: {launches['auto']}")
+    return out, launches
+
+
+def phase_lee_direct(dev, gen, n_cells: int = 50_000, n_pairs: int = 64,
+                     n_perms: int = 99):
+    """The direct null (jax.random.permutation's stream on the card)
+    through lees_l's "auto" below 100k cells."""
+    d, pairs, n_sig = lee_adata(n_cells, n_pairs, gen, dev)
+    kern_lisa.reset_launch_counts()
+    res, t = timed(lambda: lees_l(d, pairs, n_permutations=n_perms, seed=5,
+                                  device=dev), dev)
+    p = np.array([r["p_value"] for r in res])
+    check(((p > 0) & (p <= 1)).all(), "direct Lee p outside (0, 1]")
+    check(float((p[:n_sig] <= 1 / (n_perms + 1) + 1e-9).mean()) > 0.9,
+          "direct Lee null: signal pairs not at the smallest p")
+    check(not any(kern_lisa.LAUNCHES.values()), "the direct null launched a "
+          "kernel")
+    print(f"[lee] lees_l('auto' -> direct null, permutation draws) {n_cells:,} "
+          f"cells x {n_pairs} pairs x {n_perms} draws: {t:.3f} s (graph "
+          f"included); noise mean p {p[n_sig:].mean():.3f}")
+    return t
+
+
+def lee_draw_split(dev, d, pairs, reps: int = 5):
+    """One int8 Lee draw at the public run's shape over every pair, part by
+    part (CUDA events): Feistel rows, permutation rows (the "sort"
+    stream), row gather, far gather, the draw-step kernel, the fixed-order
+    reduction of the block partials; the observed entry once."""
+    plan = d._null_plan_cache["value"]
+    names = list(d.var_names)
+    ix = torch.as_tensor([names.index(g) for g, _ in pairs], device=dev)
+    iy = torch.as_tensor([names.index(g) for _, g in pairs], device=dev)
+    Zx = standardize(d.X.index_select(1, ix))[0]
+    Zy = standardize(d.X.index_select(1, iy))[0]
+    Yq = banded._pad_cols4(banded._quantize_z(Zy)[0])
+    zx = banded._relabeled_x(plan, banded._pad_cols4(banded._quantize_z(Zx)[0]))
+    del Zx, Zy
+    G = Yq.shape[1]
+    wq, sw, far_q = banded._full_row_codes(plan)
+    sw_row = sw.reshape(-1).contiguous()
+    li = plan.local_idx.to(torch.int32).contiguous()
+    n_live = banded._n_live_far(plan)
+    ptr, dst = banded._rows_far(plan, n_live)
+    far = dict(far_row_ptr=ptr, far_q=far_q[:n_live].to(torch.int8))
+    rows_idx = banded._padded_rows(plan, dev)
+    Yp0 = Yq[rows_idx]
+    obs, _ = kern_lisa.lee_observed(li, wq, Yp0, B, zx, sw_row, Zf=Yp0[dst], **far)
+    cnt = torch.zeros(obs.shape, dtype=torch.int8, device=dev)
+    base = key_for(3, "perm_feistel_lee", 0)
+    sort_base = key_for(3, "perm_lee", 0)
+    rows = feistel_apply(fold_in(base, 0), rows_idx, plan.n)
+    Yp = Yq[rows]
+    Zf = Yp[dst]
+    part = kern_lisa.lee_count(li, wq, Yp, B, zx, sw_row, obs, cnt, Zf=Zf, **far)
+    split = dict(
+        feistel=event_ms(lambda: feistel_apply(fold_in(base, 1), rows_idx, plan.n),
+                         reps),
+        permutation=event_ms(lambda: permutation(fold_in(sort_base, 1), plan.n,
+                                                 device=dev)[rows_idx], reps),
+        row_gather=event_ms(lambda: Yq[rows], reps),
+        far_gather=event_ms(lambda: Yp[dst], reps),
+        kernel=event_ms(lambda: kern_lisa.lee_count(li, wq, Yp, B, zx, sw_row,
+                                                    obs, cnt, Zf=Zf, **far), reps),
+        partial_sum=event_ms(lambda: banded._tree_sum(part), reps),
+        observed=event_ms(lambda: kern_lisa.lee_observed(
+            li, wq, Yp0, B, zx, sw_row, Zf=Yp0[dst], **far), 2))
+    steps = iter(range(1, 1 << 20))
+
+    def draw():
+        yp = Yq[feistel_apply(fold_in(base, next(steps)), rows_idx, plan.n)]
+        banded._tree_sum(kern_lisa.lee_count(li, wq, yp, B, zx, sw_row, obs, cnt,
+                                             Zf=yp[dst], **far))
+
+    split["whole_draw"] = event_ms(draw, reps)
+    split["bound"], by = bound(*lee_work(plan, G, "lee_win"))
+    split["observed_bound"], _ = bound(*lee_work(plan, G, "lee_obs"))
+    print(f"[lee] one draw at {plan.n:,} cells x {G} pairs (CUDA events, ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f" ({by}-bound); far edges {n_live:,}")
+    return split
+
+
+def phase_lee_vs_cpu(dev, coords: np.ndarray, n_genes: int, seed: int,
+                     n_perms: int = 49):
+    """lees_l_local(banded_int8) on the card against the port's CPU path on
+    the same integer-valued input: full mode (cell p, quadrants with the
+    significance filter, global p) and compact mode (p_adj) bitwise.
+    Returns the card runs' launch counts."""
+    card, host = exact_pair(coords, n_genes, seed, dev)
+    pairs = [(str(2 * i), str(2 * i + 1)) for i in range(n_genes // 2)]
+    run = dict(null_method="banded_int8", n_permutations=n_perms, seed=seed,
+               compute_cell_pvalues=True)
+    kern_lisa.reset_launch_counts()
+    lees_l_local(card, pairs, significance_filter=True, device=dev, **run)
+    lees_l_local(card, pairs, output_mode="compact", device=dev, **run)
+    sync(dev)
+    launches = dict(kern_lisa.LAUNCHES)
+    lees_l_local(host, pairs, significance_filter=True, device="cpu", **run)
+    lees_l_local(host, pairs, output_mode="compact", device="cpu", **run)
+    for gx, gy in pairs:
+        key = f"{gx}_{gy}"
+        for sfx in ("pvalue", "quadrant"):
+            check(card.obs[f"{key}_{sfx}"].equals(host.obs[f"{key}_{sfx}"]),
+                  f"Lee {key}: card {sfx} differs from the CPU path")
+        a, b = card.uns[f"{key}_lees_l_params"], host.uns[f"{key}_lees_l_params"]
+        check(a["global_pvalue"] == b["global_pvalue"]
+              and a["quadrant_counts"] == b["quadrant_counts"],
+              f"Lee {key}: card global p or quadrant counts differ")
+    for k in ("p", "p_adj", "quadrant"):
+        got = card.obsm[f"lees_local_{k}"]
+        want = torch.as_tensor(host.obsm[f"lees_local_{k}"]).to(got.dtype)
+        check(torch.equal(got.cpu(), want), f"Lee compact {k}: card differs "
+              "from the CPU path")
+    print(f"[lee] {coords.shape[0]:,} scattered cells x {len(pairs)} pairs: card "
+          f"equals the CPU path (p, quadrants, global p, compact p / p_adj / "
+          f"quadrants bitwise); launches {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the graph path through the kNN kernel
+# ---------------------------------------------------------------------------
+
+
+def phase_graph_pallas(dev, gen, shapes=((1_000_000, 6), (366_938, 50))):
+    """build_graph(method="pallas") at each (cells, k), timed, against
+    method="grid": rows whose neighbour set differs are counted (expected
+    0 away from distance ties at the k-th neighbour). Returns
+    {cells: (seconds, differing rows)}."""
+    out = {}
+    for n, k in shapes:
+        coords = uniform_coords(n, SIDE * (n / 1e6) ** 0.5, gen, dev)
+        gp, t = timed(lambda: build_graph(coords, n_neighbors=k, method="pallas",
+                                          device=dev), dev)
+        gg, tg = timed(lambda: build_graph(coords, n_neighbors=k, method="grid",
+                                           device=dev), dev)
+        same = (torch.sort(gp.neighbor_idx, 1).values
+                == torch.sort(gg.neighbor_idx, 1).values).all(1)
+        n_diff = int((~same).sum())
+        # a differing row must be a tie at float32 resolution: the kernel
+        # ranks distances of coordinates centred on the host (each rounded
+        # to the centred value's ulp), the grid search uncentred ones, so
+        # distances may part by a few ulps of the coordinate scale
+        tol = 4 * float(np.spacing(np.float32(float(coords.abs().max()))))
+        gap = (float((gp.distances[~same] - gg.distances[~same]).abs().max())
+               if n_diff else 0.0)
+        check(n_diff <= n // 1000 and gap <= tol,
+              f"{n_diff} rows differ from the grid search, distances by up to "
+              f"{gap:.3e} (ties allow {tol:.3e})")
+        check(bool(torch.isfinite(gp.distances).all()), "non-finite distances")
+        out[n] = (t, n_diff)
+        print(f"[graph] build_graph(method='pallas') {n:,} cells k={k}: "
+              f"{t:.3f} s (grid {tg:.3f} s); rows differing from the grid "
+              f"search: {n_diff}, their distances within {gap:.3e} (a tie at "
+              f"float32 resolution; {tol:.3e} allowed)")
+        del gp, gg, coords
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def nvidia_smi() -> str:
@@ -1308,7 +1735,9 @@ def main() -> None:
                                              "f32": 512}, reps=20)
     kres.update(phase_lisa_kernels(dev, plan300, gen, 1024, reps=20))
     kres.update(phase_tail_kernels(dev, plan300, gen, 1024, reps=20))
+    kres.update(phase_lee_kernels(dev, plan300, gen, 1024, reps=20))
     del plan300
+    kres.update(phase_knn_kernel(dev, gen))
 
     # the global null's path
     kern.reset_launch_counts()
@@ -1400,11 +1829,50 @@ def main() -> None:
     print("[path] launches in the kernels line: geary_win and geary_obs from "
           "local Geary's 1M-cell main path; getis_star_win and getis_obs from "
           "Getis-Ord's; getis_g_win from the Gi run")
+    torch.cuda.empty_cache()
+
+    # local Lee's L: the main path's counts are its own
+    n_pairs, n_full, tile = 1024, 64, 256
+    kern_lisa.reset_launch_counts()
+    d, pairs, n_sig, _ = phase_lee_public(dev, 1_000_000, n_pairs, n_full,
+                                          n_perms, gen)
+    lee = dict(kern_lisa.LAUNCHES)
+    print(f"[path] launches of lees_l_local(banded_int8) compact ({n_pairs} "
+          f"pairs, {n_pairs // tile} tiles) + full ({n_full} pairs): {lee}")
+    check(lee["lee_win"] == (n_pairs // tile + 1) * n_perms
+          and lee["lee_obs"] == n_pairs // tile + 1
+          and sum(lee.values()) == (n_pairs // tile + 1) * (n_perms + 1),
+          "the Lee main path did not run the lee draw step once per draw and "
+          "tile and the observed entry once per tile")
+    _, lee_glob = phase_lee_global(dev, d, pairs, n_sig, n_perms)
+    lee_draw_split(dev, d, pairs)
+    del d
+    torch.cuda.empty_cache()
+    phase_lee_direct(dev, gen)
+    vs_lee = phase_lee_vs_cpu(dev, scattered_coords(seed=2), 64, 11)
+    check(vs_lee["lee_win"] == 2 * 49, f"the 4,096-cell Lee card runs did not "
+          f"run the draw step per draw: {vs_lee}")
+    launches.update(lee_win=lee["lee_win"], lee_obs=lee["lee_obs"],
+                    lee_partial=lee_glob["banded_int8"]["lee_partial"])
+    print("[path] launches in the kernels line: lee_win and lee_obs from the "
+          "1M-cell lees_l_local main path; lee_partial from lees_l(banded_int8)")
+    torch.cuda.empty_cache()
+
+    # the graph path through the kNN kernel: counts of its own
+    kern_knn.reset_launch_counts()
+    phase_graph_pallas(dev, gen)
+    knn_launches = kern_knn.LAUNCHES["knn"]
+    print(f"[path] kNN launches of build_graph(method='pallas') x 2: "
+          f"{knn_launches}")
+    check(knn_launches == 2, "build_graph(method='pallas') did not launch the "
+          "kNN kernel once per call")
+    launches["knn"] = knn_launches
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[mode], **kres[mode]}
-        for mode, (name, src, rep) in {**KERNELS, **LISA_KERNELS}.items()]}
+        for mode, (name, src, rep) in {**KERNELS, **LISA_KERNELS,
+                                       **KNN_KERNELS}.items()]}
     print(smi)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

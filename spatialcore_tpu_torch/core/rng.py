@@ -11,8 +11,9 @@ in torch integer ops, under jax 0.9's default
 - threefry2x32 (``jax/_src/prng.py``: ``_threefry2x32_lowering``);
 - ``jax.random.key`` (``threefry_seed``), ``fold_in`` and ``split``
   (``_threefry_split_foldlike``);
-- 32-bit ``random_bits`` (``_threefry_random_bits_partitionable``) and
-  ``randint``'s bits-to-range mapping (``jax/_src/random.py``: ``_randint``).
+- 32-bit ``random_bits`` (``_threefry_random_bits_partitionable``),
+  ``randint``'s bits-to-range mapping (``jax/_src/random.py``: ``_randint``)
+  and ``permutation`` (``_shuffle``: rounds of stable sorts by random keys).
 
 torch has no full uint32 arithmetic, so values are held in int64 with
 ``& 0xFFFFFFFF`` masks. Additions, xors and shifts of 32-bit values stay
@@ -21,7 +22,8 @@ far below 2**63; a product of two 32-bit values can overflow int64, so
 
 A key is an int64 tensor of shape [2] holding the two uint32 words of the
 JAX key data (``jax.random.key_data``). Keys are tiny and live on the CPU;
-only the per-cell Feistel evaluation runs on the caller's device.
+the per-cell work — the Feistel evaluation, and ``random_bits`` and the
+sorts of ``permutation`` — runs on the caller's device.
 """
 
 from __future__ import annotations
@@ -97,12 +99,33 @@ def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([a, b], dim=1)
 
 
-def random_bits(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """``jax.random.bits`` at 32 bits: uint32 values in int64, ``shape``."""
+def random_bits(k: torch.Tensor, shape: Sequence[int],
+                device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """``jax.random.bits`` at 32 bits: uint32 values in int64, ``shape``,
+    computed on ``device`` (the key stays a pair of host words)."""
     size = int(np.prod(shape)) if len(shape) else 1
-    i = torch.arange(size, dtype=torch.int64)
-    b1, b2 = threefry2x32(k[0], k[1], i >> 32, i & _M32)
+    i = torch.arange(size, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(int(k[0]), int(k[1]), i >> 32, i & _M32)
     return (b1 ^ b2).reshape(tuple(shape))
+
+
+def permutation(k: torch.Tensor, n: int,
+                device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` bitwise (jax 0.9 ``_shuffle``).
+
+    ``ceil(3·ln(max(1, n)) / ln(2³²−1))`` rounds (one up to n = 1,625, two
+    up to ~2.6M); each splits the key, draws 32-bit sort keys for the n
+    positions and reorders ``arange(n)`` by a STABLE sort of them, as
+    ``lax.sort_key_val`` does. Runs on ``device``; returns int64.
+    """
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        k, sub = split(k)
+        order = torch.sort(random_bits(sub, (n,), device), stable=True).indices
+        x = x[order]
+    return x
 
 
 def randint(k: torch.Tensor, shape: Sequence[int], minval: int,

@@ -1,6 +1,6 @@
 // Local statistics' permutation nulls in the int8 system: the fused draw
 // step, and the observed statistic of the same operator, for local Moran
-// (LISA), local Geary and Getis-Ord Gi* / Gi.
+// (LISA), local Geary, Getis-Ord Gi* / Gi and local Lee's L.
 //
 //   lag_i[g]  = sum_slots wq * z[window + local_idx][g]             (band)
 //             + far_i[g]                                            (far)
@@ -26,8 +26,19 @@
 //              nvcc's default FMA contraction cannot change a bit against
 //              the plain version; an exact (lag, z) pair tie with the
 //              observed (lag_o, me_o) counts as extreme)
-// The observed entry returns |z*lag| (moran), the geary value, or the
-// binary lag (getis; the wrapper forms A_o, cp_o from it), replacing the
+//   kLee       Lq = x*lag, |Lq| >= obs                 (K7 :1511-1516, int32;
+//              x is the row's FIXED code of the pair's first gene, an int8
+//              plane of its own -- Lee's null permutes y only, so the
+//              slab's own row is not used. Second output: the per-block
+//              f32 partial part[n][g] = sum_rows sw_row * f32(Lq) of the
+//              global L, in one fixed order: row group q (rows q, q+16, ...)
+//              sums its rows in row order with __fmul_rn / __fadd_rn, then
+//              the 16 group sums are added in group order through shared
+//              memory; no atomics, so the partial is bitwise the plain
+//              version's and the same in every run)
+// The observed entry returns |z*lag| (moran), the geary value, the binary
+// lag (getis; the wrapper forms A_o, cp_o from it), or |Lq| and the
+// partial (lee; without an output plane: the partial alone), replacing the
 // reference's XLA observed passes (abs_ip :2369, geary_q :2899, lag_me_q
 // :3184). The moran far term also arrives densely (K8, _band_lag_count_
 // kernel_i8 :1291); the far term comes in one of three forms (template FAR):
@@ -75,7 +86,7 @@ constexpr int kRowGroups = kThreads / kColThreads;   // rows in flight
 constexpr int kTileCols = kColThreads * 4;           // genes per block
 
 enum FarForm { kFarNone = 0, kFarRows = 1, kFarDense = 2 };
-enum Stat { kMoran = 0, kGeary = 1, kGetisStar = 2, kGetisG = 3 };
+enum Stat { kMoran = 0, kGeary = 1, kGetisStar = 2, kGetisG = 3, kLee = 4 };
 enum Alt { kTwoSided = 0, kGreater = 1, kLess = 2 };
 
 // Per-statistic operands beyond the common ones (unused ones are null).
@@ -88,6 +99,9 @@ struct Tail {
   const int8_t* me_o;     // getis_g: observed own codes [Npad, G]
   float inv_m;            // getis_g: f32(1/m), the reference's x/m
   int alt;                // getis: Alt
+  const int8_t* zx;       // lee: fixed x codes [Npad, G]
+  const float* sw;        // lee: row weight scales sw_row [Npad]
+  float* part;            // lee: per-block partials of the global L [nb, G]
 };
 
 __device__ __forceinline__ void unpack4(int word, int* v) {
@@ -179,10 +193,12 @@ lisa_kernel(const int32_t* __restrict__ local_idx,
   __syncthreads();
 
   const int col = c0 + 4 * ct;
-  if (col >= G) return;                              // no barrier below
+  const bool active = col < G;       // no early return: lee meets a barrier
   float ca[4] = {0.f, 0.f, 0.f, 0.f};                // per-gene tail vectors
   float cb[4] = {0.f, 0.f, 0.f, 0.f};
-  if (COUNT && (STAT == kGetisG || (STAT == kGetisStar && t.alt == kTwoSided))) {
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};               // lee: row group's partial
+  if (active && COUNT
+      && (STAT == kGetisG || (STAT == kGetisStar && t.alt == kTwoSided))) {
     const float4 a = *reinterpret_cast<const float4*>(t.col_a + col);
     ca[0] = a.x; ca[1] = a.y; ca[2] = a.z; ca[3] = a.w;
     if (STAT == kGetisG) {
@@ -191,7 +207,7 @@ lisa_kernel(const int32_t* __restrict__ local_idx,
     }
   }
   int v[4];
-  for (int i = rg; i < B; i += kRowGroups) {
+  for (int i = rg; active && i < B; i += kRowGroups) {
     const size_t r = row0 + i;
     int lag[4] = {0, 0, 0, 0};
     int lag2[4] = {0, 0, 0, 0};                      // geary: lag of z^2
@@ -237,18 +253,31 @@ lisa_kernel(const int32_t* __restrict__ local_idx,
         val[j] = lag[j];
       }
     }
+    if (STAT == kLee) {
+      int xz[4];                                     // the row's fixed x codes
+      unpack4(*reinterpret_cast<const int*>(t.zx + o), xz);
+      const float s = t.sw[r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int lq = xz[j] * lag[j];               // <= k*127^3 < 2^31
+        val[j] = abs(lq);
+        acc[j] = __fadd_rn(acc[j], __fmul_rn(s, __int2float_rn(lq)));
+      }
+    }
     if (!COUNT) {
       if (STAT == kGetisStar || STAT == kGetisG) {   // observed: binary lag
 #pragma unroll
         for (int j = 0; j < 4; ++j) val[j] = lag[j];
       }
-      *reinterpret_cast<int4*>(out + o) = make_int4(val[0], val[1], val[2], val[3]);
+      if (out != nullptr) {                          // lee: partial-only entry
+        *reinterpret_cast<int4*>(out + o) = make_int4(val[0], val[1], val[2], val[3]);
+      }
       continue;
     }
     const int4 ob4 = *reinterpret_cast<const int4*>(obs + o);
     const int ob[4] = {ob4.x, ob4.y, ob4.z, ob4.w};
     bool ext[4];
-    if (STAT == kMoran) {
+    if (STAT == kMoran || STAT == kLee) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) ext[j] = val[j] >= ob[j];
     } else if (STAT == kGeary) {
@@ -289,6 +318,21 @@ lisa_kernel(const int32_t* __restrict__ local_idx,
 #pragma unroll
     for (int j = 0; j < 4; ++j) c[j] += ext[j];
     store_cnt(cnt + o, c);
+  }
+  if constexpr (STAT == kLee) {
+    // the 16 row groups' sums of each column, added in group order
+    __shared__ float red[kRowGroups][kTileCols];
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) red[rg][4 * ct + j] = acc[j];
+    }
+    __syncthreads();
+    if (tid < kTileCols && c0 + tid < G) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < kRowGroups; ++q) s = __fadd_rn(s, red[q][tid]);
+      t.part[static_cast<size_t>(n) * G + c0 + tid] = s;
+    }
   }
 }
 
@@ -354,6 +398,26 @@ cudaError_t by_stat(int stat, const int32_t* local_idx, const int8_t* wq,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// lee: mode 0 draw step, 1 observed (|Lq| and partials), 2 partials only
+template <typename CT>
+cudaError_t lee_by_mode(int mode, const int32_t* local_idx, const int8_t* wq,
+                        const int8_t* zp, const int32_t* far_ptr,
+                        const int8_t* far_q, const int8_t* zf,
+                        const int32_t* obs, CT* cnt, int32_t* out,
+                        const Tail& t, int nb, int B, int k, int G,
+                        cudaStream_t s) {
+  if (mode == 0) {
+    return launch<kLee, kFarRows, true, CT>(local_idx, wq, zp, far_ptr, far_q,
+        zf, nullptr, obs, cnt, nullptr, t, nb, B, k, G, s);
+  }
+  if (mode == 1 || mode == 2) {
+    return launch<kLee, kFarRows, false, CT>(local_idx, wq, zp, far_ptr, far_q,
+        zf, nullptr, nullptr, nullptr, mode == 1 ? out : nullptr, t, nb, B, k,
+        G, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -451,4 +515,40 @@ extern "C" int sct_local_observed(int stat, const int32_t* local_idx,
   return static_cast<int>(by_stat<false, int8_t>(
       stat, local_idx, wq, zp, far_ptr, far_q, zf, nullptr, nullptr, out, t,
       nb, B, k, G, static_cast<cudaStream_t>(stream)));
+}
+
+// Local Lee's L (stat 4 of the template), far edges as row pointers. mode 0:
+// draw step, cnt [Npad, G] (cnt_bytes 1, 2 or 4) += (|x*lag| >= obs), in
+// place; mode 1: observed, out int32 [Npad, G] = |x*lag|; mode 2: neither
+// (the global-only null). Every mode writes part f32 [nb, G], the per-block
+// partials of the global L. zx int8 [Npad, G]: fixed x codes; sw f32 [Npad].
+extern "C" int sct_lee(int mode, const int32_t* local_idx, const int8_t* wq,
+                       const int8_t* zp, const int32_t* far_ptr,
+                       const int8_t* far_q, const int8_t* zf, const int8_t* zx,
+                       const float* sw, const int32_t* obs, void* cnt,
+                       int32_t* out, float* part, int nb, int B, int k, int G,
+                       int cnt_bytes, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Tail t{};
+  t.zx = zx;
+  t.sw = sw;
+  t.part = part;
+  cudaError_t err;
+  switch (mode == 0 ? cnt_bytes : 1) {
+    case 1:
+      err = lee_by_mode<int8_t>(mode, local_idx, wq, zp, far_ptr, far_q, zf,
+          obs, static_cast<int8_t*>(cnt), out, t, nb, B, k, G, s);
+      break;
+    case 2:
+      err = lee_by_mode<int16_t>(mode, local_idx, wq, zp, far_ptr, far_q, zf,
+          obs, static_cast<int16_t*>(cnt), out, t, nb, B, k, G, s);
+      break;
+    case 4:
+      err = lee_by_mode<int32_t>(mode, local_idx, wq, zp, far_ptr, far_q, zf,
+          obs, static_cast<int32_t*>(cnt), out, t, nb, B, k, G, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }

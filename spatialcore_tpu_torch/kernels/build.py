@@ -55,6 +55,12 @@ _SIGNATURES = {
     # stream
     "sct_local_observed": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P],
+    # mode, local_idx, wq, zp, far_ptr, far_q, zf, zx, sw, obs, cnt, out,
+    # part, nb, B, k, G, cnt_bytes, stream
+    "sct_lee": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                _I, _I, _P],
+    # coords, n, k, include_self, out_d, out_i, stream
+    "sct_knn": [_P, _I, _I, _I, _P, _P, _P],
 }
 
 _library: Optional[ctypes.CDLL] = None

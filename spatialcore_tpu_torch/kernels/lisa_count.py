@@ -1,8 +1,8 @@
 """Wrappers of the local statistics' draw-step kernel, and its plain version.
 
 One CUDA source, ``csrc/lisa_count_int8.cu``, replaces the Pallas kernels
-K7 (``_make_fused_win_kernel``: its ``moran``, ``geary``, ``getis_star``
-and ``getis_g`` tails) and K8 (``_band_lag_count_kernel_i8``) of
+K7 (``_make_fused_win_kernel``: its ``moran``, ``geary``, ``lee``,
+``getis_star`` and ``getis_g`` tails) and K8 (``_band_lag_count_kernel_i8``) of
 ``spatialcore_tpu/ops/banded.py``, and the reference's XLA observed
 passes. Per padded row i and gene g, over int8 codes:
 
@@ -21,7 +21,19 @@ Gi*            A = lag + z: ``A ≥ A_o`` / ``A ≤ A_o`` /    the binary lag
                ``f32(A−A_o)·(f32(A+A_o) − 2·c2) ≥ 0``
 Gi             leave-one-out centred cp (f32) against      the binary lag
                cp_o, or an exact (lag, z) tie
+Lee's L        Lq = x·lag: ``|Lq| ≥ obs``, and the         ``|Lq|`` and the
+               block partials of the global L              partials
 =============  ==========================================  ==================
+
+Lee's x is the row's FIXED code of the pair's first gene (``zx``, an int8
+plane in the relabeled order: Lee's null permutes y only), never the
+gathered table's own row. Every Lee entry — the draw step, the observed
+entry and a partial-only entry for the global-only null — also writes the
+per-block partials ``part[n, g] = Σ_rows sw_row·f32(Lq)`` of the global L in
+one fixed order (:func:`lee_block_partial`): row group q of the kernel's 16
+(rows q, q + 16, …) sums its rows in row order, then the 16 group sums are
+added in group order; each product and sum is rounded once (``__fmul_rn``,
+``__fadd_rn``), so the partials are bitwise the plain version's.
 
 with c2 = f32(tot/m)·(W+1) (Gi*, two-sided) and, for Gi,
 
@@ -55,8 +67,8 @@ Each wrapper checks device, dtype, shape, contiguity and alignment, then:
 
 Preconditions the wrappers do not check (a device readback per launch):
 ``local_idx`` values lie in [0, 3B), ``far_row_ptr`` is non-decreasing with
-``far_row_ptr[-1]`` ≤ F, and k ≤ 1000 (Moran: |z·lag| ≤ k·127³ < 2³¹) or
-k ≤ 256 (Geary: Σ w·(Δz)² ≤ k·127·254² < 2³¹; checked).
+``far_row_ptr[-1]`` ≤ F, and k ≤ 1000 (Moran: |z·lag| ≤ k·127³ < 2³¹;
+Lee: checked) or k ≤ 256 (Geary: Σ w·(Δz)² ≤ k·127·254² < 2³¹; checked).
 """
 
 from __future__ import annotations
@@ -70,10 +82,11 @@ from .band_cross import MAX_BLOCK, band_lag_int8_plain
 
 #: kernel launches: LISA's draw step by far form and its observed entry;
 #: the geary, getis_star and getis_g draw steps; geary's and Getis's
-#: observed entries
+#: observed entries; Lee's draw step, observed and partial-only entries
 LAUNCHES = {"lisa_win": 0, "lisa_dense": 0, "lisa_band": 0, "lisa_obs": 0,
             "geary_win": 0, "geary_obs": 0, "getis_star_win": 0,
-            "getis_g_win": 0, "getis_obs": 0}
+            "getis_g_win": 0, "getis_obs": 0, "lee_win": 0, "lee_obs": 0,
+            "lee_partial": 0}
 
 #: far forms as the C entry points number them
 _FAR_NONE, _FAR_ROWS, _FAR_DENSE = 0, 1, 2
@@ -82,6 +95,12 @@ _GEARY, _GETIS_STAR, _GETIS_G = 1, 2, 3
 _ALTS = {"two-sided": 0, "greater": 1, "less": 2}
 #: the int8 local-Geary null's exactness bound: Σ w·(Δz)² ≤ k·127·254² < 2³¹
 GEARY_MAX_K = 256
+#: the int8 Lee null's exactness bound: |x·lag| ≤ k·127³ < 2³¹
+LEE_MAX_K = 1000
+#: the kernel's row groups: 256 threads, 16 across a row
+ROW_GROUPS = 16
+#: Lee's entries as sct_lee numbers them
+_LEE_COUNT, _LEE_OBSERVED, _LEE_PARTIAL = 0, 1, 2
 _COUNTER_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 #: elements of one [rows, G] temp in the plain version's row chunks
@@ -279,6 +298,73 @@ def getis_g_count_plain(local_idx, wb, Zp, block: int, obs, cnt, *,
     return cnt
 
 
+def lee_block_partial(Lq: torch.Tensor, sw_row: torch.Tensor, block: int
+                      ) -> torch.Tensor:
+    """Per-block partials [nb, G] (float32) of Σ_rows sw·f32(Lq) over whole
+    blocks of rows, in the kernel's order: row group q (rows q, q + 16, …
+    of the block) sums its products in row order from 0, then the 16 group
+    sums are added in group order from 0. A block whose size is not a
+    multiple of 16 is padded with +0 products, which change no sum."""
+    rows, G = Lq.shape
+    nb = rows // block
+    prod = (sw_row[:, None] * Lq.to(torch.float32)).reshape(nb, block, G)
+    grp = -(-block // ROW_GROUPS) * ROW_GROUPS
+    if grp != block:
+        prod = torch.nn.functional.pad(prod, (0, 0, 0, grp - block))
+    prod = prod.reshape(nb, grp // ROW_GROUPS, ROW_GROUPS, G)
+    acc = torch.zeros((nb, ROW_GROUPS, G), dtype=torch.float32, device=Lq.device)
+    for j in range(grp // ROW_GROUPS):
+        acc = acc + prod[:, j]
+    part = torch.zeros((nb, G), dtype=torch.float32, device=Lq.device)
+    for q in range(ROW_GROUPS):
+        part = part + acc[:, q]
+    return part
+
+
+def _lee_plain(local_idx, wq, Zp, block: int, zx, sw_row, obs, cnt, out, *,
+               far_row_ptr, far_q, Zf) -> torch.Tensor:
+    """Lee's plain version, in row chunks of whole blocks: counts into
+    ``cnt`` (draw step), |Lq| into ``out`` (observed), and the partials."""
+    n_rows, G = local_idx.shape[0], Zp.shape[1]
+    part = torch.empty((n_rows // block, G), dtype=torch.float32,
+                       device=Zp.device)
+    for r0, r1 in _row_chunks(n_rows, block, G):
+        Lq = zx[r0:r1].to(torch.int32) * _int_lag_plain(
+            local_idx, wq, Zp, block, far_row_ptr, far_q, Zf, r0, r1)
+        part[r0 // block:r1 // block] = lee_block_partial(Lq, sw_row[r0:r1],
+                                                          block)
+        if cnt is not None:
+            cnt[r0:r1] += (Lq.abs() >= obs[r0:r1]).to(cnt.dtype)
+        if out is not None:
+            out[r0:r1] = Lq.abs()
+    return part
+
+
+def lee_count_plain(local_idx, wq, Zp, block: int, zx, sw_row, obs, cnt, *,
+                    far_row_ptr, far_q, Zf) -> torch.Tensor:
+    """Plain version of :func:`lee_count`: updates ``cnt`` in place and
+    returns the partials."""
+    return _lee_plain(local_idx, wq, Zp, block, zx, sw_row, obs, cnt, None,
+                      far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
+
+
+def lee_observed_plain(local_idx, wq, Zp, block: int, zx, sw_row, *,
+                       far_row_ptr, far_q, Zf):
+    """Plain version of :func:`lee_observed`."""
+    out = torch.empty((local_idx.shape[0], Zp.shape[1]), dtype=torch.int32,
+                      device=Zp.device)
+    part = _lee_plain(local_idx, wq, Zp, block, zx, sw_row, None, None, out,
+                      far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
+    return out, part
+
+
+def lee_partial_plain(local_idx, wq, Zp, block: int, zx, sw_row, *,
+                      far_row_ptr, far_q, Zf) -> torch.Tensor:
+    """Plain version of :func:`lee_partial`."""
+    return _lee_plain(local_idx, wq, Zp, block, zx, sw_row, None, None, None,
+                      far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -397,8 +483,8 @@ def lisa_observed(local_idx, wq, Zp, block: int, *, far_row_ptr=None,
 def _check_rows_far(local_idx, wq, Zp, block: int, far_row_ptr, far_q, Zf):
     """Common checks of the geary / Getis entries: far edges as row
     pointers, possibly an empty list."""
-    _check(far_row_ptr is not None, "geary and Getis take the far edges as "
-                                    "row pointers (far_row_ptr, far_q, Zf)")
+    _check(far_row_ptr is not None, "geary, Getis and Lee take the far edges "
+                                    "as row pointers (far_row_ptr, far_q, Zf)")
     _check_operands(local_idx, wq, Zp, block, far_row_ptr, far_q, Zf, None)
     return local_idx.shape[0], local_idx.shape[1], Zp.shape[1]
 
@@ -549,3 +635,83 @@ def getis_g_count(local_idx, wb, Zp, block: int, obs, cnt, *, alternative: str,
                          block, obs, cnt, far_row_ptr, far_q, Zf, row_f=w_row,
                          col_a=tot, col_b=sq, lag_o=lag_o, me_o=me_o,
                          inv_m=inv_m)
+
+
+def _check_lee(local_idx, wq, Zp, block: int, zx, sw_row, far_row_ptr, far_q,
+               Zf):
+    n_rows, k, G = _check_rows_far(local_idx, wq, Zp, block, far_row_ptr,
+                                   far_q, Zf)
+    _check(k <= LEE_MAX_K, f"the int8 Lee statistic is exact int32 for k <= "
+                           f"{LEE_MAX_K} (k*127^3 < 2^31), got k={k}")
+    _plane(zx, "zx", (torch.int8,), (n_rows, G), 4, Zp.device)
+    _plane(sw_row, "sw_row", (torch.float32,), (n_rows,), 4, Zp.device)
+    return n_rows, G
+
+
+def _launch_lee(mode: int, name: str, local_idx, wq, Zp, block: int, zx,
+                sw_row, far_row_ptr, far_q, Zf, obs=None, cnt=None):
+    n_rows, k = local_idx.shape
+    G = Zp.shape[1]
+    lib = build.load_library()
+    with torch.cuda.device(Zp.device):
+        part = torch.empty((n_rows // block, G), dtype=torch.float32,
+                           device=Zp.device)
+        out = (torch.empty((n_rows, G), dtype=torch.int32, device=Zp.device)
+               if mode == _LEE_OBSERVED else None)
+        err = lib.sct_lee(
+            mode, _ptr(local_idx), _ptr(wq), _ptr(Zp), _ptr(far_row_ptr),
+            _ptr(far_q), _ptr(Zf), _ptr(zx), _ptr(sw_row), _ptr(obs), _ptr(cnt),
+            _ptr(out), _ptr(part), n_rows // block, block, k, G,
+            cnt.element_size() if cnt is not None else 1,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+    return out, part
+
+
+def lee_count(local_idx, wq, Zp, block: int, zx, sw_row, obs, cnt, *,
+              far_row_ptr, far_q, Zf) -> torch.Tensor:
+    """One Lee draw: ``cnt += (|x·lag| ≥ obs)`` in place, and the draw's
+    per-block partials of the global L, returned as float32 [nb, G].
+
+    ``zx`` int8 [Npad, G]: the fixed x codes in the relabeled order;
+    ``sw_row`` f32 [Npad]: each row's weight scale; ``obs`` int32 [Npad, G]
+    (|Lq| of the observed placement); ``cnt`` int8 / int16 / int32
+    [Npad, G]. The band, ``Zp`` (the draw's gathered y codes) and the far
+    edges (row pointers) as the module docstring says.
+    """
+    n_rows, G = _check_lee(local_idx, wq, Zp, block, zx, sw_row, far_row_ptr,
+                           far_q, Zf)
+    _plane(obs, "obs", (torch.int32,), (n_rows, G), 16, Zp.device)
+    _plane(cnt, "cnt", _COUNTER_DTYPES, (n_rows, G), 4 * cnt.element_size(),
+           Zp.device)
+    if Zp.device.type == "cpu":
+        return lee_count_plain(local_idx, wq, Zp, block, zx, sw_row, obs, cnt,
+                               far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
+    return _launch_lee(_LEE_COUNT, "lee_win", local_idx, wq, Zp, block, zx,
+                       sw_row, far_row_ptr, far_q, Zf, obs=obs, cnt=cnt)[1]
+
+
+def lee_observed(local_idx, wq, Zp, block: int, zx, sw_row, *, far_row_ptr,
+                 far_q, Zf):
+    """``(|Lq| int32 [Npad, G], partials f32 [nb, G])`` at the placement
+    gathered into ``Zp`` (operands as :func:`lee_count`)."""
+    _check_lee(local_idx, wq, Zp, block, zx, sw_row, far_row_ptr, far_q, Zf)
+    if Zp.device.type == "cpu":
+        return lee_observed_plain(local_idx, wq, Zp, block, zx, sw_row,
+                                  far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
+    return _launch_lee(_LEE_OBSERVED, "lee_obs", local_idx, wq, Zp, block, zx,
+                       sw_row, far_row_ptr, far_q, Zf)
+
+
+def lee_partial(local_idx, wq, Zp, block: int, zx, sw_row, *, far_row_ptr,
+                far_q, Zf) -> torch.Tensor:
+    """The partials f32 [nb, G] alone (the global-only Lee null; operands
+    as :func:`lee_count`)."""
+    _check_lee(local_idx, wq, Zp, block, zx, sw_row, far_row_ptr, far_q, Zf)
+    if Zp.device.type == "cpu":
+        return lee_partial_plain(local_idx, wq, Zp, block, zx, sw_row,
+                                 far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
+    return _launch_lee(_LEE_PARTIAL, "lee_partial", local_idx, wq, Zp, block,
+                       zx, sw_row, far_row_ptr, far_q, Zf)[1]

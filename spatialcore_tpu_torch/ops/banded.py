@@ -1,4 +1,5 @@
-"""Banded permutation nulls: global Moran's I / Geary's C, and local Moran.
+"""Banded permutation nulls: global Moran's I / Geary's C, and the local
+statistics (local Moran, local Geary, Getis-Ord, Lee's L).
 
 Port of the global part and of the local Moran (LISA) part of
 ``spatialcore_tpu/ops/banded.py``:
@@ -31,6 +32,13 @@ plan has no run structure); the reference's auto rule drops to XLA beyond
 the TPU kernels' VMEM limits (far_bmax > 1024), which a row-pointer read
 does not have. The counts are bitwise equal either way.
 
+Lee's L (:func:`banded_lees_l`) permutes only the y column of each gene
+pair; its int8 draw step adds the per-block partials of the global L,
+which :func:`_tree_sum` reduces in one fixed pairwise order on every
+device. Its draws come from the Feistel stream, or with
+``perm_method="sort"`` from ``core.rng.permutation`` (``jax.random.
+permutation``, bitwise), the direct null's stream.
+
 Determinism: every reduction has a fixed order and no float atomics are
 used, so counts are bitwise reproducible run to run; draws are keyed by
 their global index (``draw_offset``), so chunked runs equal unchunked ones.
@@ -44,7 +52,7 @@ import numpy as np
 import torch
 
 from ..core.logging import get_logger
-from ..core.rng import feistel_apply, fold_in, key_for
+from ..core.rng import feistel_apply, fold_in, key_for, permutation
 from ..kernels import band_cross as kern
 from ..kernels import lisa_count as kern_lisa
 from .graph import SpatialGraph
@@ -54,8 +62,8 @@ logger = get_logger("ops.banded")
 #: elements of one [rows, G] temp in the plain twins' block chunks
 _PLAIN_CHUNK_ELEMS = 1 << 27
 _SORT_NOT_PORTED = (
-    "perm_method='sort' draws with jax.random.permutation, which is not "
-    "ported yet (ROADMAP Queue 1 item 4, the slot null)")
+    "perm_method='sort' of this null is not ported yet; it comes with the "
+    "slot null (ROADMAP Queue 1 item 4)")
 
 
 # ---------------------------------------------------------------------------
@@ -956,8 +964,9 @@ def _chunked_cols(fn, arrs, G: int, width: Optional[int] = None):
 
 def _check_perm_method(perm_method: str, draws: bool = True) -> None:
     """Validate ``perm_method`` up front, so a typo fails loudly. The
-    reference's legacy "sort" stream needs the slot null's shuffle, so it
-    is refused where draws are made (``draws``)."""
+    "sort" stream of the Moran, Geary and Getis nulls comes with the slot
+    null, so it is refused where their draws are made (``draws``); Lee's
+    nulls take both streams."""
     if perm_method not in ("feistel", "sort"):
         raise ValueError("perm_method must be 'feistel' or 'sort', "
                          f"got {perm_method!r}")
@@ -1600,3 +1609,213 @@ def banded_getis(plan: NullPlan, X: torch.Tensor, seed: int,
     return _banded_getis_p(plan, X, seed, n_permutations=n_permutations,
                            star=star, alternative=alternative,
                            precision=precision)
+
+
+# ---------------------------------------------------------------------------
+# Banded Lee's L
+# ---------------------------------------------------------------------------
+
+
+def _tree_sum(part: torch.Tensor) -> torch.Tensor:
+    """Σ over axis 0 of ``part`` [m, G] in one fixed pairwise order: rows
+    padded with zeros to a power of two, then halves added until one row
+    is left. Elementwise adds only, so the sum is the same on every
+    device and in every run."""
+    m = part.shape[0]
+    size = 1 << max(m - 1, 0).bit_length()
+    if size != m:
+        part = torch.nn.functional.pad(part, (0, 0, 0, size - m))
+    while part.shape[0] > 1:
+        h = part.shape[0] // 2
+        part = part[:h] + part[h:]
+    return part[0]
+
+
+def _lee_draw_rows(perm_method: str, seed: int, rows_idx: torch.Tensor, n: int):
+    """Draw step → the padded table's rows: ``jax.random.permutation``'s
+    stream ("sort", key base ``perm_lee``: the direct null's draws) or the
+    Feistel stream (key base ``perm_feistel_lee``)."""
+    sort = perm_method == "sort"
+    base = key_for(seed, "perm_lee" if sort else "perm_feistel_lee", 0)
+
+    def rows(step: int) -> torch.Tensor:
+        key = fold_in(base, step)
+        if sort:
+            return permutation(key, n, device=rows_idx.device)[rows_idx]
+        return feistel_apply(key, rows_idx, n)
+
+    return rows
+
+
+def _relabeled_x(plan: NullPlan, X: torch.Tensor) -> torch.Tensor:
+    """The pair's fixed x column in the relabeled order, padded rows zero."""
+    x = X[plan.order]
+    if plan.n_padded > plan.n:
+        x = torch.nn.functional.pad(x, (0, 0, 0, plan.n_padded - plan.n))
+    return x.contiguous()
+
+
+def _banded_lees_p(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
+                   seed: int, *, n_permutations: int, precision: str,
+                   compute_cell_pvalues: bool, perm_method: str):
+    """Lee's L permutation p through the bf16/f32 banded null (reference
+    ``_banded_lees_p``, ops/banded.py:2539; XLA there, torch ops on the
+    compact band here). Per draw one row gather of the permuted y columns
+    and the band + far lag (:func:`_banded_lag`: band slots, then each
+    row's far edges in list order, float32 accumulation); x stays fixed.
+    The observed values come from the same operator at the identity
+    placement. Returns ``(p_global [G], p_local [n, G])`` in the original
+    order (``p_local`` ones without ``compute_cell_pvalues``)."""
+    B = plan.block
+    n_padded = plan.n_padded
+    G = Zy.shape[1]
+    dev = Zy.device
+    wdt = torch.bfloat16 if precision == "bf16" else torch.float32
+    w = plan.w_local.to(wdt)
+    Ytab = Zy.to(wdt)
+    zx = _relabeled_x(plan, Zx.to(torch.float32))
+    rows_idx = _padded_rows(plan, dev)
+    far = _far_slots(plan, _n_live_far(plan))
+    spans = _row_spans(n_padded, B, G)
+
+    def lees(rows):
+        Yp = Ytab[rows]
+        for r0, r1 in spans:
+            yield r0, r1, zx[r0:r1] * _banded_lag(plan.local_idx, w, Yp, B, far,
+                                                  r0, r1)
+
+    abs_l = (torch.empty((n_padded, G), dtype=torch.float32, device=dev)
+             if compute_cell_pvalues else None)
+    Lg = torch.zeros(G, dtype=torch.float32, device=dev)
+    for r0, r1, L in lees(rows_idx):
+        if abs_l is not None:
+            abs_l[r0:r1] = L.abs()
+        Lg += L.sum(dim=0)
+    abs_g = Lg.abs()
+    rows_of = _lee_draw_rows(perm_method, seed, rows_idx, plan.n)
+    cdt = torch.int16 if n_permutations <= 32767 else torch.int32
+    cg = torch.zeros(G, dtype=torch.int32, device=dev)
+    cl = (torch.zeros((n_padded, G), dtype=cdt, device=dev)
+          if compute_cell_pvalues else None)
+    for step in range(n_permutations):
+        Lg = torch.zeros(G, dtype=torch.float32, device=dev)
+        for r0, r1, L in lees(rows_of(step)):
+            if cl is not None:
+                cl[r0:r1] += (L.abs() >= abs_l[r0:r1]).to(cdt)
+            Lg += L.sum(dim=0)
+        cg += (Lg.abs() >= abs_g).to(torch.int32)
+    p_l = (_p_from_counts(cl[plan.rank], n_permutations) if compute_cell_pvalues
+           else torch.ones((plan.n, G), dtype=torch.float32, device=dev))
+    return _p_from_counts(cg, n_permutations), p_l
+
+
+def _banded_lees_p_i8(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
+                      seed: int, *, n_permutations: int, perm_method: str,
+                      compute_cell_pvalues: bool, band_impl: str = "auto"):
+    """Lee's L nulls in the int8 quantized-operator system (reference
+    ``_banded_lees_p_i8``, ops/banded.py:2615).
+
+    Both columns quantize per gene pair (:func:`_quantize_z`), the weights
+    per row with the full-row scale (:func:`_full_row_codes`). The per-cell
+    draw statistic is the exact int32 ``Lq = x_code · Σ w_code·y_code``
+    (k ≤ 1000); the positive factor s_x·s_y·sw_row multiplies both sides of
+    every per-cell comparison, so ``|Lq| ≥ |Lq_obs|`` is exact. The global
+    L re-applies the row scale in float32: the draw step returns per-block
+    partials Σ_rows sw_row·f32(Lq) in a fixed order, which
+    :func:`_tree_sum` reduces in a fixed order, the same for the observed
+    value and every draw. Per draw: one row gather of the y codes (Feistel
+    or ``permutation`` rows), the far values, and one Lee entry of
+    ``kernels.lisa_count`` — the draw step with ``compute_cell_pvalues``,
+    the partial-only entry without (the kernel on a CUDA tensor, its plain
+    version on a CPU tensor or with ``band_impl="xla"``). Counters are int8
+    for P ≤ 127. Returns ``(p_global [G], p_local [n, G])``.
+    """
+    B = plan.block
+    n_padded = plan.n_padded
+    k_total = plan.local_idx.shape[1]
+    if k_total > kern_lisa.LEE_MAX_K:
+        raise ValueError(
+            f"int8 Lee null supports k <= {kern_lisa.LEE_MAX_K} (int32 bound "
+            f"k*127^3), got k={k_total}; use precision='bf16'")
+    Zyq = _pad_cols4(_quantize_z(Zy)[0])
+    G = Zy.shape[1]
+    dev = Zyq.device
+    zx = _relabeled_x(plan, _pad_cols4(_quantize_z(Zx)[0]))
+    wq, sw, far_q = _full_row_codes(plan)
+    sw_row = sw.reshape(-1).contiguous()
+    li32 = plan.local_idx.to(torch.int32).contiguous()
+    rows_idx = _padded_rows(plan, dev)
+    n_live = _n_live_far(plan)
+    ptr, dst = _rows_far(plan, n_live)
+    fq8 = far_q[:n_live].to(torch.int8)
+    plain = band_impl == "xla"
+    count_fn = kern_lisa.lee_count_plain if plain else kern_lisa.lee_count
+    obs_fn = kern_lisa.lee_observed_plain if plain else kern_lisa.lee_observed
+    part_fn = kern_lisa.lee_partial_plain if plain else kern_lisa.lee_partial
+
+    def far_of(Yp):
+        return dict(far_row_ptr=ptr, far_q=fq8, Zf=Yp[dst])
+
+    Yp = Zyq[rows_idx]                            # identity placement
+    if compute_cell_pvalues:
+        abs_l, part = obs_fn(li32, wq, Yp, B, zx, sw_row, **far_of(Yp))
+    else:
+        part = part_fn(li32, wq, Yp, B, zx, sw_row, **far_of(Yp))
+    abs_g = _tree_sum(part).abs()
+    rows_of = _lee_draw_rows(perm_method, seed, rows_idx, plan.n)
+    cg = torch.zeros(Zyq.shape[1], dtype=torch.int32, device=dev)
+    cl = (torch.zeros((n_padded, Zyq.shape[1]), device=dev,
+                      dtype=kern_lisa.counter_dtype(n_permutations))
+          if compute_cell_pvalues else None)
+    for step in range(n_permutations):
+        Yp = Zyq[rows_of(step)]                   # ONE int8 row gather
+        if cl is not None:
+            part = count_fn(li32, wq, Yp, B, zx, sw_row, abs_l, cl, **far_of(Yp))
+        else:
+            part = part_fn(li32, wq, Yp, B, zx, sw_row, **far_of(Yp))
+        cg += (_tree_sum(part).abs() >= abs_g).to(torch.int32)
+    p_l = (_p_from_counts(cl[plan.rank, :G], n_permutations)
+           if compute_cell_pvalues
+           else torch.ones((plan.n, G), dtype=torch.float32, device=dev))
+    return _p_from_counts(cg[:G], n_permutations), p_l
+
+
+def banded_lees_l(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
+                  seed: int, n_permutations: int, precision: str = "bf16",
+                  compute_cell_pvalues: bool = False,
+                  perm_method: str = "feistel", band_impl: str = "auto"):
+    """Lee's L permutation p-values (global, and per cell with
+    ``compute_cell_pvalues``) via the banded plan (reference
+    ``banded_lees_l``). The observed L comes from the exact direct pass
+    (``ops.lee.lees_l_pairs`` with ``n_permutations=0``); this evaluates
+    the null only. Returns ``(p_global [P], p_local [n, P])`` in the
+    original cell order, on the device of ``Zy``.
+
+    ``perm_method``: "feistel" (default) or "sort", which reproduces the
+    direct null's draws (``jax.random.permutation`` keyed ``perm_lee``).
+    ``precision``: "bf16" / "f32" run the float null in torch ops; "int8"
+    the quantized-operator null (k ≤ 1000), whose draw step on a CUDA
+    tensor is the Hopper kernel's lee tail with row-pointer far edges for
+    ``band_impl`` "auto" and "pallas" alike (the partial-only entry when
+    only the global p is asked for, which the reference leaves to XLA);
+    "xla" runs the kernel's plain version on any device. The per-cell
+    counts are bitwise equal either way; the global p can differ from the
+    reference's XLA einsum only at an exact float32 tie of |L|.
+    """
+    if precision not in ("bf16", "f32", "int8"):
+        raise ValueError(
+            f"banded_lees_l supports precision 'bf16', 'f32' or 'int8', "
+            f"got {precision!r}")
+    _check_perm_method(perm_method, draws=False)
+    _check_impl(band_impl)
+    seed = int(seed) & 0xFFFFFFFF
+    if precision == "int8":
+        return _banded_lees_p_i8(plan, Zx, Zy, seed,
+                                 n_permutations=n_permutations,
+                                 perm_method=perm_method,
+                                 compute_cell_pvalues=compute_cell_pvalues,
+                                 band_impl=band_impl)
+    return _banded_lees_p(plan, Zx, Zy, seed, n_permutations=n_permutations,
+                          precision=precision,
+                          compute_cell_pvalues=compute_cell_pvalues,
+                          perm_method=perm_method)

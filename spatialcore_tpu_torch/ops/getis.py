@@ -11,8 +11,8 @@ nearest neighbours (the graph's valid slots):
     observations j ≠ i and n replaced by n−1.
 
 The analytic normal p-values are the default. The slot permutation null
-(``n_permutations > 0``) shuffles with ``jax.random.permutation`` and is
-not ported yet; ``ops.banded.banded_getis`` serves the permutation p_sim.
+(``n_permutations > 0``) is not ported yet; ``ops.banded.banded_getis``
+serves the permutation p_sim.
 """
 
 from __future__ import annotations
@@ -61,8 +61,8 @@ def getis_ord(graph: SpatialGraph, X: torch.Tensor, star: bool = True,
     if n_permutations > 0:
         raise NotImplementedError(
             "the slot Getis-Ord null (getis_ord with n_permutations > 0) "
-            "draws with jax.random.permutation, which is not ported yet "
-            "(ROADMAP Queue 1 item 4); use ops.banded.banded_getis")
+            "is not ported yet (ROADMAP Queue 1 item 4); use "
+            "ops.banded.banded_getis")
     X = torch.as_tensor(X)
     if X.ndim == 1:
         X = X[:, None]

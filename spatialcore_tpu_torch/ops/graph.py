@@ -9,11 +9,12 @@ structure:
     valid        : bool[N, k]
     distances    : f32[N, k]
 
-kNN search is either an exact tiled all-pairs scan (:func:`knn_exact`) or a
-uniform-grid bucket search with an exactness check and widening rounds
-(:func:`knn_grid`). Both return neighbours sorted by (distance, id), so ties
-break by the lower cell id. Radius graphs and the Pallas kNN (K9) are not
-ported yet (ROADMAP Queue 1 item 3 and Queue 2 K9).
+kNN search is an exact tiled all-pairs scan in torch ops (:func:`knn_exact`),
+a uniform-grid bucket search with an exactness check and widening rounds
+(:func:`knn_grid`), or the exact all-pairs scan of the hand-written kernel
+that replaces the Pallas kNN K9 (``ops/knn_kernel.pallas_knn``). All return
+neighbours sorted by (distance, id), so ties break by the lower cell id.
+Radius graphs are not ported yet (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -303,23 +304,28 @@ def build_graph(coords, n_neighbors: int = 6, include_self: bool = False,
     over the k nearest neighbours (self excluded unless ``include_self``,
     which adds self as an extra neighbour), rows normalized to sum to 1.
     ``method``: "auto" (grid search above ``grid_threshold`` 2D cells,
-    else the exact scan), "grid" or "exact".
+    else the exact scan), "grid", "exact", or "pallas": the exact all-pairs
+    kNN kernel (``ops/knn_kernel.pallas_knn``; the hand-written Hopper
+    kernel on the card, its plain version on the CPU), 2D only, with the
+    coordinates centred by their numpy float32 mean as the reference's
+    ``pallas_knn`` centres them.
     """
     if radius is not None or k_max is not None:
         raise NotImplementedError(
             "radius graphs are not ported yet (ROADMAP Queue 1 item 3)")
-    if method == "pallas":
-        raise NotImplementedError(
-            "method='pallas' (the K9 kNN kernel) is not ported yet "
-            "(ROADMAP Queue 2, K9)")
-    if method not in ("auto", "grid", "exact"):
+    if method not in ("auto", "grid", "exact", "pallas"):
         raise ValueError(f"unknown kNN method {method!r}")
     c = torch.as_tensor(coords).to(device=device, dtype=torch.float32)
     n = c.shape[0]
     k_eff = n_neighbors + (1 if include_self else 0)
     use_grid = method == "grid" or (
         method == "auto" and n > grid_threshold and c.shape[1] == 2)
-    if use_grid:
+    if method == "pallas":
+        from .knn_kernel import pallas_knn   # kernels.knn imports this module
+
+        idx, dist = pallas_knn(c, k_eff, include_self=include_self,
+                               device=c.device)
+    elif use_grid:
         idx, dist = knn_grid(c, k_eff, include_self=include_self)
     else:
         idx, dist = knn_exact(c, k_eff, include_self=include_self)

@@ -10,9 +10,10 @@ Port of the global part and of ``local_moran`` / ``classify_quadrants`` /
     VarN / VarR : Cliff & Ord (1981) normality / randomization formulas.
 
 The slot permutation nulls (``permutation_test_global``, and
-``local_moran`` / ``local_geary`` with ``n_permutations > 0``) draw with
-``jax.random.permutation`` and are not ported yet (ROADMAP Queue 1 item 4);
-the banded nulls in ``ops/banded.py`` serve the permutation p-values.
+``local_moran`` / ``local_geary`` with ``n_permutations > 0``) are not
+ported yet (ROADMAP Queue 1 item 4; their shuffle, ``jax.random.
+permutation``, is ``core.rng.permutation``); the banded nulls in
+``ops/banded.py`` serve the permutation p-values.
 """
 
 from __future__ import annotations
@@ -127,9 +128,8 @@ def local_moran(graph: SpatialGraph, Z: torch.Tensor, seed: int,
     """Local Moran's I: I_i = z_i · (Wz)_i, one exact ``spatial_lag`` pass.
 
     With ``n_permutations=0`` (the observed statistics; p is all ones) as
-    the reference. Its slot permutation null draws with
-    ``jax.random.permutation`` and is not ported yet: ``n_permutations > 0``
-    raises ``NotImplementedError``; ``ops.banded.banded_local_moran`` serves
+    the reference. Its slot permutation null is not ported yet:
+    ``n_permutations > 0`` raises ``NotImplementedError``; ``ops.banded.banded_local_moran`` serves
     the permutation p-values. ``chunk`` and ``seed`` are accepted for API
     compatibility.
     """
@@ -139,9 +139,9 @@ def local_moran(graph: SpatialGraph, Z: torch.Tensor, seed: int,
             f"null must be 'total' or 'conditional', got {null!r}")
     if n_permutations > 0:
         raise NotImplementedError(
-            "the slot LISA null (local_moran with n_permutations > 0) draws "
-            "with jax.random.permutation, which is not ported yet (ROADMAP "
-            "Queue 1 item 4); use ops.banded.banded_local_moran")
+            "the slot LISA null (local_moran with n_permutations > 0) is "
+            "not ported yet (ROADMAP Queue 1 item 4); use "
+            "ops.banded.banded_local_moran")
     lag = spatial_lag(graph, Z)
     I_obs = Z * lag
     return LocalMoranResult(I_obs, Z, lag, torch.ones_like(I_obs))
@@ -165,8 +165,8 @@ def local_geary(graph: SpatialGraph, Z: torch.Tensor, seed: int = 0,
 
     Small c_i: the cell resembles its neighbours. With
     ``n_permutations=0`` p is all ones, as in the reference. Its slot nulls
-    ("conditional" and "total") draw with ``jax.random.permutation`` and
-    are not ported yet: ``n_permutations > 0`` raises
+    ("conditional" and "total") are not ported yet: ``n_permutations > 0``
+    raises
     ``NotImplementedError``; ``ops.banded.banded_local_geary`` serves the
     total-null p-values.
     """
@@ -177,8 +177,8 @@ def local_geary(graph: SpatialGraph, Z: torch.Tensor, seed: int = 0,
     if n_permutations > 0:
         raise NotImplementedError(
             "the slot local-Geary null (local_geary with n_permutations > 0) "
-            "draws with jax.random.permutation, which is not ported yet "
-            "(ROADMAP Queue 1 item 4); use ops.banded.banded_local_geary")
+            "is not ported yet (ROADMAP Queue 1 item 4); use "
+            "ops.banded.banded_local_geary")
     c = torch.zeros_like(Z)
     for j in range(graph.neighbor_idx.shape[1]):
         d = Z - Z[graph.neighbor_idx[:, j]]

@@ -1,16 +1,15 @@
 """Gene-tile schedule, and the streaming local-statistic nulls (local
-Moran, local Geary, Getis-Ord).
+Moran, local Geary, Getis-Ord, local Lee's L).
 
-Port of ``tile_widths`` and of the local Moran, local Geary and Getis-Ord
-parts of ``streaming_local_null`` (``spatialcore_tpu/ops/streaming.py:46-68,
-279-745``): gene tiles flow through the banded local nulls and each tile's
-[N, tile] output planes go to a sink, so 1M cells × thousands of genes of
-local nulls never hold the full [N, G] float32 planes at once.
+Port of ``tile_widths`` and of ``streaming_local_null``
+(``spatialcore_tpu/ops/streaming.py:46-68, 279-745``): gene (or gene-pair)
+tiles flow through the banded local nulls and each tile's [N, tile] output
+planes go to a sink, so 1M cells × thousands of genes of local nulls never
+hold the full [N, G] float32 planes at once.
 
-Not ported yet (``NotImplementedError``, ROADMAP Queue 1 item 10): the
-``stat`` "lee", which comes with K7's lee tail, and ``obs_dtype="bf16"``,
-the wide-tile recipe that fits a 16 GB chip by keeping only int8 codes and
-a bf16 copy of Z per tile.
+Not ported yet (``NotImplementedError``, ROADMAP Queue 1 item 10):
+``obs_dtype="bf16"``, the wide-tile recipe that fits a 16 GB chip by
+keeping only int8 codes and a bf16 copy of Z per tile.
 """
 
 from __future__ import annotations
@@ -161,6 +160,27 @@ def _getis_planes(graph, X, p_sim, n_permutations: int, fdr: str, alpha: float,
             "p_sim": p_sim, "p_adj": p_adj, "hotspot": hot}
 
 
+def _lee_planes(graph, Zx, Zy, p, zero_var, n_permutations: int, fdr: str,
+                alpha: float) -> Dict[str, torch.Tensor]:
+    """The five local Lee planes of one set of gene pairs: observed L and
+    lag(Zy) from one exact pass, p and its per-pair FDR, quadrants of Zx
+    against lag(Zy) (the ``lees_l_local`` convention); pairs with a
+    zero-variance gene masked to 0 / p 1 / NS."""
+    from .fdr import apply_fdr
+    from .lee import lees_l_pairs
+    from .moran import classify_quadrants
+
+    zv = zero_var[None, :]
+    res = lees_l_pairs(graph, Zx, Zy, 0, 0)
+    p = torch.where(zv, 1.0, p)
+    p_adj = apply_fdr(p, fdr, axis=0, n_levels=n_permutations + 1)
+    quad = classify_quadrants(Zx, res.lag_zy, p_adj, alpha)
+    return {"L": torch.where(zv, 0.0, res.L_local),
+            "lag": torch.where(zv, 0.0, res.lag_zy),
+            "p": p, "p_adj": p_adj,
+            "quadrant": torch.where(zv, torch.zeros_like(quad), quad)}
+
+
 def streaming_local_null(
     graph,
     plan,
@@ -183,12 +203,14 @@ def streaming_local_null(
 ) -> None:
     """Local-statistic permutation nulls over a streamed gene axis.
 
-    Runs LISA (``stat="moran"``), local Geary (``"geary"``) or Getis-Ord
-    Gi* / Gi (``"getis"``, with ``star`` and ``alternative``) in
-    ``tile``-wide gene tiles through the banded nulls (``ops.banded``; int8
-    by default, the Hopper draw-step kernel on the card) and hands each
+    Runs LISA (``stat="moran"``), local Geary (``"geary"``), Getis-Ord
+    Gi* / Gi (``"getis"``, with ``star`` and ``alternative``) or local
+    Lee's L (``"lee"``: ``get_tile`` then returns an ``(X, Y)`` pair of
+    tiles, the pairs' x and y genes, and ``n_genes`` counts pairs) in
+    ``tile``-wide tiles through the banded nulls (``ops.banded``; int8 by
+    default, the Hopper draw-step kernel on the card) and hands each
     tile's [N, tile] outputs to ``sink(start, avail, outs)``. Tiles come
-    from ``get_tile(start, width)`` (numpy or a tensor) and are moved to
+    from ``get_tile(start, width)`` (numpy or tensors) and are moved to
     ``device``.
 
     * the last tile is as wide as the genes left (the reference pads it to
@@ -202,24 +224,22 @@ def streaming_local_null(
 
     Output keys: moran -> I, z, lag, p, p_adj, quadrant; geary -> C, p,
     p_adj; getis -> G, z_score, p (analytic), p_sim, p_adj (BH over
-    p_sim), hotspot (int8: 1 hot / −1 cold after FDR at ``alpha``, 0 NS).
-    Moran and Geary standardize each tile; Getis works on raw values.
+    p_sim), hotspot (int8: 1 hot / −1 cold after FDR at ``alpha``, 0 NS);
+    lee -> L, lag, p, p_adj, quadrant (Zx against lag(Zy); a pair with a
+    zero-variance gene in either tile is masked). Moran, Geary and Lee
+    standardize each tile; Getis works on raw values.
     ``keys`` selects the lean path: only the named planes are kept,
     computed ``post_chunk`` gene columns at a time and emitted already in
     the compact dtypes of :data:`_COMPACT_DTYPES`; p-values are the same
     kernel call, bitwise.
     """
-    from .banded import (banded_getis, banded_local_geary, banded_local_moran,
-                         banded_local_moran_pvalues)
+    from .banded import (banded_getis, banded_lees_l, banded_local_geary,
+                         banded_local_moran, banded_local_moran_pvalues)
     from .moran import standardize
 
     if stat not in _ALL_KEYS:
         raise ValueError(f"stat must be 'moran', 'geary', 'getis' or 'lee', "
                          f"got {stat!r}")
-    if stat == "lee":
-        raise NotImplementedError(
-            "streaming_local_null(stat='lee') is not ported yet (ROADMAP "
-            "Queue 1 item 10: Lee's L comes with K7's lee tail)")
     if obs_dtype not in ("f32", "bf16"):
         raise ValueError(f"obs_dtype must be 'f32' or 'bf16', got {obs_dtype!r}")
     if obs_dtype == "bf16":
@@ -234,8 +254,14 @@ def streaming_local_null(
     n_cells = graph.neighbor_idx.shape[0]
     c = max(1, post_chunk)
 
-    def p_of(Z):
-        """The tile's raw p (p_sim for Getis) from the banded null."""
+    def p_of(cols):
+        """The tile's raw p (p_sim for Getis) from the banded null; ``cols``
+        holds the tile (Lee: the (Zx, Zy) pair)."""
+        if stat == "lee":
+            return banded_lees_l(plan, *cols, seed, n_permutations,
+                                 precision=precision,
+                                 compute_cell_pvalues=True)[1]
+        Z = cols[0]
         if stat == "geary":
             return banded_local_geary(plan, Z, seed, n_permutations,
                                       precision=precision)[1]
@@ -247,7 +273,11 @@ def streaming_local_null(
         return banded_local_moran(plan, graph, Z, seed, n_permutations,
                                   precision=precision).p_value
 
-    def planes(Z, p, zero_var):
+    def planes(cols, p, zero_var):
+        if stat == "lee":
+            return _lee_planes(graph, *cols, p, zero_var, n_permutations, fdr,
+                               alpha)
+        Z = cols[0]
         if stat == "geary":
             return _geary_planes(graph, Z, p, zero_var, n_permutations, fdr)
         if stat == "getis":
@@ -255,24 +285,35 @@ def streaming_local_null(
                                  alternative)
         return _moran_planes(graph, Z, p, zero_var, n_permutations, fdr, alpha)
 
+    def load(X):
+        return torch.as_tensor(X).to(device=device, dtype=torch.float32)
+
     for start in range(0, n_genes, tile):
         avail = min(tile, n_genes - start)
-        X = torch.as_tensor(get_tile(start, avail)).to(device=device,
-                                                       dtype=torch.float32)
-        if stat == "getis":
-            Z, zero_var = X, None
+        tiles = get_tile(start, avail)
+        if stat == "lee":               # Z: the (Zx, Zy) pair of tiles
+            if not (isinstance(tiles, (tuple, list)) and len(tiles) == 2):
+                raise ValueError("stat='lee' needs get_tile to return an "
+                                 "(X, Y) pair of tiles")
+            (Zx, zvx), (Zy, zvy) = (standardize(load(t)) for t in tiles)
+            Z, zero_var = (Zx, Zy), zvx | zvy
+            del Zx, Zy
+        elif stat == "getis":
+            Z, zero_var = (load(tiles),), None
         else:
-            Z, zero_var = standardize(X)
-        del X
-        Z_dev = Z.device
+            Zs, zero_var = standardize(load(tiles))
+            Z = (Zs,)
+            del Zs
+        del tiles
+        Z_dev = Z[0].device
         p_raw = p_of(Z)
         if keys is None:
             outs = planes(Z, p_raw, zero_var)
         else:
             outs = {k: torch.empty((n_cells, avail), dtype=_COMPACT_DTYPES[k],
-                                   device=Z.device) for k in keys}
+                                   device=Z_dev) for k in keys}
             for s in range(0, avail, c):
-                part = planes(Z[:, s:s + c], p_raw[:, s:s + c],
+                part = planes(tuple(t[:, s:s + c] for t in Z), p_raw[:, s:s + c],
                               None if zero_var is None else zero_var[s:s + c])
                 for k in keys:
                     outs[k][:, s:s + c] = part[k].to(_COMPACT_DTYPES[k])

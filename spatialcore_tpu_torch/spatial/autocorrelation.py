@@ -1,17 +1,20 @@
 """Public spatial autocorrelation: global Moran's I and Geary's C, local
-Moran's I (LISA), local Geary's C and Getis-Ord Gi* / Gi.
+Moran's I (LISA), local Geary's C, Getis-Ord Gi* / Gi and Lee's L.
 
 Port of ``build_spatial_weights``, ``morans_i``, ``gearys_c``,
-``local_morans_i``, ``local_gearys_c`` and ``getis_ord_gi`` of
-``spatialcore_tpu/spatial/autocorrelation.py`` and their helpers. Same
-parameters and outputs (the global ``uns`` DataFrames ``gene, I|C,
-expected_I|expected_C, z_score, p_value``; the local ``obsm`` planes and
-``uns[f"{key}_params"]``), plus an explicit ``device``. "Device mode" of
-the local functions — outputs kept on the card — is "X is a CUDA tensor".
+``local_morans_i``, ``local_gearys_c``, ``getis_ord_gi``, ``lees_l`` and
+``lees_l_local`` of ``spatialcore_tpu/spatial/autocorrelation.py`` and
+their helpers. Same parameters and outputs (the global ``uns`` DataFrames
+``gene, I|C, expected_I|expected_C, z_score, p_value``; the local ``obsm``
+planes and ``uns[f"{key}_params"]``; Lee's per-pair ``obs`` columns), plus
+an explicit ``device``. "Device mode" of the local functions — outputs kept
+on the card — is "X is a CUDA tensor".
 
-Permutation p-values come from the banded nulls (``ops/banded.py``). Not
-ported yet, and refused loudly: the slot nulls (``null_method="slots"`` or
-"direct" with permutations, "auto" where it resolves to them, and
+Permutation p-values come from the banded nulls (``ops/banded.py``), and
+for Lee's L also from its direct null (``ops/lee.py``). Not ported yet,
+and refused loudly: the slot nulls of Moran, Geary and Getis-Ord
+(``null_method="slots"`` or "direct" with permutations, "auto" where it
+resolves to them, and
 ``null="conditional"``; ROADMAP Queue 1 item 4) and gene sharding over a
 ``mesh`` (Queue 1 item 15). Unknown ``null_method`` strings raise
 ``ValueError`` (the reference's global path runs the slot null for them,
@@ -21,7 +24,8 @@ ROADMAP Queue 3).
 from __future__ import annotations
 
 import time
-from typing import List, Literal, Optional, Union
+from itertools import combinations
+from typing import List, Literal, Optional, Tuple, Union
 
 import numpy as np
 import pandas as pd
@@ -30,12 +34,13 @@ import torch
 
 from ..core.logging import get_logger
 from ..core.metadata import update_metadata
-from ..ops.banded import (banded_getis, banded_local_geary,
+from ..ops.banded import (banded_getis, banded_lees_l, banded_local_geary,
                           banded_local_moran, banded_permutation_test,
                           build_null_plan)
 from ..ops.fdr import apply_fdr
 from ..ops.graph import SpatialGraph, build_graph, graph_from_numpy, graph_moments
 from ..ops.getis import getis_ord
+from ..ops.lee import lees_l_pairs
 from ..ops.moran import (QUADRANT_LABELS, classify_quadrants,
                          geary_analytic_moments, geary_observed, local_geary,
                          local_moran, moran_analytic_moments, moran_observed,
@@ -388,25 +393,36 @@ def _resolve_output_mode(output_mode: str, plan, X_is_device: bool, n_cells,
 def _run_compact_stream(adata, stat: str, names, layer, graph, plan,
                         n_permutations, fdr, alpha, seed, tile, precision,
                         X_is_device, device_keys, device: Device, star=True,
-                        alternative="two-sided"):
-    """Shared memory-bounded local-statistic runner: stream gene tiles
-    through ``ops.streaming.streaming_local_null`` and return the output
-    planes. A CUDA ``X`` keeps compact planes on the card (``device_keys``
-    only, through the lean post-pass that computes just those); any other
-    ``X`` flushes float32 host arrays per tile. Serves the
-    ``output_mode="compact"`` paths of ``local_morans_i``,
-    ``local_gearys_c`` and ``getis_ord_gi``."""
-    def get_tile(s, w):
-        return _dense_expression(adata, names[s:s + w], layer, device)
+                        alternative="two-sided", pair_names=None):
+    """Shared memory-bounded local-statistic runner: stream gene (Lee: gene
+    pair) tiles through ``ops.streaming.streaming_local_null`` and return
+    the output planes. A CUDA ``X`` keeps compact planes on the card
+    (``device_keys`` only, through the lean post-pass that computes just
+    those); any other ``X`` flushes float32 host arrays per tile. Serves
+    the ``output_mode="compact"`` paths of ``local_morans_i``,
+    ``local_gearys_c``, ``getis_ord_gi`` and ``lees_l_local`` (whose
+    ``pair_names`` are the pairs' x and y gene lists)."""
+    if stat == "lee":
+        gx, gy = pair_names
+        n_items = len(gx)
+
+        def get_tile(s, w):
+            return (_dense_expression(adata, gx[s:s + w], layer, device),
+                    _dense_expression(adata, gy[s:s + w], layer, device))
+    else:
+        n_items = len(names)
+
+        def get_tile(s, w):
+            return _dense_expression(adata, names[s:s + w], layer, device)
 
     if X_is_device:
-        sink, finalize = device_local_sink(len(names), keys=device_keys)
+        sink, finalize = device_local_sink(n_items, keys=device_keys)
         stream_keys = device_keys
     else:
-        sink, store = host_local_sink(adata.n_obs, len(names))
+        sink, store = host_local_sink(adata.n_obs, n_items)
         stream_keys = None
     streaming_local_null(
-        graph, plan, get_tile, len(names), sink, stat=stat, seed=seed,
+        graph, plan, get_tile, n_items, sink, stat=stat, seed=seed,
         n_permutations=n_permutations, tile=tile, fdr=fdr, alpha=alpha,
         star=star, alternative=alternative, precision=precision,
         keys=stream_keys, device=device)
@@ -996,4 +1012,305 @@ def getis_ord_gi(
                  for s in ("G", "z", "p", "p_adj", "hotspot")}
         | {"uns_params": f"{key_added}_params"})
     logger.info(f"Getis-Ord completed in {elapsed:.1f}s")
+    return adata
+
+
+# ---------------------------------------------------------------------------
+# Lee's L
+# ---------------------------------------------------------------------------
+
+#: Lee's quadrant categories, in the code order of ``QUADRANT_LABELS``
+LEE_QUADRANTS = list(QUADRANT_LABELS.values())
+
+
+def _lees_use_banded(null_method: str, n_cells: int,
+                     n_permutations: int) -> Tuple[bool, str]:
+    """``(use_banded, precision)`` as the reference resolves it; validates
+    ``null_method`` first, so a typo fails even at ``n_permutations=0``.
+    "auto" takes the float32 banded null at ≥ 100k cells and the direct
+    null below; "banded" is bf16, "banded_int8" the int8 null."""
+    if null_method not in LOCAL_NULL_METHODS:
+        raise ValueError("null_method must be 'auto', 'banded', "
+                         f"'banded_int8' or 'direct', got {null_method!r}")
+    if n_permutations <= 0 or null_method == "direct":
+        return False, "f32"
+    if null_method == "banded":
+        return True, "bf16"
+    if null_method == "banded_int8":
+        return True, "int8"
+    return n_cells >= 100_000, "f32"
+
+
+def _normalize_pairs(gene_pairs) -> Tuple[List[Tuple[str, str]], bool]:
+    if isinstance(gene_pairs, tuple) and len(gene_pairs) == 2 \
+            and isinstance(gene_pairs[0], str):
+        return [gene_pairs], True
+    return list(gene_pairs), False
+
+
+def _lees_columns(adata, pairs, layer, device: Device):
+    """Standardized x and y columns of the pairs whose genes both vary:
+    ``(ok_pairs, Zx, Zy)`` ([N, len(ok_pairs)] each, on ``device``)."""
+    all_genes = sorted({g for p in pairs for g in p})
+    Z, zero_var = standardize(_dense_expression(adata, all_genes, layer,
+                                                device))
+    zero_var = zero_var.cpu().numpy()
+    gi = {g: i for i, g in enumerate(all_genes)}
+    ok = [(gx, gy) for gx, gy in pairs
+          if not (zero_var[gi[gx]] or zero_var[gi[gy]])]
+    ix = torch.as_tensor([gi[gx] for gx, _ in ok], dtype=torch.int64,
+                         device=Z.device)
+    iy = torch.as_tensor([gi[gy] for _, gy in ok], dtype=torch.int64,
+                         device=Z.device)
+    return ok, Z.index_select(1, ix), Z.index_select(1, iy)
+
+
+def _check_pair_genes(adata, pairs) -> None:
+    all_genes = sorted({g for p in pairs for g in p})
+    missing = [g for g in all_genes if g not in adata.var_names]
+    if missing:
+        raise ValueError(f"Genes not found in adata.var_names: {missing}")
+
+
+def lees_l(adata, gene_pairs: Union[Tuple[str, str], List[Tuple[str, str]]],
+           layer: Optional[str] = None, spatial_key: str = "spatial",
+           n_neighbors: int = 6, n_permutations: int = 199, seed: int = 0,
+           use_existing_graph: bool = False, null_method: str = "auto",
+           device: Device = "cuda") -> Union[dict, List[dict]]:
+    """Global Lee's L for gene pair(s); returns dict(s) ``gene_x, gene_y,
+    L, p_value`` and does not write ``adata``.
+
+    L = Σ_i z_x,i · lag(z_y)_i with a two-tailed permutation p. Pairs with a
+    zero-variance gene get L = 0, p = 1 with a warning. ``null_method``:
+    "auto" takes the float32 banded null at ≥ 100k cells and the direct
+    null below (``ops.lee.lees_l_pairs``: ``jax.random.permutation``'s
+    draws, bitwise); "direct", "banded" (bf16) and "banded_int8" (the int8
+    null, k ≤ 1000: the Hopper kernel's lee tail on the card) force one.
+    The observed L always comes from the exact direct pass.
+    """
+    start = time.time()
+    if spatial_key not in adata.obsm:
+        raise ValueError(f"adata.obsm['{spatial_key}'] not found. "
+                         "Spatial coordinates are required.")
+    if n_neighbors < 1:
+        raise ValueError(f"n_neighbors must be >= 1, got {n_neighbors}")
+    if n_permutations < 0:
+        raise ValueError(f"n_permutations must be >= 0, got {n_permutations}")
+    pairs, single = _normalize_pairs(gene_pairs)
+    _check_pair_genes(adata, pairs)
+    graph = _get_graph(adata, n_neighbors, spatial_key, use_existing_graph,
+                       device)
+    ok_pairs, Zx, Zy = _lees_columns(adata, pairs, layer, device)
+    use_banded, band_prec = _lees_use_banded(null_method, adata.n_obs,
+                                             n_permutations)
+    results_map = {}
+    if ok_pairs:
+        if use_banded:
+            res = lees_l_pairs(graph, Zx, Zy, seed, 0)    # exact observed
+            plan = _get_null_plan(adata, graph, spatial_key)
+            pg = banded_lees_l(plan, Zx, Zy, seed, n_permutations,
+                               precision=band_prec)[0]
+        else:
+            res = lees_l_pairs(graph, Zx, Zy, seed, n_permutations)
+            pg = res.p_global
+        Lg, pg = res.L_global.cpu().numpy(), pg.cpu().numpy()
+        for i, (gx, gy) in enumerate(ok_pairs):
+            results_map[(gx, gy)] = {"gene_x": gx, "gene_y": gy,
+                                     "L": float(Lg[i]), "p_value": float(pg[i])}
+    results = []
+    for gx, gy in pairs:
+        if (gx, gy) in results_map:
+            results.append(results_map[(gx, gy)])
+        else:
+            logger.warning(f"Gene pair ({gx}, {gy}) has zero-variance gene — "
+                           "L set to 0")
+            results.append({"gene_x": gx, "gene_y": gy, "L": 0.0,
+                            "p_value": 1.0})
+    logger.info(f"Global Lee's L completed in {time.time() - start:.1f}s")
+    return results[0] if single else results
+
+
+def lees_l_local(
+    adata,
+    gene_pairs: Optional[Union[Tuple[str, str], List[Tuple[str, str]]]] = None,
+    genes: Optional[List[str]] = None,
+    layer: Optional[str] = None,
+    spatial_key: str = "spatial",
+    n_neighbors: int = 6,
+    n_permutations: int = 199,
+    compute_cell_pvalues: bool = False,
+    significance_filter: bool = False,
+    alpha: float = 0.05,
+    seed: int = 0,
+    copy: bool = False,
+    use_existing_graph: bool = False,
+    null_method: str = "auto",
+    output_mode: str = "auto",
+    key_added: str = "lees_local",
+    fdr_correction: Literal["bonferroni", "fdr_bh", "none"] = "fdr_bh",
+    device: Device = "cuda",
+):
+    """Local Lee's L per cell for gene pair(s) (``genes``: all pairs of
+    them).
+
+    ``output_mode="full"`` writes, per pair ``{gx}_{gy}``,
+    ``obs[f"{key}_lees_l"]``, the categorical ``obs[f"{key}_quadrant"]``
+    (NS/HH/LL/HL/LH of z_x against lag(z_y); with ``significance_filter``
+    cells with p ≥ ``alpha`` are NS), ``obs[f"{key}_pvalue"]`` with
+    ``compute_cell_pvalues``, and ``uns[f"{key}_lees_l_params"]`` with the
+    global L and p and the quadrant counts; zero-variance pairs get zeros.
+    "compact" streams pair tiles through ``ops.streaming.
+    streaming_local_null(stat="lee")`` (the banded path with
+    ``n_permutations > 0``; cell p-values always computed, ``p_adj`` by
+    ``fdr_correction`` per pair) and writes [N, n_pairs] ``obsm`` planes
+    ``{key_added}_L / _p / _p_adj / _quadrant`` — on the card in bf16 /
+    f16 / f16 / int8 for a CUDA ``X`` — and ``uns[f"{key_added}_params"]``.
+    "auto" picks "compact" for a CUDA ``X`` on the banded path with
+    ``compute_cell_pvalues`` when the full planes would pass ~8 GB.
+    ``null_method`` as :func:`lees_l`.
+    """
+    start = time.time()
+    if copy:
+        adata = adata.copy()
+    if spatial_key not in adata.obsm:
+        raise ValueError(f"adata.obsm['{spatial_key}'] not found. "
+                         "Spatial coordinates are required.")
+    if n_permutations < 0:
+        raise ValueError(f"n_permutations must be >= 0, got {n_permutations}")
+    if significance_filter and not compute_cell_pvalues:
+        raise ValueError("significance_filter=True requires "
+                         "compute_cell_pvalues=True")
+    if genes is not None:
+        logger.warning(f"All-pairs mode: {len(genes)} genes = "
+                       f"{len(genes) * (len(genes) - 1) // 2} pairs. Consider "
+                       "explicit gene_pairs for better performance.")
+        pairs = list(combinations(genes, 2))
+    else:
+        if gene_pairs is None:
+            raise ValueError("Provide gene_pairs or genes")
+        pairs, _ = _normalize_pairs(gene_pairs)
+    _check_pair_genes(adata, pairs)
+    graph = _get_graph(adata, n_neighbors, spatial_key, use_existing_graph,
+                       device)
+    _check_output_mode(output_mode)
+    use_banded, band_prec = _lees_use_banded(null_method, adata.n_obs,
+                                             n_permutations)
+    X_is_device = _x_is_device(adata, layer)
+    if output_mode == "auto":
+        output_mode = ("compact" if use_banded and X_is_device
+                       and compute_cell_pvalues
+                       and adata.n_obs * len(pairs) * 16 > 8e9 else "full")
+    if output_mode == "compact":
+        if not use_banded or n_permutations <= 0:
+            raise ValueError(
+                "output_mode='compact' streams through the banded null "
+                "path — use null_method='auto'/'banded'/'banded_int8' "
+                "with n_permutations > 0 (and >= 100k cells for 'auto')")
+        plan = _get_null_plan(adata, graph, spatial_key)
+        keys = ("L", "p", "p_adj", "quadrant")
+        out = _run_compact_stream(
+            adata, "lee", None, layer, graph, plan, n_permutations,
+            fdr_correction, alpha, seed, min(256, max(len(pairs), 1)),
+            band_prec, X_is_device, keys, device,
+            pair_names=([p[0] for p in pairs], [p[1] for p in pairs]))
+        for k in keys:
+            adata.obsm[f"{key_added}_{k}"] = out[k]
+        elapsed = time.time() - start
+        adata.uns[f"{key_added}_params"] = {
+            "pairs": [list(p) for p in pairs],
+            "n_pairs": len(pairs), "n_neighbors": n_neighbors,
+            "n_permutations": n_permutations, "seed": seed,
+            "alpha": alpha, "fdr_correction": fdr_correction,
+            "null_method": ("banded_int8" if band_prec == "int8"
+                            else "banded"),
+            "output_mode": "compact",
+            "quadrant_labels": dict(QUADRANT_LABELS),
+            "computation_time_seconds": elapsed,
+        }
+        logger.info(f"Local Lee's L (compact streaming) completed in "
+                    f"{elapsed:.1f}s for {len(pairs)} pair(s)")
+        update_metadata(
+            adata, "lees_l_local",
+            parameters={"gene_pairs": [list(p) for p in pairs[:10]],
+                        "n_pairs": len(pairs), "n_neighbors": n_neighbors,
+                        "n_permutations": n_permutations, "alpha": alpha,
+                        "seed": seed, "output_mode": "compact",
+                        "backend": "spatialcore_tpu_torch",
+                        "device": str(device)},
+            outputs={f"obsm_{s}": f"{key_added}_{s}" for s in keys}
+            | {"uns_params": f"{key_added}_params"})
+        return adata
+
+    n_cells = adata.n_obs
+    ok_pairs, Zx, Zy = _lees_columns(adata, pairs, layer, device)
+    if ok_pairs:
+        if use_banded:
+            res = lees_l_pairs(graph, Zx, Zy, seed, 0)    # exact observed
+            plan = _get_null_plan(adata, graph, spatial_key)
+            p_global, p_local = banded_lees_l(
+                plan, Zx, Zy, seed, n_permutations, precision=band_prec,
+                compute_cell_pvalues=compute_cell_pvalues)
+        else:
+            res = lees_l_pairs(graph, Zx, Zy, seed, n_permutations,
+                               compute_cell_pvalues=compute_cell_pvalues)
+            p_global, p_local = res.p_global, res.p_local
+        quads = classify_quadrants(
+            Zx, res.lag_zy, p_local if significance_filter else None,
+            alpha).cpu().numpy().astype(np.int64)
+        L_local = res.L_local.cpu().numpy()
+        L_global = res.L_global.cpu().numpy()
+        p_global = p_global.cpu().numpy()
+        p_local = p_local.cpu().numpy() if compute_cell_pvalues else None
+    pair_col = {p: i for i, p in enumerate(ok_pairs)}
+    cols = {}            # new obs columns, joined to obs once (not 3 per pair)
+    for gx, gy in pairs:
+        key = f"{gx}_{gy}"
+        if (gx, gy) not in pair_col:
+            logger.warning(f"Pair ({gx}, {gy}): zero-variance gene — writing "
+                           "zeros")
+            cols[f"{key}_lees_l"] = np.zeros(n_cells, np.float32)
+            cols[f"{key}_quadrant"] = pd.Categorical(
+                ["NS"] * n_cells, categories=LEE_QUADRANTS)
+            adata.uns[f"{key}_lees_l_params"] = {
+                "gene_x": gx, "gene_y": gy, "global_L": 0.0,
+                "global_pvalue": 1.0, "n_neighbors": n_neighbors,
+                "n_permutations": n_permutations, "zero_variance": True,
+            }
+            continue
+        i = pair_col[(gx, gy)]
+        cols[f"{key}_lees_l"] = L_local[:, i].astype(np.float32)
+        cols[f"{key}_quadrant"] = pd.Categorical.from_codes(
+            quads[:, i], categories=LEE_QUADRANTS)
+        if compute_cell_pvalues:
+            cols[f"{key}_pvalue"] = p_local[:, i].astype(np.float32)
+        bc = np.bincount(quads[:, i], minlength=len(LEE_QUADRANTS))
+        adata.uns[f"{key}_lees_l_params"] = {
+            "gene_x": gx, "gene_y": gy,
+            "global_L": float(L_global[i]),
+            "global_pvalue": float(p_global[i]),
+            "n_neighbors": n_neighbors, "n_permutations": n_permutations,
+            "compute_cell_pvalues": compute_cell_pvalues,
+            "significance_filter": significance_filter, "alpha": alpha,
+            "quadrant_counts": {c: int(bc[j])
+                                for j, c in enumerate(LEE_QUADRANTS)},
+        }
+    if cols:
+        new = pd.DataFrame(cols, index=adata.obs.index)
+        adata.obs = pd.concat([adata.obs.drop(columns=[
+            c for c in new.columns if c in adata.obs.columns]), new], axis=1)
+    elapsed = time.time() - start
+    logger.info(f"Local Lee's L completed in {elapsed:.1f}s for {len(pairs)} "
+                "pair(s)")
+    update_metadata(
+        adata, "lees_l_local",
+        parameters={"gene_pairs": [list(p) for p in pairs[:10]],
+                    "n_pairs": len(pairs), "n_neighbors": n_neighbors,
+                    "n_permutations": n_permutations,
+                    "compute_cell_pvalues": compute_cell_pvalues,
+                    "significance_filter": significance_filter,
+                    "alpha": alpha, "seed": seed,
+                    "backend": "spatialcore_tpu_torch", "device": str(device)},
+        outputs={"obs_keys": [f"{gx}_{gy}_lees_l" for gx, gy in pairs[:5]],
+                 "uns_keys": [f"{gx}_{gy}_lees_l_params"
+                              for gx, gy in pairs[:5]]})
     return adata

@@ -84,8 +84,14 @@ def test_spatial_lag_matches_reference():
 
 
 def test_unported_graph_modes_raise():
+    """Radius graphs are still refused; method="pallas" (K9) is ported and
+    gives the exact scan's neighbours (tests/test_torch_knn.py), and an
+    unknown method is a ValueError."""
     c = _coords(100, 0)
-    with pytest.raises(NotImplementedError, match="K9"):
-        tg.build_graph(c, method="pallas", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         tg.build_graph(c, radius=5.0, k_max=10, device="cpu")
+    with pytest.raises(ValueError, match="unknown kNN method"):
+        tg.build_graph(c, method="pallas_v2", device="cpu")
+    gp = tg.build_graph(c, method="pallas", device="cpu")
+    ge = tg.build_graph(c, method="exact", device="cpu")
+    np.testing.assert_array_equal(gp.neighbor_idx.numpy(), ge.neighbor_idx.numpy())

@@ -8,15 +8,20 @@ without the JAX package's test configuration:
 
 Tolerance: band cross |Δcross_g| ≤ 1e-5 · Σ_i |term_i| — float32 summation
 order only; the integer lags are exact in both versions. The local
-statistics' draw-step kernel (LISA, local Geary, Gi*, Gi): counts and
-observed values equal — exact integers, and Gi's float32 centring rounds
-at the plain version's places.
+statistics' draw-step kernel (LISA, local Geary, Gi*, Gi, Lee): counts and
+observed values equal — exact integers, and Gi's float32 centring and
+Lee's block partials round at the plain version's places, so those are
+equal too. The kNN kernel: indices and squared distances equal (the same
+float32 operations, ties by id). ``permutation`` on the card: equal to
+the CPU's.
 """
 
 import pytest
 import torch
 
+from spatialcore_tpu_torch.core import rng
 from spatialcore_tpu_torch.kernels import band_cross as kern
+from spatialcore_tpu_torch.kernels import knn as kern_knn
 from spatialcore_tpu_torch.kernels import lisa_count as kern_lisa
 from spatialcore_tpu_torch.ops import banded
 from spatialcore_tpu_torch.ops.graph import build_graph
@@ -339,3 +344,101 @@ def test_geary_and_getis_pvalues_on_the_card_equal_the_cpu(cuda_device, plan):
         got = banded.banded_getis(on_card, X.to(cuda_device), 9, 19, star=star,
                                   alternative=alt, precision="int8")
         assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# Lee's tail of the same kernel (draw step, observed and partial-only
+# entries), the kNN kernel, and the sort-based permutation on the card
+# ---------------------------------------------------------------------------
+
+
+def _lee_operands(nb: int, G: int, seed: int = 7):
+    """LISA's synthetic band and far list, fixed x codes, row scales, and
+    the observed |Lq| of another placement."""
+    o = _lisa_operands(nb, G, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    n = o["li"].shape[0]
+    zx = torch.randint(-127, 128, (n, G), generator=gen, dtype=torch.int8)
+    sw = torch.rand(n, generator=gen) * 0.01 + 1e-4
+    far = dict(o["far"]["rows"])
+    other = torch.randint(-127, 128, o["zp"].shape, generator=gen,
+                          dtype=torch.int8)
+    obs, _ = kern_lisa.lee_observed(o["li"], o["wq"], other, B, zx, sw, **far)
+    return dict(args=(o["li"], o["wq"], o["zp"], B, zx, sw), far=far, obs=obs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,G", [(1, 64), (5, 260)], ids=["one_block", "G260"])
+@pytest.mark.parametrize("cdt", [torch.int8, torch.int16, torch.int32])
+def test_lee_kernels_equal_plain(cuda_device, nb, G, cdt):
+    o = _lee_operands(nb, G)
+    args_dev = tuple(_on(t, cuda_device) for t in o["args"])
+    far_dev = {k: _on(v, cuda_device) for k, v in o["far"].items()}
+    cnt0 = torch.randint(0, 100, o["obs"].shape).to(cdt)
+    want_cnt = cnt0.clone()
+    want_part = kern_lisa.lee_count(*o["args"], o["obs"], want_cnt, **o["far"])
+    assert 0 < int((want_cnt != cnt0).sum()) < want_cnt.numel()
+    before = dict(kern_lisa.LAUNCHES)
+    got_cnt = cnt0.to(cuda_device)
+    got_part = kern_lisa.lee_count(*args_dev, o["obs"].to(cuda_device), got_cnt,
+                                   **far_dev)
+    want_obs, want_opart = kern_lisa.lee_observed(*o["args"], **o["far"])
+    got_obs, got_opart = kern_lisa.lee_observed(*args_dev, **far_dev)
+    got_ppart = kern_lisa.lee_partial(*args_dev, **far_dev)
+    torch.cuda.synchronize()
+    for mode in ("lee_win", "lee_obs", "lee_partial"):
+        assert kern_lisa.LAUNCHES[mode] == before[mode] + 1
+    assert torch.equal(got_cnt.cpu(), want_cnt)
+    assert torch.equal(got_part.cpu(), want_part)
+    assert torch.equal(got_obs.cpu(), want_obs)
+    assert torch.equal(got_opart.cpu(), want_opart)
+    assert torch.equal(got_ppart.cpu(), want_opart)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,include_self", [(6, False), (6, True), (50, False),
+                                            (50, True), (130, False)])
+def test_knn_kernel_equals_plain(cuda_device, k, include_self):
+    """Duplicated points and an integer lattice: equal distances break by
+    id in both."""
+    gen = torch.Generator().manual_seed(k)
+    n = 5000
+    xy = torch.randint(0, 80, (n, 2), generator=gen).to(torch.float32) - 40.0
+    xy[::7] = xy[torch.randint(0, n, (len(xy[::7]),), generator=gen)]
+    want_d, want_i = kern_knn.knn_topk(xy, k, include_self)
+    before = kern_knn.LAUNCHES["knn"]
+    got_d, got_i = kern_knn.knn_topk(xy.to(cuda_device), k, include_self)
+    torch.cuda.synchronize()
+    assert kern_knn.LAUNCHES["knn"] == before + 1
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_d.cpu(), want_d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1625, 1626, 100_000])
+def test_permutation_on_the_card_equals_the_cpu(cuda_device, n):
+    k = rng.fold_in(rng.key_for(3, "perm_lee", 0), 5)
+    got = rng.permutation(k, n, device=cuda_device)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), rng.permutation(k, n, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_lee_pvalues_on_the_card_equal_the_cpu(cuda_device, plan):
+    """The int8 Lee null on the card (kernel route) against the CPU (plain
+    route) on one plan: global and per-cell p bitwise, both streams."""
+    gen = torch.Generator().manual_seed(8)
+    Zx, Zy = torch.randn((plan.n, 40), generator=gen), torch.randn(
+        (plan.n, 40), generator=gen)
+    on_card = banded.NullPlan(*[t.to(cuda_device) if isinstance(t, torch.Tensor)
+                                else t for t in plan])
+    for perm_method, cells in (("feistel", True), ("sort", False)):
+        want = banded.banded_lees_l(plan, Zx, Zy, 9, 19, precision="int8",
+                                    compute_cell_pvalues=cells,
+                                    perm_method=perm_method)
+        got = banded.banded_lees_l(on_card, Zx.to(cuda_device),
+                                   Zy.to(cuda_device), 9, 19, precision="int8",
+                                   compute_cell_pvalues=cells,
+                                   perm_method=perm_method)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)

@@ -325,7 +325,7 @@ def test_streaming_refusals():
     args = (graph, plan, lambda s, w: b.X[:, s:s + w], 4, sink)
     with pytest.raises(ValueError, match="stat"):
         ts.streaming_local_null(*args, stat="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(ValueError, match="pair of tiles"):
         ts.streaming_local_null(*args, stat="lee", device="cpu")
     with pytest.raises(NotImplementedError, match="obs_dtype"):
         ts.streaming_local_null(*args, obs_dtype="bf16", keys=("p",), device="cpu")

@@ -79,3 +79,28 @@ def test_mul32_matches_uint32_wrap():
     got = trng._mul32(torch.as_tensor(a.astype(np.int64)),
                       torch.as_tensor(b.astype(np.int64)))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 1000, 1625, 1626, 5000, 70_000])
+@pytest.mark.parametrize("seed,data", [(0, 0), (3, 17), (2**31 - 1, 2**32 - 1)])
+def test_permutation_bitwise(n, seed, data):
+    """One sort round up to n = 1,625, two from 1,626 (jax 0.9 _shuffle)."""
+    k = jax.random.fold_in(jax.random.key(seed), data)
+    want = np.asarray(jax.random.permutation(k, n))
+    got = trng.permutation(trng.fold_in(trng.key(seed), data), n, device="cpu")
+    assert got.dtype == torch.int64 and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_random_bits_on_a_device_and_key_for_stream():
+    """random_bits takes the device its counters live on; the direct Lee
+    null's keys (key_for(seed, "perm_lee", 0) folded with the draw)."""
+    k = jax.random.key(8)
+    want = np.asarray(jax.random.bits(k, (4, 6), jnp.uint32)).astype(np.int64)
+    got = trng.random_bits(trng.key(8), (4, 6), device=torch.device("cpu"))
+    np.testing.assert_array_equal(got.numpy(), want)
+    jk = jax.random.fold_in(jrng.key_for(5, "perm_lee", 0), 2)
+    tk = trng.fold_in(trng.key_for(5, "perm_lee", 0), 2)
+    np.testing.assert_array_equal(
+        trng.permutation(tk, 3000, device="cpu").numpy(),
+        np.asarray(jax.random.permutation(jk, 3000)))
