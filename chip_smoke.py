@@ -57,13 +57,15 @@ Phases (the script stops with a non-zero exit at the first failure):
    kernel), and 4,096 scattered cells on the card against the port's CPU
    path (p / p_sim, p_adj, hotspots bitwise).
 7. Local Lee's L (phase 2 also holds the lee tail's draw step, observed
-   entry and partial-only entry, and the kNN kernel at 65,536 cells, k=6
+   entry and partial-only entry, and the kNN kernel at 66,536 cells, k=6
    and k=50, against their plain versions). The main path, with counts of
    its own: ``lees_l_local(null_method="banded_int8", n_permutations=99,
    compute_cell_pvalues=True)`` at 1,000,000 cells (CUDA X, k=6) over
    1,024 gene pairs in ``output_mode="compact"`` and 64 pairs in "full"
    (compact p / p_adj / L on the shared pairs equal to the full run's
-   casts), then ``lees_l`` at 1,024 pairs through "banded_int8" (the
+   casts); the lee entries against their plain versions on that plan at
+   one compact tile's 256 pairs; full mode's parts timed one by one;
+   then ``lees_l`` at 1,024 pairs through "banded_int8" (the
    partial-only entry) and "auto" (the float32 null in torch ops, no
    kernel); the direct null (``jax.random.permutation``'s stream) through
    "auto" at 50,000 cells × 64 pairs; the per-draw split; 4,096 scattered
@@ -71,8 +73,10 @@ Phases (the script stops with a non-zero exit at the first failure):
    the global p bitwise).
 8. The graph path through the kNN kernel: ``build_graph(method="pallas")``
    at 1,000,000 cells (k=6) and at the vignette's 366,938 cells (k=50),
-   timed, with the rows whose neighbour set differs from
-   ``method="grid"`` counted.
+   timed; on the coordinates the call centres, the kernel against its
+   plain version (every query at 366,938 cells, the first and last 4,096
+   at 1M) and the graph against the kernel's output; the rows whose
+   neighbour set differs from ``method="grid"`` counted.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it a
 JSON summary of every kernel, and the one before that nvidia-smi's name
@@ -81,13 +85,17 @@ and power limit. Without a CUDA device the script raises.
 
 from __future__ import annotations
 
+import cProfile
 import json
+import pstats
 import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
+import pandas as pd
 import torch
 
 from spatialcore_tpu_torch import (SpatialData, build_spatial_weights,
@@ -105,8 +113,10 @@ from spatialcore_tpu_torch.ops.banded import (banded_local_moran_pvalues,
                                               build_null_plan)
 from spatialcore_tpu_torch.ops.fdr import apply_fdr
 from spatialcore_tpu_torch.ops.graph import build_graph
+from spatialcore_tpu_torch.ops.knn_kernel import centred_xy
 from spatialcore_tpu_torch.ops.moran import moran_observed, standardize
 from spatialcore_tpu_torch.ops.streaming import tile_widths
+from spatialcore_tpu_torch.spatial import autocorrelation as acorr
 
 B = 256
 K = 6
@@ -727,25 +737,35 @@ def knn_library(xy: torch.Tensor, k: int, chunk: int = 4096) -> None:
                    largest=False)
 
 
-def phase_knn_kernel(dev, gen, n: int = 65_536, ks=(6, 50), reps: int = 3):
+def knn_equal(label: str, got, want) -> float:
+    """Check a kernel's (d2, ids) against its plain version's: ids and d2
+    equal. Returns max |Δd2| (0.0 when equal), measured."""
+    (got_d, got_i), (want_d, want_i) = got, want
+    err = float((got_d.double() - want_d.double()).abs().max())
+    rows = int((got_i != want_i).any(1).sum())
+    check(rows == 0 and torch.equal(got_d, want_d), f"{label}: {rows} rows of "
+          f"indices differ from plain, d2 by up to {err:.3e}")
+    return err
+
+
+def phase_knn_kernel(dev, gen, n: int = 66_536, ks=(6, 50), reps: int = 3):
     """The kNN kernel against its plain version on the card at ``n``
-    uniform cells (1M density) for each k: indices and squared distances
-    equal. The first k gives the mode's times. Returns {"knn": numbers}."""
+    uniform cells (1M density; a multiple of neither the kernel's query
+    block, 128, nor its candidate tile, 1,024, so its last query block has
+    idle threads and its last candidate tile is partial) for each k:
+    indices and squared distances equal. The first k gives the mode's
+    times. Returns {"knn": numbers}."""
     xy = uniform_coords(n, SIDE * (n / 1e6) ** 0.5, gen, dev)
     xy = (xy - xy.mean(dim=0)).contiguous()
     results = {}
     for k in ks:
-        got_d, got_i = kern_knn.knn_topk(xy, k)
-        want_d, want_i = kern_knn.knn_topk_plain(xy, k)
-        sync(dev)
-        check(torch.equal(got_i, want_i), f"knn k={k}: indices differ from plain "
-              f"({int((got_i != want_i).any(1).sum())} rows)")
-        check(torch.equal(got_d, want_d), f"knn k={k}: distances differ")
+        err = knn_equal(f"knn k={k}", kern_knn.knn_topk(xy, k),
+                        kern_knn.knn_topk_plain(xy, k))
         ms = event_ms(lambda: kern_knn.knn_topk(xy, k), reps)
         pms = event_ms(lambda: kern_knn.knn_topk_plain(xy, k), 1)
         lms = event_ms(lambda: knn_library(xy, k), 1)
         report(results, "knn", f"knn k={k} at {n:,} cells (indices and d2 "
-               f"equal)", 0.0, ms, pms, 8 * n + 8 * n * k, 6 * n * n, "f32",
+               f"equal)", err, ms, pms, 8 * n + 8 * n * k, 6 * n * n, "f32",
                lms, first=k == ks[0])
     return results
 
@@ -1512,6 +1532,70 @@ def phase_lee_public(dev, n_cells: int, n_pairs: int, n_full: int,
     return d, pairs, n_sig, out
 
 
+def lee_full_split(dev, d, pairs, n_perms: int, seed: int = 3):
+    """lees_l_local's full mode over ``pairs`` part by part, in its order
+    (host clock, each part synchronised): the stored graph, the
+    standardized columns, the exact observed pass, the cached plan, the
+    int8 null with cell p-values, the quadrants, the host copies, and the
+    obs columns with their pandas join (built, not stored); then the whole
+    call beside them, and once more under cProfile (its largest
+    cumulative entries printed). Returns {part: seconds}."""
+    split = {}
+
+    def part(name, fn):
+        out, split[name] = timed(fn, dev)
+        return out
+
+    graph = part("graph", lambda: acorr._get_graph(d, K, "spatial", True, dev))
+    ok, Zx, Zy = part("columns", lambda: acorr._lees_columns(d, pairs, None, dev))
+    res = part("observed", lambda: acorr.lees_l_pairs(graph, Zx, Zy, seed, 0))
+    plan = part("plan", lambda: acorr._get_null_plan(d, graph, "spatial"))
+    p_g, p_l = part("null", lambda: banded.banded_lees_l(
+        plan, Zx, Zy, seed, n_perms, precision="int8",
+        compute_cell_pvalues=True))
+    quads = part("quadrants", lambda: acorr.classify_quadrants(
+        Zx, res.lag_zy, None, 0.05))
+    host = part("host_copies", lambda: [
+        t.cpu().numpy() for t in (quads, res.L_local, res.L_global, p_g, p_l)])
+
+    def obs_columns():
+        q, L, _, _, pl = host
+        cols = {}
+        for i, (gx, gy) in enumerate(ok):
+            cols[f"{gx}_{gy}_lees_l"] = L[:, i].astype(np.float32)
+            cols[f"{gx}_{gy}_quadrant"] = pd.Categorical.from_codes(
+                q[:, i].astype(np.int64), categories=acorr.LEE_QUADRANTS)
+            cols[f"{gx}_{gy}_pvalue"] = pl[:, i].astype(np.float32)
+        return pd.concat([d.obs, pd.DataFrame(cols, index=d.obs.index)], axis=1)
+
+    part("obs_columns", obs_columns)
+    print(f"[lee] lees_l_local full mode over {len(pairs)} pairs, part by part "
+          f"(host clock, s): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                          split.items())
+          + f"; sum {sum(split.values()):.3f}")
+    # the whole call again beside its parts, then once under cProfile
+    cols = [f"{gx}_{gy}_{sfx}" for gx, gy in pairs
+            for sfx in ("lees_l", "quadrant", "pvalue")]
+    kw = dict(null_method="banded_int8", n_permutations=n_perms, seed=seed,
+              compute_cell_pvalues=True, output_mode="full",
+              use_existing_graph=True, device=dev)
+    _, split["whole_call"] = timed(lambda: lees_l_local(d, pairs, **kw), dev)
+    d.obs = d.obs.drop(columns=cols)
+    prof = cProfile.Profile()
+    prof.enable()
+    timed(lambda: lees_l_local(d, pairs, **kw), dev)
+    prof.disable()
+    d.obs = d.obs.drop(columns=cols)
+    top = sorted((kv for kv in pstats.Stats(prof).stats.items()
+                  if Path(kv[0][0]).name != Path(__file__).name),
+                 key=lambda kv: -kv[1][3])
+    print(f"[lee] the whole full-mode call again: {split['whole_call']:.3f} s; "
+          f"under cProfile, cumulative s (own s): " + "; ".join(
+              f"{fn} ({Path(f).name}:{ln}) {ct:.3f} ({tt:.3f})"
+              for (f, ln, fn), (_, _, tt, ct, _) in top[:16]))
+    return split
+
+
 def phase_lee_global(dev, d, pairs, n_sig: int, n_perms: int):
     """lees_l at every pair through the int8 null (the partial-only entry)
     and through "auto" (the float32 null in torch ops at >= 100k cells),
@@ -1562,11 +1646,12 @@ def phase_lee_direct(dev, gen, n_cells: int = 50_000, n_pairs: int = 64,
     return t
 
 
-def lee_draw_split(dev, d, pairs, reps: int = 5):
-    """One int8 Lee draw at the public run's shape over every pair, part by
-    part (CUDA events): Feistel rows, permutation rows (the "sort"
-    stream), row gather, far gather, the draw-step kernel, the fixed-order
-    reduction of the block partials; the observed entry once."""
+def lee_path_operands(dev, d, pairs):
+    """The int8 Lee null's operands on the public run's plan for ``pairs``,
+    built as ``banded._banded_lees_p_i8`` builds them: y codes, relabeled
+    x codes, the weight codes and row scales, the row-pointer far edges,
+    the padded identity rows, and the identity placement's observed |Lq|
+    (the observed entry)."""
     plan = d._null_plan_cache["value"]
     names = list(d.var_names)
     ix = torch.as_tensor([names.index(g) for g, _ in pairs], device=dev)
@@ -1576,16 +1661,80 @@ def lee_draw_split(dev, d, pairs, reps: int = 5):
     Yq = banded._pad_cols4(banded._quantize_z(Zy)[0])
     zx = banded._relabeled_x(plan, banded._pad_cols4(banded._quantize_z(Zx)[0]))
     del Zx, Zy
-    G = Yq.shape[1]
     wq, sw, far_q = banded._full_row_codes(plan)
-    sw_row = sw.reshape(-1).contiguous()
-    li = plan.local_idx.to(torch.int32).contiguous()
     n_live = banded._n_live_far(plan)
     ptr, dst = banded._rows_far(plan, n_live)
-    far = dict(far_row_ptr=ptr, far_q=far_q[:n_live].to(torch.int8))
     rows_idx = banded._padded_rows(plan, dev)
+    o = dict(plan=plan, Yq=Yq, zx=zx, wq=wq, sw_row=sw.reshape(-1).contiguous(),
+             li=plan.local_idx.to(torch.int32).contiguous(), n_live=n_live,
+             dst=dst, rows_idx=rows_idx,
+             far=dict(far_row_ptr=ptr, far_q=far_q[:n_live].to(torch.int8)))
     Yp0 = Yq[rows_idx]
-    obs, _ = kern_lisa.lee_observed(li, wq, Yp0, B, zx, sw_row, Zf=Yp0[dst], **far)
+    o["obs"], _ = kern_lisa.lee_observed(o["li"], wq, Yp0, B, zx, o["sw_row"],
+                                         Zf=Yp0[dst], **o["far"])
+    return o
+
+
+def phase_lee_path_kernels(dev, d, pairs, seed: int = 3):
+    """The lee entries against their plain versions at the main path's
+    shape: the 1M-cell plan and one compact tile of ``len(pairs)`` pairs
+    (the observed entry at the identity placement; the draw step and the
+    partial-only entry at the first Feistel draw). Counts, |Lq| and
+    partials equal. Returns {mode: max |diff|}."""
+    o = lee_path_operands(dev, d, pairs)
+    args = (o["li"], o["wq"])
+    tail = (B, o["zx"], o["sw_row"])
+    Yp0 = o["Yq"][o["rows_idx"]]
+    rows = feistel_apply(fold_in(key_for(seed, "perm_feistel_lee", 0), 0),
+                         o["rows_idx"], o["plan"].n)
+    Yp = o["Yq"][rows]
+    errs = {}
+
+    def equal(label, got, want):
+        err = float((got.double() - want.double()).abs().max())
+        check(torch.equal(got, want), f"{label} at the main path's shape: "
+              f"differs from plain (max |diff| {err})")
+        errs[label] = err
+
+    got_o, got_p = kern_lisa.lee_observed(*args, Yp0, *tail, Zf=Yp0[o["dst"]],
+                                          **o["far"])
+    want_o, want_p = kern_lisa.lee_observed_plain(*args, Yp0, *tail,
+                                                  Zf=Yp0[o["dst"]], **o["far"])
+    equal("lee_obs", got_o, want_o)
+    equal("lee_obs partials", got_p, want_p)
+    del got_o, want_o
+    got_c = torch.zeros(o["obs"].shape, dtype=torch.int8, device=dev)
+    want_c = got_c.clone()
+    got_p = kern_lisa.lee_count(*args, Yp, *tail, o["obs"], got_c,
+                                Zf=Yp[o["dst"]], **o["far"])
+    want_p = kern_lisa.lee_count_plain(*args, Yp, *tail, o["obs"], want_c,
+                                       Zf=Yp[o["dst"]], **o["far"])
+    equal("lee_win counts", got_c, want_c)
+    equal("lee_win partials", got_p, want_p)
+    moved = int(got_c.sum(dtype=torch.int64))
+    check(0 < moved < got_c.numel(), "lee_win at the main path's shape: "
+          "degenerate case")
+    equal("lee_partial", kern_lisa.lee_partial(*args, Yp, *tail,
+                                               Zf=Yp[o["dst"]], **o["far"]),
+          want_p)
+    print(f"[lee] lee entries at the main path's shape ({o['plan'].n_padded:,} "
+          f"rows x {o['Yq'].shape[1]} pairs, one draw, {moved:,} counts): "
+          f"counts, |Lq| and partials equal their plain versions; max |diff| "
+          f"{max(errs.values()):.3e}")
+    return errs
+
+
+def lee_draw_split(dev, d, pairs, reps: int = 5):
+    """One int8 Lee draw at the public run's shape over every pair, part by
+    part (CUDA events): Feistel rows, permutation rows (the "sort"
+    stream), row gather, far gather, the draw-step kernel, the fixed-order
+    reduction of the block partials; the observed entry once."""
+    o = lee_path_operands(dev, d, pairs)
+    plan, Yq, zx, wq, sw_row, li = (o[k] for k in ("plan", "Yq", "zx", "wq",
+                                                   "sw_row", "li"))
+    dst, rows_idx, far, obs = o["dst"], o["rows_idx"], o["far"], o["obs"]
+    G = Yq.shape[1]
+    Yp0 = Yq[rows_idx]
     cnt = torch.zeros(obs.shape, dtype=torch.int8, device=dev)
     base = key_for(3, "perm_feistel_lee", 0)
     sort_base = key_for(3, "perm_lee", 0)
@@ -1617,7 +1766,7 @@ def lee_draw_split(dev, d, pairs, reps: int = 5):
     split["observed_bound"], _ = bound(*lee_work(plan, G, "lee_obs"))
     print(f"[lee] one draw at {plan.n:,} cells x {G} pairs (CUDA events, ms): "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
-          + f" ({by}-bound); far edges {n_live:,}")
+          + f" ({by}-bound); far edges {o['n_live']:,}")
     return split
 
 
@@ -1663,16 +1812,43 @@ def phase_lee_vs_cpu(dev, coords: np.ndarray, n_genes: int, seed: int,
 # ---------------------------------------------------------------------------
 
 
-def phase_graph_pallas(dev, gen, shapes=((1_000_000, 6), (366_938, 50))):
-    """build_graph(method="pallas") at each (cells, k), timed, against
+def phase_graph_pallas(dev, gen, shapes=((1_000_000, 6, 4096),
+                                          (366_938, 50, None))):
+    """build_graph(method="pallas") at each (cells, k), timed, with the kNN
+    launch count read around that call alone. Then, on the same
+    host-centred coordinates the call gives the kernel, the kernel against
+    its plain version (every query, or the first and last ``edge`` queries:
+    the last query block and, for every query, the last candidate tile are
+    partial at these sizes): indices and d2 equal, and the graph's
+    neighbours and distances equal to the kernel's. Last, against
     method="grid": rows whose neighbour set differs are counted (expected
-    0 away from distance ties at the k-th neighbour). Returns
-    {cells: (seconds, differing rows)}."""
-    out = {}
-    for n, k in shapes:
+    0 away from distance ties at the k-th neighbour). Returns (kNN
+    launches, {cells: (seconds, differing rows)})."""
+    out, launches = {}, 0
+    for n, k, edge in shapes:
         coords = uniform_coords(n, SIDE * (n / 1e6) ** 0.5, gen, dev)
+        kern_knn.reset_launch_counts()
         gp, t = timed(lambda: build_graph(coords, n_neighbors=k, method="pallas",
                                           device=dev), dev)
+        launches += kern_knn.LAUNCHES["knn"]
+        xy = centred_xy(coords, dev)
+        got_d, got_i = kern_knn.knn_topk(xy, k)
+        check(torch.equal(gp.neighbor_idx, got_i)
+              and torch.equal(gp.distances, torch.sqrt(got_d)),
+              "build_graph(method='pallas') differs from the kernel's output")
+        q = (None if edge is None else
+             torch.cat([torch.arange(edge), torch.arange(n - edge, n)]).to(dev))
+        (want_d, want_i), tp = timed(lambda: kern_knn.knn_topk_plain(
+            xy, k, queries=q), dev)
+        if q is not None:
+            got_d, got_i = got_d[q], got_i[q]
+        err = knn_equal(f"knn at {n:,} cells k={k}", (got_d, got_i),
+                        (want_d, want_i))
+        print(f"[graph] kNN kernel at {n:,} cells k={k} equals its plain version "
+              f"on the graph call's centred coordinates over "
+              f"{'every query' if q is None else f'the first and last {edge:,} queries'}"
+              f" (max |d2 diff| {err:.3e}; plain {tp:.3f} s)")
+        del got_d, got_i, want_d, want_i, xy
         gg, tg = timed(lambda: build_graph(coords, n_neighbors=k, method="grid",
                                            device=dev), dev)
         same = (torch.sort(gp.neighbor_idx, 1).values
@@ -1695,7 +1871,7 @@ def phase_graph_pallas(dev, gen, shapes=((1_000_000, 6), (366_938, 50))):
               f"search: {n_diff}, their distances within {gap:.3e} (a tie at "
               f"float32 resolution; {tol:.3e} allowed)")
         del gp, gg, coords
-    return out
+    return launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -1844,6 +2020,8 @@ def main() -> None:
           and sum(lee.values()) == (n_pairs // tile + 1) * (n_perms + 1),
           "the Lee main path did not run the lee draw step once per draw and "
           "tile and the observed entry once per tile")
+    phase_lee_path_kernels(dev, d, pairs[:tile])
+    lee_full_split(dev, d, pairs[:n_full], n_perms)
     _, lee_glob = phase_lee_global(dev, d, pairs, n_sig, n_perms)
     lee_draw_split(dev, d, pairs)
     del d
@@ -1859,9 +2037,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # the graph path through the kNN kernel: counts of its own
-    kern_knn.reset_launch_counts()
-    phase_graph_pallas(dev, gen)
-    knn_launches = kern_knn.LAUNCHES["knn"]
+    knn_launches, _ = phase_graph_pallas(dev, gen)
     print(f"[path] kNN launches of build_graph(method='pallas') x 2: "
           f"{knn_launches}")
     check(knn_launches == 2, "build_graph(method='pallas') did not launch the "

@@ -10,11 +10,11 @@ sorted by (d2, candidate id), so an equal distance keeps the lower id; the
 point itself is left out unless ``include_self``. Returns ``(d2 float32
 [n, k], ids int64 [n, k])``.
 
-* On a CPU tensor the wrapper runs the plain version: all-pairs d2 over
-  query tiles, then the (d2, id) lexicographic top-k of
-  ``ops.graph._topk_by_key``. Its subtractions, products and sum are
-  separate float32 operations, as the kernel's intrinsics are, so the two
-  agree bitwise.
+* On a CPU tensor the wrapper runs the plain version, the all-pairs scan
+  ``ops.graph.knn_scan`` (d2 over query tiles, then the (d2, id)
+  lexicographic top-k). Its subtractions, products and sum are separate
+  float32 operations, as the kernel's intrinsics are, so the two agree
+  bitwise.
 * On a CUDA tensor it launches the kernel on the current stream and adds
   one to :data:`LAUNCHES` — or raises. There is no fallback.
 
@@ -23,44 +23,31 @@ The kernel takes k ≤ :data:`MAX_K` (its largest template bound).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from ..ops.graph import _dist_id_key, _topk_by_key
+from ..ops.graph import knn_scan
 from . import build
 
 #: kernel launches
 LAUNCHES = {"knn": 0}
 #: the kernel's largest top-k bound (template parameter KMAX)
 MAX_K = 256
-#: elements of one [queries, n] distance tile of the plain version
-_PLAIN_TILE_ELEMS = 1 << 24
 
 
 def reset_launch_counts() -> None:
     LAUNCHES["knn"] = 0
 
 
-def knn_topk_plain(xy: torch.Tensor, k: int, include_self: bool = False
+def knn_topk_plain(xy: torch.Tensor, k: int, include_self: bool = False,
+                   queries: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`knn_topk`, in query tiles of bounded size."""
-    n = xy.shape[0]
-    ids = torch.arange(n, device=xy.device)
-    tile = max(1, _PLAIN_TILE_ELEMS // max(n, 1))
-    out_d, out_i = [], []
-    for q0 in range(0, n, tile):
-        q = xy[q0:q0 + tile]
-        dx = q[:, None, 0] - xy[None, :, 0]
-        dy = q[:, None, 1] - xy[None, :, 1]
-        d2 = dx * dx + dy * dy
-        if not include_self:
-            rows = torch.arange(q.shape[0], device=xy.device)
-            d2[rows, rows + q0] = float("inf")
-        bi, bd = _topk_by_key(_dist_id_key(d2, ids.expand_as(d2)), k)
-        out_i.append(bi)
-        out_d.append(bd)
-    return torch.cat(out_d), torch.cat(out_i)
+    """Plain version of :func:`knn_topk`: ``ops.graph.knn_scan``, the
+    all-pairs scan in query tiles of bounded size. ``queries`` (int64 ids)
+    gives the rows of those points only."""
+    ids, d2 = knn_scan(xy, k, include_self, queries)
+    return d2, ids
 
 
 def knn_topk(xy: torch.Tensor, k: int, include_self: bool = False

@@ -116,9 +116,37 @@ def _topk_by_key(key: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 
-def knn_exact(coords: torch.Tensor, k: int, include_self: bool = False,
-              tile_q: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact kNN by tiled all-pairs squared distances.
+def knn_scan(c: torch.Tensor, k: int, include_self: bool = False,
+             queries: Optional[torch.Tensor] = None, tile_elems: int = 1 << 24
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k nearest points of ``c`` [N, D] (float32) to every point, or to
+    the points ``queries`` (int64 ids), by all-pairs squared distances
+    over query tiles of about ``tile_elems`` distances.
+
+    Returns ``(ids int64[q, k], d2 f32[q, k])`` sorted ascending by
+    (d2, id); a query's own point is left out unless ``include_self``.
+    Each coordinate difference, each square and the sum are separate
+    float32 operations.
+    """
+    n = c.shape[0]
+    ids = torch.arange(n, device=c.device)
+    q_ids = ids if queries is None else queries
+    tile = max(1, tile_elems // max(n, 1))
+    out_i, out_d = [], []
+    for q0 in range(0, q_ids.shape[0], tile):
+        qi = q_ids[q0:q0 + tile]
+        d2 = ((c[qi][:, None, :] - c[None, :, :]) ** 2).sum(-1)
+        if not include_self:
+            d2[torch.arange(qi.shape[0], device=c.device), qi] = float("inf")
+        bi, bd = _topk_by_key(_dist_id_key(d2, ids.expand_as(d2)), k)
+        out_i.append(bi)
+        out_d.append(bd)
+    return torch.cat(out_i), torch.cat(out_d)
+
+
+def knn_exact(coords: torch.Tensor, k: int, include_self: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact kNN by tiled all-pairs squared distances (:func:`knn_scan`).
 
     Returns ``(indices int64[N, k], distances f32[N, k])`` sorted ascending
     by (distance, id). Self is excluded unless ``include_self``. Coordinates
@@ -129,19 +157,8 @@ def knn_exact(coords: torch.Tensor, k: int, include_self: bool = False,
     if k >= n:
         raise ValueError(f"k={k} must be < n_cells={n}")
     c = coords.to(torch.float32)
-    c = c - c.mean(dim=0, keepdim=True)
-    ids = torch.arange(n, device=c.device)
-    out_i, out_d = [], []
-    for q0 in range(0, n, tile_q):
-        q = c[q0:q0 + tile_q]
-        d2 = ((q[:, None, :] - c[None, :, :]) ** 2).sum(-1)
-        if not include_self:
-            rows = torch.arange(q.shape[0], device=c.device)
-            d2[rows, rows + q0] = float("inf")
-        bi, bd = _topk_by_key(_dist_id_key(d2, ids.expand_as(d2)), k)
-        out_i.append(bi)
-        out_d.append(bd)
-    return torch.cat(out_i), torch.sqrt(torch.cat(out_d))
+    idx, d2 = knn_scan(c - c.mean(dim=0, keepdim=True), k, include_self)
+    return idx, torch.sqrt(d2)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,22 @@ import torch
 from ..kernels.knn import knn_topk
 
 
+def centred_xy(coords, device: Union[str, torch.device] = "cuda"
+               ) -> torch.Tensor:
+    """2D coordinates (array or tensor) as the kernel's operand: float32
+    [N, 2], centred by their numpy float32 mean on the host
+    (``coords - coords.mean(axis=0)``, the reference's conditioning bit for
+    bit; a device mean would sum in another order), contiguous on
+    ``device``."""
+    if isinstance(coords, torch.Tensor):
+        coords = coords.detach().cpu().numpy()
+    coords = np.asarray(coords, np.float32)
+    if coords.ndim != 2 or coords.shape[1] != 2:
+        raise ValueError("pallas_knn supports 2D coordinates")
+    centred = coords - coords.mean(axis=0, keepdims=True)
+    return torch.as_tensor(np.ascontiguousarray(centred)).to(device)
+
+
 def pallas_knn(coords, k: int, include_self: bool = False,
                device: Union[str, torch.device] = "cuda"
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -25,20 +41,12 @@ def pallas_knn(coords, k: int, include_self: bool = False,
     candidate id; self is excluded unless ``include_self``.
 
     As the reference: 2D coordinates only, k < N, and the coordinates are
-    centred for float32 conditioning by their numpy float32 mean on the host
-    (``coords - coords.mean(axis=0)``), so the centred values are the
-    reference's bit for bit; a device mean would sum in another order.
-    Distances are ``sqrt`` of the squared distances the kernel ranks by.
+    centred on the host by :func:`centred_xy`. Distances are ``sqrt`` of
+    the squared distances the kernel ranks by.
     """
-    if isinstance(coords, torch.Tensor):
-        coords = coords.detach().cpu().numpy()
-    coords = np.asarray(coords, np.float32)
-    if coords.ndim != 2 or coords.shape[1] != 2:
-        raise ValueError("pallas_knn supports 2D coordinates")
-    n = coords.shape[0]
+    xy = centred_xy(coords, device)
+    n = xy.shape[0]
     if k >= n:
         raise ValueError(f"k={k} must be < n_cells={n}")
-    centred = coords - coords.mean(axis=0, keepdims=True)
-    xy = torch.as_tensor(np.ascontiguousarray(centred)).to(device)
     d2, idx = knn_topk(xy, k, include_self)
     return idx, torch.sqrt(d2)

@@ -79,6 +79,19 @@ def test_pallas_knn_accepts_a_tensor_and_centres_on_the_host():
     np.testing.assert_array_max_ulp(dt.numpy(), np.asarray(dj), maxulp=1)
 
 
+@pytest.mark.parametrize("include_self", [False, True])
+def test_knn_plain_query_subset_equals_its_rows(include_self):
+    """The plain version over a subset of queries (first and last rows, as
+    the card's check at full size uses it) gives those rows of the whole
+    scan."""
+    c = _coords(1500, 9, "lattice")
+    xy = torch.as_tensor(c - c.mean(axis=0, keepdims=True))
+    d2, ids = kern_knn.knn_topk_plain(xy, 12, include_self)
+    q = torch.cat([torch.arange(0, 100), torch.arange(1430, 1500)])
+    qd, qi = kern_knn.knn_topk_plain(xy, 12, include_self, queries=q)
+    assert torch.equal(qi, ids[q]) and torch.equal(qd, d2[q])
+
+
 def test_knn_refusals():
     c = _coords(50, 0, "uniform")
     with pytest.raises(ValueError, match="2D"):
