@@ -15,7 +15,10 @@ Phases (the script stops with a non-zero exit at the first failure):
    with int8 and int16 counters, dense far, band only, and the observed
    entry; the geary tail and its observed entry; the getis_star and
    getis_g tails under every alternative, and the Getis observed entry;
-   counts and observed values equal). Each with its time, its plain version's time,
+   counts and observed values equal), and the dense-band kernels K5 and
+   K6 (bf16 at G=1,024, f32 at G=512; within 1e-5·Σ|terms|; ``torch.bmm``
+   of the dense band against the stacked windows, the lag alone, printed
+   as a second yardstick). Each with its time, its plain version's time,
    its bound on this card, and ``torch.sparse.mm`` of the band as a
    float32 CSR matrix against the float32 table as a library yardstick.
 3. The global null's headline workload through the ops entry points:
@@ -28,8 +31,8 @@ Phases (the script stops with a non-zero exit at the first failure):
 4. The global public API: ``morans_i(null_method="banded_int8")`` and
    ``gearys_c(null_method="banded")`` on a SpatialData of 1,000,000 cells ×
    1,024 genes whose X is a CUDA tensor; and a small input against the
-   port's CPU path. Proof of path: every band-cross kernel mode launched
-   during phases 3–4.
+   port's CPU path. Proof of path: every compact-band kernel mode (K1–K4)
+   launched during phases 3–4 (the dense-band K5 and K6 in phase 9).
 5. Local Moran (LISA). The main path, with the launch counts set to 0
    just before it and read just after:
    ``local_morans_i(null_method="banded_int8", n_permutations=99)`` at
@@ -77,6 +80,23 @@ Phases (the script stops with a non-zero exit at the first failure):
    plain version (every query at 366,938 cells, the first and last 4,096
    at 1M) and the graph against the kernel's output; the rows whose
    neighbour set differs from ``method="grid"`` counted.
+9. The global null's remaining routes, each with counts of its own:
+   ``banded_permutation_test(precision="bf16")`` at 1,000,000 cells ×
+   1,024 genes × 8 draws through "auto" (K4), "pallas" (K5, dense band)
+   and "pallas_halo4" (K6, rotation-baked ring), counts within ±1 draw of
+   K4's and null moments within rtol 1e-4, per-draw ms and each kernel's
+   time at that shape; ``streaming_moran_null(precision="int4",
+   tile=4096)`` at 1M × 18,432 genes × 8 draws (data made per tile on the
+   card from a seed; prep and draw time) and ``(precision="bf16",
+   tile=2048, band_impl="pallas")`` at 1M × 4,096 × 8;
+   ``global_autocorrelation(null_method="banded_int8")`` at 1M × 1,024 ×
+   19 draws, p bitwise equal to separate ``morans_i`` / ``gearys_c``
+   calls; the slot null: ``morans_i(null_method="slots")`` at 1M × 64 × 19
+   and ``morans_i`` through "auto" at 50,000 × 128 × 99 (resolves to
+   slots); ``perm_method="sort"`` f32 against ``permutation_test_global``
+   at 1M × 64 × 19 (p within 0.02, means within 1e-5); 4,096 scattered
+   cells on the card against the port's CPU path (the slot null's
+   permutations bitwise, counts within ±1 draw).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it a
 JSON summary of every kernel, and the one before that nvidia-smi's name
@@ -99,8 +119,9 @@ import pandas as pd
 import torch
 
 from spatialcore_tpu_torch import (SpatialData, build_spatial_weights,
-                                   gearys_c, getis_ord_gi, lees_l, lees_l_local,
-                                   local_gearys_c, local_morans_i, morans_i)
+                                   gearys_c, getis_ord_gi, global_autocorrelation,
+                                   lees_l, lees_l_local, local_gearys_c,
+                                   local_morans_i, morans_i)
 from spatialcore_tpu_torch.core.rng import (feistel_apply, fold_in, key_for,
                                             permutation)
 from spatialcore_tpu_torch.kernels import band_cross as kern
@@ -114,8 +135,10 @@ from spatialcore_tpu_torch.ops.banded import (banded_local_moran_pvalues,
 from spatialcore_tpu_torch.ops.fdr import apply_fdr
 from spatialcore_tpu_torch.ops.graph import build_graph
 from spatialcore_tpu_torch.ops.knn_kernel import centred_xy
-from spatialcore_tpu_torch.ops.moran import moran_observed, standardize
-from spatialcore_tpu_torch.ops.streaming import tile_widths
+from spatialcore_tpu_torch.core.metadata import get_operations
+from spatialcore_tpu_torch.ops.moran import (moran_observed,
+                                             permutation_test_global, standardize)
+from spatialcore_tpu_torch.ops.streaming import streaming_moran_null, tile_widths
 from spatialcore_tpu_torch.spatial import autocorrelation as acorr
 
 B = 256
@@ -138,7 +161,15 @@ KERNELS = {
     "float": ("band_cross_float (bf16/f32)",
               "spatialcore_tpu_torch/csrc/band_cross_float.cu",
               "spatialcore_tpu/ops/banded.py:511"),
+    "dense": ("band_cross_dense (bf16/f32 dense band; K5)",
+              "spatialcore_tpu_torch/csrc/band_cross_dense.cu",
+              "spatialcore_tpu/ops/banded.py:385"),
+    "rot4": ("band_cross_rot4 (bf16/f32 rotation-baked ring; K6)",
+             "spatialcore_tpu_torch/csrc/band_cross_dense.cu",
+             "spatialcore_tpu/ops/banded.py:557"),
 }
+#: the modes phases 3-4 launch (K5 and K6 run in phase 9)
+GLOBAL_MODES = ("int4_win", "int8_win", "int8_band", "float")
 LISA_SRC = "spatialcore_tpu_torch/csrc/lisa_count_int8.cu"
 LISA_KERNELS = {
     "lisa_win": ("lisa_count (draw step, row-pointer far; K7 moran tail)",
@@ -432,6 +463,81 @@ def phase_kernels(dev, plan, gen, widths, reps: int):
         report(results, mode, f"{label} (tolerance {REL_TOL:g}·Σ|terms|)",
                float(err.max()), ms, plain_ms, nbytes, ops, unit, lib,
                first=mode != "float" or label.startswith("bf16"))
+    return results
+
+
+def dense_work(A, zp):
+    """(bytes, operations, unit) one dense-band call (K5 "dense" or K6
+    "rot4") needs on the band ``A`` [nb, B, width·B] and the table ``zp``
+    [(nb+2)·B, G]: A and zp read once, [G] written; 2·16·16·G operations
+    for each 16×16 tile of A that holds a nonzero weight. The kernels
+    multiply every tile, zeros included, but a kernel that skips the
+    all-zero tiles of the 99%-zero band needs no more (K6's zero fourth
+    column block holds none)."""
+    nb, nr, KA = A.shape
+    tiles = int(A.reshape(nb, nr // 16, 16, KA // 16, 16).ne(0)
+                .any(dim=4).any(dim=2).sum())
+    G = zp.shape[1]
+    return ((A.numel() + zp.numel()) * A.element_size() + 4 * G,
+            2 * 16 * 16 * G * tiles,
+            "bf16" if A.dtype == torch.bfloat16 else "f32")
+
+
+def hold_dense(label: str, fn, plain, A, zp) -> float:
+    """Hold one dense-band kernel against its plain version on (A, zp)
+    within REL_TOL·Σ|terms| (the plain version on |A| and |zp|); returns
+    the largest |error|."""
+    got, want = fn(A, zp, B), plain(A, zp, B)
+    sync(zp.device)
+    err = (got.double() - want.double()).abs()
+    tol = REL_TOL * plain(A.abs(), zp.abs(), B).double() + 1e-30
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite cross")
+    check(bool((err <= tol).all()),
+          f"{label}: kernel disagrees with plain (max err "
+          f"{float(err.max()):.3e}, bound {float(tol.min()):.3e})")
+    return float(err.max())
+
+
+def stacked_windows(table, nb: int, width: int):
+    """[nb, width·B, G] windows of the flat table (the dense kernels' right
+    operands, materialised for the bmm yardstick): the three slabs from n
+    for width 3, K6's ring order (slot s holds the slab ≡ s mod 4) for 4."""
+    G = table.shape[1]
+    if width == 3:
+        return table.as_strided((nb, 3 * B, G), (B * G, G, 1)).contiguous()
+    z3 = table.reshape(-1, B, G)
+    z4 = torch.cat([z3, torch.zeros_like(z3[:1])])
+    return z4[kern.rot4_slabs(nb, 0, nb, table.device)].reshape(nb, 4 * B, G)
+
+
+def phase_dense_kernels(dev, plan, gen, widths, reps: int):
+    """K5 and K6 against their plain versions on the card (bf16 and f32);
+    returns {mode: numbers} with the bf16 case's times."""
+    results = {}
+    csr = band_csr(plan, dev)
+    nb = plan.n_padded // B
+    for dtype, G in widths.items():
+        dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+        zp = torch.randn(((nb + 2) * B, G), generator=gen, device=dev).to(dt)
+        lib = library_ms(csr, zp)
+        for mode, build_fn, fn, plain in (
+                ("dense", banded._build_band, kern.band_cross_dense,
+                 kern.band_cross_dense_plain),
+                ("rot4", banded._build_band_rot4, kern.band_cross_rot4,
+                 kern.band_cross_rot4_plain)):
+            A = build_fn(plan.local_idx, plan.w_local.to(dt), B, dt)
+            label = f"{mode} {dtype} G={G}"
+            err = hold_dense(label, fn, plain, A, zp)
+            ms = event_ms(lambda: fn(A, zp, B), reps)
+            plain_ms = event_ms(lambda: plain(A, zp, B), max(1, reps // 5))
+            win = stacked_windows(zp, nb, 3 if mode == "dense" else 4)
+            bmm_ms = event_ms(lambda: torch.bmm(A, win), max(1, reps // 5))
+            del win
+            report(results, mode, f"{label} (tolerance {REL_TOL:g}·Σ|terms|; "
+                   f"bmm of the dense band {bmm_ms:.4f} ms)", err,
+                   ms, plain_ms, *dense_work(A, zp), lib,
+                   first=dtype == "bf16")
+            del A
     return results
 
 
@@ -1877,6 +1983,250 @@ def phase_graph_pallas(dev, gen, shapes=((1_000_000, 6, 4096),
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the global null's remaining routes
+# ---------------------------------------------------------------------------
+
+
+def phase_dense_routes(dev, gen, n_cells: int = 1_000_000, n_genes: int = 1024,
+                       n_perms: int = 8):
+    """banded_permutation_test(bf16) through "auto" (K4), "pallas" (K5) and
+    "pallas_halo4" (K6) on one 1M-cell plan: each route's launch counts of
+    its own, counts within ±1 draw of K4's, null mean / std within rtol
+    1e-4; per-draw ms (call set-up included); K5 and K6 held against their
+    plain versions on one gathered table at this shape, and each kernel's
+    time there. Returns ({route: launches}, {mode: max |error|})."""
+    coords = uniform_coords(n_cells, SIDE, gen, dev)
+    graph = build_graph(coords, n_neighbors=K, device=dev)
+    plan = build_null_plan(graph, coords, block=B)
+    X = torch.randn((n_cells, n_genes), generator=gen, device=dev)
+    X[:, :n_genes // 8] += torch.sin(coords[:, :1] / 300.0)
+    Z, _ = standardize(X)
+    del X
+    S0 = float(n_cells)
+    obs = moran_observed(graph, Z, S0)
+    Zb = Z.to(torch.bfloat16)
+    den = (Z * Z).sum(dim=0)
+    del Z
+    routes = {"auto": "float", "pallas": "dense", "pallas_halo4": "rot4"}
+    res, launches = {}, {}
+    for impl, mode in routes.items():
+        kern.reset_launch_counts()
+        res[impl], t = timed(lambda: banded_permutation_test(
+            plan, Zb, S0, obs, 3, n_perms, precision="bf16", band_impl=impl,
+            den=den), dev)
+        launches[impl] = dict(kern.LAUNCHES)
+        check(launches[impl][mode] == n_perms
+              and sum(launches[impl].values()) == n_perms,
+              f"band_impl={impl!r} did not launch {mode} once per draw: "
+              f"{launches[impl]}")
+        print(f"[dense] banded_permutation_test(bf16, band_impl={impl!r}) "
+              f"{n_cells:,} x {n_genes} x {n_perms}: {t:.3f} s, "
+              f"{t / n_perms * 1e3:.2f} ms/draw (set-up included); launches "
+              f"{launches[impl]}")
+    p0, m0, s0 = res["auto"]
+    for impl in ("pallas", "pallas_halo4"):
+        p, m, sd = res[impl]
+        dc = (torch.round(p * (n_perms + 1) - 1)
+              - torch.round(p0 * (n_perms + 1) - 1)).abs()
+        check(float(dc.max()) <= 1, f"{impl}: counts differ from K4's by > 1")
+        check(torch.allclose(m, m0, rtol=1e-4, atol=1e-4 * float(m0.abs().max()))
+              and torch.allclose(sd, s0, rtol=1e-4, atol=1e-4 * float(s0.max())),
+              f"{impl}: null mean / std differ from K4's")
+        print(f"[dense] {impl}: counts within {int(dc.max())} draw of K4's, "
+              f"null mean / std within rtol 1e-4")
+    # the three kernels on one gathered table at this shape
+    nb = plan.n_padded // B
+    zp = Zb[banded._padded_rows(plan, dev)]
+    w = plan.w_local.to(torch.bfloat16)
+    li = plan.local_idx.to(torch.int32)
+    ms = event_ms(lambda: kern.band_cross_float(li, w, zp, B), 5)
+    times = {"float": (ms, *bound(*cross_work(plan, "bf16", n_genes)))}
+    errs = {}
+    for mode, build_fn, fn, plain in (
+            ("dense", banded._build_band, kern.band_cross_dense,
+             kern.band_cross_dense_plain),
+            ("rot4", banded._build_band_rot4, kern.band_cross_rot4,
+             kern.band_cross_rot4_plain)):
+        A = build_fn(plan.local_idx, w, B, torch.bfloat16)
+        errs[mode] = hold_dense(f"{mode} bf16 at {n_cells:,} x {n_genes}", fn,
+                                plain, A, zp)
+        print(f"[dense] {mode} bf16 at {n_cells:,} x {n_genes}: max_abs_err="
+              f"{errs[mode]:.3e} against its plain version (tolerance "
+              f"{REL_TOL:g}·Σ|terms|)")
+        ms = event_ms(lambda: fn(A, zp, B), 5)
+        times[mode] = (ms, *bound(*dense_work(A, zp)))
+        del A
+        torch.cuda.empty_cache()
+    for mode, (ms, b_ms, by) in times.items():
+        print(f"[dense] {mode} kernel, one bf16 draw at {n_cells:,} x {n_genes} "
+              f"({nb} blocks): {ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+    return launches, errs
+
+
+class DrawTimer:
+    """Times every banded_permutation_test call (synchronised) while
+    active, so a streaming run splits into draws and the rest (prep)."""
+
+    def __init__(self, dev):
+        self.dev, self.seconds, self.calls = dev, 0.0, 0
+        self._orig = banded.banded_permutation_test
+
+    def __enter__(self):
+        def wrapped(*args, **kw):
+            out, t = timed(lambda: self._orig(*args, **kw), self.dev)
+            self.seconds += t
+            self.calls += 1
+            return out
+        banded.banded_permutation_test = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        banded.banded_permutation_test = self._orig
+
+
+def phase_streaming(dev, n_cells: int = 1_000_000, n_perms: int = 8,
+                    int4_genes: int = 18_432, bf16_genes: int = 4096):
+    """streaming_moran_null at the north-star shape (int4, 1M × 18,432, tile
+    4096) and through K5 (bf16, 1M × 4,096, tile 2048, band_impl="pallas"),
+    data made per tile on the card from a seed (the first eighth of each
+    tile smooth). Returns each run's launch counts."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    coords = uniform_coords(n_cells, SIDE, gen, dev)
+    graph = build_graph(coords, n_neighbors=K, device=dev)
+    plan = build_null_plan(graph, coords, block=B)
+    wave = torch.sin(coords[:, :1] / 300.0)
+
+    def get_tile(start, width, ci):
+        g = torch.Generator(device=dev).manual_seed(1000 + start)
+        X = torch.randn((n_cells, width), generator=g, device=dev)
+        X[:, :width // 8] += wave
+        return X
+
+    out = {}
+    for label, n_genes, kw in (
+            ("int4", int4_genes, dict(precision="int4", tile=4096)),
+            ("bf16 pallas", bf16_genes, dict(precision="bf16", tile=2048,
+                                             band_impl="pallas"))):
+        kern.reset_launch_counts()
+        with DrawTimer(dev) as dt:
+            (I, p, m, sd), t = timed(lambda: streaming_moran_null(
+                graph, plan, get_tile, n_genes, float(n_cells), seed=5,
+                n_permutations=n_perms, chunk=n_perms, device=dev, **kw), dev)
+        out[label] = dict(kern.LAUNCHES)
+        check(I.shape == p.shape == (n_genes,) and bool(np.isfinite(I).all())
+              and bool(np.isfinite(m).all()), f"streaming {label}: bad output")
+        check(bool(((p > 0) & (p <= 1)).all()), f"streaming {label}: p outside (0, 1]")
+        # get_tile's smooth genes: the first eighth of each prep chunk
+        smooth = np.zeros(n_genes, bool)
+        for s0 in range(0, n_genes, 1024):
+            smooth[s0:s0 + min(1024, n_genes - s0) // 8] = True
+        sig = p[smooth]
+        check(float((sig <= 1 / (n_perms + 1) + 1e-6).mean()) > 0.9,
+              f"streaming {label}: smooth genes not at the smallest p")
+        print(f"[stream] streaming_moran_null({label}, tile={kw['tile']}) "
+              f"{n_cells:,} x {n_genes:,} genes x {n_perms} draws: {t:.3f} s = "
+              f"draws {dt.seconds:.3f} s ({dt.calls} calls, "
+              f"{dt.seconds / (dt.calls * n_perms) * 1e3:.2f} ms per tile-draw) "
+              f"+ prep {t - dt.seconds:.3f} s; {n_genes * n_perms / t:.1f} "
+              f"genes*perms/s; launches {out[label]}")
+    check(out["int4"]["int4_win"] == len(tile_widths(int4_genes, 4096))
+          * (n_perms + 1),
+          f"the int4 streaming run did not launch K1 per draw and observed "
+          f"value: {out['int4']}")
+    check(out["bf16 pallas"]["dense"] == len(tile_widths(bf16_genes, 2048))
+          * n_perms,
+          f"streaming through band_impl='pallas' did not launch K5 per draw: "
+          f"{out['bf16 pallas']}")
+    return out
+
+
+def phase_global_public(dev, gen, n_cells: int = 1_000_000):
+    """global_autocorrelation (fused) against separate calls at 1M × 1,024;
+    the "sort" stream against permutation_test_global and the slot null at
+    1M × 64; "auto" -> slots at 50,000 × 128."""
+    d = make_adata(n_cells, 1024, gen, dev)
+    kw = dict(n_permutations=19, seed=4, null_method="banded_int8",
+              gene_batch_size=1024, device=dev)
+    kern.reset_launch_counts()
+    _, t_f = timed(lambda: global_autocorrelation(d, keys_added=("mi", "gc"),
+                                                  **kw), dev)
+    fused = dict(kern.LAUNCHES)
+    _, t_m = timed(lambda: morans_i(d, use_existing_graph=True, **kw), dev)
+    _, t_g = timed(lambda: gearys_c(d, use_existing_graph=True, **kw), dev)
+    for a, b in (("mi", "morans_i"), ("gc", "gearys_c")):
+        check(np.array_equal(d.uns[a]["p_value"].to_numpy(),
+                             d.uns[b]["p_value"].to_numpy()),
+              f"global_autocorrelation {a} p differs from {b}'s")
+    p = d.uns["mi"]["p_value"].to_numpy()
+    check(float((p[:128] <= 1 / 20 + 1e-9).mean()) > 0.9,
+          "global_autocorrelation: smooth genes not significant")
+    print(f"[global] global_autocorrelation(banded_int8) {n_cells:,} x 1,024 x 19: "
+          f"{t_f:.3f} s (launches {fused}); morans_i {t_m:.3f} s + gearys_c "
+          f"{t_g:.3f} s; p bitwise equal to the separate calls")
+    check(fused["int8_win"] == 20, f"the fused pass did not launch one int8 "
+          f"kernel per draw and one for the observed value: {fused}")
+    del d
+    torch.cuda.empty_cache()
+
+    d = make_adata(n_cells, 64, gen, dev)
+    _, t_s = timed(lambda: morans_i(d, n_permutations=19, seed=2,
+                                    null_method="slots", device=dev), dev)
+    df = d.uns["morans_i"]
+    check(float((df["p_value"][:8] <= 1 / 20 + 1e-9).mean()) > 0.9
+          and bool(np.isfinite(df["I"]).all()), "slot null: bad output")
+    # the "sort" stream draws the slot null's permutations
+    graph = acorr._load_stored_graph(d, dev)
+    plan = build_null_plan(graph, d.obsm["spatial"], block=B)
+    Z, _ = standardize(d.X)
+    S0 = float(n_cells)
+    obs = moran_observed(graph, Z, S0)
+    (p_s, m_s, _), t_sort = timed(lambda: banded_permutation_test(
+        plan, Z, S0, obs, 6, 19, precision="f32", perm_method="sort"), dev)
+    (p_g, m_g, _), t_glob = timed(lambda: permutation_test_global(
+        graph, Z, S0, obs, 6, 19), dev)
+    dp = float((p_s - p_g).abs().max())
+    dm = float((m_s - m_g).abs().max())
+    check(dp <= 0.02 and dm <= 1e-5, f"sort stream vs slot null: p {dp:.3g}, "
+          f"mean {dm:.3g}")
+    print(f"[global] morans_i(slots) {n_cells:,} x 64 x 19: {t_s:.3f} s; "
+          f"banded_permutation_test(f32, sort) {t_sort:.3f} s vs "
+          f"permutation_test_global {t_glob:.3f} s on the same draws: p within "
+          f"{dp:.3g}, means within {dm:.3g}")
+    del d, Z, graph, plan
+    torch.cuda.empty_cache()
+
+    d = make_adata(50_000, 128, gen, dev)
+    _, t_a = timed(lambda: morans_i(d, n_permutations=99, seed=1, device=dev), dev)
+    nm = get_operations(d)[-1]["parameters"]["null_method"]
+    check(nm == "slots", f"'auto' at 50,000 cells resolved to {nm!r}")
+    print(f"[global] morans_i('auto' -> {nm}) 50,000 x 128 x 99: {t_a:.3f} s")
+
+
+def phase_slots_vs_cpu(dev, coords: np.ndarray, n_genes: int, seed: int,
+                       n_perms: int = 49):
+    """The slot null on the card against the port's CPU path at 4,096
+    cells: permutations bitwise, counts within ±1 draw."""
+    base = key_for(seed, "perm_global", 0)
+    for d in (0, 1, n_perms - 1):
+        k = fold_in(base, d)
+        check(torch.equal(permutation(k, coords.shape[0], device=dev).cpu(),
+                          permutation(k, coords.shape[0], device="cpu")),
+              f"draw {d}: the card's permutation differs from the CPU's")
+    card, host = exact_pair(coords, n_genes, seed, dev)
+    for fn in (morans_i, gearys_c):
+        for d, where in ((card, dev), (host, "cpu")):
+            fn(d, n_permutations=n_perms, seed=seed, null_method="slots",
+               device=where)
+        a, b = card.uns[fn.__name__], host.uns[fn.__name__]
+        dc = np.abs(np.round(a["p_value"].to_numpy() * (n_perms + 1))
+                    - np.round(b["p_value"].to_numpy() * (n_perms + 1)))
+        check(float(dc.max()) <= 1, f"{fn.__name__}(slots): card counts differ "
+              "from the CPU path's by more than one draw")
+    print(f"[global] slot null at {coords.shape[0]:,} scattered cells: card "
+          f"permutations equal the CPU's; counts within one draw")
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1912,6 +2262,8 @@ def main() -> None:
     kres.update(phase_lisa_kernels(dev, plan300, gen, 1024, reps=20))
     kres.update(phase_tail_kernels(dev, plan300, gen, 1024, reps=20))
     kres.update(phase_lee_kernels(dev, plan300, gen, 1024, reps=20))
+    kres.update(phase_dense_kernels(dev, plan300, gen, {"bf16": 1024, "f32": 512},
+                                    reps=20))
     del plan300
     kres.update(phase_knn_kernel(dev, gen))
 
@@ -1922,7 +2274,7 @@ def main() -> None:
     phase_public(dev, 1_000_000, 1024, 19, gen)
     launches = dict(kern.LAUNCHES)
     print(f"[path] band-cross launches in phases 3-4: {launches}")
-    for mode in KERNELS:
+    for mode in GLOBAL_MODES:
         check(launches[mode] > 0, f"kernel mode {mode} never launched")
     phase_small_reference(dev, gen)
     torch.cuda.empty_cache()
@@ -2043,6 +2395,23 @@ def main() -> None:
     check(knn_launches == 2, "build_graph(method='pallas') did not launch the "
           "kNN kernel once per call")
     launches["knn"] = knn_launches
+    torch.cuda.empty_cache()
+
+    # the global null's remaining routes, each with counts of its own
+    t9 = time.perf_counter()
+    dense, dense_err = phase_dense_routes(dev, gen)
+    launches.update(dense=dense["pallas"]["dense"],
+                    rot4=dense["pallas_halo4"]["rot4"])
+    for mode, err in dense_err.items():
+        kres[mode]["max_abs_err"] = max(kres[mode]["max_abs_err"], err)
+    torch.cuda.empty_cache()
+    phase_streaming(dev)
+    torch.cuda.empty_cache()
+    phase_global_public(dev, gen)
+    phase_slots_vs_cpu(dev, scattered_coords(seed=3), 16, 12)
+    print(f"[path] launches in the kernels line: dense and rot4 from "
+          f"banded_permutation_test's 'pallas' and 'pallas_halo4' routes at 1M "
+          f"x 1,024 x 8; phase 9 took {time.perf_counter() - t9:.1f} s")
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

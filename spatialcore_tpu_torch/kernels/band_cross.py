@@ -1,6 +1,6 @@
 """Wrappers of the band-cross kernels, and their plain PyTorch versions.
 
-Two kernels carry the global permutation null's hot loop, one draw each:
+Four kernels carry the global permutation null's hot loop, one draw each:
 
 ``band_cross_int8`` (``csrc/band_cross_int8.cu``; replaces Pallas K1–K3)
     cross_q[g] = Σ_i sw_i · z1_i[g] · lag_i[g], with the exact integer lag
@@ -8,13 +8,19 @@ Two kernels carry the global permutation null's hot loop, one draw each:
     int8 codes, or int4 codes nibble-packed two genes per byte.
 ``band_cross_float`` (``csrc/band_cross_float.cu``; replaces Pallas K4)
     cross[g] = Σ_i z1_i[g] · lag_i[g], bf16 or f32 values, f32 lag.
+``band_cross_dense`` (``csrc/band_cross_dense.cu``; replaces Pallas K5)
+    the same cross with the lag a dense product A[n] @ window, A [nb, B, 3B].
+``band_cross_rot4`` (``csrc/band_cross_dense.cu``; replaces Pallas K6)
+    the same cross as one [B, 4B] @ [4B, G] product per block over a 4-slot
+    ring of slabs, A4 [nb, B, 4B] in the rotation-baked layout.
 
-Both take the compact band — ``local_idx`` [Npad, k] (window-relative
-neighbour rows in [0, 3B)) and per-slot weights — instead of the
-reference's dense ``A[nb, B, 3B]``; the lag is the same sum, exactly, for
-the integer kernels. ``Zp`` is the draw's gathered value table, flat
-[(nb+2)·B, cols]: block n's window is rows [n·B, n·B + 3B) and its own
-rows are [n·B + B, n·B + 2B).
+The first two take the compact band — ``local_idx`` [Npad, k]
+(window-relative neighbour rows in [0, 3B)) and per-slot weights; the
+lag is the same sum as the dense band's, exactly, for the integer
+kernels. The last two multiply the reference's dense band on the tensor
+cores (bf16) or the CUDA cores (f32). ``Zp`` is the draw's gathered value
+table, flat [(nb+2)·B, cols]: block n's window is rows [n·B, n·B + 3B)
+and its own rows are [n·B + B, n·B + 2B).
 
 Each wrapper checks device, dtype, shape and contiguity, and then:
 
@@ -39,12 +45,15 @@ from . import build
 
 #: kernel launches by mode, counted where each wrapper launches its kernel
 LAUNCHES = {"int4_win": 0, "int4_band": 0, "int8_win": 0, "int8_band": 0,
-            "float": 0}
+            "float": 0, "dense": 0, "rot4": 0}
 
 #: rows per chunk of the plain versions' [rows, G] temps (times G ≤ 2**27)
 _PLAIN_CHUNK_ELEMS = 1 << 27
 #: largest block the kernels' shared-memory staging of 3B rows takes
 MAX_BLOCK = 512
+#: the dense kernels' blocks: multiples of 16 (tensor-core tiles) up to 256
+#: (K6's ring of 4B rows in shared memory)
+DENSE_MAX_BLOCK = 256
 
 
 def reset_launch_counts() -> None:
@@ -150,6 +159,87 @@ def band_cross_float_plain(local_idx, w, Zp, block: int) -> torch.Tensor:
         lag = band_lag_float_plain(local_idx, w, Zp, block, r0, r1)
         cross += (Zp[block + r0:block + r1].to(torch.float32) * lag).sum(dim=0)
     return cross
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (dense band form)
+# ---------------------------------------------------------------------------
+
+
+def block_chunks(nb: int, B: int, G: int):
+    """Block ranges [n0, n1) whose [rows, G] temps stay bounded."""
+    step = max(1, _PLAIN_CHUNK_ELEMS // max(B * G, 1))
+    return [(n0, min(n0 + step, nb)) for n0 in range(0, nb, step)]
+
+
+def band_lag_dense(A, Zp3, n0: int, n1: int) -> torch.Tensor:
+    """Band lag of blocks [n0, n1) as float32 [(n1−n0)·B, G] from the dense
+    band ``A`` [nb, B, 3B] and ``Zp3`` [nb+2, B, G].
+
+    int8 operands are widened to float32: every lag is exact there. A row
+    has at most k nonzero weight codes ≤ 127 times value codes ≤ 127, so
+    |lag| ≤ k·127² < 2²⁴ for k < 1040 and every partial sum is an exactly
+    representable integer — the plain lags and the kernel's int32 lags
+    compare bitwise. (float32 matmul must not run in TF32.)
+    """
+    B = A.shape[1]
+    lag = None
+    for s in range(3):
+        part = torch.bmm(A[n0:n1, :, s * B:(s + 1) * B].to(torch.float32),
+                         Zp3[n0 + s:n1 + s].to(torch.float32))
+        lag = part if lag is None else lag + part
+    return lag.reshape((n1 - n0) * B, -1)
+
+
+def dense_cross(Zp3, B: int, lag_fn, sw=None) -> torch.Tensor:
+    """Σ_i (sw_i)·z1_i·lag_i over blocks in bounded chunks, ``Zp3``
+    [nb+2, B, G]; ``lag_fn(n0, n1)`` gives the float32 lag of blocks
+    [n0, n1) as [(n1−n0)·B, G]."""
+    nb, G = Zp3.shape[0] - 2, Zp3.shape[2]
+    z1 = Zp3.reshape(-1, G)[B:B + nb * B]
+    cross = torch.zeros(G, dtype=torch.float32, device=Zp3.device)
+    for n0, n1 in block_chunks(nb, B, G):
+        t = z1[n0 * B:n1 * B].to(torch.float32)
+        if sw is not None:
+            t = sw.reshape(-1, 1)[n0 * B:n1 * B] * t
+        cross += (t * lag_fn(n0, n1)).sum(dim=0)
+    return cross
+
+
+def band_cross_dense_plain(A, Zp, block: int) -> torch.Tensor:
+    """Plain version of :func:`band_cross_dense` (same inputs): the lag of
+    three batched products per block chunk, accumulated in float32 from
+    bf16/f32 operands (the Pallas kernel's precision)."""
+    nb = A.shape[0]
+    Zp3 = Zp.reshape(nb + 2, block, -1)
+    return dense_cross(Zp3, block, lambda n0, n1: band_lag_dense(A, Zp3, n0, n1))
+
+
+def rot4_slabs(nb: int, n0: int, n1: int, device) -> torch.Tensor:
+    """Slab held in ring slot s at block n, [n1−n0, 4]: slot s holds the one
+    slab of n, n+1, n+2, n+3 that is ≡ s (mod 4) — the Pallas ring, whose
+    fourth slot meets zero weights in A4."""
+    n = torch.arange(n0, n1, device=device)[:, None]
+    s = torch.arange(4, device=device)[None, :]
+    return n + (s - n) % 4
+
+
+def band_cross_rot4_plain(A4, Zp, block: int) -> torch.Tensor:
+    """Plain version of :func:`band_cross_rot4` (same inputs): per block the
+    4-slot window [4B, G] in slot order, then one product A4[n] @ window.
+    Slab nb+2 (past the table, the last block's fourth slot) reads as
+    zeros."""
+    nb, B = A4.shape[0], block
+    G = Zp.shape[1]
+    Zp4 = torch.cat([Zp.reshape(nb + 2, B, G),
+                     torch.zeros((1, B, G), dtype=Zp.dtype, device=Zp.device)])
+
+    def lag(n0, n1):
+        win = Zp4[rot4_slabs(nb, n0, n1, Zp.device)].reshape(n1 - n0, 4 * B, G)
+        return torch.bmm(A4[n0:n1].to(torch.float32),
+                         win.to(torch.float32)).reshape((n1 - n0) * B, G)
+
+    return dense_cross(Zp4[:nb + 2], B, lag)
 
 
 # ---------------------------------------------------------------------------
@@ -262,3 +352,55 @@ def band_cross_float(local_idx, w, Zp, block: int) -> torch.Tensor:
         raise RuntimeError(f"band_cross_float launch failed: CUDA error {err}")
     LAUNCHES["float"] += 1
     return partial.sum(dim=0)
+
+
+def _dense_launch(entry: str, mode: str, A, Zp, block: int, width: int,
+                  plain) -> torch.Tensor:
+    """Shared checks and launch of the two dense-band kernels."""
+    _check(A.ndim == 3 and A.dtype in (torch.bfloat16, torch.float32),
+           "A must be bf16 or f32 [nb, B, width·B]")
+    nb, B = A.shape[0], A.shape[1]
+    _check(B == block and tuple(A.shape) == (nb, B, width * B),
+           f"A must be [nb, block, {width}·block]")
+    _check(1 <= block <= MAX_BLOCK, f"block must be in [1, {MAX_BLOCK}]")
+    _check(Zp.ndim == 2 and Zp.shape[0] == (nb + 2) * block,
+           "Zp must be [(nb+2)·B, G]")
+    _check(Zp.dtype == A.dtype, "A and Zp must share a dtype (bf16 or f32)")
+    for t in (A, Zp):
+        _check(t.device == Zp.device, "all operands must share one device")
+        _check(t.is_contiguous(), "operands must be contiguous")
+    _check(Zp.device.type in ("cpu", "cuda"), f"unsupported device {Zp.device}")
+    if Zp.device.type == "cpu":
+        return plain(A, Zp, block)
+    _check(block % 16 == 0 and block <= DENSE_MAX_BLOCK,
+           f"the dense kernels take a block that is a multiple of 16 up to "
+           f"{DENSE_MAX_BLOCK}, got {block}")
+    G = Zp.shape[1]
+    lib = build.load_library()
+    with torch.cuda.device(Zp.device):
+        partial = torch.empty((nb, G), dtype=torch.float32, device=Zp.device)
+        err = getattr(lib, entry)(
+            _ptr(A), _ptr(Zp), _ptr(partial), nb, block, G,
+            int(Zp.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    LAUNCHES[mode] += 1
+    return partial.sum(dim=0)
+
+
+def band_cross_dense(A, Zp, block: int) -> torch.Tensor:
+    """cross[g] of one draw on the dense band (Pallas K5's function).
+
+    ``A`` [nb, B, 3B] and ``Zp`` [(nb+2)·B, G], both bf16 or both f32.
+    Returns f32 [G]. On the card: ``B`` a multiple of 16, at most 256.
+    """
+    return _dense_launch("sct_band_cross_dense", "dense", A, Zp, block, 3,
+                         band_cross_dense_plain)
+
+
+def band_cross_rot4(A4, Zp, block: int) -> torch.Tensor:
+    """cross[g] of one draw on the rotation-baked band (Pallas K6's
+    function): ``A4`` [nb, B, 4B] from ``ops.banded._build_band_rot4``,
+    ``Zp`` [(nb+2)·B, G], both bf16 or both f32. Returns f32 [G]."""
+    return _dense_launch("sct_band_cross_rot4", "rot4", A4, Zp, block, 4,
+                         band_cross_rot4_plain)

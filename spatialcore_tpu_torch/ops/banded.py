@@ -16,10 +16,16 @@ Port of the global part and of the local Moran (LISA) part of
 The cross product is the hot loop. On a CUDA tensor it runs in the
 hand-written Hopper kernels of ``kernels/band_cross.py`` (int8/int4:
 ``csrc/band_cross_int8.cu``, replacing the Pallas kernels K1–K3; bf16/f32:
-``csrc/band_cross_float.cu``, replacing K4). ``band_impl="xla"`` selects
-the plain PyTorch twins below instead, which keep the reference's dense
-band layout ``A[nb, B, 3B]`` (``_plain`` suffix; counterparts of the
-reference's ``_xla`` functions).
+``csrc/band_cross_float.cu`` on the compact band, replacing K4, and
+``csrc/band_cross_dense.cu`` on the dense band ``A[nb, B, 3B]`` or its
+rotation-baked form ``A4[nb, B, 4B]``, replacing K5 and K6 behind
+``band_impl="pallas"`` and ``"pallas_halo4"``). ``band_impl="xla"``
+selects the plain PyTorch twins below instead, which keep the reference's
+dense band layout (``_plain`` suffix; counterparts of the reference's
+``_xla`` functions). Draws come from the Feistel stream, or with
+``perm_method="sort"`` from ``core.rng.permutation`` (the slot null's
+``jax.random.permutation`` stream). ``stat="moran_geary"`` counts both
+statistics from one gather and one cross per draw.
 
 LISA (:func:`banded_local_moran`, :func:`banded_local_moran_pvalues`): the
 same relabel and draws, but the statistic is per cell. In the int8 system
@@ -62,8 +68,8 @@ logger = get_logger("ops.banded")
 #: elements of one [rows, G] temp in the plain twins' block chunks
 _PLAIN_CHUNK_ELEMS = 1 << 27
 _SORT_NOT_PORTED = (
-    "perm_method='sort' of this null is not ported yet; it comes with the "
-    "slot null (ROADMAP Queue 1 item 4)")
+    "perm_method='sort' of the local Moran, Geary and Getis nulls is not "
+    "ported yet; it comes with the local slot nulls (ROADMAP Queue 1 item 4)")
 
 
 # ---------------------------------------------------------------------------
@@ -358,6 +364,25 @@ def _build_band(local_idx, w_local, block: int, dtype) -> torch.Tensor:
                           w_local.reshape(nb, block, k).to(dtype))
 
 
+def _build_band_rot4(local_idx, w_local, block: int, dtype) -> torch.Tensor:
+    """A4[nb, B, 4B]: :func:`_build_band` with each window slab's B-wide
+    weight block at column (padded_slab % 4)·B — the layout of the
+    single-product ring kernel (K6). The column block no window slab covers
+    stays zero. Scattered into zeros one slot at a time, in slot order, so
+    A4 equals the reference's (``spatialcore_tpu/ops/banded.py:610``)
+    bitwise."""
+    nb = local_idx.shape[0] // block
+    k = local_idx.shape[1]
+    li3 = local_idx.reshape(nb, block, k)
+    lw3 = w_local.reshape(nb, block, k).to(dtype)
+    slab = torch.arange(nb, device=local_idx.device)[:, None, None] + li3 // block
+    col4 = (slab % 4) * block + li3 % block
+    A = torch.zeros((nb, block, 4 * block), dtype=dtype, device=local_idx.device)
+    for j in range(k):
+        A.scatter_add_(2, col4[:, :, j:j + 1], lw3[:, :, j:j + 1])
+    return A
+
+
 def _band_codes_i8(local_idx, w_local, block: int, row_scale=None):
     """Compact int8 band weight codes ``wq [Npad, k]`` and row scales.
 
@@ -496,31 +521,6 @@ def _row_ptr(far_src, n_live: int, block: int, n_padded: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _block_chunks(nb: int, B: int, G: int):
-    """Block ranges [n0, n1) whose [rows, G] temps stay bounded."""
-    step = max(1, _PLAIN_CHUNK_ELEMS // max(B * G, 1))
-    return [(n0, min(n0 + step, nb)) for n0 in range(0, nb, step)]
-
-
-def _band_lag_dense(A, Zp, n0: int, n1: int) -> torch.Tensor:
-    """Band lag of blocks [n0, n1) as float32 [(n1−n0)·B, G].
-
-    int8 operands are widened to float32: every lag is exact there. A row
-    has at most k nonzero weight codes ≤ 127 times value codes ≤ 127, so
-    |lag| ≤ k·127² < 2²⁴ for k < 1040 and every partial sum is an exactly
-    representable integer — the plain lags and the kernel's int32 lags
-    compare bitwise. (float32 matmul must not run in TF32, PyTorch's
-    default on CUDA.)
-    """
-    B = A.shape[1]
-    lag = None
-    for s in range(3):
-        part = torch.bmm(A[n0:n1, :, s * B:(s + 1) * B].to(torch.float32),
-                         Zp[n0 + s:n1 + s].to(torch.float32))
-        lag = part if lag is None else lag + part
-    return lag.reshape((n1 - n0) * B, -1)
-
-
 def _far_dst(starts, runs, rowp, nb: int, B: int) -> torch.Tensor:
     """Destination padded row of every compact far entry (reference's
     ``blk_of`` construction: the owner of a position is the LAST block whose
@@ -542,7 +542,7 @@ def _band_lag_win_i8_plain(w_idx, starts, runs, A8, Zp8, Zf, rowp, qp,
     nb, B, _ = A8.shape
     n1 = nb if n1 is None else n1
     G = Zp8.shape[2]
-    lag = _band_lag_dense(A8, Zp8, n0, n1)
+    lag = kern.band_lag_dense(A8, Zp8, n0, n1)
     dst = _far_dst(starts, runs, rowp, nb, B)
     q = qp.reshape(-1)
     sel = (dst >= n0 * B) & (dst < n1 * B) & (q != 0)
@@ -551,40 +551,18 @@ def _band_lag_win_i8_plain(w_idx, starts, runs, A8, Zp8, Zf, rowp, qp,
     return lag.index_add_(0, dst[sel] - n0 * B, vals)
 
 
-def _chunked_cross(Zp, B: int, lag_fn, sw=None) -> torch.Tensor:
-    """Σ_i (sw_i)·z1_i·lag_i over blocks in bounded chunks; ``lag_fn(n0, n1)``
-    gives the float32 lag of blocks [n0, n1)."""
-    nb, G = Zp.shape[0] - 2, Zp.shape[2]
-    z1 = Zp.reshape(-1, G)[B:B + nb * B]
-    cross = torch.zeros(G, dtype=torch.float32, device=Zp.device)
-    for n0, n1 in _block_chunks(nb, B, G):
-        t = z1[n0 * B:n1 * B].to(torch.float32)
-        if sw is not None:
-            t = sw.reshape(-1, 1)[n0 * B:n1 * B] * t
-        cross += (t * lag_fn(n0, n1)).sum(dim=0)
-    return cross
-
-
 def _band_cross_win_i8_plain(w_idx, starts, runs, A8, sw, Zp8, Zf, rowp, qp
                              ) -> torch.Tensor:
     """Plain twin of the int8/int4 windowed-far kernels (K1/K2): cross_q[g]
     in z_q·w_q units = Σ_i sw_i·z1_i·(band + far lag)_i."""
-    return _chunked_cross(Zp8, A8.shape[1], lambda n0, n1: _band_lag_win_i8_plain(
+    return kern.dense_cross(Zp8, A8.shape[1], lambda n0, n1: _band_lag_win_i8_plain(
         w_idx, starts, runs, A8, Zp8, Zf, rowp, qp, n0, n1), sw)
 
 
 def _band_cross_i8_plain(A8, sw, Zp8) -> torch.Tensor:
     """Plain twin of the int8 band-only kernel (K3): Σ_i sw_i·z1_i·lag_i."""
-    return _chunked_cross(Zp8, A8.shape[1],
-                          lambda n0, n1: _band_lag_dense(A8, Zp8, n0, n1), sw)
-
-
-def _band_cross_float_plain(A, Zp) -> torch.Tensor:
-    """Plain twin of the float band kernel (K4): Σ_i z1_i·lag_i with the lag
-    accumulated in float32 from bf16/f32 operands (the Pallas kernel's
-    precision; the reference's XLA path rounds the lag to the table dtype)."""
-    return _chunked_cross(Zp, A.shape[1],
-                          lambda n0, n1: _band_lag_dense(A, Zp, n0, n1))
+    return kern.dense_cross(Zp8, A8.shape[1],
+                            lambda n0, n1: kern.band_lag_dense(A8, Zp8, n0, n1), sw)
 
 
 # ---------------------------------------------------------------------------
@@ -593,10 +571,15 @@ def _band_cross_float_plain(A, Zp) -> torch.Tensor:
 
 
 def _finish_stat(cross, sq_fn, den, S0: float, n: int, stat: str):
-    """Turn the draw's cross term into Moran's I or Geary's C."""
+    """Turn the draw's cross term into Moran's I, Geary's C, or both
+    stacked [2, G] ("moran_geary": one gather and one cross serve both)."""
+    moran = (n / S0) * cross / den
     if stat == "moran":
-        return (n / S0) * cross / den
-    return (n - 1) * (sq_fn() - 2.0 * cross) / (2.0 * S0 * den)
+        return moran
+    geary = (n - 1) * (sq_fn() - 2.0 * cross) / (2.0 * S0 * den)
+    if stat == "geary":
+        return geary
+    return torch.stack([moran, geary])
 
 
 class _IntOps(NamedTuple):
@@ -662,18 +645,24 @@ def _banded_stat_int(ops: _IntOps, rc_sum, Ztab, sz2, den, S0, rows, rowsf,
 
 def _banded_stat_float(local_idx32, w_c, A, far_src, far_dst, far_w, rc_sum,
                        Ztab, den, S0, rows, *, block: int, n: int, stat: str,
-                       use_plain: bool):
+                       band_impl: str):
     """One draw's statistic in bf16/f32 (reference ``_banded_stat``).
 
-    The far-edge einsum stays in the table dtype with float32 accumulation,
-    as in the reference.
+    The band cross by ``band_impl``: "auto"/"pallas_halo" the compact-band
+    kernel (K4), "pallas" the dense-band kernel on ``A`` (K5),
+    "pallas_halo4" the ring kernel on the rotation-baked ``A`` (K6), "xla"
+    the dense plain twin. The far-edge einsum stays in the table dtype
+    with float32 accumulation, as in the reference.
     """
     B = block
     nb = local_idx32.shape[0] // B
-    G = Ztab.shape[1]
     Zp = Ztab[rows]                                  # ONE random row gather
-    if use_plain:
-        cross = _band_cross_float_plain(A, Zp.reshape(nb + 2, B, G))
+    if band_impl == "xla":
+        cross = kern.band_cross_dense_plain(A, Zp, B)
+    elif band_impl == "pallas":
+        cross = kern.band_cross_dense(A, Zp, B)
+    elif band_impl == "pallas_halo4":
+        cross = kern.band_cross_rot4(A, Zp, B)
     else:
         cross = kern.band_cross_float(local_idx32, w_c, Zp, B)
     fs = Zp[far_src].to(torch.float32)
@@ -755,12 +744,17 @@ def _int_ops(plan: NullPlan, precision: str, far_mode: str, rows_idx,
 
 def _banded_test(plan: NullPlan, Z, S0, observed, seed: int, den, sz,
                  draw0: int, *, n_permutations: int, stat: str, alternative,
-                 precision: str, use_plain: bool, far_mode: str):
-    """The draw loop: Feistel rows → row gather → band cross → counts.
+                 precision: str, band_impl: str, far_mode: str,
+                 perm_method: str):
+    """The draw loop: permuted rows → row gather → band cross → counts.
 
     A Python loop over draws with three on-device accumulators (extreme
-    count, Σ value, Σ value²), the reference's ``lax.scan`` carry.
+    count, Σ value, Σ value²), the reference's ``lax.scan`` carry. Draw d's
+    rows come from the Feistel stream (key base ``perm_feistel``) or, with
+    ``perm_method="sort"``, from ``permutation`` (key base ``perm_global``,
+    the slot null's stream), each keyed by ``fold_in(base, d)``.
     """
+    use_plain = band_impl == "xla"
     n, block = plan.n, plan.block
     prepacked = precision == "int4" and Z.dtype == torch.int8
     if den is None:
@@ -810,26 +804,43 @@ def _banded_test(plan: NullPlan, Z, S0, observed, seed: int, den, sz,
         wdt = torch.bfloat16 if precision == "bf16" else Z.dtype
         Ztab = Z if Z.dtype == wdt else Z.to(wdt)
         w_c = plan.w_local.to(wdt)
-        A = _build_band(plan.local_idx, w_c, block, wdt) if use_plain else None
+        # the dense band, once per call: 1.54 GB (A) / 2.05 GB (A4) of bf16
+        # at 1M cells
+        A = None
+        if band_impl == "pallas_halo4":
+            A = _build_band_rot4(plan.local_idx, w_c, block, wdt)
+        elif band_impl in ("pallas", "xla"):
+            A = _build_band(plan.local_idx, w_c, block, wdt)
         local_idx32 = plan.local_idx.to(torch.int32)
 
         def stat_fn(rows, rowsf=None):
             return _banded_stat_float(local_idx32, w_c, A, plan.far_src,
                                       plan.far_dst, plan.far_w, plan.rc_sum,
                                       Ztab, den, S0, rows, block=block, n=n,
-                                      stat=stat, use_plain=use_plain)
+                                      stat=stat, band_impl=band_impl)
 
-    base = key_for(seed, "perm_feistel", 0)
+    sort = perm_method == "sort"
+    base = key_for(seed, "perm_global" if sort else "perm_feistel", 0)
     idx_all = rows_idx if rif is None else torch.cat([rows_idx, rif])
     L = rows_idx.shape[0]
-    count = torch.zeros(G, dtype=torch.int32, device=Z.device)
-    s1 = torch.zeros(G, dtype=torch.float32, device=Z.device)
-    s2 = torch.zeros(G, dtype=torch.float32, device=Z.device)
+    fused = stat == "moran_geary"
+    shape = (2, G) if fused else (G,)
+    count = torch.zeros(shape, dtype=torch.int32, device=Z.device)
+    s1 = torch.zeros(shape, dtype=torch.float32, device=Z.device)
+    s2 = torch.zeros(shape, dtype=torch.float32, device=Z.device)
     for step in range(n_permutations):
         key = fold_in(base, step + draw0)
-        perm_rows = feistel_apply(key, idx_all, n)
+        if sort:
+            perm_rows = permutation(key, n, device=Z.device)[idx_all]
+        else:
+            perm_rows = feistel_apply(key, idx_all, n)
         vals = stat_fn(perm_rows[:L], perm_rows[L:] if rif is not None else None)
-        count += _extreme(vals, observed, alternative).to(torch.int32)
+        if fused:
+            ext = torch.stack([_extreme(vals[i], observed[i], alternative[i])
+                               for i in range(2)])
+        else:
+            ext = _extreme(vals, observed, alternative)
+        count += ext.to(torch.int32)
         s1 += vals
         s2 += vals * vals
     P = n_permutations
@@ -839,7 +850,7 @@ def _banded_test(plan: NullPlan, Z, S0, observed, seed: int, den, sz,
     return p, mean, torch.sqrt(var)
 
 
-_KERNEL_IMPLS = ("auto", "pallas_halo")
+_BAND_IMPLS = ("auto", "pallas_halo", "pallas", "pallas_halo4", "xla")
 
 
 def banded_permutation_test(
@@ -862,15 +873,25 @@ def banded_permutation_test(
     """Monte-Carlo p-values, null mean and null std of a global statistic.
 
     Port of the reference's ``banded_permutation_test``; draws are bitwise
-    the reference's Feistel stream, keyed at global indices
+    the reference's streams, keyed at global indices
     ``[draw_offset, draw_offset + n_permutations)`` so chunked runs
-    reproduce the unchunked run bitwise.
+    reproduce the unchunked run bitwise. ``perm_method``: "feistel"
+    (default) or "sort", ``jax.random.permutation``'s stream keyed
+    ``perm_global`` — the draws of ``ops.moran.permutation_test_global``.
 
-    ``band_impl``: "auto" (or "pallas_halo", the reference's name for the
-    same kernels) runs the band cross through ``kernels.band_cross`` —
-    the hand-written Hopper kernel on a CUDA tensor, its plain version on a
-    CPU tensor; "xla" runs the plain dense-band twins on any device.
-    "pallas" and "pallas_halo4" (Pallas kernels K5, K6) are not ported.
+    ``band_impl`` runs the band cross through ``kernels.band_cross`` — the
+    hand-written Hopper kernel on a CUDA tensor, its plain version on a CPU
+    tensor: "auto" (or "pallas_halo", the reference's name for the same
+    route) the compact band (K4's function); "pallas" the dense band
+    ``A[nb, B, 3B]`` (K5); "pallas_halo4" the rotation-baked ring over
+    ``A4[nb, B, 4B]`` (K6); "xla" the plain dense-band twins on any
+    device. The dense bands are built once per call. For int8/int4 every
+    name but "xla" runs the integer kernel, as the reference's do.
+
+    ``stat``: "moran", "geary", or "moran_geary", the fused pass: one
+    gather and one cross per draw serve both statistics; ``observed`` is
+    then [2, G] (Moran, Geary), ``alternative`` a string or a 2-tuple, and
+    the outputs are [2, G].
 
     ``precision``: "bf16" (default), "f32", "int8" (per-gene int8 codes,
     exact integer band dots) or "int4" (nibble-packed codes, windowed far
@@ -878,17 +899,11 @@ def banded_permutation_test(
     its far-run structure. Integer draws compare against the observed
     value of the same quantized operator (``observed`` is ignored).
     """
-    _check_perm_method(perm_method)
-    if band_impl in ("pallas", "pallas_halo4"):
-        raise NotImplementedError(
-            f"band_impl={band_impl!r} (Pallas kernel "
-            f"{'K5' if band_impl == 'pallas' else 'K6'}) is not ported yet "
-            "(ROADMAP Queue 2); 'auto' runs the Hopper kernel")
-    if band_impl not in _KERNEL_IMPLS + ("xla",):
+    _check_perm_method(perm_method, draws=False)
+    if band_impl not in _BAND_IMPLS:
         raise ValueError(f"unknown band_impl {band_impl!r}")
     if precision not in ("bf16", "f32", "int8", "int4"):
         raise ValueError(f"unknown precision {precision!r}")
-    use_plain = band_impl == "xla"
     prepacked = precision == "int4" and Z.dtype == torch.int8
     G = Z.shape[1] * (2 if prepacked else 1)
     has_runs = plan.far_starts is not None and plan.far_bmax > 0
@@ -921,9 +936,20 @@ def banded_permutation_test(
     else:
         far_mode = "exact"
         pad_g = 0
-    if stat not in ("moran", "geary"):
-        raise ValueError(f"stat must be 'moran' or 'geary' (the fused "
-                         f"'moran_geary' pass is not ported yet), got {stat!r}")
+    if stat not in ("moran", "geary", "moran_geary"):
+        raise ValueError(f"stat must be 'moran', 'geary' or 'moran_geary', "
+                         f"got {stat!r}")
+    observed = torch.as_tensor(observed, device=Z.device)
+    if stat == "moran_geary":
+        if observed.ndim != 2 or observed.shape[0] != 2:
+            raise ValueError("stat='moran_geary' needs observed of shape "
+                             "[2, G] (stacked moran, geary)")
+        if isinstance(alternative, (tuple, list)):
+            if len(alternative) != 2:
+                raise ValueError("fused alternative must have 2 entries")
+            alternative = tuple(alternative)
+        else:
+            alternative = (alternative, alternative)
     if pad_g:
         Z = torch.nn.functional.pad(Z, (0, pad_g))
         observed = torch.nn.functional.pad(observed, (0, pad_g))
@@ -934,10 +960,10 @@ def banded_permutation_test(
     p, mean, std = _banded_test(
         plan, Z, S0, observed, int(seed) & 0xFFFFFFFF, den, sz,
         int(draw_offset), n_permutations=n_permutations, stat=stat,
-        alternative=alternative, precision=precision, use_plain=use_plain,
-        far_mode=far_mode)
+        alternative=alternative, precision=precision, band_impl=band_impl,
+        far_mode=far_mode, perm_method=perm_method)
     if pad_g:
-        p, mean, std = p[:G], mean[:G], std[:G]
+        p, mean, std = p[..., :G], mean[..., :G], std[..., :G]
     return p, mean, std
 
 
@@ -964,9 +990,9 @@ def _chunked_cols(fn, arrs, G: int, width: Optional[int] = None):
 
 def _check_perm_method(perm_method: str, draws: bool = True) -> None:
     """Validate ``perm_method`` up front, so a typo fails loudly. The
-    "sort" stream of the Moran, Geary and Getis nulls comes with the slot
-    null, so it is refused where their draws are made (``draws``); Lee's
-    nulls take both streams."""
+    "sort" stream of the LOCAL Moran, Geary and Getis nulls comes with the
+    local slot nulls, so it is refused where their draws are made
+    (``draws``); the global null and Lee's nulls take both streams."""
     if perm_method not in ("feistel", "sort"):
         raise ValueError("perm_method must be 'feistel' or 'sort', "
                          f"got {perm_method!r}")

@@ -9,11 +9,11 @@ Port of the global part and of ``local_moran`` / ``classify_quadrants`` /
     C   = (n−1) Σ_ij w_ij (z_i−z_j)² / (2 S0 Σ z²), E[C] = 1
     VarN / VarR : Cliff & Ord (1981) normality / randomization formulas.
 
-The slot permutation nulls (``permutation_test_global``, and
-``local_moran`` / ``local_geary`` with ``n_permutations > 0``) are not
-ported yet (ROADMAP Queue 1 item 4; their shuffle, ``jax.random.
-permutation``, is ``core.rng.permutation``); the banded nulls in
-``ops/banded.py`` serve the permutation p-values.
+The global slot permutation null :func:`permutation_test_global` draws
+``jax.random.permutation``'s stream (``core.rng.permutation``, bitwise).
+The local slot nulls (``local_moran`` / ``local_geary`` with
+``n_permutations > 0``) are not ported yet (ROADMAP Queue 1 item 4); the
+banded nulls in ``ops/banded.py`` serve the local permutation p-values.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..core.rng import fold_in, key_for, permutation
 from .graph import SpatialGraph, spatial_lag
 
 
@@ -108,6 +109,86 @@ def p_from_z(z: torch.Tensor, alternative: str = "greater") -> torch.Tensor:
     if alternative == "less":
         return torch.special.ndtr(z)
     return 2.0 * (1.0 - torch.special.ndtr(torch.abs(z)))
+
+
+# ---------------------------------------------------------------------------
+# Permutation null (global, slot form)
+# ---------------------------------------------------------------------------
+
+
+def _perm_stat_global(graph: SpatialGraph, Z: torch.Tensor, S0: float,
+                      perm: torch.Tensor, stat: str, den: torch.Tensor):
+    """Null statistic [G] of one permutation, reduced per neighbour slot.
+
+    No [N, G] lag is kept: each slot gathers, multiplies and reduces
+    straight to [G], in slot order. ``den`` = Σz² (permutation-invariant)
+    comes precomputed. Products promote to float32 (float64 for float64
+    ``Z``), as in the reference: a bf16 table's gathers stay bf16.
+    """
+    n = Z.shape[0]
+    Zp = Z[perm]
+    num = torch.zeros(Z.shape[1], dtype=torch.float32, device=Z.device)
+    for j in range(graph.neighbor_idx.shape[1]):
+        Zn = Z[perm[graph.neighbor_idx[:, j]]]          # composite index [N]
+        w = graph.neighbor_w[:, j:j + 1]
+        if stat == "moran":
+            num = num + (w * Zp * Zn).sum(dim=0)
+        else:
+            diff = Zp - Zn
+            num = num + (w * diff * diff).sum(dim=0)
+    if stat == "moran":
+        return (n / S0) * num / den
+    return (n - 1) * num / (2.0 * S0 * den)
+
+
+def permutation_test_global(graph: SpatialGraph, Z: torch.Tensor, S0: float,
+                            observed: torch.Tensor, seed: int,
+                            n_permutations: int, stat: str = "moran",
+                            chunk: int = 1, alternative: str = "greater",
+                            null_dtype: str = "float32"
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Monte-Carlo permutation p-values, null mean and null std of a global
+    statistic ("moran" or "geary"), the slot form (reference
+    ``permutation_test_global``, spatialcore_tpu/ops/moran.py:181).
+
+    One shuffle per draw, shared by all genes: draw d permutes the cells
+    by ``permutation(fold_in(key_for(seed, "perm_global", 0), d), n)``,
+    ``jax.random.permutation``'s stream bitwise, so the result does not
+    depend on how many draws the reference batches. One draw at a time,
+    so the temps stay at a few [N, G] planes at any draw count.
+    ``null_dtype="bfloat16"`` gathers a bf16 copy of Z (per-slot sums stay
+    float32). Counts and moments accumulate in ``Z``'s float type (at
+    least float32). ``chunk`` is accepted for API compatibility.
+    """
+    del chunk
+    if stat not in ("moran", "geary"):
+        raise ValueError(f"stat must be 'moran' or 'geary', got {stat!r}")
+    n, G = Z.shape
+    base = key_for(seed, "perm_global", 0)
+    den = (Z * Z).sum(dim=0)
+    den = torch.where(den > 0, den, torch.ones_like(den))
+    Zg = Z.to(torch.bfloat16) if null_dtype == "bfloat16" else Z
+    acc_dt = torch.promote_types(Z.dtype, torch.float32)
+    count = torch.zeros(G, dtype=torch.int32, device=Z.device)
+    s1 = torch.zeros(G, dtype=acc_dt, device=Z.device)
+    s2 = torch.zeros(G, dtype=acc_dt, device=Z.device)
+    for d in range(n_permutations):
+        perm = permutation(fold_in(base, d), n, device=Z.device)
+        v = _perm_stat_global(graph, Zg, S0, perm, stat, den)
+        if alternative == "greater":
+            extreme = v >= observed
+        elif alternative == "less":
+            extreme = v <= observed
+        else:
+            extreme = v.abs() >= observed.abs()
+        count += extreme.to(torch.int32)
+        s1 += v
+        s2 += v * v
+    P = n_permutations
+    p = (count + 1.0) / (P + 1.0)
+    mean = s1 / P
+    var = torch.clamp_min(s2 / P - mean ** 2, 0.0)
+    return p, mean, torch.sqrt(var)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,14 @@
-"""Gene-tile schedule, and the streaming local-statistic nulls (local
-Moran, local Geary, Getis-Ord, local Lee's L).
+"""Gene-tile schedule, the streaming global null (Moran's I / Geary's C)
+and the streaming local-statistic nulls (local Moran, local Geary,
+Getis-Ord, local Lee's L).
 
-Port of ``tile_widths`` and of ``streaming_local_null``
-(``spatialcore_tpu/ops/streaming.py:46-68, 279-745``): gene (or gene-pair)
-tiles flow through the banded local nulls and each tile's [N, tile] output
-planes go to a sink, so 1M cells × thousands of genes of local nulls never
-hold the full [N, G] float32 planes at once.
+Port of ``spatialcore_tpu/ops/streaming.py``: ``tile_widths``,
+``streaming_moran_null`` (gene tiles through the banded global null, so
+1M cells × 18k genes need one tile's table on the device, not the whole
+expression) and ``streaming_local_null`` (gene or gene-pair tiles through
+the banded local nulls, each tile's [N, tile] output planes to a sink, so
+1M cells × thousands of genes of local nulls never hold the full [N, G]
+float32 planes at once).
 
 Not ported yet (``NotImplementedError``, ROADMAP Queue 1 item 10):
 ``obs_dtype="bf16"``, the wide-tile recipe that fits a 16 GB chip by
@@ -59,6 +62,141 @@ def tile_widths(n_genes: int, tile: int) -> list:
             widths.append(tile // 2 if rem <= tile // 2 else tile)
             rem = 0
     return widths
+
+
+def _prep_chunk(graph, X: torch.Tensor, S0: float, stat: str, precision: str):
+    """One prep chunk of :func:`streaming_moran_null`: standardize, den =
+    Σz², the observed I (or C), and the null table: int8 codes ("int8"),
+    UNPACKED int4 codes ("int4": the tile packs across chunks), else bf16
+    Z. Returns (table, den, obs, s)."""
+    from .banded import _quantize_z, _quantize_z4_codes
+    from .moran import geary_observed, moran_observed, standardize
+
+    Z, _ = standardize(X)
+    den = (Z * Z).sum(dim=0)
+    den = torch.where(den > 0, den, torch.ones_like(den))
+    obs = (moran_observed if stat == "moran" else geary_observed)(graph, Z, S0)
+    if precision == "int8":
+        Zq, s_z = _quantize_z(Z)
+        return Zq, den, obs, s_z
+    if precision == "int4":
+        codes, s_z = _quantize_z4_codes(Z)
+        return codes, den, obs, s_z
+    return Z.to(torch.bfloat16), den, obs, torch.ones_like(den)
+
+
+def streaming_moran_null(
+    graph,
+    plan,
+    get_tile: Callable[[int, int, int], object],
+    n_genes: int,
+    S0: float,
+    seed: int = 0,
+    n_permutations: int = 1000,
+    tile: int = 2048,
+    prep_chunk: int = 1024,
+    chunk: int = 200,
+    stat: str = "moran",
+    alternative: str = "greater",
+    band_impl: str = "auto",
+    precision: str = "bf16",
+    device: Device = "cuda",
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Banded Moran/Geary permutation null over a streamed gene axis
+    (reference ``streaming_moran_null``, spatialcore_tpu/ops/streaming.py:71).
+
+    ``get_tile(start, width, chunk_index)`` returns the raw [N, width]
+    expression of genes [start, start + width) (numpy or a tensor; moved to
+    ``device``). Genes go in ``tile_widths(n_genes, tile)`` tiles; each
+    tile is prepped in ``prep_chunk``-gene chunks (standardize, den, the
+    observed statistic, the null table), then its draws run
+    in ``chunk``-draw calls of ``ops.banded.banded_permutation_test``
+    keyed by the global draw index (``draw_offset``), with ``band_impl``
+    passed through. Draw d of every tile is the same permutation, so the
+    output is bitwise the same at any tile or chunk split. Tail columns
+    past ``n_genes`` are zero (inert zero-variance genes) and dropped.
+
+    ``precision``: "bf16" (the table is bf16 Z; "f32" runs the same bf16
+    table, as the reference), "int8" (per-gene codes; ``tile=4096`` halves
+    the bytes of a bf16 tile of the same width) or "int4" (two codes a
+    byte: chunk pairs at half-tile offsets pack together, so tile widths
+    must be multiples of 256 and, above ``prep_chunk``, hold an even
+    chunk count).
+
+    Returns host arrays ``(I_obs, p, null_mean, null_std)`` of length
+    ``n_genes`` (``I_obs`` is C for ``stat="geary"``). Peak device memory
+    is one tile's table, the plan, and one prep chunk's float32 temps.
+    """
+    from .banded import _pack_codes, banded_permutation_test
+
+    if stat not in ("moran", "geary"):
+        raise ValueError(f"stat must be 'moran' or 'geary', got {stat!r}")
+    widths = tile_widths(n_genes, tile)
+    if precision == "int4":
+        bad = [w for w in widths
+               if w % 256 or (w > prep_chunk and w % (2 * prep_chunk))]
+        if bad:
+            raise ValueError(
+                f"precision='int4' needs 256-multiple tile widths that hold "
+                f"an even prep-chunk count (split-half nibble packing); "
+                f"schedule {widths} at prep_chunk={prep_chunk} violates "
+                f"that — use a 512-multiple tile (got {tile})")
+    n_cells = graph.neighbor_idx.shape[0]
+    quantized = precision in ("int8", "int4")
+    outs = ([], [], [], [])
+    start = 0
+    for w in widths:
+        parts = []
+        for ci, s in enumerate(range(0, w, prep_chunk)):
+            g = min(prep_chunk, w - s)
+            avail = max(0, min(g, n_genes - (start + s)))
+            if avail > 0:
+                X = torch.as_tensor(get_tile(start + s, avail, ci)).to(
+                    device=device, dtype=torch.float32)
+                if avail < g:      # tail: inert zero-variance columns
+                    X = torch.nn.functional.pad(X, (0, g - avail))
+            else:
+                X = torch.zeros((n_cells, g), dtype=torch.float32, device=device)
+            parts.append(_prep_chunk(graph, X, S0, stat, precision))
+            del X
+        if precision == "int4":
+            if len(parts) > 1 and len(parts) % 2:
+                raise ValueError(
+                    f"precision='int4' tiles above prep_chunk must hold an "
+                    f"even chunk count (w % (2*prep_chunk) == 0); got width "
+                    f"{w} at prep_chunk={prep_chunk}")
+            # half-offset chunk pairs: packed column j pairs gene j with
+            # gene j + w/2, without the full-width unpacked code matrix
+            h = len(parts) // 2
+            Zb = (_pack_codes(parts[0][0]) if len(parts) == 1 else torch.cat(
+                [_pack_codes(parts[i][0], parts[i + h][0]) for i in range(h)],
+                dim=1))
+        else:
+            Zb = torch.cat([p[0] for p in parts], dim=1)
+        den, obs, szv = (torch.cat([p[i] for p in parts]) for i in (1, 2, 3))
+        del parts
+        count = torch.zeros(w, dtype=torch.float32, device=Zb.device)
+        mean_acc = torch.zeros_like(count)
+        m2_acc = torch.zeros_like(count)
+        for s in range(0, n_permutations, chunk):
+            pc = min(chunk, n_permutations - s)
+            p, m, sd = banded_permutation_test(
+                plan, Zb, S0, obs, seed=seed, n_permutations=pc, den=den,
+                stat=stat, alternative=alternative, band_impl=band_impl,
+                precision=precision, sz=szv if quantized else None,
+                draw_offset=s)
+            count += torch.round(p * (pc + 1.0) - 1.0)
+            mean_acc += m * pc
+            m2_acc += (sd * sd + m * m) * pc
+        del Zb
+        P = n_permutations
+        mean = mean_acc / P
+        res = (obs, (count + 1.0) / (P + 1.0), mean,
+               torch.sqrt(torch.clamp_min(m2_acc / P - mean ** 2, 0.0)))
+        for lst, arr in zip(outs, res):
+            lst.append(arr.cpu().numpy())
+        start += w
+    return tuple(np.concatenate(parts)[:n_genes] for parts in outs)
 
 
 def host_local_sink(n_cells: int, n_genes: int):

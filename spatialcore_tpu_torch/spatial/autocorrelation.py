@@ -1,20 +1,22 @@
-"""Public spatial autocorrelation: global Moran's I and Geary's C, local
-Moran's I (LISA), local Geary's C, Getis-Ord Gi* / Gi and Lee's L.
+"""Public spatial autocorrelation: global Moran's I and Geary's C (apart
+or fused), local Moran's I (LISA), local Geary's C, Getis-Ord Gi* / Gi and
+Lee's L.
 
 Port of ``build_spatial_weights``, ``morans_i``, ``gearys_c``,
-``local_morans_i``, ``local_gearys_c``, ``getis_ord_gi``, ``lees_l`` and
-``lees_l_local`` of ``spatialcore_tpu/spatial/autocorrelation.py`` and
-their helpers. Same parameters and outputs (the global ``uns`` DataFrames
+``global_autocorrelation``, ``local_morans_i``, ``local_gearys_c``,
+``getis_ord_gi``, ``lees_l`` and ``lees_l_local`` of
+``spatialcore_tpu/spatial/autocorrelation.py`` and their helpers. Same parameters and outputs (the global ``uns`` DataFrames
 ``gene, I|C, expected_I|expected_C, z_score, p_value``; the local ``obsm``
 planes and ``uns[f"{key}_params"]``; Lee's per-pair ``obs`` columns), plus
 an explicit ``device``. "Device mode" of the local functions — outputs kept
 on the card — is "X is a CUDA tensor".
 
-Permutation p-values come from the banded nulls (``ops/banded.py``), and
-for Lee's L also from its direct null (``ops/lee.py``). Not ported yet,
-and refused loudly: the slot nulls of Moran, Geary and Getis-Ord
-(``null_method="slots"`` or "direct" with permutations, "auto" where it
-resolves to them, and
+Permutation p-values come from the banded nulls (``ops/banded.py``), for
+the global statistics also from the slot null
+(``ops.moran.permutation_test_global``), and for Lee's L also from its
+direct null (``ops/lee.py``). Not ported yet, and refused loudly: the
+LOCAL slot nulls of Moran, Geary and Getis-Ord (``null_method="direct"``
+with permutations, "auto" where it resolves to them, and
 ``null="conditional"``; ROADMAP Queue 1 item 4) and gene sharding over a
 ``mesh`` (Queue 1 item 15). Unknown ``null_method`` strings raise
 ``ValueError`` (the reference's global path runs the slot null for them,
@@ -44,7 +46,7 @@ from ..ops.lee import lees_l_pairs
 from ..ops.moran import (QUADRANT_LABELS, classify_quadrants,
                          geary_analytic_moments, geary_observed, local_geary,
                          local_moran, moran_analytic_moments, moran_observed,
-                         p_from_z, standardize)
+                         p_from_z, permutation_test_global, standardize)
 from ..ops.streaming import (device_local_sink, host_local_sink,
                              streaming_local_null)
 
@@ -208,12 +210,21 @@ def _auto_null_method(n_cells: int, n_genes: int, n_permutations: int) -> str:
             and n_genes * n_permutations >= 16_384 else "slots")
 
 
-def _global_autocorr(adata, stat: Literal["moran", "geary"], genes, layer,
-                     spatial_key, n_neighbors, n_permutations, seed,
-                     key_added, copy, use_existing_graph, assumption: str,
-                     alternative: Optional[str], gene_batch_size: int,
-                     mesh=None, null_method: str = "auto",
-                     device: Device = "cuda"):
+#: per statistic: (column, observed, analytic moments, default alternative)
+_GLOBAL_STATS = {"moran": ("I", moran_observed, moran_analytic_moments, "greater"),
+                 "geary": ("C", geary_observed, geary_analytic_moments, "less")}
+
+
+def _global_autocorr(adata, stats: Tuple[str, ...], genes, layer, spatial_key,
+                     n_neighbors, n_permutations, seed, keys_added: Tuple[str, ...],
+                     copy, use_existing_graph, assumption: str, alternatives,
+                     gene_batch_size: int, mesh=None, null_method: str = "auto",
+                     device: Device = "cuda",
+                     function_name: Optional[str] = None):
+    """Global Moran's I and/or Geary's C (``stats``), one uns DataFrame per
+    statistic under ``keys_added``. With both statistics the banded null
+    runs its fused pass (``stat="moran_geary"``: one gather and one cross
+    per draw); the slot null runs once per statistic."""
     start = time.time()
     if null_method not in NULL_METHODS:
         raise ValueError(f"null_method must be one of {NULL_METHODS}, "
@@ -228,16 +239,10 @@ def _global_autocorr(adata, stat: Literal["moran", "geary"], genes, layer,
         raise ValueError(f"adata.obsm['{spatial_key}'] not found. "
                          "Spatial coordinates are required.")
     gene_names = _resolve_genes(adata, genes)
-    if alternative is None:
-        alternative = "greater" if stat == "moran" else "less"
+    alts = tuple(a or _GLOBAL_STATS[s][3] for s, a in zip(stats, alternatives))
     if null_method == "auto":
         null_method = _auto_null_method(adata.n_obs, len(gene_names),
                                         n_permutations)
-    if null_method == "slots" and n_permutations > 0:
-        raise NotImplementedError(
-            "the slot permutation null (permutation_test_global) is not "
-            "ported yet (ROADMAP Queue 1 item 4); pass null_method='banded' "
-            "or 'banded_int8'")
 
     graph = _get_graph(adata, n_neighbors, spatial_key, use_existing_graph,
                        device)
@@ -245,55 +250,64 @@ def _global_autocorr(adata, stat: Literal["moran", "geary"], genes, layer,
     S0, S1, S2 = moments["S0"], moments["S1"], moments["S2"]
     null_precision = "int8" if null_method == "banded_int8" else "bf16"
     plan = (_get_null_plan(adata, graph, spatial_key)
-            if n_permutations > 0 else None)
+            if n_permutations > 0 and null_method != "slots" else None)
+    fused = len(stats) == 2
 
-    rows = []
+    rows = {s: [] for s in stats}
     for batch_start in range(0, len(gene_names), gene_batch_size):
         batch = gene_names[batch_start:batch_start + gene_batch_size]
         Z, zero_var = standardize(_dense_expression(adata, batch, layer, device))
-        if stat == "moran":
-            observed = moran_observed(graph, Z, S0)
-            expected, var = moran_analytic_moments(Z, S0, S1, S2, assumption)
-        else:
-            observed = geary_observed(graph, Z, S0)
-            expected, var = geary_analytic_moments(Z, S0, S1, S2, assumption)
-        z_score = (observed - expected) / torch.sqrt(torch.clamp_min(var, 1e-30))
-        if n_permutations > 0:
+        obs, expected, z_score = {}, {}, {}
+        for s in stats:
+            _, obs_fn, moments_fn, _ = _GLOBAL_STATS[s]
+            obs[s] = obs_fn(graph, Z, S0)
+            expected[s], var = moments_fn(Z, S0, S1, S2, assumption)
+            z_score[s] = (obs[s] - expected[s]) / torch.sqrt(
+                torch.clamp_min(var, 1e-30))
+        if plan is not None:
             p_val, _, _ = banded_permutation_test(
-                plan, Z, S0, observed, seed, n_permutations, stat=stat,
-                alternative=alternative, precision=null_precision)
+                plan, Z, S0, torch.stack([obs[s] for s in stats]) if fused
+                else obs[stats[0]], seed, n_permutations,
+                stat="moran_geary" if fused else stats[0],
+                alternative=alts if fused else alts[0], precision=null_precision)
+            p_val = dict(zip(stats, p_val if fused else [p_val]))
+        elif n_permutations > 0:
+            p_val = {s: permutation_test_global(
+                graph, Z, S0, obs[s], seed, n_permutations, stat=s,
+                alternative=a)[0] for s, a in zip(stats, alts)}
         else:
-            p_val = p_from_z(z_score, alternative)
-        observed = observed.cpu().numpy()
-        z_score = z_score.cpu().numpy()
-        p_val = p_val.cpu().numpy()
-        zero_var = zero_var.cpu().numpy()
-        for i, g in enumerate(batch):
-            rows.append({
-                "gene": g,
-                ("I" if stat == "moran" else "C"): float(observed[i]),
-                ("expected_I" if stat == "moran" else "expected_C"):
-                    float(expected),
-                "z_score": 0.0 if zero_var[i] else float(z_score[i]),
-                "p_value": 1.0 if zero_var[i] else float(p_val[i]),
-            })
+            p_val = {s: p_from_z(z_score[s], a) for s, a in zip(stats, alts)}
+        zv = zero_var.cpu().numpy()
+        for s in stats:
+            col = _GLOBAL_STATS[s][0]
+            o, z, p = (t.cpu().numpy() for t in (obs[s], z_score[s], p_val[s]))
+            rows[s].extend({
+                "gene": g, col: float(o[i]),
+                f"expected_{col}": float(expected[s]),
+                "z_score": 0.0 if zv[i] else float(z[i]),
+                "p_value": 1.0 if zv[i] else float(p[i]),
+            } for i, g in enumerate(batch))
 
-    adata.uns[key_added] = pd.DataFrame(rows)
-    logger.info(f"Global {'Moran I' if stat == 'moran' else 'Geary C'} "
-                f"completed in {time.time() - start:.1f}s")
+    for s, key in zip(stats, keys_added):
+        adata.uns[key] = pd.DataFrame(rows[s])
+    names = " + ".join("Moran I" if s == "moran" else "Geary C" for s in stats)
+    logger.info(f"Global {names} completed in {time.time() - start:.1f}s")
     update_metadata(
         adata,
-        function_name="morans_i" if stat == "moran" else "gearys_c",
+        function_name=function_name or ("morans_i" if stats[0] == "moran"
+                                        else "gearys_c"),
         parameters={
             "genes": gene_names[:10], "n_genes": len(gene_names),
             "n_neighbors": n_neighbors, "n_permutations": n_permutations,
             "use_existing_graph": use_existing_graph, "seed": seed,
-            "assumption": assumption, "alternative": alternative,
+            "assumption": assumption,
+            **({"alternatives": list(alts)} if fused
+               else {"alternative": alts[0]}),
             "null_method": null_method if n_permutations > 0 else "analytic",
             "backend": "spatialcore_tpu_torch",
             "device": str(device),
         },
-        outputs={"uns": key_added},
+        outputs={"uns": list(keys_added) if fused else keys_added[0]},
     )
     return adata
 
@@ -313,15 +327,17 @@ def morans_i(adata, genes: Optional[Union[str, List[str]]] = None,
     ``gene, I, expected_I, z_score, p_value``. ``p_value`` is the seeded
     permutation p-value when ``n_permutations > 0``, else the analytic tail
     probability under ``assumption``; ``z_score`` uses the analytic
-    variance. ``null_method``: "banded" (bf16 null) or "banded_int8"
-    (per-gene int8 null); "auto" picks "banded" at >=100k cells when
-    genes × permutations >= 16,384 and otherwise the slot null, which is
-    not ported yet (NotImplementedError).
+    variance. ``null_method``: "banded" (bf16 null), "banded_int8"
+    (per-gene int8 null) or "slots" (the slot null,
+    ``ops.moran.permutation_test_global``: ``jax.random.permutation``'s
+    draws); "auto" picks "banded" at >=100k cells when genes ×
+    permutations >= 16,384 and otherwise the slot null.
     """
     return _global_autocorr(
-        adata, "moran", genes, layer, spatial_key, n_neighbors, n_permutations,
-        seed, key_added, copy, use_existing_graph, assumption, alternative,
-        gene_batch_size, mesh=mesh, null_method=null_method, device=device)
+        adata, ("moran",), genes, layer, spatial_key, n_neighbors,
+        n_permutations, seed, (key_added,), copy, use_existing_graph,
+        assumption, (alternative,), gene_batch_size, mesh=mesh,
+        null_method=null_method, device=device)
 
 
 def gearys_c(adata, genes: Optional[Union[str, List[str]]] = None,
@@ -337,9 +353,43 @@ def gearys_c(adata, genes: Optional[Union[str, List[str]]] = None,
     p_value``; default ``alternative='less'``. Otherwise as :func:`morans_i`.
     """
     return _global_autocorr(
-        adata, "geary", genes, layer, spatial_key, n_neighbors, n_permutations,
-        seed, key_added, copy, use_existing_graph, assumption, alternative,
-        gene_batch_size, mesh=mesh, null_method=null_method, device=device)
+        adata, ("geary",), genes, layer, spatial_key, n_neighbors,
+        n_permutations, seed, (key_added,), copy, use_existing_graph,
+        assumption, (alternative,), gene_batch_size, mesh=mesh,
+        null_method=null_method, device=device)
+
+
+def global_autocorrelation(
+        adata, genes: Optional[Union[str, List[str]]] = None,
+        layer: Optional[str] = None, spatial_key: str = "spatial",
+        n_neighbors: int = 6, n_permutations: int = 10, seed: int = 0,
+        keys_added: Tuple[str, str] = ("morans_i", "gearys_c"),
+        copy: bool = False, use_existing_graph: bool = False,
+        assumption: Literal["normality", "randomization"] = "normality",
+        alternatives: Tuple[Optional[str], Optional[str]] = (None, None),
+        gene_batch_size: int = 512, mesh=None, null_method: str = "auto",
+        device: Device = "cuda"):
+    """Global Moran's I AND Geary's C per gene in one permutation pass.
+
+    Both statistics are linear in the same band cross Σ w_ij z_i z_j, so
+    the banded null's fused pass (``stat="moran_geary"``) makes one row
+    gather and one band cross per draw for both and counts extremes for
+    each; the p-values are bitwise those of separate :func:`morans_i` and
+    :func:`gearys_c` calls with the same seed (the draw streams coincide).
+    Below the banded size threshold ("auto" → "slots") the slot null runs
+    once per statistic on the shared standardize and graph pass.
+
+    Writes the two uns DataFrames the separate calls write (``gene, I|C,
+    expected_I|expected_C, z_score, p_value``) under ``keys_added``.
+    ``alternatives`` defaults to ("greater", "less"). ``null_method`` as in
+    :func:`morans_i`.
+    """
+    return _global_autocorr(
+        adata, ("moran", "geary"), genes, layer, spatial_key, n_neighbors,
+        n_permutations, seed, tuple(keys_added), copy, use_existing_graph,
+        assumption, tuple(alternatives), gene_batch_size, mesh=mesh,
+        null_method=null_method, device=device,
+        function_name="global_autocorrelation")
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,10 @@ from spatialcore_tpu_torch.ops import graph as tg
 from spatialcore_tpu_torch.ops import moran as tm
 from spatialcore_tpu_torch.ops import streaming as ts
 
+# One intra-op thread: xdist runs several test workers at once, and torch's
+# default of one thread per core in each slows small ops several-fold.
+torch.set_num_threads(1)
+
 B = 64
 
 
@@ -204,7 +208,7 @@ def test_int8_cross_matches_reference(setup, win):
                                           interpret=True)
         plain = tb._band_cross_i8_plain(ops.A8, ops.sw, torch.as_tensor(zp3))
         far = {}
-        lag_dense = tb._band_lag_dense(ops.A8, torch.as_tensor(zp3), 0, nbb)
+        lag_dense = kern.band_lag_dense(ops.A8, torch.as_tensor(zp3), 0, nbb)
     compact = kern.band_cross_int8(ops.local_idx32, ops.wq, ops.sw.reshape(-1),
                                    zp_t, B, packed=False, **far)
     lag_compact = kern.band_lag_int8_plain(ops.local_idx32, ops.wq, zp_t, B,
@@ -268,14 +272,14 @@ def test_float_cross_matches_reference(setup, dtype):
     np.testing.assert_array_equal(_np(At.float()), _np(A.astype(jnp.float32)))
     pallas = jb._band_cross_pallas_halo(A, zp_j.reshape(nbb + 2, B, -1),
                                         interpret=True)
-    plain = tb._band_cross_float_plain(At, zp_t.reshape(nbb + 2, B, -1))
+    plain = kern.band_cross_dense_plain(At, zp_t, B)
     li32 = pt.local_idx.to(torch.int32)
     w_c = pt.w_local.to(tdt)
     compact = kern.band_cross_float(li32, w_c, zp_t, B)
     # compact and dense lags: equal where the lag is exact (f32 operands
     # with k=6 equal weights round identically; bf16 products are exact)
     lag_c = kern.band_lag_float_plain(li32, w_c, zp_t, B)
-    lag_d = tb._band_lag_dense(At, zp_t.reshape(nbb + 2, B, -1), 0, nbb)
+    lag_d = kern.band_lag_dense(At, zp_t.reshape(nbb + 2, B, -1), 0, nbb)
     np.testing.assert_allclose(_np(lag_c), _np(lag_d), rtol=1e-6, atol=1e-6)
     for got in (plain, compact):
         _close(got, pallas)
@@ -378,11 +382,13 @@ def test_prepacked_int4_matches_inline(setup):
 def test_unported_options_raise(setup):
     obs = tm.moran_observed(setup["gt"], setup["Zt"], setup["S0"])
     args = (setup["pt"], setup["Zt"], setup["S0"], obs, 0, 3)
-    for impl, kid in (("pallas", "K5"), ("pallas_halo4", "K6")):
-        with pytest.raises(NotImplementedError, match=kid):
-            tb.banded_permutation_test(*args, band_impl=impl)
-    with pytest.raises(NotImplementedError, match="slot null"):
-        tb.banded_permutation_test(*args, perm_method="sort")
+    # the local nulls' "sort" stream comes with the local slot nulls
+    for fn in (tb.banded_local_moran_pvalues, tb.banded_local_geary,
+               tb.banded_getis):
+        with pytest.raises(NotImplementedError, match="local slot nulls"):
+            fn(setup["pt"], setup["Zt"], 0, 3, perm_method="sort")
+    with pytest.raises(ValueError, match="perm_method"):
+        tb.banded_permutation_test(*args, perm_method="shuffle")
     with pytest.raises(ValueError, match="band_impl"):
         tb.banded_permutation_test(*args, band_impl="bogus")
     with pytest.raises(ValueError, match="far_mode='win'"):

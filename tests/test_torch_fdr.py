@@ -15,6 +15,10 @@ import torch
 from spatialcore_tpu.ops import fdr as jf
 from spatialcore_tpu_torch.ops import fdr as tf
 
+# One intra-op thread: xdist runs several test workers at once, and torch's
+# default of one thread per core in each slows small ops several-fold.
+torch.set_num_threads(1)
+
 
 def _grid(L, shape, seed=3):
     rng = np.random.default_rng(seed)

@@ -9,6 +9,10 @@ import torch
 from spatialcore_tpu.ops import graph as jg
 from spatialcore_tpu_torch.ops import graph as tg
 
+# One intra-op thread: xdist runs several test workers at once, and torch's
+# default of one thread per core in each slows small ops several-fold.
+torch.set_num_threads(1)
+
 
 def _coords(n, seed, clustered=False):
     rng = np.random.default_rng(seed)

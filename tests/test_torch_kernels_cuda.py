@@ -26,6 +26,10 @@ from spatialcore_tpu_torch.kernels import lisa_count as kern_lisa
 from spatialcore_tpu_torch.ops import banded
 from spatialcore_tpu_torch.ops.graph import build_graph
 
+# One intra-op thread: xdist runs several test workers at once, and torch's
+# default of one thread per core in each slows small ops several-fold.
+torch.set_num_threads(1)
+
 B = 64
 N = 40 * B
 
@@ -104,6 +108,27 @@ def test_float_kernel_matches_plain(cuda_device, plan, dtype, G):
                                 zp.to(cuda_device), B)
     assert kern.LAUNCHES["float"] == before + 1
     _assert_close(got, want, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["dense", "rot4"])
+@pytest.mark.parametrize("dtype,G", [(torch.bfloat16, 96), (torch.bfloat16, 33),
+                                     (torch.float32, 64), (torch.float32, 33)])
+def test_dense_kernels_match_plain(cuda_device, plan, entry, dtype, G):
+    """K5 / K6 on the dense band; G=96 and 64 take the 16-byte (cp.async)
+    loads with a ragged last gene tile, G=33 the element loads."""
+    build = banded._build_band if entry == "dense" else banded._build_band_rot4
+    fn = kern.band_cross_dense if entry == "dense" else kern.band_cross_rot4
+    gen = torch.Generator().manual_seed(5)
+    A = build(plan.local_idx, plan.w_local.to(dtype), B, dtype)
+    zp = torch.randn((plan.n_padded + 2 * B, G), generator=gen).to(dtype)
+    want = fn(A, zp, B)
+    scale = fn(A.abs(), zp.abs(), B).double()
+    before = kern.LAUNCHES[entry]
+    got = fn(A.to(cuda_device), zp.to(cuda_device), B)
+    assert kern.LAUNCHES[entry] == before + 1
+    _assert_close(got, want, scale)
+    assert torch.equal(got, fn(A.to(cuda_device), zp.to(cuda_device), B))
 
 
 @pytest.mark.cuda

@@ -22,6 +22,10 @@ from spatialcore_tpu_torch.kernels import knn as kern_knn
 from spatialcore_tpu_torch.ops import graph as tg
 from spatialcore_tpu_torch.ops.knn_kernel import pallas_knn
 
+# One intra-op thread: xdist runs several test workers at once, and torch's
+# default of one thread per core in each slows small ops several-fold.
+torch.set_num_threads(1)
+
 
 def _coords(n, seed, kind):
     rng = np.random.default_rng(seed)

@@ -36,6 +36,10 @@ from spatialcore_tpu_torch.ops import graph as tg
 from spatialcore_tpu_torch.ops import moran as tm
 from spatialcore_tpu_torch.ops import streaming as ts
 
+# One intra-op thread: xdist runs several test workers at once, and torch's
+# default of one thread per core in each slows small ops several-fold.
+torch.set_num_threads(1)
+
 B = 64
 
 

@@ -9,6 +9,10 @@ import torch
 from spatialcore_tpu.core import rng as jrng
 from spatialcore_tpu_torch.core import rng as trng
 
+# One intra-op thread: xdist runs several test workers at once, and torch's
+# default of one thread per core in each slows small ops several-fold.
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("seed,stream", [
     (0, ()), (7, ("perm_feistel", 0)), (123456, ("perm_global", 3, "x")),
