@@ -10,7 +10,8 @@ Phases (the script stops with a non-zero exit at the first failure):
 2. Each kernel against its plain PyTorch version, on the card, at B=256 on
    300 blocks of a real kNN plan at the 1M-cell density: the band-cross
    kernel (int4/int8 windowed far at G=4096, int8 band-only at G=4096,
-   bf16 at G=1024, f32 at G=512; agreement within 1e-5·Σ|terms|) and the
+   bf16 at G=1024 and at a ragged G=1000, f32 at G=512; agreement within
+   1e-5·Σ|terms|) and the
    local statistics' draw-step kernel at G=1024 (LISA: row-pointer far
    with int8 and int16 counters, dense far, band only, and the observed
    entry; the geary tail and its observed entry; the getis_star and
@@ -85,7 +86,11 @@ Phases (the script stops with a non-zero exit at the first failure):
    1,024 genes × 8 draws through "auto" (K4), "pallas" (K5, dense band)
    and "pallas_halo4" (K6, rotation-baked ring), counts within ±1 draw of
    K4's and null moments within rtol 1e-4, per-draw ms and each kernel's
-   time at that shape; ``streaming_moran_null(precision="int4",
+   time at that shape; K4 held against its plain version there (bf16 at
+   1,024 genes, f32 at 512), with its plain and ``torch.sparse.mm`` times,
+   other launch shapes of it timed, and one bf16 draw split part by part
+   (Feistel rows, row gather, K4, far-edge terms, Geary's Σ z1² term);
+   ``streaming_moran_null(precision="int4",
    tile=4096)`` at 1M × 18,432 genes × 8 draws (data made per tile on the
    card from a seed; prep and draw time) and ``(precision="bf16",
    tile=2048, band_impl="pallas")`` at 1M × 4,096 × 8;
@@ -361,7 +366,8 @@ def real_plan(dev, n_blocks: int, gen, k: int = K):
 
 
 def kernel_cases(dev, plan, gen, widths):
-    """Operands of every band-cross kernel mode on ``plan``. Yields
+    """Operands of every band-cross kernel mode on ``plan``, for each
+    (mode, G) pair of ``widths``. Yields
     (mode, label, kernel_fn, plain_fn, scale_fn, nbytes, ops, unit, table):
     scale_fn gives Σ_i |term_i| per gene for the tolerance; nbytes / ops
     are what one call must move and compute; table is the value table the
@@ -371,7 +377,7 @@ def kernel_cases(dev, plan, gen, widths):
     rows_idx = torch.arange((n_blocks + 2) * B, device=dev) - B
     rows_idx = plan.order[rows_idx.clamp(0, plan.n - 1)]
     li = plan.local_idx.to(torch.int32)
-    for mode, G in widths.items():
+    for mode, G in widths:
         if mode in ("bf16", "f32"):
             dt = torch.bfloat16 if mode == "bf16" else torch.float32
             zp = torch.randn(((n_blocks + 2) * B, G), generator=gen,
@@ -462,7 +468,7 @@ def phase_kernels(dev, plan, gen, widths, reps: int):
         lib = library_ms(csr, table)
         report(results, mode, f"{label} (tolerance {REL_TOL:g}·Σ|terms|)",
                float(err.max()), ms, plain_ms, nbytes, ops, unit, lib,
-               first=mode != "float" or label.startswith("bf16"))
+               first=mode not in results)
     return results
 
 
@@ -1995,7 +2001,8 @@ def phase_dense_routes(dev, gen, n_cells: int = 1_000_000, n_genes: int = 1024,
     its own, counts within ±1 draw of K4's, null mean / std within rtol
     1e-4; per-draw ms (call set-up included); K5 and K6 held against their
     plain versions on one gathered table at this shape, and each kernel's
-    time there. Returns ({route: launches}, {mode: max |error|})."""
+    time there; K4 held against its plain version there in bf16 and (at
+    512 genes) f32. Returns ({route: launches}, {mode: max |error|})."""
     coords = uniform_coords(n_cells, SIDE, gen, dev)
     graph = build_graph(coords, n_neighbors=K, device=dev)
     plan = build_null_plan(graph, coords, block=B)
@@ -2006,6 +2013,7 @@ def phase_dense_routes(dev, gen, n_cells: int = 1_000_000, n_genes: int = 1024,
     S0 = float(n_cells)
     obs = moran_observed(graph, Z, S0)
     Zb = Z.to(torch.bfloat16)
+    Z32 = Z[:, :n_genes // 2].contiguous()
     den = (Z * Z).sum(dim=0)
     del Z
     routes = {"auto": "float", "pallas": "dense", "pallas_halo4": "rot4"}
@@ -2037,12 +2045,15 @@ def phase_dense_routes(dev, gen, n_cells: int = 1_000_000, n_genes: int = 1024,
               f"null mean / std within rtol 1e-4")
     # the three kernels on one gathered table at this shape
     nb = plan.n_padded // B
-    zp = Zb[banded._padded_rows(plan, dev)]
+    rows = banded._padded_rows(plan, dev)
+    zp = Zb[rows]
     w = plan.w_local.to(torch.bfloat16)
     li = plan.local_idx.to(torch.int32)
-    ms = event_ms(lambda: kern.band_cross_float(li, w, zp, B), 5)
-    times = {"float": (ms, *bound(*cross_work(plan, "bf16", n_genes)))}
-    errs = {}
+    errs = {"float": hold_float_1m(plan, li, Z32[rows], n_genes // 2)}
+    del Z32
+    errs["float"] = max(errs["float"], hold_float_1m(plan, li, zp, n_genes))
+    float_draw_split(plan, Zb, den, S0)
+    times = {}
     for mode, build_fn, fn, plain in (
             ("dense", banded._build_band, kern.band_cross_dense,
              kern.band_cross_dense_plain),
@@ -2062,6 +2073,90 @@ def phase_dense_routes(dev, gen, n_cells: int = 1_000_000, n_genes: int = 1024,
         print(f"[dense] {mode} kernel, one bf16 draw at {n_cells:,} x {n_genes} "
               f"({nb} blocks): {ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
     return launches, errs
+
+
+def float_draw_split(plan, Zb, den, S0: float, reps: int = 5):
+    """One bf16 global draw through "auto" (K4) at the phase's shape, part
+    by part (CUDA events): Feistel rows, the row gather, K4, the far-edge
+    terms, Geary's Σ z1² term (only ``stat="geary"`` pays it), and the
+    whole Moran draw (Feistel rows and ``_banded_stat_float``)."""
+    li = plan.local_idx.to(torch.int32)
+    w = plan.w_local.to(torch.bfloat16)
+    rows_idx = banded._padded_rows(plan, Zb.device)
+    base = key_for(3, "perm_feistel", 0)
+    rows = feistel_apply(fold_in(base, 0), rows_idx, plan.n)
+    zp = Zb[rows]
+    fw = plan.far_w.to(torch.bfloat16).to(torch.float32)
+    nb = plan.n_padded // B
+
+    def far_terms():
+        return (fw[:, None] * zp[plan.far_src].to(torch.float32)
+                * zp[plan.far_dst].to(torch.float32)).sum(dim=0)
+
+    def geary_sq():
+        z1 = zp[B:B + nb * B].to(torch.float32)
+        return plan.rc_sum @ (z1 * z1)
+
+    steps = iter(range(1, 1 << 20))
+
+    def draw():
+        r = feistel_apply(fold_in(base, next(steps)), rows_idx, plan.n)
+        return banded._banded_stat_float(
+            li, w, None, plan.far_src, plan.far_dst, plan.far_w, plan.rc_sum,
+            Zb, den, S0, r, block=B, n=plan.n, stat="moran", band_impl="auto")
+
+    split = dict(
+        feistel=event_ms(lambda: feistel_apply(fold_in(base, 1), rows_idx,
+                                               plan.n), reps),
+        row_gather=event_ms(lambda: Zb[rows], reps),
+        kernel=event_ms(lambda: kern.band_cross_float(li, w, zp, B), reps),
+        far_terms=event_ms(far_terms, reps),
+        geary_sq=event_ms(geary_sq, reps),
+        whole_draw=event_ms(draw, reps))
+    print(f"[dense] one bf16 draw ('auto' -> K4, Moran) at {plan.n:,} x "
+          f"{Zb.shape[1]:,} (CUDA events, ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    return split
+
+
+def hold_float_1m(plan, li, zp, G: int) -> float:
+    """K4 (``band_cross_float``) on ``zp`` at the 1M plan's shape: held
+    against its plain version within REL_TOL·Σ|terms|, timed beside its
+    plain version, its bound and ``torch.sparse.mm`` of the band; then
+    other launch shapes (runs, ring widths) of the same kernel timed.
+    Returns the max |error|."""
+    mode = "bf16" if zp.dtype == torch.bfloat16 else "f32"
+    w = plan.w_local.to(zp.dtype)
+    label = f"K4 {mode} at {plan.n_padded:,} x {G:,}"
+    got = kern.band_cross_float(li, w, zp, B)
+    want = kern.band_cross_float_plain(li, w, zp, B)
+    tol = REL_TOL * kern.band_cross_float_plain(li, w.abs(), zp.abs(), B).double()
+    err = (got.double() - want.double()).abs()
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite cross")
+    check(bool((err <= tol + 1e-30).all()),
+          f"{label}: kernel disagrees with plain (max err "
+          f"{float(err.max()):.3e}, bound {float(tol.min()):.3e})")
+    del want, tol
+    ms = event_ms(lambda: kern.band_cross_float(li, w, zp, B), 5)
+    plain_ms = event_ms(lambda: kern.band_cross_float_plain(li, w, zp, B), 1)
+    lib = library_ms(band_csr(plan, dev=zp.device), zp, reps=5)
+    b_ms, b_by = bound(*cross_work(plan, mode, G))
+    nb, k = plan.n_padded // B, li.shape[1]
+    tiles = kern.float_tiles(B, k, zp.element_size(), G, nb)
+    print(f"[dense] {label}: max_abs_err={float(err.max()):.3e} (tolerance "
+          f"{REL_TOL:g}·Σ|terms|) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+          f"bound {b_ms:.4f} ms ({b_by})  library {lib:.4f} ms; {tiles}")
+    for name, t in (("run=1 (Zp read 3x)", tiles._replace(run=1)),
+                    ("run=8", tiles._replace(run=8)),
+                    ("run=16", tiles._replace(run=16)),
+                    ("run=64", tiles._replace(run=64)),
+                    ("64-byte ring rows",
+                     kern.float_tiles(B, k, zp.element_size(), G, nb,
+                                      max_row_bytes=64))):
+        vms = event_ms(lambda: kern.band_cross_float_tiled(li, w, zp, B, t), 5)
+        print(f"[dense] {label}, launch shape {name} {t}: {vms:.4f} ms")
+    torch.cuda.empty_cache()
+    return float(err.max())
 
 
 class DrawTimer:
@@ -2256,9 +2351,9 @@ def main() -> None:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     plan300 = real_plan(dev, 300, gen)
-    kres = phase_kernels(dev, plan300, gen, {"int4_win": 4096, "int8_win": 4096,
-                                             "int8_band": 4096, "bf16": 1024,
-                                             "f32": 512}, reps=20)
+    kres = phase_kernels(dev, plan300, gen, [
+        ("int4_win", 4096), ("int8_win", 4096), ("int8_band", 4096),
+        ("bf16", 1024), ("f32", 512), ("bf16", 1000)], reps=20)
     kres.update(phase_lisa_kernels(dev, plan300, gen, 1024, reps=20))
     kres.update(phase_tail_kernels(dev, plan300, gen, 1024, reps=20))
     kres.update(phase_lee_kernels(dev, plan300, gen, 1024, reps=20))

@@ -37,7 +37,7 @@ with ``far_row_ptr[-1]`` ≤ the far-list length.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -54,6 +54,12 @@ MAX_BLOCK = 512
 #: the dense kernels' blocks: multiples of 16 (tensor-core tiles) up to 256
 #: (K6's ring of 4B rows in shared memory)
 DENSE_MAX_BLOCK = 256
+#: dynamic shared memory one block may use on the H100 (227 KB)
+SMEM_LIMIT = 232_448
+#: threads of a ``band_cross_float`` CTA (``kThreads`` in its source)
+_FLOAT_THREADS = 512
+#: the H100's streaming multiprocessors
+_SMS = 132
 
 
 def reset_launch_counts() -> None:
@@ -330,27 +336,103 @@ def band_cross_int8(local_idx, wq, sw, Zp, block: int, *, packed: bool,
     return partial.sum(dim=0)
 
 
+class FloatTiles(NamedTuple):
+    """Launch shape of ``band_cross_float``'s kernel."""
+    gt: int        #: genes per CTA; gt·esz is a power of two, 16–256 bytes
+    run: int       #: consecutive band blocks a CTA walks over its slab ring
+    chunk: int     #: band rows staged in shared memory per pipeline stage
+    smem: int      #: dynamic shared memory bytes (float_smem_bytes)
+
+
+def float_smem_bytes(block: int, k: int, esz: int, gt: int, chunk: int) -> int:
+    """Shared memory of the kernel (the layout in ``band_cross_float.cu``):
+    the 4-slot ring [4B, gt] (which the final reduction, [warps, gt] f32,
+    reuses) and two band buffers of ``chunk`` rows of local_idx and w, each
+    with 15 spare bytes for its copies' alignment phase."""
+    def r16(b):
+        return (b + 15) // 16 * 16
+    ring = max(4 * block * gt * esz, (_FLOAT_THREADS // 32) * gt * 4)
+    return ring + 2 * (r16(chunk * k * 4 + 15) + r16(chunk * k * esz + 15))
+
+
+def float_tiles(block: int, k: int, esz: int, G: int, n_blocks: int,
+                max_row_bytes: int = 256, run: Optional[int] = None) -> FloatTiles:
+    """(gt, run, chunk) of ``band_cross_float``'s kernel for B = ``block``,
+    k slots, values of ``esz`` bytes, G genes and ``n_blocks`` band blocks.
+
+    The ring's row (gt·esz bytes, a power of two) is as wide as G needs, up
+    to ``max_row_bytes``, and the ring at most 128 KB: a wider tile re-reads
+    the band fewer times (once per gene tile), and the rest of shared
+    memory goes to the band's two buffers — the whole block's rows when
+    they fit, else the most rows that do. ``run`` (default) is the longest,
+    up to 32 blocks, that still gives every SM ~8 waves of CTAs: Zp crosses
+    HBM (run+2)/run times. Raises for a k so large that one band row's two
+    buffers do not fit (k above ~12,000 in f32).
+    """
+    need = max(16, G * esz)
+    rb = 16
+    while rb < min(max_row_bytes, need) and 4 * block * rb * 2 <= (128 << 10):
+        rb *= 2
+    while True:
+        gt = rb // esz
+        # the most band rows that fit (the estimate leaves room for padding)
+        chunk = min(block, (SMEM_LIMIT - float_smem_bytes(block, 0, esz, gt, 0)
+                            - 64) // (2 * k * (4 + esz)))
+        while chunk < block and float_smem_bytes(block, k, esz, gt,
+                                                 chunk + 1) <= SMEM_LIMIT:
+            chunk += 1
+        if chunk >= 1 or rb == 16:
+            break
+        rb //= 2                  # a narrower ring leaves the band more room
+    _check(chunk >= 1, f"k={k} band slots do not fit the kernel's shared memory")
+    smem = float_smem_bytes(block, k, esz, gt, chunk)
+    if run is None:
+        per_sm = max(1, min(2048 // _FLOAT_THREADS, (233_472 // (smem + 1024))))
+        n_gt = -(-G // gt)
+        run = max(1, min(32, n_blocks * n_gt // (8 * _SMS * per_sm)))
+    return FloatTiles(gt, run, chunk, smem)
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh copy when its data is not 16-byte aligned (the
+    kernel stages the band with 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def band_cross_float(local_idx, w, Zp, block: int) -> torch.Tensor:
     """cross[g] of one draw in bf16 / f32: Σ_i z1_i·lag_i, f32 lag.
 
     ``local_idx`` int32 [Npad, k]; ``w`` [Npad, k] and ``Zp``
     [(nb+2)·B, G], both bf16 or both f32. Returns f32 [G].
     """
+    return band_cross_float_tiled(local_idx, w, Zp, block, None)
+
+
+def band_cross_float_tiled(local_idx, w, Zp, block: int,
+                           tiles: Optional[FloatTiles]) -> torch.Tensor:
+    """:func:`band_cross_float` with the kernel's launch shape given
+    (None: :func:`float_tiles`): for timing other launch shapes and for
+    testing runs that do not divide the block count."""
     nb, k = _check_band(local_idx, w, (torch.bfloat16, torch.float32), Zp, block)
     _check(Zp.dtype == w.dtype, "w and Zp must share a dtype (bf16 or f32)")
     if Zp.device.type == "cpu":
         return band_cross_float_plain(local_idx, w, Zp, block)
     G = Zp.shape[1]
+    if tiles is None:
+        tiles = float_tiles(block, k, Zp.element_size(), G, nb)
+    local_idx, w = _aligned16(local_idx), _aligned16(w)
     lib = build.load_library()
     with torch.cuda.device(Zp.device):
-        partial = torch.empty((nb, G), dtype=torch.float32, device=Zp.device)
+        partial = torch.empty((-(-nb // tiles.run), G), dtype=torch.float32,
+                              device=Zp.device)
         err = lib.sct_band_cross_float(
             _ptr(local_idx), _ptr(w), _ptr(Zp), _ptr(partial), nb, block, k,
-            G, int(Zp.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            G, int(Zp.dtype == torch.bfloat16), tiles.gt, tiles.run,
+            tiles.chunk, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"band_cross_float launch failed: CUDA error {err}")
     LAUNCHES["float"] += 1
+    # per-run partials reduce in a fixed order: no float atomics
     return partial.sum(dim=0)
 
 

@@ -37,8 +37,9 @@ _SIGNATURES = {
     # packed, stream
     "sct_band_cross_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _P],
-    # local_idx, w, zp, partial, nb, B, k, G, is_bf16, stream
-    "sct_band_cross_float": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # local_idx, w, zp, partial, nb, B, k, G, is_bf16, gt, run, chunk, stream
+    "sct_band_cross_float": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P],
     # A, zp, partial, nb, B, G, is_bf16, stream (A4 for rot4)
     "sct_band_cross_dense": [_P, _P, _P, _I, _I, _I, _I, _P],
     "sct_band_cross_rot4": [_P, _P, _P, _I, _I, _I, _I, _P],

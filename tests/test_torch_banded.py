@@ -395,6 +395,23 @@ def test_unported_options_raise(setup):
         tb.banded_permutation_test(*args, precision="f32", far_mode="win")
 
 
+@pytest.mark.parametrize("esz", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("k", [1, 6, 50, 256])
+def test_float_tiles_fit_shared_memory(esz, k):
+    """K4's launch shape for every block the wrapper takes: its shared
+    memory fits one H100 block, its ring rows are whole 16-byte lanes, and
+    the band chunk is 1..B rows (the whole block where it fits)."""
+    for block in range(1, kern.MAX_BLOCK + 1):
+        for G, n_blocks in ((1024, 3907), (33, 1)):
+            t = kern.float_tiles(block, k, esz, G, n_blocks)
+            assert t.smem == kern.float_smem_bytes(block, k, esz, t.gt, t.chunk)
+            assert t.smem <= 232_448
+            assert (t.gt * esz) % 16 == 0 and 1 <= t.chunk <= block
+            assert t.run >= 1
+    assert kern.float_tiles(256, 6, 2, 1024, 3907) == (64, 32, 256, 149_568)
+    assert kern.float_tiles(256, 50, 2, 1024, 3907).chunk < 256
+
+
 def test_wrapper_refuses_bad_operands(setup):
     pt = setup["pt"]
     li = pt.local_idx.to(torch.int32)

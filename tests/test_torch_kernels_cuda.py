@@ -94,20 +94,52 @@ def test_int8_kernel_matches_plain(cuda_device, plan, mode, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,G", [(torch.bfloat16, 96), (torch.float32, 33)])
-def test_float_kernel_matches_plain(cuda_device, plan, dtype, G):
+@pytest.mark.parametrize("dtype,G,blk,k,nb,run,offset", [
+    (torch.bfloat16, 96, B, 6, None, None, 0),    # the kNN plan, 40 blocks
+    (torch.float32, 33, B, 6, None, None, 0),     # odd G: element fills
+    (torch.bfloat16, 1000, 256, 6, 7, 3, 0),      # G ragged against Gt=64
+    (torch.float32, 1000, 256, 50, 5, 2, 0),      # k=50: the band in chunks
+    (torch.bfloat16, 33, 512, 50, 3, 2, 0),
+    (torch.float32, 512, 512, 6, 4, 3, 0),
+    (torch.bfloat16, 1024, 100, 6, 9, 4, 1),      # B neither 16·m nor 32·m;
+                                                  # band views off 16 bytes
+    (torch.float32, 100, 256, 6, 1, None, 0),     # a one-block plan
+    (torch.bfloat16, 33, B, 50, 1, None, 0),
+])
+def test_float_kernel_matches_plain(cuda_device, plan, dtype, G, blk, k, nb, run,
+                                    offset):
+    """K4 on the kNN plan and on synthetic bands (some zero weights) at
+    every edge of its design: B of 64/100/256/512, k of 6 and 50, G ragged
+    against the gene tile, runs that do not divide nb, one block, and band
+    operands whose data is not 16-byte aligned (``offset`` rows into a
+    larger tensor)."""
     gen = torch.Generator().manual_seed(2)
-    li = plan.local_idx.to(torch.int32)
-    w = plan.w_local.to(dtype)
-    zp = torch.randn((plan.n_padded + 2 * B, G), generator=gen).to(dtype)
-    want = kern.band_cross_float(li, w, zp, B)
-    lag = kern.band_lag_float_plain(li, w.abs(), zp.abs(), B)
-    scale = (zp[B:B + plan.n_padded].abs().float() * lag).double().sum(0)
+    if nb is None:
+        li, w = plan.local_idx.to(torch.int32), plan.w_local.to(dtype)
+    else:
+        rows = nb * blk + offset
+        li = torch.randint(0, 3 * blk, (rows, k), generator=gen,
+                           dtype=torch.int32)
+        w = torch.rand((rows, k), generator=gen)
+        w[torch.rand((rows, k), generator=gen) < 0.2] = 0
+        w = w.to(dtype)
+    zp = torch.randn((li.shape[0] - offset + 2 * blk, G), generator=gen).to(dtype)
+    # the views are taken on each device: .to() of a view would copy it
+    # to a fresh, aligned allocation
+    on = [li.to(cuda_device)[offset:], w.to(cuda_device)[offset:],
+          zp.to(cuda_device)]
+    li, w = li[offset:], w[offset:]
+    assert (on[0].data_ptr() % 16 != 0) == bool(offset)
+    want = kern.band_cross_float(li, w, zp, blk)
+    scale = kern.band_cross_float(li, w.abs(), zp.abs(), blk).double()
+    tiles = kern.float_tiles(blk, k, zp.element_size(), G, li.shape[0] // blk,
+                             run=run)
     before = kern.LAUNCHES["float"]
-    got = kern.band_cross_float(li.to(cuda_device), w.to(cuda_device),
-                                zp.to(cuda_device), B)
+    got = kern.band_cross_float_tiled(*on, blk, tiles)
     assert kern.LAUNCHES["float"] == before + 1
     _assert_close(got, want, scale)
+    assert torch.equal(got, kern.band_cross_float(*on, blk) if run is None
+                       else kern.band_cross_float_tiled(*on, blk, tiles))
 
 
 @pytest.mark.cuda
