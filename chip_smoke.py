@@ -9,9 +9,9 @@ Phases (the script stops with a non-zero exit at the first failure):
    in parallel) with its time.
 2. Each kernel against its plain PyTorch version, on the card, at B=256 on
    300 blocks of a real kNN plan at the 1M-cell density: the band-cross
-   kernel (int4/int8 windowed far at G=4096, int8 band-only at G=4096,
-   bf16 at G=1024 and at a ragged G=1000, f32 at G=512; agreement within
-   1e-5·Σ|terms|) and the
+   kernel (int4/int8 windowed far at G=4096 and int4 at a ragged G=1000,
+   int8 band-only at G=4096, bf16 at G=1024 and at a ragged G=1000, f32 at
+   G=512; agreement within 1e-5·Σ|terms|) and the
    local statistics' draw-step kernel at G=1024 (LISA: row-pointer far
    with int8 and int16 counters, dense far, band only, and the observed
    entry; the geary tail and its observed entry; the getis_star and
@@ -34,6 +34,12 @@ Phases (the script stops with a non-zero exit at the first failure):
    1,024 genes whose X is a CUDA tensor; and a small input against the
    port's CPU path. Proof of path: every compact-band kernel mode (K1–K4)
    launched during phases 3–4 (the dense-band K5 and K6 in phase 9).
+   Then, outside the counted window, the integer kernel on phase 3's 1M
+   plan and data (``hold_int_1m``): K1 at 4,096 int4 genes, K2 and K3 at
+   1,024 int8 genes, on one Feistel draw's gathered rows, held against
+   their plain versions within 1e-5·Σ|terms| and timed beside the plain
+   version, the bound and ``torch.sparse.mm``; K1's other launch shapes;
+   and one int4 draw split part by part (``int_draw_split``).
 5. Local Moran (LISA). The main path, with the launch counts set to 0
    just before it and read just after:
    ``local_morans_i(null_method="banded_int8", n_permutations=99)`` at
@@ -1011,7 +1017,129 @@ def phase_workload(dev, n_cells: int, n_genes: int, tile: int, n_perms: int,
           f"re-run chunk bitwise equal")
     check(float((sig <= p_min).float().mean()) > 0.9,
           "spatially smooth genes not at the smallest p")
-    return out
+    return out, plan, tile0
+
+
+def int_operands(plan, tile0, mode: str, G: int, step: int = 0):
+    """The integer null's per-draw operands on the 1M plan, as
+    ``banded_permutation_test`` makes them for draw ``step``: the int4
+    (K1, windowed far) or int8 (K2 windowed far, K3 band only) codes of
+    ``tile0``'s first G genes gathered by one Feistel draw. Returns
+    (wrapper kwargs, gathered table, ops, timing pieces)."""
+    packed = mode == "int4_win"
+    dev = tile0["Zpk"].device
+    if packed:
+        check(G == 2 * tile0["Zpk"].shape[1], "K1 runs on the whole int4 tile")
+        Ztab = tile0["Zpk"]
+    else:
+        Ztab = tile0["Zq8"][:, :G].contiguous()
+    rows_idx = banded._padded_rows(plan, dev)
+    ops, rif = banded._int_ops(plan, "int4" if packed else "int8",
+                               "exact" if mode == "int8_band" else "win",
+                               rows_idx, use_plain=False)
+    idx_all = rows_idx if rif is None else torch.cat([rows_idx, rif])
+    base = key_for(0, "perm_feistel", 0)
+    perm_rows = feistel_apply(fold_in(base, step), idx_all, plan.n)
+    L = rows_idx.shape[0]
+    zp = Ztab[perm_rows[:L]]
+    kw = dict(packed=packed)
+    if ops.win:
+        kw.update(far_row_ptr=ops.far_ptr, far_q=ops.win_ops[3].reshape(-1),
+                  Zf=Ztab[perm_rows[L:]])
+    args = (ops.local_idx32, ops.wq, ops.sw.reshape(-1).contiguous(), zp, B)
+    return args, kw, dict(Ztab=Ztab, ops=ops, idx_all=idx_all, base=base, L=L)
+
+
+def hold_int_1m(plan, tile0) -> dict:
+    """The integer kernel (``band_cross_int8``) at the main path's shapes
+    on the 1M plan: K1 at 4,096 int4 genes, K2 and K3 at 1,024 int8 genes,
+    each on one Feistel draw's gathered rows, held against its plain
+    version within REL_TOL·Σ|terms| and timed beside its plain version,
+    its bound and ``torch.sparse.mm`` of the band; then K1's other launch
+    shapes (runs, tile widths) timed. Runs outside the counted window.
+    Returns {mode: max |error|}."""
+    errs = {}
+    nb, k = plan.n_padded // B, plan.local_idx.shape[1]
+    csr = band_csr(plan, dev=tile0["Zpk"].device)
+    for mode, G in (("int4_win", 4096), ("int8_win", 1024), ("int8_band", 1024)):
+        args, kw, _ = int_operands(plan, tile0, mode, G)
+        packed = kw["packed"]
+        li, wq, sw, zp, _ = args
+        label = f"{mode} at {plan.n_padded:,} x {G:,}"
+
+        def absc(t):
+            return (banded._pack_codes(kern.unpack_nibbles(t).abs())
+                    if packed else t.abs())
+
+        got = kern.band_cross_int8(*args, **kw)
+        want = kern.band_cross_int8_plain(*args, **kw)
+        fabs = dict(kw, Zf=absc(kw["Zf"])) if "Zf" in kw else kw
+        tol = REL_TOL * kern.band_cross_int8_plain(
+            li, wq.to(torch.int16).abs(), sw, absc(zp), B, **fabs).double()
+        err = (got.double() - want.double()).abs()
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite cross")
+        check(bool((err <= tol + 1e-30).all()),
+              f"{label}: kernel disagrees with plain (max err "
+              f"{float(err.max()):.3e}, bound {float(tol.min()):.3e})")
+        errs[mode] = float(err.max())
+        del want, tol, fabs
+        ms = event_ms(lambda: kern.band_cross_int8(*args, **kw), 5)
+        plain_ms = event_ms(lambda: kern.band_cross_int8_plain(*args, **kw), 1)
+        table = kern.unpack_nibbles(zp) if packed else zp
+        lib = library_ms(csr, table, reps=3)
+        del table
+        torch.cuda.empty_cache()
+        b_ms, b_by = bound(*cross_work(plan, mode, G))
+        tiles = kern.int_tiles(B, k, packed, G, nb)
+        print(f"[int] {label}: max_abs_err={errs[mode]:.3e} (tolerance "
+              f"{REL_TOL:g}·Σ|terms|) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+              f"  bound {b_ms:.4f} ms ({b_by})  library {lib:.4f} ms; {tiles}")
+        if mode == "int4_win":
+            for name, t in (("run=1 (Zp read 3x)", tiles._replace(run=1)),
+                            ("run=8", tiles._replace(run=8)),
+                            ("run=16", tiles._replace(run=16)),
+                            ("run=32", tiles._replace(run=32)),
+                            ("run=64", tiles._replace(run=64)),
+                            ("64-byte tiles",
+                             kern.int_tiles(B, k, packed, G, nb, max_row_bytes=64))):
+                vms = event_ms(lambda: kern.band_cross_int8_tiled(
+                    li, wq, sw, zp, B, t, **kw), 5)
+                print(f"[int] {label}, launch shape {name} {t}: {vms:.4f} ms")
+        del args, kw, zp, li, wq, sw, got
+        torch.cuda.empty_cache()
+    return errs
+
+
+def int_draw_split(plan, tile0, reps: int = 5):
+    """One int4 global draw (K1, windowed far) at 1M × 4,096 part by part
+    (CUDA events): Feistel rows (padded rows and far targets), the row
+    gather, the far gather, K1, and the whole draw (Feistel rows and
+    ``_banded_stat_int``, Moran)."""
+    args, kw, p = int_operands(plan, tile0, "int4_win", 4096)
+    Ztab, ops, idx_all, base, L = (p[k] for k in ("Ztab", "ops", "idx_all",
+                                                  "base", "L"))
+    perm_rows = feistel_apply(fold_in(base, 0), idx_all, plan.n)
+    sz2 = tile0["sz"] * tile0["sz"]
+    S0 = float(plan.n)
+    steps = iter(range(1, 1 << 20))
+
+    def draw():
+        r = feistel_apply(fold_in(base, next(steps)), idx_all, plan.n)
+        return banded._banded_stat_int(ops, plan.rc_sum, Ztab, sz2, tile0["den"],
+                                       S0, r[:L], r[L:], n=plan.n, stat="moran",
+                                       use_plain=False)
+
+    split = dict(
+        feistel=event_ms(lambda: feistel_apply(fold_in(base, 1), idx_all,
+                                               plan.n), reps),
+        row_gather=event_ms(lambda: Ztab[perm_rows[:L]], reps),
+        far_gather=event_ms(lambda: Ztab[perm_rows[L:]], reps),
+        kernel=event_ms(lambda: kern.band_cross_int8(*args, **kw), reps),
+        whole_draw=event_ms(draw, reps))
+    print(f"[int] one int4 draw (K1, windowed far, Moran) at {plan.n:,} x "
+          f"4,096 (CUDA events, ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    return split
 
 
 # ---------------------------------------------------------------------------
@@ -2353,7 +2481,8 @@ def main() -> None:
     plan300 = real_plan(dev, 300, gen)
     kres = phase_kernels(dev, plan300, gen, [
         ("int4_win", 4096), ("int8_win", 4096), ("int8_band", 4096),
-        ("bf16", 1024), ("f32", 512), ("bf16", 1000)], reps=20)
+        ("bf16", 1024), ("f32", 512), ("bf16", 1000), ("int4_win", 1000)],
+        reps=20)
     kres.update(phase_lisa_kernels(dev, plan300, gen, 1024, reps=20))
     kres.update(phase_tail_kernels(dev, plan300, gen, 1024, reps=20))
     kres.update(phase_lee_kernels(dev, plan300, gen, 1024, reps=20))
@@ -2365,12 +2494,17 @@ def main() -> None:
     # the global null's path
     kern.reset_launch_counts()
     kern_lisa.reset_launch_counts()
-    phase_workload(dev, 1_000_000, 8192, 4096, 16, 16, gen)
+    _, plan1m, tile0 = phase_workload(dev, 1_000_000, 8192, 4096, 16, 16, gen)
     phase_public(dev, 1_000_000, 1024, 19, gen)
     launches = dict(kern.LAUNCHES)
     print(f"[path] band-cross launches in phases 3-4: {launches}")
     for mode in GLOBAL_MODES:
         check(launches[mode] > 0, f"kernel mode {mode} never launched")
+    for mode, err in hold_int_1m(plan1m, tile0).items():
+        kres[mode]["max_abs_err"] = max(kres[mode]["max_abs_err"], err)
+    int_draw_split(plan1m, tile0)
+    del plan1m, tile0
+    torch.cuda.empty_cache()
     phase_small_reference(dev, gen)
     torch.cuda.empty_cache()
 

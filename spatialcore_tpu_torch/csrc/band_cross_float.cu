@@ -24,7 +24,8 @@
 // and walks a run of R consecutive band blocks, the grid's gene tile
 // fastest so a run's tiles are resident together and share its band in L2.
 // (Gt, R) and the band chunk come from kernels/band_cross.float_tiles.
-// - The slab ring: 4 slots of [B, Gt] values in shared memory, slab s in
+// - The slab ring (slab_ring.cuh, shared with band_cross_int8.cu): 4 slots
+//   of [B, Gt] values in shared memory, slab s in
 //   slot s % 4 (the padded slab number, as in the Pallas ring). Slots n,
 //   n+1, n+2 hold block n's window while slab n+3 is copied by cp.async
 //   (16-byte .cg copies, zero-filled past G) into the slot slab n-1 left,
@@ -79,83 +80,13 @@
 // Later work: the per-draw row gather Ztab[rows] (ops/banded.py) fused into
 // the slab fill, and the Geary term's z1^2 row sums as a second output.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "slab_ring.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;                   // mirrors band_cross._FLOAT_THREADS
 constexpr int kWarps = kThreads / 32;
 constexpr size_t kSmemMax = 232448;             // 227 KB a block may use on sm_90
-
-// ---------------------------------------------------------------------------
-// The slab ring: cp.async helpers and fills (shared with the next kernels)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Bytes [off, off + len) of the 16-byte-aligned array `base` into shared
-// memory, byte `off` landing at dst + (off & 15): 16-byte copies from the
-// aligned chunk below `off`, the last one reading only up to off + len.
-__device__ __forceinline__ void stage_bytes(unsigned char* dst, const unsigned char* base,
-                                            size_t off, int len) {
-  const size_t a0 = off & ~static_cast<size_t>(15);
-  const size_t end = off + len;
-  const int n = static_cast<int>((end - a0 + 15) / 16);
-  for (int j = threadIdx.x; j < n; j += kThreads) {
-    const size_t a = a0 + 16 * static_cast<size_t>(j);
-    cp_async16(dst + 16 * j, base + a, static_cast<int>(end - a < 16 ? end - a : 16));
-  }
-}
-
-// Raw storage of one value: bf16 and f32 are copied as bits (zero is 0).
-template <int ESZ>
-struct RawOf;
-template <>
-struct RawOf<2> { using type = uint16_t; };
-template <>
-struct RawOf<4> { using type = uint32_t; };
-
-// Slab s (rows [s*B, s*B + B) of Zp, genes [g0, g0 + Gt)) into ring slot
-// s % 4, rows of rb = Gt*ESZ bytes; genes past G are zeros.
-template <int ESZ>
-__device__ __forceinline__ void fill_slot(unsigned char* ring, const unsigned char* zp,
-                                          int s, int B, int G, int g0, int rb_shift,
-                                          bool vec) {
-  using Raw = typename RawOf<ESZ>::type;
-  unsigned char* dst = ring + (static_cast<size_t>(s & 3) * B << rb_shift);
-  const size_t row0 = static_cast<size_t>(s) * B;
-  if (vec) {                                    // 16-byte copies
-    const int tpr_shift = rb_shift - 4;
-    constexpr int V = 16 / ESZ;
-    for (int v = threadIdx.x; v < B << tpr_shift; v += kThreads) {
-      const int r = v >> tpr_shift;
-      const int q = v & ((1 << tpr_shift) - 1);
-      const int g = g0 + q * V;
-      const bool in = g < G;
-      cp_async16(dst + (r << rb_shift) + 16 * q,
-                 in ? zp + ((row0 + r) * G + g) * ESZ : zp, in ? 16 : 0);
-    }
-  } else {                                      // element loads (odd G)
-    const int gt_shift = rb_shift - (ESZ == 2 ? 1 : 2);
-    const Raw* src = reinterpret_cast<const Raw*>(zp);
-    for (int v = threadIdx.x; v < B << gt_shift; v += kThreads) {
-      const int r = v >> gt_shift;
-      const int c = v & ((1 << gt_shift) - 1);
-      reinterpret_cast<Raw*>(dst + (r << rb_shift))[c] =
-          g0 + c < G ? src[(row0 + r) * G + g0 + c] : Raw(0);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Arithmetic on 16 bytes of values
@@ -181,22 +112,17 @@ __device__ __forceinline__ void unpack(const uint4 raw, float* f) {
   }
 }
 
-__host__ __device__ constexpr size_t round16(size_t b) { return (b + 15) / 16 * 16; }
-
 // Shared-memory layout, mirrored by band_cross.float_smem_bytes: the ring
 // (which the final reduction reuses), then two band buffers, each the
-// chunk's local_idx bytes then its weight bytes, 15 spare bytes for the
-// copies' alignment phase.
-__host__ __device__ constexpr size_t ring_bytes(int B, int rb, int esz) {
-  return 4 * static_cast<size_t>(B) * rb > static_cast<size_t>(kWarps) * (rb / esz) * 4
-             ? 4 * static_cast<size_t>(B) * rb
-             : static_cast<size_t>(kWarps) * (rb / esz) * 4;
+// chunk's local_idx bytes then its weight bytes (slab_ring.cuh).
+__host__ __device__ constexpr size_t float_ring_bytes(int B, int rb, int esz) {
+  return ring_bytes(B, rb, static_cast<size_t>(kWarps) * (rb / esz) * 4);
 }
 __host__ __device__ constexpr size_t idx_buf_bytes(int chunk, int k) {
-  return round16(static_cast<size_t>(chunk) * k * 4 + 15);
+  return stage_buf_bytes(static_cast<size_t>(chunk) * k * 4);
 }
 __host__ __device__ constexpr size_t w_buf_bytes(int chunk, int k, int esz) {
-  return round16(static_cast<size_t>(chunk) * k * esz + 15);
+  return stage_buf_bytes(static_cast<size_t>(chunk) * k * esz);
 }
 
 // acc += z1 * lag for NR rows of a block, row r's band entries at
@@ -261,7 +187,7 @@ band_cross_float_kernel(const int32_t* __restrict__ local_idx,
   const int rb = 1 << rb_shift;                 // bytes of a ring row
   const int Gt = rb / ESZ;
   unsigned char* ring = smem;
-  unsigned char* band = smem + ring_bytes(B, rb, ESZ);
+  unsigned char* band = smem + float_ring_bytes(B, rb, ESZ);
   const int idx_buf = static_cast<int>(idx_buf_bytes(chunk, k));
   const int buf = idx_buf + static_cast<int>(w_buf_bytes(chunk, k, ESZ));
 
@@ -284,13 +210,13 @@ band_cross_float_kernel(const int32_t* __restrict__ local_idx,
     const size_t r0 = static_cast<size_t>(n0 + st / nc) * B + c * chunk;
     const int rows = min(chunk, B - c * chunk);
     unsigned char* b = band + (st & 1) * buf;
-    stage_bytes(b, li, r0 * k * 4, rows * k * 4);
-    stage_bytes(b + idx_buf, w, r0 * k * ESZ, rows * k * ESZ);
+    stage_bytes<kThreads>(b, li, r0 * k * 4, rows * k * 4);
+    stage_bytes<kThreads>(b + idx_buf, w, r0 * k * ESZ, rows * k * ESZ);
   };
 
-  fill_slot<ESZ>(ring, zp, n0, B, G, g0, rb_shift, vec);
-  fill_slot<ESZ>(ring, zp, n0 + 1, B, G, g0, rb_shift, vec);
-  fill_slot<ESZ>(ring, zp, n0 + 2, B, G, g0, rb_shift, vec);
+  fill_slot<kThreads, ESZ>(ring, zp, n0, B, G, g0, rb_shift, vec);
+  fill_slot<kThreads, ESZ>(ring, zp, n0 + 1, B, G, g0, rb_shift, vec);
+  fill_slot<kThreads, ESZ>(ring, zp, n0 + 2, B, G, g0, rb_shift, vec);
   cp_async_commit();
   stage_band(0);
   cp_async_commit();
@@ -310,7 +236,7 @@ band_cross_float_kernel(const int32_t* __restrict__ local_idx,
     if (st + 1 < stages) stage_band(st + 1);
     cp_async_commit();
     if (c == 0) {
-      if (n + 1 < n1) fill_slot<ESZ>(ring, zp, n + 3, B, G, g0, rb_shift, vec);
+      if (n + 1 < n1) fill_slot<kThreads, ESZ>(ring, zp, n + 3, B, G, g0, rb_shift, vec);
       cp_async_commit();
     }
 
@@ -364,7 +290,7 @@ cudaError_t launch(const int32_t* local_idx, const void* w, const void* zp, floa
       nb < 1 || k < 1 || G < 1)
     return cudaErrorInvalidValue;
   const size_t smem =
-      ring_bytes(B, rb, ESZ) + 2 * (idx_buf_bytes(chunk, k) + w_buf_bytes(chunk, k, ESZ));
+      float_ring_bytes(B, rb, ESZ) + 2 * (idx_buf_bytes(chunk, k) + w_buf_bytes(chunk, k, ESZ));
   if (smem > kSmemMax) return cudaErrorInvalidValue;
   // the band's copies need 16-byte-aligned arrays (the wrapper sees to it)
   if (reinterpret_cast<uintptr_t>(local_idx) % 16 || reinterpret_cast<uintptr_t>(w) % 16)

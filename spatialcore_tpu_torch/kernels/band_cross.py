@@ -8,6 +8,11 @@ Four kernels carry the global permutation null's hot loop, one draw each:
     int8 codes, or int4 codes nibble-packed two genes per byte.
 ``band_cross_float`` (``csrc/band_cross_float.cu``; replaces Pallas K4)
     cross[g] = Σ_i z1_i[g] · lag_i[g], bf16 or f32 values, f32 lag.
+
+These two share the slab ring of ``csrc/slab_ring.cuh``: a CTA walks a run
+of band blocks over one column tile, so each slab of ``Zp`` crosses HBM
+once per run; :func:`int_tiles` and :func:`float_tiles` pick the launch
+shape.
 ``band_cross_dense`` (``csrc/band_cross_dense.cu``; replaces Pallas K5)
     the same cross with the lag a dense product A[n] @ window, A [nb, B, 3B].
 ``band_cross_rot4`` (``csrc/band_cross_dense.cu``; replaces Pallas K6)
@@ -58,6 +63,8 @@ DENSE_MAX_BLOCK = 256
 SMEM_LIMIT = 232_448
 #: threads of a ``band_cross_float`` CTA (``kThreads`` in its source)
 _FLOAT_THREADS = 512
+#: threads of a ``band_cross_int8`` CTA (``kThreads`` in its source)
+_INT_THREADS = 512
 #: the H100's streaming multiprocessors
 _SMS = 132
 
@@ -292,6 +299,18 @@ def band_cross_int8(local_idx, wq, sw, Zp, block: int, *, packed: bool,
     [ptr[r], ptr[r+1])), ``far_q`` int8 [F] weight codes and ``Zf`` [F, cols]
     the gathered far values. Returns f32 [G].
     """
+    return band_cross_int8_tiled(local_idx, wq, sw, Zp, block, None,
+                                 packed=packed, far_row_ptr=far_row_ptr,
+                                 far_q=far_q, Zf=Zf)
+
+
+def band_cross_int8_tiled(local_idx, wq, sw, Zp, block: int,
+                          tiles: Optional["IntTiles"], *, packed: bool,
+                          far_row_ptr=None, far_q=None,
+                          Zf=None) -> torch.Tensor:
+    """:func:`band_cross_int8` with the kernel's launch shape given (None:
+    :func:`int_tiles`): for timing other launch shapes and for testing runs
+    that do not divide the block count."""
     nb, k = _check_band(local_idx, wq, (torch.int8,), Zp, block)
     _check(Zp.dtype == torch.int8, "Zp must be int8")
     _check(Zp.shape[1] % 4 == 0 and Zp.data_ptr() % 4 == 0,
@@ -322,18 +341,102 @@ def band_cross_int8(local_idx, wq, sw, Zp, block: int, *, packed: bool,
                                      far_q=far_q, Zf=Zf)
     gcols = Zp.shape[1]
     G = 2 * gcols if packed else gcols
+    if tiles is None:
+        tiles = int_tiles(block, k, packed, G, nb)
+    local_idx, wq, sw = _aligned16(local_idx), _aligned16(wq), _aligned16(sw)
+    if has_far:
+        far_row_ptr, far_q = _aligned16(far_row_ptr), _aligned16(far_q)
     lib = build.load_library()
     with torch.cuda.device(Zp.device):
-        partial = torch.empty((nb, G), dtype=torch.float32, device=Zp.device)
+        partial = torch.empty((-(-nb // tiles.run), G), dtype=torch.float32,
+                              device=Zp.device)
         err = lib.sct_band_cross_int8(
             _ptr(local_idx), _ptr(wq), _ptr(sw), _ptr(Zp), _ptr(far_row_ptr),
             _ptr(far_q), _ptr(Zf), _ptr(partial), nb, block, k, gcols,
-            int(packed), torch.cuda.current_stream().cuda_stream)
+            int(packed), tiles.tile, tiles.run, tiles.chunk, tiles.far_cap,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"band_cross_int8 launch failed: CUDA error {err}")
     LAUNCHES[f"{'int4' if packed else 'int8'}_{'win' if has_far else 'band'}"] += 1
-    # per-block partials reduce in a fixed order: no float atomics
+    # per-run partials reduce in a fixed order: no float atomics
     return partial.sum(dim=0)
+
+
+class IntTiles(NamedTuple):
+    """Launch shape of ``band_cross_int8``'s kernel."""
+    tile: int      #: Zp columns (bytes) per CTA: a power of two, 16–256
+    run: int       #: consecutive band blocks a CTA walks over its slab ring
+    chunk: int     #: band rows staged in shared memory per pipeline stage
+    far_cap: int   #: far entries of a chunk staged with it (the rest: global)
+    smem: int      #: dynamic shared memory bytes (int_smem_bytes)
+
+
+def _r16(b: int) -> int:
+    return (b + 15) // 16 * 16
+
+
+def int_smem_bytes(block: int, k: int, packed: bool, tile: int,
+                   chunk: int, far_cap: int = 0) -> int:
+    """Shared memory of the kernel (the layout in ``band_cross_int8.cu``):
+    the 4-slot ring [4B, tile] bytes (which the final reduction, [warps,
+    genes of the tile] f32, reuses), two band buffers of ``chunk`` rows of
+    local_idx, wq (8 spare bytes), sw and far row pointers, each with 15
+    spare bytes for its copies' alignment phase, and two far buffers of
+    ``far_cap`` entries' values [far_cap, tile] and weight codes."""
+    ring = max(4 * block * tile,
+               (_INT_THREADS // 32) * tile * (2 if packed else 1) * 4)
+    buf = (_r16(chunk * k * 4 + 15) + _r16(chunk * k + 8 + 15)
+           + _r16(chunk * 4 + 15) + _r16((chunk + 1) * 4 + 15))
+    far = far_cap * tile + _r16(far_cap + 15)
+    return ring + 2 * buf + 2 * far
+
+
+def _run_for(n_blocks: int, n_tiles: int, smem: int, threads: int) -> int:
+    """The longest run, up to 32 blocks, that still gives every SM ~8
+    waves of CTAs."""
+    per_sm = max(1, min(2048 // threads, 233_472 // (smem + 1024)))
+    return max(1, min(32, n_blocks * n_tiles // (8 * _SMS * per_sm)))
+
+
+def int_tiles(block: int, k: int, packed: bool, G: int, n_blocks: int,
+              max_row_bytes: int = 256, run: Optional[int] = None) -> IntTiles:
+    """(tile, run, chunk) of ``band_cross_int8``'s kernel for B = ``block``,
+    k slots, G genes (int4 ``packed``: G/2 byte columns) and ``n_blocks``
+    band blocks.
+
+    As :func:`float_tiles`: the ring's row (``tile`` bytes, a power of two)
+    is as wide as the columns need, up to ``max_row_bytes``, and the ring at
+    most 128 KB; the rest of shared memory holds the band's two buffers —
+    the whole block's rows when they fit, else the most rows that do — and
+    then two far buffers of up to one far entry a chunk row (``far_cap``;
+    a chunk's entries past it are read from global memory in the inner
+    loop). ``run`` (default) is the longest, up to 32 blocks, that still
+    gives every SM ~8 waves of CTAs: Zp crosses HBM (run+2)/run times.
+    """
+    cols = G // 2 if packed else G
+    rb = 16
+    while rb < min(max_row_bytes, max(16, cols)) and 4 * block * rb * 2 <= (128 << 10):
+        rb *= 2
+    while True:
+        chunk = min(block, (SMEM_LIMIT - int_smem_bytes(block, 0, packed, rb, 0))
+                    // (2 * (5 * k + 8)))
+        while chunk >= 1 and int_smem_bytes(block, k, packed, rb, chunk) > SMEM_LIMIT:
+            chunk -= 1
+        while chunk < block and int_smem_bytes(block, k, packed, rb,
+                                               chunk + 1) <= SMEM_LIMIT:
+            chunk += 1
+        if chunk >= 1 or rb == 16:
+            break
+        rb //= 2                  # a narrower ring leaves the band more room
+    _check(chunk >= 1, f"k={k} band slots do not fit the kernel's shared memory")
+    far_cap = chunk
+    while far_cap > 0 and int_smem_bytes(block, k, packed, rb, chunk,
+                                         far_cap) > SMEM_LIMIT:
+        far_cap -= 1
+    smem = int_smem_bytes(block, k, packed, rb, chunk, far_cap)
+    if run is None:
+        run = _run_for(n_blocks, -(-cols // rb), smem, _INT_THREADS)
+    return IntTiles(rb, run, chunk, far_cap, smem)
 
 
 class FloatTiles(NamedTuple):
@@ -349,10 +452,8 @@ def float_smem_bytes(block: int, k: int, esz: int, gt: int, chunk: int) -> int:
     the 4-slot ring [4B, gt] (which the final reduction, [warps, gt] f32,
     reuses) and two band buffers of ``chunk`` rows of local_idx and w, each
     with 15 spare bytes for its copies' alignment phase."""
-    def r16(b):
-        return (b + 15) // 16 * 16
     ring = max(4 * block * gt * esz, (_FLOAT_THREADS // 32) * gt * 4)
-    return ring + 2 * (r16(chunk * k * 4 + 15) + r16(chunk * k * esz + 15))
+    return ring + 2 * (_r16(chunk * k * 4 + 15) + _r16(chunk * k * esz + 15))
 
 
 def float_tiles(block: int, k: int, esz: int, G: int, n_blocks: int,
@@ -387,9 +488,7 @@ def float_tiles(block: int, k: int, esz: int, G: int, n_blocks: int,
     _check(chunk >= 1, f"k={k} band slots do not fit the kernel's shared memory")
     smem = float_smem_bytes(block, k, esz, gt, chunk)
     if run is None:
-        per_sm = max(1, min(2048 // _FLOAT_THREADS, (233_472 // (smem + 1024))))
-        n_gt = -(-G // gt)
-        run = max(1, min(32, n_blocks * n_gt // (8 * _SMS * per_sm)))
+        run = _run_for(n_blocks, -(-G // gt), smem, _FLOAT_THREADS)
     return FloatTiles(gt, run, chunk, smem)
 
 

@@ -34,9 +34,9 @@ _I = ctypes.c_int
 #: C entry points and their argument types; each returns cudaGetLastError()
 _SIGNATURES = {
     # local_idx, wq, sw, zp, far_ptr, far_q, zf, partial, nb, B, k, gcols,
-    # packed, stream
+    # packed, tile, run, chunk, far_cap, stream
     "sct_band_cross_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _P],
+                            _I, _I, _I, _I, _I, _P],
     # local_idx, w, zp, partial, nb, B, k, G, is_bf16, gt, run, chunk, stream
     "sct_band_cross_float": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _P],

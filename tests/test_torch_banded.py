@@ -412,6 +412,28 @@ def test_float_tiles_fit_shared_memory(esz, k):
     assert kern.float_tiles(256, 50, 2, 1024, 3907).chunk < 256
 
 
+@pytest.mark.parametrize("packed", [True, False], ids=["int4", "int8"])
+@pytest.mark.parametrize("k", [1, 6, 50, 256])
+def test_int_tiles_fit_shared_memory(packed, k):
+    """K1–K3's launch shape for every block the wrapper takes: its shared
+    memory fits one H100 block, the column tile is whole 16-byte lanes (a
+    power of two up to 256 bytes), the band chunk is 1..B rows (the whole
+    block where it fits) and at most a far entry a chunk row is staged."""
+    for block in range(1, kern.MAX_BLOCK + 1):
+        for G, n_blocks in ((4096, 3907), (1000, 7), (8, 1)):
+            t = kern.int_tiles(block, k, packed, G, n_blocks)
+            assert t.smem == kern.int_smem_bytes(block, k, packed, t.tile,
+                                                 t.chunk, t.far_cap)
+            assert t.smem <= 232_448
+            assert t.tile % 16 == 0 and 16 <= t.tile <= 256
+            assert t.tile & (t.tile - 1) == 0
+            assert 1 <= t.chunk <= block and t.run >= 1
+            assert 0 <= t.far_cap <= t.chunk
+    assert kern.int_tiles(256, 6, True, 4096, 3907) == (128, 32, 256, 256,
+                                                        216_800)
+    assert kern.int_tiles(256, 50, True, 4096, 3907).chunk < 256
+
+
 def test_wrapper_refuses_bad_operands(setup):
     pt = setup["pt"]
     li = pt.local_idx.to(torch.int32)

@@ -54,43 +54,122 @@ def _assert_close(got, want, scale):
     assert bool((err <= 1e-5 * scale + 1e-30).all()), float(err.max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode,G", [("int4_win", 512), ("int8_win", 256),
-                                    ("int8_band", 260)])
-def test_int8_kernel_matches_plain(cuda_device, plan, mode, G):
-    packed = mode == "int4_win"
-    gen = torch.Generator().manual_seed(1)
-    nb = plan.n_padded // B
-    rows_idx = plan.order[(torch.arange((nb + 2) * B) - B).clamp(0, plan.n - 1)]
-    ops, _ = banded._int_ops(plan, "int4" if packed else "int8",
-                             "win" if mode.endswith("win") else "exact",
-                             rows_idx, use_plain=False)
-    lim = 7 if packed else 127
+def _codes(gen, rows: int, G: int, lim: int, packed: bool):
+    """Random value codes in [-lim, lim], nibble-packed when ``packed``."""
+    c = torch.randint(-lim, lim + 1, (rows, G), generator=gen, dtype=torch.int8)
+    return banded._pack_codes(c) if packed else c
 
-    def codes(rows):
-        c = torch.randint(-lim, lim + 1, (rows, G), generator=gen, dtype=torch.int8)
-        return banded._pack_codes(c) if packed else c
 
+def _far_operands(gen, counts, G: int, lim: int, packed: bool):
+    """Far operands with ``counts[r]`` entries on row r: row pointers,
+    random weight codes in [0, 127] and value codes."""
+    ptr = torch.zeros(counts.shape[0] + 1, dtype=torch.int32)
+    ptr[1:] = torch.cumsum(counts, 0)
+    F = int(ptr[-1])
+    return dict(far_row_ptr=ptr,
+                far_q=torch.randint(0, 128, (F,), generator=gen, dtype=torch.int8),
+                Zf=_codes(gen, F, G, lim, packed))
+
+
+def _check_int_kernel(cuda_device, li, wq, sw, zp, far, blk, packed, mode,
+                      tiles):
     def absc(t):
         return banded._pack_codes(kern.unpack_nibbles(t).abs()) if packed else t.abs()
 
-    zp = codes((nb + 2) * B)
-    far = {}
-    if ops.win:
-        far = dict(far_row_ptr=ops.far_ptr, far_q=ops.win_ops[3].reshape(-1),
-                   Zf=codes(ops.win_ops[0] * ops.win_ops[1]))
-    sw = ops.sw.reshape(-1)
-    want = kern.band_cross_int8(ops.local_idx32, ops.wq, sw, zp, B,
-                                packed=packed, **far)
-    fabs = dict(far, Zf=absc(far["Zf"])) if far else {}
-    scale = kern.band_cross_int8(ops.local_idx32, ops.wq, sw, absc(zp), B,
-                                 packed=packed, **fabs).double()
+    def absw(t):                        # |−128| needs more than int8
+        return t.to(torch.int16).abs()
+
+    want = kern.band_cross_int8(li, wq, sw, zp, blk, packed=packed, **far)
+    fabs = dict(far, Zf=absc(far["Zf"]), far_q=absw(far["far_q"])) if far else {}
+    scale = kern.band_cross_int8_plain(li, absw(wq), sw, absc(zp), blk,
+                                       packed=packed, **fabs).double()
     on = lambda t: t.to(cuda_device)  # noqa: E731
     before = kern.LAUNCHES[mode]
-    got = kern.band_cross_int8(on(ops.local_idx32), on(ops.wq), on(sw), on(zp), B,
-                               packed=packed, **{k: on(v) for k, v in far.items()})
+    got = kern.band_cross_int8_tiled(on(li), on(wq), on(sw), on(zp), blk, tiles,
+                                     packed=packed,
+                                     **{k: on(v) for k, v in far.items()})
     assert kern.LAUNCHES[mode] == before + 1
     _assert_close(got, want, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,G,blk,k,nb,run", [
+    ("int4_win", 512, B, 6, None, None),      # the kNN plan, 40 blocks
+    ("int8_win", 256, B, 6, None, None),
+    ("int8_band", 260, B, 6, None, None),     # ragged: 4-byte ring fills
+    ("int4_win", 1000, 256, 6, 7, 3),         # ragged int4, run ∤ nb
+    ("int8_win", 260, 100, 6, 9, 4),          # B neither 16·m nor 32·m
+    ("int8_band", 4096, 256, 50, 5, 2),       # k = 50: the band in chunks
+    ("int4_win", 4096, 512, 50, 3, 2),
+    ("int8_win", 1024, 512, 6, 4, 3),
+    ("int4_win", 1000, 100, 50, 1, None),     # one-block plans
+    ("int8_band", 260, 256, 6, 1, None),
+])
+def test_int8_kernel_matches_plain(cuda_device, plan, mode, G, blk, k, nb, run):
+    """K1–K3 on the kNN plan's int operands and on synthetic bands (random
+    signed weight codes, some zero; 0–3 far entries a row) at every edge of
+    the design: B of 64/100/256/512, k of 6 and 50, column counts ragged
+    against the 16-byte lane and the tile, runs that do not divide nb, one
+    block; launched through ``band_cross_int8_tiled``."""
+    packed = mode == "int4_win"
+    gen = torch.Generator().manual_seed(1)
+    lim = 7 if packed else 127
+    if nb is None:
+        rows_idx = plan.order[(torch.arange(plan.n_padded + 2 * blk) - blk)
+                              .clamp(0, plan.n - 1)]
+        ops, _ = banded._int_ops(plan, "int4" if packed else "int8",
+                                 "win" if mode.endswith("win") else "exact",
+                                 rows_idx, use_plain=False)
+        li, wq, sw = ops.local_idx32, ops.wq, ops.sw.reshape(-1)
+        far = {}
+        if ops.win:
+            far = dict(far_row_ptr=ops.far_ptr, far_q=ops.win_ops[3].reshape(-1),
+                       Zf=_codes(gen, ops.win_ops[0] * ops.win_ops[1], G, lim,
+                                 packed))
+    else:
+        rows = nb * blk
+        li = torch.randint(0, 3 * blk, (rows, k), generator=gen, dtype=torch.int32)
+        wq = torch.randint(-128, 128, (rows, k), generator=gen, dtype=torch.int8)
+        wq[torch.rand((rows, k), generator=gen) < 0.2] = 0
+        sw = torch.rand(rows, generator=gen) + 0.5
+        far = (_far_operands(gen, torch.randint(0, 4, (rows,), generator=gen), G,
+                             lim, packed) if mode.endswith("win") else {})
+    zp = _codes(gen, li.shape[0] + 2 * blk, G, lim, packed)
+    tiles = kern.int_tiles(blk, li.shape[1], packed, G, li.shape[0] // blk, run=run)
+    _check_int_kernel(cuda_device, li, wq, sw, zp, far, blk, packed, mode, tiles)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,G", [("int4_win", 1024), ("int8_win", 512),
+                                    ("int4_win", 1000), ("int8_band", 260)])
+@pytest.mark.parametrize("sign", [1, -1])
+@pytest.mark.parametrize("wcode", [127, -128])
+def test_int8_kernel_lane_overflow(cuda_device, mode, G, sign, wcode):
+    """Every value code at its extreme (int4 ±7, int8 ±127, one sign per
+    case) and every band and far weight code 127 (or −128), at k = 50 with
+    up to 60 far entries a row (most of them past the chunk's staged far
+    entries): the kernel's packed integer sums (int4's high-nibble sums
+    carry 16 × lag) must not overflow or lose a term — an error of one
+    term is far above the tolerance — so the lags stay exact."""
+    packed = mode == "int4_win"
+    blk, nb, k = 256, 3, 50
+    rows = nb * blk
+    gen = torch.Generator().manual_seed(3)
+    lim = 7 if packed else 127
+    li = torch.randint(0, 3 * blk, (rows, k), generator=gen, dtype=torch.int32)
+    wq = torch.full((rows, k), wcode, dtype=torch.int8)
+    sw = torch.rand(rows, generator=gen) + 0.5
+    far = (_far_operands(gen, torch.randint(0, 61, (rows,), generator=gen), G,
+                         lim, packed) if mode.endswith("win") else {})
+    code = torch.full((1, 2), sign * lim, dtype=torch.int8)
+    fill = int((banded._pack_codes(code) if packed else code)[0, 0])
+    zp = torch.full((rows + 2 * blk, G // 2 if packed else G), fill,
+                    dtype=torch.int8)
+    if far:
+        far["Zf"].fill_(fill)
+        far["far_q"].fill_(wcode)
+    tiles = kern.int_tiles(blk, k, packed, G, nb, run=2)
+    _check_int_kernel(cuda_device, li, wq, sw, zp, far, blk, packed, mode, tiles)
 
 
 @pytest.mark.cuda
