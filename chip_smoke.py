@@ -19,7 +19,10 @@ Phases (the script stops with a non-zero exit at the first failure):
    counts and observed values equal), and the dense-band kernels K5 and
    K6 (bf16 at G=1,024, f32 at G=512; within 1e-5·Σ|terms|; ``torch.bmm``
    of the dense band against the stacked windows, the lag alone, printed
-   as a second yardstick). Each with its time, its plain version's time,
+   as a second yardstick; the share of the band's tiles they skip; every
+   launch shape of ``kern.DENSE_SHAPES`` and the skip turned off, timed
+   through ``kern.band_cross_dense_tiled`` / ``band_cross_rot4_tiled``).
+   Each with its time, its plain version's time,
    its bound on this card, and ``torch.sparse.mm`` of the band as a
    float32 CSR matrix against the float32 table as a library yardstick.
 3. The global null's headline workload through the ops entry points:
@@ -91,8 +94,11 @@ Phases (the script stops with a non-zero exit at the first failure):
    ``banded_permutation_test(precision="bf16")`` at 1,000,000 cells ×
    1,024 genes × 8 draws through "auto" (K4), "pallas" (K5, dense band)
    and "pallas_halo4" (K6, rotation-baked ring), counts within ±1 draw of
-   K4's and null moments within rtol 1e-4, per-draw ms and each kernel's
-   time at that shape; K4 held against its plain version there (bf16 at
+   K4's and null moments within rtol 1e-4, per-draw ms; K5 and K6 held
+   against their plain versions on that call's table in bf16 (1,024 genes)
+   and f32 (512), each timed beside its bound and ``torch.bmm`` of the
+   dense band, with the share of tiles skipped and every launch shape
+   timed; K4 held against its plain version there (bf16 at
    1,024 genes, f32 at 512), with its plain and ``torch.sparse.mm`` times,
    other launch shapes of it timed, and one bf16 draw split part by part
    (Feistel rows, row gather, K4, far-edge terms, Geary's Σ z1² term);
@@ -482,17 +488,39 @@ def dense_work(A, zp):
     """(bytes, operations, unit) one dense-band call (K5 "dense" or K6
     "rot4") needs on the band ``A`` [nb, B, width·B] and the table ``zp``
     [(nb+2)·B, G]: A and zp read once, [G] written; 2·16·16·G operations
-    for each 16×16 tile of A that holds a nonzero weight. The kernels
-    multiply every tile, zeros included, but a kernel that skips the
-    all-zero tiles of the 99%-zero band needs no more (K6's zero fourth
-    column block holds none)."""
-    nb, nr, KA = A.shape
-    tiles = int(A.reshape(nb, nr // 16, 16, KA // 16, 16).ne(0)
-                .any(dim=4).any(dim=2).sum())
+    for each 16×16 tile of A that holds a nonzero weight
+    (``kern.nonzero_tiles``: the tiles the kernels multiply; K6's zero
+    fourth column block holds none)."""
     G = zp.shape[1]
     return ((A.numel() + zp.numel()) * A.element_size() + 4 * G,
-            2 * 16 * 16 * G * tiles,
+            2 * 16 * 16 * G * kern.nonzero_tiles(A),
             "bf16" if A.dtype == torch.bfloat16 else "f32")
+
+
+def skip_share(A) -> str:
+    """The share of A's 16×16 tiles the kernels skip, and of the 64×16
+    tiles (a 64-row tile's k16 steps, whose window slices are not copied)."""
+    nb, nr, KA = A.shape
+    t16 = 1 - kern.nonzero_tiles(A) / (nb * (nr // 16) * (KA // 16))
+    t64 = 1 - kern.nonzero_tiles(A, 64, 16) / (nb * -(-nr // 64) * (KA // 16))
+    return (f"skipped: {100 * t16:.2f}% of the 16x16 tiles, {100 * t64:.2f}% "
+            f"of the 64x16 tiles")
+
+
+def dense_shapes(label: str, mode: str, A, zp, reps: int) -> None:
+    """Time a dense-band kernel's launch shapes on (A, zp): every shape of
+    ``kern.DENSE_SHAPES`` that fits, and the default with the skip turned
+    off."""
+    tiled = (kern.band_cross_dense_tiled if mode == "dense"
+             else kern.band_cross_rot4_tiled)
+    width, esz = A.shape[2] // B, A.element_size()
+    shapes = {f"{shape}": kern.dense_tiles(B, width, esz, shape)
+              for shape in kern.DENSE_SHAPES
+              if kern.dense_smem_bytes(B, width, esz, *shape) <= kern.SMEM_LIMIT}
+    shapes["skip off"] = kern.dense_tiles(B, width, esz, skip=False)
+    for name, t in shapes.items():
+        ms = event_ms(lambda: tiled(A, zp, B, t), reps)
+        print(f"[dense] {label}, launch shape {name} {t}: {ms:.4f} ms")
 
 
 def hold_dense(label: str, fn, plain, A, zp) -> float:
@@ -546,9 +574,10 @@ def phase_dense_kernels(dev, plan, gen, widths, reps: int):
             bmm_ms = event_ms(lambda: torch.bmm(A, win), max(1, reps // 5))
             del win
             report(results, mode, f"{label} (tolerance {REL_TOL:g}·Σ|terms|; "
-                   f"bmm of the dense band {bmm_ms:.4f} ms)", err,
-                   ms, plain_ms, *dense_work(A, zp), lib,
+                   f"bmm of the dense band {bmm_ms:.4f} ms; {skip_share(A)})",
+                   err, ms, plain_ms, *dense_work(A, zp), lib,
                    first=dtype == "bf16")
+            dense_shapes(label, mode, A, zp, reps)
             del A
     return results
 
@@ -2128,9 +2157,11 @@ def phase_dense_routes(dev, gen, n_cells: int = 1_000_000, n_genes: int = 1024,
     "pallas_halo4" (K6) on one 1M-cell plan: each route's launch counts of
     its own, counts within ±1 draw of K4's, null mean / std within rtol
     1e-4; per-draw ms (call set-up included); K5 and K6 held against their
-    plain versions on one gathered table at this shape, and each kernel's
-    time there; K4 held against its plain version there in bf16 and (at
-    512 genes) f32. Returns ({route: launches}, {mode: max |error|})."""
+    plain versions on one gathered table at this shape in bf16 and (at 512
+    genes) f32, each timed beside its bound, ``torch.bmm`` of the dense
+    band against the stacked windows and its other launch shapes, with the
+    share of tiles skipped; K4 held against its plain version there in
+    bf16 and f32. Returns ({route: launches}, {mode: max |error|})."""
     coords = uniform_coords(n_cells, SIDE, gen, dev)
     graph = build_graph(coords, n_neighbors=K, device=dev)
     plan = build_null_plan(graph, coords, block=B)
@@ -2177,8 +2208,9 @@ def phase_dense_routes(dev, gen, n_cells: int = 1_000_000, n_genes: int = 1024,
     zp = Zb[rows]
     w = plan.w_local.to(torch.bfloat16)
     li = plan.local_idx.to(torch.int32)
-    errs = {"float": hold_float_1m(plan, li, Z32[rows], n_genes // 2)}
+    zp32 = Z32[rows]
     del Z32
+    errs = {"float": hold_float_1m(plan, li, zp32, n_genes // 2)}
     errs["float"] = max(errs["float"], hold_float_1m(plan, li, zp, n_genes))
     float_draw_split(plan, Zb, den, S0)
     times = {}
@@ -2187,19 +2219,27 @@ def phase_dense_routes(dev, gen, n_cells: int = 1_000_000, n_genes: int = 1024,
              kern.band_cross_dense_plain),
             ("rot4", banded._build_band_rot4, kern.band_cross_rot4,
              kern.band_cross_rot4_plain)):
-        A = build_fn(plan.local_idx, w, B, torch.bfloat16)
-        errs[mode] = hold_dense(f"{mode} bf16 at {n_cells:,} x {n_genes}", fn,
-                                plain, A, zp)
-        print(f"[dense] {mode} bf16 at {n_cells:,} x {n_genes}: max_abs_err="
-              f"{errs[mode]:.3e} against its plain version (tolerance "
-              f"{REL_TOL:g}·Σ|terms|)")
-        ms = event_ms(lambda: fn(A, zp, B), 5)
-        times[mode] = (ms, *bound(*dense_work(A, zp)))
-        del A
-        torch.cuda.empty_cache()
-    for mode, (ms, b_ms, by) in times.items():
-        print(f"[dense] {mode} kernel, one bf16 draw at {n_cells:,} x {n_genes} "
-              f"({nb} blocks): {ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+        for table in (zp, zp32):
+            dt = table.dtype
+            dtype = "bf16" if dt == torch.bfloat16 else "f32"
+            label = f"{mode} {dtype} at {n_cells:,} x {table.shape[1]:,}"
+            A = build_fn(plan.local_idx, plan.w_local.to(dt), B, dt)
+            err = hold_dense(label, fn, plain, A, table)
+            errs[mode] = max(errs.get(mode, 0.0), err)
+            print(f"[dense] {label}: max_abs_err={err:.3e} against its plain "
+                  f"version (tolerance {REL_TOL:g}·Σ|terms|); {skip_share(A)}")
+            ms = event_ms(lambda: fn(A, table, B), 5)
+            win = stacked_windows(table, nb, 3 if mode == "dense" else 4)
+            bmm_ms = event_ms(lambda: torch.bmm(A, win), 3)
+            del win
+            torch.cuda.empty_cache()
+            times[label] = (ms, *bound(*dense_work(A, table)), bmm_ms)
+            dense_shapes(label, mode, A, table, 5)
+            del A
+            torch.cuda.empty_cache()
+    for label, (ms, b_ms, by, bmm_ms) in times.items():
+        print(f"[dense] {label} ({nb} blocks), one draw: kernel {ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({by}), bmm of the dense band {bmm_ms:.4f} ms")
     return launches, errs
 
 

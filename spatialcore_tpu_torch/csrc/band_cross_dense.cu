@@ -3,450 +3,540 @@
 //
 //   cross[g] = sum_i z1_i[g] * lag_i[g],   lag = A[n] @ window(n)
 //
-// Two kernels, each replacing one Pallas kernel of
+// One main loop serves two kernels, each replacing one Pallas kernel of
 // spatialcore_tpu/ops/banded.py:
 //
 // K5, sct_band_cross_dense (replaces _band_cross_kernel, :385, behind
-//   _band_cross_pallas, :415). A[nb, B, 3B]; block n's window is the three
-//   B-row slabs [n*B, n*B + 3B) of the flat value table Zp [(nb+2)*B, G],
-//   its own rows the centre slab. One flat grid of (band block, gene tile)
-//   pairs, gene tile fastest, so the CTAs that share A[n] run together and
-//   find it in L2 (band blocks on grid.y would cap nb at 65,535): each block
-//   computes lag [B, Gt] = A[n] [B, 3B] @ window [3B, Gt], K-chunked, with
-//   A's chunk and the window's chunk staged in shared memory; every slab is
-//   read by three blocks, as the Pallas kernel's three shifted inputs read it.
-//
+//   _band_cross_pallas, :424). A[nb, B, 3B]; block n's window is the three
+//   B-row slabs n, n+1, n+2 of the flat value table Zp [(nb+2)*B, G]: A's
+//   column c multiplies Zp row n*B + c.
 // K6, sct_band_cross_rot4 (replaces _band_halo_kernel_rot4, :557, behind
-//   _band_cross_pallas_halo4, :631). A4[nb, B, 4B] from _build_band_rot4:
-//   slab s's weights sit at columns (s % 4)*B, and the block's fourth column
-//   block is zero. A block walks kRun consecutive band blocks of one gene
-//   tile over a 4-slot ring of [B, Gt] slabs in shared memory (slot s%4
-//   holds slab s), filled by cp.async: one new slab per band block, so Zp
-//   crosses HBM once and not three times. Per band block it computes ONE
-//   [B, 4B] @ [4B, Gt] product over the whole ring, K-chunked (A4's row
-//   tile is 512 KB of bf16 at B=256 and does not fit shared memory). The
-//   slot the next slab is being copied into meets zero weights, so the
-//   ring is zeroed before its first fill: a NaN of uninitialised memory
-//   times 0 would poison the product (the Pallas kernel zeroes its window
-//   for the same reason).
+//   _band_cross_pallas_halo4, :635). A4[nb, B, 4B] from _build_band_rot4:
+//   column block s multiplies the ring slot s, which holds slab
+//   n + (s - n) mod 4 (kernels/band_cross.rot4_slabs); a slab past the
+//   table reads as zeros. The block no window slab covers is zero in every
+//   A4 that _build_band_rot4 makes.
+// Own rows (z1) are slab n+1 in both.
 //
-// What bounds them on the H100. These kernels multiply the whole dense band,
-// 0.8% nonzero at B=256, k=6: 2*B*3B*G*nb (K5) and 2*B*4B*G*nb (K6)
-// operations, 1.57e12 and 2.10e12 at 1M cells x 1,024 genes, >= 1.59 ms and
-// >= 2.12 ms on the bf16 tensor cores (989 TFLOP/s); in f32 the same work
-// runs on the CUDA cores (67 TFLOP/s), not in TF32, which would change the
-// numbers against the plain version. The function itself needs far less:
-// only the 16x16 tiles of A that hold a nonzero weight (K6's fourth column
-// block holds none), so its bound is reading A and Zp once (bytes). The
-// compact-band kernel of band_cross_float.cu (K4) does the same cross in
-// 2*nnz*G operations without the dense band's bytes.
+// What bounds them on the H100. The band is 99% zero (0.8% nonzero at
+// B=256, k=6): 11.7% of K5's 16x16 tiles of A hold a weight, 8.8% of K6's.
+// Multiplying every tile is 1.57e12 (K5) / 2.10e12 (K6) operations at 1M
+// cells x 1,024 bf16 genes, >= 1.59 / 2.12 ms on the tensor cores; the
+// nonzero 16x16 tiles alone need ~0.2 ms. So once the zero tiles are
+// skipped the bound is bytes: A and Zp read once, 1.07 / 1.22 ms there.
+// f32 has no tensor-core route that keeps full precision (TF32's 10-bit
+// mantissa breaks the 1e-5 * sum|terms| check), so it runs FFMA on the
+// CUDA cores (67 TFLOP/s), where skipping is the whole lever.
 //
-// Design (right and simple first):
-// - bf16: WMMA 16x16x16 tiles (bf16 in, f32 accumulate) on the tensor
-//   cores; f32: register-blocked FFMA, 8 outputs a thread.
-// - Row tiles of kMt = 64 rows, gene tiles of Gt (64 bf16 / 32 f32), K
-//   chunks of Kc (64 bf16 / 32 f32); 8 warps.
-// - Each row tile's lag goes through shared memory, and the block reduces
-//   z1 * lag over its rows in a fixed order into its own partial row
-//   [n, G]; the wrapper sums the partials in a fixed order. No atomics:
-//   results are bitwise reproducible run to run.
-// - The ragged gene edge is masked in the kernel (zero columns in, no
-//   store out); B is a multiple of 16 and at most 256.
+// Design. A CTA owns one row tile of MT rows (16, 32 or 64) of one band
+// block and walks every gene tile of Gt genes (512 bytes of a row: 256
+// bf16, 128 f32); the grid is flat, one CTA per (block, row tile), so any
+// nb fits.
+// - The row tile of A, [MT, W*B], is copied into shared memory ONCE by
+//   cp.async and serves every gene tile: A crosses L2 once, not once per
+//   gene tile.
+// - Skipping. Once the tile has landed, each thread takes one 16x16 tile
+//   (16 rows of a warp's row group x one k16 step) and tests whether any
+//   weight in it is nonzero; one warp then lists the k16 steps that some
+//   row group needs, each with its row-group mask and the first Zp row of
+//   its window slice (computed once, so the loop divides nothing). Only
+//   those steps' window slices [16 rows, Gt] are copied, and a warp whose
+//   16x16 tile is zero skips the step's MMA (bf16) or FMAs (f32). K6's
+//   fourth column block is zero, so its slices are never copied and never
+//   multiplied. `skip` = 0 lists every step and multiplies every tile (for
+//   timing). A skipped tile contributes nothing, also where the window
+//   holds an Inf or NaN that the plain version's 0 * Inf turns into NaN.
+// - The list ends with the row tile's own rows (z1), one 16-row slice per
+//   row group, which stream through the same ring: when one lands, the lag
+//   of that row group is complete, and its warps multiply it by z1 from
+//   shared memory. No z1 load waits on global memory in the epilogue.
+// - Copies: S stages of two slices (S = 2..4) by 16-byte cp.async,
+//   zero-filled past G or past the table (K6's slab nb+2): S-1 stages in
+//   flight while one is multiplied, one barrier a stage. A slice is 16
+//   consecutive rows of Zp, since B is a multiple of 16 and a k16 step
+//   never straddles a slab. Rows that are not whole 16-byte chunks (G * esz
+//   % 16 != 0) take element loads (the VEC = false instance).
+// - bf16: mma.sync m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix
+//   (A row-major, the window through .trans), 8 warps as (MT/16) row
+//   groups x (8 / (MT/16)) column groups. It skips at 16 x 16, the tile of
+//   one MMA's K step and one warp's rows; wgmma's 64-row tiles would skip
+//   at 64 x 16 (twice the tiles kept), and the tensor cores' rate is not
+//   what holds this kernel back (its time barely moves with the MMAs gone).
+// - f32: FFMA, a lane holding 2 rows x 4 genes per 16 genes of its warp.
+// - Sums: per gene tile, z1 * lag summed over the tile's rows in a fixed
+//   order (a shuffle tree within a warp, then the row groups in order) into
+//   the CTA's own partial row [n*T + t, G]; the wrapper sums the partials
+//   in a fixed order. No atomics: bitwise reproducible run to run.
+// - Ragged edges: genes past G load as zeros and are not stored; rows of
+//   the row tile past B are zero (so skipped), and their own-row slice
+//   reads as zeros.
 //
-// Later work (not here): wgmma and TMA, double-buffered A chunks, and
-// skipping the all-zero 16-column sub-tiles of the 99%-zero band.
+// What it re-reads: each window slice once per row tile that needs it, per
+// gene tile (from L2: the CTAs of neighbouring blocks run together, so Zp
+// crosses HBM about once). K5 and K6 share the loop; K6's ring of slabs is
+// only an address map here (slot s holds slab n + (s - n) mod 4), because
+// a shared-memory ring of 4B rows would cap the gene tile at 64 bf16 and
+// bring back A's re-reads. The launch shape (MT, S and the skip) comes
+// from kernels/band_cross.dense_tiles, mirrored by dense_smem_bytes.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+
+#include <type_traits>
+
+#include "slab_ring.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;
-constexpr int kMt = 64;     // rows of A per row tile
-constexpr int kRun = 16;    // K6: band blocks per thread block
+constexpr int kThreads = 256;           // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxSteps = 64;           // k16 steps of A's row: W*B/16 <= 4*256/16
+constexpr int kMaxList = kMaxSteps + 4; // ... and up to 4 own-row slices
+constexpr size_t kSmemMax = 232448;     // 227 KB a block may use on sm_90
+constexpr unsigned kOwn = 0x8000;       // list entry: an own-row (z1) slice
+constexpr int kGtBytes = 512;           // bytes of a row in a gene tile
+constexpr int kPer = 2;                 // window slices a pipeline stage
 
 template <typename T>
-struct Cfg;
-template <>
-struct Cfg<bf16> {
-  static constexpr int Gt = 64;   // genes per block
-  static constexpr int Kc = 64;   // K chunk
-  static constexpr int ldA = Kc + 8;
-  static constexpr int ldW = Gt + 8;
+struct Cfg {
+  static constexpr int esz = sizeof(T);
+  static constexpr int Gt = kGtBytes / esz;       // genes per gene tile
+  static constexpr int pad = 16 / esz;            // 16 bytes a row: no ldmatrix conflicts
+  static constexpr int ldW = Gt + pad;
+  static constexpr int VE = 16 / esz;             // elements of one 16-byte copy
+  static constexpr int TPR = kGtBytes / 16;       // 16-byte copies a slice row
+  static constexpr int CPT = 16 * TPR / kThreads; // ... a thread a slice
+  static constexpr int SLICE = 16 * ldW;          // elements of a slice slot
 };
-template <>
-struct Cfg<float> {
-  static constexpr int Gt = 32;
-  static constexpr int Kc = 32;
-  static constexpr int ldA = Kc + 4;
-  static constexpr int ldW = Gt + 4;
-};
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) / 16 * 16; }
 
+// Shared-memory layout, mirrored by band_cross.dense_smem_bytes: A's row
+// tile [MT][W*B + pad]; the ring of S stages of kPer slices [16][ldW];
+// the row groups' sums [MT/16][Gt] f32; the list's first Zp rows
+// [kMaxList] int; the 16x16 tile flags [4][kMaxSteps]; the list
+// [kMaxList] and its length.
 template <typename T>
-__device__ __forceinline__ T zero_value();
-template <>
-__device__ __forceinline__ float zero_value<float>() { return 0.f; }
-template <>
-__device__ __forceinline__ bf16 zero_value<bf16>() { return __float2bfloat16(0.f); }
-
-__host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) / 128 * 128; }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-// Stage rows [r0, r0 + kMt) x cols [k0, k0 + Kc) of one band block's
-// A [B, KA] (row-major) into sA [kMt][ldA]; rows >= B and cols >= KA are
-// zero. KA is a multiple of 16, so a 16-byte vector never straddles it.
-template <typename T>
-__device__ void stage_a(T* sA, const T* __restrict__ A_blk, int B, int KA, int r0, int k0) {
+__host__ __device__ constexpr size_t smem_bytes(int MT, int KA, int S) {
   using C = Cfg<T>;
-  constexpr int VE = 16 / sizeof(T);
-  constexpr int vpr = C::Kc / VE;
-  for (int v = threadIdx.x; v < kMt * vpr; v += kThreads) {
-    const int r = v / vpr;
-    const int c = (v % vpr) * VE;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < B && k0 + c < KA) {
-      val = __ldg(reinterpret_cast<const uint4*>(A_blk + static_cast<size_t>(r0 + r) * KA + k0 + c));
-    }
-    *reinterpret_cast<uint4*>(sA + r * C::ldA + c) = val;
-  }
+  return align16(static_cast<size_t>(MT) * (KA + C::pad) * sizeof(T)) +
+         static_cast<size_t>(S) * kPer * C::SLICE * sizeof(T) +
+         static_cast<size_t>(MT / 16) * C::Gt * 4 + 4 * kMaxList + 4 * kMaxSteps +
+         2 * kMaxList + 16;
 }
 
-// lag tile [kMt, Gt] = sA [kMt, Kc] @ sW [Kc, Gt] accumulated over K chunks.
-// bf16: warps 4 (rows of 16) x 2 (cols of 32), two 16x16 accumulators each.
-struct AccBf16 {
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc[2];
+template <typename T>
+__device__ __forceinline__ T zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ bf16 zero_of<bf16>() { return __float2bfloat16(0.f); }
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// Per-warp arithmetic: lag[16 rows, CW genes] += A[16 rows, 16] @
+// slice[16, CW genes] for one k16 step; and the epilogue, sum over the
+// warp's 16 rows of z1 * lag with z1 read from an own-row slice.
+// ---------------------------------------------------------------------------
+
+// bf16: CW / 8 m16n8k16 accumulators. Fragment layout (PTX ISA): lane
+// (g = lane/4, t = lane%4) holds rows g, g+8 and columns 2t, 2t+1.
+template <int CW, int LDW>
+struct WarpMma {
+  static constexpr int NT = CW / 8;
+  static_assert(NT % 2 == 0, "ldmatrix.x4.trans loads two n8 tiles");
+  float acc[NT][4];
+
   __device__ void zero() {
-    nvcuda::wmma::fill_fragment(acc[0], 0.f);
-    nvcuda::wmma::fill_fragment(acc[1], 0.f);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
   }
-  __device__ void mma(const bf16* sA, const bf16* W, int ldW) {
-    using namespace nvcuda;
-    using C = Cfg<bf16>;
-    const int warp = threadIdx.x / 32;
-    const int wr = warp / 2, wc = warp % 2;
+
+  // a: this lane's ldmatrix row of A at the step's first column; w: this
+  // lane's ldmatrix.trans row of the slice at the warp's first gene.
+  __device__ void step(const bf16* a, const bf16* w) {
+    unsigned a0, a1, a2, a3;
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(a0), "=r"(a1), "=r"(a2), "=r"(a3)
+                 : "r"(smem_u32(a))
+                 : "memory");
 #pragma unroll
-    for (int kk = 0; kk < C::Kc; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, sA + wr * 16 * C::ldA + kk, C::ldA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, W + kk * ldW + wc * 32 + j * 16, ldW);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
+    for (int jj = 0; jj < NT / 2; ++jj) {
+      unsigned b0, b1, b2, b3;
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                   : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
+                   : "r"(smem_u32(w + jj * 16))
+                   : "memory");
+      mma(acc[2 * jj], a0, a1, a2, a3, b0, b1);
+      mma(acc[2 * jj + 1], a0, a1, a2, a3, b2, b3);
     }
   }
-  __device__ void store(float* sLag, int ldL) {
-    const int warp = threadIdx.x / 32;
-    const int wr = warp / 2, wc = warp % 2;
-    for (int j = 0; j < 2; ++j) {
-      nvcuda::wmma::store_matrix_sync(sLag + wr * 16 * ldL + wc * 32 + j * 16, acc[j], ldL,
-                                      nvcuda::wmma::mem_row_major);
+
+  __device__ static void mma(float* c, unsigned a0, unsigned a1, unsigned a2, unsigned a3,
+                             unsigned b0, unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  }
+
+  // z: the own-row slice at the warp's first gene (rows of the row group);
+  // red[c] = sum over the 16 rows of z1 * lag for the warp's CW genes.
+  __device__ void reduce(const bf16* z, float* red, int lane) const {
+    const int g = lane / 4, t = lane % 4;
+    float v[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const unsigned lo = *reinterpret_cast<const unsigned*>(z + g * LDW + 8 * j + 2 * t);
+      const unsigned hi = *reinterpret_cast<const unsigned*>(z + (g + 8) * LDW + 8 * j + 2 * t);
+      v[j][0] = acc[j][0] * __uint_as_float(lo << 16) + acc[j][2] * __uint_as_float(hi << 16);
+      v[j][1] = acc[j][1] * __uint_as_float(lo & 0xffff0000u) +
+                acc[j][3] * __uint_as_float(hi & 0xffff0000u);
     }
+#pragma unroll
+    for (int m = 4; m < 32; m *= 2)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) v[j][h] += __shfl_xor_sync(0xffffffffu, v[j][h], m);
+    if (g == 0)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        *reinterpret_cast<float2*>(red + 8 * j + 2 * t) = make_float2(v[j][0], v[j][1]);
   }
 };
 
-// f32: thread (ty = t / 8, tx = t % 8) owns rows 2ty, 2ty+1 and cols
-// 4tx .. 4tx+3 of the [64, 32] tile.
-struct AccF32 {
-  float acc[2][4];
+// f32: lane (p = lane/4, q = lane%4) holds rows 2p, 2p+1 and, for each
+// 16-gene group j of the warp, genes 16j + 4q .. 16j + 4q + 3.
+template <int CW, int LDW>
+struct WarpFma {
+  static constexpr int NQ = CW / 16;
+  static_assert(NQ >= 1, "a warp covers at least 16 genes");
+  float acc[2][NQ][4];
+
   __device__ void zero() {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-  __device__ void mma(const float* sA, const float* W, int ldW) {
-    using C = Cfg<float>;
-    const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
-#pragma unroll 8
-    for (int kk = 0; kk < C::Kc; ++kk) {
-      const float a0 = sA[(2 * ty) * C::ldA + kk];
-      const float a1 = sA[(2 * ty + 1) * C::ldA + kk];
+      for (int j = 0; j < NQ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float b = W[kk * ldW + 4 * tx + j];
-        acc[0][j] = fmaf(a0, b, acc[0][j]);
-        acc[1][j] = fmaf(a1, b, acc[1][j]);
+        for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+  }
+
+  // a: this lane's first A row at the step's first column; w: this lane's
+  // first gene in row 0 of the slice.
+  __device__ void step(const float* a, int ldA, const float* w) {
+#pragma unroll
+    for (int kk = 0; kk < 16; kk += 4) {
+      const float4 x0 = *reinterpret_cast<const float4*>(a + kk);
+      const float4 x1 = *reinterpret_cast<const float4*>(a + ldA + kk);
+      const float r0[4] = {x0.x, x0.y, x0.z, x0.w};
+      const float r1[4] = {x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          const float4 b = *reinterpret_cast<const float4*>(w + (kk + k) * LDW + 16 * j);
+          acc[0][j][0] = fmaf(r0[k], b.x, acc[0][j][0]);
+          acc[0][j][1] = fmaf(r0[k], b.y, acc[0][j][1]);
+          acc[0][j][2] = fmaf(r0[k], b.z, acc[0][j][2]);
+          acc[0][j][3] = fmaf(r0[k], b.w, acc[0][j][3]);
+          acc[1][j][0] = fmaf(r1[k], b.x, acc[1][j][0]);
+          acc[1][j][1] = fmaf(r1[k], b.y, acc[1][j][1]);
+          acc[1][j][2] = fmaf(r1[k], b.z, acc[1][j][2]);
+          acc[1][j][3] = fmaf(r1[k], b.w, acc[1][j][3]);
+        }
       }
     }
   }
-  __device__ void store(float* sLag, int ldL) {
-    const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
+
+  // z: the own-row slice at the warp's first gene
+  __device__ void reduce(const float* z, float* red, int lane) const {
+    const int p = lane / 4, q = lane % 4;
+    float v[NQ][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < NQ; ++j) {
+      const float4 z0 = *reinterpret_cast<const float4*>(z + (2 * p) * LDW + 16 * j + 4 * q);
+      const float4 z1 = *reinterpret_cast<const float4*>(z + (2 * p + 1) * LDW + 16 * j + 4 * q);
+      v[j][0] = acc[0][j][0] * z0.x + acc[1][j][0] * z1.x;
+      v[j][1] = acc[0][j][1] * z0.y + acc[1][j][1] * z1.y;
+      v[j][2] = acc[0][j][2] * z0.z + acc[1][j][2] * z1.z;
+      v[j][3] = acc[0][j][3] * z0.w + acc[1][j][3] * z1.w;
+    }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sLag[(2 * ty + i) * ldL + 4 * tx + j] = acc[i][j];
+    for (int m = 4; m < 32; m *= 2)
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[j][c] += __shfl_xor_sync(0xffffffffu, v[j][c], m);
+    if (p == 0)
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+        *reinterpret_cast<float4*>(red + 16 * j + 4 * q) = make_float4(v[j][0], v[j][1], v[j][2], v[j][3]);
   }
 };
 
-template <typename T>
-struct Acc;
-template <>
-struct Acc<bf16> : AccBf16 {};
-template <>
-struct Acc<float> : AccF32 {};
-
-template <typename T>
-struct Smem {
-  using C = Cfg<T>;
-  static constexpr int ldL = C::Gt + 4;
-  static constexpr int nRG = kThreads / C::Gt;   // row groups of the reduction
-  static constexpr size_t a_bytes = align128(sizeof(T) * kMt * C::ldA);
-  static constexpr size_t lag_bytes = align128(sizeof(float) * kMt * ldL);
-  static constexpr size_t red_bytes = align128(sizeof(float) * kThreads);
-  __host__ __device__ static size_t w_bytes(int rows) { return align128(sizeof(T) * static_cast<size_t>(rows) * C::ldW); }
-};
-
-// Adds sum over this row tile's rows of z1 * lag to `cross` (thread (rg, c)
-// takes rows rg, rg + nRG, ... in order). z1(i) gives row i's value at
-// column c of the tile.
-template <typename T, typename Z1>
-__device__ __forceinline__ float reduce_rows(const float* sLag, int B, int r0, float cross, Z1 z1) {
-  using S = Smem<T>;
-  const int c = threadIdx.x % Cfg<T>::Gt;
-  const int rg = threadIdx.x / Cfg<T>::Gt;
-  for (int i = rg; i < kMt && r0 + i < B; i += S::nRG) {
-    cross = __fadd_rn(cross, __fmul_rn(z1(i, c), sLag[i * S::ldL + c]));
-  }
-  return cross;
-}
-
-// Row groups' sums into partial[n, g0 + c], in a fixed order.
-template <typename T>
-__device__ __forceinline__ void write_partial(float* red, float cross, float* __restrict__ partial,
-                                              int n, int g0, int G) {
-  using C = Cfg<T>;
-  red[threadIdx.x] = cross;
-  __syncthreads();
-  if (threadIdx.x < C::Gt && g0 + threadIdx.x < G) {
-    float s = 0.f;
-    for (int rg = 0; rg < Smem<T>::nRG; ++rg) s = __fadd_rn(s, red[rg * C::Gt + threadIdx.x]);
-    partial[static_cast<size_t>(n) * G + g0 + threadIdx.x] = s;
-  }
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------------------
-// K5: dense band, three slabs read per block
+// The kernel: W window slabs (3: K5, 4: K6), MT rows a CTA, S stages of kPer
+// slices; VEC: Zp's rows are whole 16-byte chunks
 // ---------------------------------------------------------------------------
 
-// Four CTAs an SM (at most 64 registers a thread): the flat grid's index
-// arithmetic otherwise lifts bf16 to 74 registers and three CTAs an SM.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 4)
+template <typename T, int W, int MT, int S, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
 band_cross_dense_kernel(const T* __restrict__ A, const T* __restrict__ zp,
-                        float* __restrict__ partial, int B, int G, int vec_ok) {
+                        float* __restrict__ partial, int nb, int B, int G, int skip) {
   using C = Cfg<T>;
-  using S = Smem<T>;
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int WR = MT / 16;                   // row groups of 16
+  constexpr int WC = kWarps / WR;               // column groups
+  constexpr int CW = C::Gt / WC;                // genes a warp
+  using Warp = typename std::conditional<kBf16, WarpMma<CW, C::ldW>, WarpFma<CW, C::ldW>>::type;
+
   extern __shared__ __align__(128) unsigned char smem[];
+  const int KA = W * B;
+  const int ldA = KA + C::pad;
+  const int KS = KA / 16;                       // k16 steps of a row
   T* sA = reinterpret_cast<T*>(smem);
-  T* sW = reinterpret_cast<T*>(smem + S::a_bytes);
-  float* sLag = reinterpret_cast<float*>(smem + S::a_bytes + S::w_bytes(C::Kc));
-  float* red = reinterpret_cast<float*>(smem + S::a_bytes + S::w_bytes(C::Kc) + S::lag_bytes);
+  T* ring = reinterpret_cast<T*>(smem + align16(static_cast<size_t>(MT) * ldA * sizeof(T)));
+  float* red = reinterpret_cast<float*>(ring + S * kPer * C::SLICE);
+  int* zrow = reinterpret_cast<int*>(red + WR * C::Gt);    // an entry's first Zp row
+  unsigned char* flag = reinterpret_cast<unsigned char*>(zrow + kMaxList);
+  uint16_t* list = reinterpret_cast<uint16_t*>(flag + 4 * kMaxSteps);
+  int* n_list = reinterpret_cast<int*>(list + kMaxList);
 
-  const int n_gt = (G + C::Gt - 1) / C::Gt;
-  const int n = blockIdx.x / n_gt;
-  const int g0 = (blockIdx.x % n_gt) * C::Gt;
-  const int KA = 3 * B;
-  const T* A_blk = A + static_cast<size_t>(n) * B * KA;
-  const size_t win0 = static_cast<size_t>(n) * B;      // first window row
-  constexpr int VE = 16 / sizeof(T);
-  float cross = 0.f;
+  const int T_ = (B + MT - 1) / MT;             // row tiles a block
+  const int n = blockIdx.x / T_;
+  const int r0 = (blockIdx.x - n * T_) * MT;    // first row of the tile in the block
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = warp % WR, wc = warp / WR;
 
-  for (int r0 = 0; r0 < B; r0 += kMt) {
-    Acc<T> acc;
-    acc.zero();
-    for (int k0 = 0; k0 < KA; k0 += C::Kc) {
-      stage_a<T>(sA, A_blk, B, KA, r0, k0);
-      // window rows [k0, k0 + Kc) x genes [g0, g0 + Gt)
-      if (vec_ok) {
-        constexpr int vpr = C::Gt / VE;
-        for (int v = threadIdx.x; v < C::Kc * vpr; v += kThreads) {
-          const int r = v / vpr;
-          const int c = (v % vpr) * VE;
-          uint4 val = make_uint4(0, 0, 0, 0);
-          if (k0 + r < KA && g0 + c < G) {
-            val = __ldg(reinterpret_cast<const uint4*>(zp + (win0 + k0 + r) * G + g0 + c));
-          }
-          *reinterpret_cast<uint4*>(sW + r * C::ldW + c) = val;
+  // A's row tile, once, a warp a row: rows past B are zeros
+  {
+    const T* A_blk = A + (static_cast<size_t>(n) * B + r0) * KA;
+    for (int r = warp; r < MT; r += kWarps) {
+      const bool in = r0 + r < B;
+      for (int c = lane * C::VE; c < KA; c += 32 * C::VE)
+        cp_async16(sA + r * ldA + c, in ? A_blk + static_cast<size_t>(r) * KA + c : A, in ? 16 : 0);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  // flag each 16x16 tile (row group rg, step s) that holds a nonzero weight
+  for (int i = threadIdx.x; i < WR * KS; i += kThreads) {
+    const int rg = i / KS, s = i - rg * KS;
+    uint4 any = make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const uint4* p = reinterpret_cast<const uint4*>(sA + (16 * rg + r) * ldA + 16 * s);
+#pragma unroll
+      for (int h = 0; h < C::esz; ++h) {
+        const uint4 x = p[h];
+        any.x |= x.x; any.y |= x.y; any.z |= x.z; any.w |= x.w;
+      }
+    }
+    flag[rg * kMaxSteps + s] = !skip || (any.x | any.y | any.z | any.w) != 0;
+  }
+  __syncthreads();
+  // The list a gene tile walks: the steps some row group needs, in order,
+  // each with its row-group mask and the Zp row its window slice starts at
+  // (-1: K6's slab nb+2, zeros); then the WR own-row slices (z1 of row
+  // group k, rows past B zeros), multiplied with the finished lag.
+  if (warp == 0) {
+    int count = 0;
+    for (int base = 0; base < KS; base += 32) {
+      const int s = base + lane;
+      unsigned m = 0;
+      if (s < KS)
+#pragma unroll
+        for (int rg = 0; rg < WR; ++rg) m |= static_cast<unsigned>(flag[rg * kMaxSteps + s]) << rg;
+      const unsigned need = __ballot_sync(0xffffffffu, m != 0);
+      if (m) {
+        const int i = count + __popc(need & ((1u << lane) - 1));
+        const int c0 = 16 * s, slot = c0 / B;
+        const int slab = W == 4 ? n + ((slot - n) & 3) : n + slot;   // ring slot -> slab
+        list[i] = static_cast<uint16_t>(s | m << 8);
+        zrow[i] = slab <= nb + 1 ? slab * B + c0 - slot * B : -1;
+      }
+      count += __popc(need);
+    }
+    if (count > 0 && lane < WR) {
+      list[count + lane] = static_cast<uint16_t>(kOwn | lane);
+      zrow[count + lane] = r0 + 16 * lane < B ? (n + 1) * B + r0 + 16 * lane : -1;
+    }
+    if (lane == 0) *n_list = count > 0 ? count + WR : 0;
+  }
+  __syncthreads();
+  const int nl = *n_list;
+  float* out = partial + static_cast<size_t>(blockIdx.x) * G;
+  if (nl == 0) {                                // an all-zero row tile
+    for (int g = threadIdx.x; g < G; g += kThreads) out[g] = 0.f;
+    return;
+  }
+
+  // This thread's 16-byte pieces of a slice: row cr[i], element cc[i]
+  int cr[C::CPT], cc[C::CPT];
+#pragma unroll
+  for (int i = 0; i < C::CPT; ++i) {
+    const int v = threadIdx.x + i * kThreads;
+    cr[i] = v / C::TPR;
+    cc[i] = (v % C::TPR) * C::VE;
+  }
+  // Stage (gene tile g0, list entries e0 .. e0 + kPer) into ring stage `st`
+  auto issue = [&](int g0, int e0, int st) {
+    T* dst = ring + st * (kPer * C::SLICE);
+    const int left = G - g0;                    // genes of the tile inside G
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (e0 + j >= nl) break;
+      const int row = zrow[e0 + j];
+      if constexpr (VEC) {
+        const T* src = zp + static_cast<size_t>(row < 0 ? 0 : row) * G + g0;
+#pragma unroll
+        for (int i = 0; i < C::CPT; ++i) {
+          const bool in = row >= 0 && cc[i] < left;
+          cp_async16(dst + j * C::SLICE + cr[i] * C::ldW + cc[i],
+                     in ? src + cr[i] * G + cc[i] : zp, in ? 16 : 0);
         }
       } else {
-        for (int v = threadIdx.x; v < C::Kc * C::Gt; v += kThreads) {
-          const int r = v / C::Gt;
-          const int c = v % C::Gt;
-          sW[r * C::ldW + c] = (k0 + r < KA && g0 + c < G) ? zp[(win0 + k0 + r) * G + g0 + c]
-                                                            : zero_value<T>();
+        for (int v = threadIdx.x; v < 16 * C::Gt; v += kThreads) {
+          const int r = v / C::Gt, c = v % C::Gt;
+          dst[j * C::SLICE + r * C::ldW + c] = row >= 0 && c < left
+              ? zp[static_cast<size_t>(row + r) * G + g0 + c] : zero_of<T>();
         }
       }
-      __syncthreads();
-      acc.mma(sA, sW, C::ldW);
-      __syncthreads();
     }
-    acc.store(sLag, S::ldL);
-    __syncthreads();
-    const size_t own0 = win0 + B + r0;                  // centre slab rows
-    const bool col_ok = g0 + static_cast<int>(threadIdx.x % C::Gt) < G;
-    cross = reduce_rows<T>(sLag, B, r0, cross, [&](int i, int c) {
-      return col_ok ? to_f32(zp[(own0 + i) * G + g0 + c]) : 0.f;
-    });
-    __syncthreads();
-  }
-  write_partial<T>(red, cross, partial, n, g0, G);
-}
+  };
 
-// ---------------------------------------------------------------------------
-// K6: rotation-baked A4 over a 4-slot ring, one slab loaded per band block
-// ---------------------------------------------------------------------------
+  // stages in order: gene tile by gene tile, kPer list entries each
+  const int n_gt = (G + C::Gt - 1) / C::Gt;
+  const int Q = n_gt * ((nl + kPer - 1) / kPer);
+  constexpr int D = S - 1;                      // stages in flight
+  int ig = 0, ie = 0;                           // next stage to issue: gene, entry
+  auto issue_next = [&](int q) {
+    if (q < Q) issue(ig, ie, q % S);
+    cp_async_commit();
+    ie += kPer;
+    if (ie >= nl) { ie = 0; ig += C::Gt; }
+  };
+#pragma unroll 1
+  for (int d = 0; d < D; ++d) issue_next(d);
 
-// Copy slab s (rows [s*B, s*B + B) of Zp, genes [g0, g0 + Gt)) into ring
-// slot s % 4; asynchronous (cp.async, zero-filled past G) when rows are
-// 16-byte aligned, else plain loads.
-template <typename T>
-__device__ void load_slab(T* ring, const T* __restrict__ zp, int s, int B, int G, int g0,
-                          int vec_ok) {
-  using C = Cfg<T>;
-  constexpr int VE = 16 / sizeof(T);
-  T* dst = ring + static_cast<size_t>(s % 4) * B * C::ldW;
-  const size_t row0 = static_cast<size_t>(s) * B;
-  if (vec_ok) {
-    constexpr int vpr = C::Gt / VE;
-    for (int v = threadIdx.x; v < B * vpr; v += kThreads) {
-      const int r = v / vpr;
-      const int c = (v % vpr) * VE;
-      const bool in = g0 + c < G;
-      cp_async16(dst + r * C::ldW + c, in ? zp + (row0 + r) * G + g0 + c : zp, in ? 16 : 0);
-    }
+  Warp acc;
+  acc.zero();
+  // this lane's operand addresses within A's tile and a slice slot
+  const T* a_lane;
+  int w_off;
+  if constexpr (kBf16) {
+    a_lane = sA + (16 * wr + lane % 16) * ldA + (lane / 16) * 8;
+    w_off = ((lane % 8) + ((lane / 8) % 2) * 8) * C::ldW + (lane / 16) * 8 + wc * CW;
   } else {
-    for (int v = threadIdx.x; v < B * C::Gt; v += kThreads) {
-      const int r = v / C::Gt;
-      const int c = v % C::Gt;
-      dst[r * C::ldW + c] = g0 + c < G ? zp[(row0 + r) * G + g0 + c] : zero_value<T>();
-    }
+    a_lane = sA + (16 * wr + 2 * (lane / 4)) * ldA;
+    w_off = 4 * (lane % 4) + wc * CW;
   }
-  cp_async_commit();
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-band_cross_rot4_kernel(const T* __restrict__ A4, const T* __restrict__ zp,
-                       float* __restrict__ partial, int nb, int B, int G, int vec_ok) {
-  using C = Cfg<T>;
-  using S = Smem<T>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sA = reinterpret_cast<T*>(smem);
-  T* ring = reinterpret_cast<T*>(smem + S::a_bytes);             // [4B][ldW]
-  float* sLag = reinterpret_cast<float*>(smem + S::a_bytes + S::w_bytes(4 * B));
-  float* red = reinterpret_cast<float*>(smem + S::a_bytes + S::w_bytes(4 * B) + S::lag_bytes);
-
-  const int g0 = blockIdx.x * C::Gt;
-  const int n0 = blockIdx.y * kRun;
-  const int n1 = min(n0 + kRun, nb);
-  const int KA = 4 * B;
-
-  // zero the whole ring before its first fill (see the header)
-  for (int v = threadIdx.x; v < 4 * B * C::ldW; v += kThreads) ring[v] = zero_value<T>();
-  __syncthreads();
-  load_slab<T>(ring, zp, n0, B, G, g0, vec_ok);
-  load_slab<T>(ring, zp, n0 + 1, B, G, g0, vec_ok);
-  load_slab<T>(ring, zp, n0 + 2, B, G, g0, vec_ok);
-
-  for (int n = n0; n < n1; ++n) {
-    cp_async_wait_all();          // slabs n, n+1, n+2 have landed
-    __syncthreads();
-    // prefetch slab n+3 into the slot slab n-1 held; it meets zero weights
-    if (n + 3 <= nb + 1) load_slab<T>(ring, zp, n + 3, B, G, g0, vec_ok);
-    const T* A_blk = A4 + static_cast<size_t>(n) * B * KA;
-    const T* z1 = ring + static_cast<size_t>((n + 1) % 4) * B * C::ldW;
-    float cross = 0.f;
-    for (int r0 = 0; r0 < B; r0 += kMt) {
-      Acc<T> acc;
-      acc.zero();
-      for (int k0 = 0; k0 < KA; k0 += C::Kc) {
-        stage_a<T>(sA, A_blk, B, KA, r0, k0);
-        __syncthreads();
-        acc.mma(sA, ring + static_cast<size_t>(k0) * C::ldW, C::ldW);
-        __syncthreads();
+  float* red_w = red + wr * C::Gt + wc * CW;
+  const unsigned my_group = 1u << (8 + wr);
+  int g0 = 0, e0 = 0;                           // the stage being multiplied
+#pragma unroll 1
+  for (int q = 0; q < Q; ++q) {
+    cp_async_wait<D - 1>();                     // stage q has landed
+    __syncthreads();                            // ... for all; stage q-1's slots free
+    issue_next(q + D);
+    const T* stage = ring + (q % S) * (kPer * C::SLICE);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (e0 + j >= nl) break;
+      const unsigned e = list[e0 + j];
+      if (e & kOwn) {                           // the lag is complete: z1 * lag
+        if ((e & 3) == static_cast<unsigned>(wr)) {
+          acc.reduce(stage + j * C::SLICE + wc * CW, red_w, lane);
+          acc.zero();
+        }
+      } else if (e & my_group) {
+        if constexpr (kBf16)
+          acc.step(a_lane + 16 * (e & 0xff), stage + j * C::SLICE + w_off);
+        else
+          acc.step(a_lane + 16 * (e & 0xff), ldA, stage + j * C::SLICE + w_off);
       }
-      acc.store(sLag, S::ldL);
-      __syncthreads();
-      cross = reduce_rows<T>(sLag, B, r0, cross, [&](int i, int cc) {
-        return to_f32(z1[(r0 + i) * C::ldW + cc]);
-      });
-      __syncthreads();
     }
-    write_partial<T>(red, cross, partial, n, g0, G);
+    e0 += kPer;
+    if (e0 >= nl) {                             // the gene tile's last stage
+      __syncthreads();
+      if (threadIdx.x < C::Gt && g0 + threadIdx.x < G) {
+        float sum = 0.f;
+#pragma unroll
+        for (int rg = 0; rg < WR; ++rg) sum += red[rg * C::Gt + threadIdx.x];
+        out[g0 + threadIdx.x] = sum;
+      }
+      e0 = 0;
+      g0 += C::Gt;
+    }
   }
-  cp_async_wait_all();
+  cp_async_wait<0>();
 }
 
-template <typename T>
-cudaError_t launch_dense(const void* A, const void* zp, float* partial, int nb, int B, int G,
-                         cudaStream_t stream) {
-  using C = Cfg<T>;
-  using S = Smem<T>;
-  const size_t smem = S::a_bytes + S::w_bytes(C::Kc) + S::lag_bytes + S::red_bytes;
-  cudaError_t err = cudaFuncSetAttribute(band_cross_dense_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <typename T, int W, int MT, int S>
+cudaError_t launch(const void* A, const void* zp, float* partial, int nb, int B, int G, int skip,
+                   cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(MT, W * B, S);
+  if (smem > kSmemMax || W * B / 16 > kMaxSteps) return cudaErrorInvalidValue;
+  const bool vec = (G % Cfg<T>::VE == 0) && (reinterpret_cast<uintptr_t>(zp) % 16 == 0);
+  auto kernel = vec ? band_cross_dense_kernel<T, W, MT, S, true>
+                    : band_cross_dense_kernel<T, W, MT, S, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int vec_ok = (G % (16 / static_cast<int>(sizeof(T))) == 0) &&
-                     (reinterpret_cast<uintptr_t>(zp) % 16 == 0);
-  const long long n_cta = static_cast<long long>(nb) * ((G + C::Gt - 1) / C::Gt);
+  const long long n_cta = static_cast<long long>(nb) * ((B + MT - 1) / MT);
   if (n_cta > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const dim3 grid(static_cast<unsigned>(n_cta));
-  band_cross_dense_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(A), static_cast<const T*>(zp), partial, B, G, vec_ok);
+  kernel<<<static_cast<unsigned>(n_cta), kThreads, smem, stream>>>(
+      static_cast<const T*>(A), static_cast<const T*>(zp), partial, nb, B, G, skip);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_rot4(const void* A4, const void* zp, float* partial, int nb, int B, int G,
-                        cudaStream_t stream) {
-  using C = Cfg<T>;
-  using S = Smem<T>;
-  const size_t smem = S::a_bytes + S::w_bytes(4 * B) + S::lag_bytes + S::red_bytes;
-  cudaError_t err = cudaFuncSetAttribute(band_cross_rot4_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int vec_ok = (G % (16 / static_cast<int>(sizeof(T))) == 0) &&
-                     (reinterpret_cast<uintptr_t>(zp) % 16 == 0);
-  const dim3 grid((G + C::Gt - 1) / C::Gt, (nb + kRun - 1) / kRun);
-  band_cross_rot4_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(A4), static_cast<const T*>(zp), partial, nb, B, G, vec_ok);
-  return cudaGetLastError();
+// The launch shapes built (band_cross.DENSE_SHAPES): rows a CTA, stages
+template <typename T, int W>
+cudaError_t launch_shape(const void* A, const void* zp, float* partial, int nb, int B, int G,
+                         int mt, int stages, int skip, cudaStream_t s) {
+  if (mt == 32 && stages == 2) return launch<T, W, 32, 2>(A, zp, partial, nb, B, G, skip, s);
+  if (mt == 32 && stages == 3) return launch<T, W, 32, 3>(A, zp, partial, nb, B, G, skip, s);
+  if (mt == 32 && stages == 4) return launch<T, W, 32, 4>(A, zp, partial, nb, B, G, skip, s);
+  if (mt == 16 && stages == 4) return launch<T, W, 16, 4>(A, zp, partial, nb, B, G, skip, s);
+  if (mt == 64 && stages == 4) return launch<T, W, 64, 4>(A, zp, partial, nb, B, G, skip, s);
+  return cudaErrorInvalidValue;
+}
+
+template <int W>
+int dispatch(const void* A, const void* zp, float* partial, int nb, int B, int G, int is_bf16,
+             int mt, int stages, int skip, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      is_bf16 ? launch_shape<bf16, W>(A, zp, partial, nb, B, G, mt, stages, skip, s)
+              : launch_shape<float, W>(A, zp, partial, nb, B, G, mt, stages, skip, s));
 }
 
 }  // namespace
 
-// partial: float [nb, G]. A [nb, B, 3B] and zp [(nb+2)*B, G], both bf16
-// (is_bf16) or both f32; B a multiple of 16, at most 256.
+// partial: float [nb * ceil(B / mt), G], one row per (block, row tile).
+// A [nb, B, 3B] and zp [(nb+2)*B, G], both bf16 (is_bf16) or both f32, A
+// 16-byte aligned; B a multiple of 16, at most 256; (mt rows a CTA,
+// stages) one of the shapes launch_shape builds; skip 0 multiplies every
+// tile.
 extern "C" int sct_band_cross_dense(const void* A, const void* zp, float* partial, int nb, int B,
-                                    int G, int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_bf16 ? launch_dense<bf16>(A, zp, partial, nb, B, G, s)
-                                  : launch_dense<float>(A, zp, partial, nb, B, G, s));
+                                    int G, int is_bf16, int mt, int stages, int skip,
+                                    void* stream) {
+  return dispatch<3>(A, zp, partial, nb, B, G, is_bf16, mt, stages, skip, stream);
 }
 
 // As sct_band_cross_dense with A4 [nb, B, 4B] in the rotation-baked layout.
 extern "C" int sct_band_cross_rot4(const void* A4, const void* zp, float* partial, int nb, int B,
-                                   int G, int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_bf16 ? launch_rot4<bf16>(A4, zp, partial, nb, B, G, s)
-                                  : launch_rot4<float>(A4, zp, partial, nb, B, G, s));
+                                   int G, int is_bf16, int mt, int stages, int skip,
+                                   void* stream) {
+  return dispatch<4>(A4, zp, partial, nb, B, G, is_bf16, mt, stages, skip, stream);
 }

@@ -1,5 +1,6 @@
 // The slab ring shared by the compact-band cross kernels
-// (band_cross_float.cu, K4; band_cross_int8.cu, K1-K3).
+// (band_cross_float.cu, K4; band_cross_int8.cu, K1-K3); the dense-band
+// kernels (band_cross_dense.cu, K5/K6) use its cp.async helpers.
 //
 // A CTA owns one column tile of the draw's gathered value table Zp
 // [(nb+2)*B, row bytes] and walks a run of consecutive band blocks. Block

@@ -19,6 +19,10 @@ shape.
     the same cross as one [B, 4B] @ [4B, G] product per block over a 4-slot
     ring of slabs, A4 [nb, B, 4B] in the rotation-baked layout.
 
+These two share one main loop: a CTA stages one row tile of A in shared
+memory once, lists the 16×16 tiles that hold a weight, and walks every
+gene tile multiplying only those; :func:`dense_tiles` picks the row tile.
+
 The first two take the compact band — ``local_idx`` [Npad, k]
 (window-relative neighbour rows in [0, 3B)) and per-slot weights; the
 lag is the same sum as the dense band's, exactly, for the integer
@@ -57,7 +61,7 @@ _PLAIN_CHUNK_ELEMS = 1 << 27
 #: largest block the kernels' shared-memory staging of 3B rows takes
 MAX_BLOCK = 512
 #: the dense kernels' blocks: multiples of 16 (tensor-core tiles) up to 256
-#: (K6's ring of 4B rows in shared memory)
+#: (a row tile of K6's A4, [32, 4B] f32, in shared memory)
 DENSE_MAX_BLOCK = 256
 #: dynamic shared memory one block may use on the H100 (227 KB)
 SMEM_LIMIT = 232_448
@@ -67,6 +71,8 @@ _FLOAT_THREADS = 512
 _INT_THREADS = 512
 #: the H100's streaming multiprocessors
 _SMS = 132
+#: shared memory of one SM (228 KB), 1 KB of it reserved per resident CTA
+_SM_SMEM = 233_472
 
 
 def reset_launch_counts() -> None:
@@ -535,8 +541,70 @@ def band_cross_float_tiled(local_idx, w, Zp, block: int,
     return partial.sum(dim=0)
 
 
+class DenseTiles(NamedTuple):
+    """Launch shape of the dense-band kernels (K5, K6)."""
+    mt: int        #: band rows per CTA, staged once in shared memory
+    stages: int    #: pipeline stages of two window slices (stages − 1 in flight)
+    skip: bool     #: skip the 16×16 tiles of A that hold no weight
+    smem: int      #: dynamic shared memory bytes (dense_smem_bytes)
+
+
+#: the dense kernels' launch shapes built (``launch_shape`` in the
+#: source): (rows a CTA, pipeline stages)
+DENSE_SHAPES = ((32, 2), (32, 3), (32, 4), (16, 4), (64, 4))
+
+
+def dense_smem_bytes(block: int, width: int, esz: int, mt: int,
+                     stages: int) -> int:
+    """Shared memory of a dense-band kernel (the layout in
+    ``band_cross_dense.cu``): A's row tile [mt, width·B] with 16 spare bytes
+    a row, the ring of ``stages`` stages of two slices [16, gt] (gt = 512
+    bytes of genes, 16 spare), the row groups' sums [mt/16, gt] f32, the
+    list's first rows, the 16×16 tile flags, the list and its length."""
+    gt, pad = 512 // esz, 16 // esz
+    return (_r16(mt * (width * block + pad) * esz)
+            + stages * 2 * 16 * (gt + pad) * esz
+            + (mt // 16) * gt * 4 + 4 * 68 + 4 * 64 + 2 * 68 + 16)
+
+
+def dense_tiles(block: int, width: int, esz: int,
+                shape: Optional[tuple] = None, skip: bool = True) -> DenseTiles:
+    """Launch shape of K5 (``width`` 3) or K6 (4) for B = ``block`` and
+    values of ``esz`` bytes: ``shape`` (mt, stages) one of
+    :data:`DENSE_SHAPES`. By default 32 rows and the most stages that still
+    let two CTAs share an SM (on the card, two CTAs an SM hide each other's
+    latency better than deeper stages in one), or 4 stages where no shape
+    lets them (f32 at large B: its row tile of A is twice the bytes).
+    ``skip`` False multiplies every tile (for timing what the skip is
+    worth)."""
+    if shape is None:
+        two = [st for st in (4, 3, 2) if 2 * (dense_smem_bytes(
+            block, width, esz, 32, st) + 1024) <= _SM_SMEM]
+        shape = (32, two[0] if two else 4)
+    _check(tuple(shape) in DENSE_SHAPES,
+           f"the dense kernels are built for the shapes {DENSE_SHAPES}, got {shape}")
+    smem = dense_smem_bytes(block, width, esz, *shape)
+    _check(smem <= SMEM_LIMIT, f"B={block} at the shape {shape} needs {smem} "
+           f"bytes of shared memory")
+    return DenseTiles(*shape, skip, smem)
+
+
+def nonzero_tiles(A: torch.Tensor, rows: int = 16, cols: int = 16) -> int:
+    """Tiles of ``rows`` × ``cols`` of the dense band ``A`` [nb, B, KA]
+    (cut from each block's row 0 and column 0, a ragged last tile padded
+    with zeros) that hold a nonzero weight: the tiles a skipping kernel
+    multiplies."""
+    nb, nr, KA = A.shape
+    pr, pc = -nr % rows, -KA % cols
+    nz = A.ne(0).to(torch.uint8)
+    if pr or pc:
+        nz = torch.nn.functional.pad(nz, (0, pc, 0, pr))
+    return int(nz.reshape(nb, (nr + pr) // rows, rows, (KA + pc) // cols, cols)
+               .amax(dim=(2, 4)).sum())
+
+
 def _dense_launch(entry: str, mode: str, A, Zp, block: int, width: int,
-                  plain) -> torch.Tensor:
+                  plain, tiles: Optional[DenseTiles]) -> torch.Tensor:
     """Shared checks and launch of the two dense-band kernels."""
     _check(A.ndim == 3 and A.dtype in (torch.bfloat16, torch.float32),
            "A must be bf16 or f32 [nb, B, width·B]")
@@ -556,16 +624,23 @@ def _dense_launch(entry: str, mode: str, A, Zp, block: int, width: int,
     _check(block % 16 == 0 and block <= DENSE_MAX_BLOCK,
            f"the dense kernels take a block that is a multiple of 16 up to "
            f"{DENSE_MAX_BLOCK}, got {block}")
+    if tiles is None:
+        tiles = dense_tiles(block, width, A.element_size())
     G = Zp.shape[1]
+    A = _aligned16(A)
     lib = build.load_library()
     with torch.cuda.device(Zp.device):
-        partial = torch.empty((nb, G), dtype=torch.float32, device=Zp.device)
+        partial = torch.empty((nb * -(-block // tiles.mt), G),
+                              dtype=torch.float32, device=Zp.device)
         err = getattr(lib, entry)(
             _ptr(A), _ptr(Zp), _ptr(partial), nb, block, G,
-            int(Zp.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+            int(Zp.dtype == torch.bfloat16), tiles.mt, tiles.stages,
+            int(tiles.skip),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     LAUNCHES[mode] += 1
+    # per-(block, row tile) partials reduce in a fixed order: no atomics
     return partial.sum(dim=0)
 
 
@@ -575,13 +650,27 @@ def band_cross_dense(A, Zp, block: int) -> torch.Tensor:
     ``A`` [nb, B, 3B] and ``Zp`` [(nb+2)·B, G], both bf16 or both f32.
     Returns f32 [G]. On the card: ``B`` a multiple of 16, at most 256.
     """
+    return band_cross_dense_tiled(A, Zp, block, None)
+
+
+def band_cross_dense_tiled(A, Zp, block: int,
+                           tiles: Optional[DenseTiles]) -> torch.Tensor:
+    """:func:`band_cross_dense` with the kernel's launch shape given (None:
+    :func:`dense_tiles`): for timing other shapes and the skip's worth."""
     return _dense_launch("sct_band_cross_dense", "dense", A, Zp, block, 3,
-                         band_cross_dense_plain)
+                         band_cross_dense_plain, tiles)
 
 
 def band_cross_rot4(A4, Zp, block: int) -> torch.Tensor:
     """cross[g] of one draw on the rotation-baked band (Pallas K6's
     function): ``A4`` [nb, B, 4B] from ``ops.banded._build_band_rot4``,
     ``Zp`` [(nb+2)·B, G], both bf16 or both f32. Returns f32 [G]."""
+    return band_cross_rot4_tiled(A4, Zp, block, None)
+
+
+def band_cross_rot4_tiled(A4, Zp, block: int,
+                          tiles: Optional[DenseTiles]) -> torch.Tensor:
+    """:func:`band_cross_rot4` with the kernel's launch shape given (None:
+    :func:`dense_tiles`)."""
     return _dense_launch("sct_band_cross_rot4", "rot4", A4, Zp, block, 4,
-                         band_cross_rot4_plain)
+                         band_cross_rot4_plain, tiles)

@@ -40,9 +40,10 @@ _SIGNATURES = {
     # local_idx, w, zp, partial, nb, B, k, G, is_bf16, gt, run, chunk, stream
     "sct_band_cross_float": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _P],
-    # A, zp, partial, nb, B, G, is_bf16, stream (A4 for rot4)
-    "sct_band_cross_dense": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "sct_band_cross_rot4": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # A, zp, partial, nb, B, G, is_bf16, mt, stages, skip, stream (A4 for
+    # rot4)
+    "sct_band_cross_dense": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sct_band_cross_rot4": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # local_idx, wq, zp, far_ptr, far_q, zf, far_dense, obs, cnt, nb, B, k,
     # G, far_form, cnt_bytes, stream
     "sct_lisa_count": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -434,6 +434,47 @@ def test_int_tiles_fit_shared_memory(packed, k):
     assert kern.int_tiles(256, 50, True, 4096, 3907).chunk < 256
 
 
+@pytest.mark.parametrize("width", [3, 4], ids=["K5", "K6"])
+@pytest.mark.parametrize("esz", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("block", range(16, kern.DENSE_MAX_BLOCK + 1, 16))
+def test_dense_tiles_fit_shared_memory(block, esz, width):
+    """K5's / K6's launch shape for every block the kernels take (a
+    multiple of 16 up to 256): the default is a built shape that fits one
+    H100 block and skips; every built shape either fits and is mirrored by
+    dense_smem_bytes, or is refused, and a shape not built is refused."""
+    t = kern.dense_tiles(block, width, esz)
+    assert (t.mt, t.stages) in kern.DENSE_SHAPES and t.skip
+    assert t.smem == kern.dense_smem_bytes(block, width, esz, *t[:2]) <= 232_448
+    for shape in kern.DENSE_SHAPES:
+        smem = kern.dense_smem_bytes(block, width, esz, *shape)
+        if smem <= 232_448:
+            assert kern.dense_tiles(block, width, esz, shape, skip=False) == (
+                *shape, False, smem)
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                kern.dense_tiles(block, width, esz, shape)
+    with pytest.raises(ValueError, match="built for"):
+        kern.dense_tiles(block, width, esz, (64, 2))
+
+
+@pytest.mark.parametrize("width", [3, 4], ids=["K5", "K6"])
+@pytest.mark.parametrize("rows,cols", [(16, 16), (64, 16), (48, 32)])
+def test_nonzero_tiles_counts_the_band_tiles(setup, width, rows, cols):
+    """``kern.nonzero_tiles`` (the tiles the dense kernels multiply, and
+    chip_smoke's operation count) against a numpy count on the test plan's
+    dense band, with ragged tiles (48 rows of B=64)."""
+    pt = setup["pt"]
+    build = tb._build_band if width == 3 else tb._build_band_rot4
+    A = build(pt.local_idx, pt.w_local, B, torch.float32)
+    A[0, :rows] = 0                     # one block's first row tiles empty
+    nz = A.numpy() != 0
+    want = sum(bool(nz[n, r:r + rows, c:c + cols].any())
+               for n in range(nz.shape[0]) for r in range(0, nz.shape[1], rows)
+               for c in range(0, nz.shape[2], cols))
+    assert kern.nonzero_tiles(A, rows, cols) == want
+    assert 0 < want < nz.shape[0] * -(-B // rows) * (width * B // cols)
+
+
 def test_wrapper_refuses_bad_operands(setup):
     pt = setup["pt"]
     li = pt.local_idx.to(torch.int32)

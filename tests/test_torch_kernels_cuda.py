@@ -221,25 +221,101 @@ def test_float_kernel_matches_plain(cuda_device, plan, dtype, G, blk, k, nb, run
                        else kern.band_cross_float_tiled(*on, blk, tiles))
 
 
+_DENSE = {"dense": (3, banded._build_band, kern.band_cross_dense,
+                    kern.band_cross_dense_tiled),
+          "rot4": (4, banded._build_band_rot4, kern.band_cross_rot4,
+                   kern.band_cross_rot4_tiled)}
+
+
+def _dense_band(plan, entry, kind, blk, nb, dtype, gen):
+    """A dense band for K5 (``entry`` "dense") or K6 ("rot4"): the kNN
+    plan's ("plan", B=64), a synthetic kNN-like band (k=6 random window
+    columns a row, a fifth of the weights zero), the same with rows 64–127
+    of every block zero ("zero_tile": an all-zero 64-row tile), or a fully
+    dense random A ("dense": no tile is skipped; K6's fourth column block
+    holds weights too)."""
+    width, build = _DENSE[entry][:2]
+    if kind == "plan":
+        return build(plan.local_idx, plan.w_local.to(dtype), B, dtype)
+    if kind == "dense":
+        return torch.randn((nb, blk, width * blk), generator=gen).to(dtype)
+    li = torch.randint(0, 3 * blk, (nb * blk, 6), generator=gen)
+    w = torch.rand((nb * blk, 6), generator=gen)
+    w[torch.rand((nb * blk, 6), generator=gen) < 0.2] = 0
+    A = build(li, w.to(dtype), blk, dtype)
+    if kind == "zero_tile":
+        A[:, 64:128] = 0
+    return A
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", ["dense", "rot4"])
-@pytest.mark.parametrize("dtype,G", [(torch.bfloat16, 96), (torch.bfloat16, 33),
-                                     (torch.float32, 64), (torch.float32, 33)])
-def test_dense_kernels_match_plain(cuda_device, plan, entry, dtype, G):
-    """K5 / K6 on the dense band; G=96 and 64 take the 16-byte (cp.async)
-    loads with a ragged last gene tile, G=33 the element loads."""
-    build = banded._build_band if entry == "dense" else banded._build_band_rot4
-    fn = kern.band_cross_dense if entry == "dense" else kern.band_cross_rot4
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("kind,blk,nb,G", [
+    ("plan", B, None, 33),          # odd G: element loads
+    ("plan", B, None, 96),          # 16-byte copies, a ragged gene tile
+    ("plan", B, None, 200),
+    ("plan", B, None, 1000),
+    ("band", 16, 7, 96),            # B below the row tile
+    ("band", 256, 17, 200),         # 17 blocks: no run of 16 divides them
+    ("band", 64, 1, 1000),          # a one-block plan
+    ("band", 256, 1, 96),
+    ("dense", 64, 5, 96),           # nothing to skip
+    ("dense", 256, 3, 200),
+    ("zero_tile", 256, 3, 130),     # an all-zero 64-row tile
+], ids=["plan-G33", "plan-G96", "plan-G200", "plan-G1000", "B16-nb7",
+        "B256-nb17", "B64-one-block", "B256-one-block", "dense-B64",
+        "dense-B256", "zero-64-row-tile"])
+def test_dense_kernels_match_plain(cuda_device, plan, entry, dtype, kind, blk,
+                                   nb, G):
+    """K5 / K6 against their plain versions at every edge of the design:
+    B of 16, 64 and 256, one block and block counts that no run divides,
+    ragged G in both dtypes (odd G takes element loads), a band where most
+    tiles are skipped beside a dense A where none is, and an all-zero row
+    tile. Each launch shape (the default, 32 and 64 rows a CTA where they
+    fit, the skip off) agrees within 1e-5·Σ|terms|, adds one launch, and
+    two runs are bitwise equal."""
+    width, _, fn, tiled = _DENSE[entry]
     gen = torch.Generator().manual_seed(5)
-    A = build(plan.local_idx, plan.w_local.to(dtype), B, dtype)
-    zp = torch.randn((plan.n_padded + 2 * B, G), generator=gen).to(dtype)
+    A = _dense_band(plan, entry, kind, blk, nb, dtype, gen)
+    blk = A.shape[1]
+    zp = torch.randn(((A.shape[0] + 2) * blk, G), generator=gen).to(dtype)
+    want = fn(A, zp, blk)
+    scale = fn(A.abs(), zp.abs(), blk).double()
+    Ad, zd = A.to(cuda_device), zp.to(cuda_device)
+    esz = A.element_size()
+    shapes = [None, kern.dense_tiles(blk, width, esz, skip=False)]
+    shapes += [kern.dense_tiles(blk, width, esz, shape)
+               for shape in kern.DENSE_SHAPES
+               if kern.dense_smem_bytes(blk, width, esz, *shape) <= kern.SMEM_LIMIT]
+    for tiles in shapes:
+        before = kern.LAUNCHES[entry]
+        got = tiled(Ad, zd, blk, tiles)
+        assert kern.LAUNCHES[entry] == before + 1
+        _assert_close(got, want, scale)
+        assert torch.equal(got, tiled(Ad, zd, blk, tiles))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["dense", "rot4"])
+def test_dense_kernels_skip_what_the_plain_version_turns_into_nan(
+        cuda_device, plan, entry):
+    """An Inf in a Zp row that only zero weights reach: the plain version
+    multiplies it by 0 and gives NaN for that gene, the skipping kernels
+    skip the all-zero tiles and stay finite (the other genes agree).
+    Public routes pass finite, standardized values."""
+    A = _dense_band(plan, entry, "plan", B, None, torch.float32, None)
+    A[0, :, :B] = 0                 # block 0's first window slab: slab 0
+    zp = torch.randn((plan.n_padded + 2 * B, 64),
+                     generator=torch.Generator().manual_seed(6))
+    zp[0, 0] = float("inf")         # slab 0 is in block 0's window only
+    fn = _DENSE[entry][2]
     want = fn(A, zp, B)
-    scale = fn(A.abs(), zp.abs(), B).double()
-    before = kern.LAUNCHES[entry]
-    got = fn(A.to(cuda_device), zp.to(cuda_device), B)
-    assert kern.LAUNCHES[entry] == before + 1
-    _assert_close(got, want, scale)
-    assert torch.equal(got, fn(A.to(cuda_device), zp.to(cuda_device), B))
+    got = fn(A.to(cuda_device), zp.to(cuda_device), B).cpu()
+    assert torch.isnan(want[0]) and torch.isfinite(got).all()
+    scale = fn(A.abs(), zp.abs().nan_to_num(posinf=0.0), B).double()
+    _assert_close(got[1:], want[1:], scale[1:])
 
 
 @pytest.mark.cuda
