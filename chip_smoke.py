@@ -6,7 +6,8 @@ Phases (the script stops with a non-zero exit at the first failure):
 
 1. Device and build: the card's name and power limit (nvidia-smi), and the
    nvcc build of ``spatialcore_tpu_torch/csrc/*.cu`` (one nvcc per source,
-   in parallel) with its time.
+   in parallel) with its time; the local draw step's SASS by instance and
+   opcode (``lisa_sass``).
 2. Each kernel against its plain PyTorch version, on the card, at B=256 on
    300 blocks of a real kNN plan at the 1M-cell density: the band-cross
    kernel (int4/int8 windowed far at G=4096 and int4 at a ragged G=1000,
@@ -16,7 +17,8 @@ Phases (the script stops with a non-zero exit at the first failure):
    with int8 and int16 counters, dense far, band only, and the observed
    entry; the geary tail and its observed entry; the getis_star and
    getis_g tails under every alternative, and the Getis observed entry;
-   counts and observed values equal), and the dense-band kernels K5 and
+   counts and observed values equal; every K7/K8 entry also timed at other
+   launch shapes, ``lisa_shapes``), and the dense-band kernels K5 and
    K6 (bf16 at G=1,024, f32 at G=512; within 1e-5·Σ|terms|; ``torch.bmm``
    of the dense band against the stacked windows, the lag alone, printed
    as a second yardstick; the share of the band's tiles they skip; every
@@ -54,7 +56,8 @@ Phases (the script stops with a non-zero exit at the first failure):
    cells, k=50, 128 genes, 99 draws) through local_morans_i's default
    route ("auto" -> the float32 null in torch ops), and the int8 null's
    dense-far route (``band_impl="pallas"``) against its row-pointer route
-   ("auto"), counts bitwise equal; a plan without far edges (cells on a
+   ("auto"), counts bitwise equal, and K8 held against its plain version
+   and timed there (``hold_k8``); a plan without far edges (cells on a
    line: the band-only draw step); a small input on the card against the
    port's CPU path (p, p_adj, quadrants bitwise).
 6. Local Geary and Getis-Ord, each main path with counts of its own:
@@ -65,7 +68,10 @@ Phases (the script stops with a non-zero exit at the first failure):
    and compact (compact planes equal to the full run's casts); each must
    launch its draw step once per draw and its observed entry once per
    call. Then each one's per-draw split, Gi (``star=False``,
-   ``alternative="greater"``) at 1M × 256 genes, both float32 routes at a
+   ``alternative="greater"``) at 1M × 256 genes and its split, each draw
+   step and observed entry held against its plain version at its path's
+   own shape and timed beside its bound and ``torch.sparse.mm``
+   (``hold_main``; LISA's too, in phase 5), both float32 routes at a
    shape where "auto" takes them (200,000 cells, k=16, 128 genes, no
    kernel), and 4,096 scattered cells on the card against the port's CPU
    path (p / p_sim, p_adj, hotspots bitwise).
@@ -77,7 +83,8 @@ Phases (the script stops with a non-zero exit at the first failure):
    1,024 gene pairs in ``output_mode="compact"`` and 64 pairs in "full"
    (compact p / p_adj / L on the shared pairs equal to the full run's
    casts); the lee entries against their plain versions on that plan at
-   one compact tile's 256 pairs; full mode's parts timed one by one;
+   one compact tile's 256 pairs, timed there; full mode's parts timed one
+   by one;
    then ``lees_l`` at 1,024 pairs through "banded_int8" (the
    partial-only entry) and "auto" (the float32 null in torch ops, no
    kernel); the direct null (``jax.random.permutation``'s stream) through
@@ -145,6 +152,7 @@ from spatialcore_tpu_torch.kernels import band_cross as kern
 from spatialcore_tpu_torch.kernels import build
 from spatialcore_tpu_torch.kernels import knn as kern_knn
 from spatialcore_tpu_torch.kernels import lisa_count as kern_lisa
+from spatialcore_tpu_torch.kernels import sass
 from spatialcore_tpu_torch.ops import banded
 from spatialcore_tpu_torch.ops.banded import (banded_local_moran_pvalues,
                                               banded_permutation_test,
@@ -362,6 +370,25 @@ def library_ms(csr, table, reps: int = 10):
     table: the band lag alone, the nearest one-call yardstick."""
     zf = table.to(torch.float32)
     return event_ms(lambda: torch.sparse.mm(csr, zf), reps)
+
+
+def hold_main(label, got, want, kernel_fn, plain_fn, work, csr, table,
+              reps: int = 5) -> dict:
+    """A local entry at a main path's own shape: ``got`` (the kernel's
+    output, a tensor or a tuple) equal to ``want`` (its plain version's on
+    the same inputs), then the kernel's time beside the plain version's,
+    the bound of ``work`` and ``torch.sparse.mm`` of the band against the
+    same table. Returns the numbers."""
+    sync(table.device)
+    gs, ws = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for g, w in zip(gs, ws):
+        check(torch.equal(g, w), f"{label}: differs from its plain version")
+    ms, pms = event_ms(kernel_fn, reps), event_ms(plain_fn, 1)
+    lib = library_ms(csr, table, 3)
+    b_ms, by = bound(*work)
+    print(f"[main] {label}: equal to plain; kernel {ms:.4f} ms  plain {pms:.4f} "
+          f"ms  bound {b_ms:.4f} ms ({by})  library {lib:.4f} ms")
+    return dict(ms=ms, plain_ms=pms, bound_ms=b_ms, library_ms=lib)
 
 
 # ---------------------------------------------------------------------------
@@ -582,6 +609,45 @@ def phase_dense_kernels(dev, plan, gen, widths, reps: int):
     return results
 
 
+#: far forms as the local draw step's chooser numbers them
+FAR_FORMS = {"none": 0, "rows": 1, "dense": 2}
+
+
+def lisa_shapes(mode: str, stat: str, form: str, cnt_bytes: int, G: int,
+                n_blocks: int, fn, reps: int = 10) -> dict:
+    """Time a local entry (``fn(tiles)``) at launch shapes beside the
+    chooser's (tile, run, chunk, far_cap, stages): one and two rows a thread
+    a chunk, a 64 KB ring (at most 64-gene tiles), 32-gene tiles, half the
+    chunk in three stages, a run of 1 and of twice the chooser's, and
+    (row-pointer far) half a chunk's far entries staged, or none. Shapes
+    that do not fit the card's shared memory are left out."""
+    f = FAR_FORMS[form]
+    t = kern_lisa.lisa_tiles(B, K, stat, f, cnt_bytes, G, n_blocks)
+
+    def other(**kw):
+        return kern_lisa.lisa_tiles(B, K, stat, f, cnt_bytes, G, n_blocks, **kw)
+
+    cands = {"chooser": t, "one_row": other(rows_a_thread=1),
+             "two_rows": other(rows_a_thread=2), "ring64k": other(max_ring=64 << 10),
+             "tile32": other(max_tile=32),
+             "stages3": t._replace(chunk=max(1, t.chunk // 2), stages=3),
+             "run1": t._replace(run=1), "run2x": t._replace(run=2 * t.run)}
+    if form == "rows":
+        cands["far_half"] = t._replace(far_cap=t.far_cap // 2)
+        cands["no_far_staged"] = t._replace(far_cap=0)
+    shapes = {}
+    for name, ti in cands.items():
+        smem = kern_lisa.lisa_smem_bytes(B, K, stat, f, cnt_bytes, ti.tile, ti.chunk,
+                                         ti.far_cap, ti.stages)
+        if (smem <= kern.SMEM_LIMIT and ti.stages <= 4
+                and ti.stages - 1 <= -(-B // ti.chunk)):
+            shapes[name] = ti._replace(smem=smem)
+    times = {name: event_ms(lambda ti=ti: fn(ti), reps) for name, ti in shapes.items()}
+    print(f"[shapes] {mode} G={G} (tile, run, chunk, far_cap, stages): " + ", ".join(
+        f"{name} {tuple(shapes[name][:5])} {ms:.4f} ms" for name, ms in times.items()))
+    return times
+
+
 def phase_lisa_kernels(dev, plan, gen, G: int, reps: int):
     """The LISA kernel's modes against its plain version on the card:
     counts and observed values must be equal. Returns {mode: numbers}."""
@@ -635,6 +701,9 @@ def phase_lisa_kernels(dev, plan, gen, G: int, reps: int):
                f"({nbk} blocks, {moved:,} counts moved; equal)", err, ms,
                plain_ms, *lisa_work(plan, G, form, cnt0.element_size()), lib,
                first=cdt == torch.int8)
+        if cdt == torch.int8:
+            lisa_shapes(mode, "moran", form, 1, G, nbk, lambda tiles: kern_lisa.lisa_count(
+                li, wq, zp, B, obs, scratch, tiles=tiles, **far))
     got = kern_lisa.lisa_observed(li, wq, zp, B, **rows_far)
     want = kern_lisa.lisa_observed_plain(li, wq, zp, B, **rows_far)
     sync(dev)
@@ -645,6 +714,8 @@ def phase_lisa_kernels(dev, plan, gen, G: int, reps: int):
         li, wq, zp, B, **rows_far), max(1, reps // 10))
     report(results, "lisa_obs", f"lisa_obs G={G} ({nbk} blocks; equal)", err,
            ms, plain_ms, *lisa_work(plan, G, "rows", observed=True), lib)
+    lisa_shapes("lisa_obs", "moran", "rows", 0, G, nbk, lambda tiles:
+                kern_lisa.lisa_observed(li, wq, zp, B, tiles=tiles, **rows_far))
     return results
 
 
@@ -719,6 +790,8 @@ def phase_tail_kernels(dev, plan, gen, G: int, reps: int):
                                                                 **ge["far"]))
     report(results, "geary_obs", f"geary_obs G={G} ({nbk} blocks; equal)", err,
            ms, pms, *tail_work(plan, G, "geary_obs"), lib)
+    lisa_shapes("geary_obs", "geary", "rows", 0, G, nbk, lambda tiles:
+                kern_lisa.geary_observed(*args, w_code, tiles=tiles, **ge["far"]))
     cnt0 = torch.randint(0, 60, (n, G), generator=gen, device=dev).to(torch.int8)
     got = kern_lisa.geary_count(*args, obs, cnt0.clone(), w_code, **ge["far"])
     want = kern_lisa.geary_count_plain(*args, obs, cnt0.clone(), w_code, **ge["far"])
@@ -731,6 +804,9 @@ def phase_tail_kernels(dev, plan, gen, G: int, reps: int):
     report(results, "geary_win", f"geary_win int8 counters G={G} ({nbk} blocks, "
            f"{moved:,} counts moved; equal)", err, ms, pms,
            *tail_work(plan, G, "geary_win"), lib)
+    lisa_shapes("geary_win", "geary", "rows", 1, G, nbk, lambda tiles:
+                kern_lisa.geary_count(*args, obs, scratch, w_code, tiles=tiles,
+                                      **ge["far"]))
 
     # Getis: the binary-lag observed entry, then Gi* and Gi draw steps
     args = (gt["li"], gt["w"], gt["zp"], B)
@@ -741,6 +817,8 @@ def phase_tail_kernels(dev, plan, gen, G: int, reps: int):
                          lambda: kern_lisa.getis_lag_plain(*args, **gt["far"]))
     report(results, "getis_obs", f"getis_obs G={G} ({nbk} blocks; equal)", err,
            ms, pms, *tail_work(plan, G, "getis_obs"), lib)
+    lisa_shapes("getis_obs", "getis_star", "rows", 0, G, nbk, lambda tiles:
+                kern_lisa.getis_lag(*args, tiles=tiles, **gt["far"]))
     lag_o = kern_lisa.getis_lag_plain(gt["li"], gt["w"], gt["other"], B,
                                       **gt["far_other"])
     me_o = gt["other"][B:B + n].contiguous()
@@ -777,6 +855,10 @@ def phase_tail_kernels(dev, plan, gen, G: int, reps: int):
             report(results, mode, f"{mode} {alt} int8 counters G={G} ({nbk} "
                    f"blocks, {moved:,} counts moved; equal)", err, ms, pms,
                    *tail_work(plan, G, mode), lib, first=alt == "two-sided")
+            if alt == "two-sided":
+                lisa_shapes(mode, mode[:-4], "rows", 1, G, nbk, lambda tiles: fn(
+                    *args, obs, scratch, alternative=alt, tiles=tiles, **gt["far"],
+                    **kw))
     return results
 
 
@@ -858,6 +940,9 @@ def phase_lee_kernels(dev, plan, gen, G: int, reps: int):
                f"equal)", err, ms, pms,
                *lee_work(plan, G, "lee_win", cnt0.element_size()), lib,
                first=cdt == torch.int8)
+        if cdt == torch.int8:
+            lisa_shapes("lee_win", "lee", "rows", 1, G, nbk, lambda tiles:
+                        kern_lisa.lee_count(*args, obs, scratch, tiles=tiles, **far))
     got_o, got_p = kern_lisa.lee_observed(*args, **far)
     want_o, want_p = kern_lisa.lee_observed_plain(*args, **far)
     err = max(equal("lee_obs", got_o, want_o),
@@ -866,12 +951,16 @@ def phase_lee_kernels(dev, plan, gen, G: int, reps: int):
                          lambda: kern_lisa.lee_observed_plain(*args, **far))
     report(results, "lee_obs", f"lee_obs G={G} ({nbk} blocks; |Lq| and "
            f"partials equal)", err, ms, pms, *lee_work(plan, G, "lee_obs"), lib)
+    lisa_shapes("lee_obs", "lee", "rows", 0, G, nbk, lambda tiles:
+                kern_lisa.lee_observed(*args, tiles=tiles, **far))
     got_p = kern_lisa.lee_partial(*args, **far)
     err = equal("lee_partial", got_p, want_p)
     ms, pms = timed_pair(lambda: kern_lisa.lee_partial(*args, **far),
                          lambda: kern_lisa.lee_partial_plain(*args, **far))
     report(results, "lee_partial", f"lee_partial G={G} ({nbk} blocks; partials "
            f"equal)", err, ms, pms, *lee_work(plan, G, "lee_partial"), lib)
+    lisa_shapes("lee_partial", "lee", "rows", 0, G, nbk, lambda tiles:
+                kern_lisa.lee_partial(*args, tiles=tiles, **far))
     return results
 
 
@@ -1329,6 +1418,24 @@ def lisa_draw_split(dev, d, reps: int = 5):
     print(f"[lisa] one draw at {plan.n:,} cells x {G} genes (CUDA events, ms): "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
           + f" ({by}-bound); far edges {n_live:,}, far_bmax {plan.far_bmax}")
+    # the draw step and the observed entry against their plain versions here
+    csr = band_csr(plan, Zq.device)
+    fwd, f0 = dict(Zf=Zf, **far), dict(Zf=Zp0[dst], **far)
+    zero = torch.zeros_like(cnt)
+    got = kern_lisa.lisa_count(li, wq, Zp, B, obs, zero.clone(), **fwd)
+    want = kern_lisa.lisa_count_plain(li, wq, Zp, B, obs, zero.clone(), **fwd)
+    check(int(got.sum(dtype=torch.int64)) > 0, "lisa_win at 1M: no count moved")
+    shape = f"{plan.n:,} cells x {G} genes"
+    hold_main(f"lisa_win at {shape}", got, want,
+              lambda: kern_lisa.lisa_count(li, wq, Zp, B, obs, cnt, **fwd),
+              lambda: kern_lisa.lisa_count_plain(li, wq, Zp, B, obs, cnt, **fwd),
+              lisa_work(plan, G, "rows"), csr, Zp)
+    del got, want
+    hold_main(f"lisa_obs at {shape}", kern_lisa.lisa_observed(li, wq, Zp0, B, **f0),
+              kern_lisa.lisa_observed_plain(li, wq, Zp0, B, **f0),
+              lambda: kern_lisa.lisa_observed(li, wq, Zp0, B, **f0),
+              lambda: kern_lisa.lisa_observed_plain(li, wq, Zp0, B, **f0),
+              lisa_work(plan, G, "rows", observed=True), csr, Zp0)
     return split
 
 
@@ -1378,6 +1485,7 @@ def phase_lisa_vignette(dev, gen, n_cells: int = 366_938, k: int = 50,
               f"{launches[impl]}")
     check(torch.equal(res["pallas"][0], res["auto"][0]),
           "dense-far and row-pointer routes differ")
+    hold_k8(plan, Z)
     print(f"[lisa] vignette shape {n_cells:,} cells k={k} (graph {t_graph:.3f} s, "
           f"far edges {banded._n_live_far(plan):,}, far_bmax {plan.far_bmax}), "
           f"{n_genes} genes x {n_perms} draws: local_morans_i('auto' -> float32 "
@@ -1390,6 +1498,43 @@ def phase_lisa_vignette(dev, gen, n_cells: int = 366_938, k: int = 50,
     return {"f32_s": t_f32, "dense_s": res["pallas"][1],
             "rows_s": res["auto"][1], "far_bmax": plan.far_bmax,
             "launches": launches}
+
+
+def hold_k8(plan, Z) -> dict:
+    """K8 (the dense-far draw step) at the vignette's own shape: one Feistel
+    draw's gathered codes and dense far layer, as the "pallas" route builds
+    them, held against the plain version and timed (``hold_main``)."""
+    blk, n_pad = plan.block, plan.n_padded
+    check(blk == B, f"the vignette's plan has B={blk}")
+    Zq = banded._pad_cols4(banded._quantize_z(Z)[0])
+    G = Zq.shape[1]
+    wq, _, far_q = banded._full_row_codes(plan)
+    li = plan.local_idx.to(torch.int32).contiguous()
+    rows_idx = banded._padded_rows(plan, Zq.device)
+    n_live = banded._n_live_far(plan)
+    src, dst = plan.far_src[:n_live] - blk, plan.far_dst[:n_live]
+    fq32 = far_q[:n_live].to(torch.int32)[:, None]
+
+    def layer(Zp):
+        out = torch.zeros((n_pad, G), dtype=torch.int32, device=Zq.device)
+        return out.index_add_(0, src, Zp[dst].to(torch.int32) * fq32)
+
+    Zp0 = Zq[rows_idx]
+    obs = kern_lisa.lisa_observed(li, wq, Zp0, blk, far=layer(Zp0))
+    Zp = Zq[feistel_apply(fold_in(key_for(5, "perm_feistel_local", 0), 0),
+                          rows_idx, plan.n)]
+    far = layer(Zp)
+    cnt = torch.zeros(obs.shape, dtype=torch.int8, device=Zq.device)
+    got = kern_lisa.lisa_count(li, wq, Zp, blk, obs, cnt.clone(), far=far)
+    want = kern_lisa.lisa_count_plain(li, wq, Zp, blk, obs, cnt.clone(), far=far)
+    check(int(got.sum(dtype=torch.int64)) > 0, "lisa_dense at the vignette: no "
+          "count moved")
+    return hold_main(f"lisa_dense (K8) at {plan.n:,} cells k={li.shape[1]} x {G} "
+                     f"genes", got, want,
+                     lambda: kern_lisa.lisa_count(li, wq, Zp, blk, obs, cnt, far=far),
+                     lambda: kern_lisa.lisa_count_plain(li, wq, Zp, blk, obs, cnt,
+                                                        far=far),
+                     lisa_work(plan, G, "dense"), band_csr(plan, Zq.device), Zp)
 
 
 def exact_pair(coords: np.ndarray, n_genes: int, seed: int, dev):
@@ -1558,7 +1703,8 @@ def phase_getis_public(dev, n_cells: int, n_genes: int, n_perms: int, gen):
 
 
 def phase_gi_greater(dev, n_cells: int, n_genes: int, n_perms: int, gen):
-    """Gi (star=False) with alternative="greater" through getis_ord_gi."""
+    """Gi (star=False) with alternative="greater" through getis_ord_gi;
+    returns the SpatialData."""
     d = hot_adata(n_cells, n_genes, gen, dev)
     _, t = timed(lambda: getis_ord_gi(
         d, star=False, alternative="greater", null_method="banded_int8",
@@ -1569,7 +1715,7 @@ def phase_gi_greater(dev, n_cells: int, n_genes: int, n_perms: int, gen):
           f"{n_genes} genes x {n_perms} draws: {t:.3f} s; hot cells: hot-region "
           f"genes {hot:.4f}, noise genes {noise:.6f}")
     check(hot > 0.1 and noise < 1e-3, f"Gi greater: hot shares {hot}, {noise}")
-    return t
+    return d
 
 
 def phase_local_float_routes(dev, gen, n_cells: int = 200_000, k: int = 16,
@@ -1642,9 +1788,11 @@ def phase_local_vs_cpu(dev, coords: np.ndarray, n_genes: int, seed: int,
 
 
 def tail_draw_split(dev, d, stat: str, reps: int = 5):
-    """One draw of local Geary ("geary") or Gi* two-sided ("getis_star") at
-    the public run's shape, part by part (CUDA events): Feistel rows, row
-    gather, far gather, the draw-step kernel; the observed pass once."""
+    """One draw of local Geary ("geary"), Gi* two-sided ("getis_star") or Gi
+    "greater" ("getis_g") at the public run's shape, part by part (CUDA
+    events): Feistel rows, row gather, far gather, the draw-step kernel; the
+    observed pass once. Then the draw step and the observed entry held
+    against their plain versions there (``hold_main``)."""
     plan = d._null_plan_cache["value"]
     n, n_pad = plan.n, plan.n_padded
     li = plan.local_idx.to(torch.int32).contiguous()
@@ -1659,37 +1807,51 @@ def tail_draw_split(dev, d, stat: str, reps: int = 5):
         w_code = w.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
             0, src, fq.to(torch.int32))
         key = "perm_feistel_local_geary"
+        obs_fns = (kern_lisa.geary_observed, kern_lisa.geary_observed_plain)
 
-        def observed(Zp):
-            return kern_lisa.geary_observed(li, w, Zp, B, w_code, far_row_ptr=ptr,
-                                            far_q=fq, Zf=Zp[dst])
+        def observed(Zp, fn=kern_lisa.geary_observed):
+            return fn(li, w, Zp, B, w_code, far_row_ptr=ptr, far_q=fq, Zf=Zp[dst])
         obs = observed(Zq[rows_idx])
 
-        def step(Zp, Zf, cnt):
-            kern_lisa.geary_count(li, w, Zp, B, obs, cnt, w_code, far_row_ptr=ptr,
-                                  far_q=fq, Zf=Zf)
+        def step(Zp, Zf, cnt, fn=kern_lisa.geary_count):
+            return fn(li, w, Zp, B, obs, cnt, w_code, far_row_ptr=ptr, far_q=fq,
+                      Zf=Zf)
+        plain_step = kern_lisa.geary_count_plain
     else:
+        star = stat == "getis_star"
         Zq = banded._pad_cols4(banded._quantize_x(d.X)[0])
         w = (plan.w_local > 0).to(torch.int8)
         fq = torch.ones(n_live, dtype=torch.int8, device=d.X.device)
         w_bin = w.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
             0, src, fq.to(torch.int32)).to(torch.float32)
-        tot, _ = banded._code_moments(Zq)
-        inv_m = banded._inv_m(n, True)
+        tot, sq = banded._code_moments(Zq)
+        inv_m = banded._inv_m(n, star)
         key = "perm_feistel_getis"
+        obs_fns = (kern_lisa.getis_lag, kern_lisa.getis_lag_plain)
 
-        def observed(Zp):
-            return kern_lisa.getis_lag(li, w, Zp, B, far_row_ptr=ptr, far_q=fq,
-                                       Zf=Zp[dst])
+        def observed(Zp, fn=kern_lisa.getis_lag):
+            return fn(li, w, Zp, B, far_row_ptr=ptr, far_q=fq, Zf=Zp[dst])
         Zp0 = Zq[rows_idx]
-        obs = observed(Zp0) + Zp0[B:B + n_pad].to(torch.int32)
+        lag_o = observed(Zp0)
+        me_o = Zp0[B:B + n_pad].contiguous()
         del Zp0
-        tail = dict(wp1=w_bin + 1.0, tm=tot * inv_m)
+        if star:
+            obs = lag_o + me_o.to(torch.int32)
+            del lag_o, me_o
+            alt, fns = "two-sided", (kern_lisa.getis_star_count,
+                                     kern_lisa.getis_star_count_plain)
+            tail = dict(wp1=w_bin + 1.0, tm=tot * inv_m)
+        else:
+            obs = kern_lisa.gi_center(lag_o, me_o, w_bin, tot, sq, inv_m)
+            alt, fns = "greater", (kern_lisa.getis_g_count,
+                                   kern_lisa.getis_g_count_plain)
+            tail = dict(w_row=w_bin, tot=tot, sq=sq, inv_m=inv_m, lag_o=lag_o,
+                        me_o=me_o)
 
-        def step(Zp, Zf, cnt):
-            kern_lisa.getis_star_count(li, w, Zp, B, obs, cnt,
-                                       alternative="two-sided", far_row_ptr=ptr,
-                                       far_q=fq, Zf=Zf, **tail)
+        def step(Zp, Zf, cnt, fn=fns[0]):
+            return fn(li, w, Zp, B, obs, cnt, alternative=alt, far_row_ptr=ptr,
+                      far_q=fq, Zf=Zf, **tail)
+        plain_step = fns[1]
     G = Zq.shape[1]
     cnt = torch.zeros(obs.shape, dtype=torch.int8, device=d.X.device)
     base = key_for(3, key, 0)
@@ -1709,13 +1871,26 @@ def tail_draw_split(dev, d, stat: str, reps: int = 5):
         step(zp, zp[dst], cnt)
 
     split["whole_draw"] = event_ms(draw, reps)
-    mode = "geary_win" if stat == "geary" else "getis_star_win"
+    mode = f"{stat}_win"
+    obs_mode = "geary_obs" if stat == "geary" else "getis_obs"
     split["bound"], by = bound(*tail_work(plan, G, mode))
-    split["observed_bound"], _ = bound(*tail_work(
-        plan, G, "geary_obs" if stat == "geary" else "getis_obs"))
+    split["observed_bound"], _ = bound(*tail_work(plan, G, obs_mode))
     print(f"[{stat}] one draw at {n:,} cells x {G} genes (CUDA events, ms): "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
           + f" ({by}-bound); far edges {n_live:,}")
+    csr = band_csr(plan, Zq.device)
+    zero = torch.zeros_like(cnt)
+    got, want = step(Zp, Zf, zero.clone()), step(Zp, Zf, zero.clone(), fn=plain_step)
+    check(int(got.sum(dtype=torch.int64)) > 0, f"{mode} at 1M: no count moved")
+    hold_main(f"{mode} at {n:,} cells x {G} genes", got, want,
+              lambda: step(Zp, Zf, cnt), lambda: step(Zp, Zf, cnt, fn=plain_step),
+              tail_work(plan, G, mode), csr, Zp)
+    del got, want
+    Zp0 = Zq[rows_idx]
+    hold_main(f"{obs_mode} at {n:,} cells x {G} genes", observed(Zp0),
+              observed(Zp0, fn=obs_fns[1]), lambda: observed(Zp0),
+              lambda: observed(Zp0, fn=obs_fns[1]), tail_work(plan, G, obs_mode),
+              csr, Zp0)
     return split
 
 
@@ -1971,21 +2146,36 @@ def phase_lee_path_kernels(dev, d, pairs, seed: int = 3):
                                                   Zf=Yp0[o["dst"]], **o["far"])
     equal("lee_obs", got_o, want_o)
     equal("lee_obs partials", got_p, want_p)
-    del got_o, want_o
+    got_op, want_p0 = got_p, want_p
     got_c = torch.zeros(o["obs"].shape, dtype=torch.int8, device=dev)
     want_c = got_c.clone()
-    got_p = kern_lisa.lee_count(*args, Yp, *tail, o["obs"], got_c,
-                                Zf=Yp[o["dst"]], **o["far"])
-    want_p = kern_lisa.lee_count_plain(*args, Yp, *tail, o["obs"], want_c,
-                                       Zf=Yp[o["dst"]], **o["far"])
+    Zf = Yp[o["dst"]]
+    got_p = kern_lisa.lee_count(*args, Yp, *tail, o["obs"], got_c, Zf=Zf,
+                                **o["far"])
+    want_p = kern_lisa.lee_count_plain(*args, Yp, *tail, o["obs"], want_c, Zf=Zf,
+                                       **o["far"])
     equal("lee_win counts", got_c, want_c)
     equal("lee_win partials", got_p, want_p)
     moved = int(got_c.sum(dtype=torch.int64))
     check(0 < moved < got_c.numel(), "lee_win at the main path's shape: "
           "degenerate case")
-    equal("lee_partial", kern_lisa.lee_partial(*args, Yp, *tail,
-                                               Zf=Yp[o["dst"]], **o["far"]),
-          want_p)
+    equal("lee_partial", kern_lisa.lee_partial(*args, Yp, *tail, Zf=Zf,
+                                               **o["far"]), want_p)
+    # times at the tile's own width (hold_main checks the pairs again)
+    G, plan, csr = o["Yq"].shape[1], o["plan"], band_csr(o["plan"], dev)
+    cnt = got_c.clone()
+    shape = f"{plan.n:,} cells x {G} pairs"
+    hold_main(f"lee_win at {shape}", (got_c, got_p), (want_c, want_p),
+              lambda: kern_lisa.lee_count(*args, Yp, *tail, o["obs"], cnt, Zf=Zf,
+                                          **o["far"]),
+              lambda: kern_lisa.lee_count_plain(*args, Yp, *tail, o["obs"], cnt,
+                                                Zf=Zf, **o["far"]),
+              lee_work(plan, G, "lee_win"), csr, Yp)
+    f0 = dict(Zf=Yp0[o["dst"]], **o["far"])
+    hold_main(f"lee_obs at {shape}", (got_o, got_op), (want_o, want_p0),
+              lambda: kern_lisa.lee_observed(*args, Yp0, *tail, **f0),
+              lambda: kern_lisa.lee_observed_plain(*args, Yp0, *tail, **f0),
+              lee_work(plan, G, "lee_obs"), csr, Yp0)
     print(f"[lee] lee entries at the main path's shape ({o['plan'].n_padded:,} "
           f"rows x {o['Yq'].shape[1]} pairs, one draw, {moved:,} counts): "
           f"counts, |Lq| and partials equal their plain versions; max |diff| "
@@ -2490,6 +2680,21 @@ def phase_slots_vs_cpu(dev, coords: np.ndarray, n_genes: int, seed: int,
           f"permutations equal the CPU's; counts within one draw")
 
 
+def lisa_sass() -> None:
+    """The local draw step's SASS by instance (template arguments: STAT,
+    FAR, COUNT, counter type, k unrolled): instructions in all and the
+    opcodes of its inner loop, from the built library (``python -m
+    spatialcore_tpu_torch.kernels.sass --match lisa_kernel`` prints every
+    opcode)."""
+    ops = ("IDP", "PRMT", "IMAD", "LDS", "LDGSTS", "LDG", "STG", "MUFU", "BAR")
+    for name, c in sass.opcode_counts(sass._listing(None)).items():
+        if "lisa_kernel<" in name:
+            inst = name[name.index("lisa_kernel<"):]
+            inst = inst[:inst.find(">(") + 1 or None]
+            print(f"[sass] {inst}: {sum(c.values())} instructions; "
+                  + ", ".join(f"{op} {c[op]}" for op in ops if c[op]))
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2516,6 +2721,7 @@ def main() -> None:
           f"{build.library_path().name}")
     for ln in log:
         print(f"[build] {ln.strip()}")
+    lisa_sass()
 
     gen = torch.Generator(device=dev).manual_seed(0)
     plan300 = real_plan(dev, 300, gen)
@@ -2607,11 +2813,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     # Gi with a one-sided alternative
     kern_lisa.reset_launch_counts()
-    phase_gi_greater(dev, 1_000_000, 256, n_perms, gen)
+    d = phase_gi_greater(dev, 1_000_000, 256, n_perms, gen)
     gi = dict(kern_lisa.LAUNCHES)
     print(f"[path] launches of getis_ord_gi(star=False, greater): {gi}")
     check(gi["getis_g_win"] == n_perms and gi["getis_obs"] == 1,
           f"the Gi run did not run the getis_g draw step per draw: {gi}")
+    tail_draw_split(dev, d, "getis_g")
+    del d
     torch.cuda.empty_cache()
     # the float32 routes and the card-vs-CPU checks, each with counts of
     # their own

@@ -100,7 +100,7 @@
 // Later work: the per-draw row gather Ztab[rows] (ops/banded.py) fused into
 // the slab fill; the far gather Ztab[rowsf] read through the row indices.
 
-#include "slab_ring.cuh"
+#include "int_dot.cuh"
 
 namespace {
 
@@ -112,185 +112,10 @@ constexpr size_t kSmemMax = 232448;             // 227 KB a block may use on sm_
 // (which the final reduction, [kWarps][genes of the tile] f32, reuses),
 // then two band buffers, each the chunk's local_idx, wq (8 spare bytes for
 // the weight words' funnel reads), sw and far_ptr bytes, then two far
-// buffers.
+// buffers (their sizes and the integer dot products: int_dot.cuh).
 __host__ __device__ constexpr size_t int_ring_bytes(int B, int rb, bool packed) {
   return ring_bytes(B, rb, static_cast<size_t>(kWarps) * rb * (packed ? 2 : 1) * 4);
 }
-__host__ __device__ constexpr size_t idx_buf_bytes(int chunk, int k) {
-  return stage_buf_bytes(static_cast<size_t>(chunk) * k * 4);
-}
-__host__ __device__ constexpr size_t wq_buf_bytes(int chunk, int k) {
-  return stage_buf_bytes(static_cast<size_t>(chunk) * k + 8);
-}
-__host__ __device__ constexpr size_t row_buf_bytes(int chunk) {
-  return stage_buf_bytes(static_cast<size_t>(chunk) * 4);
-}
-__host__ __device__ constexpr size_t band_buf_bytes(int chunk, int k) {
-  return idx_buf_bytes(chunk, k) + wq_buf_bytes(chunk, k) + row_buf_bytes(chunk) +
-         row_buf_bytes(chunk + 1);
-}
-// A far buffer: the first far_cap far entries of a band chunk, [far_cap, rb]
-// values, then their weight codes.
-__host__ __device__ constexpr size_t far_buf_bytes(int far_cap, int rb) {
-  return static_cast<size_t>(far_cap) * rb + stage_buf_bytes(far_cap);
-}
-
-__device__ __forceinline__ uint32_t word_of(const uint4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
-// 16 bytes of far values (entry e's row of Zf at this thread's columns),
-// zeros past the row.
-struct FarRow {
-  const unsigned char* zf;                      // zf + this thread's first column
-  int gcols;
-  int cols_left;                                // columns of the row from here on
-  bool vec;
-
-  __device__ __forceinline__ uint4 load(int e) const {
-    const unsigned char* p = zf + static_cast<size_t>(e) * gcols;
-    if (vec) return cols_left > 0 ? *reinterpret_cast<const uint4*>(p) : make_uint4(0, 0, 0, 0);
-    uint32_t w[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      w[j] = 4 * j < cols_left ? reinterpret_cast<const uint32_t*>(p)[j] : 0u;
-    return make_uint4(w[0], w[1], w[2], w[3]);
-  }
-};
-
-// ---------------------------------------------------------------------------
-// Integer dot products: 4 slots (dp4a) or 2 slots (dp2a) at a time
-// ---------------------------------------------------------------------------
-
-// dp4a / dp2a with unsigned value bytes `a` (int4 nibbles) and signed
-// weight bytes or 16-bit halves; the int8 forms take signed values.
-__device__ __forceinline__ int dp4a_us(uint32_t a, int w, int c) {
-  int d;
-  asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(w), "r"(c));
-  return d;
-}
-template <bool HI, bool UNSIGNED>
-__device__ __forceinline__ int dp2a(int w2, uint32_t b, int c) {
-  int d;
-  if (HI && UNSIGNED)
-    asm("dp2a.hi.s32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(w2), "r"(b), "r"(c));
-  else if (HI)
-    asm("dp2a.hi.s32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(w2), "r"(b), "r"(c));
-  else if (UNSIGNED)
-    asm("dp2a.lo.s32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(w2), "r"(b), "r"(c));
-  else
-    asm("dp2a.lo.s32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(w2), "r"(b), "r"(c));
-  return d;
-}
-
-// The sums of a thread's 16 bytes of a row: int8, lo[4j + b] for byte b of
-// word j; int4, lo[4j + b] = sum w*u of the low nibble (gene cols + col)
-// and hi[4j + b] = 16 * sum w*u of the high nibble (gene col), u = code + 8
-// (the bias is taken out by the accumulators' start, -8 * sum w).
-template <bool PACKED>
-struct Sums {
-  int lo[16];
-  int hi[PACKED ? 16 : 1];
-};
-
-// Four slots: byte-transpose the slots' words so each byte position's four
-// slot codes sit in one word, then one dp4a per word (int4: one per
-// nibble, masked in place). ww: the four weight codes. Slots past the
-// row's last are zero words with zero weights.
-template <bool PACKED>
-__device__ __forceinline__ void slots4(Sums<PACKED>& s, const uint4* v, int ww) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t a0 = word_of(v[0], j), a1 = word_of(v[1], j);
-    const uint32_t a2 = word_of(v[2], j), a3 = word_of(v[3], j);
-    const uint32_t t0 = __byte_perm(a0, a1, 0x5140), t1 = __byte_perm(a0, a1, 0x7362);
-    const uint32_t t2 = __byte_perm(a2, a3, 0x5140), t3 = __byte_perm(a2, a3, 0x7362);
-    const uint32_t T[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
-                           __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      if (PACKED) {
-        s.lo[4 * j + b] = dp4a_us(T[b] & 0x0F0F0F0Fu, ww, s.lo[4 * j + b]);
-        s.hi[4 * j + b] = dp4a_us(T[b] & 0xF0F0F0F0u, ww, s.hi[4 * j + b]);
-      } else {
-        s.lo[4 * j + b] = __dp4a(static_cast<int>(T[b]), ww, s.lo[4 * j + b]);
-      }
-    }
-  }
-}
-
-// Two slots: interleave the two words' bytes (t0 holds bytes 0 and 1 of
-// both, t1 bytes 2 and 3) and take dp2a's low and high halves. w2: the two
-// weight codes as 16-bit halves.
-template <bool PACKED>
-__device__ __forceinline__ void slots2(Sums<PACKED>& s, const uint4* v, int w2) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t a0 = word_of(v[0], j), a1 = word_of(v[1], j);
-    const uint32_t t[2] = {__byte_perm(a0, a1, 0x5140), __byte_perm(a0, a1, 0x7362)};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int b = 2 * h;
-      if (PACKED) {
-        const uint32_t l = t[h] & 0x0F0F0F0Fu, u = t[h] & 0xF0F0F0F0u;
-        s.lo[4 * j + b] = dp2a<false, true>(w2, l, s.lo[4 * j + b]);
-        s.lo[4 * j + b + 1] = dp2a<true, true>(w2, l, s.lo[4 * j + b + 1]);
-        s.hi[4 * j + b] = dp2a<false, true>(w2, u, s.hi[4 * j + b]);
-        s.hi[4 * j + b + 1] = dp2a<true, true>(w2, u, s.hi[4 * j + b + 1]);
-      } else {
-        s.lo[4 * j + b] = dp2a<false, false>(w2, t[h], s.lo[4 * j + b]);
-        s.lo[4 * j + b + 1] = dp2a<true, false>(w2, t[h], s.lo[4 * j + b + 1]);
-      }
-    }
-  }
-}
-
-// One far entry, weight code q. int4 takes the nibbles as signed values
-// here (low: u - 8; high: 16 * (u - 8)), so it needs no bias term.
-template <bool PACKED>
-__device__ __forceinline__ void far1(Sums<PACKED>& s, const uint4& v, int q) {
-  const int qb = q & 0xff;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t x = word_of(v, j);
-    const uint32_t l =
-        PACKED ? (((x & 0x0F0F0F0Fu) | 0x80808080u) - 0x08080808u) ^ 0x80808080u : x;
-    const uint32_t u = (x & 0xF0F0F0F0u) ^ 0x80808080u;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      s.lo[4 * j + b] = __dp4a(static_cast<int>(l), qb << (8 * b), s.lo[4 * j + b]);
-      if (PACKED) s.hi[4 * j + b] = __dp4a(static_cast<int>(u), qb << (8 * b), s.hi[4 * j + b]);
-    }
-  }
-}
-
-// The low two bytes of w as sign-extended 16-bit halves (prmt's sign
-// replication; __byte_perm ignores the selector's sign bit).
-__device__ __forceinline__ int bytes_to_halves(int w) {
-  int d;
-  asm("prmt.b32 %0, %1, 0, 0x9180;" : "=r"(d) : "r"(w));
-  return d;
-}
-
-// Weight codes bw[t0 .. t0 + 4) of a staged row as one word, bytes at or
-// past `valid` zero (bw need not be 4-aligned; the buffer has spare bytes).
-__device__ __forceinline__ int weight_word(const int8_t* bw, int t0, int valid) {
-  const int8_t* at = bw + t0;
-  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(at) & 3);
-  const uint32_t* p = reinterpret_cast<const uint32_t*>(at - mis);   // stays in shared
-  const uint32_t w = __funnelshift_r(p[0], p[1], static_cast<unsigned>(mis) * 8);
-  return static_cast<int>(valid >= 4 ? w : w & ((1u << (8 * valid)) - 1u));
-}
-
-// The band chunk's first far entries in shared memory: entries
-// [e0, e0 + n), entry e0 + x's values at vals + x * rb (this thread's 16
-// bytes), its weight code at q[x].
-struct FarStage {
-  const unsigned char* vals;
-  const int8_t* q;
-  int e0;
-  int n;
-};
 
 // acc += sw * z1 * lag for NR rows of a block: row r's band entries at
 // bi/bw + r*bstride (bi: ring byte offsets of the slots' window rows), its
@@ -304,7 +129,7 @@ __device__ __forceinline__ void cross_rows(float* acc, const unsigned char* lane
                                            const float* s_row,
                                            const int* e0, const int* e1,
                                            const int8_t* __restrict__ far_q,
-                                           const FarRow& far, const FarStage& fs) {
+                                           const FarRow<>& far, const FarStage& fs) {
   const int kk = KC > 0 ? KC : k;               // k known at compile time for KC
   const int k4 = kk & ~3;
   auto value = [&](int r, int t) {             // bi holds ring byte offsets
@@ -438,7 +263,7 @@ band_cross_int_kernel(const int32_t* __restrict__ local_idx,
   const int four_b = 4 * B;
   const unsigned char* li = reinterpret_cast<const unsigned char*>(local_idx);
   const int G4 = gcols >> 2;                    // 4-byte words of a Zp row
-  const FarRow far{zf + c0 + 16 * q, gcols, gcols - c0 - 16 * q, fvec};
+  const FarRow<> far{zf + c0 + 16 * q, gcols, gcols - c0 - 16 * q, fvec};
 
   auto chunk_rows = [&](int st, size_t& r0, int& rows) {   // rows of chunk st
     const int c = st % nc;

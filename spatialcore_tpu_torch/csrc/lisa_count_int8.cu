@@ -50,40 +50,59 @@
 //   kFarDense a dense int32 far layer [Npad, G] (the function of K8, moran);
 //   kFarNone  no far edges (moran; the other statistics take an empty list).
 //
-// What bounds it on the H100: bytes. Per draw at 1M cells x 1,024 genes the
-// function must read ~1.0 GB of gathered codes, 4.1 GB of int32 (or f32)
-// observed values, ~0.27 GB of far values and the int8 counters (1.0 GB),
-// and write the counters back (1.0 GB): ~7.4 GB, ~2.2 ms at 3.35 TB/s.
-// Gi adds its observed int32 lag and int8 own codes (5.1 GB, ~12.5 GB in
-// all). The integer work is ~k+2 multiply-adds per value (2k+3 for geary),
-// far below the card's integer rate over that time.
+// What bounds it on the H100: bytes, and their latency. Per draw at 1M
+// cells x 1,024 genes the function must read ~1.0 GB of gathered codes,
+// 4.3 GB of int32 (or f32) observed values, ~0.27 GB of far values and the
+// int8 counters (1.0 GB), and write the counters back (1.0 GB): ~7.5 GB,
+// ~2.2 ms at 3.35 TB/s. Gi adds its observed int32 lag and int8 own codes,
+// Lee 1.0 GB of fixed x codes, K8 4.3 GB of dense far layer. The integer
+// work is ~k+2 multiply-adds per value (2k+3 for geary), well below the
+// card's integer issue over that time once the slots go four to a dp4a.
 //
-// Design:
-// - Grid (band block n, 64-gene column tile). The block stages the three
-//   B-row slabs of its window [n*B, n*B + 3B) in shared memory (48 KB at
-//   B=256) with 4-byte loads; 16 row groups of 16 threads then walk the
-//   block's rows, each thread owning 4 consecutive genes of a row.
-// - The streamed planes are read and written once, in 16-byte (int32/f32
-//   obs, Gi's observed lag, dense far), 4/8/16-byte (int8/int16/int32
-//   counters, Gi's own codes) vector accesses, consecutive threads on
-//   consecutive addresses.
-// - Integer arithmetic wherever the reference's decision is integer: no
-//   atomics, every count exact and bitwise reproducible.
-// - The counter is updated in place (the TPU kernels aliased it with
-//   input_output_aliases).
+// Design: one main loop for every (STAT, FAR, COUNT, counter type)
+// instance the C entries dispatch; launch shape from
+// kernels/lisa_count.lisa_tiles.
+// - A CTA of 512 threads owns a column tile of rb genes (a power of two,
+//   16..128) and walks a run of R consecutive band blocks on K4's 4-slot
+//   slab ring (slab_ring.cuh): slab m+2 is copied by cp.async while block
+//   m-1 computes, so Zp crosses HBM (R+2)/R times, 16 bytes a copy (4-byte
+//   loads for a ragged G).
+// - A block's rows go in chunks of up to four rows a thread. Each chunk's
+//   band rows (local_idx, wq, the row vector, far row pointers) and its
+//   first far entries are staged by cp.async S - 1 chunks ahead, one group
+//   a chunk; window rows become ring offsets as the slots are read.
+// - The streamed planes (obs, the counters, Gi's lag_o / me_o, Lee's zx,
+//   K8's dense far layer) bypass shared memory: each thread reads its next
+//   row's into registers (16-byte streaming loads) while it sums the
+//   current one, so they stay in flight across the chunks' barriers.
+//   Counters are written back in place, 4 genes a store.
+// - A thread owns 16 genes of a row (8 in Gi's draw step, whose 10 bytes of
+//   planes a gene would not fit the registers at 16). Lags go through
+//   int_dot.cuh: byte transposes and dp4a four slots at a time, a last pair
+//   by dp2a, far entries one dp4a a word; exact int32, so no count moves.
+//   Geary's sum of w*z^2: where a slot group's nonzero weights are one code
+//   w (the kNN band's rule), w times one dp4a of the masked transposed word
+//   with itself, else an IMAD a code.
+// - Lee's block partials keep their order: each chunk's f32 products
+//   sw*f32(Lq) go to shared memory, and (row group q, gene) pairs add rows
+//   q, q+16, ... in row order across the block's chunks; at the block's end
+//   the 16 group sums are added in group order. No atomics.
+// - Integer arithmetic wherever the reference's decision is integer; the
+//   Gi / Gi* f32 operations are explicitly rounded intrinsics, per value.
 //
-// Later work (not here): TMA staging, reusing slabs across consecutive
-// blocks, fusing the per-draw row gather.
+// Why this shape (chip_smoke's launch-shape timings, PERF.md): a chunk's
+// barrier waits for its slowest row, so the rows a thread sums between two
+// barriers set the pace; staging the planes through shared memory a chunk
+// ahead, at any depth, left them latency-bound behind those barriers, and
+// reading them a row ahead into registers does not.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "int_dot.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kColThreads = 16;                      // threads across a row
-constexpr int kRowGroups = kThreads / kColThreads;   // rows in flight
-constexpr int kTileCols = kColThreads * 4;           // genes per block
+constexpr int kThreads = 512;                   // mirrors lisa_count._THREADS
+constexpr size_t kSmemMax = 232448;             // 227 KB a block may use on sm_90
+constexpr int kLeeGroups = 16;                  // Lee's row groups (the partials' order)
 
 enum FarForm { kFarNone = 0, kFarRows = 1, kFarDense = 2 };
 enum Stat { kMoran = 0, kGeary = 1, kGetisStar = 2, kGetisG = 3, kLee = 4 };
@@ -104,15 +123,61 @@ struct Tail {
   float* part;            // lee: per-block partials of the global L [nb, G]
 };
 
-__device__ __forceinline__ void unpack4(int word, int* v) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    v[j] = static_cast<int>(static_cast<int8_t>((word >> (8 * j)) & 0xFF));
-  }
+// The common operands and the launch shape.
+struct Args {
+  const int32_t* local_idx;
+  const int8_t* wq;
+  const int8_t* zp;
+  const int32_t* far_ptr;
+  const int8_t* far_q;
+  const int8_t* zf;
+  const int32_t* far_dense;
+  const int32_t* obs;
+  void* cnt;
+  int32_t* out;
+  int nb, B, k, G;
+  int rb_shift, run, chunk, far_cap, stages, n_ct;
+  bool vec;               // byte planes and Zp rows in whole 16-byte copies
+};
+
+// Shared-memory layout, mirrored by lisa_count.lisa_smem_bytes: the ring
+// [4B, rb], then per pipeline stage a band buffer and (row-pointer far) a
+// far buffer, then Getis's two column vectors [rb] f32, Lee's products
+// [chunk, rb] f32 and group sums [16, rb] f32.
+struct Layout {
+  size_t band, far, colv, prod, red, total;
+};
+__host__ __device__ inline Layout layout(int B, int rb, int chunk, int k, int far_cap,
+                                         int stages, bool rows_far, bool colv, bool lee) {
+  Layout L{};
+  size_t o = 4 * static_cast<size_t>(B) * rb;
+  L.band = o;
+  o += stages * band_buf_bytes(chunk, k);
+  L.far = o;
+  if (rows_far) o += stages * far_buf_bytes(far_cap, rb);
+  o = round16(o);
+  L.colv = o;
+  if (colv) o += 2 * static_cast<size_t>(rb) * 4;
+  L.prod = o;
+  if (lee) o += static_cast<size_t>(chunk) * rb * 4;
+  L.red = o;
+  if (lee) o += static_cast<size_t>(kLeeGroups) * rb * 4;
+  L.total = o;
+  return L;
 }
 
+// A 4-byte cp.async (far values of a ragged G).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
+// Four counters of any type, loaded and stored.
 __device__ __forceinline__ void load_cnt(const int8_t* p, int* c) {
-  unpack4(*reinterpret_cast<const int*>(p), c);
+  const int w = *reinterpret_cast<const int*>(p);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) c[j] = static_cast<int8_t>(w >> (8 * j));
 }
 __device__ __forceinline__ void store_cnt(int8_t* p, const int* c) {
   const unsigned w = (static_cast<unsigned>(c[0]) & 0xFFu)
@@ -158,269 +223,600 @@ __device__ __forceinline__ bool tail_test(float v, float o, int alt) {
   return fabsf(v) >= fabsf(o);
 }
 
-// COUNT: draw step (obs, cnt); else observed (out). CT: counter type.
-template <int STAT, int FAR, bool COUNT, typename CT>
-__global__ void __launch_bounds__(kThreads)
-lisa_kernel(const int32_t* __restrict__ local_idx,
-            const int8_t* __restrict__ wq,
-            const int8_t* __restrict__ zp,
-            const int32_t* __restrict__ far_ptr,
-            const int8_t* __restrict__ far_q,
-            const int8_t* __restrict__ zf,
-            const int32_t* __restrict__ far_dense,
-            const int32_t* __restrict__ obs,
-            CT* __restrict__ cnt,
-            int32_t* __restrict__ out,
-            Tail t, int B, int k, int G) {
-  extern __shared__ __align__(16) int slab[];        // [3B][kColThreads]
-  const int n = blockIdx.x;
-  const int c0 = blockIdx.y * kTileCols;
-  const int tid = threadIdx.x;
-  const int ct = tid % kColThreads;
-  const int rg = tid / kColThreads;
-  const size_t row0 = static_cast<size_t>(n) * B;
+template <typename V>
+__device__ __forceinline__ int code_of(const V& v, int g) {
+  return static_cast<int8_t>(word_of(v, g >> 2) >> (8 * (g & 3)));
+}
 
-  // stage the window's three slabs (rows [n*B, n*B + 3B) of zp)
-  for (int idx = tid; idx < 3 * B * kColThreads; idx += kThreads) {
-    const int r = idx / kColThreads;
-    const int col = c0 + 4 * (idx % kColThreads);
-    int v = 0;
-    if (col < G) {
-      v = *reinterpret_cast<const int*>(zp + (row0 + r) * G + col);
+// The band lag of one row (s.lo: a thread's genes) and, for SQ (geary),
+// the lag of the squared codes: slots four at a time by dp4a, the last two
+// or one by dp2a (int_dot.cuh). bi: the slots' window rows, turned into
+// ring rows here (window row j is ring row (base + j) mod 4B); bw: the
+// weight codes. Geary's squares: where a group's nonzero weights are one
+// code w (the kNN band's rule), w times one dp4a of the masked transposed
+// word with itself; else an IMAD a code.
+template <bool SQ, int KC, int NW>
+__device__ __forceinline__ void band_lag(Sums<false, NW>& s, int* lag2, const unsigned char* lane,
+                                         const int32_t* bi, const int8_t* bw, int k, int base,
+                                         int four_b, int rb_shift) {
+  using LT = typename Lane<NW>::type;
+  const int kk = KC > 0 ? KC : k;
+  const int k4 = kk & ~3;
+  auto value = [&](int t) {
+    int rr = base + bi[t];
+    rr = rr >= four_b ? rr - four_b : rr;
+    return *reinterpret_cast<const LT*>(lane + (rr << rb_shift));
+  };
+  // a group's weights ww: m = 0xFF where one is nonzero; true (with that
+  // code in w0) when every nonzero one is the same code
+  auto uniform = [](int ww, uint32_t& m, int& w0) {
+    const uint32_t w = static_cast<uint32_t>(ww);
+    m = __vcmpne4(w, 0u);
+    if (m == 0) {
+      w0 = 0;
+      return true;
     }
-    slab[idx] = v;
-  }
-  __syncthreads();
-
-  const int col = c0 + 4 * ct;
-  const bool active = col < G;       // no early return: lee meets a barrier
-  float ca[4] = {0.f, 0.f, 0.f, 0.f};                // per-gene tail vectors
-  float cb[4] = {0.f, 0.f, 0.f, 0.f};
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};               // lee: row group's partial
-  if (active && COUNT
-      && (STAT == kGetisG || (STAT == kGetisStar && t.alt == kTwoSided))) {
-    const float4 a = *reinterpret_cast<const float4*>(t.col_a + col);
-    ca[0] = a.x; ca[1] = a.y; ca[2] = a.z; ca[3] = a.w;
-    if (STAT == kGetisG) {
-      const float4 b = *reinterpret_cast<const float4*>(t.col_b + col);
-      cb[0] = b.x; cb[1] = b.y; cb[2] = b.z; cb[3] = b.w;
-    }
-  }
-  int v[4];
-  for (int i = rg; active && i < B; i += kRowGroups) {
-    const size_t r = row0 + i;
-    int lag[4] = {0, 0, 0, 0};
-    int lag2[4] = {0, 0, 0, 0};                      // geary: lag of z^2
-    for (int s = 0; s < k; ++s) {
-      const int w = wq[r * k + s];
-      if (w != 0) {
-        unpack4(slab[local_idx[r * k + s] * kColThreads + ct], v);
+    const uint32_t c = (w >> ((__ffs(m) - 1) & ~7)) & 0xFFu;
+    w0 = static_cast<int8_t>(c);
+    return (w & m) == (c * 0x01010101u & m);
+  };
+  // lag2 += the group's weighted squares, by IMAD
+  auto squares = [&](const LT* v, int t0, int n) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          lag[j] += w * v[j];
-          if (STAT == kGeary) lag2[j] += w * (v[j] * v[j]);
-        }
+    for (int t = 0; t < n; ++t) {
+      const int w = bw[t0 + t];
+#pragma unroll
+      for (int g = 0; g < 4 * NW; ++g) {
+        const int z = code_of(v[t], g);
+        lag2[g] += w * (z * z);
       }
     }
-    const size_t o = r * G + col;
-    if (FAR == kFarRows) {
-      const int e1 = far_ptr[r + 1];
-      for (int e = far_ptr[r]; e < e1; ++e) {
-        const int q = far_q[e];
-        unpack4(*reinterpret_cast<const int*>(zf + static_cast<size_t>(e) * G + col), v);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          lag[j] += q * v[j];
-          if (STAT == kGeary) lag2[j] += q * (v[j] * v[j]);
-        }
-      }
-    } else if (FAR == kFarDense) {
-      const int4 f = *reinterpret_cast<const int4*>(far_dense + o);
-      lag[0] += f.x; lag[1] += f.y; lag[2] += f.z; lag[3] += f.w;
-    }
-    unpack4(slab[(B + i) * kColThreads + ct], v);    // the row's own codes
-    int val[4];                                      // integer statistic
-    const int w_row = STAT == kGeary ? t.row_i[r] : 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (STAT == kMoran) {
-        val[j] = abs(v[j] * lag[j]);                 // <= k*127^3 < 2^31
-      } else if (STAT == kGeary) {
-        val[j] = v[j] * v[j] * w_row + lag2[j] - 2 * v[j] * lag[j];
-      } else if (STAT == kGetisStar) {
-        val[j] = lag[j] + v[j];                      // A = lag + own
-      } else {
-        val[j] = lag[j];
-      }
-    }
-    if (STAT == kLee) {
-      int xz[4];                                     // the row's fixed x codes
-      unpack4(*reinterpret_cast<const int*>(t.zx + o), xz);
-      const float s = t.sw[r];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int lq = xz[j] * lag[j];               // <= k*127^3 < 2^31
-        val[j] = abs(lq);
-        acc[j] = __fadd_rn(acc[j], __fmul_rn(s, __int2float_rn(lq)));
-      }
-    }
-    if (!COUNT) {
-      if (STAT == kGetisStar || STAT == kGetisG) {   // observed: binary lag
-#pragma unroll
-        for (int j = 0; j < 4; ++j) val[j] = lag[j];
-      }
-      if (out != nullptr) {                          // lee: partial-only entry
-        *reinterpret_cast<int4*>(out + o) = make_int4(val[0], val[1], val[2], val[3]);
-      }
-      continue;
-    }
-    const int4 ob4 = *reinterpret_cast<const int4*>(obs + o);
-    const int ob[4] = {ob4.x, ob4.y, ob4.z, ob4.w};
-    bool ext[4];
-    if (STAT == kMoran || STAT == kLee) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ext[j] = val[j] >= ob[j];
-    } else if (STAT == kGeary) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ext[j] = val[j] <= ob[j];
-    } else if (STAT == kGetisStar) {
-      if (t.alt == kGreater) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ext[j] = val[j] >= ob[j];
-      } else if (t.alt == kLess) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ext[j] = val[j] <= ob[j];
-      } else {
-        const float wp1 = t.row_f[r];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float c2 = __fmul_rn(ca[j], wp1);
-          const float x = __fsub_rn(__int2float_rn(val[j] + ob[j]),
-                                    __fmul_rn(2.0f, c2));
-          ext[j] = __fmul_rn(__int2float_rn(val[j] - ob[j]), x) >= 0.0f;
-        }
-      }
+  };
+  // four slots (n of them real), with geary's squares where their nonzero
+  // weights are one code, else after them
+  auto group = [&](const LT* v, int ww, int t0, int n) {
+    uint32_t m = 0;
+    int w0 = 0;
+    if (SQ && uniform(ww, m, w0)) {
+      slots4<false, NW, true>(s, v, ww, lag2, m, w0);
     } else {
-      const float w = t.row_f[r];
-      const int4 lo = *reinterpret_cast<const int4*>(t.lag_o + o);
-      const int lag_o[4] = {lo.x, lo.y, lo.z, lo.w};
-      int me_o[4];
-      unpack4(*reinterpret_cast<const int*>(t.me_o + o), me_o);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float cp = gi_center(v[j], lag[j], w, ca[j], cb[j], t.inv_m);
-        ext[j] = tail_test(cp, __int_as_float(ob[j]), t.alt)
-                 || (lag[j] == lag_o[j] && v[j] == me_o[j]);
-      }
+      slots4<false, NW>(s, v, ww);
+      if (SQ) squares(v, t0, n);
     }
-    int c[4];
-    load_cnt(cnt + o, c);
+  };
+  auto group4 = [&](int t0) {
+    const LT v[4] = {value(t0), value(t0 + 1), value(t0 + 2), value(t0 + 3)};
+    group(v, weight_word(bw, t0, 4), t0, 4);
+  };
+  if constexpr (KC > 0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) c[j] += ext[j];
-    store_cnt(cnt + o, c);
+    for (int t0 = 0; t0 < k4; t0 += 4) group4(t0);
+  } else {
+    for (int t0 = 0; t0 < k4; t0 += 4) group4(t0);
   }
-  if constexpr (STAT == kLee) {
-    // the 16 row groups' sums of each column, added in group order
-    __shared__ float red[kRowGroups][kTileCols];
-    if (active) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) red[rg][4 * ct + j] = acc[j];
-    }
-    __syncthreads();
-    if (tid < kTileCols && c0 + tid < G) {
-      float s = 0.f;
-#pragma unroll
-      for (int q = 0; q < kRowGroups; ++q) s = __fadd_rn(s, red[q][tid]);
-      t.part[static_cast<size_t>(n) * G + c0 + tid] = s;
+  const int rest = kk - k4;
+  if (rest == 3) {
+    const LT v[4] = {value(k4), value(k4 + 1), value(k4 + 2), LT{}};
+    group(v, weight_word(bw, k4, 3), k4, 3);
+  } else if (rest > 0) {
+    const LT v[2] = {value(k4), rest == 2 ? value(k4 + 1) : LT{}};
+    const int ww = weight_word(bw, k4, rest);
+    uint32_t m = 0;
+    int w0 = 0;
+    if (SQ && uniform(ww, m, w0)) {
+      slots2<false, NW, true>(s, v, bytes_to_halves(ww), lag2, m, w0);
+    } else {
+      slots2<false, NW>(s, v, bytes_to_halves(ww));
+      if (SQ) squares(v, k4, rest);
     }
   }
 }
 
+// The streamed planes of one row at a thread's 4 * NW genes, read from
+// global memory into registers one row ahead of their use (groups of 4
+// genes past G read as zeros and are not stored): obs and the counters
+// (draw steps), Gi's observed lag and own codes, K8's dense far layer,
+// Lee's x codes.
+template <int STAT, int FAR, bool COUNT, typename CT, int NW>
+struct RowPlanes {
+  struct P {
+    static constexpr bool obs = COUNT, cnt = COUNT;
+    static constexpr bool lag_o = COUNT && STAT == kGetisG, me_o = lag_o;
+    static constexpr bool dense = FAR == kFarDense, zx = STAT == kLee;
+  };
+  int4 obs[P::obs ? NW : 1];
+  int4 lag_o[P::lag_o ? NW : 1];
+  int4 dense[P::dense ? NW : 1];
+  int cnt[P::cnt ? 4 * NW : 1];
+  uint32_t me_o[P::me_o ? NW : 1];
+  uint32_t zx[P::zx ? NW : 1];
+
+  __device__ __forceinline__ void load(const Args& a, const Tail& t, size_t r, int col) {
+    const size_t o = r * a.G + col;
+#pragma unroll
+    for (int q = 0; q < NW; ++q) {
+      const bool in = col + 4 * q < a.G;
+      const size_t oq = o + 4 * q;
+      if (P::obs) obs[q] = in ? __ldcs(reinterpret_cast<const int4*>(a.obs + oq)) : int4{};
+      if (P::lag_o) lag_o[q] = in ? __ldcs(reinterpret_cast<const int4*>(t.lag_o + oq)) : int4{};
+      if (P::dense)
+        dense[q] = in ? __ldcs(reinterpret_cast<const int4*>(a.far_dense + oq)) : int4{};
+      if (P::cnt) {
+        if (in) load_cnt(static_cast<const CT*>(a.cnt) + oq, cnt + 4 * q);
+        else cnt[4 * q] = cnt[4 * q + 1] = cnt[4 * q + 2] = cnt[4 * q + 3] = 0;
+      }
+      if (P::me_o) me_o[q] = in ? __ldcs(reinterpret_cast<const unsigned*>(t.me_o + oq)) : 0u;
+      if (P::zx) zx[q] = in ? __ldcs(reinterpret_cast<const unsigned*>(t.zx + oq)) : 0u;
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The kernel: COUNT, a draw step (obs, cnt); else an observed pass (out;
+// Lee's partial-only entry: neither). CT: the counter type.
+// ---------------------------------------------------------------------------
+
+template <int STAT, int FAR, bool COUNT, typename CT, int KC>
+__global__ void __launch_bounds__(kThreads, 1)
+lisa_kernel(const Args a, const Tail t) {
+  constexpr bool kColv = COUNT && (STAT == kGetisStar || STAT == kGetisG);
+  // the 4-byte words of a row a thread owns (lisa_count._genes): 4 (16
+  // genes), or 2 in Gi's draw step, whose 10 bytes of planes a gene would
+  // not fit the registers at 16
+  constexpr int NW = COUNT && STAT == kGetisG ? 2 : 4;
+  constexpr int NG = 4 * NW;                        // ... and genes
+  using LT = typename Lane<NW>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int B = a.B, k = a.k, G = a.G, C = a.chunk, rb_shift = a.rb_shift;
+  const int rb = 1 << rb_shift;
+  const int S = a.stages;                           // pipeline stages
+  const Layout L = layout(B, rb, C, k, a.far_cap, S, FAR == kFarRows, kColv, STAT == kLee);
+  unsigned char* ring = smem;
+  unsigned char* band = smem + L.band;
+  unsigned char* fbuf = smem + L.far;
+  float* colv = reinterpret_cast<float*>(smem + L.colv);
+  float* prod = reinterpret_cast<float*>(smem + L.prod);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  const int idx_b = static_cast<int>(idx_buf_bytes(C, k));
+  const int wq_b = static_cast<int>(wq_buf_bytes(C, k));
+  const int row_b = static_cast<int>(row_buf_bytes(C));
+  const int buf = static_cast<int>(band_buf_bytes(C, k));
+  const int fbuf_b = static_cast<int>(far_buf_bytes(a.far_cap, rb));
+
+  const int c0 = (blockIdx.x % a.n_ct) * rb;        // first gene of the tile
+  const int n0 = (blockIdx.x / a.n_ct) * a.run;
+  const int n1 = min(n0 + a.run, a.nb);
+  const int nc = (B + C - 1) / C;                   // chunks per block
+  const int steps = (n1 - n0) * nc;                 // chunks of the run
+  const int tpr_shift = rb_shift - (NW == 4 ? 4 : 3);  // threads of a row (log2)
+  const int lane_i = threadIdx.x & ((1 << tpr_shift) - 1);
+  const int rg = threadIdx.x >> tpr_shift;
+  const int n_rg = kThreads >> tpr_shift;
+  const int col = c0 + NG * lane_i;             // this thread's first gene
+  const int four_b = 4 * B;
+  const void* rowv = STAT == kGeary ? static_cast<const void*>(t.row_i)
+                     : STAT == kLee ? static_cast<const void*>(t.sw)
+                     : STAT == kMoran ? nullptr : static_cast<const void*>(t.row_f);
+  const unsigned char* li = reinterpret_cast<const unsigned char*>(a.local_idx);
+  const unsigned char* wqb = reinterpret_cast<const unsigned char*>(a.wq);
+  const FarRow<NW> far{reinterpret_cast<const unsigned char*>(a.zf) + col, G, G - col, a.vec};
+
+  auto chunk_rows = [&](int st, size_t& r0, int& rows) {
+    const int c = st % nc;
+    r0 = static_cast<size_t>(n0 + st / nc) * B + c * C;
+    rows = min(C, B - c * C);
+  };
+  // chunk st's band rows into buffer st % S
+  auto stage = [&](int st) {
+    size_t r0;
+    int rows;
+    chunk_rows(st, r0, rows);
+    unsigned char* b = band + (st % S) * buf;
+    stage_bytes<kThreads>(b, li, r0 * k * 4, rows * k * 4);
+    stage_bytes<kThreads>(b + idx_b, wqb, r0 * k, rows * k);
+    if (rowv != nullptr)
+      stage_bytes<kThreads>(b + idx_b + wq_b, static_cast<const unsigned char*>(rowv), r0 * 4,
+                            rows * 4);
+    if (FAR == kFarRows)
+      stage_bytes<kThreads>(b + idx_b + wq_b + row_b,
+                            reinterpret_cast<const unsigned char*>(a.far_ptr), r0 * 4,
+                            (rows + 1) * 4);
+  };
+  // the first far_cap far entries [p.x, p.y) of chunk st into far buffer
+  // st % S (their range read from far_ptr a stage earlier)
+  auto far_range = [&](int st) {
+    size_t r0;
+    int rows;
+    chunk_rows(st, r0, rows);
+    return make_int2(__ldg(a.far_ptr + r0), __ldg(a.far_ptr + r0 + rows));
+  };
+  auto stage_far = [&](int st, int2 p) {
+    const int n = min(p.y - p.x, a.far_cap);
+    unsigned char* f = fbuf + (st % S) * fbuf_b;
+    const unsigned char* zf = reinterpret_cast<const unsigned char*>(a.zf);
+    const int q_shift = rb_shift - 4;               // 16-byte copies of a row
+    for (int v = threadIdx.x; v < n << q_shift; v += kThreads) {
+      const int x = v >> q_shift, l = v & ((1 << q_shift) - 1);
+      const int g = c0 + 16 * l;
+      const unsigned char* src = zf + static_cast<size_t>(p.x + x) * G + g;
+      unsigned char* dst = f + (x << rb_shift) + 16 * l;
+      if (a.vec) {
+        cp_async16(dst, g < G ? src : zf, g < G ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          cp_async4(dst + 4 * w, g + 4 * w < G ? src + 4 * w : zf, g + 4 * w < G ? 4 : 0);
+      }
+    }
+    stage_bytes<kThreads>(f + a.far_cap * rb, reinterpret_cast<const unsigned char*>(a.far_q),
+                          p.x, n);
+  };
+
+  if (kColv) {                                      // the tile's column vectors
+    for (int g = threadIdx.x; g < rb; g += kThreads) {
+      const bool in = c0 + g < G;
+      colv[g] = in && t.col_a != nullptr ? t.col_a[c0 + g] : 0.f;
+      colv[rb + g] = in && t.col_b != nullptr ? t.col_b[c0 + g] : 0.f;
+    }
+  }
+  const int G4 = G >> 2;
+  const unsigned char* zp = reinterpret_cast<const unsigned char*>(a.zp);
+  // Pipeline: stage st's copies (band, far entries and, at a block's first
+  // chunk, its window's last slab) go out S - 1 stages ahead, one cp.async
+  // group a stage. Slab m + 2 (block m's last) lands in the slot slab m - 2
+  // held; with S - 1 <= chunks a block, block m - 2 is done when it is
+  // issued. The streamed planes bypass shared memory: each thread reads
+  // its next row's while it sums the current one.
+  const int ahead = S - 1;
+  int2 pn = make_int2(0, 0);                        // far range of the next stage issued
+  if (FAR == kFarRows) pn = far_range(0);
+  auto issue = [&](int st) {
+    if (st < steps) {
+      stage(st);
+      if (FAR == kFarRows) {
+        stage_far(st, pn);
+        if (st + 1 < steps) pn = far_range(st + 1);
+      }
+      const int m = n0 + st / nc;
+      if (st % nc == 0 && m > n0) fill_slot<kThreads, 4>(ring, zp, m + 2, B, G4, c0 >> 2,
+                                                          rb_shift, a.vec);
+    }
+    cp_async_commit();
+  };
+  fill_slot<kThreads, 4>(ring, zp, n0, B, G4, c0 >> 2, rb_shift, a.vec);
+  fill_slot<kThreads, 4>(ring, zp, n0 + 1, B, G4, c0 >> 2, rb_shift, a.vec);
+  fill_slot<kThreads, 4>(ring, zp, n0 + 2, B, G4, c0 >> 2, rb_shift, a.vec);
+  for (int st = 0; st < ahead; ++st) issue(st);
+
+  // this thread's first row at or after stage st (false: none)
+  auto first_row = [&](int st, size_t& r) {
+    for (; st < steps; ++st) {
+      size_t r0;
+      int rows;
+      chunk_rows(st, r0, rows);
+      if (rg < rows) {
+        r = r0 + rg;
+        return true;
+      }
+    }
+    return false;
+  };
+  RowPlanes<STAT, FAR, COUNT, CT, NW> cur, nxt;
+  {
+    size_t r;
+    if (first_row(0, r)) cur.load(a, t, r, col);
+  }
+
+  constexpr int kPairs = (kLeeGroups * 128 + kThreads - 1) / kThreads;  // Lee: (group, gene)
+  float acc[kPairs] = {};                                                // pairs a thread
+  const unsigned char* lane = ring + NG * lane_i;
+
+  for (int st = 0; st < steps; ++st) {
+    const int n = n0 + st / nc;
+    const int c = st % nc;
+    // stage st's group is done when at most ahead - 1 later ones are in flight
+    if (ahead == 1) cp_async_wait<0>();
+    else if (ahead == 2) cp_async_wait<1>();
+    else cp_async_wait<2>();
+    __syncthreads();                                // also: stage st-1's reads are done
+    issue(st + ahead);
+
+    const size_t r0 = static_cast<size_t>(n) * B + c * C;
+    const unsigned char* b = band + (st % S) * buf;
+    const int32_t* sidx = reinterpret_cast<const int32_t*>(b + ((r0 * k * 4) & 15));
+    const int8_t* swq = reinterpret_cast<const int8_t*>(b + idx_b + ((r0 * k) & 15));
+    const unsigned char* srow = b + idx_b + wq_b + ((r0 * 4) & 15);
+    const int32_t* sptr =
+        reinterpret_cast<const int32_t*>(b + idx_b + wq_b + row_b + ((r0 * 4) & 15));
+    const int base = (n & 3) * B;                   // ring row of window row 0
+    const int lo = c * C;
+    const int hi = min(B, lo + C);
+    FarStage fs{};
+    if (FAR == kFarRows) {
+      const unsigned char* f = fbuf + (st % S) * fbuf_b;
+      fs.e0 = sptr[0];
+      fs.n = min(sptr[hi - lo] - fs.e0, a.far_cap);
+      fs.vals = f + NG * lane_i;
+      fs.q = reinterpret_cast<const int8_t*>(f + a.far_cap * rb + (fs.e0 & 15));
+    }
+
+    for (int i = lo + rg; i < hi; i += n_rg) {
+      const int j = i - lo;                         // row of the chunk
+      const size_t r = r0 + j;
+      {                                             // the next row's planes, in flight
+        size_t rn;
+        if (i + n_rg < hi) nxt.load(a, t, r + n_rg, col);
+        else if (first_row(st + 1, rn)) nxt.load(a, t, rn, col);
+      }
+      Sums<false, NW> s;
+      int lag2[STAT == kGeary ? NG : 1];
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        s.lo[g] = 0;
+        if constexpr (STAT == kGeary) lag2[g] = 0;
+      }
+      band_lag<STAT == kGeary, KC, NW>(s, lag2, lane, sidx + j * k, swq + j * k, k, base, four_b,
+                                   rb_shift);
+      if (FAR == kFarRows) {                        // staged entries, then the rest
+        const int e1 = sptr[j + 1];
+        for (int e = sptr[j]; e < e1; ++e) {
+          const int x = e - fs.e0;
+          const bool staged = x < fs.n;
+          const LT v = staged ? *reinterpret_cast<const LT*>(fs.vals + (x << rb_shift))
+                                 : far.load(e);
+          const int q = staged ? fs.q[x] : a.far_q[e];
+          far1<false>(s, v, q);
+          if constexpr (STAT == kGeary) {
+#pragma unroll
+            for (int g = 0; g < NG; ++g) {
+              const int z = code_of(v, g);
+              lag2[g] += q * (z * z);
+            }
+          }
+        }
+      } else if (FAR == kFarDense) {
+#pragma unroll
+        for (int q = 0; q < NW; ++q) {
+          const int4 f = cur.dense[q];
+          s.lo[4 * q] += f.x; s.lo[4 * q + 1] += f.y;
+          s.lo[4 * q + 2] += f.z; s.lo[4 * q + 3] += f.w;
+        }
+      }
+      int own = base + B + i;                       // the row's own codes
+      own = own >= four_b ? own - four_b : own;
+      const LT zo = *reinterpret_cast<const LT*>(lane + (own << rb_shift));
+      int val[NG];
+      const int w_row = STAT == kGeary ? reinterpret_cast<const int32_t*>(srow)[j] : 0;
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const int z = code_of(zo, g);
+        const int lag = s.lo[g];
+        if (STAT == kMoran) val[g] = abs(z * lag);               // <= k*127^3 < 2^31
+        else if (STAT == kGeary) val[g] = z * z * w_row + lag2[g] - 2 * z * lag;
+        else if (STAT == kGetisStar && COUNT) val[g] = lag + z;  // A = lag + own
+        else val[g] = lag;                                       // Getis observed: lag
+      }
+      if (STAT == kLee) {
+        const float sw = reinterpret_cast<const float*>(srow)[j];
+        float4* pr = reinterpret_cast<float4*>(prod + (j << rb_shift) + NG * lane_i);
+#pragma unroll
+        for (int q = 0; q < NW; ++q) {
+          float f[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int g = 4 * q + e;
+            const int x = static_cast<int8_t>(cur.zx[q] >> (8 * e));
+            const int lq = x * s.lo[g];                          // <= k*127^3 < 2^31
+            val[g] = abs(lq);
+            f[e] = __fmul_rn(sw, __int2float_rn(lq));
+          }
+          pr[q] = make_float4(f[0], f[1], f[2], f[3]);
+        }
+      }
+      if (!COUNT) {
+        if (a.out != nullptr) {                     // lee: the partial-only entry
+#pragma unroll
+          for (int q = 0; q < NW; ++q)
+            if (col + 4 * q < G)
+              __stcs(reinterpret_cast<int4*>(a.out + r * G + col + 4 * q),
+                     make_int4(val[4 * q], val[4 * q + 1], val[4 * q + 2], val[4 * q + 3]));
+        }
+        cur = nxt;
+        continue;
+      }
+      CT* gc = static_cast<CT*>(a.cnt) + r * G + col;
+      const float wr = (STAT == kGetisG || STAT == kGetisStar) && rowv != nullptr
+                           ? reinterpret_cast<const float*>(srow)[j] : 0.f;
+#pragma unroll
+      for (int q = 0; q < NW; ++q) {
+        const int4 o4 = cur.obs[q];
+        const int ob[4] = {o4.x, o4.y, o4.z, o4.w};
+        int lo4[4] = {0, 0, 0, 0};
+        if (STAT == kGetisG) {
+          const int4 l4 = cur.lag_o[q];
+          lo4[0] = l4.x; lo4[1] = l4.y; lo4[2] = l4.z; lo4[3] = l4.w;
+        }
+        int cn[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int g = 4 * q + e;
+          bool ext;
+          if (STAT == kMoran || STAT == kLee) {
+            ext = val[g] >= ob[e];
+          } else if (STAT == kGeary) {
+            ext = val[g] <= ob[e];
+          } else if (STAT == kGetisStar) {
+            if (t.alt == kGreater) {
+              ext = val[g] >= ob[e];
+            } else if (t.alt == kLess) {
+              ext = val[g] <= ob[e];
+            } else {
+              const float c2 = __fmul_rn(colv[NG * lane_i + g], wr);
+              const float x = __fsub_rn(__int2float_rn(val[g] + ob[e]), __fmul_rn(2.0f, c2));
+              ext = __fmul_rn(__int2float_rn(val[g] - ob[e]), x) >= 0.0f;
+            }
+          } else {
+            const int me_o = static_cast<int8_t>(cur.me_o[q] >> (8 * e));
+            const int z = code_of(zo, g);
+            const float cp = gi_center(z, val[g], wr, colv[NG * lane_i + g],
+                                       colv[rb + NG * lane_i + g], t.inv_m);
+            ext = tail_test(cp, __int_as_float(ob[e]), t.alt)
+                  || (val[g] == lo4[e] && z == me_o);
+          }
+          cn[e] = cur.cnt[g] + ext;
+        }
+        if (col + 4 * q < G) store_cnt(gc + 4 * q, cn);
+      }
+      cur = nxt;
+    }
+
+    if constexpr (STAT == kLee) {
+      // (row group q, gene) pairs add the chunk's rows q, q+16, ... in row
+      // order; at the block's end the 16 group sums are added in group order
+      __syncthreads();
+#pragma unroll
+      for (int x = 0; x < kPairs; ++x) {
+        const int pq = threadIdx.x + x * kThreads;
+        if (pq < kLeeGroups * rb) {
+          const int q = pq >> rb_shift, g = pq & (rb - 1);
+          for (int ii = lo + ((q - lo) & (kLeeGroups - 1)); ii < hi; ii += kLeeGroups)
+            acc[x] = __fadd_rn(acc[x], prod[((ii - lo) << rb_shift) + g]);
+        }
+      }
+      if (c == nc - 1) {
+#pragma unroll
+        for (int x = 0; x < kPairs; ++x) {
+          const int pq = threadIdx.x + x * kThreads;
+          if (pq < kLeeGroups * rb) red[pq] = acc[x];
+          acc[x] = 0.f;
+        }
+        __syncthreads();
+        for (int g = threadIdx.x; g < rb; g += kThreads) {
+          if (c0 + g < G) {
+            float sum = 0.f;
+#pragma unroll
+            for (int q = 0; q < kLeeGroups; ++q) sum = __fadd_rn(sum, red[(q << rb_shift) + g]);
+            t.part[static_cast<size_t>(n) * G + c0 + g] = sum;
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// The launch shape: tile genes per CTA (a power of two, 16..128), run
+// blocks per CTA, chunk rows per stage, far_cap far entries staged a
+// chunk, stages in the pipeline (2..4, at most one more than the chunks of
+// a block).
+struct Shape {
+  int tile, run, chunk, far_cap, stages;
+};
+
+bool aligned(const void* p, int n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
+
 template <int STAT, int FAR, bool COUNT, typename CT>
-cudaError_t launch(const int32_t* local_idx, const int8_t* wq, const int8_t* zp,
-                   const int32_t* far_ptr, const int8_t* far_q, const int8_t* zf,
-                   const int32_t* far_dense, const int32_t* obs, CT* cnt,
-                   int32_t* out, const Tail& t, int nb, int B, int k, int G,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(int) * static_cast<size_t>(3) * B * kColThreads;
-  cudaError_t err = cudaFuncSetAttribute(
-      lisa_kernel<STAT, FAR, COUNT, CT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+cudaError_t launch(Args a, const Tail& t, const Shape& sh, cudaStream_t stream) {
+  int rb_shift = 4;
+  while ((1 << rb_shift) < sh.tile) ++rb_shift;
+  if (sh.tile != (1 << rb_shift) || sh.tile > 128 || sh.run < 1 || sh.chunk < 1 ||
+      sh.chunk > a.B || sh.far_cap < 0 || a.nb < 1 || a.B < 1 || a.k < 1 || a.G < 4 ||
+      a.G % 4 || sh.stages < 2 || sh.stages > 4 ||
+      sh.stages - 1 > (a.B + sh.chunk - 1) / sh.chunk)
+    return cudaErrorInvalidValue;
+  const bool colv = COUNT && (STAT == kGetisStar || STAT == kGetisG);
+  const size_t smem = layout(a.B, sh.tile, sh.chunk, a.k, sh.far_cap, sh.stages,
+                             FAR == kFarRows, colv, STAT == kLee).total;
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  const void* rowv = STAT == kGeary ? static_cast<const void*>(t.row_i)
+                     : STAT == kLee ? static_cast<const void*>(t.sw)
+                     : STAT == kMoran ? nullptr : static_cast<const void*>(t.row_f);
+  // the band's copies need 16-byte-aligned arrays, the int32 / f32 planes
+  // 16-byte rows (the wrappers see to both)
+  for (const void* p : {static_cast<const void*>(a.local_idx), static_cast<const void*>(a.wq),
+                        rowv, static_cast<const void*>(a.far_ptr),
+                        static_cast<const void*>(a.far_q), static_cast<const void*>(a.obs),
+                        static_cast<const void*>(t.lag_o), static_cast<const void*>(a.far_dense)})
+    if (!aligned(p, 16)) return cudaErrorMisalignedAddress;
+  if (!aligned(a.zp, 4) || !aligned(a.zf, 4) || !aligned(a.cnt, 4 * sizeof(CT)) ||
+      !aligned(t.me_o, 4) || !aligned(t.zx, 4))
+    return cudaErrorMisalignedAddress;
+  a.vec = a.G % 16 == 0 && aligned(a.zp, 16) && aligned(a.zf, 16) && aligned(a.cnt, 16) &&
+          aligned(t.me_o, 16) && aligned(t.zx, 16);
+  a.rb_shift = rb_shift;
+  a.run = sh.run;
+  a.chunk = sh.chunk;
+  a.far_cap = sh.far_cap;
+  a.stages = sh.stages;
+  const long long n_ct = (a.G + sh.tile - 1) / sh.tile;
+  const long long ctas = n_ct * ((a.nb + sh.run - 1) / sh.run);
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  a.n_ct = static_cast<int>(n_ct);
+  // the draw steps of the common kNN band (k = 6) with the slot loop unrolled
+  auto kernel = COUNT && a.k == 6 ? lisa_kernel<STAT, FAR, COUNT, CT, COUNT ? 6 : 0>
+                                  : lisa_kernel<STAT, FAR, COUNT, CT, 0>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(nb, (G + kTileCols - 1) / kTileCols);
-  lisa_kernel<STAT, FAR, COUNT, CT><<<grid, kThreads, smem, stream>>>(
-      local_idx, wq, zp, far_ptr, far_q, zf, far_dense, obs, cnt, out, t, B,
-      k, G);
+  kernel<<<static_cast<unsigned>(ctas), kThreads, smem, stream>>>(a, t);
   return cudaGetLastError();
 }
 
 template <bool COUNT, typename CT>
-cudaError_t moran_by_far(int far_form, const int32_t* local_idx,
-                         const int8_t* wq, const int8_t* zp,
-                         const int32_t* far_ptr, const int8_t* far_q,
-                         const int8_t* zf, const int32_t* far_dense,
-                         const int32_t* obs, CT* cnt, int32_t* out, int nb,
-                         int B, int k, int G, cudaStream_t s) {
+cudaError_t moran_by_far(int far_form, const Args& a, const Shape& sh, cudaStream_t s) {
   const Tail t{};
   switch (far_form) {
-    case kFarNone:
-      return launch<kMoran, kFarNone, COUNT, CT>(local_idx, wq, zp, far_ptr,
-          far_q, zf, far_dense, obs, cnt, out, t, nb, B, k, G, s);
-    case kFarRows:
-      return launch<kMoran, kFarRows, COUNT, CT>(local_idx, wq, zp, far_ptr,
-          far_q, zf, far_dense, obs, cnt, out, t, nb, B, k, G, s);
-    case kFarDense:
-      return launch<kMoran, kFarDense, COUNT, CT>(local_idx, wq, zp, far_ptr,
-          far_q, zf, far_dense, obs, cnt, out, t, nb, B, k, G, s);
-    default:
-      return cudaErrorInvalidValue;
+    case kFarNone: return launch<kMoran, kFarNone, COUNT, CT>(a, t, sh, s);
+    case kFarRows: return launch<kMoran, kFarRows, COUNT, CT>(a, t, sh, s);
+    case kFarDense: return launch<kMoran, kFarDense, COUNT, CT>(a, t, sh, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 // geary / getis_star / getis_g, always with row-pointer far edges (an
 // empty list when the plan has none)
 template <bool COUNT, typename CT>
-cudaError_t by_stat(int stat, const int32_t* local_idx, const int8_t* wq,
-                    const int8_t* zp, const int32_t* far_ptr,
-                    const int8_t* far_q, const int8_t* zf, const int32_t* obs,
-                    CT* cnt, int32_t* out, const Tail& t, int nb, int B, int k,
-                    int G, cudaStream_t s) {
+cudaError_t by_stat(int stat, const Args& a, const Tail& t, const Shape& sh, cudaStream_t s) {
   switch (stat) {
-    case kGeary:
-      return launch<kGeary, kFarRows, COUNT, CT>(local_idx, wq, zp, far_ptr,
-          far_q, zf, nullptr, obs, cnt, out, t, nb, B, k, G, s);
-    case kGetisStar:
-      return launch<kGetisStar, kFarRows, COUNT, CT>(local_idx, wq, zp,
-          far_ptr, far_q, zf, nullptr, obs, cnt, out, t, nb, B, k, G, s);
-    case kGetisG:
-      return launch<kGetisG, kFarRows, COUNT, CT>(local_idx, wq, zp, far_ptr,
-          far_q, zf, nullptr, obs, cnt, out, t, nb, B, k, G, s);
-    default:
-      return cudaErrorInvalidValue;
+    case kGeary: return launch<kGeary, kFarRows, COUNT, CT>(a, t, sh, s);
+    case kGetisStar: return launch<kGetisStar, kFarRows, COUNT, CT>(a, t, sh, s);
+    case kGetisG: return launch<kGetisG, kFarRows, COUNT, CT>(a, t, sh, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
-// lee: mode 0 draw step, 1 observed (|Lq| and partials), 2 partials only
-template <typename CT>
-cudaError_t lee_by_mode(int mode, const int32_t* local_idx, const int8_t* wq,
-                        const int8_t* zp, const int32_t* far_ptr,
-                        const int8_t* far_q, const int8_t* zf,
-                        const int32_t* obs, CT* cnt, int32_t* out,
-                        const Tail& t, int nb, int B, int k, int G,
-                        cudaStream_t s) {
-  if (mode == 0) {
-    return launch<kLee, kFarRows, true, CT>(local_idx, wq, zp, far_ptr, far_q,
-        zf, nullptr, obs, cnt, nullptr, t, nb, B, k, G, s);
+// Dispatch on the counter's bytes (1, 2 or 4: int8 / int16 / int32).
+template <typename F>
+cudaError_t by_counter(int cnt_bytes, F f) {
+  switch (cnt_bytes) {
+    case 1: return f(int8_t{});
+    case 2: return f(int16_t{});
+    case 4: return f(int32_t{});
+    default: return cudaErrorInvalidValue;
   }
-  if (mode == 1 || mode == 2) {
-    return launch<kLee, kFarRows, false, CT>(local_idx, wq, zp, far_ptr, far_q,
-        zf, nullptr, nullptr, nullptr, mode == 1 ? out : nullptr, t, nb, B, k,
-        G, s);
-  }
-  return cudaErrorInvalidValue;
+}
+
+Args common(const int32_t* local_idx, const int8_t* wq, const int8_t* zp,
+            const int32_t* far_ptr, const int8_t* far_q, const int8_t* zf, int nb, int B, int k,
+            int G) {
+  Args a{};
+  a.local_idx = local_idx;
+  a.wq = wq;
+  a.zp = zp;
+  a.far_ptr = far_ptr;
+  a.far_q = far_q;
+  a.zf = zf;
+  a.nb = nb;
+  a.B = B;
+  a.k = k;
+  a.G = G;
+  return a;
 }
 
 }  // namespace
+
+// Every entry takes the launch shape (tile, run, chunk, far_cap, stages)
+// from lisa_count.lisa_tiles.
 
 // LISA draw step: cnt [Npad, G] (cnt_bytes 1, 2 or 4: int8/int16/int32) +=
 // (|z*lag| >= obs), in place. far_form: 0 none, 1 row pointers, 2 dense.
@@ -429,29 +825,17 @@ extern "C" int sct_lisa_count(const int32_t* local_idx, const int8_t* wq,
                               const int8_t* far_q, const int8_t* zf,
                               const int32_t* far_dense, const int32_t* obs,
                               void* cnt, int nb, int B, int k, int G,
-                              int far_form, int cnt_bytes, void* stream) {
+                              int far_form, int cnt_bytes, int tile, int run,
+                              int chunk, int far_cap, int stages, void* stream) {
+  Args a = common(local_idx, wq, zp, far_ptr, far_q, zf, nb, B, k, G);
+  a.far_dense = far_dense;
+  a.obs = obs;
+  a.cnt = cnt;
+  const Shape sh{tile, run, chunk, far_cap, stages};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (cnt_bytes) {
-    case 1:
-      err = moran_by_far<true, int8_t>(far_form, local_idx, wq, zp, far_ptr,
-          far_q, zf, far_dense, obs, static_cast<int8_t*>(cnt), nullptr, nb, B,
-          k, G, s);
-      break;
-    case 2:
-      err = moran_by_far<true, int16_t>(far_form, local_idx, wq, zp, far_ptr,
-          far_q, zf, far_dense, obs, static_cast<int16_t*>(cnt), nullptr, nb,
-          B, k, G, s);
-      break;
-    case 4:
-      err = moran_by_far<true, int32_t>(far_form, local_idx, wq, zp, far_ptr,
-          far_q, zf, far_dense, obs, static_cast<int32_t*>(cnt), nullptr, nb,
-          B, k, G, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(by_counter(cnt_bytes, [&](auto c) {
+    return moran_by_far<true, decltype(c)>(far_form, a, sh, s);
+  }));
 }
 
 // LISA observed: out int32 [Npad, G] = |z*lag| at the placement the caller
@@ -460,10 +844,14 @@ extern "C" int sct_lisa_observed(const int32_t* local_idx, const int8_t* wq,
                                  const int8_t* zp, const int32_t* far_ptr,
                                  const int8_t* far_q, const int8_t* zf,
                                  const int32_t* far_dense, int32_t* out, int nb,
-                                 int B, int k, int G, int far_form, void* stream) {
+                                 int B, int k, int G, int far_form, int tile,
+                                 int run, int chunk, int far_cap, int stages,
+                                 void* stream) {
+  Args a = common(local_idx, wq, zp, far_ptr, far_q, zf, nb, B, k, G);
+  a.far_dense = far_dense;
+  a.out = out;
   return static_cast<int>(moran_by_far<false, int8_t>(
-      far_form, local_idx, wq, zp, far_ptr, far_q, zf, far_dense, nullptr,
-      nullptr, out, nb, B, k, G, static_cast<cudaStream_t>(stream)));
+      far_form, a, Shape{tile, run, chunk, far_cap, stages}, static_cast<cudaStream_t>(stream)));
 }
 
 // Draw step of local Geary (stat 1) or Getis-Ord Gi* (2) / Gi (3), in
@@ -478,28 +866,17 @@ extern "C" int sct_local_count(int stat, int alt, const int32_t* local_idx,
                                const float* col_a, const float* col_b,
                                const int32_t* lag_o, const int8_t* me_o,
                                float inv_m, int nb, int B, int k, int G,
-                               int cnt_bytes, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                               int cnt_bytes, int tile, int run, int chunk,
+                               int far_cap, int stages, void* stream) {
+  Args a = common(local_idx, wq, zp, far_ptr, far_q, zf, nb, B, k, G);
+  a.obs = static_cast<const int32_t*>(obs);
+  a.cnt = cnt;
   const Tail t{row_i, row_f, col_a, col_b, lag_o, me_o, inv_m, alt};
-  const int32_t* ob = static_cast<const int32_t*>(obs);
-  cudaError_t err;
-  switch (cnt_bytes) {
-    case 1:
-      err = by_stat<true, int8_t>(stat, local_idx, wq, zp, far_ptr, far_q, zf,
-          ob, static_cast<int8_t*>(cnt), nullptr, t, nb, B, k, G, s);
-      break;
-    case 2:
-      err = by_stat<true, int16_t>(stat, local_idx, wq, zp, far_ptr, far_q, zf,
-          ob, static_cast<int16_t*>(cnt), nullptr, t, nb, B, k, G, s);
-      break;
-    case 4:
-      err = by_stat<true, int32_t>(stat, local_idx, wq, zp, far_ptr, far_q, zf,
-          ob, static_cast<int32_t*>(cnt), nullptr, t, nb, B, k, G, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  const Shape sh{tile, run, chunk, far_cap, stages};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_counter(cnt_bytes, [&](auto c) {
+    return by_stat<true, decltype(c)>(stat, a, t, sh, s);
+  }));
 }
 
 // Observed pass of local Geary (stat 1: the int32 geary value, row_i = W)
@@ -509,12 +886,14 @@ extern "C" int sct_local_observed(int stat, const int32_t* local_idx,
                                   const int32_t* far_ptr, const int8_t* far_q,
                                   const int8_t* zf, const int32_t* row_i,
                                   int32_t* out, int nb, int B, int k, int G,
-                                  void* stream) {
+                                  int tile, int run, int chunk, int far_cap,
+                                  int stages, void* stream) {
+  Args a = common(local_idx, wq, zp, far_ptr, far_q, zf, nb, B, k, G);
+  a.out = out;
   Tail t{};
   t.row_i = row_i;
   return static_cast<int>(by_stat<false, int8_t>(
-      stat, local_idx, wq, zp, far_ptr, far_q, zf, nullptr, nullptr, out, t,
-      nb, B, k, G, static_cast<cudaStream_t>(stream)));
+      stat, a, t, Shape{tile, run, chunk, far_cap, stages}, static_cast<cudaStream_t>(stream)));
 }
 
 // Local Lee's L (stat 4 of the template), far edges as row pointers. mode 0:
@@ -527,28 +906,23 @@ extern "C" int sct_lee(int mode, const int32_t* local_idx, const int8_t* wq,
                        const int8_t* far_q, const int8_t* zf, const int8_t* zx,
                        const float* sw, const int32_t* obs, void* cnt,
                        int32_t* out, float* part, int nb, int B, int k, int G,
-                       int cnt_bytes, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                       int cnt_bytes, int tile, int run, int chunk, int far_cap,
+                       int stages, void* stream) {
+  Args a = common(local_idx, wq, zp, far_ptr, far_q, zf, nb, B, k, G);
   Tail t{};
   t.zx = zx;
   t.sw = sw;
   t.part = part;
-  cudaError_t err;
-  switch (mode == 0 ? cnt_bytes : 1) {
-    case 1:
-      err = lee_by_mode<int8_t>(mode, local_idx, wq, zp, far_ptr, far_q, zf,
-          obs, static_cast<int8_t*>(cnt), out, t, nb, B, k, G, s);
-      break;
-    case 2:
-      err = lee_by_mode<int16_t>(mode, local_idx, wq, zp, far_ptr, far_q, zf,
-          obs, static_cast<int16_t*>(cnt), out, t, nb, B, k, G, s);
-      break;
-    case 4:
-      err = lee_by_mode<int32_t>(mode, local_idx, wq, zp, far_ptr, far_q, zf,
-          obs, static_cast<int32_t*>(cnt), out, t, nb, B, k, G, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
+  const Shape sh{tile, run, chunk, far_cap, stages};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == 0) {
+    a.obs = obs;
+    a.cnt = cnt;
+    return static_cast<int>(by_counter(cnt_bytes, [&](auto c) {
+      return launch<kLee, kFarRows, true, decltype(c)>(a, t, sh, s);
+    }));
   }
-  return static_cast<int>(err);
+  if (mode != 1 && mode != 2) return static_cast<int>(cudaErrorInvalidValue);
+  a.out = mode == 1 ? out : nullptr;
+  return static_cast<int>(launch<kLee, kFarRows, false, int8_t>(a, t, sh, s));
 }

@@ -31,6 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+#: tile, run, chunk, far_cap, stages, then the stream
+_SHAPE = [_I, _I, _I, _I, _I, _P]
 #: C entry points and their argument types; each returns cudaGetLastError()
 _SIGNATURES = {
     # local_idx, wq, sw, zp, far_ptr, far_q, zf, partial, nb, B, k, gcols,
@@ -44,26 +46,27 @@ _SIGNATURES = {
     # rot4)
     "sct_band_cross_dense": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sct_band_cross_rot4": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # The local draw step's entries end with its launch shape (tile, run,
+    # chunk, far_cap, stages) and the stream.
     # local_idx, wq, zp, far_ptr, far_q, zf, far_dense, obs, cnt, nb, B, k,
-    # G, far_form, cnt_bytes, stream
+    # G, far_form, cnt_bytes
     "sct_lisa_count": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _P],
+                       _I, *_SHAPE],
     # local_idx, wq, zp, far_ptr, far_q, zf, far_dense, out, nb, B, k, G,
-    # far_form, stream
+    # far_form
     "sct_lisa_observed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _P],
+                          *_SHAPE],
     # stat, alt, local_idx, wq, zp, far_ptr, far_q, zf, obs, cnt, row_i,
-    # row_f, col_a, col_b, lag_o, me_o, inv_m, nb, B, k, G, cnt_bytes, stream
+    # row_f, col_a, col_b, lag_o, me_o, inv_m, nb, B, k, G, cnt_bytes
     "sct_local_count": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _P],
-    # stat, local_idx, wq, zp, far_ptr, far_q, zf, row_i, out, nb, B, k, G,
-    # stream
+                        _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, *_SHAPE],
+    # stat, local_idx, wq, zp, far_ptr, far_q, zf, row_i, out, nb, B, k, G
     "sct_local_observed": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _P],
+                           *_SHAPE],
     # mode, local_idx, wq, zp, far_ptr, far_q, zf, zx, sw, obs, cnt, out,
-    # part, nb, B, k, G, cnt_bytes, stream
+    # part, nb, B, k, G, cnt_bytes
     "sct_lee": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                _I, _I, _P],
+                _I, _I, *_SHAPE],
     # coords, n, k, include_self, out_d, out_i, stream
     "sct_knn": [_P, _I, _I, _I, _P, _P, _P],
 }

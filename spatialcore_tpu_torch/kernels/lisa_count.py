@@ -58,6 +58,10 @@ comes in one of three forms:
 * a dense int32 far layer ``far`` [Npad, G] (K8's function; Moran only);
 * none (Moran, a plan without far edges).
 
+Every entry takes ``tiles``, the kernel's launch shape (:class:`LisaTiles`;
+None: :func:`lisa_tiles`, which :func:`lisa_smem_bytes` sizes), to time
+other shapes and to test runs that do not divide the block count.
+
 Each wrapper checks device, dtype, shape, contiguity and alignment, then:
 
 * on a CPU tensor, runs the plain version (bitwise the kernel's result:
@@ -73,12 +77,14 @@ Lee: checked) or k ≤ 256 (Geary: Σ w·(Δz)² ≤ k·127·254² < 2³¹; chec
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import build
-from .band_cross import MAX_BLOCK, band_lag_int8_plain
+from .band_cross import (MAX_BLOCK, SMEM_LIMIT, _aligned16, _r16, _run_for,
+                         band_lag_int8_plain)
 
 #: kernel launches: LISA's draw step by far form and its observed entry;
 #: the geary, getis_star and getis_g draw steps; geary's and Getis's
@@ -97,8 +103,12 @@ _ALTS = {"two-sided": 0, "greater": 1, "less": 2}
 GEARY_MAX_K = 256
 #: the int8 Lee null's exactness bound: |x·lag| ≤ k·127³ < 2³¹
 LEE_MAX_K = 1000
-#: the kernel's row groups: 256 threads, 16 across a row
+#: Lee's row groups: the block partials add rows q, q + 16, … per group
 ROW_GROUPS = 16
+#: threads of a CTA (``kThreads`` in the kernel's source)
+_THREADS = 512
+#: statistics as the kernel's template numbers them
+_STATS = ("moran", "geary", "getis_star", "getis_g", "lee")
 #: Lee's entries as sct_lee numbers them
 _LEE_COUNT, _LEE_OBSERVED, _LEE_PARTIAL = 0, 1, 2
 _COUNTER_DTYPES = (torch.int8, torch.int16, torch.int32)
@@ -116,6 +126,106 @@ def counter_dtype(n_permutations: int) -> torch.dtype:
     """Narrowest counter that holds P draws: int8 ≤ 127, int16 ≤ 32767."""
     return (torch.int8 if n_permutations <= 127
             else torch.int16 if n_permutations <= 32767 else torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Launch shape
+# ---------------------------------------------------------------------------
+
+
+class LisaTiles(NamedTuple):
+    """Launch shape of the draw-step kernel."""
+    tile: int      #: genes per CTA: a power of two, 16–128
+    run: int       #: consecutive band blocks a CTA walks over its slab ring
+    chunk: int     #: rows per pipeline stage (band rows and streamed planes)
+    far_cap: int   #: far entries of a chunk staged with it (the rest: global)
+    stages: int    #: pipeline stages: 2–4, at most one more than a block's chunks
+    smem: int      #: dynamic shared memory bytes (lisa_smem_bytes)
+
+
+def _genes(stat: str, cnt_bytes: int) -> int:
+    """Genes a thread owns (``words_of`` in the kernel's source): 16, or 8
+    in Gi's draw step."""
+    return 8 if stat == "getis_g" and cnt_bytes else 16
+
+
+def lisa_smem_bytes(block: int, k: int, stat: str, far_form: int, cnt_bytes: int,
+                    tile: int, chunk: int, far_cap: int = 0, stages: int = 2) -> int:
+    """Shared memory of the kernel (``layout`` in ``lisa_count_int8.cu``):
+    the 4-slot ring [4B, tile] bytes; per pipeline stage a band buffer of
+    ``chunk`` rows of local_idx, wq (8 spare bytes), the row vector and far
+    row pointers, each with 15 spare bytes for its copies' alignment phase,
+    and (row-pointer far) a far buffer of ``far_cap`` entries' values and
+    weight codes; then Getis's draw steps two [tile] f32 column vectors, Lee
+    [chunk + 16, tile] f32 of products and group sums. ``cnt_bytes`` 0: an
+    observed entry. The streamed planes do not pass through it."""
+    o = 4 * block * tile + stages * (_r16(chunk * k * 4 + 15) + _r16(chunk * k + 8 + 15)
+                                     + _r16(chunk * 4 + 15) + _r16((chunk + 1) * 4 + 15))
+    if far_form == _FAR_ROWS:
+        o += stages * (far_cap * tile + _r16(far_cap + 15))
+    o = _r16(o)
+    if cnt_bytes and stat in ("getis_star", "getis_g"):
+        o += 2 * tile * 4
+    if stat == "lee":
+        o += (chunk + ROW_GROUPS) * tile * 4
+    return o
+
+
+@functools.lru_cache(maxsize=None)
+def lisa_tiles(block: int, k: int, stat: str, far_form: int, cnt_bytes: int,
+               G: int, n_blocks: int, max_tile: int = 128, max_ring: int = 128 << 10,
+               rows_a_thread: int = 4, run: Optional[int] = None) -> LisaTiles:
+    """(tile, run, chunk, far_cap, stages) of the kernel for B = ``block``,
+    k slots, ``stat`` (one of ``_STATS``), the far form, counters of
+    ``cnt_bytes`` (0: an observed entry), G genes and ``n_blocks`` band
+    blocks.
+
+    A thread's rows a chunk set the pace (chip_smoke's launch-shape
+    timings): every barrier a chunk ends waits for the slowest row, so the
+    more rows a thread sums between two, the better. For each tile (a
+    power of two up to ``max_tile`` genes and what G needs, the ring at
+    most ``max_ring`` bytes), the chunk is the most rows, up to B and
+    ``rows_a_thread`` rows a thread (whole rows a thread where more than
+    one), that fit with a far buffer of half an entry a chunk row; 512 /
+    (tile/16) threads work at a row (Gi's draw step 512 / (tile/8)). k = 6
+    plans hold ~0.25 far entries a row, unevenly; a buffer of one a row
+    left the draw steps slower on the H100. The tile that gives a thread
+    the most rows wins, the wider on a tie. The pipeline is as deep as
+    fits, up to 4 stages and one more than a block's chunks. ``run``
+    (default) is the longest, up to 32 blocks, that still gives every SM
+    ~8 waves of CTAs. Cached: every launch asks for it.
+    """
+    _check(stat in _STATS, f"unknown statistic {stat!r}")
+
+    def cap(c):
+        return max(1, c // 2) if far_form == _FAR_ROWS else 0
+
+    def fits(rb, c, st):
+        return (st - 1 <= -(-block // c) and lisa_smem_bytes(
+            block, k, stat, far_form, cnt_bytes, rb, c, cap(c), st) <= SMEM_LIMIT)
+
+    best = None                   # (rows a thread, tile, chunk)
+    rb = 16
+    while True:
+        n_rg = _THREADS // (rb // _genes(stat, cnt_bytes))
+        chunk = min(block, rows_a_thread * n_rg)
+        while chunk >= 1 and not fits(rb, chunk, 2):
+            chunk -= 1
+        if chunk > n_rg:          # whole rows a thread: no pass half idle
+            chunk -= chunk % n_rg
+        if chunk >= 1 and (best is None or chunk / n_rg >= best[0]):
+            best = (chunk / n_rg, rb, chunk)
+        if rb >= min(max_tile, max(16, G)) or 4 * block * rb * 2 > max_ring:
+            break
+        rb *= 2
+    _check(best is not None, f"B={block}, k={k} does not fit the kernel's shared memory")
+    _, rb, chunk = best
+    stages = max(st for st in (2, 3, 4) if fits(rb, chunk, st))
+    smem = lisa_smem_bytes(block, k, stat, far_form, cnt_bytes, rb, chunk, cap(chunk),
+                           stages)
+    if run is None:
+        run = _run_for(n_blocks, -(-G // rb), smem, _THREADS)
+    return LisaTiles(rb, run, chunk, cap(chunk), stages, smem)
 
 
 # ---------------------------------------------------------------------------
@@ -424,15 +534,33 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _aligned(*ts):
+    """Each of ``ts`` (None kept), or a 16-byte-aligned copy: the kernel
+    stages the band, its row vectors and the far list with 16-byte copies."""
+    return tuple(None if t is None else _aligned16(t) for t in ts)
+
+
+def _shape(tiles: Optional[LisaTiles], block: int, k: int, stat: str,
+           far_form: int, cnt_bytes: int, G: int, n_rows: int):
+    """The launch shape's five C arguments (None: :func:`lisa_tiles`)."""
+    if tiles is None:
+        tiles = lisa_tiles(block, k, stat, far_form, cnt_bytes, G, n_rows // block)
+    return tiles.tile, tiles.run, tiles.chunk, tiles.far_cap, tiles.stages
+
+
 _MODE = {_FAR_ROWS: "lisa_win", _FAR_DENSE: "lisa_dense", _FAR_NONE: "lisa_band"}
 
 
 def lisa_count(local_idx, wq, Zp, block: int, obs, cnt, *, far_row_ptr=None,
-               far_q=None, Zf=None, far=None) -> torch.Tensor:
+               far_q=None, Zf=None, far=None,
+               tiles: Optional[LisaTiles] = None) -> torch.Tensor:
     """One draw's counter update, in place: ``cnt += (|z·lag| ≥ obs)``.
 
     ``obs`` int32 [Npad, G]; ``cnt`` int8, int16 or int32 [Npad, G]. Other
-    operands as the module docstring says. Returns ``cnt``.
+    operands as the module docstring says; ``tiles`` (every entry takes it)
+    sets the kernel's launch shape (None: :func:`lisa_tiles`), for timing
+    other shapes and for testing runs that do not divide the block count.
+    Returns ``cnt``.
     """
     form = _check_operands(local_idx, wq, Zp, block, far_row_ptr, far_q, Zf, far)
     n_rows, k = local_idx.shape
@@ -444,12 +572,14 @@ def lisa_count(local_idx, wq, Zp, block: int, obs, cnt, *, far_row_ptr=None,
         return lisa_count_plain(local_idx, wq, Zp, block, obs, cnt,
                                 far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf,
                                 far=far)
+    local_idx, wq, far_row_ptr, far_q = _aligned(local_idx, wq, far_row_ptr, far_q)
     lib = build.load_library()
     with torch.cuda.device(Zp.device):
         err = lib.sct_lisa_count(
-            _ptr(local_idx), _ptr(wq), _ptr(Zp), _ptr(far_row_ptr), _ptr(far_q),
-            _ptr(Zf), _ptr(far), _ptr(obs), _ptr(cnt), n_rows // block, block,
-            k, G, form, cnt.element_size(),
+            _ptr(local_idx), _ptr(wq), _ptr(Zp), _ptr(far_row_ptr),
+            _ptr(far_q), _ptr(Zf), _ptr(far), _ptr(obs), _ptr(cnt),
+            n_rows // block, block, k, G, form, cnt.element_size(),
+            *_shape(tiles, block, k, "moran", form, cnt.element_size(), G, n_rows),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"lisa_count launch failed: CUDA error {err}")
@@ -458,7 +588,8 @@ def lisa_count(local_idx, wq, Zp, block: int, obs, cnt, *, far_row_ptr=None,
 
 
 def lisa_observed(local_idx, wq, Zp, block: int, *, far_row_ptr=None,
-                  far_q=None, Zf=None, far=None) -> torch.Tensor:
+                  far_q=None, Zf=None, far=None,
+                  tiles: Optional[LisaTiles] = None) -> torch.Tensor:
     """|z·lag| as int32 [Npad, G] at the placement gathered into ``Zp``."""
     form = _check_operands(local_idx, wq, Zp, block, far_row_ptr, far_q, Zf, far)
     if Zp.device.type == "cpu":
@@ -467,12 +598,14 @@ def lisa_observed(local_idx, wq, Zp, block: int, *, far_row_ptr=None,
                                    far=far)
     n_rows, k = local_idx.shape
     G = Zp.shape[1]
+    local_idx, wq, far_row_ptr, far_q = _aligned(local_idx, wq, far_row_ptr, far_q)
     lib = build.load_library()
     with torch.cuda.device(Zp.device):
         out = torch.empty((n_rows, G), dtype=torch.int32, device=Zp.device)
         err = lib.sct_lisa_observed(
-            _ptr(local_idx), _ptr(wq), _ptr(Zp), _ptr(far_row_ptr), _ptr(far_q),
-            _ptr(Zf), _ptr(far), _ptr(out), n_rows // block, block, k, G, form,
+            _ptr(local_idx), _ptr(wq), _ptr(Zp), _ptr(far_row_ptr),
+            _ptr(far_q), _ptr(Zf), _ptr(far), _ptr(out), n_rows // block, block,
+            k, G, form, *_shape(tiles, block, k, "moran", form, 0, G, n_rows),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"lisa_observed launch failed: CUDA error {err}")
@@ -490,18 +623,23 @@ def _check_rows_far(local_idx, wq, Zp, block: int, far_row_ptr, far_q, Zf):
 
 
 def _launch_count(stat: int, alternative: str, mode: str, local_idx, wq, Zp,
-                  block: int, obs, cnt, far_row_ptr, far_q, Zf, row_i=None,
-                  row_f=None, col_a=None, col_b=None, lag_o=None, me_o=None,
-                  inv_m: float = 0.0):
+                  block: int, obs, cnt, far_row_ptr, far_q, Zf, tiles,
+                  row_i=None, row_f=None, col_a=None, col_b=None, lag_o=None,
+                  me_o=None, inv_m: float = 0.0):
     n_rows, k = local_idx.shape
+    G = Zp.shape[1]
+    local_idx, wq, far_row_ptr, far_q, row_i, row_f = _aligned(
+        local_idx, wq, far_row_ptr, far_q, row_i, row_f)
     lib = build.load_library()
     with torch.cuda.device(Zp.device):
         err = lib.sct_local_count(
             stat, _ALTS[alternative], _ptr(local_idx), _ptr(wq), _ptr(Zp),
             _ptr(far_row_ptr), _ptr(far_q), _ptr(Zf), _ptr(obs), _ptr(cnt),
             _ptr(row_i), _ptr(row_f), _ptr(col_a), _ptr(col_b), _ptr(lag_o),
-            _ptr(me_o), inv_m, n_rows // block, block, k, Zp.shape[1],
-            cnt.element_size(), torch.cuda.current_stream().cuda_stream)
+            _ptr(me_o), inv_m, n_rows // block, block, k, G, cnt.element_size(),
+            *_shape(tiles, block, k, _STATS[stat], _FAR_ROWS, cnt.element_size(),
+                    G, n_rows),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{mode} launch failed: CUDA error {err}")
     LAUNCHES[mode] += 1
@@ -509,16 +647,20 @@ def _launch_count(stat: int, alternative: str, mode: str, local_idx, wq, Zp,
 
 
 def _launch_observed(stat: int, mode: str, local_idx, wq, Zp, block: int,
-                     far_row_ptr, far_q, Zf, row_i=None) -> torch.Tensor:
+                     far_row_ptr, far_q, Zf, tiles, row_i=None) -> torch.Tensor:
     n_rows, k = local_idx.shape
     G = Zp.shape[1]
+    local_idx, wq, far_row_ptr, far_q, row_i = _aligned(
+        local_idx, wq, far_row_ptr, far_q, row_i)
     lib = build.load_library()
     with torch.cuda.device(Zp.device):
         out = torch.empty((n_rows, G), dtype=torch.int32, device=Zp.device)
         err = lib.sct_local_observed(
             stat, _ptr(local_idx), _ptr(wq), _ptr(Zp), _ptr(far_row_ptr),
             _ptr(far_q), _ptr(Zf), _ptr(row_i), _ptr(out), n_rows // block,
-            block, k, G, torch.cuda.current_stream().cuda_stream)
+            block, k, G, *_shape(tiles, block, k, _STATS[stat], _FAR_ROWS, 0, G,
+                                 n_rows),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{mode} launch failed: CUDA error {err}")
     LAUNCHES[mode] += 1
@@ -534,7 +676,7 @@ def _check_geary(local_idx, wq, Zp, block, w_row, far_row_ptr, far_q, Zf):
 
 
 def geary_count(local_idx, wq, Zp, block: int, obs, cnt, w_row, *, far_row_ptr,
-                far_q, Zf) -> torch.Tensor:
+                far_q, Zf, tiles: Optional[LisaTiles] = None) -> torch.Tensor:
     """One local-Geary draw's counter update, in place:
     ``cnt += (z²·W + lag(z²) − 2·z·lag ≤ obs)``, exact int32.
 
@@ -551,22 +693,22 @@ def geary_count(local_idx, wq, Zp, block: int, obs, cnt, w_row, *, far_row_ptr,
         return geary_count_plain(local_idx, wq, Zp, block, obs, cnt, w_row,
                                  far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
     return _launch_count(_GEARY, "two-sided", "geary_win", local_idx, wq, Zp,
-                         block, obs, cnt, far_row_ptr, far_q, Zf, row_i=w_row)
+                         block, obs, cnt, far_row_ptr, far_q, Zf, tiles, row_i=w_row)
 
 
 def geary_observed(local_idx, wq, Zp, block: int, w_row, *, far_row_ptr, far_q,
-                   Zf) -> torch.Tensor:
+                   Zf, tiles: Optional[LisaTiles] = None) -> torch.Tensor:
     """The int32 geary value [Npad, G] at the placement gathered into ``Zp``."""
     _check_geary(local_idx, wq, Zp, block, w_row, far_row_ptr, far_q, Zf)
     if Zp.device.type == "cpu":
         return geary_observed_plain(local_idx, wq, Zp, block, w_row,
                                     far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
     return _launch_observed(_GEARY, "geary_obs", local_idx, wq, Zp, block,
-                            far_row_ptr, far_q, Zf, row_i=w_row)
+                            far_row_ptr, far_q, Zf, tiles, row_i=w_row)
 
 
-def getis_lag(local_idx, wb, Zp, block: int, *, far_row_ptr, far_q, Zf
-              ) -> torch.Tensor:
+def getis_lag(local_idx, wb, Zp, block: int, *, far_row_ptr, far_q, Zf,
+              tiles: Optional[LisaTiles] = None) -> torch.Tensor:
     """The binary lag int32 [Npad, G] at the placement gathered into ``Zp``
     (Getis's observed entry; ``wb`` holds 0/1 codes)."""
     _check_rows_far(local_idx, wb, Zp, block, far_row_ptr, far_q, Zf)
@@ -574,12 +716,12 @@ def getis_lag(local_idx, wb, Zp, block: int, *, far_row_ptr, far_q, Zf
         return getis_lag_plain(local_idx, wb, Zp, block,
                                far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
     return _launch_observed(_GETIS_STAR, "getis_obs", local_idx, wb, Zp, block,
-                            far_row_ptr, far_q, Zf)
+                            far_row_ptr, far_q, Zf, tiles)
 
 
 def getis_star_count(local_idx, wb, Zp, block: int, obs, cnt, *,
                      alternative: str, far_row_ptr, far_q, Zf, wp1=None,
-                     tm=None) -> torch.Tensor:
+                     tm=None, tiles: Optional[LisaTiles] = None) -> torch.Tensor:
     """One Gi* draw's counter update, in place, with A = lag + z against
     ``obs`` = A_o (int32 [Npad, G]): ``A ≥ A_o`` ("greater"), ``A ≤ A_o``
     ("less"), or the two-sided sign test with c2 = ``tm[g]·wp1[r]``
@@ -602,13 +744,13 @@ def getis_star_count(local_idx, wb, Zp, block: int, obs, cnt, *,
                                       far_row_ptr=far_row_ptr, far_q=far_q,
                                       Zf=Zf, wp1=wp1, tm=tm)
     return _launch_count(_GETIS_STAR, alternative, "getis_star_win", local_idx,
-                         wb, Zp, block, obs, cnt, far_row_ptr, far_q, Zf,
+                         wb, Zp, block, obs, cnt, far_row_ptr, far_q, Zf, tiles,
                          row_f=wp1, col_a=tm)
 
 
 def getis_g_count(local_idx, wb, Zp, block: int, obs, cnt, *, alternative: str,
                   far_row_ptr, far_q, Zf, w_row, tot, sq, inv_m: float, lag_o,
-                  me_o) -> torch.Tensor:
+                  me_o, tiles: Optional[LisaTiles] = None) -> torch.Tensor:
     """One Gi draw's counter update, in place: the centred lag cp (module
     docstring) against ``obs`` = cp_o (f32 [Npad, G]) per ``alternative``,
     or an exact tie of (lag, z) with (``lag_o`` int32, ``me_o`` int8
@@ -632,8 +774,8 @@ def getis_g_count(local_idx, wb, Zp, block: int, obs, cnt, *, alternative: str,
                                    w_row=w_row, tot=tot, sq=sq, inv_m=inv_m,
                                    lag_o=lag_o, me_o=me_o)
     return _launch_count(_GETIS_G, alternative, "getis_g_win", local_idx, wb, Zp,
-                         block, obs, cnt, far_row_ptr, far_q, Zf, row_f=w_row,
-                         col_a=tot, col_b=sq, lag_o=lag_o, me_o=me_o,
+                         block, obs, cnt, far_row_ptr, far_q, Zf, tiles,
+                         row_f=w_row, col_a=tot, col_b=sq, lag_o=lag_o, me_o=me_o,
                          inv_m=inv_m)
 
 
@@ -649,20 +791,24 @@ def _check_lee(local_idx, wq, Zp, block: int, zx, sw_row, far_row_ptr, far_q,
 
 
 def _launch_lee(mode: int, name: str, local_idx, wq, Zp, block: int, zx,
-                sw_row, far_row_ptr, far_q, Zf, obs=None, cnt=None):
+                sw_row, far_row_ptr, far_q, Zf, tiles, obs=None, cnt=None):
     n_rows, k = local_idx.shape
     G = Zp.shape[1]
+    local_idx, wq, far_row_ptr, far_q, sw_row = _aligned(
+        local_idx, wq, far_row_ptr, far_q, sw_row)
     lib = build.load_library()
     with torch.cuda.device(Zp.device):
         part = torch.empty((n_rows // block, G), dtype=torch.float32,
                            device=Zp.device)
         out = (torch.empty((n_rows, G), dtype=torch.int32, device=Zp.device)
                if mode == _LEE_OBSERVED else None)
+        cnt_bytes = cnt.element_size() if cnt is not None else 0
         err = lib.sct_lee(
             mode, _ptr(local_idx), _ptr(wq), _ptr(Zp), _ptr(far_row_ptr),
-            _ptr(far_q), _ptr(Zf), _ptr(zx), _ptr(sw_row), _ptr(obs), _ptr(cnt),
-            _ptr(out), _ptr(part), n_rows // block, block, k, G,
-            cnt.element_size() if cnt is not None else 1,
+            _ptr(far_q), _ptr(Zf), _ptr(zx), _ptr(sw_row), _ptr(obs),
+            _ptr(cnt), _ptr(out), _ptr(part), n_rows // block, block, k, G,
+            cnt_bytes, *_shape(tiles, block, k, "lee", _FAR_ROWS, cnt_bytes, G,
+                               n_rows),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -671,7 +817,8 @@ def _launch_lee(mode: int, name: str, local_idx, wq, Zp, block: int, zx,
 
 
 def lee_count(local_idx, wq, Zp, block: int, zx, sw_row, obs, cnt, *,
-              far_row_ptr, far_q, Zf) -> torch.Tensor:
+              far_row_ptr, far_q, Zf, tiles: Optional[LisaTiles] = None
+              ) -> torch.Tensor:
     """One Lee draw: ``cnt += (|x·lag| ≥ obs)`` in place, and the draw's
     per-block partials of the global L, returned as float32 [nb, G].
 
@@ -690,11 +837,11 @@ def lee_count(local_idx, wq, Zp, block: int, zx, sw_row, obs, cnt, *,
         return lee_count_plain(local_idx, wq, Zp, block, zx, sw_row, obs, cnt,
                                far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
     return _launch_lee(_LEE_COUNT, "lee_win", local_idx, wq, Zp, block, zx,
-                       sw_row, far_row_ptr, far_q, Zf, obs=obs, cnt=cnt)[1]
+                       sw_row, far_row_ptr, far_q, Zf, tiles, obs=obs, cnt=cnt)[1]
 
 
 def lee_observed(local_idx, wq, Zp, block: int, zx, sw_row, *, far_row_ptr,
-                 far_q, Zf):
+                 far_q, Zf, tiles: Optional[LisaTiles] = None):
     """``(|Lq| int32 [Npad, G], partials f32 [nb, G])`` at the placement
     gathered into ``Zp`` (operands as :func:`lee_count`)."""
     _check_lee(local_idx, wq, Zp, block, zx, sw_row, far_row_ptr, far_q, Zf)
@@ -702,11 +849,11 @@ def lee_observed(local_idx, wq, Zp, block: int, zx, sw_row, *, far_row_ptr,
         return lee_observed_plain(local_idx, wq, Zp, block, zx, sw_row,
                                   far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
     return _launch_lee(_LEE_OBSERVED, "lee_obs", local_idx, wq, Zp, block, zx,
-                       sw_row, far_row_ptr, far_q, Zf)
+                       sw_row, far_row_ptr, far_q, Zf, tiles)
 
 
 def lee_partial(local_idx, wq, Zp, block: int, zx, sw_row, *, far_row_ptr,
-                far_q, Zf) -> torch.Tensor:
+                far_q, Zf, tiles: Optional[LisaTiles] = None) -> torch.Tensor:
     """The partials f32 [nb, G] alone (the global-only Lee null; operands
     as :func:`lee_count`)."""
     _check_lee(local_idx, wq, Zp, block, zx, sw_row, far_row_ptr, far_q, Zf)
@@ -714,4 +861,4 @@ def lee_partial(local_idx, wq, Zp, block: int, zx, sw_row, *, far_row_ptr,
         return lee_partial_plain(local_idx, wq, Zp, block, zx, sw_row,
                                  far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
     return _launch_lee(_LEE_PARTIAL, "lee_partial", local_idx, wq, Zp, block,
-                       zx, sw_row, far_row_ptr, far_q, Zf)[1]
+                       zx, sw_row, far_row_ptr, far_q, Zf, tiles)[1]

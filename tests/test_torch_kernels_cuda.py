@@ -343,69 +343,127 @@ def test_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda_device, plan):
 # ---------------------------------------------------------------------------
 
 
-def _lisa_operands(nb: int, G: int, k: int = 6, seed: int = 3):
-    """Synthetic LISA operands: a compact band with some zero weights, and
-    a far list whose rows include every block's first and last row."""
+#: (B, k, nb, G, run): one block; G ragged against the 16-gene lane and the
+#: 128-gene tile; B of 64, 100, 256 and 512; k of 6 and 50; runs that do
+#: not divide nb (None: the chooser's run)
+LISA_CASES = [(64, 6, 1, 64, None), (64, 6, 5, 260, 2), (100, 6, 7, 1000, 3),
+              (256, 50, 3, 260, 2), (512, 6, 3, 1000, 2)]
+LISA_IDS = ["B64_one_block", "B64_G260_run2", "B100_G1000_run3", "B256_k50_run2",
+            "B512_G1000_run2"]
+#: geary also at its exactness bound, k = 256 with codes ±127
+GEARY_CASES = LISA_CASES + [(64, 256, 2, 132, None)]
+GEARY_IDS = LISA_IDS + ["B64_k256_pm127"]
+#: Lee also at k = 300
+LEE_CASES = LISA_CASES + [(64, 300, 2, 260, None)]
+LEE_IDS = LISA_IDS + ["B64_k300"]
+_FORMS = {"none": 0, "rows": 1, "dense": 2}
+
+
+def _lisa_operands(nb: int, G: int, k: int = 6, blk: int = B, seed: int = 3,
+                   one_code_a_row: bool = False):
+    """Synthetic LISA operands: a compact band with some zero weights (with
+    ``one_code_a_row`` every nonzero weight of a row is one code, as in a
+    kNN band), and a far list of 0–3 entries a row whose rows include every
+    block's first and last row. At k = 256 every code is ±127 (geary's
+    exactness bound)."""
     gen = torch.Generator().manual_seed(seed)
-    n = nb * B
-    li = torch.randint(0, 3 * B, (n, k), generator=gen, dtype=torch.int32)
+    n = nb * blk
+    li = torch.randint(0, 3 * blk, (n, k), generator=gen, dtype=torch.int32)
     wq = torch.randint(0, 128, (n, k), generator=gen).to(torch.int8)
     wq[torch.rand((n, k), generator=gen) < 0.2] = 0
+    if one_code_a_row:
+        row = torch.randint(1, 128, (n, 1), generator=gen).to(torch.int8)
+        wq = torch.where(wq != 0, row, wq)
 
     def codes(rows):
+        if k == 256:
+            return (torch.randint(0, 2, (rows, G), generator=gen) * 254 - 127
+                    ).to(torch.int8)
         return torch.randint(-127, 128, (rows, G), generator=gen, dtype=torch.int8)
 
-    per_row = torch.randint(0, 3, (n,), generator=gen)
-    per_row[0::B] = 2                               # each block's first row
-    per_row[B - 1::B] = 3                           # ... and last row
+    per_row = torch.randint(0, 4, (n,), generator=gen)
+    per_row[0::blk] = 2                             # each block's first row
+    per_row[blk - 1::blk] = 3                       # ... and last row
     ptr = torch.zeros(n + 1, dtype=torch.int32)
     ptr[1:] = torch.cumsum(per_row, 0).to(torch.int32)
     F = int(ptr[-1])
     far_q = torch.randint(0, 128, (F,), generator=gen).to(torch.int8)
-    zp, zf = codes(n + 2 * B), codes(F)
+    zp, zf = codes(n + 2 * blk), codes(F)
     dense = torch.randint(-k * 127 * 127, k * 127 * 127, (n, G), generator=gen,
                           dtype=torch.int32)
-    obs = kern_lisa.lisa_observed(li, wq, codes(n + 2 * B), B,
+    obs = kern_lisa.lisa_observed(li, wq, codes(n + 2 * blk), blk,
                                   far_row_ptr=ptr, far_q=far_q, Zf=codes(F))
-    return dict(li=li, wq=wq, zp=zp, obs=obs,
+    return dict(li=li, wq=wq, zp=zp, obs=obs, blk=blk,
                 far={"rows": dict(far_row_ptr=ptr, far_q=far_q, Zf=zf),
                      "dense": dict(far=dense), "none": {}})
 
 
+def _on(t, dev):
+    return t.to(dev) if isinstance(t, torch.Tensor) else t
+
+
+def _shapes(case, stat: str, form: int, cnt_bytes: int):
+    """Every launch shape a case runs at: the chooser's, the narrowest tile
+    (16 genes), ragged 7-row chunks staging one far entry, and no far entry
+    staged."""
+    blk, k, nb, G, run = case
+    t = kern_lisa.lisa_tiles(blk, k, stat, form, cnt_bytes, G, nb, run=run)
+    narrow = kern_lisa.lisa_tiles(blk, k, stat, form, cnt_bytes, G, nb,
+                                  max_tile=16, run=run)
+    return [t, narrow, t._replace(chunk=min(7, t.chunk), far_cap=min(1, t.far_cap)),
+            t._replace(far_cap=0)]
+
+
+def _equal_at_every_shape(fn, mode: str, want, shapes):
+    """``fn(tiles)`` at every launch shape, twice each: one launch a call,
+    and both runs equal to ``want`` (a tensor or a tuple) bitwise."""
+    want = want if isinstance(want, tuple) else (want,)
+    for tiles in shapes:
+        for _ in range(2):
+            before = kern_lisa.LAUNCHES[mode]
+            got = fn(tiles)
+            torch.cuda.synchronize()
+            assert kern_lisa.LAUNCHES[mode] == before + 1, tiles
+            got = got if isinstance(got, tuple) else (got,)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w), tiles
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb,G", [(1, 64), (5, 260)], ids=["one_block", "G260"])
+@pytest.mark.parametrize("case", LISA_CASES, ids=LISA_IDS)
 @pytest.mark.parametrize("form", ["rows", "dense", "none"])
 @pytest.mark.parametrize("cdt", [torch.int8, torch.int16, torch.int32])
-def test_lisa_count_kernel_equals_plain(cuda_device, nb, G, form, cdt):
-    o = _lisa_operands(nb, G)
+def test_lisa_count_kernel_equals_plain(cuda_device, case, form, cdt):
+    blk, k, nb, G, _ = case
+    o = _lisa_operands(nb, G, k=k, blk=blk)
     far = o["far"][form]
     cnt0 = torch.randint(0, 100, o["obs"].shape).to(cdt)
-    want = kern_lisa.lisa_count(o["li"], o["wq"], o["zp"], B, o["obs"],
+    want = kern_lisa.lisa_count(o["li"], o["wq"], o["zp"], blk, o["obs"],
                                 cnt0.clone(), **far)
     assert 0 < int((want != cnt0).sum()) < want.numel()
-    on = lambda t: t.to(cuda_device)  # noqa: E731
+    args = [_on(o[x], cuda_device) for x in ("li", "wq", "zp")]
+    obs, cnt = o["obs"].to(cuda_device), cnt0.to(cuda_device)
+    far_dev = {x: _on(v, cuda_device) for x, v in far.items()}
     mode = {"rows": "lisa_win", "dense": "lisa_dense", "none": "lisa_band"}[form]
-    before = kern_lisa.LAUNCHES[mode]
-    got = kern_lisa.lisa_count(on(o["li"]), on(o["wq"]), on(o["zp"]), B,
-                               on(o["obs"]), on(cnt0), **{k: on(v) for k, v in far.items()})
-    torch.cuda.synchronize()
-    assert kern_lisa.LAUNCHES[mode] == before + 1
-    assert torch.equal(got.cpu(), want)
+    _equal_at_every_shape(
+        lambda tiles: kern_lisa.lisa_count(*args, blk, obs, cnt.clone(), **far_dev,
+                                           tiles=tiles),
+        mode, want, _shapes(case, "moran", _FORMS[form], cnt0.element_size()))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", LISA_CASES, ids=LISA_IDS)
 @pytest.mark.parametrize("form", ["rows", "dense", "none"])
-def test_lisa_observed_kernel_equals_plain(cuda_device, form):
-    o = _lisa_operands(3, 132)
+def test_lisa_observed_kernel_equals_plain(cuda_device, case, form):
+    blk, k, nb, G, _ = case
+    o = _lisa_operands(nb, G, k=k, blk=blk)
     far = o["far"][form]
-    want = kern_lisa.lisa_observed(o["li"], o["wq"], o["zp"], B, **far)
-    before = kern_lisa.LAUNCHES["lisa_obs"]
-    got = kern_lisa.lisa_observed(o["li"].to(cuda_device), o["wq"].to(cuda_device),
-                                  o["zp"].to(cuda_device), B,
-                                  **{k: v.to(cuda_device) for k, v in far.items()})
-    torch.cuda.synchronize()
-    assert kern_lisa.LAUNCHES["lisa_obs"] == before + 1
-    assert torch.equal(got.cpu(), want)
+    want = kern_lisa.lisa_observed(o["li"], o["wq"], o["zp"], blk, **far)
+    args = [_on(o[x], cuda_device) for x in ("li", "wq", "zp")]
+    far_dev = {x: _on(v, cuda_device) for x, v in far.items()}
+    _equal_at_every_shape(
+        lambda tiles: kern_lisa.lisa_observed(*args, blk, **far_dev, tiles=tiles),
+        "lisa_obs", want, _shapes(case, "moran", _FORMS[form], 0))
 
 
 @pytest.mark.cuda
@@ -428,10 +486,11 @@ def test_lisa_pvalues_on_the_card_equal_the_cpu(cuda_device, plan):
 # ---------------------------------------------------------------------------
 
 
-def _tail_operands(nb: int, G: int, getis: bool, seed: int = 5):
+def _tail_operands(case, getis: bool, seed: int = 5, one_code_a_row: bool = False):
     """Operands of the geary / Getis entries: LISA's synthetic band and far
     list, with 0/1 codes and non-negative values for Getis."""
-    o = _lisa_operands(nb, G, seed=seed)
+    blk, k, nb, G, _ = case
+    o = _lisa_operands(nb, G, k=k, blk=blk, seed=seed, one_code_a_row=one_code_a_row)
     gen = torch.Generator().manual_seed(seed + 1)
     far = dict(o["far"]["rows"])
     n = o["li"].shape[0]
@@ -444,76 +503,85 @@ def _tail_operands(nb: int, G: int, getis: bool, seed: int = 5):
         far["Zf"] = far["Zf"].abs()
     w_row = wq.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
         0, src, far["far_q"].to(torch.int32))
-    other = torch.randint(0 if getis else -127, 128, o["zp"].shape, generator=gen,
-                          dtype=torch.int8)
-    other_far = dict(far, Zf=torch.randint(0 if getis else -127, 128,
-                                           far["Zf"].shape, generator=gen,
-                                           dtype=torch.int8))
+    def codes(shape):                   # at k = 256 ±127, as the draw's
+        if k == 256 and not getis:
+            return (torch.randint(0, 2, shape, generator=gen) * 254 - 127).to(torch.int8)
+        return torch.randint(0 if getis else -127, 128, shape, generator=gen,
+                             dtype=torch.int8)
+
+    other = codes(o["zp"].shape)
+    other_far = dict(far, Zf=codes(far["Zf"].shape))
     return dict(li=o["li"], wq=wq, zp=o["zp"], far=far, w_row=w_row,
                 other=other, other_far=other_far)
 
 
-def _on(t, dev):
-    return t.to(dev) if isinstance(t, torch.Tensor) else t
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb,G", [(1, 64), (5, 260)], ids=["one_block", "G260"])
+@pytest.mark.parametrize("case", GEARY_CASES, ids=GEARY_IDS)
 @pytest.mark.parametrize("cdt", [torch.int8, torch.int16, torch.int32])
-def test_geary_kernel_equals_plain(cuda_device, nb, G, cdt):
-    o = _tail_operands(nb, G, getis=False)
-    obs = kern_lisa.geary_observed(o["li"], o["wq"], o["other"], B, o["w_row"],
+@pytest.mark.parametrize("one_code_a_row", [False, True], ids=["codes", "one_code_a_row"])
+def test_geary_kernel_equals_plain(cuda_device, case, cdt, one_code_a_row):
+    """Both ways the kernel sums w·z²: per code, and by one dp4a a group
+    where a row's nonzero weights are one code."""
+    blk = case[0]
+    o = _tail_operands(case, getis=False, one_code_a_row=one_code_a_row)
+    obs = kern_lisa.geary_observed(o["li"], o["wq"], o["other"], blk, o["w_row"],
                                    **o["other_far"])
     cnt0 = torch.randint(0, 100, obs.shape).to(cdt)
-    want = kern_lisa.geary_count(o["li"], o["wq"], o["zp"], B, obs, cnt0.clone(),
+    want = kern_lisa.geary_count(o["li"], o["wq"], o["zp"], blk, obs, cnt0.clone(),
                                  o["w_row"], **o["far"])
     assert 0 < int((want != cnt0).sum()) < want.numel()
-    before = kern_lisa.LAUNCHES["geary_win"]
-    got = kern_lisa.geary_count(*[_on(t, cuda_device) for t in (
-        o["li"], o["wq"], o["zp"])], B, obs.to(cuda_device), cnt0.to(cuda_device),
-        o["w_row"].to(cuda_device), **{k: _on(v, cuda_device) for k, v in o["far"].items()})
-    torch.cuda.synchronize()
-    assert kern_lisa.LAUNCHES["geary_win"] == before + 1
-    assert torch.equal(got.cpu(), want)
+    args = [_on(o[x], cuda_device) for x in ("li", "wq", "zp")]
+    obs, cnt, w_row = (t.to(cuda_device) for t in (obs, cnt0, o["w_row"]))
+    far_dev = {x: _on(v, cuda_device) for x, v in o["far"].items()}
+    _equal_at_every_shape(
+        lambda tiles: kern_lisa.geary_count(*args, blk, obs, cnt.clone(), w_row,
+                                            **far_dev, tiles=tiles),
+        "geary_win", want, _shapes(case, "geary", 1, cnt0.element_size()))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", GEARY_CASES, ids=GEARY_IDS)
 @pytest.mark.parametrize("getis", [False, True], ids=["geary", "getis_lag"])
-def test_geary_and_getis_observed_kernels_equal_plain(cuda_device, getis):
-    o = _tail_operands(3, 132, getis=getis)
-    far_dev = {k: _on(v, cuda_device) for k, v in o["far"].items()}
+@pytest.mark.parametrize("one_code_a_row", [False, True], ids=["codes", "one_code_a_row"])
+def test_geary_and_getis_observed_kernels_equal_plain(cuda_device, case, getis,
+                                                      one_code_a_row):
+    blk = case[0]
+    o = _tail_operands(case, getis=getis, one_code_a_row=one_code_a_row)
+    far_dev = {x: _on(v, cuda_device) for x, v in o["far"].items()}
     args = [o["li"], o["wq"], o["zp"]]
     args_dev = [t.to(cuda_device) for t in args]
-    mode = "getis_obs" if getis else "geary_obs"
-    before = kern_lisa.LAUNCHES[mode]
     if getis:
-        want = kern_lisa.getis_lag(*args, B, **o["far"])
-        got = kern_lisa.getis_lag(*args_dev, B, **far_dev)
+        want = kern_lisa.getis_lag(*args, blk, **o["far"])
+        fn = lambda tiles: kern_lisa.getis_lag(*args_dev, blk, **far_dev,  # noqa: E731
+                                               tiles=tiles)
+        mode, stat = "getis_obs", "getis_star"
     else:
-        want = kern_lisa.geary_observed(*args, B, o["w_row"], **o["far"])
-        got = kern_lisa.geary_observed(*args_dev, B, o["w_row"].to(cuda_device),
-                                       **far_dev)
-    torch.cuda.synchronize()
-    assert kern_lisa.LAUNCHES[mode] == before + 1
-    assert torch.equal(got.cpu(), want)
+        want = kern_lisa.geary_observed(*args, blk, o["w_row"], **o["far"])
+        w_row = o["w_row"].to(cuda_device)
+        fn = lambda tiles: kern_lisa.geary_observed(  # noqa: E731
+            *args_dev, blk, w_row, **far_dev, tiles=tiles)
+        mode, stat = "geary_obs", "geary"
+    _equal_at_every_shape(fn, mode, want, _shapes(case, stat, 1, 0))
 
 
-def _getis_moments(zp, n_rows: int, star: bool):
-    codes = zp[B:B + n_rows].to(torch.int64)
+def _getis_moments(zp, blk: int, n_rows: int, star: bool):
+    codes = zp[blk:blk + n_rows].to(torch.int64)
     tot, sq = codes.sum(0).float(), (codes * codes).sum(0).float()
     inv_m = float(torch.tensor(1.0) / (n_rows if star else n_rows - 1))
     return tot, sq, inv_m
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", LISA_CASES, ids=LISA_IDS)
 @pytest.mark.parametrize("alternative", ["two-sided", "greater", "less"])
 @pytest.mark.parametrize("star", [True, False], ids=["getis_star", "getis_g"])
-def test_getis_count_kernels_equal_plain(cuda_device, star, alternative):
-    o = _tail_operands(5, 260, getis=True)
+def test_getis_count_kernels_equal_plain(cuda_device, case, star, alternative):
+    blk = case[0]
+    o = _tail_operands(case, getis=True)
     n = o["li"].shape[0]
-    lag_o = kern_lisa.getis_lag(o["li"], o["wq"], o["other"], B, **o["other_far"])
-    me_o = o["other"][B:B + n].contiguous()
-    tot, sq, inv_m = _getis_moments(o["zp"], n, star)
+    lag_o = kern_lisa.getis_lag(o["li"], o["wq"], o["other"], blk, **o["other_far"])
+    me_o = o["other"][blk:blk + n].contiguous()
+    tot, sq, inv_m = _getis_moments(o["zp"], blk, n, star)
     w = o["w_row"].to(torch.float32)
     if star:
         obs = lag_o + me_o.to(torch.int32)
@@ -524,16 +592,16 @@ def test_getis_count_kernels_equal_plain(cuda_device, star, alternative):
         kw = dict(w_row=w, tot=tot, sq=sq, inv_m=inv_m, lag_o=lag_o, me_o=me_o)
         fn, mode = kern_lisa.getis_g_count, "getis_g_win"
     cnt0 = torch.randint(0, 100, obs.shape).to(torch.int8)
-    want = fn(o["li"], o["wq"], o["zp"], B, obs, cnt0.clone(),
+    want = fn(o["li"], o["wq"], o["zp"], blk, obs, cnt0.clone(),
               alternative=alternative, **o["far"], **kw)
     assert 0 < int((want != cnt0).sum()) < want.numel()
-    before = kern_lisa.LAUNCHES[mode]
-    got = fn(*[t.to(cuda_device) for t in (o["li"], o["wq"], o["zp"])], B,
-             obs.to(cuda_device), cnt0.to(cuda_device), alternative=alternative,
-             **{k: _on(v, cuda_device) for k, v in {**o["far"], **kw}.items()})
-    torch.cuda.synchronize()
-    assert kern_lisa.LAUNCHES[mode] == before + 1
-    assert torch.equal(got.cpu(), want)
+    args = [o[x].to(cuda_device) for x in ("li", "wq", "zp")]
+    obs, cnt = obs.to(cuda_device), cnt0.to(cuda_device)
+    kw_dev = {x: _on(v, cuda_device) for x, v in {**o["far"], **kw}.items()}
+    _equal_at_every_shape(
+        lambda tiles: fn(*args, blk, obs, cnt.clone(), alternative=alternative,
+                         **kw_dev, tiles=tiles),
+        mode, want, _shapes(case, mode[:-4], 1, 1))
 
 
 @pytest.mark.cuda
@@ -564,10 +632,11 @@ def test_geary_and_getis_pvalues_on_the_card_equal_the_cpu(cuda_device, plan):
 # ---------------------------------------------------------------------------
 
 
-def _lee_operands(nb: int, G: int, seed: int = 7):
+def _lee_operands(case, seed: int = 7):
     """LISA's synthetic band and far list, fixed x codes, row scales, and
     the observed |Lq| of another placement."""
-    o = _lisa_operands(nb, G, seed=seed)
+    blk, k, nb, G, _ = case
+    o = _lisa_operands(nb, G, k=k, blk=blk, seed=seed)
     gen = torch.Generator().manual_seed(seed + 1)
     n = o["li"].shape[0]
     zx = torch.randint(-127, 128, (n, G), generator=gen, dtype=torch.int8)
@@ -575,36 +644,37 @@ def _lee_operands(nb: int, G: int, seed: int = 7):
     far = dict(o["far"]["rows"])
     other = torch.randint(-127, 128, o["zp"].shape, generator=gen,
                           dtype=torch.int8)
-    obs, _ = kern_lisa.lee_observed(o["li"], o["wq"], other, B, zx, sw, **far)
-    return dict(args=(o["li"], o["wq"], o["zp"], B, zx, sw), far=far, obs=obs)
+    obs, _ = kern_lisa.lee_observed(o["li"], o["wq"], other, blk, zx, sw, **far)
+    return dict(args=(o["li"], o["wq"], o["zp"], blk, zx, sw), far=far, obs=obs)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb,G", [(1, 64), (5, 260)], ids=["one_block", "G260"])
+@pytest.mark.parametrize("case", LEE_CASES, ids=LEE_IDS)
 @pytest.mark.parametrize("cdt", [torch.int8, torch.int16, torch.int32])
-def test_lee_kernels_equal_plain(cuda_device, nb, G, cdt):
-    o = _lee_operands(nb, G)
+def test_lee_kernels_equal_plain(cuda_device, case, cdt):
+    o = _lee_operands(case)
     args_dev = tuple(_on(t, cuda_device) for t in o["args"])
-    far_dev = {k: _on(v, cuda_device) for k, v in o["far"].items()}
+    far_dev = {x: _on(v, cuda_device) for x, v in o["far"].items()}
     cnt0 = torch.randint(0, 100, o["obs"].shape).to(cdt)
     want_cnt = cnt0.clone()
     want_part = kern_lisa.lee_count(*o["args"], o["obs"], want_cnt, **o["far"])
     assert 0 < int((want_cnt != cnt0).sum()) < want_cnt.numel()
-    before = dict(kern_lisa.LAUNCHES)
-    got_cnt = cnt0.to(cuda_device)
-    got_part = kern_lisa.lee_count(*args_dev, o["obs"].to(cuda_device), got_cnt,
-                                   **far_dev)
     want_obs, want_opart = kern_lisa.lee_observed(*o["args"], **o["far"])
-    got_obs, got_opart = kern_lisa.lee_observed(*args_dev, **far_dev)
-    got_ppart = kern_lisa.lee_partial(*args_dev, **far_dev)
-    torch.cuda.synchronize()
-    for mode in ("lee_win", "lee_obs", "lee_partial"):
-        assert kern_lisa.LAUNCHES[mode] == before[mode] + 1
-    assert torch.equal(got_cnt.cpu(), want_cnt)
-    assert torch.equal(got_part.cpu(), want_part)
-    assert torch.equal(got_obs.cpu(), want_obs)
-    assert torch.equal(got_opart.cpu(), want_opart)
-    assert torch.equal(got_ppart.cpu(), want_opart)
+    obs, cnt = o["obs"].to(cuda_device), cnt0.to(cuda_device)
+
+    def count(tiles):
+        c = cnt.clone()
+        part = kern_lisa.lee_count(*args_dev, obs, c, **far_dev, tiles=tiles)
+        return c, part
+
+    _equal_at_every_shape(count, "lee_win", (want_cnt, want_part),
+                          _shapes(case, "lee", 1, cnt0.element_size()))
+    _equal_at_every_shape(
+        lambda tiles: kern_lisa.lee_observed(*args_dev, **far_dev, tiles=tiles),
+        "lee_obs", (want_obs, want_opart), _shapes(case, "lee", 1, 0))
+    _equal_at_every_shape(
+        lambda tiles: kern_lisa.lee_partial(*args_dev, **far_dev, tiles=tiles),
+        "lee_partial", want_opart, _shapes(case, "lee", 1, 0))
 
 
 @pytest.mark.cuda

@@ -265,6 +265,39 @@ def _close_obsm(a, b, key, keys, P):
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5, err_msg=k)
 
 
+
+@pytest.mark.parametrize("k", [1, 6, 50, "bound"])
+@pytest.mark.parametrize("stat", ["moran", "geary", "getis_star", "getis_g", "lee"])
+def test_lisa_tiles_fit_shared_memory(stat, k):
+    """The local draw step's launch shape for every block the wrappers take
+    (B ≤ 512), up to the largest k each statistic takes (geary 256, the
+    others 1,000), for every far form, counter and the observed entry: its
+    shared memory fits one H100 block, the tile is a power of two of 16–128
+    genes, the chunk is 1..B rows and at most four rows a thread, at most a
+    far entry a chunk row is staged, and the pipeline has 2–4 stages, at
+    most one more than a block's chunks."""
+    if k == "bound":
+        k = kern_lisa.GEARY_MAX_K if stat == "geary" else kern_lisa.LEE_MAX_K
+    forms = (0, 1, 2) if stat == "moran" else (1,)
+    for block in range(1, kern_lisa.MAX_BLOCK + 1):
+        for far_form in forms:
+            for cnt_bytes in (0, 1, 2, 4):
+                t = kern_lisa.lisa_tiles(block, k, stat, far_form, cnt_bytes, 1000,
+                                         3907)
+                assert t.smem == kern_lisa.lisa_smem_bytes(
+                    block, k, stat, far_form, cnt_bytes, t.tile, t.chunk, t.far_cap,
+                    t.stages)
+                assert t.smem <= 232_448
+                assert 16 <= t.tile <= 128 and t.tile & (t.tile - 1) == 0
+                genes = 8 if stat == "getis_g" and cnt_bytes else 16
+                assert 1 <= t.chunk <= min(block, 4 * 512 // (t.tile // genes))
+                assert 0 <= t.far_cap <= t.chunk and t.run >= 1
+                assert 2 <= t.stages <= 4 and t.stages - 1 <= -(-block // t.chunk)
+    if (stat, k) == ("moran", 6):
+        assert kern_lisa.lisa_tiles(256, 6, "moran", 1, 1, 1024, 3907) == (
+            128, 29, 256, 128, 2, 183_776)
+
+
 def _params(d, key):
     p = dict(d.uns[f"{key}_params"])
     p.pop("computation_time_seconds")
