@@ -7,7 +7,8 @@ Phases (the script stops with a non-zero exit at the first failure):
 1. Device and build: the card's name and power limit (nvidia-smi), and the
    nvcc build of ``spatialcore_tpu_torch/csrc/*.cu`` (one nvcc per source,
    in parallel) with its time; the local draw step's SASS by instance and
-   opcode (``lisa_sass``).
+   opcode (``lisa_sass``); each kNN instance's registers, stack and spills
+   and its SASS by opcode (``knn_sass``).
 2. Each kernel against its plain PyTorch version, on the card, at B=256 on
    300 blocks of a real kNN plan at the 1M-cell density: the band-cross
    kernel (int4/int8 windowed far at G=4096 and int4 at a ragged G=1000,
@@ -77,8 +78,10 @@ Phases (the script stops with a non-zero exit at the first failure):
    path (p / p_sim, p_adj, hotspots bitwise).
 7. Local Lee's L (phase 2 also holds the lee tail's draw step, observed
    entry and partial-only entry, and the kNN kernel at 66,536 cells, k=6
-   and k=50, against their plain versions). The main path, with counts of
-   its own: ``lees_l_local(null_method="banded_int8", n_permutations=99,
+   and k=50, against their plain versions, at the chooser's launch shape
+   and every shape of ``knn_shapes``, each timed, with the all-pairs
+   bound and the exact-d2 scan's FP32 instruction floor; and k=130 and
+   k=256 at 8,192 cells). The main path, with counts of its own: ``lees_l_local(null_method="banded_int8", n_permutations=99,
    compute_cell_pvalues=True)`` at 1,000,000 cells (CUDA X, k=6) over
    1,024 gene pairs in ``output_mode="compact"`` and 64 pairs in "full"
    (compact p / p_adj / L on the shared pairs equal to the full run's
@@ -95,8 +98,12 @@ Phases (the script stops with a non-zero exit at the first failure):
    at 1,000,000 cells (k=6) and at the vignette's 366,938 cells (k=50),
    timed; on the coordinates the call centres, the kernel against its
    plain version (every query at 366,938 cells, the first and last 4,096
-   at 1M) and the graph against the kernel's output; the rows whose
-   neighbour set differs from ``method="grid"`` counted.
+   at 1M) and the graph against the kernel's output; the kernel alone at
+   its chooser's and other launch shapes (each equal to the chooser's
+   output), the all-pairs bound and the exact-d2 scan's FP32 instruction
+   floor at both shapes, and ``torch.cdist`` + ``torch.topk`` at 366,938
+   cells; the rows whose neighbour set differs from ``method="grid"``
+   counted.
 9. The global null's remaining routes, each with counts of its own:
    ``banded_permutation_test(precision="bf16")`` at 1,000,000 cells ×
    1,024 genes × 8 draws through "auto" (K4), "pallas" (K5, dense band)
@@ -225,7 +232,7 @@ LISA_KERNELS = {
                     "spatialcore_tpu/ops/banded.py:2674"),
 }
 KNN_KERNELS = {
-    "knn": ("knn_topk (exact 2D all-pairs kNN, running top-k; K9)",
+    "knn": ("knn_topk (exact 2D all-pairs kNN by (d2, id) keys; K9)",
             "spatialcore_tpu_torch/csrc/knn_topk.cu",
             "spatialcore_tpu/ops/pallas_knn.py:29"),
 }
@@ -233,6 +240,10 @@ KNN_KERNELS = {
 #: operations/s of the unit that could do each kernel's work
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+#: unfused FP32 instructions the H100 SXM runs a second: 132 SMs x 128
+#: lanes x 1.98 GHz (the floor of a kNN that ranks every pair by its exact
+#: d2, none of whose operations fuse)
+F32_INSTR_RATE = 33.5e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -984,26 +995,115 @@ def knn_equal(label: str, got, want) -> float:
     return err
 
 
-def phase_knn_kernel(dev, gen, n: int = 66_536, ks=(6, 50), reps: int = 3):
+def knn_floor_ms(n_pairs: float):
+    """The FP32 instruction floor (ms) of an all-pairs kNN that ranks every
+    pair by its exact d2: 5 and 6 unfused FP32 instructions a pair (2 FSUB,
+    2 FMUL, 1 FADD, the compare) over F32_INSTR_RATE. K9 filters pairs
+    more cheaply first, so this floors that design, not K9."""
+    return 5 * n_pairs / F32_INSTR_RATE * 1e3, 6 * n_pairs / F32_INSTR_RATE * 1e3
+
+
+def knn_bound_line(n: int, k: int) -> str:
+    b_ms, b_by = bound(8 * n + 8 * n * k, 6 * n * n, "f32")
+    lo, hi = knn_floor_ms(float(n) * n)
+    return (f"all-pairs bound {b_ms:.4f} ms ({b_by}; 6 FP32 operations a pair over "
+            f"67 TFLOP/s); exact-d2 scan's FP32 instruction floor {lo:.4f}-{hi:.4f} ms "
+            f"(5-6 unfused instructions a pair over {F32_INSTR_RATE / 1e12:.1f} T/s)")
+
+
+def knn_shapes(n: int, k: int, full: bool = True):
+    """(label, KnnTiles) the phases time at (n, k): the chooser's shape and
+    tiles of 512 and 1,024 points; with ``full`` also 2 and 4 ring stages
+    and 128-thread CTAs."""
+    t = kern_knn.knn_tiles(n, k)
+    out = [("chooser", t)]
+    out += [(f"tile {tl}", t._replace(tile=tl)) for tl in (512, 1024)]
+    if full:
+        out += [(f"{st} stages", t._replace(stages=st)) for st in (2, 4)]
+        out.append(("128 threads", t._replace(threads=128)))
+    return [(label, tiles) for i, (label, tiles) in enumerate(out)
+            if tiles not in [x for _, x in out[:i]]]
+
+
+def knn_split(xy: torch.Tensor, k: int, call_ms: float, reps: int) -> None:
+    """One kNN call's time part by part (CUDA events): the wrapper's
+    operands (Morton codes in torch ops, sorted; the gathered points and
+    ids; the largest |coordinate|) and the kernel alone on them."""
+    if xy.device.type != "cuda":        # a CPU rehearsal launches no kernel
+        return
+    tiles = kern_knn.knn_tiles(xy.shape[0], k)
+    pre = event_ms(lambda: kern_knn.knn_operands(xy), reps)
+    ops = kern_knn.knn_operands(xy)
+    kernel = event_ms(lambda: kern_knn.knn_launch(*ops, k, False, tiles), reps)
+    print(f"[knn-split] k={k} at {xy.shape[0]:,} cells: operands (Morton order, "
+          f"gathered points and ids, max |coordinate|) {pre:.4f} ms, the kernel "
+          f"alone {kernel:.4f} ms; the call {call_ms:.4f} ms")
+
+
+def phase_knn_kernel(dev, gen, n: int = 66_536, ks=(6, 50), reps: int = 3,
+                     holds=((6, 6000), (50, 6000), (130, 8192), (256, 8192))):
     """The kNN kernel against its plain version on the card at ``n``
-    uniform cells (1M density; a multiple of neither the kernel's query
-    block, 128, nor its candidate tile, 1,024, so its last query block has
-    idle threads and its last candidate tile is partial) for each k:
-    indices and squared distances equal. The first k gives the mode's
+    uniform cells (1M density; a multiple of neither a CTA's queries nor
+    the candidate tile, so the last query tile has idle queries and the
+    last candidate tile is partial) for each k: indices and squared
+    distances equal, at the chooser's shape and at every shape of
+    ``knn_shapes``, each timed. Then each (k, cells) of ``holds`` against
+    its plain version at the chooser's shape. The first k gives the mode's
     times. Returns {"knn": numbers}."""
     xy = uniform_coords(n, SIDE * (n / 1e6) ** 0.5, gen, dev)
     xy = (xy - xy.mean(dim=0)).contiguous()
     results = {}
     for k in ks:
-        err = knn_equal(f"knn k={k}", kern_knn.knn_topk(xy, k),
-                        kern_knn.knn_topk_plain(xy, k))
+        want = kern_knn.knn_topk_plain(xy, k)
+        err = knn_equal(f"knn k={k}", kern_knn.knn_topk(xy, k), want)
         ms = event_ms(lambda: kern_knn.knn_topk(xy, k), reps)
         pms = event_ms(lambda: kern_knn.knn_topk_plain(xy, k), 1)
         lms = event_ms(lambda: knn_library(xy, k), 1)
         report(results, "knn", f"knn k={k} at {n:,} cells (indices and d2 "
-               f"equal)", err, ms, pms, 8 * n + 8 * n * k, 6 * n * n, "f32",
-               lms, first=k == ks[0])
+               f"equal; {kern_knn.knn_tiles(n, k)})", err, ms, pms,
+               8 * n + 8 * n * k, 6 * n * n, "f32", lms, first=k == ks[0])
+        print(f"[kernels] knn k={k} at {n:,} cells: {knn_bound_line(n, k)}")
+        knn_split(xy, k, ms, reps)
+        for label, tiles in knn_shapes(n, k):
+            err = max(err, knn_equal(f"knn k={k} {label}", kern_knn.knn_topk_tiled(
+                xy, k, False, tiles), want))
+            t_ms = event_ms(lambda: kern_knn.knn_topk_tiled(xy, k, False, tiles), reps)
+            print(f"[knn-shapes] k={k} {label}: {t_ms:.4f} ms ({tiles})")
+        results["knn"]["max_abs_err"] = max(results["knn"]["max_abs_err"], err)
+    for k, m in holds:
+        xs = uniform_coords(m, SIDE * (m / 1e6) ** 0.5, gen, dev)
+        xs = (xs - xs.mean(dim=0)).contiguous()
+        for self_ in (False, True):
+            err = knn_equal(f"knn k={k} at {m:,} cells", kern_knn.knn_topk(xs, k, self_),
+                            kern_knn.knn_topk_plain(xs, k, self_))
+            results["knn"]["max_abs_err"] = max(results["knn"]["max_abs_err"], err)
+        t_ms = event_ms(lambda: kern_knn.knn_topk(xs, k), reps)
+        print(f"[kernels] knn k={k} at {m:,} cells, with and without self: "
+              f"indices and d2 equal to plain; {t_ms:.4f} ms "
+              f"({kern_knn.knn_tiles(m, k)}); {knn_bound_line(m, k)}")
     return results
+
+
+def knn_sass(listing: str) -> None:
+    """Each kNN instance's registers, stack and spills (ptxas, from the
+    build log) and SASS by opcode (the listing of the built library;
+    ``python -m spatialcore_tpu_torch.kernels.sass --source
+    spatialcore_tpu_torch/csrc/knn_topk.cu`` compiles the file alone)."""
+    entry = None
+    for ln in build.build_log().splitlines():
+        if "Compiling entry" in ln:
+            entry = (sass._demangle([ln.split("'")[1]])[0] if "knn_topk_cu" in ln
+                     else None)
+        elif entry and ("registers" in ln or "spill" in ln):
+            print(f"[knn-build] {entry}: {ln.split(':', 1)[-1].strip()}")
+    ops = ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "LDS", "LDGSTS", "SHFL", "VOTE",
+           "ISETP", "SEL", "BRA", "BAR", "LDL", "STL")
+    for name, c in sass.opcode_counts(listing).items():
+        if "::knn_" in name:
+            inst = name[name.index("::knn_") + 2:]
+            inst = inst[:inst.find(">(") + 1] if ">(" in inst else inst[:inst.find("(")]
+            print(f"[sass] {inst}: {sum(c.values())} instructions; "
+                  + ", ".join(f"{op} {c[op]}" for op in ops if c[op]))
 
 
 # ---------------------------------------------------------------------------
@@ -2271,8 +2371,8 @@ def phase_lee_vs_cpu(dev, coords: np.ndarray, n_genes: int, seed: int,
 # ---------------------------------------------------------------------------
 
 
-def phase_graph_pallas(dev, gen, shapes=((1_000_000, 6, 4096),
-                                          (366_938, 50, None))):
+def phase_graph_pallas(dev, gen, shapes=((1_000_000, 6, 4096, False),
+                                          (366_938, 50, None, True))):
     """build_graph(method="pallas") at each (cells, k), timed, with the kNN
     launch count read around that call alone. Then, on the same
     host-centred coordinates the call gives the kernel, the kernel against
@@ -2284,7 +2384,7 @@ def phase_graph_pallas(dev, gen, shapes=((1_000_000, 6, 4096),
     0 away from distance ties at the k-th neighbour). Returns (kNN
     launches, {cells: (seconds, differing rows)})."""
     out, launches = {}, 0
-    for n, k, edge in shapes:
+    for n, k, edge, library in shapes:
         coords = uniform_coords(n, SIDE * (n / 1e6) ** 0.5, gen, dev)
         kern_knn.reset_launch_counts()
         gp, t = timed(lambda: build_graph(coords, n_neighbors=k, method="pallas",
@@ -2292,6 +2392,19 @@ def phase_graph_pallas(dev, gen, shapes=((1_000_000, 6, 4096),
         launches += kern_knn.LAUNCHES["knn"]
         xy = centred_xy(coords, dev)
         got_d, got_i = kern_knn.knn_topk(xy, k)
+        for label, tiles in knn_shapes(n, k, full=False):
+            knn_equal(f"knn at {n:,} cells k={k} {label}", kern_knn.knn_topk_tiled(
+                xy, k, False, tiles), (got_d, got_i))
+            t_ms = event_ms(lambda: kern_knn.knn_topk_tiled(xy, k, False, tiles), 1)
+            print(f"[graph] kNN kernel at {n:,} cells k={k}, {label}: "
+                  f"{t_ms:.4f} ms ({tiles})")
+        print(f"[graph] kNN at {n:,} cells k={k}: {knn_bound_line(n, k)}")
+        knn_split(xy, k, float("nan"), 1)
+        if library:
+            _, t_lib = timed(lambda: knn_library(xy, k), dev)
+            print(f"[graph] torch.cdist + torch.topk at {n:,} cells k={k}: "
+                  f"{t_lib * 1e3:.4f} ms (one call, host clock around a "
+                  f"synchronised run)")
         check(torch.equal(gp.neighbor_idx, got_i)
               and torch.equal(gp.distances, torch.sqrt(got_d)),
               "build_graph(method='pallas') differs from the kernel's output")
@@ -2680,14 +2793,14 @@ def phase_slots_vs_cpu(dev, coords: np.ndarray, n_genes: int, seed: int,
           f"permutations equal the CPU's; counts within one draw")
 
 
-def lisa_sass() -> None:
+def lisa_sass(listing: str) -> None:
     """The local draw step's SASS by instance (template arguments: STAT,
     FAR, COUNT, counter type, k unrolled): instructions in all and the
     opcodes of its inner loop, from the built library (``python -m
     spatialcore_tpu_torch.kernels.sass --match lisa_kernel`` prints every
     opcode)."""
     ops = ("IDP", "PRMT", "IMAD", "LDS", "LDGSTS", "LDG", "STG", "MUFU", "BAR")
-    for name, c in sass.opcode_counts(sass._listing(None)).items():
+    for name, c in sass.opcode_counts(listing).items():
         if "lisa_kernel<" in name:
             inst = name[name.index("lisa_kernel<"):]
             inst = inst[:inst.find(">(") + 1 or None]
@@ -2721,7 +2834,10 @@ def main() -> None:
           f"{build.library_path().name}")
     for ln in log:
         print(f"[build] {ln.strip()}")
-    lisa_sass()
+    listing = sass._listing(None)
+    lisa_sass(listing)
+    knn_sass(listing)
+    del listing
 
     gen = torch.Generator(device=dev).manual_seed(0)
     plan300 = real_plan(dev, 300, gen)

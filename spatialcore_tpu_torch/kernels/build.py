@@ -67,8 +67,9 @@ _SIGNATURES = {
     # part, nb, B, k, G, cnt_bytes
     "sct_lee": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                 _I, _I, *_SHAPE],
-    # coords, n, k, include_self, out_d, out_i, stream
-    "sct_knn": [_P, _I, _I, _I, _P, _P, _P],
+    # coords, order, rmax, n, k, include_self, threads, tile, stages,
+    # out_d, out_i, stream
+    "sct_knn": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _library: Optional[ctypes.CDLL] = None

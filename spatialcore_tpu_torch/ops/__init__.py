@@ -7,7 +7,8 @@ from .banded import (NullPlan, banded_getis, banded_lees_l, banded_local_geary,
                      banded_permutation_test, build_null_plan, plan_from_numpy)
 from .fdr import apply_fdr, benjamini_hochberg, benjamini_hochberg_discrete, bonferroni
 from .getis import GetisOrdResult, getis_ord
-from .graph import SpatialGraph, build_graph, graph_from_numpy, graph_moments, spatial_lag
+from .graph import (SpatialGraph, build_graph, graph_from_numpy, graph_moments,
+                    knn_exact, knn_grid, spatial_lag)
 from .knn_kernel import pallas_knn
 from .lee import LeesLResult, lees_l_pairs
 from .moran import (QUADRANT_LABELS, LocalGearyResult, LocalMoranResult,
@@ -27,7 +28,8 @@ __all__ = ["GetisOrdResult", "LeesLResult", "LocalGearyResult",
            "benjamini_hochberg_discrete", "bonferroni", "build_graph",
            "build_null_plan", "classify_quadrants", "device_local_sink",
            "geary_analytic_moments", "geary_observed", "getis_ord",
-           "graph_from_numpy", "graph_moments", "host_local_sink",
+           "graph_from_numpy", "graph_moments", "host_local_sink", "knn_exact",
+           "knn_grid",
            "lees_l_pairs", "local_geary", "local_moran",
            "moran_analytic_moments", "moran_observed", "p_from_z",
            "pallas_knn", "permutation_test_global", "plan_from_numpy",

@@ -677,23 +677,117 @@ def test_lee_kernels_equal_plain(cuda_device, case, cdt):
         "lee_partial", want_opart, _shapes(case, "lee", 1, 0))
 
 
+def _knn_shapes(n: int, k: int, every: bool = True):
+    """The chooser's shape for (n, k), 1,024-point tiles, and (``every``)
+    other tiles, stages and CTA sizes, with a partial last tile where n
+    allows."""
+    t = kern_knn.knn_tiles(n, k)
+    shapes = [t, t._replace(tile=1024)]
+    if every:
+        shapes += [kern_knn.KnnTiles(64, 128, 2), kern_knn.KnnTiles(128, 256, 4)]
+    out = []
+    for s in shapes:
+        kern_knn.check_tiles(s)
+        if s not in out:
+            out.append(s)
+    return out
+
+
+def _knn_coords(n: int, kind: str, seed: int) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(seed)
+    if kind == "lattice":               # equal distances everywhere
+        xy = torch.randint(0, 80, (n, 2), generator=gen).to(torch.float32) - 40.0
+    else:
+        xy = torch.rand((n, 2), generator=gen) * 600 - 300
+    dup = torch.arange(0, n, 7)         # duplicated points: ties at d2 = 0
+    xy[dup] = xy[torch.randint(0, n, (len(dup),), generator=gen)]
+    return xy
+
+
+def _knn_equal_at_shapes(dev, xy, k, include_self, shapes, want):
+    """Every shape gives ``want`` (d2, ids) bitwise, twice, one launch a
+    call."""
+    want_d, want_i = (w.cpu() for w in want)
+    for tiles in shapes:
+        runs = []
+        for _ in range(2):
+            before = kern_knn.LAUNCHES["knn"]
+            runs.append(kern_knn.knn_topk_tiled(xy, k, include_self, tiles))
+            torch.cuda.synchronize()
+            assert kern_knn.LAUNCHES["knn"] == before + 1, tiles
+        (d0, i0), (d1, i1) = runs
+        assert torch.equal(d0, d1) and torch.equal(i0, i1), tiles
+        got_d, got_i = d0.cpu(), i0.cpu()
+        bad = int((got_i != want_i).any(1).sum())
+        assert bad == 0, f"{tiles}: {bad} rows of ids differ"
+        assert torch.equal(got_d, want_d), tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5000, 66_536, "k+1"])
+@pytest.mark.parametrize("include_self", [False, True])
+@pytest.mark.parametrize("k", [1, 6, 8, 9, 16, 17, 50, 64, 65, 130, 256])
+def test_knn_kernel_equals_plain(cuda_device, k, include_self, n):
+    """Ids and d2 equal to the plain version's at every launch shape:
+    duplicated points and an integer lattice at 5,000 points (equal
+    distances break by id in both), uniform points at 66,536 (the chooser's
+    shape and 1,024-point tiles; the plain version on the card), and
+    n = k + 1."""
+    if n == "k+1":
+        n, kinds = k + 1, ("lattice", "uniform")
+    elif n == 5000:
+        kinds = ("lattice", "uniform")
+    else:
+        kinds = ("uniform",)
+    for kind in kinds:
+        xy = _knn_coords(n, kind, k + n)
+        if n > 10_000:
+            xy_dev = xy.to(cuda_device)
+            want = kern_knn.knn_topk_plain(xy_dev, k, include_self)
+            shapes = _knn_shapes(n, k, every=False)
+        else:
+            xy_dev = xy.to(cuda_device)
+            want = kern_knn.knn_topk(xy, k, include_self)
+            shapes = _knn_shapes(n, k)
+        before = kern_knn.LAUNCHES["knn"]
+        got = kern_knn.knn_topk(xy_dev, k, include_self)
+        torch.cuda.synchronize()
+        assert kern_knn.LAUNCHES["knn"] == before + 1
+        _knn_equal_at_shapes(cuda_device, xy_dev, k, include_self, shapes, want)
+        assert torch.equal(got[1].cpu(), want[1].cpu())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,include_self", [(6, False), (6, True), (50, False),
-                                            (50, True), (130, False)])
-def test_knn_kernel_equals_plain(cuda_device, k, include_self):
-    """Duplicated points and an integer lattice: equal distances break by
-    id in both."""
-    gen = torch.Generator().manual_seed(k)
-    n = 5000
-    xy = torch.randint(0, 80, (n, 2), generator=gen).to(torch.float32) - 40.0
-    xy[::7] = xy[torch.randint(0, n, (len(xy[::7]),), generator=gen)]
-    want_d, want_i = kern_knn.knn_topk(xy, k, include_self)
-    before = kern_knn.LAUNCHES["knn"]
-    got_d, got_i = kern_knn.knn_topk(xy.to(cuda_device), k, include_self)
-    torch.cuda.synchronize()
-    assert kern_knn.LAUNCHES["knn"] == before + 1
-    assert torch.equal(got_i.cpu(), want_i)
-    assert torch.equal(got_d.cpu(), want_d)
+                                            (130, True)])
+def test_knn_kernel_overflow_rows(cuda_device, k, include_self):
+    """Points at ±1e20, whose d2 to most others overflows to +Inf: those
+    never enter, so some rows end in id -1 and d2 +Inf, as in the plain
+    version."""
+    n = 3000
+    xy = _knn_coords(n, "uniform", 11)
+    gen = torch.Generator().manual_seed(12)
+    far = torch.randperm(n, generator=gen)[:40]
+    signs = torch.randint(0, 2, (len(far), 2), generator=gen).to(torch.float32) * 2 - 1
+    xy[far] = signs * 1e20 * (1 + torch.rand((len(far), 2), generator=gen))
+    want = kern_knn.knn_topk(xy, k, include_self)
+    assert bool((want[1] == -1).any()) and bool(torch.isinf(want[0]).any())
+    _knn_equal_at_shapes(cuda_device, xy.to(cuda_device), k, include_self,
+                         _knn_shapes(n, k), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [2.0 ** -60, 2.0 ** 50])
+@pytest.mark.parametrize("k,include_self", [(6, False), (50, True)])
+def test_knn_kernel_filter_ranges(cuda_device, k, include_self, scale):
+    """A lattice scaled below the range of the kernel's expanded filter
+    (every |coordinate| under 2^-50, so it ranks by the exact filter) and
+    near its top (under 2^60, with a margin far above the k-th d2): ties
+    still break by id, equal to the plain version at every shape."""
+    xy = _knn_coords(3000, "lattice", 13) * scale
+    want = kern_knn.knn_topk(xy, k, include_self)
+    _knn_equal_at_shapes(cuda_device, xy.to(cuda_device), k, include_self,
+                         _knn_shapes(3000, k), want)
 
 
 @pytest.mark.cuda

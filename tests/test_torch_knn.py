@@ -114,3 +114,75 @@ def test_knn_refusals():
     assert kern_knn.LAUNCHES == before            # CPU tensors launch nothing
     assert sorted(ids[0].tolist()) == list(range(1, 50))
     assert bool((d2[:, 1:] >= d2[:, :-1]).all())
+
+
+@pytest.mark.parametrize("n", [2, 257, 66_536, 1_000_000])
+@pytest.mark.parametrize("k", [1, 8, 16, 32, 64, 128, 256])
+def test_knn_tiles_fit_shared_memory(k, n):
+    """The chooser's shape, for every list length KMAX = 32, 64, 128, 256
+    (and small k), is one the kernel takes: shared memory within the
+    H100's 232,448 bytes, a list that holds k, and query tiles (queries a
+    warp × warps a CTA) that cover the queries with only the last tile
+    partial."""
+    k = min(k, n - 1)
+    t = kern_knn.knn_tiles(n, k)
+    kern_knn.check_tiles(t)
+    assert kern_knn.knn_smem_bytes(t) <= 232_448
+    assert k <= kern_knn.kmax(k) <= kern_knn.MAX_K
+    per = kern_knn.queries_a_cta(k, t)
+    assert per == kern_knn.queries_a_warp(k) * (t.threads // 32)
+    ctas = -(-n // per)
+    assert (ctas - 1) * per < n <= ctas * per
+
+
+@pytest.mark.parametrize("tiles,why", [
+    ((16, 4096, 3), "threads"), ((288, 4096, 3), "threads"), ((48, 4096, 3), "threads"),
+    ((256, 100, 3), "tile"), ((256, 64, 3), "tile"), ((256, 4096, 1), "stages"),
+    ((256, 4096, 5), "stages"), ((256, 16384, 2), "shared memory")])
+def test_knn_check_tiles_refuses(tiles, why):
+    """A launch shape the kernel does not take is refused on the CPU too,
+    before any launch, naming what is wrong."""
+    t = kern_knn.KnnTiles(*tiles)
+    with pytest.raises(ValueError, match=why):
+        kern_knn.check_tiles(t)
+    xy = torch.as_tensor(_coords(300, 1, "uniform"))
+    with pytest.raises(ValueError, match=why):
+        kern_knn.knn_topk_tiled(xy, 6, False, t)
+
+
+def _morton_numpy(c):
+    """Morton codes by a bit loop over the 2^16 x 2^16 cells of the box."""
+    lo, hi = c.min(0), c.max(0)
+    scale = np.float32(65535.0) / (hi - lo)
+    cell = np.clip(np.nan_to_num((c - lo) * scale, nan=0.0, posinf=0.0, neginf=0.0),
+                   0, 65535).astype(np.int64)
+    code = np.zeros(len(c), np.int64)
+    for b in range(16):
+        code |= ((cell[:, 0] >> b) & 1) << (2 * b)
+        code |= ((cell[:, 1] >> b) & 1) << (2 * b + 1)
+    return code
+
+
+@pytest.mark.parametrize("kind", ["uniform", "duplicates", "lattice"])
+def test_knn_morton_codes_match_numpy(kind):
+    """The wrapper's point order: morton_codes_plain's codes equal a bit
+    loop's in numpy float32, cell for cell."""
+    c = _coords(2000, 9, kind)
+    got = kern_knn.morton_codes_plain(torch.as_tensor(c))
+    np.testing.assert_array_equal(got.numpy(), _morton_numpy(c))
+
+
+def test_knn_morton_order_is_a_permutation():
+    """The wrapper's point order (the Morton codes sorted): any input, NaN,
+    ±Inf and a box of width 0 included, gives a permutation; uniform points
+    come out with their order neighbours near in the plane."""
+    xy = torch.as_tensor(_coords(3000, 3, "uniform"))
+    order = torch.argsort(kern_knn.morton_codes_plain(xy))
+    assert torch.equal(order.sort().values, torch.arange(3000))
+    step = (xy[order][1:] - xy[order][:-1]).norm(dim=1).mean()
+    assert step < 0.1 * (xy[1:] - xy[:-1]).norm(dim=1).mean()
+    xy[:4] = torch.tensor([[float("nan"), 0.0], [float("inf"), 1.0],
+                           [-float("inf"), 2.0], [1e20, -1e20]])
+    for pts in (xy, torch.zeros((5, 2)), torch.ones((1, 2))):
+        o = torch.argsort(kern_knn.morton_codes_plain(pts))
+        assert torch.equal(o.sort().values, torch.arange(pts.shape[0]))
