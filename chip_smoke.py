@@ -129,6 +129,25 @@ Phases (the script stops with a non-zero exit at the first failure):
    cells on the card against the port's CPU path (the slot null's
    permutations bitwise, counts within ±1 draw).
 
+10. The local slot nulls and the local "sort" streams, each call with
+   counts of its own. On CUDA X, with every launch count at 0 and none
+   allowed (the slot nulls are torch ops): ``local_morans_i`` with every
+   default (P=10, k=6, "auto" -> the slot null, total) at 1,000,000 cells
+   x 1,024 genes; ``local_morans_i(null="conditional", n_permutations=99)``,
+   ``local_gearys_c`` with its defaults (conditional, P=99) and
+   ``getis_ord_gi(null_method="direct", n_permutations=99)`` at 1M x 256;
+   ``join_count_statistics`` and ``local_join_counts`` at 1M cells and
+   ``local_gearys_c_multivariate`` at 1M x 16, P=99. One slot draw at 1M x
+   100 genes split part by part (permutation, inverse, choice, the k slot
+   gathers, the count update) for both nulls. The int8 banded LISA on the
+   "sort" stream at 1M x 1,024 x 99 and local Geary, Gi* (two-sided) and
+   Gi ("greater") at 1M x 256 x 99: K7's moran / geary / getis_star /
+   getis_g tail once a draw and the observed entry once; each tail against
+   its plain version on one sort draw's rows at 256 genes of that plan
+   (counts equal). 4,096 scattered cells on the card against the port's
+   CPU path: permutations and conditional draw indices, the slot nulls'
+   p / p_adj, local join counts and the sort-stream LISA, bitwise.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it a
 JSON summary of every kernel, and the one before that nvidia-smi's name
 and power limit. Without a CUDA device the script raises.
@@ -137,6 +156,7 @@ and power limit. Without a CUDA device the script raises.
 from __future__ import annotations
 
 import cProfile
+import gc
 import json
 import pstats
 import subprocess
@@ -151,8 +171,10 @@ import torch
 
 from spatialcore_tpu_torch import (SpatialData, build_spatial_weights,
                                    gearys_c, getis_ord_gi, global_autocorrelation,
-                                   lees_l, lees_l_local, local_gearys_c,
-                                   local_morans_i, morans_i)
+                                   join_count_statistics, lees_l, lees_l_local,
+                                   local_gearys_c, local_gearys_c_multivariate,
+                                   local_join_counts, local_morans_i, morans_i)
+from spatialcore_tpu_torch.core import rng
 from spatialcore_tpu_torch.core.rng import (feistel_apply, fold_in, key_for,
                                             permutation)
 from spatialcore_tpu_torch.kernels import band_cross as kern
@@ -160,12 +182,12 @@ from spatialcore_tpu_torch.kernels import build
 from spatialcore_tpu_torch.kernels import knn as kern_knn
 from spatialcore_tpu_torch.kernels import lisa_count as kern_lisa
 from spatialcore_tpu_torch.kernels import sass
-from spatialcore_tpu_torch.ops import banded
+from spatialcore_tpu_torch.ops import banded, moran
 from spatialcore_tpu_torch.ops.banded import (banded_local_moran_pvalues,
                                               banded_permutation_test,
                                               build_null_plan)
 from spatialcore_tpu_torch.ops.fdr import apply_fdr
-from spatialcore_tpu_torch.ops.graph import build_graph
+from spatialcore_tpu_torch.ops.graph import build_graph, spatial_lag
 from spatialcore_tpu_torch.ops.knn_kernel import centred_xy
 from spatialcore_tpu_torch.core.metadata import get_operations
 from spatialcore_tpu_torch.ops.moran import (moran_observed,
@@ -2793,6 +2815,420 @@ def phase_slots_vs_cpu(dev, coords: np.ndarray, n_genes: int, seed: int,
           f"permutations equal the CPU's; counts within one draw")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the local slot nulls, join counts and the local "sort" streams
+# ---------------------------------------------------------------------------
+
+
+def release() -> None:
+    """Collect unreachable objects (a SpatialData and its AlignedDicts refer
+    to each other, so ``del`` alone frees no plane of theirs) and return
+    the freed blocks to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def reset_all_launches() -> None:
+    kern.reset_launch_counts()
+    kern_lisa.reset_launch_counts()
+    kern_knn.reset_launch_counts()
+
+
+def no_kernel(dev, label: str, fn) -> float:
+    """Wall seconds of ``fn`` (synchronised), run with every launch count
+    at 0; fails if it launched any kernel (the slot nulls are torch ops)."""
+    reset_all_launches()
+    _, t = timed(fn, dev)
+    launched = {k: v for k, v in {**kern.LAUNCHES, **kern_lisa.LAUNCHES,
+                                  **kern_knn.LAUNCHES}.items() if v}
+    check(not launched, f"{label} launched kernels: {launched}")
+    return t
+
+
+def smooth_adata(n_cells: int, n_genes: int, gen, dev) -> SpatialData:
+    """1M-density uniform cells; every gene carries the smooth signal
+    8·sin(x/300) over unit noise."""
+    coords = uniform_coords(n_cells, SIDE * (n_cells / 1e6) ** 0.5, gen, dev)
+    X = torch.randn((n_cells, n_genes), generator=gen, device=dev)
+    X += 8.0 * torch.sin(coords[:, :1] / 300.0)
+    d = SpatialData(X=X)
+    d.obsm["spatial"] = coords
+    return d
+
+
+def sig_shares(pa: torch.Tensor, n_sig: int, alpha: float = 0.05):
+    """Share of p_adj < alpha among the first ``n_sig`` genes and the rest."""
+    sig = pa < alpha
+    return (float(sig[:, :n_sig].float().mean()),
+            float(sig[:, n_sig:].float().mean()))
+
+
+def phase_slot_public(dev, gen, smi: str, n_cells: int = 1_000_000):
+    """The public routes that run the local slot nulls, each on a CUDA X
+    with every launch count at 0 (they are torch ops: no kernel may
+    launch). Returns {call: wall seconds}."""
+    release()
+    out = {}
+    d = lisa_adata(n_cells, 1024, gen, dev)
+    label = f"local_morans_i(defaults) {n_cells:,} x 1,024 x 10"
+    out[label] = no_kernel(dev, label, lambda: local_morans_i(d, device=dev))
+    prm = d.uns["local_morans_params"]
+    check(prm["null_method"] == "slots" and prm["null"] == "total"
+          and prm["n_permutations"] == 10, f"defaults resolved to {prm}")
+    p = d.obsm["local_morans_p"]
+    check(isinstance(p, torch.Tensor) and p.device == torch.device(dev)
+          and tuple(p.shape) == (n_cells, 1024), "LISA p: a tensor on the card")
+    check(bool(torch.isfinite(d.obsm["local_morans_I"]).all()), "non-finite I")
+    check(bool(((p > 0) & (p <= 1)).all()), "LISA p outside (0, 1]")
+    sm, nz = float(p[:, :128].mean()), float(p[:, 128:].mean())
+    print(f"[slots] {label}: {out[label]:.3f} s [{smi}]; mean p smooth genes "
+          f"{sm:.4f}, noise genes {nz:.4f}; no kernel launched")
+    check(sm < nz - 0.1, "slot LISA: smooth genes not below the noise genes")
+    del d, p
+    release()
+
+    d = lisa_adata(n_cells, 256, gen, dev)
+    for label, fn, kw, key in (
+            (f"local_morans_i(conditional, P=99) {n_cells:,} x 256",
+             local_morans_i, dict(null="conditional", n_permutations=99),
+             "local_morans"),
+            (f"local_gearys_c(defaults: conditional, P=99) {n_cells:,} x 256",
+             local_gearys_c, dict(use_existing_graph=True), "local_geary")):
+        out[label] = no_kernel(dev, label, lambda: fn(d, seed=3, device=dev,
+                                                      **kw))
+        pa = d.obsm[f"{key}_p_adj"]
+        check(bool(((pa > 0) & (pa <= 1)).all()), f"{label}: p_adj outside (0, 1]")
+        smooth, noise = sig_shares(pa, 32)
+        print(f"[slots] {label}: {out[label]:.3f} s [{smi}]; p_adj < 0.05: "
+              f"smooth genes {smooth:.4f} of cells, noise genes {noise:.6f}")
+        # the conditional LISA null keeps cells whose own z is near 0 out
+        # (about a fifth significant at 20,000 cells on the CPU)
+        check(smooth > 0.1, f"{label}: too few significant smooth cells")
+        check(noise < 1e-3, f"{label}: significant noise cells after FDR")
+    del d
+    release()
+
+    d = hot_adata(n_cells, 256, gen, dev)
+    label = f"getis_ord_gi(direct, P=99) {n_cells:,} x 256"
+    out[label] = no_kernel(dev, label, lambda: getis_ord_gi(
+        d, n_permutations=99, null_method="direct", seed=3, device=dev))
+    ps = d.obsm["getis_ord_p_sim"]
+    check(bool(((ps > 0) & (ps <= 1)).all()), "Getis p_sim outside (0, 1]")
+    check(bool(torch.isfinite(d.obsm["getis_ord_z"]).all()), "non-finite Gi* z")
+    hot, noise = hot_shares(d.obsm["getis_ord_hotspot"], 32)
+    print(f"[slots] {label}: {out[label]:.3f} s [{smi}]; hot cells: hot-region "
+          f"genes {hot:.4f}, noise genes {noise:.6f}")
+    check(hot > 0.1 and noise < 1e-3, f"Getis direct: hot shares {hot}, {noise}")
+    # a binary label over the same cells: bands along x, a fifth of the cells
+    xs = d.obsm["spatial"][:, 0]
+    d.obs["band"] = (torch.sin(xs / 300.0) > 0.8).cpu().numpy()
+    label = f"join_count_statistics(P=99) {n_cells:,} cells"
+    out[label] = no_kernel(dev, label, lambda: join_count_statistics(
+        d, "band", n_permutations=99, seed=3, use_existing_graph=True,
+        device=dev))
+    jc = d.uns["join_counts"]
+    print(f"[slots] {label}: {out[label]:.3f} s [{smi}]; BB {jc['BB']:.0f} "
+          f"WW {jc['WW']:.0f} BW {jc['BW']:.0f}, p_BB {jc['p_BB']:.4f}")
+    check(jc["BB"] + jc["WW"] + jc["BW"] == n_cells * K
+          and jc["p_BB"] <= 1 / 100 + 1e-9, f"join counts: {jc}")
+    label = f"local_join_counts(P=99) {n_cells:,} cells"
+    out[label] = no_kernel(dev, label, lambda: local_join_counts(
+        d, "band", n_permutations=99, seed=3, use_existing_graph=True,
+        device=dev))
+    pos = d.obs["band"].to_numpy()
+    lp = d.obs["band_local_jc_p"].to_numpy()
+    share = float((lp[pos] <= 0.05).mean())
+    print(f"[slots] {label}: {out[label]:.3f} s [{smi}]; positive cells at "
+          f"p <= 0.05: {share:.4f}")
+    check(share > 0.5 and bool((lp[~pos] == 1).all()), "local join counts")
+    del d
+    release()
+
+    d = smooth_adata(n_cells, 16, gen, dev)
+    label = f"local_gearys_c_multivariate(P=99) {n_cells:,} x 16"
+    out[label] = no_kernel(dev, label, lambda: local_gearys_c_multivariate(
+        d, n_permutations=99, seed=3, device=dev))
+    c = d.obs["local_geary_mv"].to_numpy()
+    mp = d.obs["local_geary_mv_p"].to_numpy()
+    share = float((mp <= 0.05).mean())
+    print(f"[slots] {label}: {out[label]:.3f} s [{smi}]; cells at p <= 0.05: "
+          f"{share:.4f}")
+    check(bool(np.isfinite(c).all()) and share > 0.5, "multivariate Geary")
+    del d
+    release()
+    return out
+
+
+def slot_draw_split(dev, smi: str, n_cells: int = 1_000_000,
+                    n_genes: int = 100, reps: int = 5, gen=None):
+    """One slot draw at 1M × 100 genes (one gene batch), part by part by
+    CUDA events: the permutation, the inverse, the choice of the k slot
+    offsets, the k slot gathers (with their weighted sum) and the count
+    update, for the total and the conditional null; then the whole draw."""
+    d = lisa_adata(n_cells, n_genes, gen, dev)
+    graph = build_graph(d.obsm["spatial"], n_neighbors=K, device=dev)
+    Z = standardize(d.X)[0]
+    del d
+    n, k = Z.shape[0], graph.neighbor_idx.shape[1]
+    abs_obs = (Z * spatial_lag(graph, Z)).abs()
+    cnt = torch.zeros(Z.shape, dtype=torch.int16, device=dev)
+    key = fold_in(key_for(3, "perm_local", 0), 0)
+    perm = permutation(key, n, dev)
+    ar = torch.arange(n, device=dev)
+    inv = torch.empty_like(perm)
+    inv[perm] = ar
+    pos = inv + 1
+    u = rng._choice(fold_in(key, 1), n - 1, k, dev)
+    draws = [perm[(pos + u[j]) % n] for j in range(k)]
+    Zp = Z[perm]
+    lag_t = spatial_lag(graph, Zp)
+    lag_c = moran._slot_sum(graph, (Z[i] for i in draws))
+
+    def count(I):
+        cnt.add_((I.abs() >= abs_obs).to(torch.int16))
+
+    def total_draw():
+        zp = Z[permutation(key, n, dev)]
+        count(zp * spatial_lag(graph, zp))
+
+    total = dict(
+        permutation=event_ms(lambda: permutation(key, n, dev), reps),
+        row_gather=event_ms(lambda: Z[perm], reps),
+        slot_gathers=event_ms(lambda: spatial_lag(graph, Zp), reps),
+        count_update=event_ms(lambda: count(Zp * lag_t), reps),
+        whole_draw=event_ms(lambda: total_draw(), reps))
+
+    def inverse():
+        inv[perm] = ar
+
+    def conditional_draw():
+        ds = moran._conditional_draw_indices(key, n, k, dev)
+        count(Z * moran._slot_sum(graph, (Z[i] for i in ds)))
+
+    cond = dict(
+        permutation=total["permutation"],
+        inverse=event_ms(inverse, reps),
+        choice=event_ms(lambda: rng._choice(fold_in(key, 1), n - 1, k, dev),
+                        reps),
+        slot_indices=event_ms(lambda: [perm[(pos + u[j]) % n]
+                                       for j in range(k)], reps),
+        slot_gathers=event_ms(lambda: moran._slot_sum(
+            graph, (Z[i] for i in draws)), reps),
+        count_update=event_ms(lambda: count(Z * lag_c), reps),
+        whole_draw=event_ms(conditional_draw, reps))
+    # the least bytes a draw must move: Z and |I_obs| read once (float32),
+    # the int16 counts read and written once
+    b_ms, _ = bound(n * n_genes * (4 + 4 + 2 + 2), 0, "f32")
+    for name, split in (("total", total), ("conditional", cond)):
+        print(f"[slots] one {name} slot draw at {n:,} cells x {n_genes} genes "
+              f"(CUDA events, ms) [{smi}]: "
+              + ", ".join(f"{a} {v:.3f}" for a, v in split.items())
+              + f"; byte bound {b_ms:.3f}")
+    del Z, abs_obs, cnt, Zp, lag_t, lag_c, draws
+    release()
+    return total, cond
+
+
+def sort_operands(plan, stat: str, T: torch.Tensor):
+    """The K7 tail's fixed operands on ``plan`` for the int8 table ``T``
+    (codes padded to 4 columns), as ``ops.banded`` builds them: returns
+    (observed fn, draw-step fn taking (Zp, counts, fn)) and the plain
+    draw-step function."""
+    li = plan.local_idx.to(torch.int32).contiguous()
+    n_live = banded._n_live_far(plan)
+    ptr, dst = banded._rows_far(plan, n_live)
+    src = plan.far_src[:n_live] - B
+    rows_idx = banded._padded_rows(plan, T.device)
+    if stat in ("moran", "geary"):
+        w, _, far_q = banded._full_row_codes(plan)
+        fq = far_q[:n_live].to(torch.int8)
+    else:
+        w = (plan.w_local > 0).to(torch.int8)
+        fq = torch.ones(n_live, dtype=torch.int8, device=T.device)
+    far = lambda Zp: dict(far_row_ptr=ptr, far_q=fq, Zf=Zp[dst])
+    Zp0 = T[rows_idx]
+    if stat == "moran":
+        obs = kern_lisa.lisa_observed(li, w, Zp0, B, **far(Zp0))
+        fns = (kern_lisa.lisa_count, kern_lisa.lisa_count_plain)
+        step = lambda Zp, c, fn: fn(li, w, Zp, B, obs, c, **far(Zp))
+    elif stat == "geary":
+        w_code = w.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
+            0, src, fq.to(torch.int32))
+        obs = kern_lisa.geary_observed(li, w, Zp0, B, w_code, **far(Zp0))
+        fns = (kern_lisa.geary_count, kern_lisa.geary_count_plain)
+        step = lambda Zp, c, fn: fn(li, w, Zp, B, obs, c, w_code, **far(Zp))
+    else:
+        star = stat == "getis_star"
+        w_bin = w.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
+            0, src, fq.to(torch.int32)).to(torch.float32)
+        tot, sq = banded._code_moments(T)
+        inv_m = banded._inv_m(plan.n, star)
+        lag_o = kern_lisa.getis_lag(li, w, Zp0, B, **far(Zp0))
+        me_o = Zp0[B:B + plan.n_padded].contiguous()
+        if star:
+            obs, alt = lag_o + me_o.to(torch.int32), "two-sided"
+            tail = dict(wp1=w_bin + 1.0, tm=tot * inv_m)
+            fns = (kern_lisa.getis_star_count, kern_lisa.getis_star_count_plain)
+        else:
+            obs = kern_lisa.gi_center(lag_o, me_o, w_bin, tot, sq, inv_m)
+            alt = "greater"
+            tail = dict(w_row=w_bin, tot=tot, sq=sq, inv_m=inv_m, lag_o=lag_o,
+                        me_o=me_o)
+            fns = (kern_lisa.getis_g_count, kern_lisa.getis_g_count_plain)
+        step = lambda Zp, c, fn: fn(li, w, Zp, B, obs, c, alternative=alt,
+                                    **far(Zp), **tail)
+    return obs, step, fns, rows_idx
+
+
+SORT_STREAMS = {"moran": ("lisa_win", "lisa_obs", "perm_local"),
+                "geary": ("geary_win", "geary_obs", "perm_local_geary"),
+                "getis_star": ("getis_star_win", "getis_obs", "perm_getis"),
+                "getis_g": ("getis_g_win", "getis_obs", "perm_getis")}
+
+
+def phase_sort_streams(dev, gen, smi: str, n_cells: int = 1_000_000,
+                       n_perms: int = 99, tile: int = 256):
+    """The int8 banded local nulls on the "sort" stream (the slot nulls'
+    ``jax.random.permutation`` draws) through K7: LISA at 1M × 1,024, local
+    Geary and Gi* (two-sided) / Gi ("greater") at 1M × 256, each with
+    counts of its own (the tail once a draw, the observed entry once a
+    call). Then each tail against its plain version on one sort draw's rows
+    at one 256-gene tile of that plan: counts equal. Returns {stat: the
+    launch counts of its call}."""
+    release()
+    d = lisa_adata(n_cells, 1024, gen, dev)
+    coords = d.obsm["spatial"]
+    graph = build_graph(coords, n_neighbors=K, device=dev)
+    plan = build_null_plan(graph, coords, block=B)
+    Z = standardize(d.X)[0]
+    del d
+    xs = coords[:, :1]
+    Xh = torch.poisson(torch.full((n_cells, tile), 2.0, device=dev), generator=gen)
+    Xh[:, :tile // 8] += torch.round(12.0 * torch.clamp_min(
+        torch.sin(xs / 300.0), 0.0))
+    # 32 smooth genes (96-127) and 224 noise genes, the Getis tile's mix
+    Zt = Z[:, 96:96 + tile].contiguous()
+    runs = {
+        "moran": lambda: banded.banded_local_moran(
+            plan, graph, Z, 3, n_perms, precision="int8",
+            perm_method="sort").p_value,
+        "geary": lambda: banded.banded_local_geary(
+            plan, Zt, 3, n_perms, precision="int8", perm_method="sort")[1],
+        "getis_star": lambda: banded.banded_getis(
+            plan, Xh, 3, n_perms, star=True, alternative="two-sided",
+            precision="int8", perm_method="sort"),
+        "getis_g": lambda: banded.banded_getis(
+            plan, Xh, 3, n_perms, star=False, alternative="greater",
+            precision="int8", perm_method="sort")}
+    out = {}
+    for stat, run in runs.items():
+        win, obs_mode, _ = SORT_STREAMS[stat]
+        kern_lisa.reset_launch_counts()
+        p, t = timed(run, dev)
+        out[stat] = dict(kern_lisa.LAUNCHES)
+        G = p.shape[1]
+        check(out[stat][win] == n_perms and out[stat][obs_mode] == 1
+              and sum(out[stat].values()) == n_perms + 1,
+              f"sort stream {stat}: launches {out[stat]}")
+        check(bool(((p > 0) & (p <= 1)).all()), f"sort stream {stat}: p range")
+        # one-sided Gi puts the cold half of a hot gene near p = 1, so the
+        # share at p <= 0.05 (not the mean p) tells the signal genes apart
+        low = float((p[:, :G // 8] <= 0.05).float().mean())
+        rest = float((p[:, G // 8:] <= 0.05).float().mean())
+        print(f"[sort] {stat} int8 sort stream {n_cells:,} x {G} x {n_perms}: "
+              f"{t:.3f} s [{smi}]; p <= 0.05: signal genes {low:.4f}, noise "
+              f"genes {rest:.4f}; launches {win} {out[stat][win]}, {obs_mode} "
+              f"{out[stat][obs_mode]}")
+        check(low > rest, f"sort stream {stat}: signal genes not apart")
+        del p
+    # each tail against its plain version on one sort draw's rows, one tile
+    for stat in runs:
+        _, _, stream = SORT_STREAMS[stat]
+        T = banded._pad_cols4(banded._quantize_x(Xh)[0] if stat.startswith(
+            "getis") else banded._quantize_z(Zt)[0])
+        obs, step, fns, rows_idx = sort_operands(plan, stat, T)
+        Zp = T[banded._draw_rows("sort", 3, rows_idx, plan.n, stream)(0)]
+        zero = torch.zeros(obs.shape, dtype=torch.int8, device=dev)
+        got, want = step(Zp, zero.clone(), fns[0]), step(Zp, zero.clone(), fns[1])
+        sync(dev)
+        moved = int(got.sum(dtype=torch.int64))
+        check(torch.equal(got, want) and moved > 0,
+              f"sort stream {stat}: the tail differs from its plain version")
+        print(f"[sort] {SORT_STREAMS[stat][0]} on sort draw 0's rows at "
+              f"{plan.n:,} cells x {tile} genes: equal to plain ({moved:,} "
+              f"counts moved)")
+        del obs, Zp, got, want, T
+    del Z, Zt, Xh, plan, graph
+    release()
+    return out
+
+
+def phase_slots_local_vs_cpu(dev, coords: np.ndarray, n_genes: int, seed: int,
+                             n_perms: int = 49):
+    """The slot nulls and the int8 sort-stream LISA on the card against
+    the port's CPU path at 4,096 cells: permutations and conditional draw
+    indices bitwise; slot LISA (total, conditional), local Geary
+    (conditional), Getis (direct) p and p_adj, local join counts, and the
+    sort-stream LISA counts bitwise (integer data standardized exactly)."""
+    n = coords.shape[0]
+    base = key_for(seed, "perm_local", 0)
+    for step in (0, 1, n_perms - 1):
+        key = fold_in(base, step)
+        check(torch.equal(permutation(key, n, device=dev).cpu(),
+                          permutation(key, n, device="cpu")),
+              f"draw {step}: the card's permutation differs from the CPU's")
+        for a, b in zip(moran._conditional_draw_indices(key, n, K, dev),
+                        moran._conditional_draw_indices(key, n, K, "cpu")):
+            check(torch.equal(a.cpu(), b), f"draw {step}: conditional draw "
+                  "indices differ from the CPU's")
+    card, host = exact_pair(coords, n_genes, seed, dev)
+    band = np.sin(coords[:, 0] / 40.0) > 0.3
+    for d in (card, host):
+        d.obs["band"] = band
+    for label, fn, kw, key, ps in (
+            ("local_morans_i(slots, total)", local_morans_i,
+             dict(null_method="slots"), "local_morans", ("p", "p_adj", "quadrant")),
+            ("local_morans_i(conditional)", local_morans_i,
+             dict(null="conditional"), "local_morans", ("p", "p_adj", "quadrant")),
+            ("local_gearys_c(conditional)", local_gearys_c, {}, "local_geary",
+             ("p", "p_adj")),
+            ("getis_ord_gi(direct)", getis_ord_gi, dict(null_method="direct"),
+             "getis_ord", ("p_sim", "p_adj", "hotspot"))):
+        run = dict(n_permutations=n_perms, seed=seed, batch_size=n_genes, **kw)
+        no_kernel(dev, label, lambda: fn(card, device=dev, **run))
+        fn(host, device="cpu", **run)
+        for k in ps:
+            got = torch.as_tensor(card.obsm[f"{key}_{k}"]).cpu().numpy()
+            check(np.array_equal(got, host.obsm[f"{key}_{k}"]),
+                  f"{label}: card {k} differs from the CPU path")
+    no_kernel(dev, "local_join_counts", lambda: local_join_counts(
+        card, "band", n_permutations=n_perms, seed=seed, device=dev))
+    local_join_counts(host, "band", n_permutations=n_perms, seed=seed,
+                      device="cpu")
+    for col in ("band_local_jc_BB", "band_local_jc_p"):
+        check(np.array_equal(card.obs[col].to_numpy(), host.obs[col].to_numpy()),
+              f"local join counts: card {col} differs from the CPU path")
+    # the int8 sort-stream LISA through K7
+    res = []
+    for d, where in ((card, dev), (host, "cpu")):
+        graph = build_graph(d.obsm["spatial"], n_neighbors=K, device=where)
+        plan = build_null_plan(graph, d.obsm["spatial"], block=B)
+        kern_lisa.reset_launch_counts()
+        res.append(banded_local_moran_pvalues(plan, standardize(d.X)[0], seed,
+                                              n_perms, perm_method="sort"))
+        if where == dev:
+            sync(dev)
+            sort_launch = kern_lisa.LAUNCHES["lisa_win"]
+    check(sort_launch == n_perms, f"sort-stream LISA launched {sort_launch}")
+    check(torch.equal(res[0].cpu(), res[1]), "sort-stream LISA: card counts "
+          "differ from the CPU path")
+    print(f"[slots] {n:,} scattered cells x {n_genes} genes, card vs CPU: "
+          "permutations and conditional draws bitwise; slot LISA (total, "
+          "conditional), local Geary (conditional), Getis (direct) p / p_adj, "
+          "local join counts and the int8 sort-stream LISA bitwise; no kernel "
+          f"on the slot routes, lisa_win {sort_launch} on the sort stream")
+
+
 def lisa_sass(listing: str) -> None:
     """The local draw step's SASS by instance (template arguments: STAT,
     FAR, COUNT, counter type, k unrolled): instructions in all and the
@@ -3005,6 +3441,23 @@ def main() -> None:
     print(f"[path] launches in the kernels line: dense and rot4 from "
           f"banded_permutation_test's 'pallas' and 'pallas_halo4' routes at 1M "
           f"x 1,024 x 8; phase 9 took {time.perf_counter() - t9:.1f} s")
+    torch.cuda.empty_cache()
+
+    # the local slot nulls (no kernel) and the local "sort" streams through
+    # K7, each call with counts of its own
+    t10 = time.perf_counter()
+    phase_slot_public(dev, gen, smi)
+    slot_draw_split(dev, smi, gen=gen)
+    sort = phase_sort_streams(dev, gen, smi)
+    phase_slots_local_vs_cpu(dev, scattered_coords(seed=4), 16, 13)
+    for stat, (win, obs_mode, _) in SORT_STREAMS.items():
+        launches[win] += sort[stat][win]
+        launches[obs_mode] += sort[stat][obs_mode]
+    print(f"[path] launches in the kernels line: lisa_win / lisa_obs, "
+          f"geary_win / geary_obs, getis_star_win, getis_g_win and getis_obs "
+          f"add the int8 sort streams' calls (99 draws and one observed pass "
+          f"each) to their phase 5-6 main paths; phase 10 took "
+          f"{time.perf_counter() - t10:.1f} s [{smi}]")
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -13,7 +13,9 @@ in torch integer ops, under jax 0.9's default
   (``_threefry_split_foldlike``);
 - 32-bit ``random_bits`` (``_threefry_random_bits_partitionable``),
   ``randint``'s bits-to-range mapping (``jax/_src/random.py``: ``_randint``)
-  and ``permutation`` (``_shuffle``: rounds of stable sorts by random keys).
+  and ``permutation`` (``_shuffle``: rounds of stable sorts by random keys),
+  and ``choice(replace=False)`` without weights, which is a prefix of a
+  ``permutation`` (``jax/_src/random.py``: ``choice``).
 
 torch has no full uint32 arithmetic, so values are held in int64 with
 ``& 0xFFFFFFFF`` masks. Additions, xors and shifts of 32-bit values stay
@@ -128,6 +130,17 @@ def permutation(k: torch.Tensor, n: int,
     return x
 
 
+def _choice(k: torch.Tensor, m: int, size: int,
+            device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+    """``jax.random.choice(key, m, (size,), replace=False)`` with ``p=None``:
+    jax 0.9 draws it as ``permutation(key, m)[:size]``. Runs on ``device``;
+    returns int64. Like the reference, refuses ``size > m``."""
+    if size > m:
+        raise ValueError(f"cannot take {size} of {m} values without "
+                         "replacement")
+    return permutation(k, m, device)[:size]
+
+
 def randint(k: torch.Tensor, shape: Sequence[int], minval: int,
             maxval: int) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval, dtype=int32)``.
@@ -170,6 +183,28 @@ def key_for(seed: int, *stream: Union[int, str]) -> torch.Tensor:
             part = _fnv1a(part)
         k = fold_in(k, int(part) & _M32)
     return k
+
+
+def permutation_keys(seed: int, n_permutations: int,
+                     stream: str = "perm") -> torch.Tensor:
+    """``n_permutations`` independent keys, [n_permutations, 2] key data:
+    ``split(key_for(seed, stream), n_permutations)``. The stream path has
+    no trailing draw index, unlike the nulls' ``key_for(seed, name, 0)``."""
+    return split(key_for(seed, stream), n_permutations)
+
+
+def batch_permutations(seed: int, n: int, n_permutations: int,
+                       stream: str = "perm",
+                       device: Union[str, torch.device] = "cuda"
+                       ) -> torch.Tensor:
+    """[n_permutations, n] int32 permutation rows; row p permutes
+    ``arange(n)`` with the p-th key of :func:`permutation_keys`, bitwise
+    the reference's ``batch_permutations``. Built on ``device``."""
+    keys = permutation_keys(seed, n_permutations, stream)
+    out = torch.empty((n_permutations, n), dtype=torch.int32, device=device)
+    for p in range(n_permutations):
+        out[p] = permutation(keys[p], n, device)
+    return out
 
 
 # ---------------------------------------------------------------------------

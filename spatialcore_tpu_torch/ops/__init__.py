@@ -13,7 +13,8 @@ from .knn_kernel import pallas_knn
 from .lee import LeesLResult, lees_l_pairs
 from .moran import (QUADRANT_LABELS, LocalGearyResult, LocalMoranResult,
                     classify_quadrants, geary_analytic_moments, geary_observed,
-                    local_geary, local_moran,
+                    join_counts, local_geary, local_geary_multivariate,
+                    local_join_counts, local_moran,
                     moran_analytic_moments, moran_observed, p_from_z,
                     permutation_test_global, standardize)
 from .streaming import (device_local_sink, host_local_sink, streaming_local_null,
@@ -28,9 +29,10 @@ __all__ = ["GetisOrdResult", "LeesLResult", "LocalGearyResult",
            "benjamini_hochberg_discrete", "bonferroni", "build_graph",
            "build_null_plan", "classify_quadrants", "device_local_sink",
            "geary_analytic_moments", "geary_observed", "getis_ord",
-           "graph_from_numpy", "graph_moments", "host_local_sink", "knn_exact",
-           "knn_grid",
-           "lees_l_pairs", "local_geary", "local_moran",
+           "graph_from_numpy", "graph_moments", "host_local_sink",
+           "join_counts", "knn_exact", "knn_grid", "lees_l_pairs",
+           "local_geary", "local_geary_multivariate", "local_join_counts",
+           "local_moran",
            "moran_analytic_moments", "moran_observed", "p_from_z",
            "pallas_knn", "permutation_test_global", "plan_from_numpy",
            "spatial_lag", "standardize", "streaming_local_null",

@@ -67,9 +67,6 @@ logger = get_logger("ops.banded")
 
 #: elements of one [rows, G] temp in the plain twins' block chunks
 _PLAIN_CHUNK_ELEMS = 1 << 27
-_SORT_NOT_PORTED = (
-    "perm_method='sort' of the local Moran, Geary and Getis nulls is not "
-    "ported yet; it comes with the local slot nulls (ROADMAP Queue 1 item 4)")
 
 
 # ---------------------------------------------------------------------------
@@ -899,7 +896,7 @@ def banded_permutation_test(
     its far-run structure. Integer draws compare against the observed
     value of the same quantized operator (``observed`` is ignored).
     """
-    _check_perm_method(perm_method, draws=False)
+    _check_perm_method(perm_method)
     if band_impl not in _BAND_IMPLS:
         raise ValueError(f"unknown band_impl {band_impl!r}")
     if precision not in ("bf16", "f32", "int8", "int4"):
@@ -988,16 +985,32 @@ def _chunked_cols(fn, arrs, G: int, width: Optional[int] = None):
                       for s in range(0, G, width)], dim=-1)
 
 
-def _check_perm_method(perm_method: str, draws: bool = True) -> None:
-    """Validate ``perm_method`` up front, so a typo fails loudly. The
-    "sort" stream of the LOCAL Moran, Geary and Getis nulls comes with the
-    local slot nulls, so it is refused where their draws are made
-    (``draws``); the global null and Lee's nulls take both streams."""
+def _check_perm_method(perm_method: str) -> None:
+    """Validate ``perm_method`` up front, so a typo fails loudly."""
     if perm_method not in ("feistel", "sort"):
         raise ValueError("perm_method must be 'feistel' or 'sort', "
                          f"got {perm_method!r}")
-    if draws and perm_method == "sort":
-        raise NotImplementedError(_SORT_NOT_PORTED)
+
+
+def _draw_rows(perm_method: str, seed: int, rows_idx: torch.Tensor, n: int,
+               stream: str):
+    """Draw step → the padded table's rows ``perm[rows_idx]``, the local
+    nulls' draws. "sort": ``jax.random.permutation``'s stream bitwise, key
+    base ``stream`` (the slot null's: ``perm_local``, ``perm_local_geary``,
+    ``perm_getis``, ``perm_lee``); "feistel": the Feistel stream, key base
+    ``perm_feistel_`` + the name after ``perm_`` (``perm_feistel_local``
+    ...). Draw d is keyed ``fold_in(base, d)``."""
+    sort = perm_method == "sort"
+    base = key_for(seed, stream if sort else
+                   "perm_feistel_" + stream[len("perm_"):], 0)
+
+    def rows(step: int) -> torch.Tensor:
+        key = fold_in(base, step)
+        if sort:
+            return permutation(key, n, device=rows_idx.device)[rows_idx]
+        return feistel_apply(key, rows_idx, n)
+
+    return rows
 
 
 def _n_live_far(plan: NullPlan) -> int:
@@ -1066,7 +1079,8 @@ def _lisa_far_form(plan: NullPlan, band_impl: str, n_live: int) -> str:
 
 def _banded_local_moran_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
                              n_permutations: int, band_impl: str = "auto",
-                             return_counts: bool = False) -> torch.Tensor:
+                             return_counts: bool = False,
+                             perm_method: str = "feistel") -> torch.Tensor:
     """LISA permutation p via the int8 null system (reference
     ``_banded_local_moran_p_i8``, ops/banded.py:2314).
 
@@ -1078,9 +1092,9 @@ def _banded_local_moran_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
     the counts are exact integers. Counters are int8 for P ≤ 127, int16
     for P ≤ 32767, int32 above.
 
-    Per draw: one Feistel evaluation of the padded rows, one int8 row
-    gather ``Zp = Zq[rows]``, one compact far gather ``Zp[far_dst]``
-    (row-pointer form), and the draw-step kernel
+    Per draw: the padded rows of one draw (:func:`_draw_rows`, Feistel or
+    "sort"), one int8 row gather ``Zp = Zq[rows]``, one compact far gather
+    ``Zp[far_dst]`` (row-pointer form), and the draw-step kernel
     (``kernels.lisa_count``), which updates the counters in place.
     ``band_impl="xla"`` runs the kernel's plain version instead, on any
     device. Returns p [n, G] in the original cell order, or the integer
@@ -1142,11 +1156,11 @@ def _banded_local_moran_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
     abs_obs = (_chunked_cols(abs_ip, (Zq,), Gp).contiguous() if use_plain
                else abs_ip(Zq))
 
-    base = key_for(seed, "perm_feistel_local", 0)
+    rows_of = _draw_rows(perm_method, seed, rows_idx, n, "perm_local")
     count = torch.zeros((n_padded, Gp), dtype=kern_lisa.counter_dtype(
         n_permutations), device=dev)
     for step in range(n_permutations):
-        Zp = Zq[feistel_apply(fold_in(base, step), rows_idx, n)]  # ONE gather
+        Zp = Zq[rows_of(step)]                    # ONE gather
         count_fn(li32, wq, Zp, B, abs_obs, count, **far_of(Zp))
     count = count[plan.rank, :G]                  # original order
     if return_counts:
@@ -1177,13 +1191,16 @@ def banded_local_moran_pvalues(
     to XLA beyond the TPU kernels' VMEM limits; "pallas" follows the
     reference's choice between the windowed (K7) and dense (K8) kernels;
     "xla" runs the kernel's plain version on any device. All three give
-    bitwise-equal counts: integer adds commute.
+    bitwise-equal counts: integer adds commute. ``perm_method``: "feistel"
+    (default) or "sort", the slot null's ``perm_local`` stream
+    (``jax.random.permutation``, bitwise).
     """
     _check_perm_method(perm_method)
     _check_impl(band_impl)
     return _banded_local_moran_p_i8(
         plan, Z, int(seed) & 0xFFFFFFFF, n_permutations=n_permutations,
-        band_impl=band_impl, return_counts=return_counts)
+        band_impl=band_impl, return_counts=return_counts,
+        perm_method=perm_method)
 
 
 def _far_slots(plan: NullPlan, n_live: int):
@@ -1225,7 +1242,8 @@ def _banded_lag(local_idx, w, Zp, block: int, far, r0: int, r1: int
 
 def _banded_local_moran_p(plan: NullPlan, Z: torch.Tensor, abs_obs_new,
                           seed: int, *, n_permutations: int,
-                          precision: str) -> torch.Tensor:
+                          precision: str, perm_method: str = "feistel"
+                          ) -> torch.Tensor:
     """LISA permutation p through the bf16/f32 banded null (reference
     ``_banded_local_moran_p``, ops/banded.py:2487; XLA there, torch ops
     here): per draw one row gather and the band + far lag on the compact
@@ -1239,12 +1257,12 @@ def _banded_local_moran_p(plan: NullPlan, Z: torch.Tensor, abs_obs_new,
     Ztab = Z if Z.dtype == wdt else Z.to(wdt)
     rows_idx = _padded_rows(plan, Z.device)
     far = _far_slots(plan, _n_live_far(plan))
-    base = key_for(seed, "perm_feistel_local", 0)
+    rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n, "perm_local")
     cdt = torch.int16 if n_permutations <= 32767 else torch.int32
     count = torch.zeros((n_padded, G), dtype=cdt, device=Z.device)
     spans = _row_spans(n_padded, B, G)
     for step in range(n_permutations):
-        Zp = Ztab[feistel_apply(fold_in(base, step), rows_idx, plan.n)]
+        Zp = Ztab[rows_of(step)]
         for r0, r1 in spans:
             lag = _banded_lag(plan.local_idx, w, Zp, B, far, r0, r1)
             Ip = Zp[B + r0:B + r1].to(torch.float32) * lag
@@ -1270,17 +1288,19 @@ def banded_local_moran(
     device of ``Z``. ``precision="int8"`` runs the null in the per-gene
     quantized operator (:func:`banded_local_moran_pvalues`, the Hopper
     kernel on a CUDA tensor); "bf16" / "f32" run the float null in torch
-    ops.
+    ops. ``perm_method="sort"`` draws the slot null's permutations (key
+    ``perm_local``): with ``precision="f32"`` the p-values then equal
+    ``ops.moran.local_moran(null="total")``'s up to float32 summation
+    order.
     """
     from .moran import LocalMoranResult, local_moran
 
-    _check_perm_method(perm_method, draws=False)
+    _check_perm_method(perm_method)
     if precision not in ("bf16", "f32", "int8"):
         raise ValueError(f"unknown precision {precision!r}")
     obs = local_moran(graph, Z, seed, 0)
     if n_permutations == 0:
         return obs
-    _check_perm_method(perm_method)
     if precision == "int8":
         p = banded_local_moran_pvalues(plan, Z, seed, n_permutations,
                                        perm_method=perm_method,
@@ -1293,7 +1313,7 @@ def banded_local_moran(
             abs_obs_new, (0, 0, 0, plan.n_padded - plan.n), value=float("inf"))
     p = _banded_local_moran_p(plan, Z, abs_obs_new, int(seed) & 0xFFFFFFFF,
                               n_permutations=n_permutations,
-                              precision=precision)
+                              precision=precision, perm_method=perm_method)
     return LocalMoranResult(obs.local_I, obs.z, obs.lag, p)
 
 
@@ -1311,7 +1331,8 @@ def _rows_far(plan: NullPlan, n_live: int):
 
 
 def _banded_local_geary_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
-                             n_permutations: int, band_impl: str = "auto"):
+                             n_permutations: int, band_impl: str = "auto",
+                             perm_method: str = "feistel"):
     """Local Geary total-null p, fully integer (reference
     ``_banded_local_geary_p_i8``, ops/banded.py:2846).
 
@@ -1321,9 +1342,9 @@ def _banded_local_geary_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
     (:func:`_full_row_codes`), W_i the row's total weight code. Every term
     shares the positive factor s_g²·sw_row, so ``c_perm ≤ c_obs`` is an
     exact int32 comparison (k ≤ 256). The observed value comes from the
-    same operator at the identity placement. Per draw: one Feistel
-    evaluation, one int8 row gather, the far values ``Zp[far_dst]``, and
-    the geary draw step (``kernels.lisa_count.geary_count``; its plain
+    same operator at the identity placement. Per draw: one draw's rows
+    (:func:`_draw_rows`), one int8 row gather, the far values
+    ``Zp[far_dst]``, and the geary draw step (``kernels.lisa_count.geary_count``; its plain
     version with ``band_impl="xla"``). Counters are int8 for P ≤ 127.
     Returns ``(c_obs in code units, p)`` [n, G] in the original order.
     """
@@ -1361,18 +1382,20 @@ def _banded_local_geary_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
 
     c_obs = (_chunked_cols(geary_q, (Zq,), Zq.shape[1]).contiguous()
              if use_plain else geary_q(Zq))
-    base = key_for(seed, "perm_feistel_local_geary", 0)
+    rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n,
+                         "perm_local_geary")
     count = torch.zeros(c_obs.shape, dtype=kern_lisa.counter_dtype(
         n_permutations), device=dev)
     for step in range(n_permutations):
-        Zp = Zq[feistel_apply(fold_in(base, step), rows_idx, plan.n)]
+        Zp = Zq[rows_of(step)]
         count_fn(li32, wq, Zp, B, c_obs, count, w_code, **far_of(Zp))
     return (c_obs[plan.rank, :G],
             _p_from_counts(count[plan.rank, :G], n_permutations))
 
 
 def _banded_local_geary_p(plan: NullPlan, Z: torch.Tensor, seed: int, *,
-                          n_permutations: int, precision: str):
+                          n_permutations: int, precision: str,
+                          perm_method: str = "feistel"):
     """Local Geary total-null p through the bf16/f32 banded null (reference
     ``_banded_local_geary_p``, ops/banded.py:2779; XLA there, torch ops on
     the compact band here): per draw one row gather, the band + far lags of
@@ -1405,12 +1428,12 @@ def _banded_local_geary_p(plan: NullPlan, Z: torch.Tensor, seed: int, *,
     c_obs = torch.empty((n_padded, Z.shape[1]), dtype=torch.float32, device=dev)
     for r0, r1, c in geary(rows_idx):
         c_obs[r0:r1] = c
-    base = key_for(seed, "perm_feistel_local_geary", 0)
+    rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n,
+                         "perm_local_geary")
     cdt = torch.int16 if n_permutations <= 32767 else torch.int32
     count = torch.zeros(c_obs.shape, dtype=cdt, device=dev)
     for step in range(n_permutations):
-        for r0, r1, c in geary(feistel_apply(fold_in(base, step), rows_idx,
-                                             plan.n)):
+        for r0, r1, c in geary(rows_of(step)):
             count[r0:r1] += (c <= c_obs[r0:r1]).to(cdt)
     return c_obs[plan.rank], _p_from_counts(count[plan.rank], n_permutations)
 
@@ -1430,7 +1453,8 @@ def banded_local_geary(plan: NullPlan, Z: torch.Tensor, seed: int,
     ``band_impl`` "auto" and "pallas" alike (the reference's non-windowed
     alternative is its XLA body, whose function that kernel computes);
     "xla" runs the kernel's plain version on any device. Counts are
-    bitwise equal either way.
+    bitwise equal either way. ``perm_method``: "feistel" (default) or
+    "sort", the slot null's ``perm_local_geary`` stream.
     """
     if precision not in ("bf16", "f32", "int8"):
         raise ValueError(
@@ -1442,9 +1466,10 @@ def banded_local_geary(plan: NullPlan, Z: torch.Tensor, seed: int,
     if precision == "int8":
         return _banded_local_geary_p_i8(plan, Z, seed,
                                         n_permutations=n_permutations,
-                                        band_impl=band_impl)
+                                        band_impl=band_impl,
+                                        perm_method=perm_method)
     return _banded_local_geary_p(plan, Z, seed, n_permutations=n_permutations,
-                                 precision=precision)
+                                 precision=precision, perm_method=perm_method)
 
 
 def _quantize_x(X: torch.Tensor):
@@ -1479,7 +1504,8 @@ def _inv_m(n: int, star: bool) -> float:
 
 def _banded_getis_p_i8(plan: NullPlan, X: torch.Tensor, seed: int, *,
                        n_permutations: int, star: bool, alternative: str,
-                       band_impl: str = "auto") -> torch.Tensor:
+                       band_impl: str = "auto", perm_method: str = "feistel"
+                       ) -> torch.Tensor:
     """Getis-Ord Gi/Gi* permutation p_sim, int8 quantized operator
     (reference ``_banded_getis_p_i8``, ops/banded.py:3144).
 
@@ -1490,8 +1516,8 @@ def _banded_getis_p_i8(plan: NullPlan, X: torch.Tensor, seed: int, *,
     comparisons and two-sided the sign test against c2 = f32(tot/m)·(W+1).
     Gi: the leave-one-out centred lag cp in float32, with an exact
     (lag, own) tie counted as extreme (``kernels.lisa_count``). Per draw:
-    one Feistel evaluation, one int8 row gather, the far values and the
-    Getis draw step. Returns p_sim [n, G] in the original order.
+    one draw's rows (:func:`_draw_rows`), one int8 row gather, the far
+    values and the Getis draw step. Returns p_sim [n, G] in the original order.
     """
     B = plan.block
     n_padded = plan.n_padded
@@ -1537,11 +1563,11 @@ def _banded_getis_p_i8(plan: NullPlan, X: torch.Tensor, seed: int, *,
                   me_o=me_o)
         count_fn = (kern_lisa.getis_g_count_plain if use_plain
                     else kern_lisa.getis_g_count)
-    base = key_for(seed, "perm_feistel_getis", 0)
+    rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n, "perm_getis")
     count = torch.zeros(obs.shape, dtype=kern_lisa.counter_dtype(
         n_permutations), device=dev)
     for step in range(n_permutations):
-        Xp = Xq[feistel_apply(fold_in(base, step), rows_idx, plan.n)]
+        Xp = Xq[rows_of(step)]
         count_fn(li32, wb, Xp, B, obs, count, alternative=alternative,
                  **far_of(Xp), **kw)
     return _p_from_counts(count[plan.rank, :G], n_permutations)
@@ -1549,7 +1575,8 @@ def _banded_getis_p_i8(plan: NullPlan, X: torch.Tensor, seed: int, *,
 
 def _banded_getis_p(plan: NullPlan, X: torch.Tensor, seed: int, *,
                     n_permutations: int, star: bool, alternative: str,
-                    precision: str) -> torch.Tensor:
+                    precision: str, perm_method: str = "feistel"
+                    ) -> torch.Tensor:
     """Getis-Ord Gi/Gi* permutation p_sim through the bf16/f32 banded null
     (reference ``_banded_getis_p``, ops/banded.py:3033; torch ops on the
     compact band here). The per-gene column statistics are invariant under
@@ -1594,12 +1621,11 @@ def _banded_getis_p(plan: NullPlan, X: torch.Tensor, seed: int, *,
     obs_c = torch.empty((n_padded, X.shape[1]), dtype=torch.float32, device=dev)
     for r0, r1, c in center(rows_idx):
         obs_c[r0:r1] = c
-    base = key_for(seed, "perm_feistel_getis", 0)
+    rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n, "perm_getis")
     cdt = torch.int16 if n_permutations <= 32767 else torch.int32
     count = torch.zeros(obs_c.shape, dtype=cdt, device=dev)
     for step in range(n_permutations):
-        for r0, r1, c in center(feistel_apply(fold_in(base, step), rows_idx,
-                                              plan.n)):
+        for r0, r1, c in center(rows_of(step)):
             count[r0:r1] += _extreme(c, obs_c[r0:r1], alternative).to(cdt)
     return _p_from_counts(count[plan.rank], n_permutations)
 
@@ -1617,7 +1643,8 @@ def banded_getis(plan: NullPlan, X: torch.Tensor, seed: int,
     quantizes X per gene against the exact binary adjacency, its draw step
     on a CUDA tensor the Hopper kernel's getis_star / getis_g tail with
     row-pointer far edges (``band_impl`` "auto" or "pallas"); "xla" runs
-    the kernel's plain version on any device.
+    the kernel's plain version on any device. ``perm_method``: "feistel"
+    (default) or "sort", the slot null's ``perm_getis`` stream.
     """
     if precision not in ("bf16", "f32", "int8"):
         raise ValueError(
@@ -1631,10 +1658,10 @@ def banded_getis(plan: NullPlan, X: torch.Tensor, seed: int,
     if precision == "int8":
         return _banded_getis_p_i8(plan, X, seed, n_permutations=n_permutations,
                                   star=star, alternative=alternative,
-                                  band_impl=band_impl)
+                                  band_impl=band_impl, perm_method=perm_method)
     return _banded_getis_p(plan, X, seed, n_permutations=n_permutations,
                            star=star, alternative=alternative,
-                           precision=precision)
+                           precision=precision, perm_method=perm_method)
 
 
 # ---------------------------------------------------------------------------
@@ -1655,22 +1682,6 @@ def _tree_sum(part: torch.Tensor) -> torch.Tensor:
         h = part.shape[0] // 2
         part = part[:h] + part[h:]
     return part[0]
-
-
-def _lee_draw_rows(perm_method: str, seed: int, rows_idx: torch.Tensor, n: int):
-    """Draw step → the padded table's rows: ``jax.random.permutation``'s
-    stream ("sort", key base ``perm_lee``: the direct null's draws) or the
-    Feistel stream (key base ``perm_feistel_lee``)."""
-    sort = perm_method == "sort"
-    base = key_for(seed, "perm_lee" if sort else "perm_feistel_lee", 0)
-
-    def rows(step: int) -> torch.Tensor:
-        key = fold_in(base, step)
-        if sort:
-            return permutation(key, n, device=rows_idx.device)[rows_idx]
-        return feistel_apply(key, rows_idx, n)
-
-    return rows
 
 
 def _relabeled_x(plan: NullPlan, X: torch.Tensor) -> torch.Tensor:
@@ -1718,7 +1729,7 @@ def _banded_lees_p(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
             abs_l[r0:r1] = L.abs()
         Lg += L.sum(dim=0)
     abs_g = Lg.abs()
-    rows_of = _lee_draw_rows(perm_method, seed, rows_idx, plan.n)
+    rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n, "perm_lee")
     cdt = torch.int16 if n_permutations <= 32767 else torch.int32
     cg = torch.zeros(G, dtype=torch.int32, device=dev)
     cl = (torch.zeros((n_padded, G), dtype=cdt, device=dev)
@@ -1788,7 +1799,7 @@ def _banded_lees_p_i8(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
     else:
         part = part_fn(li32, wq, Yp, B, zx, sw_row, **far_of(Yp))
     abs_g = _tree_sum(part).abs()
-    rows_of = _lee_draw_rows(perm_method, seed, rows_idx, plan.n)
+    rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n, "perm_lee")
     cg = torch.zeros(Zyq.shape[1], dtype=torch.int32, device=dev)
     cl = (torch.zeros((n_padded, Zyq.shape[1]), device=dev,
                       dtype=kern_lisa.counter_dtype(n_permutations))
@@ -1832,7 +1843,7 @@ def banded_lees_l(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
         raise ValueError(
             f"banded_lees_l supports precision 'bf16', 'f32' or 'int8', "
             f"got {precision!r}")
-    _check_perm_method(perm_method, draws=False)
+    _check_perm_method(perm_method)
     _check_impl(band_impl)
     seed = int(seed) & 0xFFFFFFFF
     if precision == "int8":

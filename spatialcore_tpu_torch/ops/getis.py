@@ -11,8 +11,11 @@ nearest neighbours (the graph's valid slots):
     observations j ≠ i and n replaced by n−1.
 
 The analytic normal p-values are the default. The slot permutation null
-(``n_permutations > 0``) is not ported yet; ``ops.banded.banded_getis``
-serves the permutation p_sim.
+(``n_permutations > 0``) shuffles whole value columns, one shared shuffle
+per draw (key ``perm_getis``, ``jax.random.permutation``'s stream bitwise),
+and recomputes z of the permuted values; its extreme test follows
+``alternative``. ``ops.banded.banded_getis`` is the banded form of the
+same null.
 """
 
 from __future__ import annotations
@@ -21,7 +24,10 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.rng import fold_in, key_for, permutation
+from .banded import _extreme, _p_from_counts
 from .graph import SpatialGraph
+from .moran import _counter_dtype
 
 
 class GetisOrdResult(NamedTuple):
@@ -50,30 +56,17 @@ def _column_sums(X: torch.Tensor):
             (X * X).sum(dim=0, keepdim=True, dtype=torch.float64).to(X.dtype))
 
 
-def getis_ord(graph: SpatialGraph, X: torch.Tensor, star: bool = True,
-              alternative: str = "two-sided", seed: int = 0,
-              n_permutations: int = 0) -> GetisOrdResult:
-    """Gi*/Gi per cell × gene on RAW values ``X`` [N, G] (not z-scored)."""
-    del seed
-    if alternative not in ("two-sided", "greater", "less"):
-        raise ValueError("alternative must be 'two-sided', 'greater' or "
-                         f"'less', got {alternative!r}")
-    if n_permutations > 0:
-        raise NotImplementedError(
-            "the slot Getis-Ord null (getis_ord with n_permutations > 0) "
-            "is not ported yet (ROADMAP Queue 1 item 4); use "
-            "ops.banded.banded_getis")
-    X = torch.as_tensor(X)
-    if X.ndim == 1:
-        X = X[:, None]
-    if X.dtype not in (torch.float32, torch.float64):
-        X = X.to(torch.float32)
-    n = X.shape[0]
-    deg = graph.valid.sum(dim=1).to(X.dtype)                  # [N]
-    lag = _binary_lag(graph, X)
-    tot, sq = _column_sums(X)                                 # [1, G] each
+def _gi_z(graph: SpatialGraph, Xv: torch.Tensor, deg: torch.Tensor,
+          tot: torch.Tensor, sq: torch.Tensor, star: bool):
+    """(lag_s, z) of values ``Xv`` [N, G]: the binary lag (self included
+    for Gi*) and the analytic z. The column sums ``tot`` / ``sq`` are
+    invariant under a row permutation, so the null passes the observed
+    ones (the reference re-sums each permuted column in float32; both are
+    exact on integer counts below 2²⁴)."""
+    n = Xv.shape[0]
+    lag = _binary_lag(graph, Xv)
     if star:
-        lag_s = lag + X
+        lag_s = lag + Xv
         W = deg + 1.0
         m = n
         xbar = tot / n                                        # [1, G]
@@ -82,8 +75,8 @@ def getis_ord(graph: SpatialGraph, X: torch.Tensor, star: bool = True,
         lag_s = lag
         W = deg
         m = n - 1
-        xbar = (tot - X) / m                                  # [N, G] x̄_(i)
-        s2 = (sq - X * X) / m - xbar ** 2
+        xbar = (tot - Xv) / m                                 # [N, G] x̄_(i)
+        s2 = (sq - Xv * Xv) / m - xbar ** 2
     del lag
     s2 = torch.clamp_min(s2, 0.0)
     s = torch.sqrt(torch.where(s2 > 0, s2, torch.ones_like(s2)))
@@ -92,7 +85,30 @@ def getis_ord(graph: SpatialGraph, X: torch.Tensor, star: bool = True,
     denom_i = torch.sqrt(torch.clamp_min(
         (m * S1 - W ** 2) / max(m - 1.0, 1.0), 0.0))
     z = (lag_s - xbar * W[:, None]) / (s * denom_i[:, None])
-    del xbar, s
+    return lag_s, z
+
+
+def getis_ord(graph: SpatialGraph, X: torch.Tensor, star: bool = True,
+              alternative: str = "two-sided", seed: int = 0,
+              n_permutations: int = 0) -> GetisOrdResult:
+    """Gi*/Gi per cell × gene on RAW values ``X`` [N, G] (not z-scored).
+
+    With ``n_permutations > 0`` draw d permutes the rows by
+    ``permutation(fold_in(key_for(seed, "perm_getis", 0), d), n)`` and
+    p_sim = (#{z_perm extreme against z} + 1)/(P + 1), extreme as
+    ``alternative`` says."""
+    if alternative not in ("two-sided", "greater", "less"):
+        raise ValueError("alternative must be 'two-sided', 'greater' or "
+                         f"'less', got {alternative!r}")
+    X = torch.as_tensor(X)
+    if X.ndim == 1:
+        X = X[:, None]
+    if X.dtype not in (torch.float32, torch.float64):
+        X = X.to(torch.float32)
+    n = X.shape[0]
+    deg = graph.valid.sum(dim=1).to(X.dtype)                  # [N]
+    tot, sq = _column_sums(X)                                 # [1, G] each
+    lag_s, z = _gi_z(graph, X, deg, tot, sq, star)
     # raw G ratio: Σ_j w_ij x_j / Σ_j x_j (star: totals include i)
     gden = tot if star else tot - X
     G = lag_s / torch.where(gden != 0, gden, torch.ones_like(gden))
@@ -103,4 +119,14 @@ def getis_ord(graph: SpatialGraph, X: torch.Tensor, star: bool = True,
         p = torch.special.ndtr(-z)
     else:
         p = torch.special.ndtr(z)
-    return GetisOrdResult(G, z, p, torch.ones_like(p))
+    if n_permutations == 0:
+        return GetisOrdResult(G, z, p, torch.ones_like(p))
+    base = key_for(seed, "perm_getis", 0)
+    cdt = _counter_dtype(n_permutations)
+    count = torch.zeros(z.shape, dtype=cdt, device=X.device)
+    for d in range(n_permutations):
+        zp = _gi_z(graph, X[permutation(fold_in(base, d), n, X.device)], deg,
+                   tot, sq, star)[1]
+        count += _extreme(zp, z, alternative).to(cdt)
+        del zp
+    return GetisOrdResult(G, z, p, _p_from_counts(count, n_permutations))

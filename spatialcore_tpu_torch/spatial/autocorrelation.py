@@ -1,24 +1,24 @@
 """Public spatial autocorrelation: global Moran's I and Geary's C (apart
-or fused), local Moran's I (LISA), local Geary's C, Getis-Ord Gi* / Gi and
-Lee's L.
+or fused), local Moran's I (LISA), local Geary's C (and its multivariate
+form), Getis-Ord Gi* / Gi, Lee's L and join counts (global and local).
 
 Port of ``build_spatial_weights``, ``morans_i``, ``gearys_c``,
 ``global_autocorrelation``, ``local_morans_i``, ``local_gearys_c``,
-``getis_ord_gi``, ``lees_l`` and ``lees_l_local`` of
-``spatialcore_tpu/spatial/autocorrelation.py`` and their helpers. Same parameters and outputs (the global ``uns`` DataFrames
+``local_gearys_c_multivariate``, ``getis_ord_gi``, ``lees_l``,
+``lees_l_local``, ``join_count_statistics`` and ``local_join_counts`` of
+``spatialcore_tpu/spatial/autocorrelation.py`` and their helpers. Same
+parameters and outputs (the global ``uns`` DataFrames
 ``gene, I|C, expected_I|expected_C, z_score, p_value``; the local ``obsm``
-planes and ``uns[f"{key}_params"]``; Lee's per-pair ``obs`` columns), plus
-an explicit ``device``. "Device mode" of the local functions — outputs kept
-on the card — is "X is a CUDA tensor".
+planes and ``uns[f"{key}_params"]``; the per-cell ``obs`` columns of Lee's
+L, the local join counts and the multivariate Geary), plus an explicit
+``device``. "Device mode" of the local functions — outputs kept on the
+card — is "X is a CUDA tensor".
 
-Permutation p-values come from the banded nulls (``ops/banded.py``), for
-the global statistics also from the slot null
-(``ops.moran.permutation_test_global``), and for Lee's L also from its
-direct null (``ops/lee.py``). Not ported yet, and refused loudly: the
-LOCAL slot nulls of Moran, Geary and Getis-Ord (``null_method="direct"``
-with permutations, "auto" where it resolves to them, and
-``null="conditional"``; ROADMAP Queue 1 item 4) and gene sharding over a
-``mesh`` (Queue 1 item 15). Unknown ``null_method`` strings raise
+Permutation p-values come from the banded nulls (``ops/banded.py``) or
+the slot nulls (``ops/moran.py``, ``ops/getis.py``; Lee's L: its direct
+null in ``ops/lee.py``), chosen by ``null_method`` as in the reference.
+Not ported yet, and refused loudly: gene sharding over a ``mesh``
+(ROADMAP Queue 1 item 15). Unknown ``null_method`` strings raise
 ``ValueError`` (the reference's global path runs the slot null for them,
 ROADMAP Queue 3).
 """
@@ -44,9 +44,11 @@ from ..ops.graph import SpatialGraph, build_graph, graph_from_numpy, graph_momen
 from ..ops.getis import getis_ord
 from ..ops.lee import lees_l_pairs
 from ..ops.moran import (QUADRANT_LABELS, classify_quadrants,
-                         geary_analytic_moments, geary_observed, local_geary,
-                         local_moran, moran_analytic_moments, moran_observed,
-                         p_from_z, permutation_test_global, standardize)
+                         geary_analytic_moments, geary_observed, join_counts,
+                         local_geary, local_geary_multivariate,
+                         local_join_counts as _local_join_counts, local_moran,
+                         moran_analytic_moments, moran_observed, p_from_z,
+                         permutation_test_global, standardize)
 from ..ops.streaming import (device_local_sink, host_local_sink,
                              streaming_local_null)
 
@@ -556,13 +558,18 @@ def local_morans_i(
     otherwise they are host numpy arrays. The observed I/z/lag come from
     one exact lag pass.
 
-    ``null_method``: "banded" (bf16 null) or "banded_int8" (the per-gene
-    int8 null: exact integer draw steps in the Hopper kernel, int8
-    counters for P ≤ 127; pair it with a large ``batch_size``). "auto"
-    resolves as the reference: the banded f32 null on graphs with k ≥ 16
-    at ≥ 100k cells, else the slot null. The slot null (``"slots"``, and
-    ``null="conditional"``, which falls back to it) is not ported yet and
-    raises ``NotImplementedError`` when ``n_permutations > 0``.
+    ``null``: "total" (the reference's default) permutes whole columns;
+    "conditional" (GeoDa/esda) keeps each cell's own value and draws its
+    neighbours without replacement from the other cells.
+
+    ``null_method``: "slots" (the slot null, ``ops.moran.local_moran``;
+    torch ops, one draw at a time), "banded" (bf16 null) or "banded_int8"
+    (the per-gene int8 null: exact integer draw steps in the Hopper
+    kernel, int8 counters for P ≤ 127; pair it with a large
+    ``batch_size``). "auto" resolves as the reference: the banded f32 null
+    on graphs with k ≥ 16 at ≥ 100k cells with the total null, else the
+    slot null. The banded methods with ``null="conditional"`` warn and run
+    the slot null. Each gene batch draws the same permutations.
 
     ``output_mode``: "full" keeps the six float32 planes; "compact"
     streams gene tiles of ``max(batch_size, 256)`` through
@@ -609,11 +616,6 @@ def local_morans_i(
             null_method, null_precision = "slots", "bf16"
         else:
             plan = _get_null_plan(adata, graph, spatial_key)
-    if null_method == "slots" and n_permutations > 0:
-        raise NotImplementedError(
-            "the slot LISA null (local_moran with permutations) is not "
-            "ported yet (ROADMAP Queue 1 item 4); pass null_method='banded' "
-            "or 'banded_int8' with null='total'")
 
     X_is_device = _x_is_device(adata, layer)
     output_mode = _resolve_output_mode(
@@ -637,7 +639,7 @@ def local_morans_i(
                                      n_permutations=n_permutations,
                                      precision=null_precision)
         else:
-            res = local_moran(graph, Z, seed, 0, null=null)
+            res = local_moran(graph, Z, seed, n_permutations, null=null)
         del Z
         if X_is_device:
             batches.append((res.local_I, res.z, res.lag, res.p_value,
@@ -790,10 +792,10 @@ def local_gearys_c(
     ``null="total"``, "banded" (float32 banded null, torch ops) or
     "banded_int8" (the fully integer null, k ≤ 256: the Hopper kernel's
     geary tail on the card); "auto" takes the float32 banded null at
-    ≥ 100k cells on k ≥ 16 graphs. The conditional null and "direct" run
-    the slot null, which is not ported yet: with ``n_permutations > 0``
-    they raise ``NotImplementedError``; ``n_permutations=0`` gives C with
-    p = 1.
+    ≥ 100k cells on k ≥ 16 graphs. The conditional null, "direct" and
+    "auto" below that run the slot null (``ops.moran.local_geary``, torch
+    ops); the banded methods with the conditional null warn and run it
+    too. Each gene batch draws the same permutations.
 
     ``output_mode``: "full" keeps three float32 [N, G] planes; "compact"
     streams gene tiles of ``max(batch_size, 256)`` through
@@ -819,12 +821,6 @@ def local_gearys_c(
     if null_method in ("banded", "banded_int8") and null != "total":
         logger.warning("null='conditional' is not supported by the banded "
                        "path; using the direct kernel")
-    if n_permutations > 0 and not use_banded:
-        raise NotImplementedError(
-            "the slot local-Geary null (null='conditional', or "
-            "null_method='direct') is not ported yet (ROADMAP Queue 1 item "
-            "4); pass null='total' with null_method='banded' or "
-            "'banded_int8'")
     plan = _get_null_plan(adata, graph, spatial_key) if use_banded else None
     X_is_device = _x_is_device(adata, layer)
     output_mode = _resolve_output_mode(
@@ -862,12 +858,12 @@ def local_gearys_c(
     for bs in range(0, n_genes, batch_size):
         batch = gene_names[bs:bs + batch_size]
         Z, zero_var = standardize(_dense_expression(adata, batch, layer, device))
-        C = local_geary(graph, Z, seed, 0, null=null).local_C
         if plan is not None:
+            C = local_geary(graph, Z, seed, 0, null=null).local_C
             p = banded_local_geary(plan, Z, seed, n_permutations,
                                    precision=band_prec)[1]
         else:
-            p = torch.ones_like(C)
+            C, p = local_geary(graph, Z, seed, n_permutations, null=null)
         del Z
         zv = zero_var[None, :]
         batches.append((torch.where(zv, 0.0, C), torch.where(zv, 1.0, p)))
@@ -939,8 +935,8 @@ def getis_ord_gi(
     binary adjacency: the Hopper kernel's getis_star / getis_g tail on the
     card) gives p_sim, and BH runs over p_sim; "auto" takes the float32
     banded null at ≥ 100k cells on k ≥ 16 graphs. "direct" (and "auto"
-    below that) is the slot null, which is not ported yet
-    (``NotImplementedError``).
+    below that) is the slot null (``ops.getis.getis_ord``, torch ops),
+    whose gene batches each draw the same permutations.
 
     ``output_mode``: "full" keeps float32 planes; "compact" streams gene
     tiles through ``ops.streaming.streaming_local_null`` (banded path
@@ -967,11 +963,6 @@ def getis_ord_gi(
                        device)
     use_banded, band_prec = _local_null(
         null_method, n_cells, int(graph.neighbor_idx.shape[1]), n_permutations)
-    if n_permutations > 0 and not use_banded:
-        raise NotImplementedError(
-            "the slot Getis-Ord null (null_method='direct', or 'auto' below "
-            "100k cells / k=16) is not ported yet (ROADMAP Queue 1 item 4); "
-            "pass null_method='banded' or 'banded_int8'")
     plan = _get_null_plan(adata, graph, spatial_key) if use_banded else None
     X_is_device = _x_is_device(adata, layer)
     output_mode = _resolve_output_mode(
@@ -1014,7 +1005,9 @@ def getis_ord_gi(
     for bs in range(0, n_genes, batch_size):
         X = _dense_expression(adata, gene_names[bs:bs + batch_size], layer,
                               device)
-        res = getis_ord(graph, X, star=star, alternative=alternative)
+        res = getis_ord(graph, X, star=star, alternative=alternative,
+                        seed=seed,
+                        n_permutations=0 if plan is not None else n_permutations)
         p_sim = (banded_getis(plan, X, seed, n_permutations, star=star,
                               alternative=alternative, precision=band_prec)
                  if plan is not None else res.p_sim)
@@ -1363,4 +1356,171 @@ def lees_l_local(
         outputs={"obs_keys": [f"{gx}_{gy}_lees_l" for gx, gy in pairs[:5]],
                  "uns_keys": [f"{gx}_{gy}_lees_l_params"
                               for gx, gy in pairs[:5]]})
+    return adata
+
+
+# ---------------------------------------------------------------------------
+# Join counts and the multivariate local Geary
+# ---------------------------------------------------------------------------
+
+
+def _binarize_obs_column(adata, column: str, category=None) -> np.ndarray:
+    """The 0/1 encoding shared by the global and local join counts: a bool
+    column, {True, False} values, numeric > 0, or ``category=`` naming the
+    positive label."""
+    if column not in adata.obs.columns:
+        raise ValueError(f"adata.obs['{column}'] not found")
+    series = adata.obs[column]
+    if category is not None:
+        return (series.astype(str) == str(category)).to_numpy()
+    uniq = set(series.dropna().unique())
+    if series.dtype == bool or uniq.issubset({True, False}):
+        return series.fillna(False).astype(bool).to_numpy()
+    try:
+        return (series.astype(float) > 0).to_numpy()
+    except (ValueError, TypeError):
+        raise ValueError(
+            f"Column '{column}' is not boolean or numeric; pass "
+            "category=<label> to binarize.") from None
+
+
+def join_count_statistics(
+    adata,
+    column: str,
+    category=None,
+    spatial_key: str = "spatial",
+    n_neighbors: int = 6,
+    n_permutations: int = 999,
+    seed: int = 0,
+    key_added: str = "join_counts",
+    use_existing_graph: bool = False,
+    copy: bool = False,
+    device: Device = "cuda",
+):
+    """Join-count autocorrelation of a binary label (BB / WW / BW joins).
+
+    ``column`` must be boolean or numeric (> 0 is positive), or
+    categorical with ``category`` naming the positive class. Clustering of
+    the class shows as a small ``p_BB``. The label permutations run on
+    ``device`` (``ops.moran.join_counts``). Results land in
+    ``uns[key_added]``.
+    """
+    start = time.time()
+    if copy:
+        adata = adata.copy()
+    x = _binarize_obs_column(adata, column, category)
+    frac = float(x.mean())
+    if frac in (0.0, 1.0):
+        raise ValueError(
+            f"Column '{column}' is constant ({frac:.0%} positive); join "
+            "counts need both classes present.")
+    graph = _get_graph(adata, n_neighbors, spatial_key, use_existing_graph,
+                       device)
+    res = join_counts(graph, torch.as_tensor(x.astype(np.float32)), seed=seed,
+                      n_permutations=n_permutations)
+    out = {k: float(v) for k, v in res.items()}
+    out.update({"n_positive": int(x.sum()), "fraction_positive": frac,
+                "n_permutations": n_permutations, "seed": seed,
+                "computation_time_seconds": round(time.time() - start, 2)})
+    adata.uns[key_added] = out
+    logger.info(f"join counts: BB={out['BB']:.0f} (p={out['p_BB']:.4f}), "
+                f"BW={out['BW']:.0f} (p={out['p_BW']:.4f})")
+    update_metadata(adata, "join_count_statistics",
+                    parameters={"column": column, "category": category,
+                                "n_permutations": n_permutations, "seed": seed,
+                                "backend": "spatialcore_tpu_torch",
+                                "device": str(device)},
+                    outputs={"uns": key_added})
+    return adata
+
+
+def local_join_counts(
+    adata,
+    column: str,
+    category=None,
+    spatial_key: str = "spatial",
+    n_neighbors: int = 6,
+    n_permutations: int = 999,
+    seed: int = 0,
+    key_added: Optional[str] = None,
+    use_existing_graph: bool = False,
+    copy: bool = False,
+    device: Device = "cuda",
+):
+    """Local join counts of a binary obs column (Anselin & Li 2019).
+
+    BB_i counts the 1-1 neighbour joins at each positive cell; the
+    conditional-permutation p (``ops.moran.local_join_counts``, on
+    ``device``) flags significant local clustering. ``column`` follows the
+    contract of :func:`join_count_statistics`. Writes
+    ``obs[f"{key}_BB"]`` and ``obs[f"{key}_p"]`` (p = 1 where the cell is
+    0), ``key`` defaulting to ``f"{column}_local_jc"``.
+    """
+    start = time.time()
+    if copy:
+        adata = adata.copy()
+    x = _binarize_obs_column(adata, column, category).astype(np.float32)
+    if x.sum() == 0 or x.sum() == len(x):
+        raise ValueError(
+            f"obs['{column}'] must contain both 0/False and 1/True values")
+    graph = _get_graph(adata, n_neighbors, spatial_key, use_existing_graph,
+                       device)
+    bb, p = _local_join_counts(graph, torch.as_tensor(x), seed=seed,
+                               n_permutations=n_permutations)
+    key = key_added or f"{column}_local_jc"
+    adata.obs[f"{key}_BB"] = bb.cpu().numpy()
+    adata.obs[f"{key}_p"] = p.cpu().numpy()
+    update_metadata(adata, "local_join_counts", parameters={
+        "column": column, "category": category, "n_neighbors": n_neighbors,
+        "n_permutations": n_permutations, "seed": seed,
+        "computation_time_seconds": round(time.time() - start, 2),
+        "backend": "spatialcore_tpu_torch", "device": str(device)})
+    logger.info(f"Local join counts for '{column}' "
+                f"({int(x.sum()):,} positive cells)")
+    return adata
+
+
+def local_gearys_c_multivariate(
+    adata,
+    genes: Optional[Union[str, List[str]]] = None,
+    layer: Optional[str] = None,
+    spatial_key: str = "spatial",
+    n_neighbors: int = 6,
+    n_permutations: int = 999,
+    seed: int = 0,
+    key_added: str = "local_geary_mv",
+    use_existing_graph: bool = False,
+    copy: bool = False,
+    device: Device = "cuda",
+):
+    """Multivariate local Geary (Anselin 2019): one coherence statistic per
+    cell over a gene set; small c with small p marks cells whose whole
+    profile resembles their neighbourhood's.
+
+    Writes ``obs[key_added]`` (c_i) and ``obs[f"{key_added}_p"]``
+    (one-sided conditional-permutation p, ``ops.moran.
+    local_geary_multivariate`` on ``device``) and
+    ``uns[f"{key_added}_params"]``.
+    """
+    start = time.time()
+    if copy:
+        adata = adata.copy()
+    gene_names = _resolve_genes(adata, genes)
+    Z, _ = standardize(_dense_expression(adata, gene_names, layer, device))
+    graph = _get_graph(adata, n_neighbors, spatial_key, use_existing_graph,
+                       device)
+    c, p = local_geary_multivariate(graph, Z, seed=seed,
+                                    n_permutations=n_permutations)
+    del Z
+    adata.obs[key_added] = c.cpu().numpy()
+    adata.obs[f"{key_added}_p"] = p.cpu().numpy()
+    adata.uns[f"{key_added}_params"] = {
+        "genes": gene_names, "n_neighbors": n_neighbors,
+        "n_permutations": n_permutations, "seed": seed,
+        "computation_time_seconds": round(time.time() - start, 2)}
+    update_metadata(adata, "local_gearys_c_multivariate", parameters={
+        "n_genes": len(gene_names), "n_neighbors": n_neighbors,
+        "n_permutations": n_permutations, "seed": seed,
+        "backend": "spatialcore_tpu_torch", "device": str(device)})
+    logger.info(f"Multivariate local Geary over {len(gene_names)} genes")
     return adata

@@ -382,11 +382,21 @@ def test_prepacked_int4_matches_inline(setup):
 def test_unported_options_raise(setup):
     obs = tm.moran_observed(setup["gt"], setup["Zt"], setup["S0"])
     args = (setup["pt"], setup["Zt"], setup["S0"], obs, 0, 3)
-    # the local nulls' "sort" stream comes with the local slot nulls
-    for fn in (tb.banded_local_moran_pvalues, tb.banded_local_geary,
-               tb.banded_getis):
-        with pytest.raises(NotImplementedError, match="local slot nulls"):
-            fn(setup["pt"], setup["Zt"], 0, 3, perm_method="sort")
+    # the local nulls take the "sort" stream too: the reference's draws
+    p = tb.banded_local_moran_pvalues(setup["pt"], setup["Zt"], 0, 3,
+                                      perm_method="sort")
+    want = jb.banded_local_moran_pvalues(setup["pj"], setup["Zj"], 0, 3,
+                                         perm_method="sort", band_impl="xla")
+    np.testing.assert_array_equal(_np(p), np.asarray(want))
+    for fn, jfn in ((tb.banded_local_geary, jb.banded_local_geary),
+                    (tb.banded_getis, jb.banded_getis)):
+        got = fn(setup["pt"], setup["Zt"], 0, 3, precision="int8",
+                 perm_method="sort")
+        want = jfn(setup["pj"], setup["Zj"], 0, 3, precision="int8",
+                   perm_method="sort", band_impl="xla")
+        if isinstance(got, tuple):
+            got, want = got[1], want[1]
+        np.testing.assert_array_equal(_np(got), np.asarray(want))
     with pytest.raises(ValueError, match="perm_method"):
         tb.banded_permutation_test(*args, perm_method="shuffle")
     with pytest.raises(ValueError, match="band_impl"):

@@ -20,8 +20,6 @@ torch.set_num_threads(1)
 #: with its ROADMAP Queue 1 item
 QUEUED = {
     "core": {
-        # item 4 (item 2's last pieces)
-        "permutation_keys", "batch_permutations",
         # item 16: the rest of core
         "Raw", "concat", "read_h5ad", "write_h5ad", "setup_logging",
         "setup_file_logging", "MetadataTracker", "prepare_metadata_for_h5ad",
@@ -37,9 +35,8 @@ QUEUED = {
         "radius_neighbors", "correlogram_kernel",
     },
     "spatial": {
-        # items 3 and 10: join counts, multivariate local Geary, correlogram
-        "join_count_statistics", "local_join_counts",
-        "local_gearys_c_multivariate", "moran_correlogram",
+        # items 3 and 10: the correlogram
+        "moran_correlogram",
         # item 11: point patterns
         "ripleys_k", "cross_type_ripleys_k", "clark_evans", "co_occurrence",
         # item 12: niches and domains

@@ -93,8 +93,13 @@ def test_getis_ord_observed_matches_reference(setup, star, alternative):
 def test_getis_ord_refusals(setup):
     with pytest.raises(ValueError, match="alternative"):
         tgo.getis_ord(setup["gt"], setup["Xt"], alternative="both")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tgo.getis_ord(setup["gt"], setup["Xt"], n_permutations=9)
+    # the slot null: integer counts, so the reference runs op by op (its
+    # jit-compiled scan resolves exact ties otherwise, ROADMAP Queue 3)
+    got = tgo.getis_ord(setup["gt"], setup["Xt"], seed=2, n_permutations=9)
+    with jax.disable_jit():
+        want = jgo.getis_ord(setup["gj"], setup["Xj"], seed=2, n_permutations=9)
+    np.testing.assert_array_equal(np.round(_np(got.p_sim) * 10),
+                                  np.round(_np(want.p_sim) * 10))
     one = tgo.getis_ord(setup["gt"], setup["Xt"][:, 0])      # 1-D input
     assert tuple(one.G.shape) == (1000, 1)
 
@@ -176,10 +181,14 @@ def test_getis_null_refusals(setup):
             (dict(precision="int4"), ValueError, "precision"),
             (dict(alternative="both"), ValueError, "alternative"),
             (dict(perm_method=""), ValueError, "perm_method"),
-            (dict(perm_method="sort"), NotImplementedError, "slot null"),
             (dict(band_impl="bogus"), ValueError, "band_impl")):
         with pytest.raises(exc, match=match):
             tb.banded_getis(pt, Xt, 0, 5, **kw)
+    # the "sort" stream: the slot null's draws, counts bitwise
+    got = tb.banded_getis(pt, Xt, 0, 5, precision="int8", perm_method="sort")
+    want = jb.banded_getis(setup["pj"], setup["Xj"], 0, 5, precision="int8",
+                           perm_method="sort", band_impl="xla")
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
 
 
 def test_getis_wrapper_refuses_bad_operands(setup):
@@ -309,14 +318,22 @@ def test_compact_streaming_lean_path_equals_full():
 
 
 def test_getis_ord_gi_refusals():
-    _, b = _pair(n=300, g=4)
+    a, b = _pair(n=300, g=4)
     for kw, exc, match in (
             (dict(null_method="banded_int4"), ValueError, "null_method"),
             (dict(alternative="both"), ValueError, "alternative"),
             (dict(output_mode="bogus"), ValueError, "output_mode"),
-            (dict(null_method="direct"), NotImplementedError, "Queue 1 item 4"),
-            (dict(), NotImplementedError, "slot"),          # auto, small
             (dict(null_method="banded_int8", n_permutations=0,
                   output_mode="compact"), ValueError, "compact")):
         with pytest.raises(exc, match=match):
             sctt.getis_ord_gi(b, **{"n_permutations": 9, **kw}, device="cpu")
+    # "direct", and "auto" at this size, run the slot null: the reference's
+    # draws, run op by op on these integer counts (ROADMAP Queue 3)
+    for kw in (dict(null_method="direct"), {}):
+        with jax.disable_jit():
+            scts.getis_ord_gi(a, n_permutations=9, seed=1, **kw)
+        sctt.getis_ord_gi(b, n_permutations=9, seed=1, device="cpu", **kw)
+        np.testing.assert_array_equal(
+            np.round(b.obsm["getis_ord_p_sim"] * 10),
+            np.round(np.asarray(a.obsm["getis_ord_p_sim"]) * 10))
+        assert b.uns["getis_ord_params"]["null_method"] == "direct"

@@ -626,6 +626,72 @@ def test_geary_and_getis_pvalues_on_the_card_equal_the_cpu(cuda_device, plan):
         assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("stat,mode", [("moran", "lisa_win"),
+                                       ("geary", "geary_win"),
+                                       ("getis_star", "getis_star_win"),
+                                       ("getis_g", "getis_g_win")])
+def test_sort_stream_on_the_card_equals_the_cpu(cuda_device, plan, stat, mode):
+    """The int8 local nulls on the "sort" stream (the slot null's
+    ``jax.random.permutation`` draws) on the card: the K7 tail launched once
+    a draw, p bitwise equal to the CPU's plain route."""
+    gen = torch.Generator().manual_seed(10)
+    Z = torch.randn((plan.n, 40), generator=gen)
+    X = torch.poisson(torch.full((plan.n, 40), 3.0), generator=gen)
+    on_card = banded.NullPlan(*[t.to(cuda_device) if isinstance(t, torch.Tensor)
+                                else t for t in plan])
+
+    def run(pl, dev):
+        if stat == "moran":
+            return banded.banded_local_moran_pvalues(
+                pl, Z.to(dev), 9, 19, perm_method="sort")
+        if stat == "geary":
+            return banded.banded_local_geary(pl, Z.to(dev), 9, 19,
+                                             precision="int8",
+                                             perm_method="sort")[1]
+        star = stat == "getis_star"
+        return banded.banded_getis(pl, X.to(dev), 9, 19, star=star,
+                                   alternative="two-sided" if star else "less",
+                                   precision="int8", perm_method="sort")
+
+    kern_lisa.reset_launch_counts()
+    got = run(on_card, cuda_device)
+    torch.cuda.synchronize()
+    assert kern_lisa.LAUNCHES[mode] == 19
+    assert torch.equal(got.cpu(), run(plan, "cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("null", ["total", "conditional"])
+def test_slot_nulls_on_the_card_equal_the_cpu(cuda_device, null):
+    """The local slot nulls (torch ops, no kernel) on the card: the
+    conditional draws bitwise, local Moran / Geary and Getis counts equal to
+    the CPU's on integer-valued data standardized exactly."""
+    from spatialcore_tpu_torch.ops import getis, moran
+
+    key = rng.fold_in(rng.key_for(2, "perm_local", 0), 3)
+    for a, b in zip(moran._conditional_draw_indices(key, 5000, 6, cuda_device),
+                    moran._conditional_draw_indices(key, 5000, 6, "cpu")):
+        assert torch.equal(a.cpu(), b)
+    gen = torch.Generator().manual_seed(12)
+    coords = torch.randint(0, 2048, (4096, 2), generator=gen).float()
+    X = torch.randint(-3, 4, (4096, 8), generator=gen).float()
+    X[-1] -= X.sum(dim=0)
+    Xc = torch.poisson(torch.full((4096, 8), 3.0), generator=gen)
+    graph = build_graph(coords, n_neighbors=6, device="cpu")
+    gcard = type(graph)(*[t.to(cuda_device) for t in graph])
+    Z, _ = moran.standardize(X)
+    for fn in (moran.local_moran, moran.local_geary):
+        want = fn(graph, Z, 4, 19, null=null).p_value
+        got = fn(gcard, Z.to(cuda_device), 4, 19, null=null).p_value
+        assert torch.equal(got.cpu(), want)
+    star = null == "total"
+    want = getis.getis_ord(graph, Xc, star=star, seed=4, n_permutations=19)
+    got = getis.getis_ord(gcard, Xc.to(cuda_device), star=star, seed=4,
+                          n_permutations=19)
+    assert torch.equal(got.p_sim.cpu(), want.p_sim)
+
+
 # ---------------------------------------------------------------------------
 # Lee's tail of the same kernel (draw step, observed and partial-only
 # entries), the kNN kernel, and the sort-based permutation on the card

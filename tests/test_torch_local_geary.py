@@ -82,9 +82,11 @@ def test_local_geary_observed_matches_reference(setup):
     assert bool((rt.p_value == 1).all())
     with pytest.raises(ValueError, match="null"):
         tm.local_geary(setup["gt"], setup["Zt"], 0, 0, null="bogus")
+    # the slot nulls: the reference's draws and counts, bitwise
     for null in ("total", "conditional"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            tm.local_geary(setup["gt"], setup["Zt"], 0, 9, null=null)
+        pj = jm.local_geary(setup["gj"], setup["Zj"], 0, 9, null=null).p_value
+        pt = tm.local_geary(setup["gt"], setup["Zt"], 0, 9, null=null).p_value
+        np.testing.assert_array_equal(_np(pt), np.asarray(pj))
 
 
 # ---------------------------------------------------------------------------
@@ -151,8 +153,14 @@ def test_float_geary_null_matches_reference(setup, precision):
 
 def test_geary_null_refusals(setup):
     pt, Zt = setup["pt"], setup["Zt"]
-    with pytest.raises(NotImplementedError, match="slot null"):
-        tb.banded_local_geary(pt, Zt, 0, 5, perm_method="sort")
+    # the "sort" stream: the slot null's draws, counts bitwise
+    got = tb.banded_local_geary(pt, Zt, 0, 5, precision="int8",
+                                perm_method="sort")
+    want = jb.banded_local_geary(setup["pj"], setup["Zj"], 0, 5,
+                                 precision="int8", perm_method="sort",
+                                 band_impl="xla")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), np.asarray(w))
     with pytest.raises(ValueError, match="perm_method"):
         tb.banded_local_geary(pt, Zt, 0, 5, perm_method="")
     with pytest.raises(ValueError, match="band_impl"):
@@ -275,22 +283,24 @@ def test_compact_streaming_lean_path_equals_full():
 
 
 def test_local_gearys_c_refusals():
-    _, b = _pair(n=300, g=4)
+    a, b = _pair(n=300, g=4)
     for kw, exc, match in (
             (dict(null_method="banded_int4"), ValueError, "null_method"),
             (dict(null="total", output_mode="bogus"), ValueError, "output_mode"),
-            (dict(), NotImplementedError, "Queue 1 item 4"),  # conditional
-            (dict(null="total", null_method="direct"), NotImplementedError,
-             "slot"),
-            (dict(null="total"), NotImplementedError, "slot"),  # auto, small
             (dict(null="total", null_method="banded_int8", n_permutations=0,
                   output_mode="compact"), ValueError, "compact")):
         with pytest.raises(exc, match=match):
             sctt.local_gearys_c(b, **{"n_permutations": 9, **kw}, device="cpu")
-    # the banded methods with the conditional null warn and fall back to
-    # the (unported) slot null
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        with pytest.raises(NotImplementedError, match="slot"):
-            sctt.local_gearys_c(b, n_permutations=9, null="conditional",
-                                null_method="banded_int8", device="cpu")
+    # the slot null: the conditional default, "direct", "auto" at this size,
+    # and the banded methods with the conditional null (a warning, then
+    # the slot null), each against the reference's route
+    for kw in ({}, dict(null="total", null_method="direct"),
+               dict(null="total"),
+               dict(null="conditional", null_method="banded_int8")):
+        run = dict(n_permutations=9, seed=1, **kw)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            scts.local_gearys_c(a, **run)
+            sctt.local_gearys_c(b, device="cpu", **run)
+        _close_obsm(a, b, "local_geary", ("C", "p", "p_adj"), 9)
+        assert b.uns["local_geary_params"]["null_method"] == "direct"

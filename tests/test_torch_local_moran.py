@@ -89,8 +89,11 @@ def test_local_moran_observed_matches_reference(setup):
     assert bool((rt.p_value == 1).all())
     with pytest.raises(ValueError, match="null"):
         tm.local_moran(setup["gt"], setup["Zt"], 0, 0, null="bogus")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tm.local_moran(setup["gt"], setup["Zt"], 0, 9)
+    # the slot nulls: the reference's draws and counts, bitwise
+    for null in ("total", "conditional"):
+        pj = jm.local_moran(setup["gj"], setup["Zj"], 0, 9, null=null).p_value
+        pt = tm.local_moran(setup["gt"], setup["Zt"], 0, 9, null=null).p_value
+        np.testing.assert_array_equal(_np(pt), np.asarray(pj))
 
 
 def test_classify_quadrants_equal():
@@ -192,8 +195,12 @@ def test_float_null_matches_reference(setup, precision):
 
 def test_null_refusals(setup):
     pt, Zt = setup["pt"], setup["Zt"]
-    with pytest.raises(NotImplementedError, match="slot null"):
-        tb.banded_local_moran_pvalues(pt, Zt, 0, 5, perm_method="sort")
+    # the "sort" stream: the slot null's draws, counts bitwise
+    np.testing.assert_array_equal(
+        _np(tb.banded_local_moran_pvalues(pt, Zt, 0, 5, perm_method="sort")),
+        np.asarray(jb.banded_local_moran_pvalues(
+            setup["pj"], setup["Zj"], 0, 5, perm_method="sort",
+            band_impl="xla")))
     with pytest.raises(ValueError, match="perm_method"):
         tb.banded_local_moran_pvalues(pt, Zt, 0, 5, perm_method="")
     with pytest.raises(ValueError, match="band_impl"):
@@ -371,20 +378,24 @@ def test_streaming_refusals():
 
 
 def test_local_morans_i_refusals():
-    _, b = _pair(n=300, g=4)
+    a, b = _pair(n=300, g=4)
     for kw, exc, match in (
             (dict(null_method="banded_int4"), ValueError, "null_method"),
             (dict(null="bogus"), ValueError, "null"),
             (dict(output_mode="bogus"), ValueError, "output_mode"),
-            (dict(null_method="slots"), NotImplementedError, "Queue 1 item 4"),
-            (dict(), NotImplementedError, "slot"),     # auto -> slots here
             (dict(null_method="banded_int8", n_permutations=0,
                   output_mode="compact"), ValueError, "compact")):
         with pytest.raises(exc, match=match):
             sctt.local_morans_i(b, **{"n_permutations": 9, **kw}, device="cpu")
-    # the conditional null falls back to the (unported) slot path, warning
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        with pytest.raises(NotImplementedError, match="slot"):
-            sctt.local_morans_i(b, n_permutations=9, null="conditional",
-                                null_method="banded_int8", device="cpu")
+    # the slot null: "slots", "auto" at this size, and the conditional null
+    # from a banded method (a warning, then the slot null), each against the
+    # reference's route
+    for kw in (dict(null_method="slots"), {},
+               dict(null="conditional", null_method="banded_int8")):
+        run = dict(n_permutations=9, seed=1, **kw)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            scts.local_morans_i(a, **run)
+            sctt.local_morans_i(b, device="cpu", **run)
+        _close_obsm(a, b, "local_morans", ("I", "p", "p_adj", "quadrant"), 9)
+        assert b.uns["local_morans_params"]["null_method"] == "slots"
