@@ -147,6 +147,29 @@ Phases (the script stops with a non-zero exit at the first failure):
    (counts equal). 4,096 scattered cells on the card against the port's
    CPU path: permutations and conditional draw indices, the slot nulls'
    p / p_adj, local join counts and the sort-stream LISA, bitwise.
+11. Radius graphs, the correlogram, the bf16 stream and the point
+   patterns, each call with counts of its own. At 1,000,000 cells of phase
+   3's layout, radius 10.7047 (a mean degree of 10) and k_max 48:
+   ``build_spatial_weights(radius=, k_max=)`` (no overflow; isolated cells
+   counted), ``morans_i(null_method="banded_int8")`` at 1,024 genes × 99
+   (K2), ``morans_i(null_method="banded")`` × 19 (K4) and
+   ``local_morans_i(null_method="banded_int8", output_mode="compact")`` ×
+   99 (K7 moran); then K2/K3, K4 and K7 moran (draw step and observed
+   entry) held against their plain versions on that plan's own operands
+   (the first gene tile, draw 0) and timed beside their bounds; a
+   4,096-cell radius run on the card against the port's CPU path (graph,
+   morans_i p, local_morans_i p / p_adj / quadrants bitwise).
+   ``moran_correlogram`` at 1M × 64 genes, 5 default bands, k_max 128, at
+   P = 0 and 19 (torch ops, no kernel), with one draw split (permutation,
+   slot loop, moments). ``streaming_local_null(obs_dtype="bf16",
+   tile=2048)`` at 1M × 4,096 × 99 (K7 once a draw and tile) against the
+   float32-obs run on the first 2,048 genes: p and p_adj bitwise, peak
+   device memory of each. At 1M cells (7/8 uniform, 1/8 in clumps, 8 cell
+   types): ``clark_evans``, ``ripleys_k`` (20 radii up to 10× the mean NN
+   distance, 19 CSR draws), ``cross_type_ripleys_k`` (19 label
+   permutations) and ``co_occurrence`` (torch ops, no kernel), one pass of
+   each kind timed; 20,000 cells on the card against the CPU path, counts
+   and envelopes bitwise.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it a
 JSON summary of every kernel, and the one before that nvidia-smi's name
@@ -187,13 +210,19 @@ from spatialcore_tpu_torch.ops.banded import (banded_local_moran_pvalues,
                                               banded_permutation_test,
                                               build_null_plan)
 from spatialcore_tpu_torch.ops.fdr import apply_fdr
-from spatialcore_tpu_torch.ops.graph import build_graph, spatial_lag
+from spatialcore_tpu_torch.ops.graph import (build_graph, radius_neighbors,
+                                             spatial_lag)
 from spatialcore_tpu_torch.ops.knn_kernel import centred_xy
 from spatialcore_tpu_torch.core.metadata import get_operations
 from spatialcore_tpu_torch.ops.moran import (moran_observed,
                                              permutation_test_global, standardize)
-from spatialcore_tpu_torch.ops.streaming import streaming_moran_null, tile_widths
+from spatialcore_tpu_torch.ops.streaming import (device_local_sink,
+                                                 streaming_local_null,
+                                                 streaming_moran_null, tile_widths)
 from spatialcore_tpu_torch.spatial import autocorrelation as acorr
+from spatialcore_tpu_torch.spatial import (clark_evans, co_occurrence,
+                                           cross_type_ripleys_k,
+                                           moran_correlogram, ripleys_k)
 
 B = 256
 K = 6
@@ -1267,7 +1296,7 @@ def int_operands(plan, tile0, mode: str, G: int, step: int = 0):
     ``tile0``'s first G genes gathered by one Feistel draw. Returns
     (wrapper kwargs, gathered table, ops, timing pieces)."""
     packed = mode == "int4_win"
-    dev = tile0["Zpk"].device
+    dev = tile0["Zpk" if packed else "Zq8"].device
     if packed:
         check(G == 2 * tile0["Zpk"].shape[1], "K1 runs on the whole int4 tile")
         Ztab = tile0["Zpk"]
@@ -1290,18 +1319,21 @@ def int_operands(plan, tile0, mode: str, G: int, step: int = 0):
     return args, kw, dict(Ztab=Ztab, ops=ops, idx_all=idx_all, base=base, L=L)
 
 
-def hold_int_1m(plan, tile0) -> dict:
+def hold_int_1m(plan, tile0, modes=(("int4_win", 4096), ("int8_win", 1024),
+                                    ("int8_band", 1024)), tag: str = "int"
+                ) -> dict:
     """The integer kernel (``band_cross_int8``) at the main path's shapes
     on the 1M plan: K1 at 4,096 int4 genes, K2 and K3 at 1,024 int8 genes,
     each on one Feistel draw's gathered rows, held against its plain
     version within REL_TOL·Σ|terms| and timed beside its plain version,
     its bound and ``torch.sparse.mm`` of the band; then K1's other launch
     shapes (runs, tile widths) timed. Runs outside the counted window.
+    ``modes`` and ``tag`` serve other plans (phase 11's radius plan).
     Returns {mode: max |error|}."""
     errs = {}
     nb, k = plan.n_padded // B, plan.local_idx.shape[1]
-    csr = band_csr(plan, dev=tile0["Zpk"].device)
-    for mode, G in (("int4_win", 4096), ("int8_win", 1024), ("int8_band", 1024)):
+    csr = band_csr(plan, dev=next(iter(tile0.values())).device)
+    for mode, G in modes:
         args, kw, _ = int_operands(plan, tile0, mode, G)
         packed = kw["packed"]
         li, wq, sw, zp, _ = args
@@ -1331,7 +1363,7 @@ def hold_int_1m(plan, tile0) -> dict:
         torch.cuda.empty_cache()
         b_ms, b_by = bound(*cross_work(plan, mode, G))
         tiles = kern.int_tiles(B, k, packed, G, nb)
-        print(f"[int] {label}: max_abs_err={errs[mode]:.3e} (tolerance "
+        print(f"[{tag}] {label}: max_abs_err={errs[mode]:.3e} (tolerance "
               f"{REL_TOL:g}·Σ|terms|) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
               f"  bound {b_ms:.4f} ms ({b_by})  library {lib:.4f} ms; {tiles}")
         if mode == "int4_win":
@@ -1499,9 +1531,11 @@ def phase_lisa_public(dev, n_cells: int, n_genes: int, n_perms: int, gen):
     return d, out
 
 
-def lisa_draw_split(dev, d, reps: int = 5):
+def lisa_draw_split(dev, d, reps: int = 5, tag: str = "lisa"):
     """One LISA draw at the public run's shape, part by part (CUDA events):
-    Feistel rows, row gather, far gather, the draw-step kernel."""
+    Feistel rows, row gather, far gather, the draw-step kernel; then the
+    draw step and the observed entry held against their plain versions on
+    that plan (``hold_main``). Returns the split and the two holds."""
     plan = d._null_plan_cache["value"]
     Zq = banded._quantize_z(standardize(d.X)[0])[0]
     G = Zq.shape[1]
@@ -1537,7 +1571,7 @@ def lisa_draw_split(dev, d, reps: int = 5):
     split["whole_draw"] = event_ms(draw, reps)
     split["bound"], by = bound(*lisa_work(plan, G, "rows"))
     split["observed_bound"], _ = bound(*lisa_work(plan, G, "rows", observed=True))
-    print(f"[lisa] one draw at {plan.n:,} cells x {G} genes (CUDA events, ms): "
+    print(f"[{tag}] one draw at {plan.n:,} cells x {G} genes (CUDA events, ms): "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
           + f" ({by}-bound); far edges {n_live:,}, far_bmax {plan.far_bmax}")
     # the draw step and the observed entry against their plain versions here
@@ -1547,18 +1581,20 @@ def lisa_draw_split(dev, d, reps: int = 5):
     got = kern_lisa.lisa_count(li, wq, Zp, B, obs, zero.clone(), **fwd)
     want = kern_lisa.lisa_count_plain(li, wq, Zp, B, obs, zero.clone(), **fwd)
     check(int(got.sum(dtype=torch.int64)) > 0, "lisa_win at 1M: no count moved")
-    shape = f"{plan.n:,} cells x {G} genes"
-    hold_main(f"lisa_win at {shape}", got, want,
-              lambda: kern_lisa.lisa_count(li, wq, Zp, B, obs, cnt, **fwd),
-              lambda: kern_lisa.lisa_count_plain(li, wq, Zp, B, obs, cnt, **fwd),
-              lisa_work(plan, G, "rows"), csr, Zp)
+    shape = f"{plan.n:,} cells x {G} genes, k={plan.local_idx.shape[1]}"
+    holds = {"lisa_win": hold_main(
+        f"lisa_win at {shape}", got, want,
+        lambda: kern_lisa.lisa_count(li, wq, Zp, B, obs, cnt, **fwd),
+        lambda: kern_lisa.lisa_count_plain(li, wq, Zp, B, obs, cnt, **fwd),
+        lisa_work(plan, G, "rows"), csr, Zp)}
     del got, want
-    hold_main(f"lisa_obs at {shape}", kern_lisa.lisa_observed(li, wq, Zp0, B, **f0),
-              kern_lisa.lisa_observed_plain(li, wq, Zp0, B, **f0),
-              lambda: kern_lisa.lisa_observed(li, wq, Zp0, B, **f0),
-              lambda: kern_lisa.lisa_observed_plain(li, wq, Zp0, B, **f0),
-              lisa_work(plan, G, "rows", observed=True), csr, Zp0)
-    return split
+    holds["lisa_obs"] = hold_main(
+        f"lisa_obs at {shape}", kern_lisa.lisa_observed(li, wq, Zp0, B, **f0),
+        kern_lisa.lisa_observed_plain(li, wq, Zp0, B, **f0),
+        lambda: kern_lisa.lisa_observed(li, wq, Zp0, B, **f0),
+        lambda: kern_lisa.lisa_observed_plain(li, wq, Zp0, B, **f0),
+        lisa_work(plan, G, "rows", observed=True), csr, Zp0)
+    return split, holds
 
 
 def hh_ll_shares(q: torch.Tensor, n_sig: int):
@@ -2612,7 +2648,7 @@ def float_draw_split(plan, Zb, den, S0: float, reps: int = 5):
     return split
 
 
-def hold_float_1m(plan, li, zp, G: int) -> float:
+def hold_float_1m(plan, li, zp, G: int, tag: str = "dense") -> float:
     """K4 (``band_cross_float``) on ``zp`` at the 1M plan's shape: held
     against its plain version within REL_TOL·Σ|terms|, timed beside its
     plain version, its bound and ``torch.sparse.mm`` of the band; then
@@ -2636,7 +2672,7 @@ def hold_float_1m(plan, li, zp, G: int) -> float:
     b_ms, b_by = bound(*cross_work(plan, mode, G))
     nb, k = plan.n_padded // B, li.shape[1]
     tiles = kern.float_tiles(B, k, zp.element_size(), G, nb)
-    print(f"[dense] {label}: max_abs_err={float(err.max()):.3e} (tolerance "
+    print(f"[{tag}] {label}: max_abs_err={float(err.max()):.3e} (tolerance "
           f"{REL_TOL:g}·Σ|terms|) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
           f"bound {b_ms:.4f} ms ({b_by})  library {lib:.4f} ms; {tiles}")
     for name, t in (("run=1 (Zp read 3x)", tiles._replace(run=1)),
@@ -2647,7 +2683,7 @@ def hold_float_1m(plan, li, zp, G: int) -> float:
                      kern.float_tiles(B, k, zp.element_size(), G, nb,
                                       max_row_bytes=64))):
         vms = event_ms(lambda: kern.band_cross_float_tiled(li, w, zp, B, t), 5)
-        print(f"[dense] {label}, launch shape {name} {t}: {vms:.4f} ms")
+        print(f"[{tag}] {label}, launch shape {name} {t}: {vms:.4f} ms")
     torch.cuda.empty_cache()
     return float(err.max())
 
@@ -3229,6 +3265,383 @@ def phase_slots_local_vs_cpu(dev, coords: np.ndarray, n_genes: int, seed: int,
           f"on the slot routes, lisa_win {sort_launch} on the sort stream")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: radius graphs, the correlogram, the bf16 stream, point patterns
+# ---------------------------------------------------------------------------
+
+#: the radius of a mean degree of 10 at the 1M-cell density (π r² n / SIDE²
+#: = 10) and its degree cap
+RADIUS = float(np.sqrt(10.0 * SIDE * SIDE / (np.pi * 1e6)))
+RADIUS_KMAX = 48
+#: phase 11's main-path kernel modes, as the kernels line names them
+RADIUS_MODES = ("int8_win", "int8_band", "float", "lisa_win", "lisa_obs")
+
+
+def launched() -> dict:
+    return {k: v for k, v in {**kern.LAUNCHES, **kern_lisa.LAUNCHES,
+                              **kern_knn.LAUNCHES}.items() if v}
+
+
+def counted(dev, tag: str, label: str, fn):
+    """``fn`` run with every launch count at 0 just before it and read just
+    after: (result, wall seconds, the kernels it launched)."""
+    reset_all_launches()
+    out, t = timed(fn, dev)
+    got = launched()
+    print(f"[{tag}] {label}: {t:.3f} s; launches {got}")
+    return out, t, got
+
+
+def phase_radius(dev, gen, smi: str, n_cells: int = 1_000_000,
+                 n_genes: int = 1024, n_perms: int = 99):
+    """The radius route at 1M cells (phase 3's layout; mean degree 10,
+    k_max 48), each call with counts of its own: the graph, morans_i
+    through "banded_int8" (K2/K3) and "banded" (K4), local_morans_i
+    "banded_int8" compact (K7 moran). Then, outside the counted window,
+    K2/K3, K4 and K7 moran (draw step and observed entry) held against
+    their plain versions on the radius plan's own operands and timed.
+    Returns (the path's launches, {mode: max |error|})."""
+    release()
+    d = lisa_adata(n_cells, n_genes, gen, dev)
+    label = (f"build_spatial_weights(radius={RADIUS:.4f}, k_max={RADIUS_KMAX}) "
+             f"at {n_cells:,} cells")
+    g, _, got = counted(dev, "radius", label, lambda: build_spatial_weights(
+        d, radius=RADIUS, k_max=RADIUS_KMAX, device=dev))
+    check(not got, f"the radius graph launched kernels: {got}")
+    deg = g.valid.sum(dim=1)
+    n_iso, max_deg = int((deg == 0).sum()), int(deg.max())
+    check(g.neighbor_idx.shape[1] == RADIUS_KMAX and max_deg <= RADIUS_KMAX
+          and 0 < n_iso < 1000, f"radius graph: max degree {max_deg}, "
+          f"{n_iso} isolated cells")
+    print(f"[radius] degree mean {float(deg.float().mean()):.3f}, max "
+          f"{max_deg} of k_max {RADIUS_KMAX}; {n_iso} isolated cells; "
+          f"dead slots {1 - float(g.valid.float().mean()):.3f}")
+    del g, deg
+    n_sig = n_genes // 8
+    path = {}
+    for name, fn, kw, want in (
+            ("morans_i(banded_int8)", morans_i,
+             dict(null_method="banded_int8", n_permutations=n_perms,
+                  gene_batch_size=n_genes), {"int8_win": n_perms}),
+            ("morans_i(banded)", morans_i,
+             dict(null_method="banded", n_permutations=19,
+                  gene_batch_size=n_genes), {"float": 19}),
+            ("local_morans_i(banded_int8, compact)", local_morans_i,
+             dict(null_method="banded_int8", n_permutations=n_perms,
+                  output_mode="compact", batch_size=n_genes),
+             {"lisa_win": n_perms})):
+        P = kw["n_permutations"]
+        _, t, got = counted(dev, "radius", f"{name} {n_cells:,} x {n_genes:,} x "
+                            f"{P} [{smi}]", lambda: fn(
+                                d, use_existing_graph=True, seed=1, device=dev,
+                                **kw))
+        for mode, n in want.items():
+            check(got.get(mode, 0) >= n, f"{name} on the radius graph did not "
+                  f"launch {mode} once per draw: {got}")
+        for mode, n in got.items():
+            path[mode] = path.get(mode, 0) + n
+        if fn is morans_i:
+            p = d.uns["morans_i"]["p_value"].to_numpy()
+            check(float((p[:n_sig] <= 1 / (P + 1) + 1e-6).mean()) > 0.9,
+                  f"{name}: smooth genes not significant on the radius graph")
+            print(f"[radius] {name}: smooth genes at p = 1/{P + 1}: "
+                  f"{float((p[:n_sig] <= 1 / (P + 1) + 1e-6).mean()):.3f}; "
+                  f"noise mean p {p[n_sig:].mean():.3f}")
+        else:
+            q = torch.as_tensor(d.obsm["local_morans_quadrant"])
+            sig, noise = hh_ll_shares(q, n_sig)
+            check(sig > 5 * noise, f"radius LISA: HH/LL share {sig:.3f} on "
+                  f"smooth genes against {noise:.3f} on noise")
+            print(f"[radius] {name}: HH/LL share smooth {sig:.3f}, noise "
+                  f"{noise:.3f}")
+    # the kernels on the radius plan's own operands: the first gene tile,
+    # draw 0, at each kernel's tolerance
+    plan = d._null_plan_cache["value"]
+    Z = standardize(d.X)[0]
+    errs = hold_int_1m(plan, {"Zq8": banded._quantize_z(Z)[0]},
+                       modes=(("int8_win", n_genes), ("int8_band", n_genes)),
+                       tag="radius")
+    zp = Z.to(torch.bfloat16)[banded._padded_rows(plan, dev)]
+    errs["float"] = hold_float_1m(plan, plan.local_idx.to(torch.int32), zp,
+                                  n_genes, tag="radius")
+    del Z, zp
+    torch.cuda.empty_cache()
+    _, holds = lisa_draw_split(dev, d, tag="radius")
+    del d, plan
+    release()
+    return path, errs, holds
+
+
+def phase_radius_vs_cpu(dev, coords: np.ndarray, n_genes: int, seed: int,
+                        radius: float = 56.5, n_perms: int = 49):
+    """A 4,096-cell radius run on the card against the port's CPU path on
+    integer coordinates (every d² an exact integer, never r²): the graphs'
+    indices, weights and masks equal (distances within an ulp),
+    local_morans_i's p / p_adj / quadrants and morans_i's int8 p bitwise
+    (the observed I within rtol 1e-5)."""
+    card, host = exact_pair(coords, n_genes, seed, dev)
+    graphs = [build_spatial_weights(x, radius=radius, k_max=RADIUS_KMAX,
+                                    device=where)
+              for x, where in ((card, dev), (host, "cpu"))]
+    for f in ("neighbor_idx", "neighbor_w", "valid"):
+        check(torch.equal(getattr(graphs[0], f).cpu(), getattr(graphs[1], f)),
+              f"radius graph {f}: the card's differs from the CPU's")
+    # the distances: one float32 sqrt of the same exact integer d², within
+    # an ulp (the card's and the CPU's sqrt may round apart)
+    live = graphs[1].valid
+    dc, dh = graphs[0].distances.cpu()[live], graphs[1].distances[live]
+    ulps = int((dc.view(torch.int32) - dh.view(torch.int32)).abs().max())
+    check(ulps <= 1, f"radius graph distances {ulps} ulp from the CPU's")
+    iso = int((graphs[1].valid.sum(dim=1) == 0).sum())
+    reset_all_launches()
+    for x, where in ((card, dev), (host, "cpu")):
+        morans_i(x, null_method="banded_int8", n_permutations=n_perms,
+                 seed=seed, use_existing_graph=True, device=where)
+        local_morans_i(x, null_method="banded_int8", n_permutations=n_perms,
+                       seed=seed, use_existing_graph=True, batch_size=n_genes,
+                       device=where)
+        sync(dev)
+        if where is dev:
+            got = launched()
+    a, b = card.uns["morans_i"], host.uns["morans_i"]
+    check(np.array_equal(a["p_value"], b["p_value"]),
+          "radius morans_i(banded_int8): the card's p differs from the CPU's")
+    check(np.allclose(a["I"], b["I"], rtol=1e-5, atol=1e-7),
+          "radius morans_i: the card's I differs from the CPU's")
+    for k in ("p", "p_adj", "quadrant"):
+        check(np.array_equal(
+            torch.as_tensor(card.obsm[f"local_morans_{k}"]).cpu().numpy(),
+            host.obsm[f"local_morans_{k}"]),
+            f"radius local_morans_i: the card's {k} differs from the CPU's")
+    check(got.get("lisa_win", 0) == n_perms and got.get("int8_win", 0) >= n_perms,
+          f"the 4,096-cell radius run did not run its kernels: {got}")
+    print(f"[radius] {coords.shape[0]:,} scattered cells, radius {radius}: "
+          f"the card's graph (distances within {ulps} ulp), morans_i p and "
+          f"local_morans_i p / p_adj / quadrants equal the CPU path's "
+          f"bitwise; {iso} isolated cells; launches {got}")
+
+
+def phase_correlogram(dev, gen, smi: str, n_cells: int = 1_000_000,
+                      n_genes: int = 64, n_perms: int = 19):
+    """moran_correlogram at 1M cells x 64 genes, 5 default bands, k_max 128,
+    at P = 0 and P = 19 (no kernel: torch ops), and one draw split part by
+    part (permutation, the slot loop, the band moments)."""
+    release()
+    d = make_adata(n_cells, n_genes, gen, dev)
+    n_sig = n_genes // 8
+    for P in (0, n_perms):
+        t = no_kernel(dev, "moran_correlogram", lambda: moran_correlogram(
+            d, n_permutations=P, seed=3, device=dev))
+        df = d.uns["moran_correlogram"]
+        bands = d.uns["moran_correlogram_params"]["bands"]
+        check(len(df) == 5 * n_genes and bool(np.isfinite(df["I"]).all()),
+              f"correlogram P={P}: {len(df)} rows")
+        first = df[df["band_lo"] == bands[0]]
+        sig, noise = first["I"].iloc[:n_sig], first["I"].iloc[n_sig:]
+        check(float(sig.min()) > float(noise.max()),
+              "correlogram: smooth genes not above the noise in band 0")
+        if P:
+            check(bool((first["p_sim"].iloc[:n_sig] <= 1 / (P + 1) + 1e-6).all()),
+                  "correlogram: smooth genes' p_sim not at 1/(P+1)")
+        print(f"[correlogram] moran_correlogram {n_cells:,} x {n_genes} x 5 "
+              f"bands up to {bands[-1]:.3f}, k_max 128, P={P}: {t:.3f} s "
+              f"[{smi}]; band-0 I smooth {sig.mean():.4f} noise "
+              f"{noise.mean():.4f}")
+    coords = d.obsm["spatial"]
+    idx, dist, valid = radius_neighbors(coords, bands[-1], 128)
+    Z = standardize(d.X)[0]
+    edges = torch.tensor(bands, dtype=torch.float32, device=dev)
+    bd = moran.correlogram_bands(idx, dist, valid, edges)
+    base = key_for(3, "perm_global", 0)
+    perm = permutation(fold_in(base, 0), n_cells, device=dev)
+    Zp = Z[perm]
+    split = dict(
+        radius_search_s=timed(lambda: radius_neighbors(coords, bands[-1], 128),
+                              dev)[1],
+        permutation=event_ms(lambda: permutation(fold_in(base, 1), n_cells,
+                                                 device=dev), 3),
+        slot_loop=event_ms(lambda: moran.correlogram_band_num(
+            bd, Zp, lambda ik: Z[perm[ik]]), 3),
+        moments=event_ms(lambda: moran.correlogram_bands(idx, dist, valid,
+                                                         edges), 3))
+    print(f"[correlogram] one draw at {n_cells:,} x {n_genes} (CUDA events, "
+          f"ms; the search in s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f"; live slots {bd.idx.shape[1]} of 128, {bd.idx.shape[1]} "
+          f"[N, G] gathers a draw")
+    del d, Z, Zp, idx, dist, valid, bd
+    release()
+    return split
+
+
+def phase_bf16_stream(dev, smi: str, n_cells: int = 1_000_000,
+                      n_genes: int = 4096, n_perms: int = 99,
+                      tile: int = 2048):
+    """streaming_local_null(obs_dtype="bf16", tile=2048) at 1M x 4,096 x 99
+    (keys I, p, p_adj, quadrant; device sink), with counts of its own, and
+    the float32-obs run on the first 2,048 genes: p and p_adj bitwise, the
+    peak of torch.cuda.max_memory_allocated for each. Returns the peaks and
+    the bf16 run's launches."""
+    release()
+    g0 = torch.Generator(device=dev).manual_seed(21)
+    coords = uniform_coords(n_cells, SIDE, g0, dev)
+    graph = build_graph(coords, n_neighbors=K, device=dev)
+    plan = build_null_plan(graph, coords, block=B)
+    wave = 8.0 * torch.sin(coords[:, :1] / 300.0)
+    keys = ("I", "p", "p_adj", "quadrant")
+
+    def block(b):                        # 512 genes, the same at any split
+        g = torch.Generator(device=dev).manual_seed(2000 + b)
+        X = torch.randn((n_cells, 512), generator=g, device=dev)
+        X[:, :64] += wave
+        return X
+
+    def get_tile(start, width):
+        return torch.cat([block(b) for b in range(start // 512,
+                                                  (start + width) // 512)], 1)
+
+    out, peak = {}, {}
+    for dt, G in (("bf16", n_genes), ("f32", tile)):
+        release()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        sink, fin = device_local_sink(G, keys)
+        _, t, got = counted(dev, "stream", f"streaming_local_null(obs_dtype="
+                            f"{dt!r}, tile={tile}) {n_cells:,} x {G:,} x "
+                            f"{n_perms} [{smi}]", lambda: streaming_local_null(
+                                graph, plan, get_tile, G, sink, seed=5,
+                                n_permutations=n_perms, tile=tile, keys=keys,
+                                obs_dtype=dt, device=dev))
+        tiles = -(-G // tile)
+        check(got.get("lisa_win", 0) == tiles * n_perms
+              and got.get("lisa_obs", 0) == tiles,
+              f"the {dt} stream did not run K7 once per draw and tile: {got}")
+        out[dt] = fin()
+        peak[dt] = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+        if dt == "bf16":
+            path = got
+        print(f"[stream] {dt}: peak device memory above the plan "
+              f"{peak[dt]:.3f} GiB; {G * n_perms / t:.1f} genes*perms/s")
+    for k in ("p", "p_adj"):
+        check(torch.equal(out["bf16"][k][:, :tile], out["f32"][k]),
+              f"bf16 stream {k} differs from the f32-obs run's")
+    q = out["bf16"]["quadrant"][:, :512]           # block 0: 64 smooth genes
+    sig, noise = hh_ll_shares(q, 64)
+    check(sig > 10 * noise, f"bf16 stream: HH/LL share {sig:.3f} on smooth "
+          f"genes against {noise:.3f} on noise")
+    print(f"[stream] bf16 p and p_adj equal the f32-obs run's bitwise on the "
+          f"first {tile:,} genes; HH/LL share smooth {sig:.3f}, noise "
+          f"{noise:.3f}")
+    del out, graph, plan
+    release()
+    return peak, path
+
+
+def pattern_coords(n: int, seed: int, n_types: int = 8):
+    """A section's layout at the 1M-cell density: 7/8 of the cells uniform,
+    1/8 in 200 Gaussian clumps (sd 30); the clumped cells take types 1..7
+    by clump, the uniform ones any of the ``n_types``."""
+    r = np.random.default_rng(seed)
+    side = SIDE * (n / 1e6) ** 0.5
+    m = n // 8
+    centres = r.uniform(0, side, (200, 2))
+    which = r.integers(0, 200, m)
+    pts = np.concatenate([centres[which] + r.normal(0, 30.0, (m, 2)),
+                          r.uniform(0, side, (n - m, 2))]).astype(np.float32)
+    codes = np.concatenate([1 + which % (n_types - 1),
+                            r.integers(0, n_types, n - m)]).astype(np.int32)
+    return pts, codes
+
+
+def phase_point_patterns(dev, smi: str, n_cells: int = 1_000_000,
+                         n_draws: int = 19):
+    """clark_evans, ripleys_k (20 radii up to 10x the mean NN distance, 19
+    CSR simulations), cross_type_ripleys_k (8 types, 19 label permutations)
+    and co_occurrence (8 types, the same radii) at 1M cells, no kernel
+    (torch ops); one envelope draw of each kind timed; then a 20,000-cell
+    run on the card against the port's CPU path, counts bitwise."""
+    from spatialcore_tpu_torch.ops import ripley as rip
+    release()
+    xy, codes = pattern_coords(n_cells, 5)
+    d = SpatialData(X=np.zeros((n_cells, 1), np.float32),
+                    obs=pd.DataFrame({"cell_type": pd.Categorical(
+                        np.array(list("ABCDEFGH"))[codes])}))
+    d.obsm["spatial"] = xy
+    times = {"clark_evans": no_kernel(dev, "clark_evans",
+                                      lambda: clark_evans(d, device=dev))}
+    ce = d.uns["clark_evans"]
+    radii = np.linspace(0.5, 10.0, 20) * ce["mean_nn_distance"]
+    for name, fn, kw in (
+            ("ripleys_k", ripleys_k, dict(n_simulations=n_draws)),
+            ("cross_type_ripleys_k", cross_type_ripleys_k,
+             dict(cluster_key="cell_type", n_permutations=n_draws)),
+            ("co_occurrence", co_occurrence, dict(cluster_key="cell_type"))):
+        times[name] = no_kernel(dev, name, lambda: fn(d, radii=radii,
+                                                      device=dev, **kw))
+    rk, kx = d.uns["ripley_k"], d.uns["ripley_k_cross"]
+    check(ce["R"] < 1 and bool(np.all(np.array(rk["K"][-5:])
+                                      > np.array(rk["K_env_hi"][-5:]))),
+          "point patterns: the clumped section is not clustered")
+    check(bool(np.isfinite(np.array(kx["K_cross"])).all())
+          and bool(np.isfinite(d.uns["co_occurrence"]["score"]).any()),
+          "point patterns: non-finite cross-type K or co-occurrence")
+    # one envelope draw of each kind, on the card
+    spec = rip.make_grid_spec(xy, float(radii.max()), capacity_slack=2.0)
+    mins, span = (torch.as_tensor(a, device=dev) for a in (spec.mins, spec.span))
+    rsq = torch.as_tensor(radii.astype(np.float32) ** 2, device=dev)
+    ct = torch.as_tensor(codes.astype(np.int64), device=dev)
+    xy_t = torch.as_tensor(xy, device=dev)
+    base = key_for(0, "ripley_csr")
+    table, bx, by, _ = rip._bin_points(xy_t, mins, span, spec.nbx, spec.nby,
+                                       spec.capacity)
+    occ = (table >= 0).sum(dim=1)
+    split = dict(
+        csr_draw=event_ms(lambda: rip._counts_pass(
+            rip.csr_points(base, 0, mins, span, n_cells), spec, rsq, None, 1,
+            mins, span), 2),
+        binning=event_ms(lambda: rip._bin_points(xy_t, mins, span, spec.nbx,
+                                                 spec.nby, spec.capacity), 2),
+        pair_counts=event_ms(lambda: rip._pair_counts(
+            xy_t, table, bx, by, rsq, None, spec.nbx, spec.nby, spec.window),
+            2),
+        label_draw=event_ms(lambda: rip._pair_counts(
+            xy_t, table, bx, by, rsq,
+            ct[permutation(fold_in(base, 0), n_cells, device=dev)], spec.nbx,
+            spec.nby, spec.window, 8), 2))
+    cand = 0                             # candidate pairs a pass scores
+    for dx in range(-spec.window, spec.window + 1):
+        for dy in range(-spec.window, spec.window + 1):
+            gx, gy = bx + dx, by + dy
+            ok = (gx >= 0) & (gx < spec.nbx) & (gy >= 0) & (gy < spec.nby)
+            cand += int(occ[(gx * spec.nby + gy)[ok]].sum())
+    print(f"[points] {n_cells:,} cells [{smi}]: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in times.items())
+        + f"; Clark-Evans R {ce['R']:.4f}; one pass (CUDA events, ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; grid {spec.nbx}x{spec.nby}, window {spec.window}, capacity "
+        f"{spec.capacity}, ~{cand / 1e6:.1f}M candidate pairs a pass")
+    del d, table, bx, by, occ, xy_t, ct
+    release()
+    # 20,000 cells on the card against the CPU path
+    xy, codes = pattern_coords(20_000, 6)
+    r = radii.astype(np.float32)         # the same density: the same radii
+    for name, fn in (
+            ("ripley_k", lambda where: rip.ripley_k(xy, r, n_simulations=4,
+                                                    seed=2, device=where)),
+            ("cross_type_k", lambda where: rip.cross_type_k(
+                xy, codes, 8, r, n_permutations=4, seed=2, device=where)),
+            ("co_occurrence_counts", lambda where: {"ct": rip.co_occurrence_counts(
+                xy, codes, 8, r, device=where)})):
+        a, b = fn(dev), fn("cpu")
+        for k in b:
+            check(np.array_equal(np.asarray(a[k]), np.asarray(b[k])),
+                  f"{name} {k}: the card's differs from the CPU's")
+    print("[points] 20,000 cells: ripley_k (4 CSR draws), cross_type_k (4 "
+          "label permutations) and co_occurrence_counts on the card equal "
+          "the CPU path's bitwise")
+    return times, split
+
+
 def lisa_sass(listing: str) -> None:
     """The local draw step's SASS by instance (template arguments: STAT,
     FAR, COUNT, counter type, k unrolled): instructions in all and the
@@ -3458,6 +3871,26 @@ def main() -> None:
           f"add the int8 sort streams' calls (99 draws and one observed pass "
           f"each) to their phase 5-6 main paths; phase 10 took "
           f"{time.perf_counter() - t10:.1f} s [{smi}]")
+    release()
+
+    # radius graphs, the correlogram, the bf16 stream and the point
+    # patterns, each call with counts of its own
+    t11 = time.perf_counter()
+    radius, radius_err, _ = phase_radius(dev, gen, smi)
+    for mode, err in radius_err.items():
+        kres[mode]["max_abs_err"] = max(kres[mode]["max_abs_err"], err)
+    for mode in ("int8_win", "float", "lisa_win", "lisa_obs"):
+        check(radius.get(mode, 0) > 0, f"the radius route never launched {mode}")
+    phase_radius_vs_cpu(dev, scattered_coords(seed=5), 16, 14)
+    phase_correlogram(dev, gen, smi)
+    _, stream = phase_bf16_stream(dev, smi)
+    phase_point_patterns(dev, smi)
+    for mode in RADIUS_MODES:
+        launches[mode] += radius.get(mode, 0) + stream.get(mode, 0)
+    print(f"[path] launches in the kernels line: int8_win, int8_band, float, "
+          f"lisa_win and lisa_obs add the radius route's calls {radius} and "
+          f"the bf16 stream's {stream}; phase 11 took "
+          f"{time.perf_counter() - t11:.1f} s [{smi}]")
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,11 +1,14 @@
 """spatialcore_tpu_torch: the PyTorch / CUDA port of spatialcore_tpu.
 
 The global permutation null for Moran's I and Geary's C (banded, slot
-and streaming, apart or fused), join counts, and the local statistics
-local Moran's I (LISA), local Geary's C (also multivariate), Getis-Ord
-Gi* / Gi, Lee's L and local join counts with their permutation nulls
-(banded and slot), FDR and compact streaming, from coordinates to
-p-values, with their kernels written by hand for Hopper
+and streaming, apart or fused) and their distance-band correlogram, join
+counts, and the local statistics local Moran's I (LISA), local Geary's C
+(also multivariate), Getis-Ord Gi* / Gi, Lee's L and local join counts
+with their permutation nulls (banded and slot), FDR and compact
+streaming, on kNN or radius graphs, from coordinates to p-values, with
+their kernels written by hand for Hopper; and the point-pattern
+statistics (Ripley's K / L, cross-type K, co-occurrence, Clark-Evans,
+``spatialcore_tpu_torch.spatial``)
 (``csrc/``). The JAX package ``spatialcore_tpu`` is the reference every
 part of this package is tested against; this package imports ``torch``
 and never ``jax``.

@@ -130,6 +130,50 @@ def permutation(k: torch.Tensor, n: int,
     return x
 
 
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a·b + c`` rounded once, as a fused multiply-add.
+
+    a·b is exact in float64; the float64 sum's own error comes from a
+    TwoSum, and where the float64 sum sits exactly halfway between two
+    float32 values that error decides the side, so the double rounding
+    lands where the single one does. Exact on any device.
+    """
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c64 = c.to(torch.float64)
+    s = p + c64
+    bp = s - p
+    err = (p - (s - bp)) + (c64 - bp)
+    r = s.to(torch.float32)
+    back = r.to(torch.float64)
+    d = s - back
+    toward = torch.where(d > 0, torch.full_like(r, float("inf")),
+                         torch.full_like(r, float("-inf")))
+    nxt = torch.nextafter(r, toward)
+    tie = (d != 0) & (nxt.to(torch.float64) - back == 2 * d) & (err != 0)
+    return torch.where(tie & ((err > 0) == (d > 0)), nxt, r)
+
+
+def uniform(k: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
+            maxval: float = 1.0,
+            device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` bitwise
+    (jax 0.9 ``_uniform``), computed on ``device``.
+
+    The 32 random bits of each value keep their top 23 as the mantissa of
+    a float in [1, 2) (``bits >> 9 | 0x3F800000``, bit-cast), 1.0 comes off,
+    the result scales by ``maxval − minval`` and shifts by ``minval`` in one
+    rounding (the fused multiply-add the reference's CPU run compiles it
+    to; :func:`_fma32`), and values below ``minval`` are raised to it.
+    """
+    bits = random_bits(k, shape, device)
+    one = (bits >> 9) | 0x3F800000
+    floats = one.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    return torch.maximum(lo, _fma32(floats, (hi - lo).expand_as(floats),
+                                    lo.expand_as(floats)))
+
+
 def _choice(k: torch.Tensor, m: int, size: int,
             device: Union[str, torch.device] = "cuda") -> torch.Tensor:
     """``jax.random.choice(key, m, (size,), replace=False)`` with ``p=None``:

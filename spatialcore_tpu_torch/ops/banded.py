@@ -840,11 +840,12 @@ def _banded_test(plan: NullPlan, Z, S0, observed, seed: int, den, sz,
         count += ext.to(torch.int32)
         s1 += vals
         s2 += vals * vals
-    P = n_permutations
-    p = (count + 1.0) / (P + 1.0)
-    mean = s1 / P
-    var = torch.clamp_min(s2 / P - mean ** 2, 0.0)
-    return p, mean, torch.sqrt(var)
+    # the reference's jitted scan divides by the constants P + 1 and P as
+    # multiplications by their float32 reciprocals (see _p_from_counts)
+    inv_p = torch.tensor(1.0, dtype=torch.float32) / n_permutations
+    mean = s1 * inv_p.to(s1.device)
+    var = torch.clamp_min(s2 * inv_p.to(s2.device) - mean ** 2, 0.0)
+    return _p_from_counts(count, n_permutations), mean, torch.sqrt(var)
 
 
 _BAND_IMPLS = ("auto", "pallas_halo", "pallas", "pallas_halo4", "xla")

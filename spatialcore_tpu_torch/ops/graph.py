@@ -1,7 +1,6 @@
 """Fixed-degree spatial neighbour graphs — the weights matrix as tensors.
 
-Port of ``spatialcore_tpu/ops/graph.py`` (kNN mode). W is a fixed-degree
-structure:
+Port of ``spatialcore_tpu/ops/graph.py``. W is a fixed-degree structure:
 
     neighbor_idx : int64[N, k]  — column indices per row (torch's index type;
                                   the reference stores int32)
@@ -14,7 +13,8 @@ a uniform-grid bucket search with an exactness check and widening rounds
 (:func:`knn_grid`), or the exact all-pairs scan of the hand-written kernel
 that replaces the Pallas kNN K9 (``ops/knn_kernel.pallas_knn``). All return
 neighbours sorted by (distance, id), so ties break by the lower cell id.
-Radius graphs are not ported yet (ROADMAP Queue 1 item 3).
+Radius graphs (:func:`radius_neighbors`) cap the degree at ``k_max`` with a
+validity mask on top of the same searches.
 """
 
 from __future__ import annotations
@@ -311,11 +311,55 @@ def knn_grid(coords, k: int, include_self: bool = False,
 # ---------------------------------------------------------------------------
 
 
+def radius_neighbors(coords, radius: float, k_max: int,
+                     include_self: bool = False, grid_threshold: int = 20_000,
+                     device: Union[str, torch.device] = "cuda"
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Neighbours within ``radius``, at most ``k_max`` per cell (reference
+    ``radius_neighbors``, spatialcore_tpu/ops/graph.py:444-493).
+
+    Returns ``(indices int64, distances f32, valid bool)``, [N, k_max]
+    (``n − 1`` columns when ``k_max ≥ n − 1``), sorted by (distance, id);
+    invalid slots hold index −1 and distance inf. ``k_max + 1`` neighbours
+    are searched, so a cell with exactly ``k_max`` in radius is complete and
+    one with more raises: the cap is checked, never silently truncated.
+    2D inputs above ``grid_threshold`` cells take the bucket-grid search
+    (:func:`knn_grid`), others the exact scan (:func:`knn_exact`). A tensor
+    ``coords`` stays on its device; others go to ``device``.
+    """
+    c = (coords if isinstance(coords, torch.Tensor) else torch.as_tensor(
+        np.asarray(coords, dtype=np.float32), device=device))
+    c = c.to(torch.float32)
+    n = c.shape[0]
+    if min(k_max, n - 1) < 1:
+        raise ValueError(f"radius_neighbors needs >= 2 cells, got {n}")
+    k_search = min(k_max + 1, n - 1)
+    if n > grid_threshold and c.shape[1] == 2:
+        idx, dist = knn_grid(c, k_search, include_self=include_self)
+    else:
+        idx, dist = knn_exact(c, k_search, include_self=include_self)
+    # the reference compares float32 distances with the radius as float32
+    r32 = torch.tensor(radius, dtype=torch.float32, device=c.device)
+    if k_search > min(k_max, n - 1):
+        overflow = dist[:, k_max] <= r32
+        if bool(overflow.any()):
+            n_over = int(overflow.sum())
+            raise ValueError(
+                f"{n_over} cells have more than k_max={k_max} neighbors "
+                f"within radius={radius}. Increase k_max (or reduce "
+                f"radius).")
+        idx, dist = idx[:, :k_max], dist[:, :k_max]
+    valid = dist <= r32
+    idx = torch.where(valid, idx, torch.full_like(idx, -1))
+    dist = torch.where(valid, dist, torch.full_like(dist, float("inf")))
+    return idx, dist, valid
+
+
 def build_graph(coords, n_neighbors: int = 6, include_self: bool = False,
                 radius: Optional[float] = None, k_max: Optional[int] = None,
                 method: str = "auto", grid_threshold: int = 20_000,
                 device: Union[str, torch.device] = "cuda") -> SpatialGraph:
-    """Build a row-normalized fixed-degree kNN weights graph on ``device``.
+    """Build a row-normalized fixed-degree weights graph on ``device``.
 
     kNN mode reproduces the reference's ``build_graph``: binary adjacency
     over the k nearest neighbours (self excluded unless ``include_self``,
@@ -326,14 +370,25 @@ def build_graph(coords, n_neighbors: int = 6, include_self: bool = False,
     kernel on the card, its plain version on the CPU), 2D only, with the
     coordinates centred by their numpy float32 mean as the reference's
     ``pallas_knn`` centres them.
+
+    Radius mode (``radius`` with its ``k_max`` cap; :func:`radius_neighbors`
+    at its default grid threshold, as the reference) weights each valid
+    slot 1/count in float32; invalid slots hold index 0 and weight 0, and
+    a cell with no neighbour in radius has an all-zero row.
     """
-    if radius is not None or k_max is not None:
-        raise NotImplementedError(
-            "radius graphs are not ported yet (ROADMAP Queue 1 item 3)")
     if method not in ("auto", "grid", "exact", "pallas"):
         raise ValueError(f"unknown kNN method {method!r}")
     c = torch.as_tensor(coords).to(device=device, dtype=torch.float32)
     n = c.shape[0]
+    if radius is not None:
+        if k_max is None:
+            raise ValueError("radius mode requires k_max")
+        idx, dist, valid = radius_neighbors(c, radius, k_max, include_self)
+        counts = valid.sum(dim=1, dtype=torch.int32).clamp_min(1)
+        w = valid.to(torch.float32) / counts[:, None].to(torch.float32)
+        return SpatialGraph(
+            neighbor_idx=torch.where(valid, idx, torch.zeros_like(idx)),
+            neighbor_w=w, valid=valid, distances=dist)
     k_eff = n_neighbors + (1 if include_self else 0)
     use_grid = method == "grid" or (
         method == "auto" and n > grid_threshold and c.shape[1] == 2)

@@ -1,8 +1,9 @@
 """Moran's I and Geary's C: standardization, observed statistics, analytic
 moments, normal-tail p-values, the global and local slot permutation
-nulls, join counts and the multivariate local Geary.
+nulls, join counts, the multivariate local Geary and the distance-band
+correlogram.
 
-Port of ``spatialcore_tpu/ops/moran.py`` but for ``correlogram_kernel``.
+Port of ``spatialcore_tpu/ops/moran.py``.
 Estimator conventions (squidpy/esda):
 
     I   = (n / S0) · zᵀ W z / zᵀz,               E[I] = −1/(n−1)
@@ -30,17 +31,42 @@ from .banded import _p_from_counts
 from .graph import SpatialGraph, spatial_lag
 
 
+def _column_sums(X: torch.Tensor, block: int = 512) -> torch.Tensor:
+    """Σ over the rows of each column in one fixed pairwise order: the rows
+    (padded with zeros to a power of two) are halved and added until one is
+    left, ``block`` columns at a time. Elementwise adds only, so a column's
+    sum is the same at any width and on every device (a card's own column
+    reduction orders its adds by the tensor's width)."""
+    n = X.shape[0]
+    size = 1 << max(n - 1, 0).bit_length()
+    out = []
+    for part in X.split(block, dim=1):
+        if size > n:                    # the first halving, the zero rows implied
+            h = size // 2
+            half = part[:h].clone()
+            half[:n - h] += part[h:]
+            part = half
+        while part.shape[0] > 1:
+            h = part.shape[0] // 2
+            part = part[:h] + part[h:]
+        out.append(part[0])
+    return torch.cat(out)
+
+
 def standardize(X: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-column z-scores with population std; returns (Z, zero_var mask).
 
     Shifted two-pass variance (the one-pass E[X²]−mean² form cancels in
     float32 for high-mean, low-variance genes). Zero-variance columns get
-    std 1, so their z is all zeros. float64 input stays float64.
+    std 1, so their z is all zeros. float64 input stays float64. The sums
+    run in :func:`_column_sums`' fixed order, so a gene's z does not
+    depend on how many genes are standardized with it.
     """
     if X.dtype not in (torch.float32, torch.float64):
         X = X.to(torch.float32)
-    Xc = X - X.mean(dim=0, keepdim=True)
-    var = (Xc * Xc).mean(dim=0, keepdim=True)
+    n = X.shape[0]
+    Xc = X - (_column_sums(X) / n)[None, :]
+    var = (_column_sums(Xc * Xc) / n)[None, :]
     zero = var[0] <= 0
     std = torch.sqrt(torch.where(var > 0, var, torch.ones_like(var)))
     return Xc / std, zero
@@ -497,3 +523,150 @@ def local_geary_multivariate(graph: SpatialGraph, Z: torch.Tensor,
         draws = _conditional_draw_indices(fold_in(base, d), n, k, Z.device)
         count += (cstat(Z[i] for i in draws) <= obs).to(torch.int32)
     return obs, _p_from_counts(count, n_permutations)
+
+
+# ---------------------------------------------------------------------------
+# Distance-band correlogram: every band in one pass
+# ---------------------------------------------------------------------------
+
+
+class CorrelogramBands(NamedTuple):
+    """Band structure of one radius search (:func:`correlogram_bands`)."""
+
+    idx: torch.Tensor      # int64 [N, K'] neighbour ids (0 on dead slots)
+    bid: torch.Tensor      # int64 [N, K'] band of each slot (B = none)
+    wt: torch.Tensor       # f32 [N, K'] 1/deg_i of the slot's band (0: none)
+    invdeg: torch.Tensor   # f32 [N, B] 1/deg_i per band (0 where none)
+    S0: torch.Tensor       # f32 [B]
+    S1: torch.Tensor       # f32 [B]
+    S2: torch.Tensor       # f32 [B]
+
+
+def _band_onehot(bid_col: torch.Tensor, n_bands: int) -> torch.Tensor:
+    """float32 [N, B] one-hot of a slot's band; "none" (B) is all zero."""
+    return torch.nn.functional.one_hot(bid_col, n_bands + 1)[:, :n_bands].to(
+        torch.float32)
+
+
+def correlogram_bands(idx: torch.Tensor, dist: torch.Tensor,
+                      valid: torch.Tensor, edges: torch.Tensor
+                      ) -> CorrelogramBands:
+    """Band ids, per-band row weights and Cliff-Ord sums of a radius search
+    (the first half of the reference's ``correlogram_kernel``).
+
+    A slot's band is ``searchsorted(edges, dist, right) − 1``; slots that
+    are dead, below ``edges[0]`` or at or past ``edges[-1]`` belong to no
+    band. Row i's weight in band b is 1/deg_i(b). Band membership is
+    symmetric, so w_ji = 1/deg_j is a gather of the neighbour's band
+    degree: S0 = #rows with pairs, S1 = Σ_i 1/deg_i + Σ_edges
+    1/(deg_i·deg_j), S2 = Σ_i (1 + Σ_{j∈b(i)} 1/deg_j)², one slot at a time
+    (temporaries O(N·B)). Columns past the widest row's last live slot add
+    exact zeros to every sum, so they are dropped first.
+    """
+    n_bands = edges.shape[0] - 1
+    live = int(valid.sum(dim=1).max()) if valid.numel() else 0
+    idx, dist, valid = idx[:, :live], dist[:, :live], valid[:, :live]
+    n, K = idx.shape
+    bid = torch.searchsorted(edges, dist.contiguous(), right=True) - 1
+    in_band = valid & (bid >= 0) & (bid < n_bands) & (dist < edges[-1])
+    bid = torch.where(in_band, bid, torch.full_like(bid, n_bands))
+    idx = torch.where(valid, idx, torch.zeros_like(idx))
+    deg = torch.zeros((n, n_bands + 1), dtype=torch.int64,
+                      device=idx.device).scatter_add_(
+        1, bid, torch.ones_like(bid))[:, :n_bands].to(torch.float32)
+    invdeg = torch.where(deg > 0, 1.0 / torch.clamp_min(deg, 1.0),
+                         torch.zeros_like(deg))
+    has = (deg > 0).to(torch.float32)
+    wt = torch.gather(torch.nn.functional.pad(invdeg, (0, 1)), 1, bid)
+    S0 = has.sum(dim=0)
+    cross_inv = torch.zeros(n_bands, dtype=torch.float32, device=idx.device)
+    col = torch.zeros((n, n_bands), dtype=torch.float32, device=idx.device)
+    for k in range(K):
+        inv_j = invdeg[idx[:, k]]
+        sel = _band_onehot(bid[:, k], n_bands)
+        cross_inv = cross_inv + (sel * invdeg * inv_j).sum(dim=0)
+        col = col + sel * inv_j
+    S1 = (invdeg * has).sum(dim=0) + cross_inv
+    S2 = ((has + col) ** 2).sum(dim=0)
+    return CorrelogramBands(idx=idx, bid=bid, wt=wt, invdeg=invdeg, S0=S0,
+                            S1=S1, S2=S2)
+
+
+def correlogram_band_num(bands: CorrelogramBands, Zrow: torch.Tensor,
+                         nbr) -> torch.Tensor:
+    """num[b, g] = Σ_i Σ_{k∈b} w_ik · zrow_ig · z_nbr(i,k),g for every band:
+    one pass over the slots, each slot's [N, G] product summed into its
+    band by one [B, N] × [N, G] product. ``nbr(ids)`` returns the neighbour
+    rows of ``ids`` (the permuted table's rows in a draw)."""
+    n_bands = bands.S0.shape[0]
+    acc = torch.promote_types(Zrow.dtype, torch.float32)
+    num = torch.zeros((n_bands, Zrow.shape[1]), dtype=acc, device=Zrow.device)
+    for k in range(bands.idx.shape[1]):
+        cross = Zrow * nbr(bands.idx[:, k]) * bands.wt[:, k:k + 1].to(Zrow.dtype)
+        sel = _band_onehot(bands.bid[:, k], n_bands).to(cross.dtype)
+        num = num + sel.T @ cross
+    return num
+
+
+def correlogram_kernel(idx: torch.Tensor, dist: torch.Tensor,
+                       valid: torch.Tensor, Z: torch.Tensor,
+                       edges: torch.Tensor, seed: int,
+                       n_permutations: int = 0):
+    """Moran's I over every distance band in one pass (reference
+    ``correlogram_kernel``, spatialcore_tpu/ops/moran.py:629-765).
+
+    ``(idx, dist, valid)`` is one radius search (:func:`ops.graph.
+    radius_neighbors` at ``edges[-1]``), ``Z`` [N, G] the standardized
+    values, ``edges`` [B+1] increasing band boundaries (float32). Band
+    weights and moments come from :func:`correlogram_bands`; the observed
+    I [B, G] from one slot loop (:func:`correlogram_band_num`) and the
+    analytic randomization z / two-sided p with each band's moments and
+    each gene's kurtosis. With ``n_permutations`` one permutation a draw
+    (``permutation(fold_in(key_for(seed, "perm_global", 0), d), n)``, the
+    slot null's stream) serves every band: |I_perm| ≥ |I_obs| counts, p =
+    (count + 1)/(P + 1). Returns ``(I_obs, z, p_norm, p_sim, S0)``; a band
+    with no pairs has S0 = 0, I = z = 0 and p = 1. Sums reduce in another
+    order than XLA's, so I, z and p agree to float32 rounding and p_sim
+    can differ only where a draw ties the observed value within it.
+    """
+    n, G = Z.shape
+    bands = correlogram_bands(idx, dist, valid, edges.to(torch.float32))
+    S0, S1, S2 = bands.S0, bands.S1, bands.S2
+    den = (Z * Z).sum(dim=0)
+    den = torch.where(den > 0, den, torch.ones_like(den))
+    S0_safe = torch.where(S0 > 0, S0, torch.ones_like(S0))
+    scale = (n / S0_safe)[:, None]
+    I_obs = scale * correlogram_band_num(bands, Z, lambda ik: Z[ik]) / den[None, :]
+
+    nf = float(n)
+    z2 = (Z * Z).sum(dim=0)
+    z4 = (Z ** 4).sum(dim=0)
+    b2 = nf * z4 / torch.where(z2 > 0, z2 * z2, torch.ones_like(z2))
+    EI = -1.0 / (nf - 1.0)
+    S0b, S1b, S2b = S0_safe[:, None], S1[:, None], S2[:, None]
+    numv = (nf * ((nf * nf - 3.0 * nf + 3.0) * S1b - nf * S2b
+                  + 3.0 * S0b * S0b)
+            - b2[None, :] * ((nf * nf - nf) * S1b - 2.0 * nf * S2b
+                             + 6.0 * S0b * S0b))
+    denv = (nf - 1.0) * (nf - 2.0) * (nf - 3.0) * S0b * S0b
+    varI = torch.clamp_min(numv / denv - EI ** 2, 1e-30)
+    z_sc = (I_obs - EI) / torch.sqrt(varI)
+    p_norm = p_from_z(z_sc, "two-sided")
+
+    empty = (S0 == 0)[:, None]
+    I_obs = torch.where(empty, 0.0, I_obs)
+    z_sc = torch.where(empty, 0.0, z_sc)
+    p_norm = torch.where(empty, 1.0, p_norm)
+    if n_permutations == 0:
+        return I_obs, z_sc, p_norm, torch.ones_like(p_norm), S0
+
+    base = key_for(seed, "perm_global", 0)
+    abs_obs = I_obs.abs()
+    count = torch.zeros(I_obs.shape, dtype=torch.int32, device=Z.device)
+    for step in range(n_permutations):
+        perm = permutation(fold_in(base, step), n, device=Z.device)
+        num_p = correlogram_band_num(bands, Z[perm], lambda ik: Z[perm[ik]])
+        I_p = scale * num_p / den[None, :]
+        count += (I_p.abs() >= abs_obs).to(torch.int32)
+    p_sim = torch.where(empty, 1.0, _p_from_counts(count, n_permutations))
+    return I_obs, z_sc, p_norm, p_sim, S0

@@ -10,9 +10,10 @@ the banded local nulls, each tile's [N, tile] output planes to a sink, so
 1M cells × thousands of genes of local nulls never hold the full [N, G]
 float32 planes at once).
 
-Not ported yet (``NotImplementedError``, ROADMAP Queue 1 item 10):
-``obs_dtype="bf16"``, the wide-tile recipe that fits a 16 GB chip by
-keeping only int8 codes and a bf16 copy of Z per tile.
+``streaming_local_null(obs_dtype="bf16")`` is the reference's wide-tile
+recipe (keys mode, LISA, int8): each tile keeps only int8 codes, a bf16
+copy of Z and the kernel's integer counts, never a float32 [N, tile]
+plane.
 """
 
 from __future__ import annotations
@@ -370,9 +371,18 @@ def streaming_local_null(
     computed ``post_chunk`` gene columns at a time and emitted already in
     the compact dtypes of :data:`_COMPACT_DTYPES`; p-values are the same
     kernel call, bitwise.
+
+    ``obs_dtype="bf16"`` (keys mode, ``stat="moran"``, ``precision="int8"``
+    only) is the wide-tile recipe: each tile is standardized 512 genes at a
+    time into int8 codes and a bf16 copy of Z, the draw-step kernel returns
+    integer counts (``banded_local_moran_pvalues(return_counts=True)``) and
+    p = (count + 1)/(P + 1) is formed per post chunk, so no float32 [N,
+    tile] plane stays resident. p and p_adj equal the f32-obs run's bitwise
+    (the same counts); I, z, lag and quadrants come from the bf16 Z.
     """
-    from .banded import (banded_getis, banded_lees_l, banded_local_geary,
-                         banded_local_moran, banded_local_moran_pvalues)
+    from .banded import (_p_from_counts, _quantize_z, banded_getis,
+                         banded_lees_l, banded_local_geary, banded_local_moran,
+                         banded_local_moran_pvalues)
     from .moran import standardize
 
     if stat not in _ALL_KEYS:
@@ -380,10 +390,11 @@ def streaming_local_null(
                          f"got {stat!r}")
     if obs_dtype not in ("f32", "bf16"):
         raise ValueError(f"obs_dtype must be 'f32' or 'bf16', got {obs_dtype!r}")
-    if obs_dtype == "bf16":
-        raise NotImplementedError(
-            "obs_dtype='bf16' (the wide-tile recipe for a 16 GB chip) is not "
-            "ported yet (ROADMAP Queue 1 item 10)")
+    counts_in = obs_dtype == "bf16"
+    if counts_in and (stat != "moran" or precision != "int8" or keys is None):
+        raise ValueError("obs_dtype='bf16' is the wide-tile moran recipe: "
+                         "requires stat='moran', precision='int8' and "
+                         "keys-mode")
     if keys is not None:
         bad = [k for k in keys if k not in _ALL_KEYS[stat]]
         if bad:
@@ -412,6 +423,9 @@ def streaming_local_null(
                                   precision=precision).p_value
 
     def planes(cols, p, zero_var):
+        if counts_in:        # bf16 Z and integer counts, one column chunk
+            cols = (cols[0].to(torch.float32),)
+            p = _p_from_counts(p, n_permutations)
         if stat == "lee":
             return _lee_planes(graph, *cols, p, zero_var, n_permutations, fdr,
                                alpha)
@@ -426,8 +440,27 @@ def streaming_local_null(
     def load(X):
         return torch.as_tensor(X).to(device=device, dtype=torch.float32)
 
-    for start in range(0, n_genes, tile):
-        avail = min(tile, n_genes - start)
+    def prep_codes(start, avail):
+        """The bf16 recipe's tile: int8 codes, a bf16 copy of Z and the
+        zero-variance mask, standardized 512 genes at a time, and the
+        kernel's integer counts; no float32 [N, tile] plane is kept."""
+        parts = []
+        for s in range(0, avail, min(512, tile)):
+            Zc, zvc = standardize(load(get_tile(start + s,
+                                                min(512, tile, avail - s))))
+            parts.append((_quantize_z(Zc)[0], Zc.to(torch.bfloat16), zvc))
+            del Zc
+        Zq, Zb = (torch.cat([p[i] for p in parts], dim=1) for i in (0, 1))
+        zero_var = torch.cat([p[2] for p in parts])
+        del parts
+        cnt = banded_local_moran_pvalues(plan, Zq, seed, n_permutations,
+                                         return_counts=True)
+        return (Zb,), zero_var, cnt
+
+    def prep(start, avail):
+        """(Z columns, zero-variance mask, the tile's raw p)."""
+        if counts_in:
+            return prep_codes(start, avail)
         tiles = get_tile(start, avail)
         if stat == "lee":               # Z: the (Zx, Zy) pair of tiles
             if not (isinstance(tiles, (tuple, list)) and len(tiles) == 2):
@@ -443,8 +476,12 @@ def streaming_local_null(
             Z = (Zs,)
             del Zs
         del tiles
+        return Z, zero_var, p_of(Z)
+
+    for start in range(0, n_genes, tile):
+        avail = min(tile, n_genes - start)
+        Z, zero_var, p_raw = prep(start, avail)
         Z_dev = Z[0].device
-        p_raw = p_of(Z)
         if keys is None:
             outs = planes(Z, p_raw, zero_var)
         else:

@@ -2,10 +2,11 @@
 or fused), local Moran's I (LISA), local Geary's C (and its multivariate
 form), Getis-Ord Gi* / Gi, Lee's L and join counts (global and local).
 
-Port of ``build_spatial_weights``, ``morans_i``, ``gearys_c``,
-``global_autocorrelation``, ``local_morans_i``, ``local_gearys_c``,
-``local_gearys_c_multivariate``, ``getis_ord_gi``, ``lees_l``,
-``lees_l_local``, ``join_count_statistics`` and ``local_join_counts`` of
+Port of ``build_spatial_weights`` (kNN and radius graphs), ``morans_i``,
+``gearys_c``, ``global_autocorrelation``, ``local_morans_i``,
+``local_gearys_c``, ``local_gearys_c_multivariate``, ``getis_ord_gi``,
+``lees_l``, ``lees_l_local``, ``join_count_statistics``,
+``local_join_counts`` and ``moran_correlogram`` of
 ``spatialcore_tpu/spatial/autocorrelation.py`` and their helpers. Same
 parameters and outputs (the global ``uns`` DataFrames
 ``gene, I|C, expected_I|expected_C, z_score, p_value``; the local ``obsm``
@@ -27,7 +28,7 @@ from __future__ import annotations
 
 import time
 from itertools import combinations
-from typing import List, Literal, Optional, Tuple, Union
+from typing import List, Literal, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import pandas as pd
@@ -71,7 +72,10 @@ def build_spatial_weights(adata, n_neighbors: int = 6,
                           radius: Optional[float] = None,
                           k_max: Optional[int] = None,
                           device: Device = "cuda") -> SpatialGraph:
-    """Build the row-normalized kNN weights graph on ``device``.
+    """Build the row-normalized kNN weights graph on ``device``; with
+    ``radius`` (and its ``k_max`` degree cap) a radius graph instead, whose
+    rows weight each neighbour in radius 1/count (``ops.graph.build_graph``;
+    a cell with more than ``k_max`` neighbours in radius raises).
 
     When ``store`` is set the graph arrays are cached (as numpy) in
     ``adata.uns['spatial_graph']`` for ``use_existing_graph``, as the
@@ -1523,4 +1527,111 @@ def local_gearys_c_multivariate(
         "n_permutations": n_permutations, "seed": seed,
         "backend": "spatialcore_tpu_torch", "device": str(device)})
     logger.info(f"Multivariate local Geary over {len(gene_names)} genes")
+    return adata
+
+
+# ---------------------------------------------------------------------------
+# Moran correlogram (distance-band profile)
+# ---------------------------------------------------------------------------
+
+
+def moran_correlogram(
+    adata,
+    genes: Optional[Union[str, List[str]]] = None,
+    layer: Optional[str] = None,
+    spatial_key: str = "spatial",
+    bands: Optional[Sequence[float]] = None,
+    n_bands: int = 5,
+    k_max: int = 128,
+    n_permutations: int = 0,
+    seed: int = 0,
+    key_added: str = "moran_correlogram",
+    copy: bool = False,
+    device: Device = "cuda",
+):
+    """Global Moran's I per distance band: the spatial correlogram.
+
+    For each band [lo, hi) a binary row-normalized weights matrix links
+    cells to the neighbours at that distance, all built from one capped
+    radius search at max(bands) (``ops.graph.radius_neighbors``, ``k_max``
+    slots a cell, raising on overflow); I(d) shows how far spatial
+    autocorrelation reaches. ``bands``: the band edges (length B+1);
+    default ``n_bands`` equal-width bands up to 3× the mean 6-NN distance.
+    Every band's statistic, Cliff-Ord moments and permutation draws come
+    from one pass (``ops.moran.correlogram_kernel`` on ``device``); the
+    permutations (optional) share one shuffle a draw across the bands.
+
+    Output: ``uns[key_added]`` DataFrame (band_lo, band_hi, gene, I,
+    z_score, p_value[, p_sim]); a band with no pairs is skipped with a
+    warning, and zero-variance genes get I = z = 0, p = 1. Parameters in
+    ``uns[f"{key_added}_params"]``.
+    """
+    from ..ops.graph import radius_neighbors
+    from ..ops.moran import correlogram_kernel
+
+    start = time.time()
+    if copy:
+        adata = adata.copy()
+    if spatial_key not in adata.obsm:
+        raise ValueError(
+            f"adata.obsm['{spatial_key}'] not found. Spatial coordinates "
+            "are required.")
+    coords = torch.as_tensor(adata.obsm[spatial_key])[:, :2].to(
+        device=device, dtype=torch.float32)
+    n = coords.shape[0]
+    gene_names = _resolve_genes(adata, genes)
+
+    if bands is None:
+        g6 = build_graph(coords, n_neighbors=6, device=device)
+        d6 = torch.where(g6.valid, g6.distances, 0.0).cpu().numpy()
+        mean_nn = float(d6.sum() / max(float(g6.valid.sum()), 1.0))
+        bands = np.linspace(0.0, 3.0 * mean_nn, n_bands + 1)
+    bands = np.asarray(bands, np.float64)
+    if bands.ndim != 1 or len(bands) < 2 or np.any(np.diff(bands) <= 0):
+        raise ValueError("bands must be increasing edges of length >= 2")
+
+    logger.info(f"Moran correlogram: {n:,} cells × {len(gene_names)} genes, "
+                f"{len(bands) - 1} bands up to {bands[-1]:.1f}")
+    idx, dist, valid = radius_neighbors(coords, float(bands[-1]), k_max)
+    Z, zero_var = standardize(_dense_expression(adata, gene_names, layer,
+                                                device))
+    outs = correlogram_kernel(
+        idx, dist, valid, Z, torch.as_tensor(bands.astype(np.float32),
+                                             device=coords.device),
+        seed, n_permutations=n_permutations)
+    del Z, idx, dist, valid
+    I_np, z_np, p_np, ps_np, S0_np = (t.cpu().numpy() for t in outs)
+    zv_np = zero_var.cpu().numpy()
+
+    rows = []
+    for b in range(len(bands) - 1):
+        lo, hi = float(bands[b]), float(bands[b + 1])
+        if S0_np[b] <= 0:
+            logger.warning(f"band [{lo:.1f}, {hi:.1f}) has no pairs; skipped")
+            continue
+        for gi, gname in enumerate(gene_names):
+            row = {"band_lo": lo, "band_hi": hi, "gene": gname,
+                   "I": float(I_np[b, gi]), "z_score": float(z_np[b, gi]),
+                   "p_value": float(p_np[b, gi])}
+            if n_permutations > 0:
+                row["p_sim"] = float(ps_np[b, gi])
+            if bool(zv_np[gi]):
+                row.update(I=0.0, z_score=0.0, p_value=1.0)
+            rows.append(row)
+
+    adata.uns[key_added] = pd.DataFrame(rows)
+    elapsed = time.time() - start
+    adata.uns[f"{key_added}_params"] = {
+        "genes": gene_names, "bands": [float(x) for x in bands],
+        "k_max": k_max, "n_permutations": n_permutations, "seed": seed,
+        "computation_time_seconds": elapsed,
+    }
+    update_metadata(
+        adata, "moran_correlogram",
+        parameters={"n_genes": len(gene_names), "n_bands": len(bands) - 1,
+                    "k_max": k_max, "n_permutations": n_permutations,
+                    "seed": seed, "backend": "spatialcore_tpu_torch",
+                    "device": str(device)},
+        outputs={"uns": key_added, "uns_params": f"{key_added}_params"})
+    logger.info(f"Moran correlogram completed in {elapsed:.1f}s")
     return adata

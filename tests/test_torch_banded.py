@@ -406,7 +406,7 @@ def test_unported_options_raise(setup):
 
 
 @pytest.mark.parametrize("esz", [2, 4], ids=["bf16", "f32"])
-@pytest.mark.parametrize("k", [1, 6, 50, 256])
+@pytest.mark.parametrize("k", [1, 6, 32, 50, 64, 128, 256])
 def test_float_tiles_fit_shared_memory(esz, k):
     """K4's launch shape for every block the wrapper takes: its shared
     memory fits one H100 block, its ring rows are whole 16-byte lanes, and
@@ -423,7 +423,7 @@ def test_float_tiles_fit_shared_memory(esz, k):
 
 
 @pytest.mark.parametrize("packed", [True, False], ids=["int4", "int8"])
-@pytest.mark.parametrize("k", [1, 6, 50, 256])
+@pytest.mark.parametrize("k", [1, 6, 32, 50, 64, 128, 256])
 def test_int_tiles_fit_shared_memory(packed, k):
     """K1–K3's launch shape for every block the wrapper takes: its shared
     memory fits one H100 block, the column tile is whole 16-byte lanes (a

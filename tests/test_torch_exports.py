@@ -30,15 +30,8 @@ QUEUED = {
         "load_ensembl_to_hugo_mapping", "is_ensembl_id",
         "download_ensembl_mapping",
     },
-    "ops": {
-        # items 3 and 10: radius graphs and the correlogram
-        "radius_neighbors", "correlogram_kernel",
-    },
+    "ops": set(),
     "spatial": {
-        # items 3 and 10: the correlogram
-        "moran_correlogram",
-        # item 11: point patterns
-        "ripleys_k", "cross_type_ripleys_k", "clark_evans", "co_occurrence",
         # item 12: niches and domains
         "neighborhood_enrichment", "compute_neighborhood_profile",
         "identify_niches", "niche_stability", "make_spatial_domains",

@@ -88,12 +88,19 @@ def test_spatial_lag_matches_reference():
 
 
 def test_unported_graph_modes_raise():
-    """Radius graphs are still refused; method="pallas" (K9) is ported and
-    gives the exact scan's neighbours (tests/test_torch_knn.py), and an
-    unknown method is a ValueError."""
+    """Every graph mode is ported now: a radius graph equals the
+    reference's (index, weights and mask; tests/test_torch_radius.py holds
+    the rest), radius mode without ``k_max`` raises as the reference does,
+    method="pallas" (K9) gives the exact scan's neighbours
+    (tests/test_torch_knn.py), and an unknown method is a ValueError."""
     c = _coords(100, 0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tg.build_graph(c, radius=5.0, k_max=10, device="cpu")
+    gt = tg.build_graph(c, radius=15.0, k_max=16, device="cpu")
+    gj = jg.build_graph(c, radius=15.0, k_max=16)
+    for f in ("neighbor_idx", "neighbor_w", "valid"):
+        np.testing.assert_array_equal(getattr(gt, f).numpy(),
+                                      np.asarray(getattr(gj, f)), err_msg=f)
+    with pytest.raises(ValueError, match="requires k_max"):
+        tg.build_graph(c, radius=5.0, device="cpu")
     with pytest.raises(ValueError, match="unknown kNN method"):
         tg.build_graph(c, method="pallas_v2", device="cpu")
     gp = tg.build_graph(c, method="pallas", device="cpu")

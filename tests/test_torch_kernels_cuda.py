@@ -564,6 +564,76 @@ def test_geary_and_getis_observed_kernels_equal_plain(cuda_device, case, getis,
     _equal_at_every_shape(fn, mode, want, _shapes(case, stat, 1, 0))
 
 
+def _radius_rows(wq: torch.Tensor, far: dict, seed: int = 7):
+    """A radius plan's band: row i's first deg_i slots live at code 127,
+    the rest dead (code 0), a row in nine with no live slot and no far
+    entry (an isolated cell); far codes 127."""
+    gen = torch.Generator().manual_seed(seed)
+    n, k = wq.shape
+    deg = torch.randint(0, k + 1, (n, 1), generator=gen)
+    deg[::9] = 0
+    live = torch.arange(k)[None, :] < deg
+    ptr = far["far_row_ptr"].clone()
+    per_row = ptr.diff()
+    per_row[::9] = 0
+    ptr[1:] = torch.cumsum(per_row, 0).to(ptr.dtype)
+    F = int(ptr[-1])
+    rows = dict(far, far_row_ptr=ptr, far_q=torch.full((F,), 127, dtype=torch.int8),
+                Zf=far["Zf"][:F])
+    return torch.where(live, 127, 0).to(torch.int8), rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [32, 48, 128])
+@pytest.mark.parametrize("stat", ["moran", "geary"])
+def test_draw_step_on_radius_rows(cuda_device, k, stat):
+    """K7's moran and geary tails and their observed entries on a radius
+    plan's rows: live and dead slots in one row (geary's one-code dp4a
+    path), all-zero rows, k of 32–128; bitwise equal to the plain version
+    at every launch shape."""
+    blk, nb, G = 64, 3, 260
+    case = (blk, k, nb, G, 2)
+    o = _lisa_operands(nb, G, k=k, blk=blk)
+    wq, far = _radius_rows(o["wq"], o["far"]["rows"])
+    n = wq.shape[0]
+    src = torch.repeat_interleave(torch.arange(n), far["far_row_ptr"].diff().long())
+    w_row = wq.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
+        0, src, far["far_q"].to(torch.int32))
+    host = [o["li"], wq, o["zp"]]
+    dev = [t.to(cuda_device) for t in host]
+    far_dev = {x: _on(v, cuda_device) for x, v in far.items()}
+    if stat == "moran":
+        obs = kern_lisa.lisa_observed(*host, blk, **far)
+        _equal_at_every_shape(
+            lambda tiles: kern_lisa.lisa_observed(*dev, blk, **far_dev, tiles=tiles),
+            "lisa_obs", obs, _shapes(case, "moran", 1, 0))
+        # the count compares one placement's value with another's
+        obs = kern_lisa.lisa_observed(o["li"], wq, o["zp"].flip(0), blk, **far)
+        cnt0 = torch.randint(0, 100, obs.shape).to(torch.int8)
+        want = kern_lisa.lisa_count(*host, blk, obs, cnt0.clone(), **far)
+        fn = lambda tiles: kern_lisa.lisa_count(  # noqa: E731
+            *dev, blk, obs.to(cuda_device), cnt0.to(cuda_device), **far_dev,
+            tiles=tiles)
+        mode = "lisa_win"
+    else:
+        obs = kern_lisa.geary_observed(*host, blk, w_row, **far)
+        w_dev = w_row.to(cuda_device)
+        _equal_at_every_shape(
+            lambda tiles: kern_lisa.geary_observed(*dev, blk, w_dev, **far_dev,
+                                                   tiles=tiles),
+            "geary_obs", obs, _shapes(case, "geary", 1, 0))
+        obs = kern_lisa.geary_observed(o["li"], wq, o["zp"].flip(0), blk, w_row,
+                                       **far)
+        cnt0 = torch.randint(0, 100, obs.shape).to(torch.int8)
+        want = kern_lisa.geary_count(*host, blk, obs, cnt0.clone(), w_row, **far)
+        fn = lambda tiles: kern_lisa.geary_count(  # noqa: E731
+            *dev, blk, obs.to(cuda_device), cnt0.to(cuda_device), w_dev,
+            **far_dev, tiles=tiles)
+        mode = "geary_win"
+    assert 0 < int((want != cnt0).sum()) < want.numel()
+    _equal_at_every_shape(fn, mode, want, _shapes(case, stat, 1, 1))
+
+
 def _getis_moments(zp, blk: int, n_rows: int, star: bool):
     codes = zp[blk:blk + n_rows].to(torch.int64)
     tot, sq = codes.sum(0).float(), (codes * codes).sum(0).float()

@@ -273,7 +273,7 @@ def _close_obsm(a, b, key, keys, P):
 
 
 
-@pytest.mark.parametrize("k", [1, 6, 50, "bound"])
+@pytest.mark.parametrize("k", [1, 6, 32, 50, 64, 128, "bound"])
 @pytest.mark.parametrize("stat", ["moran", "geary", "getis_star", "getis_g", "lee"])
 def test_lisa_tiles_fit_shared_memory(stat, k):
     """The local draw step's launch shape for every block the wrappers take
@@ -371,8 +371,11 @@ def test_streaming_refusals():
         ts.streaming_local_null(*args, stat="bogus", device="cpu")
     with pytest.raises(ValueError, match="pair of tiles"):
         ts.streaming_local_null(*args, stat="lee", device="cpu")
-    with pytest.raises(NotImplementedError, match="obs_dtype"):
-        ts.streaming_local_null(*args, obs_dtype="bf16", keys=("p",), device="cpu")
+    # the bf16 recipe is keys-mode int8 LISA only, as the reference's
+    for kw in ({}, {"keys": ("C",), "stat": "geary"},
+               {"keys": ("p",), "precision": "bf16"}):
+        with pytest.raises(ValueError, match="wide-tile moran recipe"):
+            ts.streaming_local_null(*args, obs_dtype="bf16", device="cpu", **kw)
     with pytest.raises(ValueError, match="unknown keys"):
         ts.streaming_local_null(*args, keys=("C",), device="cpu")
 
