@@ -170,6 +170,23 @@ Phases (the script stops with a non-zero exit at the first failure):
    permutations) and ``co_occurrence`` (torch ops, no kernel), one pass of
    each kind timed; 20,000 cells on the card against the CPU path, counts
    and envelopes bitwise.
+12. The niche and domain path (torch ops, no kernel; each call checked to
+   launch none): ``simulate_xenium`` at 1,000,000 cells × 256 genes on a
+   25,000 µm square (the default density; host time), the h5ad round trip
+   where h5py imports (else one line says why not), ``normalize_log1p_
+   from_raw``, ``neighborhood_enrichment`` (13 types, k = 6, 1,000 label
+   permutations) with one draw split (permutation, pair counts),
+   ``compute_neighborhood_profile`` (k = 15), ``identify_niches`` (6
+   niches; mini-batch at 1M), ``identify_niches`` (full k-means) and
+   ``niche_stability`` (k 4–8, 5 restarts) on a 100,000-cell subset,
+   ``make_spatial_domains`` around B cells and epithelial cells (xenium)
+   with each raster's H × W, pixel and connected-components iterations,
+   ``calculate_domain_distances`` between them ("minimum" and "mean"),
+   ``get_domain_summary`` and ``get_distance_matrix``; then 20,000 cells
+   (30 label permutations) on the card against the CPU path (enrichment
+   counts, profiles, raster masks and labels, domains and minimum
+   distances bitwise; z and the null moments within rtol 1e-6, "mean"
+   distances within 1e-5; niches equal up to renaming).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it a
 JSON summary of every kernel, and the one before that nvidia-smi's name
@@ -184,9 +201,12 @@ import json
 import pstats
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
+
+T_START = time.perf_counter()
 
 import numpy as np
 import pandas as pd
@@ -205,7 +225,7 @@ from spatialcore_tpu_torch.kernels import build
 from spatialcore_tpu_torch.kernels import knn as kern_knn
 from spatialcore_tpu_torch.kernels import lisa_count as kern_lisa
 from spatialcore_tpu_torch.kernels import sass
-from spatialcore_tpu_torch.ops import banded, moran
+from spatialcore_tpu_torch.ops import banded, geometry, moran
 from spatialcore_tpu_torch.ops.banded import (banded_local_moran_pvalues,
                                               banded_permutation_test,
                                               build_null_plan)
@@ -220,6 +240,8 @@ from spatialcore_tpu_torch.ops.streaming import (device_local_sink,
                                                  streaming_local_null,
                                                  streaming_moran_null, tile_widths)
 from spatialcore_tpu_torch.spatial import autocorrelation as acorr
+from spatialcore_tpu_torch.spatial import domains as dom
+from spatialcore_tpu_torch.spatial import nhood
 from spatialcore_tpu_torch.spatial import (clark_evans, co_occurrence,
                                            cross_type_ripleys_k,
                                            moran_correlogram, ripleys_k)
@@ -3642,6 +3664,241 @@ def phase_point_patterns(dev, smi: str, n_cells: int = 1_000_000,
     return times, split
 
 
+# Phase 12: the niche and domain path
+# ---------------------------------------------------------------------------
+
+#: the simulator's default density (40,000 cells on 5,000 µm), at 1M cells
+NICHE_CELLS = 1_000_000
+NICHE_EXTENT = 25_000.0
+#: the two cell populations the domains are drawn around (source, target)
+DOMAIN_TYPES = (("B cell", "domain_b"), ("Epithelial", "domain_epi"))
+
+
+def h5ad_round_trip(d) -> None:
+    """``write_h5ad`` then ``read_h5ad`` of ``d`` in a temporary directory,
+    timed, with the file's size; where h5py does not import, one line says
+    that the round trip was not run (the CPU tests hold its parity)."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError as e:
+        print(f"[niches] h5ad round trip not run: h5py does not import on "
+              f"this machine ({e}); tests/test_torch_core_io.py holds the "
+              f"two packages' files equal on the CPU")
+        return
+    from spatialcore_tpu_torch import read_h5ad, write_h5ad
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "section.h5ad"
+        _, t_w = timed(lambda: write_h5ad(d, path), "cpu")
+        size = path.stat().st_size
+        back, t_r = timed(lambda: read_h5ad(path), "cpu")
+    check(back.shape == d.shape and (back.X != d.X).nnz == 0
+          and back.obs.equals(d.obs), "the h5ad round trip changed the data")
+    print(f"[niches] write_h5ad {t_w:.2f} s, read_h5ad {t_r:.2f} s, "
+          f"{size / 2 ** 20:.1f} MiB")
+
+
+def niche_path(d, dev, n_perms: int, subset=None, domain_cols=DOMAIN_TYPES):
+    """The path's public calls on ``d`` (on ``dev``), each timed and run
+    with every launch count at 0 (torch ops, no kernel); returns the times
+    and, with ``subset``, the container of the full k-means run and its
+    stability on the first ``subset`` cells."""
+    from spatialcore_tpu_torch.core import normalize_log1p_from_raw
+    from spatialcore_tpu_torch.spatial import (calculate_domain_distances,
+                                               compute_neighborhood_profile,
+                                               identify_niches,
+                                               make_spatial_domains,
+                                               neighborhood_enrichment,
+                                               niche_stability)
+    times = {"normalize_log1p_from_raw": timed(
+        lambda: normalize_log1p_from_raw(d), "cpu")[1]}
+    calls = [
+        ("neighborhood_enrichment", lambda: neighborhood_enrichment(
+            d, "true_type", n_permutations=n_perms, device=dev)),
+        ("compute_neighborhood_profile", lambda: compute_neighborhood_profile(
+            d, "true_type", k=15, device=dev)),
+        ("identify_niches", lambda: identify_niches(d, n_niches=6, device=dev))]
+    for name, fn in calls:
+        times[name] = no_kernel(dev, name, fn)
+    sub = None
+    if subset:
+        sub = SpatialData(obs=d.obs.iloc[:subset][["true_type"]].copy())
+        sub.obsm["neighborhood_profile"] = d.obsm["neighborhood_profile"][:subset]
+        times[f"identify_niches {subset:,}"] = no_kernel(
+            dev, "identify_niches (subset)",
+            lambda: identify_niches(sub, n_niches=6, device=dev))
+        times[f"niche_stability {subset:,}"] = no_kernel(
+            dev, "niche_stability", lambda: niche_stability(
+                sub, n_niches_range=range(4, 9), n_restarts=5, device=dev))
+    for ct, col in domain_cols:
+        times[f"make_spatial_domains {ct}"] = no_kernel(
+            dev, "make_spatial_domains", lambda: make_spatial_domains(
+                d, f"true_type == '{ct}'", output_column=col,
+                platform="xenium", device=dev))
+    (_, src), (_, tgt) = domain_cols
+    for metric in ("minimum", "mean"):
+        times[f"calculate_domain_distances {metric}"] = no_kernel(
+            dev, "calculate_domain_distances",
+            lambda: calculate_domain_distances(
+                d, src, tgt, distance_metric=metric,
+                output_distance_column=f"dist_{metric}",
+                output_nearest_column=f"near_{metric}", device=dev))
+    return times, sub
+
+
+def raster_only(d, ct: str, dev):
+    """The raster pipeline of ``make_spatial_domains(platform="xenium")``
+    alone, for ``ct``'s cells: (its result, CC iterations, H × W, pixel)."""
+    coords = np.asarray(d.obsm["spatial"], np.float64)
+    lo, pixel, shape, rb, rs = dom.raster_grid(coords, 50.0, 25.0, 2048, 8)
+    mask = (d.obs["true_type"] == ct).to_numpy()
+    res, iters = geometry._buffer_union_shrink(
+        dom.to_pixels(coords[mask], lo, pixel, shape),
+        dom.to_pixels(coords, lo, pixel, shape), shape, rb, rs, dev)
+    return res, iters, shape, pixel, (rb, rs)
+
+
+def phase_niches(dev, smi: str, n_cells: int = NICHE_CELLS,
+                 extent: float = NICHE_EXTENT, n_perms: int = 1000,
+                 subset: int = 100_000):
+    """The niche and domain path at 1M cells on the card: the simulated
+    section (host time), the h5ad round trip where h5py imports,
+    normalization, enrichment with 1,000 label permutations (k = 6) and its
+    per-draw split, profiles (k = 15), niches (mini-batch at 1M, full
+    k-means and its stability on a 100,000-cell subset), domains around
+    two populations with their rasters, and the distances between them."""
+    from spatialcore_tpu_torch.spatial import (get_distance_matrix,
+                                               get_domain_summary)
+    from spatialcore_tpu_torch.spatial.neighborhoods import adjusted_rand_score
+    from spatialcore_tpu_torch.utils import simulate_xenium
+    release()
+    t0 = time.perf_counter()
+    (d, _), t_sim = timed(lambda: simulate_xenium(
+        n_cells=n_cells, n_genes=256, extent=extent), "cpu")
+    print(f"[niches] simulate_xenium {n_cells:,} cells x 256 genes on "
+          f"{extent:,.0f} um square: {t_sim:.2f} s on the host; "
+          f"{d.X.nnz:,} nonzero counts, 13 cell types")
+    h5ad_round_trip(d)
+    times, sub = niche_path(d, dev, n_perms, subset)
+    times = {"simulate_xenium (host)": t_sim, **times}
+    ne = d.uns["true_type_nhood_enrichment"]
+    check(float(ne["count"].sum()) == 6 * n_cells
+          and bool(np.isfinite(ne["zscore"]).all())
+          and bool((ne["null_std"] > 0).all()),
+          "neighborhood_enrichment: counts or z not as expected")
+    prof = d.obsm["neighborhood_profile"]
+    check(prof.shape == (n_cells, 13) and np.allclose(prof.sum(1), 1.0,
+                                                      atol=1e-5),
+          "the neighbourhood profiles do not sum to 1")
+    auto = "minibatch_kmeans" if n_cells > 100_000 else "kmeans"
+    check(d.uns["niche_params"]["method"] == auto
+          and sub.uns["niche_params"]["method"] == "kmeans",
+          "identify_niches' 'auto' took the wrong method")
+    stab = sub.uns["niche_stability"]
+    check(len(stab) == 5 and all(-1 <= r["ari_mean"] <= 1 for r in stab),
+          "niche_stability rows")
+    # the per-draw split of the enrichment null
+    graph = acorr._load_stored_graph(d, dev)
+    types = ne["types"]
+    codes = torch.tensor(d.obs["true_type"].astype(str).map(
+        {t: i for i, t in enumerate(types)}).to_numpy(np.int64), device=dev)
+    base = key_for(0, "nhood_perm", 0)
+    perm = permutation(fold_in(base, 0), n_cells, device=dev)
+    split = dict(
+        permutation=event_ms(lambda: permutation(fold_in(base, 0), n_cells,
+                                                 device=dev), 5),
+        pair_counts=event_ms(lambda: nhood.pair_counts(
+            graph.neighbor_idx, graph.valid, codes[perm], len(types)), 5),
+        whole_draw=event_ms(lambda: nhood.null_moments(
+            graph.neighbor_idx, graph.valid, codes, len(types), 0, 1), 5))
+    print(f"[niches] enrichment null, one draw at {n_cells:,} cells, k = 6, "
+          f"{len(types)} types (CUDA events, ms) [{smi}]: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + " (whole_draw: the observed counts and one draw)")
+    for ct, col in DOMAIN_TYPES:
+        (res, iters, shape, pixel, radii), t_r = timed(
+            lambda: raster_only(d, ct, dev), dev)
+        p = d.uns[f"{col}_params"]
+        check(p["n_domains"] >= 1 and int(res.mask.sum()) > 0,
+              f"no domain around {ct}")
+        print(f"[niches] domains around {ct}: raster {shape[0]} x {shape[1]}, "
+              f"pixel {pixel:.4f} um, r_buffer / r_shrink {radii} px, "
+              f"connected_components {iters} iterations, raster pipeline "
+              f"alone {t_r:.3f} s; {p['n_domains']} domains, "
+              f"{p['n_target_cells']:,} target and {p['n_assigned_cells']:,} "
+              f"assigned cells")
+    (_, src), (_, tgt) = DOMAIN_TYPES
+    n_src, n_tgt = int(d.obs[src].notna().sum()), int(d.obs[tgt].notna().sum())
+    summary = get_domain_summary(d, src)
+    matrix = get_distance_matrix(d)
+    check(bool(np.isfinite(matrix.to_numpy()).all())
+          and int(summary["n_cells"].sum()) == n_src,
+          "domain distances or summary not as expected")
+    dmin = d.obs["dist_minimum"].to_numpy()
+    dmean = d.obs["dist_mean"].to_numpy()
+    sel = ~np.isnan(dmin)
+    check(bool((dmin[sel] <= dmean[sel] * (1 + 1e-6)).all()),
+          "a cell's minimum distance exceeds its mean")
+    total = time.perf_counter() - t0
+    print(f"[niches] {n_cells:,} cells [{smi}]: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in times.items())
+        + f"; {n_src:,} source x {n_tgt:,} target cells = "
+        f"{n_src * n_tgt:,} pairs; niches vs true niches ARI "
+        f"{adjusted_rand_score(d.obs['true_niche'], d.obs['niche']):.4f}; "
+        f"stability ARI by k "
+        + ", ".join(f"{r['n_niches']}: {r['ari_mean']:.4f}" for r in stab)
+        + f"; phase 12 at 1M took {total:.1f} s")
+    del d, sub, graph, codes, perm
+    release()
+    return times, split
+
+
+def phase_niches_vs_cpu(dev, n_cells: int = 20_000, n_perms: int = 30):
+    """The same path at 20,000 cells (the 1M density) on the card and on
+    the CPU: counts, profiles, raster masks and labels, domain assignments
+    and minimum distances bitwise; z and the null moments within rtol 1e-6
+    and "mean" distances within rtol 1e-5; niche labels equal up to
+    renaming."""
+    from spatialcore_tpu_torch.spatial.neighborhoods import adjusted_rand_score
+    from spatialcore_tpu_torch.utils import simulate_xenium
+    extent = NICHE_EXTENT * (n_cells / NICHE_CELLS) ** 0.5
+    runs = {}
+    for where in (dev, "cpu"):
+        d, _ = simulate_xenium(n_cells=n_cells, n_genes=256, extent=extent,
+                               seed=3)
+        niche_path(d, where, n_perms)
+        runs[str(where)] = (d, raster_only(d, DOMAIN_TYPES[0][0], where)[0])
+    (card, rc), (cpu, rp) = runs[str(dev)], runs["cpu"]
+    ua = card.uns["true_type_nhood_enrichment"]
+    ub = cpu.uns["true_type_nhood_enrichment"]
+    check(np.array_equal(ua["count"], ub["count"]), "enrichment counts differ")
+    worst = max(float(np.max(np.abs(ua[k] - ub[k]) / np.maximum(np.abs(ub[k]),
+                                                                  1e-30)))
+                for k in ("zscore", "null_mean", "null_std"))
+    check(worst <= 1e-6, f"enrichment z / null moments differ by {worst}")
+    check(np.array_equal(card.obsm["neighborhood_profile"],
+                         cpu.obsm["neighborhood_profile"]), "profiles differ")
+    check(np.array_equal(rc.mask.cpu().numpy(), rp.mask.numpy())
+          and np.array_equal(rc.labels.cpu().numpy(), rp.labels.numpy()),
+          "raster masks or component labels differ")
+    for _, col in DOMAIN_TYPES:
+        check(card.obs[col].astype(str).equals(cpu.obs[col].astype(str)),
+              f"domain assignments {col} differ")
+    check(np.array_equal(card.obs["dist_minimum"].to_numpy(),
+                         cpu.obs["dist_minimum"].to_numpy(), equal_nan=True),
+          "minimum distances differ")
+    m_card = card.obs["dist_mean"].to_numpy()
+    m_cpu = cpu.obs["dist_mean"].to_numpy()
+    sel = ~np.isnan(m_cpu)
+    mean_err = float(np.max(np.abs(m_card[sel] - m_cpu[sel]) / m_cpu[sel]))
+    check(mean_err <= 1e-5, f"mean distances differ by {mean_err}")
+    ari = adjusted_rand_score(card.obs["niche"], cpu.obs["niche"])
+    check(ari == 1.0, f"niche labels differ beyond renaming (ARI {ari})")
+    print(f"[niches] {n_cells:,} cells, card against CPU: enrichment counts, "
+          f"profiles, raster masks and labels, domains and minimum distances "
+          f"bitwise; z / null moments max rel diff {worst:.3g} (bitwise: "
+          f"{worst == 0}); mean distances {mean_err:.3g}; niche ARI {ari}")
+
+
 def lisa_sass(listing: str) -> None:
     """The local draw step's SASS by instance (template arguments: STAT,
     FAR, COUNT, counter type, k unrolled): instructions in all and the
@@ -3891,6 +4148,16 @@ def main() -> None:
           f"lisa_win and lisa_obs add the radius route's calls {radius} and "
           f"the bf16 stream's {stream}; phase 11 took "
           f"{time.perf_counter() - t11:.1f} s [{smi}]")
+
+    # the niche and domain path (torch ops, no kernel; each call checked to
+    # launch none)
+    t12 = time.perf_counter()
+    phase_niches(dev, smi)
+    phase_niches_vs_cpu(dev)
+    print(f"[path] phase 12 (niches and domains) took "
+          f"{time.perf_counter() - t12:.1f} s [{smi}]")
+    print(f"[path] the whole script took {time.perf_counter() - T_START:.1f} s "
+          f"[{smi}]")
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -153,6 +153,17 @@ def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.where(tie & ((err > 0) == (d > 0)), nxt, r)
 
 
+def _sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root, correctly rounded on any device.
+
+    torch's vectorized float32 ``sqrt`` on the CPU can land one ulp off
+    the correctly rounded value that XLA (and CUDA) return; the float64
+    root of a float32 rounds to the correctly rounded float32 root (53
+    bits ≥ 2·24 + 2, so the double rounding is innocuous).
+    """
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def uniform(k: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0,
             device: Union[str, torch.device] = "cpu") -> torch.Tensor:
@@ -213,6 +224,16 @@ def _fnv1a(s: str) -> int:
     for ch in s.encode():
         h = ((h ^ ch) * 0x01000193) & _M32
     return h
+
+
+def np_rng(seed: int, *stream: Union[int, str]) -> np.random.Generator:
+    """Host-side numpy Generator seeded from the same hierarchical path:
+    ``default_rng([seed] + [fnv1a(part) or int(part), ...])``, the
+    reference's ``np_rng``. For cheap host decisions (subsampling) that
+    must be reproducible but never touch the device."""
+    parts = [seed] + [_fnv1a(p) if isinstance(p, str) else int(p)
+                      for p in stream]
+    return np.random.default_rng(parts)
 
 
 def key_for(seed: int, *stream: Union[int, str]) -> torch.Tensor:

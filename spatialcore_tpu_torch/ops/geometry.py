@@ -1,0 +1,287 @@
+"""Raster geometry: morphology and connected components on the card.
+
+Port of ``spatialcore_tpu/ops/geometry.py``: the raster Buffer-Union-Shrink
+pipeline
+
+    rasterize target cells → dilate by r_buffer (disk convolution)
+    → erode by r_shrink → connected components
+    (pointer-jumping min-label propagation) → per-cell lookup.
+
+Morphology is a 2D convolution with a disk (``F.conv2d``, where the
+reference calls ``lax.conv_general_dilated``); the sums it thresholds are
+small integers, and the thresholds (> 0.5, > ksum − 0.5) absorb any
+rounding of a fast convolution algorithm, so the masks are exact.
+Component labeling is the reference's pointer-jumping loop: a 3×3
+neighbourhood minimum and two ``L = L[L]`` compressions an iteration, the
+``while_loop`` becoming a Python loop that reads ``any(lab != prev)`` once
+an iteration, with the same ``max_iter``. Component ids are minimum flat
+indices, so they depend on W; callers keep the reference's grid dims for
+equal labels. The boundary and adjacency helpers run on the host (numpy),
+as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+Device = Union[str, torch.device]
+
+_BG = 2 ** 30  # background sentinel, larger than any flat index
+
+
+def disk_kernel(radius_px: int) -> np.ndarray:
+    """Binary disk of the given pixel radius (inclusive)."""
+    r = int(radius_px)
+    y, x = np.mgrid[-r:r + 1, -r:r + 1]
+    return (x * x + y * y <= r * r).astype(np.float32)
+
+
+def _disk_sums(mask: torch.Tensor, radius_px: int):
+    """Per pixel, the count of foreground pixels under a disk centred on
+    it (zero outside the image), and the disk's size."""
+    k = torch.as_tensor(disk_kernel(radius_px), device=mask.device)
+    r = int(radius_px)
+    sums = F.conv2d(mask.to(torch.float32)[None, None], k[None, None],
+                    padding=r)[0, 0]
+    return sums, float(k.sum())
+
+
+def dilate(mask: torch.Tensor, radius_px: int) -> torch.Tensor:
+    """Binary dilation by a disk: any covered pixel becomes foreground."""
+    if radius_px <= 0:
+        return mask
+    return _disk_sums(mask, radius_px)[0] > 0.5
+
+
+def erode(mask: torch.Tensor, radius_px: int) -> torch.Tensor:
+    """Binary erosion by a disk: keep pixels whose whole disk is foreground.
+
+    Outside the image counts as background, so border-touching masks erode
+    at the border.
+    """
+    if radius_px <= 0:
+        return mask
+    sums, ksum = _disk_sums(mask, radius_px)
+    return sums > ksum - 0.5
+
+
+def _connected_components(mask: torch.Tensor, max_iter: int = 256):
+    """:func:`connected_components` and the number of loop iterations."""
+    H, W = mask.shape
+    hw = H * W
+    bg = torch.tensor(_BG, dtype=torch.int32, device=mask.device)
+    flat_ids = torch.arange(hw, dtype=torch.int32,
+                            device=mask.device).reshape(H, W)
+    labels = torch.where(mask, flat_ids, bg)
+
+    def neighbor_min(lab):
+        padded = F.pad(lab, (1, 1, 1, 1), value=_BG)
+        m = lab
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                m = torch.minimum(m, padded[1 + dy:1 + dy + H,
+                                            1 + dx:1 + dx + W])
+        return torch.where(mask, m, bg)
+
+    def compress(lab):
+        flat = lab.reshape(-1)
+        safe = torch.clamp_max(flat, hw - 1).to(torch.int64)
+        return torch.where(mask, torch.minimum(lab, flat[safe].reshape(H, W)),
+                           bg)
+
+    prev, lab, it = labels, compress(neighbor_min(labels)), 0
+    while it < max_iter and bool((lab != prev).any()):
+        prev, lab = lab, compress(compress(neighbor_min(lab)))
+        it += 1
+    return lab, it
+
+
+def connected_components(mask: torch.Tensor, max_iter: int = 256) -> torch.Tensor:
+    """8-connected component labels for a binary [H, W] mask.
+
+    Returns int32 [H, W]: for foreground pixels the minimum flat index of
+    their component (a stable, deterministic component id); background gets
+    a large sentinel. Pointer-jumping: each iteration takes the 3×3
+    neighbourhood min then twice compresses paths via ``L = L[L]`` gathers,
+    which converges in ~log(diameter) iterations.
+    """
+    return _connected_components(mask, max_iter)[0]
+
+
+class RasterDomains(NamedTuple):
+    labels: torch.Tensor      # int32 [H, W] component ids (_BG for background)
+    mask: torch.Tensor        # bool  [H, W] final shrunken foreground
+    cell_label: torch.Tensor  # int32 [N] per-cell component id (_BG outside)
+
+
+def buffer_union_shrink(pix_yx, all_pix_yx, shape: Tuple[int, int],
+                        r_buffer: int, r_shrink: int,
+                        device: Device = "cuda") -> RasterDomains:
+    """Full raster Buffer-Union-Shrink + labeling + cell assignment on
+    ``device``: ``pix_yx`` [Nt, 2] target-cell pixels, ``all_pix_yx`` [N, 2]
+    pixels of the cells to assign (int (y, x) pairs)."""
+    return _buffer_union_shrink(pix_yx, all_pix_yx, shape, r_buffer,
+                                r_shrink, device)[0]
+
+
+def _buffer_union_shrink(pix_yx, all_pix_yx, shape, r_buffer, r_shrink,
+                         device):
+    H, W = shape
+    pix = torch.as_tensor(pix_yx, device=device).to(torch.int64)
+    cells = torch.as_tensor(all_pix_yx, device=device).to(torch.int64)
+    grid = torch.zeros((H, W), dtype=torch.bool, device=device)
+    grid[pix[:, 0], pix[:, 1]] = True
+    shrunk = erode(dilate(grid, r_buffer), r_shrink)
+    labels, iters = _connected_components(shrunk)
+    cell_label = labels[cells[:, 0], cells[:, 1]]
+    return RasterDomains(labels=labels, mask=shrunk,
+                         cell_label=cell_label), iters
+
+
+def label_adjacency(labels_np: np.ndarray, reach_px: int = 2):
+    """Pairs of distinct component ids within ``reach_px`` of each other.
+
+    Host-side: a handful of array shifts over the label image (components
+    after erosion are disjoint, so raster adjacency stands in for the
+    reference's ``st_intersects`` on hull polygons, r_functions.R:203).
+    """
+    bg = int(_BG)
+    pairs = set()
+    H, W = labels_np.shape
+    for dy in range(-reach_px, reach_px + 1):
+        for dx in range(-reach_px, reach_px + 1):
+            if dy == 0 and dx == 0:
+                continue
+            a = labels_np[max(0, dy):H + min(0, dy),
+                          max(0, dx):W + min(0, dx)]
+            b = labels_np[max(0, -dy):H + min(0, -dy),
+                          max(0, -dx):W + min(0, -dx)]
+            both = (a != bg) & (b != bg) & (a != b)
+            if both.any():
+                for u, v in zip(a[both].ravel(), b[both].ravel()):
+                    pairs.add((min(int(u), int(v)), max(int(u), int(v))))
+    return pairs
+
+
+def extract_boundaries(labels_np: np.ndarray, origin, pixel_size: float):
+    """Per-component boundary-pixel coordinates (marching-squares-lite).
+
+    Returns {component_id: [M, 2] float coords} — boundary pixel centers in
+    data units, the raster stand-in for the reference's concave hull
+    polygons. Suitable for plotting domain outlines.
+    """
+    bg = int(_BG)
+    H, W = labels_np.shape
+    fg = labels_np != bg
+    interior = np.ones_like(fg)
+    interior[1:, :] &= fg[:-1, :]
+    interior[:-1, :] &= fg[1:, :]
+    interior[:, 1:] &= fg[:, :-1]
+    interior[:, :-1] &= fg[:, 1:]
+    boundary = fg & ~interior
+    out = {}
+    ys, xs = np.nonzero(boundary)
+    labs = labels_np[ys, xs]
+    for lab in np.unique(labs):
+        sel = labs == lab
+        coords = np.column_stack([
+            origin[0] + (xs[sel] + 0.5) * pixel_size,
+            origin[1] + (ys[sel] + 0.5) * pixel_size,
+        ])
+        out[int(lab)] = coords.astype(np.float32)
+    return out
+
+
+def extract_boundary_polygons(labels_np: np.ndarray, origin,
+                              pixel_size: float):
+    """Ordered closed contour chains per component (marching squares).
+
+    Unlike :func:`extract_boundaries` (an unordered boundary-pixel cloud),
+    this walks the pixel-edge graph into ORDERED vertex loops — the
+    GIS-style polygon export matching the reference's concave-hull
+    deliverable (r_functions.R:77-84). Directed edges keep the component on
+    the left, so outer rings and hole rings come out with opposite
+    orientation. Returns {component_id: [loop [M, 2] float32, ...]} in data
+    units; vertices are raster-corner positions (fidelity = pixel size).
+    """
+    from collections import defaultdict
+
+    bg = int(_BG)
+    out = {}
+    H, W = labels_np.shape
+    fg_all = labels_np != bg
+    # ONE pass over the image per direction (the per-label version
+    # rescanned the full [H, W] grid once per component — O(L·H·W) host
+    # work and tens of GB of traffic at a few hundred domains); a
+    # boundary edge exists wherever the neighbor pixel carries a
+    # DIFFERENT label (background or another component)
+    diff = {}
+    for name, (dr, dc) in (("up", (-1, 0)), ("down", (1, 0)),
+                           ("left", (0, -1)), ("right", (0, 1))):
+        nb = np.full_like(labels_np, bg)
+        rs = slice(max(dr, 0), H + min(dr, 0))
+        rd = slice(max(-dr, 0), H + min(-dr, 0))
+        cs = slice(max(dc, 0), W + min(dc, 0))
+        cd = slice(max(-dc, 0), W + min(-dc, 0))
+        nb[rd, cd] = labels_np[rs, cs]
+        diff[name] = fg_all & (nb != labels_np)
+    # corner coordinates: (x=c, y=r); component kept on the left
+    edge_parts, lab_parts = [], []
+    r, c = np.nonzero(diff["up"])         # bg above: (c, r) -> (c+1, r)
+    edge_parts.append(np.stack([c, r, c + 1, r], 1))
+    lab_parts.append(labels_np[r, c])
+    r, c = np.nonzero(diff["right"])      # bg right: (c+1, r) -> (c+1, r+1)
+    edge_parts.append(np.stack([c + 1, r, c + 1, r + 1], 1))
+    lab_parts.append(labels_np[r, c])
+    r, c = np.nonzero(diff["down"])       # bg below: (c+1, r+1) -> (c, r+1)
+    edge_parts.append(np.stack([c + 1, r + 1, c, r + 1], 1))
+    lab_parts.append(labels_np[r, c])
+    r, c = np.nonzero(diff["left"])       # bg left: (c, r+1) -> (c, r)
+    edge_parts.append(np.stack([c, r + 1, c, r], 1))
+    lab_parts.append(labels_np[r, c])
+    E_all = np.concatenate(edge_parts, 0)
+    lab_all = np.concatenate(lab_parts, 0)
+    order = np.argsort(lab_all, kind="stable")
+    E_sorted, lab_sorted = E_all[order], lab_all[order]
+    starts = np.searchsorted(lab_sorted,
+                             np.unique(lab_sorted))
+
+    for li, lab in enumerate(np.unique(lab_sorted)):
+        stop = (starts[li + 1] if li + 1 < len(starts)
+                else len(lab_sorted))
+        E = E_sorted[starts[li]:stop]
+        # chain directed edges into loops
+        by_start = defaultdict(list)
+        for i, (x0, y0, x1, y1) in enumerate(E):
+            by_start[(int(x0), int(y0))].append(i)
+        used = np.zeros(len(E), bool)
+        loops = []
+        for i0 in range(len(E)):
+            if used[i0]:
+                continue
+            loop = [(int(E[i0, 0]), int(E[i0, 1]))]
+            cur = i0
+            while True:
+                used[cur] = True
+                end = (int(E[cur, 2]), int(E[cur, 3]))
+                loop.append(end)
+                nxt = None
+                for j in by_start.get(end, ()):
+                    if not used[j]:
+                        nxt = j
+                        break
+                if nxt is None:
+                    break
+                cur = nxt
+            if len(loop) >= 4 and loop[0] == loop[-1]:
+                arr = np.asarray(loop, np.float64)
+                arr[:, 0] = origin[0] + arr[:, 0] * pixel_size
+                arr[:, 1] = origin[1] + arr[:, 1] * pixel_size
+                loops.append(arr.astype(np.float32))
+        loops.sort(key=len, reverse=True)
+        out[int(lab)] = loops
+    return out

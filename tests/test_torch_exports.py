@@ -1,8 +1,9 @@
 """The port's public names against the JAX package's, subpackage by
-subpackage: every name the reference exports is exported by the port too,
-unless it is still queued for porting (ROADMAP Queue 1), and every name
-the port exports resolves. A porting PR moves names out of the queued
-lists; a name may not be both queued and exported.
+subpackage (``core``, ``ops``, ``spatial``, ``utils``, and the top level's
+IO): every name the reference exports is exported by the port too, unless
+it is still queued for porting (ROADMAP Queue 1), and every name the port
+exports resolves. A porting PR moves names out of the queued lists; a name
+may not be both queued and exported.
 """
 
 import importlib
@@ -19,25 +20,10 @@ torch.set_num_threads(1)
 #: names of the reference's ``__all__`` not ported yet, by subpackage, each
 #: with its ROADMAP Queue 1 item
 QUEUED = {
-    "core": {
-        # item 16: the rest of core
-        "Raw", "concat", "read_h5ad", "write_h5ad", "setup_logging",
-        "setup_file_logging", "MetadataTracker", "prepare_metadata_for_h5ad",
-        "restore_metadata_from_h5ad", "cache_result", "clear_cache",
-        "get_cache_path", "check_normalization_status",
-        "find_raw_counts_source", "normalize_total", "log1p",
-        "normalize_log1p_from_raw", "normalize_gene_names",
-        "load_ensembl_to_hugo_mapping", "is_ensembl_id",
-        "download_ensembl_mapping",
-    },
+    "core": set(),
     "ops": set(),
-    "spatial": {
-        # item 12: niches and domains
-        "neighborhood_enrichment", "compute_neighborhood_profile",
-        "identify_niches", "niche_stability", "make_spatial_domains",
-        "get_domain_summary", "detect_platform", "calculate_domain_distances",
-        "get_distance_matrix",
-    },
+    "spatial": set(),
+    "utils": set(),
 }
 
 
@@ -54,3 +40,12 @@ def test_port_exports_the_reference_names(sub):
     unresolved = [n for n in port.__all__ if not hasattr(port, n)]
     assert not unresolved, unresolved
     assert len(set(port.__all__)) == len(port.__all__)
+
+
+def test_top_level_exports_h5ad_io():
+    import spatialcore_tpu_torch as port
+
+    for name in ("read_h5ad", "write_h5ad", "SpatialData"):
+        assert name in port.__all__ and hasattr(port, name)
+    assert port.read_h5ad is importlib.import_module(
+        "spatialcore_tpu_torch.core").read_h5ad
