@@ -187,6 +187,25 @@ Phases (the script stops with a non-zero exit at the first failure):
    counts, profiles, raster masks and labels, domains and minimum
    distances bitwise; z and the null moments within rtol 1e-6, "mean"
    distances within 1e-5; niches equal up to renaming).
+13. The statistics and the annotation scoring path (torch ops, no kernel;
+   each call checked to launch none), at the size of a Xenium section:
+   1,000,000 cells x 377 genes (the human multi-tissue panel's width), 20
+   planted cell types with their canonical markers, log1p-normalized
+   counts made on the card; two ``CellTypeModel`` s from seeded numpy
+   arrays (class centroids as weights; one on 300 panel genes and 20 the
+   panel lacks), published to ``.npz`` and resolved back through a
+   registry. Timed: ``annotate_cells`` (the ensemble),
+   ``filter_low_confidence``, ``filter_by_marker_validation`` (its
+   confidence gate at 0.95, so that the marker GMM decides most cells),
+   ``marker_quality_metrics``, ``benchmark_annotation``,
+   ``rank_genes_groups`` over the planted types, ``classify_by_threshold``
+   (ks and gmm, on three markers only B cells carry), ``run_nmf`` (10 programs),
+   ``smooth_expression`` (3 steps, k = 6) and ``diffusion_map`` (10
+   components, k = 15); outputs checked against the planted truth. Then
+   20,000 cells on the card against the CPU: annotation labels, metagene
+   scores, the normal draws and the DEG output bitwise; decision scores,
+   confidences, the marker-validated labels, NMF, smoothing, the
+   diffusion map and the benchmark within stated tolerances.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it a
 JSON summary of every kernel, and the one before that nvidia-smi's name
@@ -3899,6 +3918,323 @@ def phase_niches_vs_cpu(dev, n_cells: int = 20_000, n_perms: int = 30):
           f"{worst == 0}); mean distances {mean_err:.3g}; niche ARI {ari}")
 
 
+# Phase 13: the statistics and the annotation scoring path
+# ---------------------------------------------------------------------------
+
+#: a Xenium section: the human multi-tissue panel's 377 genes
+ANNOT_CELLS = 1_000_000
+ANNOT_GENES = 377
+#: planted cell types, each with its canonical markers in the panel
+ANNOT_TYPES = ("B cell", "T cell", "CD4-positive, alpha-beta T cell",
+               "CD8-positive, alpha-beta T cell", "natural killer cell",
+               "plasma cell", "monocyte", "macrophage", "dendritic cell",
+               "mast cell", "neutrophil", "endothelial cell",
+               "lymphatic endothelial cell", "fibroblast",
+               "smooth muscle cell", "pericyte", "epithelial cell",
+               "basal cell", "goblet cell", "adipocyte")
+
+
+def annotation_panel(n_types: int = len(ANNOT_TYPES), n_genes: int = ANNOT_GENES,
+                     seed: int = 0):
+    """(types, genes, expected log1p profile [T, G], markers): the planted
+    types' canonical markers first, then filler genes up to the panel's
+    width; numpy, from ``seed``."""
+    from spatialcore_tpu_torch.annotation import load_canonical_markers
+    markers = load_canonical_markers()
+    types = list(ANNOT_TYPES[:n_types])
+    genes = sorted({g for t in types for g in markers[t]})
+    genes += [f"PANEL{i:03d}" for i in range(n_genes - len(genes))]
+    gi = {g: i for i, g in enumerate(genes)}
+    rng = np.random.default_rng(seed)
+    base = rng.gamma(2.0, 0.15, n_genes)
+    n_mark = n_genes - sum(g.startswith("PANEL") for g in genes)
+    base[:n_mark] *= 0.1            # a marker is near silent off its types
+    mu = np.tile(base, (n_types, 1))
+    for t, ty in enumerate(types):
+        for g in markers[ty]:
+            mu[t, gi[g]] += 2.5
+    return types, genes, mu.astype(np.float32), markers
+
+
+def annotation_section(dev, n_cells: int = ANNOT_CELLS, seed: int = 0):
+    """A SpatialData on ``dev``: Poisson counts of the planted profiles,
+    log1p-normalized (10⁴ per cell) as float32 X, cells uniform at the 1M
+    density of phase 3 (coordinates on the card), and the true types."""
+    types, genes, mu, markers = annotation_panel(seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lab = torch.randint(0, len(types), (n_cells,), generator=gen, device=dev)
+    counts = torch.poisson(torch.as_tensor(mu, device=dev)[lab], generator=gen)
+    X = torch.log1p(counts / counts.sum(1, keepdim=True).clamp_min(1) * 1e4)
+    del counts
+    side = SIDE * (n_cells / 1e6) ** 0.5
+    d = SpatialData(X=X, obs=pd.DataFrame({"truth": pd.Categorical.from_codes(
+        lab.cpu().numpy(), types)}), var=pd.DataFrame(index=genes))
+    d.obsm["spatial"] = uniform_coords(n_cells, side, gen, dev)
+    return d, types, genes, mu, markers
+
+
+def annotation_models(types, genes, mu, seed: int = 0):
+    """Two CellTypeModels from seeded numpy arrays: the panel model (the
+    standardized class centroids of 200 numpy-drawn cells a type as
+    weights, their mean and std as the scaler) and a partial one (300 of
+    the panel's genes and 20 genes the panel lacks)."""
+    from spatialcore_tpu_torch.annotation import CellTypeModel
+    rng = np.random.default_rng(seed + 1)
+    lab = np.repeat(np.arange(len(types)), 200)
+    c = rng.poisson(mu[lab]).astype(np.float64)
+    x = np.log1p(c / np.maximum(c.sum(1, keepdims=True), 1) * 1e4)
+    cent = np.stack([x[lab == t].mean(0) for t in range(len(types))])
+    mean, std = x.mean(0), x.std(0) + 1e-3
+    W = ((cent - mean) / std).T.astype(np.float32)
+    full = CellTypeModel(list(genes), list(types), W,
+                         np.zeros(len(types), np.float32),
+                         mean.astype(np.float32), std.astype(np.float32),
+                         {"model_name": "panel"})
+    keep = np.sort(rng.choice(len(genes), 300, replace=False))
+    absent = [f"OTHER{i:02d}" for i in range(20)]
+    part = CellTypeModel(
+        [genes[i] for i in keep] + absent, list(types),
+        np.vstack([W[keep] * 1.2, rng.normal(0, 0.5, (20, len(types)))]
+                  ).astype(np.float32),
+        rng.normal(0, 0.1, len(types)).astype(np.float32),
+        np.concatenate([mean[keep], np.ones(20)]).astype(np.float32),
+        np.concatenate([std[keep], np.ones(20)]).astype(np.float32),
+        {"model_name": "partial"})
+    return full, part
+
+
+def own_markers(markers, types, ct: str, n: int = 3):
+    """The first ``n`` canonical markers of ``ct`` that no other planted
+    type carries."""
+    others = {g for t in types if t != ct for g in markers[t]}
+    return [g for g in markers[ct] if g not in others][:n]
+
+
+def annotation_path(d, dev, models, markers, b_markers):
+    """The slice's calls on ``d`` (on ``dev``), each timed and run with
+    every launch count at 0 (torch ops, no kernel): the scoring path in
+    order, then DEG, classification, NMF, smoothing and the diffusion map.
+    Returns the times."""
+    from spatialcore_tpu_torch.annotation import (annotate_cells,
+                                                  benchmark_annotation,
+                                                  filter_by_marker_validation,
+                                                  filter_low_confidence,
+                                                  marker_quality_metrics)
+    from spatialcore_tpu_torch.diffusion import diffusion_map, smooth_expression
+    from spatialcore_tpu_torch.nmf import run_nmf
+    from spatialcore_tpu_torch.stats import (classify_by_threshold,
+                                             rank_genes_groups)
+    calls = [
+        ("annotate_cells (2 models)", lambda: annotate_cells(
+            d, models, device=dev)),
+        ("filter_low_confidence", lambda: filter_low_confidence(
+            d, threshold=0.5)),
+        ("filter_by_marker_validation", lambda: filter_by_marker_validation(
+            d, markers=markers, confidence_threshold=0.95, device=dev)),
+        ("marker_quality_metrics", lambda: marker_quality_metrics(
+            d, markers=markers, device=dev)),
+        ("benchmark_annotation", lambda: benchmark_annotation(
+            d, markers=markers, model_genes=models[1].genes,
+            confidence_column="cell_type_confidence", device=dev)),
+        ("rank_genes_groups", lambda: rank_genes_groups(
+            d, "truth", n_genes=20, device=dev)),
+        ("classify_by_threshold ks", lambda: classify_by_threshold(
+            d, b_markers, threshold_method="ks", column_prefix="b_ks",
+            plot=False, device=dev)),
+        ("classify_by_threshold gmm", lambda: classify_by_threshold(
+            d, b_markers, threshold_method="gmm", column_prefix="b_gmm",
+            plot=False, device=dev)),
+        ("run_nmf (10 programs)", lambda: run_nmf(
+            d, n_components=10, device=dev)),
+        ("smooth_expression (3 steps, k = 6)", lambda: smooth_expression(
+            d, n_steps=3, n_neighbors=6, device=dev)),
+        ("diffusion_map (10 components, k = 15)", lambda: diffusion_map(
+            d, n_components=10, n_neighbors=15, device=dev)),
+    ]
+    times = {}
+    for name, fn in calls:
+        if name.startswith("diffusion_map"):
+            d.uns.pop(acorr.GRAPH_UNS_KEY, None)    # the k = 6 graph
+        times[name] = no_kernel(dev, name, fn)
+    return times
+
+
+def phase_annotation(dev, smi: str, n_cells: int = ANNOT_CELLS):
+    """The statistics and the annotation scoring path at the size of a
+    Xenium section on the card: 1M cells x 377 genes, 20 planted types;
+    two models saved to .npz and resolved back through a registry, then
+    every call of :func:`annotation_path`, each timed, and its output
+    checked against the planted truth."""
+    from spatialcore_tpu_torch.annotation import (publish_model,
+                                                  resolve_model)
+    release()
+    t0 = time.perf_counter()
+    (d, types, genes, mu, markers), t_data = timed(
+        lambda: annotation_section(dev, n_cells), dev)
+    full, part = annotation_models(types, genes, mu)
+    with tempfile.TemporaryDirectory() as tmp:
+        reg = Path(tmp) / "registry.json"
+        for m in (full, part):
+            publish_model(m, m.metadata["model_name"], models_dir=tmp,
+                          registry_path=reg)
+        models, t_res = timed(lambda: [resolve_model(
+            name, models_dir=Path(tmp) / "none", registry_path=reg)
+            for name in ("panel", "partial")], "cpu")
+    check(all(np.array_equal(a.W, b.W) for a, b in zip(models, (full, part))),
+          "the resolved models differ from the saved ones")
+    print(f"[annot] {n_cells:,} cells x {len(genes)} genes, {len(types)} "
+          f"planted types: made on the card in {t_data:.3f} s; two models "
+          f"saved and resolved through a registry in {t_res:.3f} s")
+    times = annotation_path(d, dev, models, markers,
+                            own_markers(markers, types, "B cell"))
+    truth = d.obs["truth"].astype(str).to_numpy()
+    pred = d.obs["cell_type_predicted"].astype(str).to_numpy()
+    acc = float((pred == truth).mean())
+    conf = d.obs["cell_type_confidence"].to_numpy()
+    check(acc > 0.9 and np.isfinite(conf).all(),
+          f"annotate_cells: accuracy {acc:.4f} against the planted types")
+    scores = torch.as_tensor(d.obsm["cell_type_decision_scores"])
+    check(scores.device.type == dev.type
+          and tuple(scores.shape) == (n_cells, len(types))
+          and bool(torch.isfinite(scores).all()),
+          "the decision scores are not a finite [N, C] tensor on the card")
+    un = float((d.obs["cell_type"] == "Unassigned").mean())
+    summ = d.uns["annotation_benchmark"]["summary"]
+    check(all(np.isfinite(v) for v in summ.values()) and un < 0.2,
+          f"benchmark summary {summ}, unassigned {un:.4f}")
+    rg = d.uns["rank_genes_groups"]
+    hits = np.mean([rg["names"][t][0] in markers[t] for t in types])
+    check(hits >= 0.9, f"top DEG is a canonical marker for {hits:.2%} of types")
+    is_b = truth == "B cell"
+    n_b = int(is_b.sum())
+    found = {}
+    for pre in ("b_ks", "b_gmm"):
+        high = d.obs[f"{pre}_cluster"].to_numpy() == 1
+        recall = float(high[is_b].mean())
+        enrich = float(is_b[high].mean() / is_b.mean())
+        found[pre] = f"{int(high.sum()):,} high, recall {recall:.4f}, " \
+            f"B cells enriched {enrich:.1f}x"
+        # a 2-component GMM of a zero-inflated metagene may split the B
+        # cells' own mode; the high cluster must still be mostly theirs
+        check(recall >= 0.7 and enrich >= 5,
+              f"classify_by_threshold {pre}: {found[pre]}")
+    nmf = d.uns["nmf_params"]
+    check(0 < nmf["final_relative_loss"] < 1, f"NMF loss {nmf}")
+    sm = torch.as_tensor(d.layers["diffused"])
+    check(sm.device.type == dev.type and bool(torch.isfinite(sm).all()),
+          "smoothing output")
+    ev = np.asarray(d.uns["X_diffmap_evals"])
+    check(bool(np.all(np.isfinite(ev)) and np.all(np.abs(ev) <= 1 + 1e-3)),
+          f"diffusion eigenvalues {ev}")
+    total = time.perf_counter() - t0
+    print(f"[annot] {n_cells:,} cells [{smi}]: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in times.items())
+        + f"; accuracy {acc:.4f}, unassigned after the filters {un:.4f}, "
+        f"benchmark " + ", ".join(f"{k} {v:.4f}" for k, v in summ.items())
+        + f"; top DEG a marker for {hits:.0%} of types; {n_b:,} B cells, "
+        f"ks {found['b_ks']}, gmm {found['b_gmm']}; NMF loss "
+        f"{nmf['final_relative_loss']:.4f} in {nmf['n_iter']} steps; "
+        f"diffusion eigenvalues {ev[:3].round(5).tolist()}...; "
+        f"phase 13 at {n_cells:,} took {total:.1f} s")
+    del d, scores, sm
+    release()
+    return times
+
+
+def phase_annotation_vs_cpu(dev, n_cells: int = 20_000):
+    """The same path at 20,000 cells (the same panel, the 1M density) on the
+    card and on the CPU: what is bitwise, and what within a tolerance
+    (decision scores 1e-6 of the largest |score|, confidences 1e-5, NMF
+    loss rtol 1e-4 at 30 fixed steps and 1e-3 with the stop within a step,
+    smoothing 1e-6, diffusion eigenvalues 1e-5 and embedding 1e-4 up to
+    sign, log fold changes and the benchmark 1e-4, labels after the marker
+    validation on all but 0.1% of cells)."""
+    from spatialcore_tpu_torch.core import rng as prng
+    from spatialcore_tpu_torch.stats.thresholding import compute_metagene_score
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        d, types, genes, mu, markers = annotation_section(dev, n_cells, seed=5)
+        d.X = d.X.to(where)
+        d.obsm["spatial"] = d.obsm["spatial"].to(where)
+        models = annotation_models(types, genes, mu, seed=5)
+        annotation_path(d, where, models, markers,
+                        own_markers(markers, types, "B cell"))
+        runs.append(d)
+    card, cpu = runs
+    same = {}
+    for c in ("cell_type_predicted", "truth"):
+        same[c] = card.obs[c].astype(str).equals(cpu.obs[c].astype(str))
+    check(same["cell_type_predicted"], "annotate_cells labels differ")
+    sc_cpu = torch.as_tensor(cpu.obsm["cell_type_decision_scores"])
+    # float32 products in another order: relative to the largest |score|
+    ds = float((torch.as_tensor(card.obsm["cell_type_decision_scores"]).cpu()
+                - sc_cpu).abs().max() / sc_cpu.abs().max())
+    dc = float(np.abs(card.obs["cell_type_confidence"].to_numpy()
+                      - cpu.obs["cell_type_confidence"].to_numpy()).max())
+    check(ds <= 1e-6 and dc <= 1e-5, f"decision scores {ds} (relative), "
+          f"confidence {dc}")
+    lab_diff = int((card.obs["cell_type"].astype(str)
+                    != cpu.obs["cell_type"].astype(str)).sum())
+    check(lab_diff <= n_cells // 1000, f"{lab_diff} labels differ after the "
+          "marker validation")
+    X = cpu.X[:, :5]
+    meta = compute_metagene_score(X.to(dev), device=dev).cpu()
+    same["metagene"] = torch.equal(meta, compute_metagene_score(X, device="cpu"))
+    k = prng.key_for(0, "diffmap")
+    same["normal"] = torch.equal(prng.normal(k, (n_cells, 10), device=dev).cpu(),
+                                 prng.normal(k, (n_cells, 10)))
+    ra, rb = card.uns["rank_genes_groups"], cpu.uns["rank_genes_groups"]
+    same["deg"] = all(ra[f] == rb[f] for f in ("names", "scores", "pvals",
+                                               "pvals_adj"))
+    lfc = max(float(np.max(np.abs(np.subtract(ra["logfoldchanges"][t],
+                                              rb["logfoldchanges"][t]))))
+              for t in ra["names"])
+    check(same["metagene"] and same["deg"] and lfc <= 1e-4,
+          f"card against CPU: metagene bitwise {same['metagene']}, DEG "
+          f"bitwise {same['deg']}, log fold changes {lfc}")
+    for pre in ("b_ks", "b_gmm"):
+        same[pre] = card.obs[f"{pre}_cluster"].equals(cpu.obs[f"{pre}_cluster"])
+    # run_nmf stops where two successive losses lie within 1e-4 of each
+    # other, so float32 products in another order can move the stop by a
+    # step on a slow plateau; at a fixed count of steps the losses agree
+    na, nb = card.uns["nmf_params"], cpu.uns["nmf_params"]
+    nmf_rel = abs(na["final_relative_loss"] / nb["final_relative_loss"] - 1)
+    check(nmf_rel <= 1e-3 and abs(na["n_iter"] - nb["n_iter"]) <= 1,
+          f"NMF: {na['final_relative_loss']} in {na['n_iter']} steps against "
+          f"{nb['final_relative_loss']} in {nb['n_iter']}")
+    from spatialcore_tpu_torch.nmf import nmf_fit
+    fixed = [float(nmf_fit(d.X, 10, max_iter=30, tol=0.0).loss)
+             for d in (card, cpu)]
+    fixed_rel = abs(fixed[0] / fixed[1] - 1)
+    check(fixed_rel <= 1e-4, f"NMF at 30 fixed steps: loss {fixed}")
+    sm_card = torch.as_tensor(card.layers["diffused"]).cpu()
+    sm_cpu = torch.as_tensor(cpu.layers["diffused"])
+    same["smooth"] = torch.equal(sm_card, sm_cpu)
+    sm = float((sm_card - sm_cpu).abs().max())
+    ea, eb = card.obsm["X_diffmap"], cpu.obsm["X_diffmap"]
+    sign = np.sign((ea * eb).sum(axis=0))
+    emb = float(np.abs(ea * sign - eb).max())
+    evd = float(np.abs(np.subtract(card.uns["X_diffmap_evals"],
+                                   cpu.uns["X_diffmap_evals"])).max())
+    check(sm <= 1e-6 and evd <= 1e-5 and emb <= 1e-4,
+          f"smoothing {sm}, diffusion eigenvalues {evd}, embedding {emb}")
+    sa = card.uns["annotation_benchmark"]["summary"]
+    sb = cpu.uns["annotation_benchmark"]["summary"]
+    bd = max(abs(sa[k] - sb[k]) for k in sa if np.isfinite(sb[k]))
+    check(bd <= 1e-4, f"benchmark summaries differ by {bd}")
+    print(f"[annot] {n_cells:,} cells, card against CPU: bitwise "
+          + ", ".join(k for k, v in same.items() if v)
+          + (f"; not bitwise {[k for k, v in same.items() if not v]}"
+             if not all(same.values()) else "")
+          + f"; decision scores {ds:.3g} of the largest, confidence {dc:.3g}, "
+          f"labels after "
+          f"the marker validation differ for {lab_diff} cells, log fold "
+          f"changes {lfc:.3g}, run_nmf loss rel {nmf_rel:.3g} ({na['n_iter']} "
+          f"against {nb['n_iter']} steps) and {fixed_rel:.3g} at 30 fixed "
+          f"steps, smoothing {sm:.3g}, diffusion eigenvalues {evd:.3g}, "
+          f"embedding {emb:.3g} up to sign, benchmark {bd:.3g}")
+
+
 def lisa_sass(listing: str) -> None:
     """The local draw step's SASS by instance (template arguments: STAT,
     FAR, COUNT, counter type, k unrolled): instructions in all and the
@@ -4156,6 +4492,14 @@ def main() -> None:
     phase_niches_vs_cpu(dev)
     print(f"[path] phase 12 (niches and domains) took "
           f"{time.perf_counter() - t12:.1f} s [{smi}]")
+
+    # the statistics and the annotation scoring path (torch ops, no kernel;
+    # each call checked to launch none)
+    t13 = time.perf_counter()
+    phase_annotation(dev, smi)
+    phase_annotation_vs_cpu(dev)
+    print(f"[path] phase 13 (statistics and annotation scoring) took "
+          f"{time.perf_counter() - t13:.1f} s [{smi}]")
     print(f"[path] the whole script took {time.perf_counter() - T_START:.1f} s "
           f"[{smi}]")
 

@@ -11,7 +11,10 @@ statistics (Ripley's K / L, cross-type K, co-occurrence, Clark-Evans,
 ``spatialcore_tpu_torch.spatial``); neighborhood enrichment, niches
 (k-means over neighborhood profiles), raster spatial domains and domain
 distances; the h5ad container and its IO, normalization and gene names
-(``core``); profiling hooks and a Xenium-like simulator (``utils``). The
+(``core``); profiling hooks and a Xenium-like simulator (``utils``);
+threshold classification and Wilcoxon DEG (``stats``), NMF gene programs
+(``nmf``), graph diffusion (``diffusion``) and the cell-type annotation
+scoring path with its confidence filters and benchmark (``annotation``). The
 kernels are in ``csrc/``. The JAX package ``spatialcore_tpu`` is the
 reference every part of this package is tested against; this package
 imports ``torch`` and never ``jax``.
@@ -23,6 +26,7 @@ the kernel, or the call raises.
 
 __version__ = "0.1.0"
 
+from . import annotation, diffusion, nmf, stats
 from .core import (SpatialData, get_logger, key_for, read_h5ad,
                    update_metadata, write_h5ad)
 from .spatial import (build_spatial_weights, gearys_c, getis_ord_gi,
@@ -31,9 +35,10 @@ from .spatial import (build_spatial_weights, gearys_c, getis_ord_gi,
                       local_gearys_c_multivariate, local_join_counts,
                       local_morans_i, morans_i)
 
-__all__ = ["SpatialData", "__version__", "build_spatial_weights", "gearys_c",
+__all__ = ["SpatialData", "__version__", "annotation", "build_spatial_weights",
+           "diffusion", "gearys_c",
            "get_logger", "getis_ord_gi", "global_autocorrelation",
            "join_count_statistics", "key_for", "lees_l", "lees_l_local",
            "local_gearys_c", "local_gearys_c_multivariate",
-           "local_join_counts", "local_morans_i", "morans_i",
-           "read_h5ad", "update_metadata", "write_h5ad"]
+           "local_join_counts", "local_morans_i", "morans_i", "nmf",
+           "read_h5ad", "stats", "update_metadata", "write_h5ad"]

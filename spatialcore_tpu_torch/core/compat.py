@@ -8,8 +8,11 @@ signature take both, so code written against either keeps working.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable
+
+import torch
 
 
 def param_aliases(**aliases: str) -> Callable:
@@ -39,3 +42,19 @@ def param_aliases(**aliases: str) -> Callable:
         return wrapper
 
     return deco
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Run float32 matrix products in full float32, as the reference does:
+    TF32 off for cuBLAS and cuDNN inside the block, the caller's settings
+    restored after it."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

@@ -72,6 +72,26 @@ def _take(v, rows: np.ndarray, cols: Optional[np.ndarray] = None):
     return v[np.ix_(rows, cols)].copy()
 
 
+def dense_f32(X, device, rows=None, cols=None) -> torch.Tensor:
+    """``X`` (a tensor, numpy or scipy sparse matrix), with ``rows`` and
+    ``cols`` taken where given, as a dense float32 tensor on ``device``. A
+    tensor is indexed where it lies and moved once; other inputs are
+    densified on the host."""
+    if isinstance(X, torch.Tensor):
+        if rows is not None:
+            X = X.index_select(0, torch.as_tensor(rows, device=X.device))
+        if cols is not None:
+            X = X.index_select(1, torch.as_tensor(cols, device=X.device))
+        return X.to(device=device, dtype=torch.float32)
+    if rows is not None:
+        X = X[rows]
+    if cols is not None:
+        X = X[:, cols]
+    if sp.issparse(X):
+        X = X.toarray()
+    return torch.as_tensor(np.asarray(X, dtype=np.float32), device=device)
+
+
 class Raw:
     """Frozen snapshot of (X, var) before a transformation, like AnnData.raw."""
 

@@ -15,7 +15,12 @@ in torch integer ops, under jax 0.9's default
   ``randint``'s bits-to-range mapping (``jax/_src/random.py``: ``_randint``)
   and ``permutation`` (``_shuffle``: rounds of stable sorts by random keys),
   and ``choice(replace=False)`` without weights, which is a prefix of a
-  ``permutation`` (``jax/_src/random.py``: ``choice``).
+  ``permutation`` (``jax/_src/random.py``: ``choice``);
+- ``uniform`` and ``normal`` (√2 · erf⁻¹ of a uniform), with the float32
+  arithmetic of the reference's CPU run: fused multiply-adds formed
+  exactly (:func:`_fma32`), and XLA's own ``exp``, ``log``, ``log1p`` and
+  ``erf_inv`` approximations (:func:`_exp32`, :func:`_log32`,
+  :func:`_log1p32`, :func:`_erf_inv32`), which other modules reuse.
 
 torch has no full uint32 arithmetic, so values are held in int64 with
 ``& 0xFFFFFFFF`` masks. Additions, xors and shifts of 32-bit values stay
@@ -30,6 +35,7 @@ sorts of ``permutation`` — runs on the caller's device.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Union
 
 import numpy as np
@@ -183,6 +189,140 @@ def uniform(k: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     hi = torch.tensor(maxval, dtype=torch.float32, device=device)
     return torch.maximum(lo, _fma32(floats, (hi - lo).expand_as(floats),
                                     lo.expand_as(floats)))
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """:func:`_fma32` of broadcast float32 operands on one device."""
+    return _fma32(*torch.broadcast_tensors(a, b, c))
+
+
+def _c(x: torch.Tensor, v: float) -> torch.Tensor:
+    """The float32 constant ``v`` on ``x``'s device."""
+    return torch.tensor(v, dtype=torch.float32, device=x.device)
+
+
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+          4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def _exp32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``exp`` as XLA's CPU backend computes it: n = ⌊x·log2(e) +
+    ½⌋ clamped to ±127, a = x − n·ln 2 in two fused steps, a Cephes
+    polynomial in Horner form of fused multiply-adds, times 2ⁿ; results
+    below the smallest normal flush to 0."""
+    x = x.clamp(-87.8, 88.8)
+    n = torch.floor(_fma(x, _c(x, 1.44269504088896341), _c(x, 0.5)))
+    n = n.clamp(-127.0, 127.0)
+    a = _fma(_c(x, -0.693359375), n, x)
+    a = _fma(_c(x, 2.12194440e-4), n, a)
+    z = _fma(a, _c(x, _EXP_P[0]), _c(x, _EXP_P[1]))
+    for p in _EXP_P[2:]:
+        z = _fma(z, a, _c(x, p))
+    z = 1.0 + _fma(z, a * a, a)
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = z * pow2
+    return torch.where(out < 1.1754943508222875e-38, torch.zeros_like(out), out)
+
+
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+
+
+def _log32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log`` as XLA's CPU backend computes it: the mantissa in
+    [√½, √2) − 1, a Cephes polynomial in three interleaved Horner chains of
+    fused multiply-adds, and the exponent's two-part ln 2 added back with
+    the compiler's fusions. 0 → −inf, negative → NaN, +inf → +inf."""
+    inp = torch.maximum(x, _c(x, 1.1754943508222875e-38))
+    bits = inp.view(torch.int32)
+    e = 1.0 + ((bits >> 23) - 127).to(torch.float32)
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
+    small = m < 0.707106781186547524
+    xx = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    e = e - small.to(torch.float32)
+    x2 = xx * xx
+    x3 = x2 * xx
+    P = [_c(x, p) for p in _LOG_P]
+    y = _fma(xx, P[0], P[1])
+    y1 = _fma(xx, P[3], P[4])
+    y2 = _fma(xx, P[6], P[7])
+    y = _fma(y, xx, P[2])
+    y1 = _fma(y1, xx, P[5])
+    y2 = _fma(y2, xx, P[8])
+    y = _fma(y, x3, y1)
+    y = _fma(y, x3, y2)
+    y = _fma(y, x3, -2.12194440e-4 * e)
+    xx = _fma(x2, _c(x, -0.5), xx) + y
+    out = _fma(_c(x, 0.693359375), e, xx)
+    out = torch.where(x == 0, torch.full_like(out, -math.inf), out)
+    out = torch.where(x < 0, torch.full_like(out, math.nan), out)
+    out = torch.where(torch.isposinf(x), x, out)
+    return torch.where(torch.isnan(x), x, out)
+
+
+
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+
+
+def _horner(x: torch.Tensor, coeffs) -> torch.Tensor:
+    p = torch.zeros_like(x)
+    for c in coeffs:
+        p = _fma(p, x, _c(x, c))
+    return p
+
+
+def _log1p32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log1p`` as XLA's CPU backend computes it: below
+    √2 − 1 in magnitude a Cephes rational x − x²/2 + x³·P(x)/Q(x) (Horner
+    chains of fused multiply-adds), above it :func:`_log32` of 1 + x."""
+    x2 = x * x
+    q = _horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN)
+    small = x + _fma(_c(x, -0.5), x2, (x * x2) * q)
+    return torch.where(x.abs() < 0.41421356237309504880, small,
+                       _log32(x + 1.0))
+
+
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erf_inv32(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function as XLA computes it: Giles' single
+    precision approximation, w = −log1p(−x²) (:func:`_log1p32`), a degree-8
+    polynomial in w − 2.5 below w = 5 and in √w − 3 above it (a correctly
+    rounded root, :func:`_sqrt32`), evaluated by fused multiply-adds; ±1
+    gives ±inf."""
+    w = -_log1p32(-(x * x))
+    lt = w < 5
+    w = torch.where(lt, w - 2.5, _sqrt32(w) - 3.0)
+    p = None
+    for a, b in zip(_ERFINV_LT5, _ERFINV_GE5):
+        c = torch.where(lt, _c(x, a), _c(x, b))
+        p = c if p is None else _fma(p, w, c)
+    out = p * x
+    return torch.where(x.abs() == 1, x * math.inf, out)
+
+
+def normal(k: torch.Tensor, shape: Sequence[int],
+           device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` (jax 0.9 ``_normal_real``):
+    √2 · erf⁻¹(u) for u = ``uniform(key, shape, nextafter(−1, 0), 1)``,
+    computed on ``device``, bitwise the reference's: u is, and erf⁻¹
+    follows XLA's CPU arithmetic (:func:`_erf_inv32`)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(k, shape, lo, 1.0, device)
+    return float(np.float32(math.sqrt(2.0))) * _erf_inv32(u)
 
 
 def _choice(k: torch.Tensor, m: int, size: int,
