@@ -206,6 +206,24 @@ Phases (the script stops with a non-zero exit at the first failure):
    scores, the normal draws and the DEG output bitwise; decision scores,
    confidences, the marker-validated labels, NMF, smoothing, the
    diffusion map and the benchmark within stated tolerances.
+14. The training half of annotation, the pipeline and the command line
+   (torch ops, no kernel; each call checked to launch none): two
+   in-memory references of 250,000 cells x 500 genes (phase 13's 377 panel
+   genes, other seeds, and 123 genes the panel lacks; raw counts as CSR;
+   author-style labels and 1% junk labels; one lacks 5 panel genes, one
+   names its genes by Ensembl ID) through ``train_and_annotate`` onto
+   phase 13's 1M x 377 section with its defaults (5,000 cells a type, 30
+   epochs, batch 1,024), each stage timed from the pipeline's log lines;
+   ``train_cell_type_model`` on the section for 3 epochs (976 steps an
+   epoch: s an epoch, ms a step, the host scaler timed apart); a
+   checkpointed run resumed to the same epoch count against the
+   uninterrupted one; accuracy against the planted types (floor 0.95).
+   Then 20,000 cells on the card against the CPU (weights within 1e-4 of
+   max|W|; labels, scaler, classes, predicted labels and CL IDs equal;
+   thresholded labels on all but 0.1% of cells), and the command line:
+   ``python -m spatialcore_tpu_torch info``, the YAML round trip where
+   yaml imports and the h5ad commands where h5py imports (else one line
+   says why not).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it a
 JSON summary of every kernel, and the one before that nvidia-smi's name
@@ -217,6 +235,7 @@ from __future__ import annotations
 import cProfile
 import gc
 import json
+import logging
 import pstats
 import subprocess
 import sys
@@ -3766,14 +3785,16 @@ def niche_path(d, dev, n_perms: int, subset=None, domain_cols=DOMAIN_TYPES):
 
 def raster_only(d, ct: str, dev):
     """The raster pipeline of ``make_spatial_domains(platform="xenium")``
-    alone, for ``ct``'s cells: (its result, CC iterations, H × W, pixel)."""
+    alone, for ``ct``'s cells: (its result, CC iterations, H × W, pixel,
+    the radii, whether the CC loop stopped at its cap with labels still
+    changing)."""
     coords = np.asarray(d.obsm["spatial"], np.float64)
     lo, pixel, shape, rb, rs = dom.raster_grid(coords, 50.0, 25.0, 2048, 8)
     mask = (d.obs["true_type"] == ct).to_numpy()
-    res, iters = geometry._buffer_union_shrink(
+    res, iters, capped = geometry._buffer_union_shrink(
         dom.to_pixels(coords[mask], lo, pixel, shape),
         dom.to_pixels(coords, lo, pixel, shape), shape, rb, rs, dev)
-    return res, iters, shape, pixel, (rb, rs)
+    return res, iters, shape, pixel, (rb, rs), capped
 
 
 def phase_niches(dev, smi: str, n_cells: int = NICHE_CELLS,
@@ -3834,14 +3855,16 @@ def phase_niches(dev, smi: str, n_cells: int = NICHE_CELLS,
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
           + " (whole_draw: the observed counts and one draw)")
     for ct, col in DOMAIN_TYPES:
-        (res, iters, shape, pixel, radii), t_r = timed(
+        (res, iters, shape, pixel, radii, capped), t_r = timed(
             lambda: raster_only(d, ct, dev), dev)
         p = d.uns[f"{col}_params"]
         check(p["n_domains"] >= 1 and int(res.mask.sum()) > 0,
               f"no domain around {ct}")
         print(f"[niches] domains around {ct}: raster {shape[0]} x {shape[1]}, "
               f"pixel {pixel:.4f} um, r_buffer / r_shrink {radii} px, "
-              f"connected_components {iters} iterations, raster pipeline "
+              f"connected_components {iters} iterations (cap "
+              f"{geometry.CC_MAX_ITER}, the cap's warning "
+              f"{'fired' if capped else 'did not fire'}), raster pipeline "
               f"alone {t_r:.3f} s; {p['n_domains']} domains, "
               f"{p['n_target_cells']:,} target and {p['n_assigned_cells']:,} "
               f"assigned cells")
@@ -4235,6 +4258,322 @@ def phase_annotation_vs_cpu(dev, n_cells: int = 20_000):
           f"embedding {emb:.3g} up to sign, benchmark {bd:.3g}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the training half of annotation, the pipeline and the CLI
+# ---------------------------------------------------------------------------
+
+#: the references' author-style labels of the planted types
+REF_LABELS = {
+    "B cell": "B cells", "T cell": "T cells",
+    "CD4-positive, alpha-beta T cell": "CD4+ T cells",
+    "CD8-positive, alpha-beta T cell": "CD8+ T cells",
+    "natural killer cell": "NK cells", "plasma cell": "Plasma cells",
+    "monocyte": "Monocytes", "macrophage": "Macrophages",
+    "dendritic cell": "Dendritic cells", "mast cell": "Mast cells",
+    "neutrophil": "Neutrophils", "endothelial cell": "Endothelial cells",
+    "lymphatic endothelial cell": "Lymphatic endothelial cells",
+    "fibroblast": "Fibroblasts", "smooth muscle cell": "Smooth muscle cells",
+    "pericyte": "Pericytes", "epithelial cell": "Epithelial cells",
+    "basal cell": "Basal cells", "goblet cell": "Goblet cells",
+    "adipocyte": "Adipocytes"}
+#: labels that ``DEFAULT_EXCLUDE_LABELS`` drops, on 1% of the cells
+REF_JUNK = ("Unknown", "doublet", "low quality")
+REF_CELLS = 250_000
+REF_GENES = 500
+#: filler panel genes the first reference lacks (the inner join drops them)
+REF_MISSING = 5
+
+
+def annotation_references(dev, n_cells: int = REF_CELLS, seeds=(1, 2)):
+    """Two reference containers on the host, each ``n_cells`` x 500 genes:
+    the panel's 377 genes (phase 13's profiles, other seeds) and 123 the
+    panel lacks; raw Poisson counts drawn on ``dev`` and kept as CSR in X
+    and ``layers["counts"]``; author-style labels (``REF_LABELS``) and 1%
+    junk labels. The first lacks ``REF_MISSING`` filler panel genes, the
+    second names its genes by Ensembl ID where the bundled mapping has one.
+    """
+    import scipy.sparse as sp
+    from spatialcore_tpu_torch.core.genes import load_ensembl_to_hugo_mapping
+    types, genes, mu, _ = annotation_panel(seed=0)
+    rng = np.random.default_rng(seeds[0])
+    extra = [f"OFFPANEL{i:03d}" for i in range(REF_GENES - len(genes))]
+    mu_all = np.hstack([mu, rng.gamma(2.0, 0.3, (len(types), len(extra)))]
+                       ).astype(np.float32)
+    names = np.array(genes + extra, dtype=object)
+    hugo_to_ens = {}
+    for ens, hugo in load_ensembl_to_hugo_mapping().items():
+        hugo_to_ens.setdefault(hugo, ens)
+    labels = np.array([REF_LABELS[t] for t in types] + list(REF_JUNK),
+                      dtype=object)
+    refs = []
+    for r, seed in enumerate(seeds):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        lab = torch.randint(0, len(types), (n_cells,), generator=gen,
+                            device=dev)
+        counts = torch.poisson(torch.as_tensor(mu_all, device=dev)[lab],
+                               generator=gen)
+        csr = counts.to_sparse_csr()
+        X = sp.csr_matrix((csr.values().cpu().numpy(),
+                           csr.col_indices().to(torch.int32).cpu().numpy(),
+                           csr.crow_indices().to(torch.int32).cpu().numpy()),
+                          shape=tuple(counts.shape))
+        del counts, csr
+        codes = lab.cpu().numpy()
+        junk = np.random.default_rng(seed).random(n_cells) < 0.01
+        codes[junk] = len(types) + np.arange(int(junk.sum())) % len(REF_JUNK)
+        var_names = names.copy()
+        keep = np.arange(len(names))
+        if r == 0:      # the last filler panel genes absent here
+            keep = np.delete(keep, np.arange(len(genes) - REF_MISSING,
+                                             len(genes)))
+            X, var_names = X[:, keep], names[keep]
+        else:
+            var_names = np.array([hugo_to_ens.get(g, g) for g in names],
+                                 dtype=object)
+        d = SpatialData(X=X, obs=pd.DataFrame(
+            {"cell_type": labels[codes]},
+            index=[f"ref{r}_{i}" for i in range(n_cells)]),
+            var=pd.DataFrame(index=pd.Index(var_names)))
+        d.layers["counts"] = X
+        d.uns["reference_name"] = f"ref{r}"
+        refs.append(d)
+    return refs
+
+
+class StageClock(logging.Handler):
+    """Host timestamps of a logger's messages (the pipeline's "Stage N"
+    lines, the trainer's epochs): each stage runs from its line to the
+    next."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.INFO)
+        self.log = logging.getLogger(name)
+        self.marks = []
+
+    def __enter__(self):
+        self.log.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.log.removeHandler(self)
+        self.marks.append((time.perf_counter(), "end"))
+
+    def emit(self, record):
+        self.marks.append((time.perf_counter(), record.getMessage()))
+
+    def spans(self, prefix: str):
+        """(message, seconds to the next mark) for marks starting with
+        ``prefix``."""
+        return [(m, t1 - t0) for (t0, m), (t1, _) in
+                zip(self.marks, self.marks[1:]) if m.startswith(prefix)]
+
+
+def planted_accuracy(d, column: str) -> float:
+    """Share of cells whose ``column`` label is their planted type's
+    author-style label."""
+    want = np.array([REF_LABELS[t] for t in d.obs["truth"].astype(str)])
+    return float((d.obs[column].astype(str).to_numpy() == want).mean())
+
+
+def phase_training(dev, smi: str, n_cells: int = ANNOT_CELLS,
+                   ref_cells: int = REF_CELLS):
+    """The training path at full width on the card: ``train_and_annotate``
+    from two 250,000-cell references (in memory) onto phase 13's 1M x 377
+    section with its defaults (5,000 cells a type, 30 epochs, batch
+    1,024), each stage timed; ``train_cell_type_model`` on the section for
+    3 epochs (976 steps an epoch); a checkpointed run resumed to the same
+    epoch count against the uninterrupted one; accuracy against the
+    planted types. Every call is checked to launch no kernel."""
+    from spatialcore_tpu_torch.annotation import (train_and_annotate,
+                                                  train_cell_type_model)
+    release()
+    t0 = time.perf_counter()
+    refs, t_refs = timed(lambda: annotation_references(dev, ref_cells), dev)
+    (d, types, genes, _, _), t_q = timed(
+        lambda: annotation_section(dev, n_cells), dev)
+    print(f"[train] two references of {ref_cells:,} cells x {REF_GENES} "
+          f"genes (raw counts as CSR on the host; {refs[0].X.nnz:,} and "
+          f"{refs[1].X.nnz:,} nonzeros) made in {t_refs:.3f} s; the "
+          f"{n_cells:,}-cell query in {t_q:.3f} s")
+    with tempfile.TemporaryDirectory() as tmp, \
+            StageClock("spatialcore_tpu_torch.annotation.pipeline") as clock:
+        (d, model), t_pipe, got = counted(
+            dev, "train", f"train_and_annotate onto {n_cells:,} cells",
+            lambda: train_and_annotate(d, references=refs, device=dev,
+                                       output_dir=tmp, make_plots=False,
+                                       model_name="phase14"))
+        saved = sorted(p.name for p in Path(tmp).iterdir())
+    check(not got, f"train_and_annotate launched kernels: {got}")
+    stages = clock.spans("Stage")
+    acc = planted_accuracy(d, "cell_type_predicted")
+    ann = d.uns["spatialcore_annotation"]
+    ids = d.obs["cell_type_ontology_term_id"].astype(str)
+    check(acc >= 0.95 and ids.str.startswith("CL:").all()
+          and ann["n_types"] == len(types)
+          # 5,000 a type; a type's proportional source shares round up
+          and min(len(types) * 5000, int(1.96 * ref_cells))
+          <= ann["n_training_cells"] <= len(types) * 5001
+          and "phase14.npz" in saved,
+          f"train_and_annotate: accuracy {acc:.4f}, {ann['n_types']} types, "
+          f"{ann['n_training_cells']} training cells, files {saved}")
+    print(f"[train] train_and_annotate {n_cells:,} cells [{smi}]: "
+          f"{t_pipe:.3f} s; " + ", ".join(f"{m.split(':')[0]} {t:.3f} s"
+                                         for m, t in stages)
+          + f"; {ann['n_training_cells']:,} training cells, "
+          f"{len(model.genes)} genes (the inner join), {ann['n_types']} "
+          f"types; accuracy {acc:.4f} against the planted types, "
+          f"{ann['n_unassigned']:,} unassigned ({ann['unassigned_pct']}%)")
+    del refs
+    release()
+
+    # the trainer alone on the section: 3 epochs of 976 steps
+    _, t_scaler = timed(lambda: (lambda h: (h.mean(0), h.std(0)))(
+        d.X.cpu().numpy()), "cpu")
+    with StageClock("spatialcore_tpu_torch.annotation.training") as clock:
+        full, t_train, got = counted(
+            dev, "train", f"train_cell_type_model {n_cells:,} cells x 3 "
+            "epochs", lambda: train_cell_type_model(d, "truth", epochs=3,
+                                                    device=dev))
+    check(not got, f"train_cell_type_model launched kernels: {got}")
+    epochs = [t for m, t in clock.spans("  epoch")]
+    steps = n_cells // 1024
+    per_epoch = float(np.mean(epochs[:-1])) if len(epochs) > 1 else epochs[0]
+    pred, _ = full.predict(d.X, device=dev)
+    acc1m = float((pred == d.obs["truth"].astype(str).to_numpy()).mean())
+    check(acc1m >= 0.95 and np.isfinite(full.W).all(),
+          f"the 1M-trained model's accuracy {acc1m:.4f}")
+    with tempfile.TemporaryDirectory() as ck:
+        part, t_part, got1 = counted(
+            dev, "train", "2 epochs, checkpointed each", lambda:
+            train_cell_type_model(d, "truth", epochs=2, checkpoint_dir=ck,
+                                  checkpoint_every=1, device=dev))
+        resumed, t_res, got2 = counted(
+            dev, "train", "resumed to 3 epochs", lambda:
+            train_cell_type_model(d, "truth", epochs=3, checkpoint_dir=ck,
+                                  checkpoint_every=1, device=dev))
+        kept = sorted(int(p.name) for p in Path(ck).iterdir())
+    check(not got1 and not got2 and kept == [1, 2],
+          f"checkpointed runs: launches {got1} {got2}, kept {kept}")
+    same = np.array_equal(resumed.W, full.W) and np.array_equal(resumed.b,
+                                                                full.b)
+    gap = float(max(np.abs(resumed.W - full.W).max(),
+                    np.abs(resumed.b - full.b).max()))
+    print(f"[train] train_cell_type_model {n_cells:,} cells x {len(genes)} "
+          f"genes, 20 classes, 3 epochs of {steps} steps (batch 1,024) "
+          f"[{smi}]: {t_train:.3f} s; epochs 2 and 3 (host clock between "
+          f"the trainer's epoch lines) "
+          + ", ".join(f"{t:.3f}" for t in epochs[:-1])
+          + f" s, so {per_epoch:.3f} s an epoch and "
+          f"{1e3 * per_epoch / steps:.4f} ms a step; the host scaler "
+          f"(read back, numpy float32 mean and std) {t_scaler:.3f} s; "
+          f"accuracy {acc1m:.4f}; checkpointed 2 epochs {t_part:.3f} s, "
+          f"resumed to 3 {t_res:.3f} s: "
+          + ("bitwise the uninterrupted run" if same else
+             f"differs from the uninterrupted run by {gap:.3g}"))
+    check(same or gap <= 1e-6, f"resumed run differs by {gap}")
+    print(f"[train] phase 14's training path at full width took "
+          f"{time.perf_counter() - t0:.1f} s")
+    del d
+    release()
+    return {"train_and_annotate": t_pipe, "epoch": per_epoch,
+            "ms_per_step": 1e3 * per_epoch / steps}
+
+
+def phase_training_vs_cpu(dev, n_cells: int = 20_000):
+    """The trainer and the pipeline at 20,000 cells on the card and on the
+    CPU: ``train_cell_type_model`` (5 epochs) weights within 1e-4 of
+    max|W|, labels, scaler and classes equal; ``train_and_annotate`` from
+    two 20,000-cell references: predicted labels and CL IDs equal, the
+    thresholded labels on all but 0.1% of cells."""
+    from spatialcore_tpu_torch.annotation import (train_and_annotate,
+                                                  train_cell_type_model)
+    cpu = torch.device("cpu")
+    models, preds, piped = [], [], []
+    refs = annotation_references(dev, n_cells, seeds=(3, 4))
+    for where in (dev, cpu):
+        d, *_ = annotation_section(dev, n_cells, seed=6)
+        d.X = d.X.to(where)
+        m, _, got = counted(dev, "train", f"train_cell_type_model on {where}",
+                            lambda: train_cell_type_model(
+                                d, "truth", epochs=5, device=where))
+        check(not got, f"launched {got}")
+        models.append(m)
+        preds.append(m.predict(d.X, device=where)[0])
+        q, *_ = annotation_section(dev, n_cells, seed=7)
+        q.X = q.X.to(where)
+        (q, _), _, got = counted(dev, "train", f"train_and_annotate on {where}",
+                                 lambda: train_and_annotate(
+                                     q, references=refs, device=where,
+                                     make_plots=False))
+        check(not got, f"launched {got}")
+        piped.append(q)
+    (mc, mh), (qc, qh) = models, piped
+    dw = float(np.abs(mc.W - mh.W).max() / np.abs(mh.W).max())
+    same = {"labels": np.array_equal(*preds),
+            "scaler": np.array_equal(mc.scaler_mean, mh.scaler_mean)
+            and np.array_equal(mc.scaler_std, mh.scaler_std),
+            "classes": mc.classes == mh.classes}
+    for col in ("cell_type_predicted", "cell_type_ontology_term_id"):
+        same[col] = qc.obs[col].astype(str).equals(qh.obs[col].astype(str))
+    n_diff = int((qc.obs["cell_type"].astype(str)
+                  != qh.obs["cell_type"].astype(str)).sum())
+    check(dw <= 1e-4 and all(same.values()) and n_diff <= n_cells // 1000,
+          f"card against CPU: W {dw}, equal {same}, thresholded labels "
+          f"differ on {n_diff} cells")
+    print(f"[train] {n_cells:,} cells, card against CPU: W within {dw:.3g} "
+          f"of max|W| (b {float(np.abs(mc.b - mh.b).max()):.3g}); equal: "
+          + ", ".join(same) + f"; thresholded labels differ on {n_diff} cells")
+
+
+def phase_cli(dev) -> None:
+    """The command line and the YAML config where the script runs:
+    ``python -m spatialcore_tpu_torch info`` as a subprocess always; the
+    YAML round trip where yaml imports; ``moran`` and ``benchmark`` on an
+    h5ad with ``--device`` set to ``dev``'s type where h5py imports (else
+    one line says why that part did not run)."""
+    import importlib.util
+    import os
+    from spatialcore_tpu_torch.annotation import TrainingConfig
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    r, t = timed(lambda: subprocess.run(
+        [sys.executable, "-m", "spatialcore_tpu_torch", "info"],
+        capture_output=True, text=True, timeout=300, env=env), "cpu")
+    check(r.returncode == 0 and "annotation   ok" in r.stdout,
+          f"python -m spatialcore_tpu_torch info: {r.stderr[-400:]}")
+    print(f"[cli] python -m spatialcore_tpu_torch info ({t:.2f} s): "
+          + "; ".join(ln.strip() for ln in r.stdout.splitlines()))
+    with tempfile.TemporaryDirectory() as tmp:
+        if importlib.util.find_spec("yaml") is None:
+            print("[cli] the YAML round trip did not run: yaml is not "
+                  "installed")
+        else:
+            cfg = TrainingConfig(references=["a.h5ad"], epochs=7)
+            back = TrainingConfig.from_yaml(cfg.to_yaml(Path(tmp) / "c.yaml"))
+            check(back == cfg, "the YAML round trip changed the config")
+            print("[cli] TrainingConfig YAML round trip: equal")
+        if importlib.util.find_spec("h5py") is None:
+            print("[cli] the CLI's h5ad commands (moran, benchmark, domains, "
+                  "pipeline) did not run: h5py is not installed")
+            return
+        from spatialcore_tpu_torch import write_h5ad
+        d, *_ = annotation_section(dev, 20_000, seed=8)
+        d.obs["cell_type"] = d.obs["truth"]
+        write_h5ad(d, Path(tmp) / "q.h5ad")
+        for args in (["moran", "--genes", "CD79A,MS4A1,PANEL000",
+                      "--permutations", "19", "--top", "3"],
+                     ["benchmark", "--columns", "cell_type"]):
+            argv = [sys.executable, "-m", "spatialcore_tpu_torch", "--device",
+                    torch.device(dev).type, args[0], str(Path(tmp) / "q.h5ad"),
+                    *args[1:]]
+            r, t = timed(lambda: subprocess.run(
+                argv, capture_output=True, text=True, timeout=300, env=env),
+                "cpu")
+            check(r.returncode == 0, f"{args[0]}: {r.stderr[-400:]}")
+            print(f"[cli] {args[0]} --device {torch.device(dev).type} "
+                  f"({t:.2f} s): "
+                  + " | ".join(r.stdout.strip().splitlines()[-3:]))
+
+
 def lisa_sass(listing: str) -> None:
     """The local draw step's SASS by instance (template arguments: STAT,
     FAR, COUNT, counter type, k unrolled): instructions in all and the
@@ -4500,6 +4839,15 @@ def main() -> None:
     phase_annotation_vs_cpu(dev)
     print(f"[path] phase 13 (statistics and annotation scoring) took "
           f"{time.perf_counter() - t13:.1f} s [{smi}]")
+
+    # the training half of annotation, the pipeline and the CLI (torch ops,
+    # no kernel; each call checked to launch none)
+    t14 = time.perf_counter()
+    phase_training(dev, smi)
+    phase_training_vs_cpu(dev)
+    phase_cli(dev)
+    print(f"[path] phase 14 (training, the pipeline and the CLI) took "
+          f"{time.perf_counter() - t14:.1f} s [{smi}]")
     print(f"[path] the whole script took {time.perf_counter() - T_START:.1f} s "
           f"[{smi}]")
 

@@ -7,8 +7,7 @@ weights) with batched scoring. ``save`` / ``load`` write and read the
 reference's artifact unchanged, ``.npz`` plus a sidecar JSON (no pickle),
 so a model saved by either package loads in the other. Scoring is
 ``clip((x − mean) / std, ±10) @ W + b`` in full float32 (``torch.matmul``
-with TF32 off) on ``device``; training is not ported yet (ROADMAP Queue 1
-item 14).
+with TF32 off) on ``device``; training lives in ``annotation.training``.
 """
 
 from __future__ import annotations

@@ -7,6 +7,8 @@ values integer-like within 1e-6), then classifies ``X`` as
 ``raw / log1p_10k / log1p_cpm / log1p_other / linear / negative / unknown``
 using expm1 row-sum reversal with ±20% tolerance around 10k / 1M targets.
 The application side is the scanpy-free ``normalize_total`` + ``log1p``.
+Detection reads a sample of rows; a tensor's sample is read back from its
+device.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
 from .logging import get_logger
 
@@ -24,8 +27,12 @@ RAW_COUNT_LAYERS = ["counts", "raw_counts", "raw"]
 
 
 def _sample_dense(matrix, sample_size: int) -> np.ndarray:
+    """The first ``sample_size`` rows on the host (a tensor's read back
+    from its device)."""
     n = min(sample_size, matrix.shape[0])
     sub = matrix[:n]
+    if isinstance(sub, torch.Tensor):
+        return sub.detach().cpu().numpy()
     return sub.toarray() if sp.issparse(sub) else np.asarray(sub)
 
 

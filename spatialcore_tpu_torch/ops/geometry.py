@@ -69,8 +69,14 @@ def erode(mask: torch.Tensor, radius_px: int) -> torch.Tensor:
     return sums > ksum - 0.5
 
 
-def _connected_components(mask: torch.Tensor, max_iter: int = 256):
-    """:func:`connected_components` and the number of loop iterations."""
+#: the reference's cap on the component loop's iterations
+CC_MAX_ITER = 256
+
+
+def _connected_components(mask: torch.Tensor, max_iter: int = CC_MAX_ITER):
+    """:func:`connected_components`, the number of loop iterations, and
+    whether the loop stopped at ``max_iter`` with labels still changing
+    (one more comparison when it ends, not one per iteration)."""
     H, W = mask.shape
     hw = H * W
     bg = torch.tensor(_BG, dtype=torch.int32, device=mask.device)
@@ -97,10 +103,12 @@ def _connected_components(mask: torch.Tensor, max_iter: int = 256):
     while it < max_iter and bool((lab != prev).any()):
         prev, lab = lab, compress(compress(neighbor_min(lab)))
         it += 1
-    return lab, it
+    capped = it == max_iter and bool((lab != prev).any())
+    return lab, it, capped
 
 
-def connected_components(mask: torch.Tensor, max_iter: int = 256) -> torch.Tensor:
+def connected_components(mask: torch.Tensor,
+                         max_iter: int = CC_MAX_ITER) -> torch.Tensor:
     """8-connected component labels for a binary [H, W] mask.
 
     Returns int32 [H, W]: for foreground pixels the minimum flat index of
@@ -129,17 +137,19 @@ def buffer_union_shrink(pix_yx, all_pix_yx, shape: Tuple[int, int],
 
 
 def _buffer_union_shrink(pix_yx, all_pix_yx, shape, r_buffer, r_shrink,
-                         device):
+                         device, max_iter: int = CC_MAX_ITER):
+    """:func:`buffer_union_shrink`, the component loop's iterations and
+    whether it stopped at ``max_iter`` with labels still changing."""
     H, W = shape
     pix = torch.as_tensor(pix_yx, device=device).to(torch.int64)
     cells = torch.as_tensor(all_pix_yx, device=device).to(torch.int64)
     grid = torch.zeros((H, W), dtype=torch.bool, device=device)
     grid[pix[:, 0], pix[:, 1]] = True
     shrunk = erode(dilate(grid, r_buffer), r_shrink)
-    labels, iters = _connected_components(shrunk)
+    labels, iters, capped = _connected_components(shrunk, max_iter)
     cell_label = labels[cells[:, 0], cells[:, 1]]
     return RasterDomains(labels=labels, mask=shrunk,
-                         cell_label=cell_label), iters
+                         cell_label=cell_label), iters, capped
 
 
 def label_adjacency(labels_np: np.ndarray, reach_px: int = 2):

@@ -3,7 +3,8 @@
 Port of ``spatialcore_tpu/spatial/domains.py``: rasterize the cells that
 match a filter → disk-dilate by ``cell_dist`` → disk-erode by ``cell_dist −
 shrink_margin`` → pointer-jumping connected components → per-cell grid
-lookup (``ops.geometry``, torch ops on ``device``). Domain reduction (merge
+lookup (``ops.geometry``, torch ops on ``device``; a warning when the
+component loop stops at its cap with labels still changing). Domain reduction (merge
 small domains into adjacent ones, drop isolated ones), renumbering by size
 (largest = ``<prefix>_1``), the expansion-ratio warning and the boundary
 exports run on the host, as in the reference. The grid's H and W snap up
@@ -24,7 +25,8 @@ import torch
 from ..core.compat import param_aliases
 from ..core.logging import get_logger
 from ..core.metadata import update_metadata
-from ..ops.geometry import (_BG, buffer_union_shrink, extract_boundaries,
+from ..ops import geometry
+from ..ops.geometry import (_BG, _buffer_union_shrink, extract_boundaries,
                             extract_boundary_polygons, label_adjacency)
 
 logger = get_logger("spatial.domains")
@@ -212,8 +214,16 @@ def make_spatial_domains(
     assign_coords = coords if assign_all_cells else coords[mask]
     assign_pix = to_pixels(assign_coords, lo, pixel, (H, W))
 
-    res = buffer_union_shrink(target_pix, assign_pix, (H, W), r_buffer,
-                              r_shrink, device=device)
+    max_iter = geometry.CC_MAX_ITER
+    res, _, capped = _buffer_union_shrink(target_pix, assign_pix, (H, W),
+                                          r_buffer, r_shrink, device, max_iter)
+    if capped:
+        # the reference's loop stops here too, and its labels are kept
+        logger.warning(
+            f"make_spatial_domains: the connected-components loop stopped "
+            f"at its cap of {max_iter} iterations on the {H}x{W} raster with "
+            "labels still changing, so a long or winding domain may be "
+            "reported as several domains")
     labels_np = res.labels.cpu().numpy()
     cell_label = res.cell_label.cpu().numpy()
 

@@ -9,7 +9,7 @@ thresholds, full-data posteriors) runs on ``device``
 deterministic ≤ ``max_cells`` subsample (``np_rng(seed,
 "classify_subsample")``) and its posteriors are then evaluated on every
 cell. The gpairs diagnostic figure is not ported (``plotting``, ROADMAP
-Queue 1 item 14): ``plot=True`` with an ``output_dir`` raises.
+Queue 1 item 14d): ``plot=True`` with an ``output_dir`` raises.
 """
 
 from __future__ import annotations
@@ -131,7 +131,7 @@ def classify_by_threshold(
         raise NotImplementedError(
             "classify_by_threshold(plot=True) draws its gpairs figure with "
             "the plotting module, which is not ported yet (ROADMAP Queue 1 "
-            "item 14); pass plot=False")
+            "item 14d); pass plot=False")
 
     feats = _extract_features(adata, feature_columns)
     n_cells, n_feats = feats.shape

@@ -158,8 +158,10 @@ def test_registry_and_uri_resolution(tmp_path):
     assert pa.resolve_uri_to_local(f"file://{path}") == path
     with pytest.raises(FileNotFoundError):
         pa.resolve_uri_to_local(str(tmp_path / "nope.h5ad"))
-    for uri in ("synapse://syn123", "cellxgene://census/lung"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    # the Synapse and CELLxGENE clients need their SDKs, which are absent
+    for uri, sdk in (("synapse://syn123", "synapseclient"),
+                     ("cellxgene://healthy_human_liver", "cellxgene")):
+        with pytest.raises(ImportError, match=sdk):
             pa.resolve_uri_to_local(uri, cache_dir=tmp_path)
     with pytest.raises(ValueError, match="Unknown URI scheme"):
         pa.resolve_uri_to_local("ftp://x/y", cache_dir=tmp_path)

@@ -1,9 +1,9 @@
 """The port's public names against the JAX package's, subpackage by
 subpackage (``core``, ``ops``, ``spatial``, ``utils``, ``stats``,
-``annotation``, the modules ``nmf`` and ``diffusion``, and the top level's
-IO): every name the reference exports is exported by the port too, unless
-it is still queued for porting (ROADMAP Queue 1), and every name the port
-exports resolves. A porting PR moves names out of the queued lists; a name
+``annotation``, the modules ``nmf``, ``diffusion`` and ``r_bridge``, and
+the top level): every name the reference exports is exported by the port
+too, unless it is still queued for porting (ROADMAP Queue 1), and every
+name the port exports resolves. A porting PR moves names out of the queued lists; a name
 may not be both queued and exported.
 """
 
@@ -18,27 +18,8 @@ import spatialcore_tpu  # noqa: F401  (the reference's subpackages below)
 # default of one thread per core in each slows small ops several-fold.
 torch.set_num_threads(1)
 
-#: ROADMAP Queue 1 item 14, the training half of annotation: training,
-#: the pipeline, loading, the ontology and label patterns, label
-#: validation, discovery, and the Synapse / CELLxGENE clients
-#: (``acquire_reference`` downloads through them)
-ITEM_14 = {
-    "TrainingConfig", "train_and_annotate", "train_and_annotate_config",
-    "train_cell_type_model", "train_celltypist_model", "combine_references",
-    "subsample_balanced", "ensure_normalized", "save_model_artifacts",
-    "generate_color_scheme", "DEFAULT_EXCLUDE_LABELS", "HIGH_CONTRAST_PALETTE",
-    "load_adata_backed", "stratified_sample_indices", "subsample_adata",
-    "add_ontology_ids", "search_ontology_index", "load_ontology_index",
-    "extract_biological_tokens", "SKIP_LABELS", "BLACKLISTED_CL_IDS",
-    "CELL_TYPE_PATTERNS", "get_canonical_term",
-    "validate_cell_type_column", "validate_multiple_columns",
-    "check_label_ontology_consistency", "CellTypeValidationResult",
-    "ValidationIssue",
-    "discover_training_data", "DiscoveredDataset", "print_discovery_summary",
-    "query_local_references", "make_metadata_template", "query_metadata",
-    "query_cellxgene_census", "download_cellxgene_reference",
-    "acquire_reference",
-}
+#: ROADMAP Queue 1 item 14, the annotation subpackage: all ported
+ITEM_14 = set()
 
 #: names of the reference's ``__all__`` not ported yet, by subpackage or
 #: module, each set under its ROADMAP Queue 1 item
@@ -50,6 +31,7 @@ QUEUED = {
     "stats": set(),
     "nmf": set(),
     "diffusion": set(),
+    "r_bridge": set(),
     "annotation": ITEM_14,
 }
 
@@ -78,7 +60,27 @@ def test_top_level_exports_h5ad_io():
         "spatialcore_tpu_torch.core").read_h5ad
 
 
-@pytest.mark.parametrize("name", ["stats", "annotation", "nmf", "diffusion"])
+#: the top level's names not ported yet, each under its ROADMAP Queue 1
+#: item: ``plotting`` (14d) and ``parallel`` (15)
+TOP_LEVEL_QUEUED = {"plotting", "parallel"}
+
+
+def test_top_level_all_is_the_reference_less_the_queued():
+    import spatialcore_tpu_torch as port
+
+    assert set(port.__all__) == set(spatialcore_tpu.__all__) - TOP_LEVEL_QUEUED
+    assert TOP_LEVEL_QUEUED <= set(spatialcore_tpu.__all__)
+    assert len(set(port.__all__)) == len(port.__all__)
+    assert all(hasattr(port, n) for n in port.__all__)
+    assert not any(hasattr(port, n) for n in TOP_LEVEL_QUEUED)
+    assert port.available_modules() == ["core"] + [
+        m for m in spatialcore_tpu._OPTIONAL_MODULES
+        if m not in TOP_LEVEL_QUEUED]
+
+
+@pytest.mark.parametrize("name", ["stats", "annotation", "nmf", "diffusion",
+                                  "core", "ops", "spatial", "utils",
+                                  "r_bridge"])
 def test_top_level_exposes_the_ported_modules(name):
     import spatialcore_tpu_torch as port
 

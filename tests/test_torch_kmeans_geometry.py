@@ -13,7 +13,9 @@ Tolerances, and why:
   on separated blobs; centres and inertia rtol 1e-5 (Lloyd's centre sums
   are a matrix product in another order, ROADMAP Queue 3);
 - ``dilate``, ``erode``, ``connected_components``, ``buffer_union_shrink``:
-  bitwise (0/1 sums thresholded at 0.5; integer labels);
+  bitwise (0/1 sums thresholded at 0.5; integer labels), also where the
+  component loop stops at its cap with labels still changing (a
+  serpentine), which the port flags;
 - boundaries and adjacency: equal (the same host code).
 """
 
@@ -170,11 +172,44 @@ def test_connected_components_bitwise(max_iter):
     mask = r.random((128, 256)) > 0.55            # many small components
     mask[40:90, 10:200] = True                    # and a large one
     want = np.asarray(jg.connected_components(jnp.asarray(mask), max_iter=max_iter))
-    got, iters = tg._connected_components(torch.as_tensor(mask), max_iter)
+    got, iters, capped = tg._connected_components(torch.as_tensor(mask),
+                                                  max_iter)
     assert np.array_equal(got.numpy(), want)
     assert got.dtype == torch.int32 and iters <= max_iter
+    assert (not capped or iters == max_iter) and capped != (max_iter == 256)
     assert np.array_equal(tg.connected_components(torch.as_tensor(mask),
                                                   max_iter).numpy(), want)
+
+
+def _serpentine(H, W, gap=2):
+    """A one-pixel path winding down an [H, W] raster: the component loop
+    needs about one iteration per row of the path to join it."""
+    m = np.zeros((H, W), bool)
+    rows = list(range(0, H, gap))
+    for i, r in enumerate(rows):
+        m[r, :] = True
+        if i + 1 < len(rows):
+            c = W - 1 if i % 2 == 0 else 0
+            m[r:rows[i + 1] + 1, c] = True
+    return m
+
+
+@pytest.mark.parametrize("max_iter", [3, 256, 400])
+def test_connected_components_cap_flag(max_iter):
+    """A serpentine on a 320 × 320 raster needs about 320 iterations: at
+    the reference's cap of 256 (and below) the loop stops with labels still
+    changing and the path split in several components; the labels stay
+    bitwise the capped reference's, and the flag says so."""
+    mask = _serpentine(320, 320)
+    want = np.asarray(jg.connected_components(jnp.asarray(mask),
+                                              max_iter=max_iter))
+    got, iters, capped = tg._connected_components(torch.as_tensor(mask),
+                                                  max_iter)
+    assert np.array_equal(got.numpy(), want)
+    n_comp = len(np.unique(want[mask]))
+    assert capped == (max_iter <= 256) == (n_comp > 1)
+    assert iters == max_iter if capped else iters < max_iter
+    assert tg.CC_MAX_ITER == 256
 
 
 def test_disk_kernel_equal():

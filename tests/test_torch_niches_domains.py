@@ -15,11 +15,14 @@ Tolerances, and why:
   subsample), the inertia per cell rtol 1e-5; the port's ARI bitwise
   sklearn's;
 - ``make_spatial_domains``: the obs column, the params, boundaries and
-  polygons equal (exact raster masks and labels);
+  polygons equal (exact raster masks and labels); the port warns when the
+  component loop stops at its cap with labels still changing;
 - ``calculate_domain_distances``: "minimum" and "centroid" bitwise, per
   cell and per domain pair (``core.rng._fma32`` / ``_sqrt32``); "mean"
   rtol 1e-5 (the per-group sums add in another order).
 """
+
+import logging
 
 import numpy as np
 import pandas as pd
@@ -227,6 +230,74 @@ def test_make_spatial_domains_variants(variant):
     _domains(sct, a, {}, "dom", expr, **extra)
     _domains(sctt, b, CPU, "dom", expr, **extra)
     _same_domains(a, b, "dom")
+
+
+def _snake_pair(n_rows=6, length=1500.0, spacing=160.0, step=8.0, seed=0):
+    """Cells every ``step`` µm along a path winding through ``n_rows``
+    rows ``spacing`` µm apart (``true_type`` "snake"), and scattered
+    background cells ("other"), in both packages."""
+    pts = []
+    for r in range(n_rows):
+        xs = np.arange(0.0, length, step)
+        pts.append(np.stack([xs if r % 2 == 0 else xs[::-1],
+                             np.full_like(xs, r * spacing)], 1))
+        if r + 1 < n_rows:
+            x = length - step if r % 2 == 0 else 0.0
+            ys = np.arange(r * spacing, (r + 1) * spacing, step)
+            pts.append(np.stack([np.full_like(ys, x), ys], 1))
+    snake = np.vstack(pts)
+    rng = np.random.default_rng(seed)
+    other = rng.uniform([-200, -200], [length + 200, n_rows * spacing + 200],
+                        (600, 2))
+    coords = np.vstack([snake, other]).astype(np.float64)
+    types = np.array(["snake"] * len(snake) + ["other"] * len(other))
+    out = []
+    for pkg in (sct, sctt):
+        d = pkg.SpatialData(X=np.ones((len(coords), 2), np.float32),
+                            obs=pd.DataFrame({"true_type": types}))
+        d.obsm["spatial"] = coords.copy()
+        out.append(d)
+    return out
+
+
+class _Warnings(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _domains_seen(d, **kw):
+    seen = _Warnings()
+    log = logging.getLogger("spatialcore_tpu_torch.spatial.domains")
+    log.addHandler(seen)
+    try:
+        _domains(sctt, d, CPU, "dom", "true_type == 'snake'", **kw)
+    finally:
+        log.removeHandler(seen)
+    return [m for m in seen.messages if "connected-components" in m]
+
+
+def test_domain_component_cap_warns(monkeypatch):
+    """The winding band converges under the reference's cap (no warning,
+    the reference's domains); with the cap cut to 3 iterations the loop
+    stops with labels still changing, the band comes out as several
+    domains, and the port warns, naming the cap and the raster."""
+    from spatialcore_tpu_torch.ops import geometry as tg
+
+    a, b = _snake_pair()
+    _domains(sct, a, {}, "dom", "true_type == 'snake'")
+    assert _domains_seen(b) == []
+    _same_domains(a, b, "dom")
+    assert b.uns["dom_params"]["n_domains"] == 1
+    monkeypatch.setattr(tg, "CC_MAX_ITER", 3)
+    _, c = _snake_pair()
+    msgs = _domains_seen(c)
+    assert len(msgs) == 1 and "cap of 3 iterations" in msgs[0]
+    assert "x" in msgs[0].split("raster")[0].split()[-1]
+    assert c.uns["dom_params"]["n_domains"] > 1
 
 
 def test_detect_platform_and_errors():
