@@ -224,6 +224,27 @@ Phases (the script stops with a non-zero exit at the first failure):
    ``python -m spatialcore_tpu_torch info``, the YAML round trip where
    yaml imports and the h5ad commands where h5py imports (else one line
    says why not).
+15. The sharded statistics and the figures. ``morans_i(mesh=auto_mesh(),
+   null_method="banded_int8")`` at 1M cells x 1,024 genes x 99 on CUDA X at
+   world 1 (``auto_mesh`` makes its own one-rank NCCL group) against the
+   same call without a mesh: tables bitwise, K2's launches equal (counts at
+   0 just before each call), both timed in turns (without, mesh, mesh,
+   without); then the same public call as each rank of a (1 x 4) mesh
+   runs it, one after another on the card, with a local concatenation in
+   place of the all-gather: the table assembled from each rank's genes
+   bitwise, K2's launches four times the single call's. Every rank of a pretend mesh in turn on the card
+   (``parallel.stats._pretend``), assembled and held against the single
+   call on phase 3's 1M layout, bitwise: ``sharded_banded_permutation_test``
+   int4 at 4,096 genes x 8 draws and bf16 at 1,024 (1 x 4),
+   ``sharded_banded_local_moran`` int8
+   at 1,024 x 19 (1 x 4), ``sharded_local_moran_2d`` /
+   ``sharded_local_geary_2d`` at 256 x 9 (2 x 2); the ranks launch four
+   times the single call's kernels. ``sharded_knn`` at 1M, k = 6, on the
+   world-1 mesh and as four pretend ranks' tiles, equal to ``knn_grid``.
+   On phase 13's 1M x 377 section: ``agreement_metrics``,
+   ``classification_report_table`` and a 5,000-cell silhouette on the card
+   against the CPU, and ``generate_annotation_plots`` where matplotlib
+   imports (else one line says so).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it a
 JSON summary of every kernel, and the one before that nvidia-smi's name
@@ -249,6 +270,7 @@ T_START = time.perf_counter()
 import numpy as np
 import pandas as pd
 import torch
+import torch.distributed
 
 from spatialcore_tpu_torch import (SpatialData, build_spatial_weights,
                                    gearys_c, getis_ord_gi, global_autocorrelation,
@@ -1379,6 +1401,26 @@ def int_operands(plan, tile0, mode: str, G: int, step: int = 0):
     return args, kw, dict(Ztab=Ztab, ops=ops, idx_all=idx_all, base=base, L=L)
 
 
+def shard_shapes(label: str, fn, whole: torch.Tensor, G: int, tiles_own,
+                 tiles_whole, tag: str) -> None:
+    """A band kernel on one gene shard of four (the first G/4 columns of
+    the main path's operands, ``fn(genes)``) at its own launch shape and
+    at the whole table's (``genes=G``, as the gene-sharded routes launch
+    it): both timed; the whole table's shape must give the shard's genes
+    the whole call's bits."""
+    gs = G // 4
+    own, at_whole = fn(None), fn(G)
+    check(torch.equal(at_whole, whole[:gs]),
+          f"{label}: a gene shard launched at the whole table's shape is not "
+          "bitwise the whole call")
+    o_ms = event_ms(lambda: fn(None), 5)
+    w_ms = event_ms(lambda: fn(G), 5)
+    print(f"[{tag}] {label}, one gene shard of four ({gs} genes): own launch "
+          f"shape {tiles_own} {o_ms:.4f} ms (bitwise the whole call: "
+          f"{torch.equal(own, whole[:gs])}); the whole table's shape "
+          f"{tiles_whole} {w_ms:.4f} ms (bitwise)")
+
+
 def hold_int_1m(plan, tile0, modes=(("int4_win", 4096), ("int8_win", 1024),
                                     ("int8_band", 1024)), tag: str = "int"
                 ) -> dict:
@@ -1426,6 +1468,14 @@ def hold_int_1m(plan, tile0, modes=(("int4_win", 4096), ("int8_win", 1024),
         print(f"[{tag}] {label}: max_abs_err={errs[mode]:.3e} (tolerance "
               f"{REL_TOL:g}·Σ|terms|) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
               f"  bound {b_ms:.4f} ms ({b_by})  library {lib:.4f} ms; {tiles}")
+        if mode == "int8_win" and tag == "int":
+            gs = G // 4
+            kw_s = dict(kw, Zf=kw["Zf"][:, :gs].contiguous())
+            zs = zp[:, :gs].contiguous()
+            shard_shapes(label, lambda genes: kern.band_cross_int8(
+                li, wq, sw, zs, B, genes=genes, **kw_s), got, G,
+                kern.int_tiles(B, k, False, gs, nb), tiles, tag)
+            del kw_s, zs
         if mode == "int4_win":
             for name, t in (("run=1 (Zp read 3x)", tiles._replace(run=1)),
                             ("run=8", tiles._replace(run=8)),
@@ -2735,6 +2785,12 @@ def hold_float_1m(plan, li, zp, G: int, tag: str = "dense") -> float:
     print(f"[{tag}] {label}: max_abs_err={float(err.max()):.3e} (tolerance "
           f"{REL_TOL:g}·Σ|terms|) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
           f"bound {b_ms:.4f} ms ({b_by})  library {lib:.4f} ms; {tiles}")
+    if mode == "bf16" and tag == "dense":
+        zs = zp[:, :G // 4].contiguous()
+        shard_shapes(label, lambda genes: kern.band_cross_float(
+            li, w, zs, B, genes), got, G,
+            kern.float_tiles(B, k, zp.element_size(), G // 4, nb), tiles, tag)
+        del zs
     for name, t in (("run=1 (Zp read 3x)", tiles._replace(run=1)),
                     ("run=8", tiles._replace(run=8)),
                     ("run=16", tiles._replace(run=16)),
@@ -4595,6 +4651,322 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the sharded statistics and the figures
+# ---------------------------------------------------------------------------
+
+
+def phase_mesh_public(dev, smi: str, n_cells: int = 1_000_000,
+                      n_genes: int = 1024, n_perms: int = 99):
+    """``morans_i(mesh=auto_mesh(), null_method="banded_int8")`` at world 1
+    (NCCL on the card, made by ``auto_mesh`` itself) against the same call
+    without a mesh on one CUDA X: tables bitwise, K2's launch count equal.
+    A warm call builds the graph and plan first; then without, mesh, mesh,
+    without, each with the launch counts at 0 just before it. Returns
+    (the mesh, the first mesh call's launches)."""
+    import torch.distributed as dist
+
+    from spatialcore_tpu_torch.parallel import auto_mesh
+    gen = torch.Generator(device=dev).manual_seed(15)
+    d = make_adata(n_cells, n_genes, gen, dev)
+    kw = dict(n_permutations=n_perms, seed=1, null_method="banded_int8",
+              gene_batch_size=n_genes, device=dev)
+    _, t_warm = timed(lambda: morans_i(d, **kw), dev)
+    mesh, t_init = timed(lambda: auto_mesh(
+        device="cuda" if dev.type == "cuda" else "cpu"), dev)
+    print(f"[mesh] auto_mesh(): {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+          f"{dist.get_backend()}, world {dist.get_world_size()}: {t_init:.3f} s; "
+          f"warm morans_i (graph + plan + {n_perms} draws) {t_warm:.3f} s")
+    runs = []
+    for name, m in (("without", None), ("mesh", mesh), ("mesh", mesh),
+                    ("without", None)):
+        key = f"mi_{name}_{len(runs)}"
+        _, t, got = counted(dev, "mesh", f"morans_i({name} mesh) {n_cells:,} x "
+                            f"{n_genes} x {n_perms}", lambda: morans_i(
+                                d, use_existing_graph=True, mesh=m,
+                                key_added=key, **kw))
+        runs.append((name, t, got, d.uns[key]))
+    ref = runs[0][3]
+    for name, _, got, table in runs:
+        check(table.equals(ref), f"morans_i({name} mesh) table differs from "
+              "the call without a mesh")
+        # (a CPU rehearsal launches nothing)
+        check(dev.type != "cuda" or (got.get("int8_win", 0) > 0
+                                     and got == runs[0][2]),
+              f"morans_i({name} mesh) launched {got}, without {runs[0][2]}")
+    t_with = [t for n, t, _, _ in runs if n == "mesh"]
+    t_wo = [t for n, t, _, _ in runs if n == "without"]
+    print(f"[mesh] tables bitwise and launches equal ({runs[0][2]}); "
+          f"without {t_wo[0]:.3f} / {t_wo[1]:.3f} s, mesh {t_with[0]:.3f} / "
+          f"{t_with[1]:.3f} s: mesh/without {sum(t_with) / sum(t_wo):.4f} "
+          f"[{smi}]")
+    pretend_public(dev, d, kw, ref, runs[0][2], n_ranks=4)
+    del d
+    release()
+    return mesh, runs[1][2]
+
+
+class PretendRank:
+    """Rank (0, g) of a (1, gs) mesh for the public ``mesh=`` path, run
+    alone on this process: it gives its coordinate and the mesh's size,
+    and its ``genes`` group is itself (see :func:`pretend_all_gather`)."""
+
+    mesh_dim_names = ("cells", "genes")
+
+    def __init__(self, g: int, gs: int):
+        self.g, self.gs = g, gs
+
+    def get_coordinate(self):
+        return [0, self.g]
+
+    def size(self, dim: int) -> int:
+        return (1, self.gs)[dim]
+
+    def get_group(self, name: str):
+        return self
+
+
+def pretend_all_gather(out: torch.Tensor, t: torch.Tensor, group) -> None:
+    """``parallel.stats.all_gather`` for a :class:`PretendRank` run alone:
+    its own part in its slot of the concatenation, zeros in the others'
+    (their genes' rows are taken from their own runs)."""
+    d0 = t.shape[0]
+    out.zero_()
+    out[group.g * d0:(group.g + 1) * d0] = t
+
+
+def pretend_public(dev, d, kw: dict, ref, single: dict, n_ranks: int) -> None:
+    """``morans_i(mesh=…)`` as each rank of a (1, ``n_ranks``) mesh runs
+    it, one after another on the card: each pads the gene batch, runs its
+    columns through standardize, the observed value, the moments and the
+    null, and gathers (its own slot of a local concatenation in place of
+    the all-gather). The table assembled from each rank's own genes must
+    be bitwise the call without a mesh, ``ref``, and the ranks together
+    launch ``n_ranks`` times that call's kernels (``single``)."""
+    from spatialcore_tpu_torch.parallel import stats as pst
+    G = len(ref)
+    real, pst.all_gather = pst.all_gather, pretend_all_gather
+    try:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        for g in range(n_ranks):
+            morans_i(d, use_existing_graph=True, key_added=f"mi_rank{g}",
+                     mesh=PretendRank(g, n_ranks), **kw)
+        sync(dev)
+        t = time.perf_counter() - t0
+        got = launched()
+    finally:
+        pst.all_gather = real
+    whole = G + (-G) % n_ranks
+    table = pd.concat([d.uns[f"mi_rank{g}"].iloc[slice(*pst.span(
+        whole, n_ranks, g))] for g in range(n_ranks)])
+    check(table.reset_index(drop=True).equals(ref),
+          f"the (1, {n_ranks}) pretend ranks' morans_i(mesh=) rows differ from "
+          "the call without a mesh")
+    check(got == {k: n_ranks * v for k, v in single.items()},
+          f"the {n_ranks} pretend ranks launched {got}, the single call "
+          f"{single}")
+    print(f"[mesh] morans_i(mesh=) as the {n_ranks} ranks of a (1, {n_ranks}) "
+          f"mesh, one after another: {t:.3f} s; the table assembled from each "
+          f"rank's genes bitwise the call without a mesh; launches {got}")
+
+
+def hold_ranks(dev, label: str, single_fn, ranks_fn, n_ranks: int):
+    """The single-device call and every rank of a pretend mesh in turn
+    (``parallel.stats._pretend``), each with its own launch counts: every
+    output bitwise, and the ranks launch ``n_ranks`` times the single
+    call's kernels. Returns the ranks' launches."""
+    reset_all_launches()
+    want, t1 = timed(single_fn, dev)
+    l1 = launched()
+    reset_all_launches()
+    got, t2 = timed(ranks_fn, dev)
+    l2 = launched()
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    check(len(got) == len(want), f"{label}: {len(got)} outputs, not {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.shape == w.shape, f"{label}: output {i} shape {tuple(g.shape)}")
+        if not torch.equal(g, w):
+            bad = g != w
+            print(f"[ranks] {label}: output {i} differs at {int(bad.sum())} "
+                  f"of {g.numel()}; max |diff| {float((g - w).abs().max()):.3g}")
+        check(torch.equal(g, w), f"{label}: output {i} not bitwise")
+    check(l2 == {k: n_ranks * v for k, v in l1.items()},
+          f"{label}: the ranks launched {l2}, the single call {l1}")
+    print(f"[ranks] {label}: single {t1:.3f} s {l1}, ranks {t2:.3f} s {l2}; "
+          "bitwise")
+    return l2
+
+
+def phase_sharded_ranks(dev, smi: str, mesh, n_cells: int = 1_000_000,
+                        n_wide: int = 4096, n_genes: int = 1024,
+                        n_tile: int = 256):
+    """Every rank of a pretend mesh in turn on the card, assembled and held
+    against the single call, on phase 3's 1M layout (k = 6, B = 256):
+    ``sharded_banded_permutation_test`` int4 at ``n_wide`` genes x 8 draws
+    and bf16 at ``n_genes`` (1 x 4), ``sharded_banded_local_moran`` int8 at
+    ``n_genes`` x 19 (1 x 4), ``sharded_local_moran_2d`` /
+    ``sharded_local_geary_2d`` at ``n_tile`` genes x 9 (2 x 2), and
+    ``sharded_knn`` (k = 6): the public call on ``mesh`` and four pretend
+    ranks' tiles against ``knn_grid``."""
+    from spatialcore_tpu_torch.ops.graph import knn_grid
+    from spatialcore_tpu_torch.ops.moran import local_geary, local_moran
+    from spatialcore_tpu_torch.parallel import graph as pgraph
+    from spatialcore_tpu_torch.parallel import sharded_knn
+    from spatialcore_tpu_torch.parallel import stats as pst
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(16)
+    coords = uniform_coords(n_cells, SIDE, gen, dev)
+    graph = build_graph(coords, n_neighbors=K, device=dev)
+    plan = build_null_plan(graph, coords, block=B)
+    S0 = float(n_cells)
+    Z = torch.empty((n_cells, n_wide), device=dev)
+    den = torch.empty(n_wide, device=dev)
+    wave = torch.sin(coords[:, :1] / 300.0)
+    for c0 in range(0, n_wide, n_genes):
+        X = torch.randn((n_cells, n_genes), generator=gen, device=dev)
+        X[:, :n_genes // 8] += wave
+        Z[:, c0:c0 + n_genes] = standardize(X)[0]
+        del X
+        den[c0:c0 + n_genes] = (Z[:, c0:c0 + n_genes].double() ** 2).sum(
+            dim=0).float()
+    obs = torch.zeros(n_wide, device=dev)   # the integer nulls' own observed
+    out = {}
+    print(f"[ranks] {n_cells:,} cells, {n_wide:,} standardized genes made "
+          f"in {time.perf_counter() - t0:.1f} s")
+    out["int4"] = hold_ranks(
+        dev, f"sharded_banded_permutation_test int4 {n_wide} genes x 8 (1 x 4)",
+        lambda: banded_permutation_test(plan, Z, S0, obs, 0, 8,
+                                        precision="int4", den=den),
+        lambda: pst._pretend(pst._r_banded_permutation_test, (1, 4), plan, Z,
+                             S0, obs, 0, 8, den, "moran", "greater", "auto",
+                             "int4", None, 0), 4)
+    Z = Z[:, :n_genes].contiguous()
+    release()
+    obs_f = moran_observed(graph, Z, S0)
+    out["bf16"] = hold_ranks(
+        dev, f"sharded_banded_permutation_test bf16 {n_genes} genes x 8 (1 x 4)",
+        lambda: banded_permutation_test(plan, Z, S0, obs_f, 0, 8),
+        lambda: pst._pretend(pst._r_banded_permutation_test, (1, 4), plan, Z,
+                             S0, obs_f, 0, 8, None, "moran", "greater", "auto",
+                             "bf16", None, 0), 4)
+    out["lisa"] = hold_ranks(
+        dev, f"sharded_banded_local_moran int8 {n_genes} genes x 19 (1 x 4)",
+        lambda: banded.banded_local_moran(plan, graph, Z, 3, 19,
+                                          precision="int8"),
+        lambda: pst._pretend(pst._r_banded_local_moran, (1, 4), plan, graph,
+                             Z, 3, 19, "int8", "feistel"), 4)
+    release()
+    Zt = Z[:, :n_tile].contiguous()
+    del Z
+    release()
+    out["lisa_2d"] = hold_ranks(
+        dev, f"sharded_local_moran_2d {n_tile} genes x 9 (2 x 2)",
+        lambda: local_moran(graph, Zt, 3, 9),
+        lambda: pst._pretend_2d(pst._r_local_moran_2d, (2, 2), graph, Zt, 3, 9),
+        4)
+    out["geary_2d"] = hold_ranks(
+        dev, f"sharded_local_geary_2d {n_tile} genes x 9 (2 x 2)",
+        lambda: local_geary(graph, Zt, 2, 9),
+        lambda: pst._pretend_2d(pst._r_local_geary_2d, (2, 2), graph, Zt, 2, 9,
+                                "conditional"), 4)
+    del Zt
+    release()
+    # kNN: the public call on the world-1 mesh, then four pretend ranks
+    c_np = coords.cpu().numpy()
+    want, t_grid = timed(lambda: knn_grid(coords, K), dev)
+    got, t_sh = timed(lambda: sharded_knn(c_np, K, mesh), dev)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "sharded_knn differs from knn_grid")
+    bx, by, table, nbx, nby, h = pgraph._bucket_table(c_np, 32)
+    dv = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    reset_all_launches()
+    tiles, t_ranks = timed(lambda: [pgraph._r_knn_tiles(
+        r, 4, coords, dv(bx), dv(by), dv(table), nbx, nby, K, False, 8192)
+        for r in range(4)], dev)
+    bi = torch.cat([t[0] for t in tiles])[:n_cells]
+    bd = torch.cat([t[1] for t in tiles])[:n_cells]
+    ok = bd[:, K - 1] <= float(min(h[0], h[1])) ** 2
+    check(torch.equal(bi[ok], want[0][ok])
+          and torch.equal(torch.sqrt(bd[ok]), want[1][ok]),
+          "the pretend ranks' kNN differs from knn_grid on resolved cells")
+    print(f"[ranks] sharded_knn {n_cells:,} cells k={K}: knn_grid {t_grid:.3f} s, "
+          f"sharded_knn (world 1) {t_sh:.3f} s, equal; four pretend ranks' "
+          f"3x3-window tiles {t_ranks:.3f} s, equal on the {int(ok.sum()):,} "
+          f"cells they resolve ({n_cells - int(ok.sum()):,} left to the "
+          f"wide-window fallback); launches {launched()}")
+    print(f"[ranks] took {time.perf_counter() - t0:.1f} s [{smi}]")
+    del graph, plan, coords
+    release()
+    return out
+
+
+def phase_figures(dev, smi: str, n_cells: int = ANNOT_CELLS,
+                  sample: int = 5000):
+    """The figures' numeric parts on phase 13's 1M x 377 section (labels from
+    the panel model's ``annotate_cells``): ``agreement_metrics`` (truth
+    against the labels), ``classification_report_table`` and the silhouette
+    of a seeded ``sample``-cell subsample, on the card against the CPU; then
+    ``generate_annotation_plots`` timed into a temporary directory where
+    matplotlib imports, else one line saying so."""
+    from spatialcore_tpu_torch.annotation import annotate_cells
+    from spatialcore_tpu_torch.core.rng import np_rng
+    from spatialcore_tpu_torch.plotting import benchmark as pb
+    release()
+    t0 = time.perf_counter()
+    d, types, genes, mu, markers = annotation_section(dev, n_cells)
+    full, _ = annotation_models(types, genes, mu)
+    annotate_cells(d, [full], device=dev)
+    truth = d.obs["truth"].astype(str).to_numpy()
+    pred = d.obs["cell_type"].astype(str).to_numpy()
+    m_card, t_m = timed(lambda: pb.agreement_metrics(truth, pred, device=dev),
+                        dev)
+    m_cpu = pb.agreement_metrics(truth, pred, device="cpu")
+    check(abs(m_card["nmi"] - m_cpu["nmi"]) <= 1e-12
+          and m_card["ari"] == m_cpu["ari"],
+          f"agreement_metrics card {m_card} vs CPU {m_cpu}")
+    tab_card, t_tab = timed(lambda: pb.classification_report_table(
+        d, "truth", "cell_type", device=dev), dev)
+    tab_cpu = pb.classification_report_table(d, "truth", "cell_type",
+                                             device="cpu")
+    check(tab_card.equals(tab_cpu) and tab_card.attrs == tab_cpu.attrs,
+          "classification_report_table differs between the card and the CPU")
+    idx = np_rng(42, "silhouette").choice(n_cells, sample, replace=False)
+    Xs = d.X[torch.as_tensor(idx, device=dev)]
+    s_card, t_sil = timed(lambda: pb.silhouette_samples(Xs, truth[idx]), dev)
+    s_cpu = pb.silhouette_samples(Xs.cpu(), truth[idx])
+    mc = pd.Series(s_card.cpu().numpy()).groupby(truth[idx]).mean()
+    mh = pd.Series(s_cpu.numpy()).groupby(truth[idx]).mean()
+    check(np.allclose(mc.to_numpy(), mh.to_numpy(), rtol=1e-9, atol=0),
+          "silhouette means per type differ between the card and the CPU")
+    print(f"[figures] {n_cells:,} x {len(genes)}: agreement_metrics {t_m:.3f} s "
+          f"(NMI {m_card['nmi']:.6f}, ARI {m_card['ari']:.6f}), "
+          f"classification_report_table {t_tab:.3f} s (accuracy "
+          f"{tab_card.attrs['accuracy']:.4f}), silhouette of {sample:,} cells "
+          f"{t_sil:.3f} s (mean {float(s_card.mean()):.4f}); card equals CPU "
+          "(NMI within 1e-12, table equal, type means within rtol 1e-9)")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print("[figures] generate_annotation_plots not run: matplotlib does "
+              "not import on this machine")
+    else:
+        from spatialcore_tpu_torch.plotting.validation import \
+            generate_annotation_plots
+        with tempfile.TemporaryDirectory() as tmp:
+            res, t_plots = timed(lambda: generate_annotation_plots(
+                d, output_dir=tmp, device=dev), dev)
+            sizes = {k: Path(p).stat().st_size for k, p in res["paths"].items()}
+            check(len(sizes) >= 3 and all(sizes.values()),
+                  f"generate_annotation_plots wrote {sizes}")
+        print(f"[figures] generate_annotation_plots {t_plots:.3f} s: "
+              f"{sorted(sizes)}")
+    print(f"[figures] took {time.perf_counter() - t0:.1f} s [{smi}]")
+    del d
+    release()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -4848,6 +5220,21 @@ def main() -> None:
     phase_cli(dev)
     print(f"[path] phase 14 (training, the pipeline and the CLI) took "
           f"{time.perf_counter() - t14:.1f} s [{smi}]")
+
+    # the sharded statistics and the figures: the public mesh path's counts
+    # are its own
+    t15 = time.perf_counter()
+    mesh, mesh_launches = phase_mesh_public(dev, smi)
+    ranks = phase_sharded_ranks(dev, smi, mesh)
+    check(ranks["int4"].get("int4_win", 0) and ranks["bf16"].get("float", 0)
+          and ranks["lisa"].get("lisa_win", 0),
+          f"the pretend ranks did not run their kernels: {ranks}")
+    phase_figures(dev, smi)
+    torch.distributed.destroy_process_group()
+    launches["int8_win"] += mesh_launches["int8_win"]
+    print(f"[path] launches in the kernels line: int8_win adds the mesh "
+          f"morans_i's {mesh_launches}; phase 15 took "
+          f"{time.perf_counter() - t15:.1f} s [{smi}]")
     print(f"[path] the whole script took {time.perf_counter() - T_START:.1f} s "
           f"[{smi}]")
 

@@ -16,8 +16,9 @@ threshold classification and Wilcoxon DEG (``stats``), NMF gene programs
 (``nmf``), graph diffusion (``diffusion``), cell-type annotation from
 reference h5ads to annotated cells (``annotation``: the ontology and label
 tools, training, the pipeline, scoring, confidence and the benchmark), the
-R helpers (``r_bridge``) and the command line
-(``python -m spatialcore_tpu_torch``). The kernels are in ``csrc/``. The
+QC and validation figures (``plotting``), the statistics sharded over a
+``torch.distributed`` device mesh (``parallel``), the R helpers
+(``r_bridge``) and the command line (``python -m spatialcore_tpu_torch``). The kernels are in ``csrc/``. The
 JAX package ``spatialcore_tpu`` is the reference every part of this
 package is tested against; this package imports ``torch`` and never
 ``jax``.
@@ -29,7 +30,8 @@ the kernel, or the call raises.
 Module availability follows the reference's façade: ``core`` is
 mandatory; the other modules import through ``_try_import`` and degrade to
 a placeholder that raises a helpful error when an optional dependency is
-missing. ``plotting`` and ``parallel`` are not ported yet.
+missing. Importing the package never imports matplotlib: ``plotting``
+builds its figures lazily.
 """
 
 from __future__ import annotations
@@ -44,12 +46,8 @@ from . import core  # mandatory
 from .core import (SpatialData, get_logger, key_for, read_h5ad,
                    update_metadata, write_h5ad)
 
-_OPTIONAL_MODULES = ["ops", "spatial", "stats", "annotation", "utils", "nmf",
-                     "diffusion", "r_bridge"]
-#: the reference's modules that this package does not have yet, with the
-#: ROADMAP item that ports each
-_NOT_PORTED = {"plotting": "ROADMAP Queue 1 item 14d",
-               "parallel": "ROADMAP Queue 1 item 15"}
+_OPTIONAL_MODULES = ["ops", "spatial", "stats", "annotation", "plotting",
+                     "parallel", "utils", "nmf", "diffusion", "r_bridge"]
 _module_errors: Dict[str, str] = {}
 
 
@@ -82,6 +80,8 @@ ops = _try_import("ops")
 spatial = _try_import("spatial")
 stats = _try_import("stats")
 annotation = _try_import("annotation")
+plotting = _try_import("plotting")
+parallel = _try_import("parallel")
 utils = _try_import("utils")
 nmf = _try_import("nmf")
 diffusion = _try_import("diffusion")
@@ -107,13 +107,11 @@ def print_info() -> None:
         status = ("ok" if m not in _module_errors
                   else f"unavailable ({_module_errors[m]})")
         print(f"  {m:12s} {status}")
-    for m, item in _NOT_PORTED.items():
-        print(f"  {m:12s} not ported yet ({item})")
 
 
 __all__ = [
     "__version__", "SpatialData", "read_h5ad", "write_h5ad", "get_logger",
     "update_metadata", "core", "ops", "spatial", "stats", "annotation",
-    "utils", "nmf", "diffusion", "r_bridge",
+    "plotting", "parallel", "utils", "nmf", "diffusion", "r_bridge",
     "available_modules", "print_info",
 ]

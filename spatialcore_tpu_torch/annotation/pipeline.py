@@ -7,9 +7,10 @@ map prediction IDs → QC plots → confidence threshold (applied after
 plotting so figures show all cells) → the optional quality benchmark — and
 ``TrainingConfig``, the YAML dataclass. ``device`` is a keyword of the two
 entry points, not a config field, so a YAML written by either package
-loads in the other. The plotting module is not ported yet: with
-``make_plots`` and an ``output_dir`` the plot stage warns and the pipeline
-goes on, as it does when plots fail. ``yaml`` is imported inside the calls
+loads in the other. With ``make_plots`` and an ``output_dir`` the plot
+stage writes ``plotting.validation.generate_annotation_plots``' QC bundle
+there; a plot that fails warns and the pipeline goes on. ``yaml`` is
+imported inside the calls
 that read or write a config.
 """
 
@@ -193,9 +194,12 @@ def train_and_annotate(
     # S8: QC plots (before thresholding so figures show all cells)
     if config.make_plots and out_dir:
         logger.info("Stage 8: QC plots")
-        # plots must never kill the pipeline
-        logger.warning("QC plot generation skipped: the plotting module is "
-                       "not ported yet (ROADMAP Queue 1 item 14d)")
+        try:
+            from ..plotting.validation import generate_annotation_plots
+
+            generate_annotation_plots(adata, output_dir=out_dir, device=device)
+        except Exception as e:  # plots must never kill the pipeline
+            logger.warning(f"QC plot generation failed: {e}")
 
     # S9: confidence threshold
     logger.info("Stage 9: confidence thresholding")

@@ -92,6 +92,30 @@ def unpack_nibbles(Zpk: torch.Tensor) -> torch.Tensor:
     return torch.cat([hi, lo], dim=-1).to(torch.int8)
 
 
+def tree_sum(part: torch.Tensor, block: Optional[int] = None) -> torch.Tensor:
+    """Σ over axis 0 of ``part`` [m, ...] in one fixed pairwise order: the
+    rows (zero-padded to a power of two) halved and added until one is
+    left, ``block`` columns of a 2-D ``part`` at a time (None: all; a
+    block bounds the temporaries). Elementwise adds only, so a column's
+    sum is the same at any width, in any memory layout and on every device
+    (a column reduction's own order depends on the tensor's width)."""
+    if block is not None and part.ndim == 2 and part.shape[1] > block:
+        return torch.cat([tree_sum(p) for p in part.split(block, dim=1)])
+    m = part.shape[0]
+    if m == 0:
+        return part.new_zeros(part.shape[1:])
+    size = 1 << max(m - 1, 0).bit_length()
+    if size > m:                    # the first halving, the zero rows implied
+        h = size // 2
+        half = part[:h].clone()
+        half[:m - h] += part[h:]
+        part = half
+    while part.shape[0] > 1:
+        h = part.shape[0] // 2
+        part = part[:h] + part[h:]
+    return part[0]
+
+
 def _rows(Zp: torch.Tensor, idx, packed: bool) -> torch.Tensor:
     """Rows of a value table as float32 codes (unpacked when ``packed``)."""
     z = Zp[idx]
@@ -140,17 +164,19 @@ def band_lag_int8_plain(local_idx, wq, Zp, block: int, *, packed: bool,
 
 
 def band_cross_int8_plain(local_idx, wq, sw, Zp, block: int, *, packed: bool,
-                          far_row_ptr=None, far_q=None, Zf=None) -> torch.Tensor:
-    """Plain version of :func:`band_cross_int8` (same inputs)."""
+                          far_row_ptr=None, far_q=None, Zf=None,
+                          genes: Optional[int] = None) -> torch.Tensor:
+    """Plain version of :func:`band_cross_int8` (same inputs): row chunks
+    sized for ``genes`` (default G), each summed by :func:`tree_sum`."""
     n_rows = local_idx.shape[0]
     G = Zp.shape[1] * (2 if packed else 1)
     cross = torch.zeros(G, dtype=torch.float32, device=Zp.device)
-    for r0, r1 in _row_chunks(n_rows, block, G):
+    for r0, r1 in _row_chunks(n_rows, block, genes or G):
         lag = band_lag_int8_plain(local_idx, wq, Zp, block, packed=packed,
                                   far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf,
                                   r0=r0, r1=r1)
         z1 = _rows(Zp, slice(block + r0, block + r1), packed)
-        cross += ((sw[r0:r1, None] * z1) * lag).sum(dim=0)
+        cross += tree_sum((sw[r0:r1, None] * z1) * lag)
     return cross
 
 
@@ -169,14 +195,16 @@ def band_lag_float_plain(local_idx, w, Zp, block: int, r0: int = 0,
     return lag
 
 
-def band_cross_float_plain(local_idx, w, Zp, block: int) -> torch.Tensor:
-    """Plain version of :func:`band_cross_float` (same inputs)."""
+def band_cross_float_plain(local_idx, w, Zp, block: int,
+                           genes: Optional[int] = None) -> torch.Tensor:
+    """Plain version of :func:`band_cross_float` (same inputs): row chunks
+    sized for ``genes`` (default G), each summed by :func:`tree_sum`."""
     n_rows = local_idx.shape[0]
     G = Zp.shape[1]
     cross = torch.zeros(G, dtype=torch.float32, device=Zp.device)
-    for r0, r1 in _row_chunks(n_rows, block, G):
+    for r0, r1 in _row_chunks(n_rows, block, genes or G):
         lag = band_lag_float_plain(local_idx, w, Zp, block, r0, r1)
-        cross += (Zp[block + r0:block + r1].to(torch.float32) * lag).sum(dim=0)
+        cross += tree_sum(Zp[block + r0:block + r1].to(torch.float32) * lag)
     return cross
 
 
@@ -210,28 +238,32 @@ def band_lag_dense(A, Zp3, n0: int, n1: int) -> torch.Tensor:
     return lag.reshape((n1 - n0) * B, -1)
 
 
-def dense_cross(Zp3, B: int, lag_fn, sw=None) -> torch.Tensor:
-    """Σ_i (sw_i)·z1_i·lag_i over blocks in bounded chunks, ``Zp3``
+def dense_cross(Zp3, B: int, lag_fn, sw=None,
+                genes: Optional[int] = None) -> torch.Tensor:
+    """Σ_i (sw_i)·z1_i·lag_i over blocks in bounded chunks (sized for
+    ``genes``, default G; each summed by :func:`tree_sum`), ``Zp3``
     [nb+2, B, G]; ``lag_fn(n0, n1)`` gives the float32 lag of blocks
     [n0, n1) as [(n1−n0)·B, G]."""
     nb, G = Zp3.shape[0] - 2, Zp3.shape[2]
     z1 = Zp3.reshape(-1, G)[B:B + nb * B]
     cross = torch.zeros(G, dtype=torch.float32, device=Zp3.device)
-    for n0, n1 in block_chunks(nb, B, G):
+    for n0, n1 in block_chunks(nb, B, genes or G):
         t = z1[n0 * B:n1 * B].to(torch.float32)
         if sw is not None:
             t = sw.reshape(-1, 1)[n0 * B:n1 * B] * t
-        cross += (t * lag_fn(n0, n1)).sum(dim=0)
+        cross += tree_sum(t * lag_fn(n0, n1))
     return cross
 
 
-def band_cross_dense_plain(A, Zp, block: int) -> torch.Tensor:
+def band_cross_dense_plain(A, Zp, block: int,
+                           genes: Optional[int] = None) -> torch.Tensor:
     """Plain version of :func:`band_cross_dense` (same inputs): the lag of
     three batched products per block chunk, accumulated in float32 from
     bf16/f32 operands (the Pallas kernel's precision)."""
     nb = A.shape[0]
     Zp3 = Zp.reshape(nb + 2, block, -1)
-    return dense_cross(Zp3, block, lambda n0, n1: band_lag_dense(A, Zp3, n0, n1))
+    return dense_cross(Zp3, block, lambda n0, n1: band_lag_dense(A, Zp3, n0, n1),
+                       genes=genes)
 
 
 def rot4_slabs(nb: int, n0: int, n1: int, device) -> torch.Tensor:
@@ -243,7 +275,8 @@ def rot4_slabs(nb: int, n0: int, n1: int, device) -> torch.Tensor:
     return n + (s - n) % 4
 
 
-def band_cross_rot4_plain(A4, Zp, block: int) -> torch.Tensor:
+def band_cross_rot4_plain(A4, Zp, block: int,
+                          genes: Optional[int] = None) -> torch.Tensor:
     """Plain version of :func:`band_cross_rot4` (same inputs): per block the
     4-slot window [4B, G] in slot order, then one product A4[n] @ window.
     Slab nb+2 (past the table, the last block's fourth slot) reads as
@@ -258,7 +291,7 @@ def band_cross_rot4_plain(A4, Zp, block: int) -> torch.Tensor:
         return torch.bmm(A4[n0:n1].to(torch.float32),
                          win.to(torch.float32)).reshape((n1 - n0) * B, G)
 
-    return dense_cross(Zp4[:nb + 2], B, lag)
+    return dense_cross(Zp4[:nb + 2], B, lag, genes=genes)
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +328,8 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def band_cross_int8(local_idx, wq, sw, Zp, block: int, *, packed: bool,
-                    far_row_ptr=None, far_q=None, Zf=None) -> torch.Tensor:
+                    far_row_ptr=None, far_q=None, Zf=None,
+                    genes: Optional[int] = None) -> torch.Tensor:
     """cross_q[g] (z_q·w_q units) of one draw in the int8 / int4 system.
 
     ``local_idx`` int32 [Npad, k]; ``wq`` int8 [Npad, k] weight codes;
@@ -304,16 +338,23 @@ def band_cross_int8(local_idx, wq, sw, Zp, block: int, *, packed: bool,
     ``far_row_ptr`` int32 [Npad+1] (row r's entries are
     [ptr[r], ptr[r+1])), ``far_q`` int8 [F] weight codes and ``Zf`` [F, cols]
     the gathered far values. Returns f32 [G].
+
+    ``genes`` (default G): the gene count the launch shape (and the plain
+    version's row chunks) is chosen for. A call on a block of a wider
+    table passes the table's G, so that each gene's float sums run in the
+    whole table's order; the per-run partials add by :func:`tree_sum`.
     """
-    return band_cross_int8_tiled(local_idx, wq, sw, Zp, block, None,
+    tiles = None if genes is None else int_tiles(
+        block, local_idx.shape[1], packed, genes, local_idx.shape[0] // block)
+    return band_cross_int8_tiled(local_idx, wq, sw, Zp, block, tiles,
                                  packed=packed, far_row_ptr=far_row_ptr,
-                                 far_q=far_q, Zf=Zf)
+                                 far_q=far_q, Zf=Zf, genes=genes)
 
 
 def band_cross_int8_tiled(local_idx, wq, sw, Zp, block: int,
                           tiles: Optional["IntTiles"], *, packed: bool,
                           far_row_ptr=None, far_q=None,
-                          Zf=None) -> torch.Tensor:
+                          Zf=None, genes: Optional[int] = None) -> torch.Tensor:
     """:func:`band_cross_int8` with the kernel's launch shape given (None:
     :func:`int_tiles`): for timing other launch shapes and for testing runs
     that do not divide the block count."""
@@ -344,7 +385,7 @@ def band_cross_int8_tiled(local_idx, wq, sw, Zp, block: int,
     if Zp.device.type == "cpu":
         return band_cross_int8_plain(local_idx, wq, sw, Zp, block,
                                      packed=packed, far_row_ptr=far_row_ptr,
-                                     far_q=far_q, Zf=Zf)
+                                     far_q=far_q, Zf=Zf, genes=genes)
     gcols = Zp.shape[1]
     G = 2 * gcols if packed else gcols
     if tiles is None:
@@ -365,7 +406,7 @@ def band_cross_int8_tiled(local_idx, wq, sw, Zp, block: int,
         raise RuntimeError(f"band_cross_int8 launch failed: CUDA error {err}")
     LAUNCHES[f"{'int4' if packed else 'int8'}_{'win' if has_far else 'band'}"] += 1
     # per-run partials reduce in a fixed order: no float atomics
-    return partial.sum(dim=0)
+    return tree_sum(partial)
 
 
 class IntTiles(NamedTuple):
@@ -504,24 +545,30 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def band_cross_float(local_idx, w, Zp, block: int) -> torch.Tensor:
+def band_cross_float(local_idx, w, Zp, block: int,
+                     genes: Optional[int] = None) -> torch.Tensor:
     """cross[g] of one draw in bf16 / f32: Σ_i z1_i·lag_i, f32 lag.
 
     ``local_idx`` int32 [Npad, k]; ``w`` [Npad, k] and ``Zp``
-    [(nb+2)·B, G], both bf16 or both f32. Returns f32 [G].
+    [(nb+2)·B, G], both bf16 or both f32. Returns f32 [G]. ``genes`` as
+    in :func:`band_cross_int8`.
     """
-    return band_cross_float_tiled(local_idx, w, Zp, block, None)
+    tiles = None if genes is None else float_tiles(
+        block, local_idx.shape[1], Zp.element_size(), genes,
+        local_idx.shape[0] // block)
+    return band_cross_float_tiled(local_idx, w, Zp, block, tiles, genes=genes)
 
 
 def band_cross_float_tiled(local_idx, w, Zp, block: int,
-                           tiles: Optional[FloatTiles]) -> torch.Tensor:
+                           tiles: Optional[FloatTiles],
+                           genes: Optional[int] = None) -> torch.Tensor:
     """:func:`band_cross_float` with the kernel's launch shape given
     (None: :func:`float_tiles`): for timing other launch shapes and for
     testing runs that do not divide the block count."""
     nb, k = _check_band(local_idx, w, (torch.bfloat16, torch.float32), Zp, block)
     _check(Zp.dtype == w.dtype, "w and Zp must share a dtype (bf16 or f32)")
     if Zp.device.type == "cpu":
-        return band_cross_float_plain(local_idx, w, Zp, block)
+        return band_cross_float_plain(local_idx, w, Zp, block, genes)
     G = Zp.shape[1]
     if tiles is None:
         tiles = float_tiles(block, k, Zp.element_size(), G, nb)
@@ -538,7 +585,7 @@ def band_cross_float_tiled(local_idx, w, Zp, block: int,
         raise RuntimeError(f"band_cross_float launch failed: CUDA error {err}")
     LAUNCHES["float"] += 1
     # per-run partials reduce in a fixed order: no float atomics
-    return partial.sum(dim=0)
+    return tree_sum(partial)
 
 
 class DenseTiles(NamedTuple):
@@ -604,7 +651,8 @@ def nonzero_tiles(A: torch.Tensor, rows: int = 16, cols: int = 16) -> int:
 
 
 def _dense_launch(entry: str, mode: str, A, Zp, block: int, width: int,
-                  plain, tiles: Optional[DenseTiles]) -> torch.Tensor:
+                  plain, tiles: Optional[DenseTiles],
+                  genes: Optional[int] = None) -> torch.Tensor:
     """Shared checks and launch of the two dense-band kernels."""
     _check(A.ndim == 3 and A.dtype in (torch.bfloat16, torch.float32),
            "A must be bf16 or f32 [nb, B, width·B]")
@@ -620,7 +668,7 @@ def _dense_launch(entry: str, mode: str, A, Zp, block: int, width: int,
         _check(t.is_contiguous(), "operands must be contiguous")
     _check(Zp.device.type in ("cpu", "cuda"), f"unsupported device {Zp.device}")
     if Zp.device.type == "cpu":
-        return plain(A, Zp, block)
+        return plain(A, Zp, block, genes)
     _check(block % 16 == 0 and block <= DENSE_MAX_BLOCK,
            f"the dense kernels take a block that is a multiple of 16 up to "
            f"{DENSE_MAX_BLOCK}, got {block}")
@@ -641,16 +689,19 @@ def _dense_launch(entry: str, mode: str, A, Zp, block: int, width: int,
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     LAUNCHES[mode] += 1
     # per-(block, row tile) partials reduce in a fixed order: no atomics
-    return partial.sum(dim=0)
+    return tree_sum(partial)
 
 
-def band_cross_dense(A, Zp, block: int) -> torch.Tensor:
+def band_cross_dense(A, Zp, block: int, genes: Optional[int] = None
+                     ) -> torch.Tensor:
     """cross[g] of one draw on the dense band (Pallas K5's function).
 
     ``A`` [nb, B, 3B] and ``Zp`` [(nb+2)·B, G], both bf16 or both f32.
     Returns f32 [G]. On the card: ``B`` a multiple of 16, at most 256.
+    ``genes`` sizes the plain version's chunks (:func:`band_cross_int8`).
     """
-    return band_cross_dense_tiled(A, Zp, block, None)
+    return _dense_launch("sct_band_cross_dense", "dense", A, Zp, block, 3,
+                         band_cross_dense_plain, None, genes)
 
 
 def band_cross_dense_tiled(A, Zp, block: int,
@@ -661,11 +712,13 @@ def band_cross_dense_tiled(A, Zp, block: int,
                          band_cross_dense_plain, tiles)
 
 
-def band_cross_rot4(A4, Zp, block: int) -> torch.Tensor:
+def band_cross_rot4(A4, Zp, block: int, genes: Optional[int] = None
+                    ) -> torch.Tensor:
     """cross[g] of one draw on the rotation-baked band (Pallas K6's
     function): ``A4`` [nb, B, 4B] from ``ops.banded._build_band_rot4``,
     ``Zp`` [(nb+2)·B, G], both bf16 or both f32. Returns f32 [G]."""
-    return band_cross_rot4_tiled(A4, Zp, block, None)
+    return _dense_launch("sct_band_cross_rot4", "rot4", A4, Zp, block, 4,
+                         band_cross_rot4_plain, None, genes)
 
 
 def band_cross_rot4_tiled(A4, Zp, block: int,

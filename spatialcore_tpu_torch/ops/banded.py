@@ -548,18 +548,20 @@ def _band_lag_win_i8_plain(w_idx, starts, runs, A8, Zp8, Zf, rowp, qp,
     return lag.index_add_(0, dst[sel] - n0 * B, vals)
 
 
-def _band_cross_win_i8_plain(w_idx, starts, runs, A8, sw, Zp8, Zf, rowp, qp
-                             ) -> torch.Tensor:
+def _band_cross_win_i8_plain(w_idx, starts, runs, A8, sw, Zp8, Zf, rowp, qp,
+                             genes: Optional[int] = None) -> torch.Tensor:
     """Plain twin of the int8/int4 windowed-far kernels (K1/K2): cross_q[g]
     in z_q·w_q units = Σ_i sw_i·z1_i·(band + far lag)_i."""
     return kern.dense_cross(Zp8, A8.shape[1], lambda n0, n1: _band_lag_win_i8_plain(
-        w_idx, starts, runs, A8, Zp8, Zf, rowp, qp, n0, n1), sw)
+        w_idx, starts, runs, A8, Zp8, Zf, rowp, qp, n0, n1), sw, genes)
 
 
-def _band_cross_i8_plain(A8, sw, Zp8) -> torch.Tensor:
+def _band_cross_i8_plain(A8, sw, Zp8, genes: Optional[int] = None
+                         ) -> torch.Tensor:
     """Plain twin of the int8 band-only kernel (K3): Σ_i sw_i·z1_i·lag_i."""
     return kern.dense_cross(Zp8, A8.shape[1],
-                            lambda n0, n1: kern.band_lag_dense(A8, Zp8, n0, n1), sw)
+                            lambda n0, n1: kern.band_lag_dense(A8, Zp8, n0, n1),
+                            sw, genes)
 
 
 # ---------------------------------------------------------------------------
@@ -596,7 +598,8 @@ class _IntOps(NamedTuple):
 
 
 def _banded_stat_int(ops: _IntOps, rc_sum, Ztab, sz2, den, S0, rows, rowsf,
-                     *, n: int, stat: str, use_plain: bool):
+                     *, n: int, stat: str, use_plain: bool,
+                     genes: Optional[int] = None):
     """One draw's statistic in the int8 (``Ztab`` codes) or int4
     (``Ztab`` nibble-packed bytes) null system.
 
@@ -616,9 +619,9 @@ def _banded_stat_int(ops: _IntOps, rc_sum, Ztab, sz2, den, S0, rows, rowsf,
             S, nw, rowp, qp, w_idx, starts0, runs = ops.win_ops
             cross_q = _band_cross_win_i8_plain(
                 w_idx, starts0, runs, ops.A8, ops.sw, Zp3,
-                unpack(Zf).reshape(nw, S, -1), rowp, qp)
+                unpack(Zf).reshape(nw, S, -1), rowp, qp, genes)
         else:
-            cross_q = _band_cross_i8_plain(ops.A8, ops.sw, Zp3)
+            cross_q = _band_cross_i8_plain(ops.A8, ops.sw, Zp3, genes)
     else:
         far = {}
         if ops.win:
@@ -626,11 +629,12 @@ def _banded_stat_int(ops: _IntOps, rc_sum, Ztab, sz2, den, S0, rows, rowsf,
                        far_q=ops.win_ops[3].reshape(-1), Zf=Zf)
         cross_q = kern.band_cross_int8(ops.local_idx32, ops.wq,
                                        ops.sw.reshape(-1), Zp, B,
-                                       packed=ops.packed, **far)
+                                       packed=ops.packed, genes=genes, **far)
     if ops.far_exact is not None:
         far_src, far_dst, far_w = ops.far_exact
-        cross_q = cross_q + (far_w[:, None] * Zp[far_src].to(torch.float32)
-                             * Zp[far_dst].to(torch.float32)).sum(dim=0)
+        cross_q = cross_q + kern.tree_sum(
+            far_w[:, None] * Zp[far_src].to(torch.float32)
+            * Zp[far_dst].to(torch.float32))
 
     def sq():
         z1 = Zp[B:B + nb * B]
@@ -642,7 +646,7 @@ def _banded_stat_int(ops: _IntOps, rc_sum, Ztab, sz2, den, S0, rows, rowsf,
 
 def _banded_stat_float(local_idx32, w_c, A, far_src, far_dst, far_w, rc_sum,
                        Ztab, den, S0, rows, *, block: int, n: int, stat: str,
-                       band_impl: str):
+                       band_impl: str, genes: Optional[int] = None):
     """One draw's statistic in bf16/f32 (reference ``_banded_stat``).
 
     The band cross by ``band_impl``: "auto"/"pallas_halo" the compact-band
@@ -655,17 +659,17 @@ def _banded_stat_float(local_idx32, w_c, A, far_src, far_dst, far_w, rc_sum,
     nb = local_idx32.shape[0] // B
     Zp = Ztab[rows]                                  # ONE random row gather
     if band_impl == "xla":
-        cross = kern.band_cross_dense_plain(A, Zp, B)
+        cross = kern.band_cross_dense_plain(A, Zp, B, genes)
     elif band_impl == "pallas":
-        cross = kern.band_cross_dense(A, Zp, B)
+        cross = kern.band_cross_dense(A, Zp, B, genes)
     elif band_impl == "pallas_halo4":
-        cross = kern.band_cross_rot4(A, Zp, B)
+        cross = kern.band_cross_rot4(A, Zp, B, genes)
     else:
-        cross = kern.band_cross_float(local_idx32, w_c, Zp, B)
+        cross = kern.band_cross_float(local_idx32, w_c, Zp, B, genes)
     fs = Zp[far_src].to(torch.float32)
     ft = Zp[far_dst].to(torch.float32)
     fw = far_w.to(Zp.dtype).to(torch.float32)
-    cross = cross + (fw[:, None] * fs * ft).sum(dim=0)
+    cross = cross + kern.tree_sum(fw[:, None] * fs * ft)
 
     def sq():
         z1 = Zp[B:B + nb * B].to(torch.float32)
@@ -742,7 +746,7 @@ def _int_ops(plan: NullPlan, precision: str, far_mode: str, rows_idx,
 def _banded_test(plan: NullPlan, Z, S0, observed, seed: int, den, sz,
                  draw0: int, *, n_permutations: int, stat: str, alternative,
                  precision: str, band_impl: str, far_mode: str,
-                 perm_method: str):
+                 perm_method: str, genes: Optional[int] = None):
     """The draw loop: permuted rows → row gather → band cross → counts.
 
     A Python loop over draws with three on-device accumulators (extreme
@@ -759,9 +763,9 @@ def _banded_test(plan: NullPlan, Z, S0, observed, seed: int, den, sz,
             if sz is None:
                 raise ValueError("int4 Z requires its per-gene scale `sz`")
             codes = _unpack_nibbles(Z).to(torch.float32)
-            den = (codes * codes).sum(dim=0) * sz * sz
+            den = kern.tree_sum(codes * codes, 512) * sz * sz
         else:
-            den = (Z.to(torch.float32) ** 2).sum(dim=0)
+            den = kern.tree_sum(Z.to(torch.float32) ** 2, 512)
             if precision == "int8" and Z.dtype == torch.int8:
                 if sz is None:
                     raise ValueError("int8 Z requires its per-gene scale `sz`")
@@ -792,7 +796,8 @@ def _banded_test(plan: NullPlan, Z, S0, observed, seed: int, den, sz,
 
         def stat_fn(rows, rowsf):
             return _banded_stat_int(ops, plan.rc_sum, Ztab, sz2, den, S0, rows,
-                                    rowsf, n=n, stat=stat, use_plain=use_plain)
+                                    rowsf, n=n, stat=stat, use_plain=use_plain,
+                                    genes=genes)
 
         # draws compare against the observed value of the SAME quantized
         # operator (identity placement)
@@ -814,7 +819,8 @@ def _banded_test(plan: NullPlan, Z, S0, observed, seed: int, den, sz,
             return _banded_stat_float(local_idx32, w_c, A, plan.far_src,
                                       plan.far_dst, plan.far_w, plan.rc_sum,
                                       Ztab, den, S0, rows, block=block, n=n,
-                                      stat=stat, band_impl=band_impl)
+                                      stat=stat, band_impl=band_impl,
+                                      genes=genes)
 
     sort = perm_method == "sort"
     base = key_for(seed, "perm_global" if sort else "perm_feistel", 0)
@@ -867,6 +873,7 @@ def banded_permutation_test(
     sz: Optional[torch.Tensor] = None,
     draw_offset: int = 0,
     far_mode: str = "auto",
+    launch_genes: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Monte-Carlo p-values, null mean and null std of a global statistic.
 
@@ -896,6 +903,12 @@ def banded_permutation_test(
     only). For int8, ``far_mode="auto"`` means "win" whenever the plan has
     its far-run structure. Integer draws compare against the observed
     value of the same quantized operator (``observed`` is ignored).
+
+    ``launch_genes`` (default G): the gene count the kernels' launch shapes
+    and the plain versions' row chunks are chosen for. A gene-sharded call
+    on a block of a wider table passes the whole table's G, so that each
+    gene's float sums run in the order of the whole call (every per-gene
+    sum here is then independent of its neighbours: ``kern.tree_sum``).
     """
     _check_perm_method(perm_method)
     if band_impl not in _BAND_IMPLS:
@@ -955,11 +968,15 @@ def banded_permutation_test(
             den = torch.nn.functional.pad(den, (0, pad_g), value=1.0)
         if sz is not None:
             sz = torch.nn.functional.pad(sz, (0, pad_g), value=1.0)
+    genes = None
+    if launch_genes is not None:
+        mult = 256 if precision == "int4" else 128 if precision == "int8" else 1
+        genes = -(-int(launch_genes) // mult) * mult
     p, mean, std = _banded_test(
         plan, Z, S0, observed, int(seed) & 0xFFFFFFFF, den, sz,
         int(draw_offset), n_permutations=n_permutations, stat=stat,
         alternative=alternative, precision=precision, band_impl=band_impl,
-        far_mode=far_mode, perm_method=perm_method)
+        far_mode=far_mode, perm_method=perm_method, genes=genes)
     if pad_g:
         p, mean, std = p[..., :G], mean[..., :G], std[..., :G]
     return p, mean, std
@@ -1670,19 +1687,8 @@ def banded_getis(plan: NullPlan, X: torch.Tensor, seed: int,
 # ---------------------------------------------------------------------------
 
 
-def _tree_sum(part: torch.Tensor) -> torch.Tensor:
-    """Σ over axis 0 of ``part`` [m, G] in one fixed pairwise order: rows
-    padded with zeros to a power of two, then halves added until one row
-    is left. Elementwise adds only, so the sum is the same on every
-    device and in every run."""
-    m = part.shape[0]
-    size = 1 << max(m - 1, 0).bit_length()
-    if size != m:
-        part = torch.nn.functional.pad(part, (0, 0, 0, size - m))
-    while part.shape[0] > 1:
-        h = part.shape[0] // 2
-        part = part[:h] + part[h:]
-    return part[0]
+#: Σ over axis 0 in one fixed pairwise order (``kern.tree_sum``)
+_tree_sum = kern.tree_sum
 
 
 def _relabeled_x(plan: NullPlan, X: torch.Tensor) -> torch.Tensor:

@@ -20,13 +20,13 @@ same null.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..core.rng import fold_in, key_for, permutation
 from .banded import _extreme, _p_from_counts
-from .graph import SpatialGraph
+from .graph import SpatialGraph, graph_rows
 from .moran import _counter_dtype
 
 
@@ -37,12 +37,15 @@ class GetisOrdResult(NamedTuple):
     p_sim: torch.Tensor    # [N, G] permutation p; ones if P=0
 
 
-def _binary_lag(graph: SpatialGraph, X: torch.Tensor) -> torch.Tensor:
-    """Σ_{j∈N(i)} x_j — unweighted neighbour sum over the valid slots."""
-    lag = torch.zeros_like(X)
+def _binary_lag(graph: SpatialGraph, X: torch.Tensor, perm=None) -> torch.Tensor:
+    """Σ_{j∈N(i)} x_j — unweighted neighbour sum over the valid slots, one
+    row a graph row; of ``X[perm]`` when ``perm`` is given."""
+    lag = torch.zeros((graph.neighbor_idx.shape[0],) + X.shape[1:],
+                      dtype=X.dtype, device=X.device)
     for j in range(graph.neighbor_idx.shape[1]):
+        idx = graph.neighbor_idx[:, j]
         lag = lag + torch.where(graph.valid[:, j:j + 1],
-                                X[graph.neighbor_idx[:, j]], 0.0)
+                                X[idx if perm is None else perm[idx]], 0.0)
     return lag
 
 
@@ -56,15 +59,19 @@ def _column_sums(X: torch.Tensor):
             (X * X).sum(dim=0, keepdim=True, dtype=torch.float64).to(X.dtype))
 
 
-def _gi_z(graph: SpatialGraph, Xv: torch.Tensor, deg: torch.Tensor,
-          tot: torch.Tensor, sq: torch.Tensor, star: bool):
-    """(lag_s, z) of values ``Xv`` [N, G]: the binary lag (self included
-    for Gi*) and the analytic z. The column sums ``tot`` / ``sq`` are
-    invariant under a row permutation, so the null passes the observed
-    ones (the reference re-sums each permuted column in float32; both are
-    exact on integer counts below 2²⁴)."""
-    n = Xv.shape[0]
-    lag = _binary_lag(graph, Xv)
+def _gi_z(graph: SpatialGraph, X: torch.Tensor, deg: torch.Tensor,
+          tot: torch.Tensor, sq: torch.Tensor, star: bool, perm=None,
+          rows=None):
+    """(lag_s, z) of the values ``X[perm]`` [N, G] (``X`` without
+    ``perm``) at the graph's rows ``rows`` (all without): the binary lag
+    (self included for Gi*) and the analytic z. The column sums ``tot`` /
+    ``sq`` are invariant under a row permutation, so the null passes the
+    observed ones (the reference re-sums each permuted column in float32;
+    both are exact on integer counts below 2²⁴)."""
+    n = X.shape[0]
+    r0, r1 = (0, n) if rows is None else rows
+    Xv = X[r0:r1] if perm is None else X[perm[r0:r1]]
+    lag = _binary_lag(graph, X, perm)
     if star:
         lag_s = lag + Xv
         W = deg + 1.0
@@ -90,13 +97,19 @@ def _gi_z(graph: SpatialGraph, Xv: torch.Tensor, deg: torch.Tensor,
 
 def getis_ord(graph: SpatialGraph, X: torch.Tensor, star: bool = True,
               alternative: str = "two-sided", seed: int = 0,
-              n_permutations: int = 0) -> GetisOrdResult:
+              n_permutations: int = 0,
+              rows: Optional[Tuple[int, int]] = None) -> GetisOrdResult:
     """Gi*/Gi per cell × gene on RAW values ``X`` [N, G] (not z-scored).
 
     With ``n_permutations > 0`` draw d permutes the rows by
     ``permutation(fold_in(key_for(seed, "perm_getis", 0), d), n)`` and
     p_sim = (#{z_perm extreme against z} + 1)/(P + 1), extreme as
-    ``alternative`` says."""
+    ``alternative`` says.
+
+    ``rows=(r0, r1)``: the outputs of cells [r0, r1) only, bitwise those
+    rows of the whole call: the column moments still come from all N
+    rows of ``X``, each draw permutes all N cells, and the graph's rows
+    are sliced."""
     if alternative not in ("two-sided", "greater", "less"):
         raise ValueError("alternative must be 'two-sided', 'greater' or "
                          f"'less', got {alternative!r}")
@@ -106,11 +119,13 @@ def getis_ord(graph: SpatialGraph, X: torch.Tensor, star: bool = True,
     if X.dtype not in (torch.float32, torch.float64):
         X = X.to(torch.float32)
     n = X.shape[0]
-    deg = graph.valid.sum(dim=1).to(X.dtype)                  # [N]
+    r0, r1 = (0, n) if rows is None else rows
+    graph = graph_rows(graph, rows)
+    deg = graph.valid.sum(dim=1).to(X.dtype)                  # [rows]
     tot, sq = _column_sums(X)                                 # [1, G] each
-    lag_s, z = _gi_z(graph, X, deg, tot, sq, star)
+    lag_s, z = _gi_z(graph, X, deg, tot, sq, star, rows=rows)
     # raw G ratio: Σ_j w_ij x_j / Σ_j x_j (star: totals include i)
-    gden = tot if star else tot - X
+    gden = tot if star else tot - X[r0:r1]
     G = lag_s / torch.where(gden != 0, gden, torch.ones_like(gden))
     del lag_s, gden
     if alternative == "two-sided":
@@ -125,8 +140,9 @@ def getis_ord(graph: SpatialGraph, X: torch.Tensor, star: bool = True,
     cdt = _counter_dtype(n_permutations)
     count = torch.zeros(z.shape, dtype=cdt, device=X.device)
     for d in range(n_permutations):
-        zp = _gi_z(graph, X[permutation(fold_in(base, d), n, X.device)], deg,
-                   tot, sq, star)[1]
+        zp = _gi_z(graph, X, deg, tot, sq, star,
+                   perm=permutation(fold_in(base, d), n, X.device),
+                   rows=rows)[1]
         count += _extreme(zp, z, alternative).to(cdt)
         del zp
     return GetisOrdResult(G, z, p, _p_from_counts(count, n_permutations))

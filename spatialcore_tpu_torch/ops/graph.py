@@ -414,15 +414,32 @@ def build_graph(coords, n_neighbors: int = 6, include_self: bool = False,
 # ---------------------------------------------------------------------------
 
 
-def spatial_lag(graph: SpatialGraph, Z: torch.Tensor) -> torch.Tensor:
-    """``W @ Z`` for Z of shape [N] or [N, G]: k row gathers, weighted sum."""
+def spatial_lag(graph: SpatialGraph, Z: torch.Tensor,
+                perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``W @ Z`` for Z of shape [N] or [N, G]: k row gathers, weighted sum.
+
+    One row a graph row: a graph of a row range (:func:`graph_rows`) gives
+    those rows' lags of the whole ``Z``. With ``perm`` the lag is that of
+    ``Z[perm]``, gathered through the composite index ``perm[idx]``."""
     squeeze = Z.ndim == 1
     if squeeze:
         Z = Z[:, None]
-    lag = torch.zeros_like(Z)
+    lag = torch.zeros((graph.neighbor_idx.shape[0],) + Z.shape[1:],
+                      dtype=Z.dtype, device=Z.device)
     for j in range(graph.neighbor_idx.shape[1]):
-        lag += graph.neighbor_w[:, j:j + 1] * Z[graph.neighbor_idx[:, j]]
+        idx = graph.neighbor_idx[:, j]
+        lag += graph.neighbor_w[:, j:j + 1] * Z[idx if perm is None else perm[idx]]
     return lag[:, 0] if squeeze else lag
+
+
+def graph_rows(graph: SpatialGraph, rows: Optional[Tuple[int, int]]
+               ) -> SpatialGraph:
+    """The graph's rows [r0, r1) (its neighbour indices still address all
+    N cells); the whole graph for ``rows=None``."""
+    if rows is None:
+        return graph
+    r0, r1 = rows
+    return SpatialGraph(*(f[r0:r1] for f in graph))
 
 
 def graph_moments(graph: SpatialGraph) -> dict:

@@ -27,30 +27,33 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..core.rng import _choice, fold_in, key_for, permutation
+from ..kernels.band_cross import tree_sum
 from .banded import _p_from_counts
-from .graph import SpatialGraph, spatial_lag
+from .graph import SpatialGraph, graph_rows, spatial_lag
 
 
-def _column_sums(X: torch.Tensor, block: int = 512) -> torch.Tensor:
-    """Σ over the rows of each column in one fixed pairwise order: the rows
-    (padded with zeros to a power of two) are halved and added until one is
-    left, ``block`` columns at a time. Elementwise adds only, so a column's
-    sum is the same at any width and on every device (a card's own column
-    reduction orders its adds by the tensor's width)."""
-    n = X.shape[0]
-    size = 1 << max(n - 1, 0).bit_length()
-    out = []
-    for part in X.split(block, dim=1):
-        if size > n:                    # the first halving, the zero rows implied
-            h = size // 2
-            half = part[:h].clone()
-            half[:n - h] += part[h:]
-            part = half
-        while part.shape[0] > 1:
-            h = part.shape[0] // 2
-            part = part[:h] + part[h:]
-        out.append(part[0])
-    return torch.cat(out)
+def _column_sums(X: torch.Tensor) -> torch.Tensor:
+    """Σ over the rows of each column in one fixed pairwise order, 512
+    columns at a time (``kern.tree_sum``): a column's sum is the same at
+    any width, in any layout and on every device, so a gene's value does
+    not depend on how many genes come with it."""
+    return tree_sum(X, 512)
+
+
+def _cell_sums(T: torch.Tensor) -> torch.Tensor:
+    """Σ over the cells (rows) of each gene column in an order that does
+    not depend on how many genes come with it: on the card
+    :func:`_column_sums`; on the CPU torch's reduction of each column as
+    one contiguous vector (the order that stays within the JAX package's
+    float32 rounding on small values, which the pairwise tree does not).
+    One column is summed beside a zero one: a reduction to one value
+    splits its work over the CPU's threads, in another order."""
+    if T.device.type != "cpu":
+        return _column_sums(T)
+    Tt = T.t().contiguous()
+    if Tt.shape[0] == 1:
+        Tt = torch.cat([Tt, torch.zeros_like(Tt)])
+    return Tt.sum(dim=1)[:T.shape[1]]
 
 
 def standardize(X: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -75,8 +78,8 @@ def standardize(X: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def moran_observed(graph: SpatialGraph, Z: torch.Tensor, S0: float) -> torch.Tensor:
     """Global Moran's I per gene for standardized Z [N, G]."""
     n = Z.shape[0]
-    num = (Z * spatial_lag(graph, Z)).sum(dim=0)
-    den = (Z * Z).sum(dim=0)
+    num = _cell_sums(Z * spatial_lag(graph, Z))
+    den = _cell_sums(Z * Z)
     den = torch.where(den > 0, den, torch.ones_like(den))
     return (n / S0) * num / den
 
@@ -87,16 +90,16 @@ def geary_observed(graph: SpatialGraph, Z: torch.Tensor, S0: float) -> torch.Ten
     num = torch.zeros(Z.shape[1], dtype=Z.dtype, device=Z.device)
     for j in range(graph.neighbor_idx.shape[1]):
         diff = Z - Z[graph.neighbor_idx[:, j]]
-        num += (graph.neighbor_w[:, j:j + 1] * diff * diff).sum(dim=0)
-    den = (Z * Z).sum(dim=0)
+        num += _cell_sums(graph.neighbor_w[:, j:j + 1] * diff * diff)
+    den = _cell_sums(Z * Z)
     den = torch.where(den > 0, den, torch.ones_like(den))
     return (n - 1) * num / (2.0 * S0 * den)
 
 
 def _kurtosis(Z: torch.Tensor) -> torch.Tensor:
     n = Z.shape[0]
-    z2 = (Z * Z).sum(dim=0)
-    z4 = (Z ** 4).sum(dim=0)
+    z2 = _cell_sums(Z * Z)
+    z4 = _cell_sums(Z ** 4)
     return n * z4 / torch.where(z2 > 0, z2 * z2, torch.ones_like(z2))
 
 
@@ -150,22 +153,26 @@ def _perm_stat_global(graph: SpatialGraph, Z: torch.Tensor, S0: float,
                       perm: torch.Tensor, stat: str, den: torch.Tensor):
     """Null statistic [G] of one permutation, reduced per neighbour slot.
 
-    No [N, G] lag is kept: each slot gathers, multiplies and reduces
-    straight to [G], in slot order. ``den`` = Σz² (permutation-invariant)
+    The slots' products add elementwise in slot order (one in-place
+    multiply-add a slot, the memory traffic of one reduction a slot), then
+    the rows in :func:`_column_sums`' fixed order, so a gene's value does
+    not depend on how many genes come with it. ``den`` = Σz² (permutation-invariant)
     comes precomputed. Products promote to float32 (float64 for float64
     ``Z``), as in the reference: a bf16 table's gathers stay bf16.
     """
     n = Z.shape[0]
     Zp = Z[perm]
-    num = torch.zeros(Z.shape[1], dtype=torch.float32, device=Z.device)
+    acc = None
     for j in range(graph.neighbor_idx.shape[1]):
         Zn = Z[perm[graph.neighbor_idx[:, j]]]          # composite index [N]
         w = graph.neighbor_w[:, j:j + 1]
         if stat == "moran":
-            num = num + (w * Zp * Zn).sum(dim=0)
+            a, b = w * Zp, Zn
         else:
-            diff = Zp - Zn
-            num = num + (w * diff * diff).sum(dim=0)
+            b = Zp - Zn
+            a = w * b
+        acc = a * b if acc is None else acc.addcmul_(a, b)
+    num = _column_sums(acc).to(torch.promote_types(acc.dtype, torch.float32))
     if stat == "moran":
         return (n / S0) * num / den
     return (n - 1) * num / (2.0 * S0 * den)
@@ -195,7 +202,7 @@ def permutation_test_global(graph: SpatialGraph, Z: torch.Tensor, S0: float,
         raise ValueError(f"stat must be 'moran' or 'geary', got {stat!r}")
     n, G = Z.shape
     base = key_for(seed, "perm_global", 0)
-    den = (Z * Z).sum(dim=0)
+    den = _column_sums(Z * Z)           # width-independent, as each draw
     den = torch.where(den > 0, den, torch.ones_like(den))
     Zg = Z.to(torch.bfloat16) if null_dtype == "bfloat16" else Z
     acc_dt = torch.promote_types(Z.dtype, torch.float32)
@@ -273,7 +280,8 @@ class LocalMoranResult(NamedTuple):
 
 def local_moran(graph: SpatialGraph, Z: torch.Tensor, seed: int,
                 n_permutations: int = 0, chunk: int = 8,
-                null: str = "total") -> LocalMoranResult:
+                null: str = "total",
+                rows: Optional[Tuple[int, int]] = None) -> LocalMoranResult:
     """Local Moran's I with the slot permutation null: I_i = z_i · (Wz)_i,
     two-tailed p = (#{|I_perm| ≥ |I_obs|} + 1)/(P + 1) per cell and gene.
 
@@ -284,33 +292,39 @@ def local_moran(graph: SpatialGraph, Z: torch.Tensor, seed: int,
     ``fold_in(key_for(seed, "perm_local", 0), d)``, the reference's stream
     bitwise; each draw's k slots add in slot order. ``chunk`` is accepted
     for API compatibility.
+
+    ``rows=(r0, r1)``: the outputs of cells [r0, r1) only, bitwise those
+    rows of the whole call. The graph's rows are sliced; each draw still
+    permutes all N cells, and only the rows' values are gathered.
     """
     del chunk
     if null not in ("total", "conditional"):
         raise ValueError(
             f"null must be 'total' or 'conditional', got {null!r}")
     n = Z.shape[0]
+    r0, r1 = (0, n) if rows is None else rows
+    graph = graph_rows(graph, rows)
     k = graph.neighbor_idx.shape[1]
+    Zr = Z[r0:r1]
     lag = spatial_lag(graph, Z)
-    I_obs = Z * lag
+    I_obs = Zr * lag
     if n_permutations == 0:
-        return LocalMoranResult(I_obs, Z, lag, torch.ones_like(I_obs))
+        return LocalMoranResult(I_obs, Zr, lag, torch.ones_like(I_obs))
     abs_obs = I_obs.abs()
     base = key_for(seed, "perm_local", 0)
     cdt = _counter_dtype(n_permutations)
-    count = torch.zeros(Z.shape, dtype=cdt, device=Z.device)
+    count = torch.zeros(I_obs.shape, dtype=cdt, device=Z.device)
     for d in range(n_permutations):
         key = fold_in(base, d)
         if null == "total":
-            Zp = Z[permutation(key, n, Z.device)]
-            Ip = Zp * spatial_lag(graph, Zp)
-            del Zp
+            perm = permutation(key, n, Z.device)
+            Ip = Z[perm[r0:r1]] * spatial_lag(graph, Z, perm)
         else:
             draws = _conditional_draw_indices(key, n, k, Z.device)
-            Ip = Z * _slot_sum(graph, (Z[idx] for idx in draws))
+            Ip = Zr * _slot_sum(graph, (Z[idx[r0:r1]] for idx in draws))
         count += (Ip.abs() >= abs_obs).to(cdt)
         del Ip
-    return LocalMoranResult(I_obs, Z, lag, _p_from_counts(count, n_permutations))
+    return LocalMoranResult(I_obs, Zr, lag, _p_from_counts(count, n_permutations))
 
 
 # ---------------------------------------------------------------------------
@@ -334,8 +348,8 @@ def _local_c(graph: SpatialGraph, me: torch.Tensor, neighbours) -> torch.Tensor:
 
 
 def local_geary(graph: SpatialGraph, Z: torch.Tensor, seed: int = 0,
-                n_permutations: int = 0, null: str = "conditional"
-                ) -> LocalGearyResult:
+                n_permutations: int = 0, null: str = "conditional",
+                rows: Optional[Tuple[int, int]] = None) -> LocalGearyResult:
     """Local Geary's C (Anselin 1995): c_i = Σ_j w_ij (z_i − z_j)², one
     pass over the k neighbour slots in slot order (the reference's).
 
@@ -345,28 +359,33 @@ def local_geary(graph: SpatialGraph, Z: torch.Tensor, seed: int = 0,
     z_i and draws its k slots from :func:`_conditional_draw_indices`;
     ``"total"`` permutes whole columns on both sides. Draw d is keyed
     ``fold_in(key_for(seed, "perm_local_geary", 0), d)``, bitwise the
-    reference's. With ``n_permutations=0`` p is all ones.
+    reference's. With ``n_permutations=0`` p is all ones. ``rows`` as in
+    :func:`local_moran`.
     """
     if null not in ("total", "conditional"):
         raise ValueError(
             f"null must be 'total' or 'conditional', got {null!r}")
     n = Z.shape[0]
+    r0, r1 = (0, n) if rows is None else rows
+    graph = graph_rows(graph, rows)
     k = graph.neighbor_idx.shape[1]
     idx = graph.neighbor_idx
-    c_obs = _local_c(graph, Z, (Z[idx[:, j]] for j in range(k)))
+    Zr = Z[r0:r1]
+    c_obs = _local_c(graph, Zr, (Z[idx[:, j]] for j in range(k)))
     if n_permutations == 0:
         return LocalGearyResult(c_obs, torch.ones_like(c_obs))
     base = key_for(seed, "perm_local_geary", 0)
     cdt = _counter_dtype(n_permutations)
-    count = torch.zeros(Z.shape, dtype=cdt, device=Z.device)
+    count = torch.zeros(c_obs.shape, dtype=cdt, device=Z.device)
     for d in range(n_permutations):
         key = fold_in(base, d)
         if null == "total":
             perm = permutation(key, n, Z.device)
-            cp = _local_c(graph, Z[perm], (Z[perm[idx[:, j]]] for j in range(k)))
+            cp = _local_c(graph, Z[perm[r0:r1]],
+                          (Z[perm[idx[:, j]]] for j in range(k)))
         else:
             draws = _conditional_draw_indices(key, n, k, Z.device)
-            cp = _local_c(graph, Z, (Z[i] for i in draws))
+            cp = _local_c(graph, Zr, (Z[i[r0:r1]] for i in draws))
         count += (cp <= c_obs).to(cdt)
         del cp
     return LocalGearyResult(c_obs, _p_from_counts(count, n_permutations))

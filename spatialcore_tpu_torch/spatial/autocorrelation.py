@@ -18,8 +18,8 @@ card — is "X is a CUDA tensor".
 Permutation p-values come from the banded nulls (``ops/banded.py``) or
 the slot nulls (``ops/moran.py``, ``ops/getis.py``; Lee's L: its direct
 null in ``ops/lee.py``), chosen by ``null_method`` as in the reference.
-Not ported yet, and refused loudly: gene sharding over a ``mesh``
-(ROADMAP Queue 1 item 15). Unknown ``null_method`` strings raise
+The global functions take a ``mesh`` (``parallel.auto_mesh``) and shard
+each gene batch over its ``genes`` axis. Unknown ``null_method`` strings raise
 ``ValueError`` (the reference's global path runs the slot null for them,
 ROADMAP Queue 3).
 """
@@ -208,6 +208,45 @@ def _dense_expression(adata, gene_names: List[str], layer: Optional[str],
 # ---------------------------------------------------------------------------
 
 
+class _GeneShard:
+    """One rank's share of a gene batch of width G under ``mesh``: the
+    batch padded to a multiple of the gene shard count gs, block ``genes``
+    of it (``parallel.stats.span``), and the gather back. The gene pad
+    columns have zero variance and are trimmed after the gather. Every sum
+    over the cells runs in one fixed order whatever the width
+    (``ops.moran._column_sums``), so a rank's genes keep the bits of the
+    call without a mesh."""
+
+    def __init__(self, mesh, Xb: torch.Tensor):
+        from ..parallel.stats import _where, span
+
+        self.mesh = mesh
+        coord, shape = _where(mesh)
+        self.G, self.gs = Xb.shape[1], shape[1]
+        self.pad = (-self.G) % self.gs
+        self.c0, self.c1 = span(self.G + self.pad, self.gs, coord[1])
+
+    def columns(self, Xb: torch.Tensor) -> torch.Tensor:
+        if self.pad:
+            Xb = torch.nn.functional.pad(Xb, (0, self.pad))
+        return Xb[:, self.c0:self.c1]
+
+    def gather(self, parts: list) -> list:
+        """Each rank's [g] results in gene order, trimmed to G: one
+        all-gather over ``genes`` for all of them."""
+        from ..parallel.stats import all_gather
+
+        if self.gs == 1:
+            return parts
+        local = torch.stack([p.to(torch.float64) for p in parts])
+        out = torch.empty((self.gs * local.shape[0], local.shape[1]),
+                          dtype=local.dtype, device=local.device)
+        all_gather(out, local, self.mesh.get_group("genes"))
+        whole = out.reshape((self.gs,) + local.shape).permute(1, 0, 2)
+        whole = whole.reshape(len(parts), -1)[:, :self.G]
+        return [whole[i].to(p.dtype) for i, p in enumerate(parts)]
+
+
 def _auto_null_method(n_cells: int, n_genes: int, n_permutations: int) -> str:
     """Resolve null_method='auto' exactly as the reference: the banded null
     at >=100k cells when genes × permutations >= 16,384, else the slot null.
@@ -235,10 +274,6 @@ def _global_autocorr(adata, stats: Tuple[str, ...], genes, layer, spatial_key,
     if null_method not in NULL_METHODS:
         raise ValueError(f"null_method must be one of {NULL_METHODS}, "
                          f"got {null_method!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "gene sharding over a mesh is not ported yet (ROADMAP Queue 1 "
-            "item 15, parallel/)")
     if copy:
         adata = adata.copy()
     if spatial_key not in adata.obsm:
@@ -262,7 +297,11 @@ def _global_autocorr(adata, stats: Tuple[str, ...], genes, layer, spatial_key,
     rows = {s: [] for s in stats}
     for batch_start in range(0, len(gene_names), gene_batch_size):
         batch = gene_names[batch_start:batch_start + gene_batch_size]
-        Z, zero_var = standardize(_dense_expression(adata, batch, layer, device))
+        Xb = _dense_expression(adata, batch, layer, device)
+        shard = _GeneShard(mesh, Xb) if mesh is not None else None
+        if shard is not None:
+            Xb = shard.columns(Xb)
+        Z, zero_var = standardize(Xb)
         obs, expected, z_score = {}, {}, {}
         for s in stats:
             _, obs_fn, moments_fn, _ = _GLOBAL_STATS[s]
@@ -275,7 +314,8 @@ def _global_autocorr(adata, stats: Tuple[str, ...], genes, layer, spatial_key,
                 plan, Z, S0, torch.stack([obs[s] for s in stats]) if fused
                 else obs[stats[0]], seed, n_permutations,
                 stat="moran_geary" if fused else stats[0],
-                alternative=alts if fused else alts[0], precision=null_precision)
+                alternative=alts if fused else alts[0], precision=null_precision,
+                launch_genes=None if shard is None else shard.G)
             p_val = dict(zip(stats, p_val if fused else [p_val]))
         elif n_permutations > 0:
             p_val = {s: permutation_test_global(
@@ -283,6 +323,13 @@ def _global_autocorr(adata, stats: Tuple[str, ...], genes, layer, spatial_key,
                 alternative=a)[0] for s, a in zip(stats, alts)}
         else:
             p_val = {s: p_from_z(z_score[s], a) for s, a in zip(stats, alts)}
+        if shard is not None:
+            parts = shard.gather([t for s in stats
+                                  for t in (obs[s], z_score[s], p_val[s])]
+                                 + [zero_var.to(torch.float32)])
+            for i, s in enumerate(stats):
+                obs[s], z_score[s], p_val[s] = parts[3 * i:3 * i + 3]
+            zero_var = parts[-1] > 0
         zv = zero_var.cpu().numpy()
         for s in stats:
             col = _GLOBAL_STATS[s][0]
@@ -338,6 +385,18 @@ def morans_i(adata, genes: Optional[Union[str, List[str]]] = None,
     ``ops.moran.permutation_test_global``: ``jax.random.permutation``'s
     draws); "auto" picks "banded" at >=100k cells when genes ×
     permutations >= 16,384 and otherwise the slot null.
+
+    ``mesh`` (a ``parallel.auto_mesh`` ``DeviceMesh``; every rank calls
+    with the same arguments): each gene batch is padded to a multiple of
+    the ``genes`` shard count, each rank runs its block of columns through
+    standardize, the observed value, the moments and the null, and one
+    all-gather a batch brings the columns back. The table is bitwise the
+    mesh-less call's: each gene's values and draws do not depend on its
+    neighbours in the batch, every sum over the cells runs in one fixed
+    order whatever the width, and the band null launches at the batch's
+    shape. (Geary's C under the band nulls sums its Σz² term at the
+    shard's width: its p can differ only where a draw ties the observed
+    value within float32 rounding.)
     """
     return _global_autocorr(
         adata, ("moran",), genes, layer, spatial_key, n_neighbors,

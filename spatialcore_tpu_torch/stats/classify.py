@@ -8,8 +8,8 @@ thresholds, full-data posteriors) runs on ``device``
 (``stats.thresholding``); the GMM is fitted on the reference's
 deterministic ≤ ``max_cells`` subsample (``np_rng(seed,
 "classify_subsample")``) and its posteriors are then evaluated on every
-cell. The gpairs diagnostic figure is not ported (``plotting``, ROADMAP
-Queue 1 item 14d): ``plot=True`` with an ``output_dir`` raises.
+cell. ``plot=True`` with an ``output_dir`` draws the gpairs diagnostic
+figure (``plotting.gpairs``) to ``{output_dir}/{column_prefix}_gpairs.png``.
 """
 
 from __future__ import annotations
@@ -127,11 +127,6 @@ def classify_by_threshold(
     if plot and output_dir is None:
         logger.warning("plot=True but output_dir not set; skipping plot")
         plot = False
-    if plot:
-        raise NotImplementedError(
-            "classify_by_threshold(plot=True) draws its gpairs figure with "
-            "the plotting module, which is not ported yet (ROADMAP Queue 1 "
-            "item 14d); pass plot=False")
 
     feats = _extract_features(adata, feature_columns)
     n_cells, n_feats = feats.shape
@@ -215,6 +210,17 @@ def classify_by_threshold(
         f"classify_by_threshold[{column_prefix}]: threshold={threshold:.4f}, "
         f"{n_high:,} high / {n_low:,} low / {n_cells - n_valid:,} invalid "
         f"({time.time() - start:.1f}s)")
+
+    if plot:
+        from ..plotting.gpairs import plot_gpairs
+
+        out = Path(output_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        plot_gpairs(
+            feats[valid], scores_valid, threshold, clusters_valid,
+            feature_names=list(feature_columns),
+            path=out / f"{column_prefix}_gpairs.png",
+            n_sample=n_sample_plot, seed=seed)
     update_metadata(
         adata, "classify_by_threshold",
         parameters={"feature_columns": list(feature_columns),

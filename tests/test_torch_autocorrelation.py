@@ -136,7 +136,7 @@ def test_unported_and_invalid_null_methods_raise():
     # "auto" resolves to the slot null below 100k cells
     sctt.gearys_c(b, n_permutations=9, device="cpu")
     assert get_operations(b)[-1]["parameters"]["null_method"] == "slots"
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh's axes"):
         sctt.morans_i(b, null_method="banded", mesh=object(), device="cpu")
 
 

@@ -48,8 +48,8 @@ def test_cli_info(capsys):
     out = _run(capsys, "info", "--device", "cpu")
     assert out.splitlines()[0] == f"spatialcore_tpu_torch {pt.__version__}"
     assert "spatial" in out and "ok" in out
-    assert "plotting     not ported yet (ROADMAP Queue 1 item 14d)" in out
-    assert "parallel     not ported yet (ROADMAP Queue 1 item 15)" in out
+    assert "plotting     ok" in out
+    assert "parallel     ok" in out
     assert _run(capsys, "--device", "cpu", "info") == out
 
 
@@ -194,7 +194,8 @@ def test_import_needs_no_h5py_yaml_or_jax():
         "import spatialcore_tpu_torch.annotation.loading\n"
         "from spatialcore_tpu_torch import __main__ as cli\n"
         "assert p.available_modules() == ['core', 'ops', 'spatial', 'stats', "
-        "'annotation', 'utils', 'nmf', 'diffusion', 'r_bridge']\n"
+        "'annotation', 'plotting', 'parallel', 'utils', 'nmf', 'diffusion', "
+        "'r_bridge']\n"
         "cli.main(['info'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'optax', 'orbax', 'spatialcore_tpu') and sys.modules[m]]\n"

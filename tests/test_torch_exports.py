@@ -1,6 +1,6 @@
 """The port's public names against the JAX package's, subpackage by
 subpackage (``core``, ``ops``, ``spatial``, ``utils``, ``stats``,
-``annotation``, the modules ``nmf``, ``diffusion`` and ``r_bridge``, and
+``annotation``, ``plotting``, ``parallel``, the modules ``nmf``, ``diffusion`` and ``r_bridge``, and
 the top level): every name the reference exports is exported by the port
 too, unless it is still queued for porting (ROADMAP Queue 1), and every
 name the port exports resolves. A porting PR moves names out of the queued lists; a name
@@ -33,6 +33,8 @@ QUEUED = {
     "diffusion": set(),
     "r_bridge": set(),
     "annotation": ITEM_14,
+    "plotting": set(),
+    "parallel": set(),
 }
 
 
@@ -61,8 +63,8 @@ def test_top_level_exports_h5ad_io():
 
 
 #: the top level's names not ported yet, each under its ROADMAP Queue 1
-#: item: ``plotting`` (14d) and ``parallel`` (15)
-TOP_LEVEL_QUEUED = {"plotting", "parallel"}
+#: item: none are left
+TOP_LEVEL_QUEUED = set()
 
 
 def test_top_level_all_is_the_reference_less_the_queued():
@@ -80,7 +82,7 @@ def test_top_level_all_is_the_reference_less_the_queued():
 
 @pytest.mark.parametrize("name", ["stats", "annotation", "nmf", "diffusion",
                                   "core", "ops", "spatial", "utils",
-                                  "r_bridge"])
+                                  "r_bridge", "plotting", "parallel"])
 def test_top_level_exposes_the_ported_modules(name):
     import spatialcore_tpu_torch as port
 

@@ -385,7 +385,7 @@ def test_global_autocorrelation_matches_reference():
     scts.morans_i(a, n_permutations=P, seed=3, null_method="slots",
                   key_added="m_slots")
     _frames_match(b.uns["m_slots"], a.uns["m_slots"], "I", tol)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh's axes"):
         sctt.global_autocorrelation(b, mesh=object(), device="cpu")
 
 

@@ -291,7 +291,10 @@ def test_pipeline_plot_stage_warns_and_goes_on(tmp_path):
             output_dir=str(tmp_path / "run"), confidence_threshold=0.5)
     finally:
         log.removeHandler(seen)
-    assert any("item 14d" in m for m in seen.messages)
+    assert not any("QC plot" in m for m in seen.messages), seen.messages
+    for name in ("distribution", "confidence_histogram",
+                 "confidence_by_celltype"):
+        assert (tmp_path / "run" / f"celltyping_{name}.png").stat().st_size > 0
     assert q.uns["spatialcore_annotation"]["n_types"] == 4
     with pytest.raises(ValueError, match="Unknown config field"):
         pa.train_and_annotate(q, references=refs, device="cpu", nope=1)
