@@ -1,0 +1,7 @@
+"""All the window's work in the entry's unit for ``null_gpps``, divided by
+the window's seconds (host clock, the last call synchronized)."""
+
+
+def read(ctx):
+    work = ctx["work"].get("null_gpps")
+    return None if work is None else work / ctx["window_s"]
