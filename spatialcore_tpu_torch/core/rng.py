@@ -41,6 +41,8 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
+from ..utils.profiling import count, read_back, span
+
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _FEISTEL_ROUNDS = 8
@@ -422,7 +424,9 @@ def _feistel_bijection(x: torch.Tensor, round_keys: Sequence[int],
     """Keyed bijection on [0, 4**bits) via a balanced 8-round Feistel network.
 
     ``x`` holds uint32 values in int64; ``round_keys`` are Python ints.
+    Each evaluation is one cycle-walk pass (counter ``rng.feistel_passes``).
     """
+    count("rng.feistel_passes")
     mask = (1 << bits) - 1
     left = x >> bits
     right = x & mask
@@ -436,8 +440,9 @@ def _feistel_bijection(x: torch.Tensor, round_keys: Sequence[int],
 
 
 def feistel_round_keys(k: torch.Tensor) -> list:
-    """The 8 round keys ``feistel_apply`` draws with ``randint``."""
-    return randint(k, (_FEISTEL_ROUNDS,), 0, (1 << 31) - 1).tolist()
+    """The 8 round keys ``feistel_apply`` draws with ``randint`` (one
+    read-back: the key is a host tensor, so it waits for no device work)."""
+    return read_back(randint(k, (_FEISTEL_ROUNDS,), 0, (1 << 31) - 1)).tolist()
 
 
 def feistel_apply(k: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -447,20 +452,23 @@ def feistel_apply(k: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     bitwise equal to the reference. Runs on ``idx``'s device and returns
     int64 (torch's index type; the reference returns int32 of the same
     values). The cycle walk checks for out-of-range values once per pass,
-    which reads one flag back to the host.
+    which reads one flag back to the host. Runs inside a
+    ``core.rng.feistel`` span; counts ``rng.feistel_calls``.
     """
     if n < 2:
         return torch.zeros(idx.shape, dtype=torch.int64, device=idx.device)
     bits = max((int(n - 1).bit_length() + 1) // 2, 1)
     if (1 << (2 * bits)) < n:
         bits += 1
-    round_keys = feistel_round_keys(k)
-    y = _feistel_bijection(idx.to(torch.int64), round_keys, bits)
-    while True:
-        out = y >= n
-        if not bool(out.any()):
-            return y
-        y = torch.where(out, _feistel_bijection(y, round_keys, bits), y)
+    with span("core.rng.feistel"):
+        count("rng.feistel_calls")
+        round_keys = feistel_round_keys(k)
+        y = _feistel_bijection(idx.to(torch.int64), round_keys, bits)
+        while True:
+            out = y >= n
+            if not bool(read_back(out.any())):
+                return y
+            y = torch.where(out, _feistel_bijection(y, round_keys, bits), y)
 
 
 def feistel_permutation(k: torch.Tensor, n: int,

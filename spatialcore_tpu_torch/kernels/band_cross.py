@@ -50,11 +50,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import CounterGroup
 from . import build
 
 #: kernel launches by mode, counted where each wrapper launches its kernel
-LAUNCHES = {"int4_win": 0, "int4_band": 0, "int8_win": 0, "int8_band": 0,
-            "float": 0, "dense": 0, "rot4": 0}
+#: (the counters ``kernels.band_cross.<mode>`` of ``utils.profiling``)
+LAUNCHES = CounterGroup("kernels.band_cross",
+                        ("int4_win", "int4_band", "int8_win", "int8_band",
+                         "float", "dense", "rot4"))
 
 #: rows per chunk of the plain versions' [rows, G] temps (times G ≤ 2**27)
 _PLAIN_CHUNK_ELEMS = 1 << 27
@@ -76,8 +79,7 @@ _SM_SMEM = 233_472
 
 
 def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    LAUNCHES.clear()
 
 
 def unpack_nibbles(Zpk: torch.Tensor) -> torch.Tensor:

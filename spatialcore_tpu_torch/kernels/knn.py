@@ -36,10 +36,11 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..ops.graph import knn_scan
+from ..utils.profiling import CounterGroup
 from . import build
 
-#: kernel launches
-LAUNCHES = {"knn": 0}
+#: kernel launches (the counter ``kernels.knn.knn`` of ``utils.profiling``)
+LAUNCHES = CounterGroup("kernels.knn", ("knn",))
 #: the kernel's largest top-k bound (8 keys a lane)
 MAX_K = 256
 #: shared memory a CTA may use on the H100 (bytes)
@@ -54,7 +55,7 @@ class KnnTiles(NamedTuple):
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["knn"] = 0
+    LAUNCHES.clear()
 
 
 def knn_smem_bytes(tiles: KnnTiles) -> int:

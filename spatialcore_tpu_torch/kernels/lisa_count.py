@@ -82,6 +82,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import CounterGroup
 from . import build
 from .band_cross import (MAX_BLOCK, SMEM_LIMIT, _aligned16, _r16, _run_for,
                          band_lag_int8_plain)
@@ -89,10 +90,12 @@ from .band_cross import (MAX_BLOCK, SMEM_LIMIT, _aligned16, _r16, _run_for,
 #: kernel launches: LISA's draw step by far form and its observed entry;
 #: the geary, getis_star and getis_g draw steps; geary's and Getis's
 #: observed entries; Lee's draw step, observed and partial-only entries
-LAUNCHES = {"lisa_win": 0, "lisa_dense": 0, "lisa_band": 0, "lisa_obs": 0,
-            "geary_win": 0, "geary_obs": 0, "getis_star_win": 0,
-            "getis_g_win": 0, "getis_obs": 0, "lee_win": 0, "lee_obs": 0,
-            "lee_partial": 0}
+#: (the counters ``kernels.lisa_count.<mode>`` of ``utils.profiling``)
+LAUNCHES = CounterGroup("kernels.lisa_count",
+                        ("lisa_win", "lisa_dense", "lisa_band", "lisa_obs",
+                         "geary_win", "geary_obs", "getis_star_win",
+                         "getis_g_win", "getis_obs", "lee_win", "lee_obs",
+                         "lee_partial"))
 
 #: far forms as the C entry points number them
 _FAR_NONE, _FAR_ROWS, _FAR_DENSE = 0, 1, 2
@@ -118,8 +121,7 @@ _PLAIN_CHUNK_ELEMS = 1 << 26
 
 
 def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    LAUNCHES.clear()
 
 
 def counter_dtype(n_permutations: int) -> torch.dtype:

@@ -61,6 +61,7 @@ from ..core.logging import get_logger
 from ..core.rng import feistel_apply, fold_in, key_for, permutation
 from ..kernels import band_cross as kern
 from ..kernels import lisa_count as kern_lisa
+from ..utils.profiling import count, read_back, span, traced
 from .graph import SpatialGraph
 
 logger = get_logger("ops.banded")
@@ -240,6 +241,7 @@ class NullPlan(NamedTuple):
         return self.local_idx.shape[0]
 
 
+@traced("ops.banded.build_null_plan")
 def build_null_plan(graph: SpatialGraph, coords=None, block: int = 256
                     ) -> NullPlan:
     """Relabel cells and split edges into band vs far list.
@@ -499,13 +501,13 @@ def _far_row_ptr(far_src, far_starts, block: int, n_padded: int) -> torch.Tensor
     non-decreasing and row r's entries are ``[ptr[r], ptr[r+1])``; a list
     in any other order is refused (one flag read back per call).
     """
-    return _row_ptr(far_src, int(far_starts[-1]), block, n_padded)
+    return _row_ptr(far_src, int(read_back(far_starts[-1])), block, n_padded)
 
 
 def _row_ptr(far_src, n_live: int, block: int, n_padded: int) -> torch.Tensor:
     """Row pointers over the first ``n_live`` (live) entries of the far list."""
     rows = far_src[:n_live] - block
-    if n_live > 1 and bool((rows[1:] < rows[:-1]).any()):
+    if n_live > 1 and bool(read_back((rows[1:] < rows[:-1]).any())):
         raise ValueError("far-edge list is not sorted by source row; "
                          "rebuild the plan with build_null_plan")
     ptr = torch.searchsorted(rows, torch.arange(n_padded + 1, device=rows.device,
@@ -610,38 +612,39 @@ def _banded_stat_int(ops: _IntOps, rc_sum, Ztab, sz2, den, S0, rows, rowsf,
     to z units.
     """
     B, nb = ops.block, ops.nb
-    Zp = Ztab[rows]                                  # ONE random row gather
-    Zf = Ztab[rowsf] if ops.win else None            # compact far gather
-    if use_plain:
-        unpack = _unpack_nibbles if ops.packed else (lambda t: t)
-        Zp3 = unpack(Zp).reshape(nb + 2, B, -1)
-        if ops.win:
-            S, nw, rowp, qp, w_idx, starts0, runs = ops.win_ops
-            cross_q = _band_cross_win_i8_plain(
-                w_idx, starts0, runs, ops.A8, ops.sw, Zp3,
-                unpack(Zf).reshape(nw, S, -1), rowp, qp, genes)
+    Zp = _gather(Ztab, rows)                         # ONE random row gather
+    Zf = _gather(Ztab, rowsf) if ops.win else None   # compact far gather
+    with span("kernels.band_cross"):
+        if use_plain:
+            unpack = _unpack_nibbles if ops.packed else (lambda t: t)
+            Zp3 = unpack(Zp).reshape(nb + 2, B, -1)
+            if ops.win:
+                S, nw, rowp, qp, w_idx, starts0, runs = ops.win_ops
+                cross_q = _band_cross_win_i8_plain(
+                    w_idx, starts0, runs, ops.A8, ops.sw, Zp3,
+                    unpack(Zf).reshape(nw, S, -1), rowp, qp, genes)
+            else:
+                cross_q = _band_cross_i8_plain(ops.A8, ops.sw, Zp3, genes)
         else:
-            cross_q = _band_cross_i8_plain(ops.A8, ops.sw, Zp3, genes)
-    else:
-        far = {}
-        if ops.win:
-            far = dict(far_row_ptr=ops.far_ptr,
-                       far_q=ops.win_ops[3].reshape(-1), Zf=Zf)
-        cross_q = kern.band_cross_int8(ops.local_idx32, ops.wq,
-                                       ops.sw.reshape(-1), Zp, B,
-                                       packed=ops.packed, genes=genes, **far)
-    if ops.far_exact is not None:
-        far_src, far_dst, far_w = ops.far_exact
-        cross_q = cross_q + kern.tree_sum(
-            far_w[:, None] * Zp[far_src].to(torch.float32)
-            * Zp[far_dst].to(torch.float32))
+            far = {}
+            if ops.win:
+                far = dict(far_row_ptr=ops.far_ptr,
+                           far_q=ops.win_ops[3].reshape(-1), Zf=Zf)
+            cross_q = kern.band_cross_int8(ops.local_idx32, ops.wq,
+                                           ops.sw.reshape(-1), Zp, B,
+                                           packed=ops.packed, genes=genes, **far)
+        if ops.far_exact is not None:
+            far_src, far_dst, far_w = ops.far_exact
+            cross_q = cross_q + kern.tree_sum(
+                far_w[:, None] * Zp[far_src].to(torch.float32)
+                * Zp[far_dst].to(torch.float32))
 
-    def sq():
-        z1 = Zp[B:B + nb * B]
-        z1 = (_unpack_nibbles(z1) if ops.packed else z1).to(torch.float32)
-        return rc_sum @ (z1 * z1 * sz2)
+        def sq():
+            z1 = Zp[B:B + nb * B]
+            z1 = (_unpack_nibbles(z1) if ops.packed else z1).to(torch.float32)
+            return rc_sum @ (z1 * z1 * sz2)
 
-    return _finish_stat(cross_q * sz2, sq, den, S0, n, stat)
+        return _finish_stat(cross_q * sz2, sq, den, S0, n, stat)
 
 
 def _banded_stat_float(local_idx32, w_c, A, far_src, far_dst, far_w, rc_sum,
@@ -657,30 +660,48 @@ def _banded_stat_float(local_idx32, w_c, A, far_src, far_dst, far_w, rc_sum,
     """
     B = block
     nb = local_idx32.shape[0] // B
-    Zp = Ztab[rows]                                  # ONE random row gather
-    if band_impl == "xla":
-        cross = kern.band_cross_dense_plain(A, Zp, B, genes)
-    elif band_impl == "pallas":
-        cross = kern.band_cross_dense(A, Zp, B, genes)
-    elif band_impl == "pallas_halo4":
-        cross = kern.band_cross_rot4(A, Zp, B, genes)
-    else:
-        cross = kern.band_cross_float(local_idx32, w_c, Zp, B, genes)
-    fs = Zp[far_src].to(torch.float32)
-    ft = Zp[far_dst].to(torch.float32)
-    fw = far_w.to(Zp.dtype).to(torch.float32)
-    cross = cross + kern.tree_sum(fw[:, None] * fs * ft)
+    Zp = _gather(Ztab, rows)                         # ONE random row gather
+    with span("kernels.band_cross"):
+        if band_impl == "xla":
+            cross = kern.band_cross_dense_plain(A, Zp, B, genes)
+        elif band_impl == "pallas":
+            cross = kern.band_cross_dense(A, Zp, B, genes)
+        elif band_impl == "pallas_halo4":
+            cross = kern.band_cross_rot4(A, Zp, B, genes)
+        else:
+            cross = kern.band_cross_float(local_idx32, w_c, Zp, B, genes)
+        fs = Zp[far_src].to(torch.float32)
+        ft = Zp[far_dst].to(torch.float32)
+        fw = far_w.to(Zp.dtype).to(torch.float32)
+        cross = cross + kern.tree_sum(fw[:, None] * fs * ft)
 
-    def sq():
-        z1 = Zp[B:B + nb * B].to(torch.float32)
-        return rc_sum @ (z1 * z1)
+        def sq():
+            z1 = Zp[B:B + nb * B].to(torch.float32)
+            return rc_sum @ (z1 * z1)
 
-    return _finish_stat(cross, sq, den, S0, n, stat)
+        return _finish_stat(cross, sq, den, S0, n, stat)
 
 
 # ---------------------------------------------------------------------------
 # Draw loop
 # ---------------------------------------------------------------------------
+
+
+def _draw_steps(n_permutations: int, start: int = 0):
+    """The draw indices ``start, …, start + n_permutations − 1`` of a draw
+    loop, each draw's body inside a ``draw`` span and counted in ``draws``:
+    every draw loop here iterates through this."""
+    for step in range(start, start + n_permutations):
+        with span("draw"):
+            count("draws")
+            yield step
+
+
+def _gather(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``table[rows]``, a draw's row gather, inside an
+    ``ops.banded.gather`` span."""
+    with span("ops.banded.gather"):
+        return table[rows]
 
 
 def _extreme(v, o, alt: str):
@@ -743,6 +764,7 @@ def _int_ops(plan: NullPlan, precision: str, far_mode: str, rows_idx,
     return ops, rif
 
 
+@traced("draws")
 def _banded_test(plan: NullPlan, Z, S0, observed, seed: int, den, sz,
                  draw0: int, *, n_permutations: int, stat: str, alternative,
                  precision: str, band_impl: str, far_mode: str,
@@ -778,8 +800,8 @@ def _banded_test(plan: NullPlan, Z, S0, observed, seed: int, den, sz,
     gidx = torch.clamp(torch.arange((nbb + 2) * block, device=Z.device) - block,
                        0, n - 1)
     rows_idx = plan.order[gidx]
-    if not use_plain and bool(((plan.local_idx < 0)
-                               | (plan.local_idx >= 3 * block)).any()):
+    if not use_plain and bool(read_back(((plan.local_idx < 0)
+                                         | (plan.local_idx >= 3 * block)).any())):
         raise ValueError("plan.local_idx must lie in [0, 3·block)")
     rif = None
     if precision in ("int8", "int4"):
@@ -831,8 +853,8 @@ def _banded_test(plan: NullPlan, Z, S0, observed, seed: int, den, sz,
     count = torch.zeros(shape, dtype=torch.int32, device=Z.device)
     s1 = torch.zeros(shape, dtype=torch.float32, device=Z.device)
     s2 = torch.zeros(shape, dtype=torch.float32, device=Z.device)
-    for step in range(n_permutations):
-        key = fold_in(base, step + draw0)
+    for step in _draw_steps(n_permutations, draw0):
+        key = fold_in(base, step)
         if sort:
             perm_rows = permutation(key, n, device=Z.device)[idx_all]
         else:
@@ -1034,8 +1056,8 @@ def _draw_rows(perm_method: str, seed: int, rows_idx: torch.Tensor, n: int,
 def _n_live_far(plan: NullPlan) -> int:
     """Number of live far edges (both plan builders put them first)."""
     if plan.far_starts is not None:
-        return int(plan.far_starts[-1])
-    return int((plan.far_w > 0).sum())
+        return int(read_back(plan.far_starts[-1]))
+    return int(read_back((plan.far_w > 0).sum()))
 
 
 def _padded_rows(plan: NullPlan, device) -> torch.Tensor:
@@ -1095,6 +1117,7 @@ def _lisa_far_form(plan: NullPlan, band_impl: str, n_live: int) -> str:
     return "rows" if has_runs else "dense"
 
 
+@traced("draws")
 def _banded_local_moran_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
                              n_permutations: int, band_impl: str = "auto",
                              return_counts: bool = False,
@@ -1177,9 +1200,13 @@ def _banded_local_moran_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
     rows_of = _draw_rows(perm_method, seed, rows_idx, n, "perm_local")
     count = torch.zeros((n_padded, Gp), dtype=kern_lisa.counter_dtype(
         n_permutations), device=dev)
-    for step in range(n_permutations):
-        Zp = Zq[rows_of(step)]                    # ONE gather
-        count_fn(li32, wq, Zp, B, abs_obs, count, **far_of(Zp))
+    for step in _draw_steps(n_permutations):
+        rows = rows_of(step)
+        with span("ops.banded.gather"):
+            Zp = Zq[rows]                         # ONE gather
+            far = far_of(Zp)
+        with span("kernels.lisa_count"):
+            count_fn(li32, wq, Zp, B, abs_obs, count, **far)
     count = count[plan.rank, :G]                  # original order
     if return_counts:
         return count
@@ -1231,7 +1258,7 @@ def _far_slots(plan: NullPlan, n_live: int):
     rows = (plan.far_src[:n_live] - B).to(torch.int64)
     ptr = _row_ptr(plan.far_src, n_live, B, plan.n_padded)
     rank = torch.arange(n_live, device=dev) - ptr[rows].to(torch.int64)
-    R = int(rank.max()) + 1 if n_live else 0
+    R = int(read_back(rank.max())) + 1 if n_live else 0
     dst = torch.zeros((plan.n_padded, R), dtype=torch.int64, device=dev)
     w = torch.zeros((plan.n_padded, R), dtype=torch.float32, device=dev)
     dst[rows, rank] = plan.far_dst[:n_live].to(torch.int64)
@@ -1258,6 +1285,7 @@ def _banded_lag(local_idx, w, Zp, block: int, far, r0: int, r1: int
     return lag
 
 
+@traced("draws")
 def _banded_local_moran_p(plan: NullPlan, Z: torch.Tensor, abs_obs_new,
                           seed: int, *, n_permutations: int,
                           precision: str, perm_method: str = "feistel"
@@ -1279,12 +1307,13 @@ def _banded_local_moran_p(plan: NullPlan, Z: torch.Tensor, abs_obs_new,
     cdt = torch.int16 if n_permutations <= 32767 else torch.int32
     count = torch.zeros((n_padded, G), dtype=cdt, device=Z.device)
     spans = _row_spans(n_padded, B, G)
-    for step in range(n_permutations):
-        Zp = Ztab[rows_of(step)]
-        for r0, r1 in spans:
-            lag = _banded_lag(plan.local_idx, w, Zp, B, far, r0, r1)
-            Ip = Zp[B + r0:B + r1].to(torch.float32) * lag
-            count[r0:r1] += (Ip.abs() >= abs_obs_new[r0:r1]).to(cdt)
+    for step in _draw_steps(n_permutations):
+        Zp = _gather(Ztab, rows_of(step))
+        with span("ops.banded.local_lag"):
+            for r0, r1 in spans:
+                lag = _banded_lag(plan.local_idx, w, Zp, B, far, r0, r1)
+                Ip = Zp[B + r0:B + r1].to(torch.float32) * lag
+                count[r0:r1] += (Ip.abs() >= abs_obs_new[r0:r1]).to(cdt)
     return _p_from_counts(count[plan.rank], n_permutations)
 
 
@@ -1316,7 +1345,8 @@ def banded_local_moran(
     _check_perm_method(perm_method)
     if precision not in ("bf16", "f32", "int8"):
         raise ValueError(f"unknown precision {precision!r}")
-    obs = local_moran(graph, Z, seed, 0)
+    with span("prep"):
+        obs = local_moran(graph, Z, seed, 0)
     if n_permutations == 0:
         return obs
     if precision == "int8":
@@ -1348,6 +1378,7 @@ def _rows_far(plan: NullPlan, n_live: int):
             plan.far_dst[:n_live])
 
 
+@traced("draws")
 def _banded_local_geary_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
                              n_permutations: int, band_impl: str = "auto",
                              perm_method: str = "feistel"):
@@ -1404,13 +1435,18 @@ def _banded_local_geary_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
                          "perm_local_geary")
     count = torch.zeros(c_obs.shape, dtype=kern_lisa.counter_dtype(
         n_permutations), device=dev)
-    for step in range(n_permutations):
-        Zp = Zq[rows_of(step)]
-        count_fn(li32, wq, Zp, B, c_obs, count, w_code, **far_of(Zp))
+    for step in _draw_steps(n_permutations):
+        rows = rows_of(step)
+        with span("ops.banded.gather"):
+            Zp = Zq[rows]
+            far = far_of(Zp)
+        with span("kernels.lisa_count"):
+            count_fn(li32, wq, Zp, B, c_obs, count, w_code, **far)
     return (c_obs[plan.rank, :G],
             _p_from_counts(count[plan.rank, :G], n_permutations))
 
 
+@traced("draws")
 def _banded_local_geary_p(plan: NullPlan, Z: torch.Tensor, seed: int, *,
                           n_permutations: int, precision: str,
                           perm_method: str = "feistel"):
@@ -1434,8 +1470,7 @@ def _banded_local_geary_p(plan: NullPlan, Z: torch.Tensor, seed: int, *,
         0, plan.far_src[:n_live] - B, plan.far_w[:n_live].to(torch.float32))
     chunks = _row_spans(n_padded, B, Z.shape[1])
 
-    def geary(rows):
-        Zp = Ztab[rows]
+    def geary(Zp):
         Zp2 = (Zp.to(torch.float32) * Zp.to(torch.float32)).to(wdt)
         for r0, r1 in chunks:
             lag1 = _banded_lag(plan.local_idx, w, Zp, B, far, r0, r1)
@@ -1444,15 +1479,17 @@ def _banded_local_geary_p(plan: NullPlan, Z: torch.Tensor, seed: int, *,
             yield r0, r1, me * me * row_w[r0:r1, None] + lag2 - 2.0 * me * lag1
 
     c_obs = torch.empty((n_padded, Z.shape[1]), dtype=torch.float32, device=dev)
-    for r0, r1, c in geary(rows_idx):
+    for r0, r1, c in geary(Ztab[rows_idx]):
         c_obs[r0:r1] = c
     rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n,
                          "perm_local_geary")
     cdt = torch.int16 if n_permutations <= 32767 else torch.int32
     count = torch.zeros(c_obs.shape, dtype=cdt, device=dev)
-    for step in range(n_permutations):
-        for r0, r1, c in geary(rows_of(step)):
-            count[r0:r1] += (c <= c_obs[r0:r1]).to(cdt)
+    for step in _draw_steps(n_permutations):
+        Zp = _gather(Ztab, rows_of(step))
+        with span("ops.banded.local_lag"):
+            for r0, r1, c in geary(Zp):
+                count[r0:r1] += (c <= c_obs[r0:r1]).to(cdt)
     return c_obs[plan.rank], _p_from_counts(count[plan.rank], n_permutations)
 
 
@@ -1520,6 +1557,7 @@ def _inv_m(n: int, star: bool) -> float:
     return float(torch.tensor(1.0, dtype=torch.float32) / (n if star else n - 1))
 
 
+@traced("draws")
 def _banded_getis_p_i8(plan: NullPlan, X: torch.Tensor, seed: int, *,
                        n_permutations: int, star: bool, alternative: str,
                        band_impl: str = "auto", perm_method: str = "feistel"
@@ -1584,13 +1622,18 @@ def _banded_getis_p_i8(plan: NullPlan, X: torch.Tensor, seed: int, *,
     rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n, "perm_getis")
     count = torch.zeros(obs.shape, dtype=kern_lisa.counter_dtype(
         n_permutations), device=dev)
-    for step in range(n_permutations):
-        Xp = Xq[rows_of(step)]
-        count_fn(li32, wb, Xp, B, obs, count, alternative=alternative,
-                 **far_of(Xp), **kw)
+    for step in _draw_steps(n_permutations):
+        rows = rows_of(step)
+        with span("ops.banded.gather"):
+            Xp = Xq[rows]
+            far = far_of(Xp)
+        with span("kernels.lisa_count"):
+            count_fn(li32, wb, Xp, B, obs, count, alternative=alternative,
+                     **far, **kw)
     return _p_from_counts(count[plan.rank, :G], n_permutations)
 
 
+@traced("draws")
 def _banded_getis_p(plan: NullPlan, X: torch.Tensor, seed: int, *,
                     n_permutations: int, star: bool, alternative: str,
                     precision: str, perm_method: str = "feistel"
@@ -1622,8 +1665,7 @@ def _banded_getis_p(plan: NullPlan, X: torch.Tensor, seed: int, *,
     inv_m = _inv_m(plan.n, star)
     chunks = _row_spans(n_padded, B, X.shape[1])
 
-    def center(rows):
-        Xp = Xtab[rows]
+    def center(Xp):
         for r0, r1 in chunks:
             lag = _banded_lag(plan.local_idx, w, Xp, B, far, r0, r1)
             me = Xp[B + r0:B + r1].to(torch.float32)
@@ -1637,14 +1679,16 @@ def _banded_getis_p(plan: NullPlan, X: torch.Tensor, seed: int, *,
             yield r0, r1, (lag - xbar * W) / s
 
     obs_c = torch.empty((n_padded, X.shape[1]), dtype=torch.float32, device=dev)
-    for r0, r1, c in center(rows_idx):
+    for r0, r1, c in center(Xtab[rows_idx]):
         obs_c[r0:r1] = c
     rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n, "perm_getis")
     cdt = torch.int16 if n_permutations <= 32767 else torch.int32
     count = torch.zeros(obs_c.shape, dtype=cdt, device=dev)
-    for step in range(n_permutations):
-        for r0, r1, c in center(rows_of(step)):
-            count[r0:r1] += _extreme(c, obs_c[r0:r1], alternative).to(cdt)
+    for step in _draw_steps(n_permutations):
+        Xp = _gather(Xtab, rows_of(step))
+        with span("ops.banded.local_lag"):
+            for r0, r1, c in center(Xp):
+                count[r0:r1] += _extreme(c, obs_c[r0:r1], alternative).to(cdt)
     return _p_from_counts(count[plan.rank], n_permutations)
 
 
@@ -1699,6 +1743,7 @@ def _relabeled_x(plan: NullPlan, X: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
+@traced("draws")
 def _banded_lees_p(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
                    seed: int, *, n_permutations: int, precision: str,
                    compute_cell_pvalues: bool, perm_method: str):
@@ -1722,8 +1767,7 @@ def _banded_lees_p(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
     far = _far_slots(plan, _n_live_far(plan))
     spans = _row_spans(n_padded, B, G)
 
-    def lees(rows):
-        Yp = Ytab[rows]
+    def lees(Yp):
         for r0, r1 in spans:
             yield r0, r1, zx[r0:r1] * _banded_lag(plan.local_idx, w, Yp, B, far,
                                                   r0, r1)
@@ -1731,7 +1775,7 @@ def _banded_lees_p(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
     abs_l = (torch.empty((n_padded, G), dtype=torch.float32, device=dev)
              if compute_cell_pvalues else None)
     Lg = torch.zeros(G, dtype=torch.float32, device=dev)
-    for r0, r1, L in lees(rows_idx):
+    for r0, r1, L in lees(Ytab[rows_idx]):
         if abs_l is not None:
             abs_l[r0:r1] = L.abs()
         Lg += L.sum(dim=0)
@@ -1741,18 +1785,21 @@ def _banded_lees_p(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
     cg = torch.zeros(G, dtype=torch.int32, device=dev)
     cl = (torch.zeros((n_padded, G), dtype=cdt, device=dev)
           if compute_cell_pvalues else None)
-    for step in range(n_permutations):
-        Lg = torch.zeros(G, dtype=torch.float32, device=dev)
-        for r0, r1, L in lees(rows_of(step)):
-            if cl is not None:
-                cl[r0:r1] += (L.abs() >= abs_l[r0:r1]).to(cdt)
-            Lg += L.sum(dim=0)
-        cg += (Lg.abs() >= abs_g).to(torch.int32)
+    for step in _draw_steps(n_permutations):
+        Yp = _gather(Ytab, rows_of(step))
+        with span("ops.banded.local_lag"):
+            Lg = torch.zeros(G, dtype=torch.float32, device=dev)
+            for r0, r1, L in lees(Yp):
+                if cl is not None:
+                    cl[r0:r1] += (L.abs() >= abs_l[r0:r1]).to(cdt)
+                Lg += L.sum(dim=0)
+            cg += (Lg.abs() >= abs_g).to(torch.int32)
     p_l = (_p_from_counts(cl[plan.rank], n_permutations) if compute_cell_pvalues
            else torch.ones((plan.n, G), dtype=torch.float32, device=dev))
     return _p_from_counts(cg, n_permutations), p_l
 
 
+@traced("draws")
 def _banded_lees_p_i8(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
                       seed: int, *, n_permutations: int, perm_method: str,
                       compute_cell_pvalues: bool, band_impl: str = "auto"):
@@ -1811,13 +1858,17 @@ def _banded_lees_p_i8(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
     cl = (torch.zeros((n_padded, Zyq.shape[1]), device=dev,
                       dtype=kern_lisa.counter_dtype(n_permutations))
           if compute_cell_pvalues else None)
-    for step in range(n_permutations):
-        Yp = Zyq[rows_of(step)]                   # ONE int8 row gather
-        if cl is not None:
-            part = count_fn(li32, wq, Yp, B, zx, sw_row, abs_l, cl, **far_of(Yp))
-        else:
-            part = part_fn(li32, wq, Yp, B, zx, sw_row, **far_of(Yp))
-        cg += (_tree_sum(part).abs() >= abs_g).to(torch.int32)
+    for step in _draw_steps(n_permutations):
+        rows = rows_of(step)
+        with span("ops.banded.gather"):
+            Yp = Zyq[rows]                        # ONE int8 row gather
+            far = far_of(Yp)
+        with span("kernels.lisa_count"):
+            if cl is not None:
+                part = count_fn(li32, wq, Yp, B, zx, sw_row, abs_l, cl, **far)
+            else:
+                part = part_fn(li32, wq, Yp, B, zx, sw_row, **far)
+            cg += (_tree_sum(part).abs() >= abs_g).to(torch.int32)
     p_l = (_p_from_counts(cl[plan.rank, :G], n_permutations)
            if compute_cell_pvalues
            else torch.ones((plan.n, G), dtype=torch.float32, device=dev))

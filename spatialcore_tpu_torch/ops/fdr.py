@@ -11,6 +11,8 @@ import warnings
 
 import torch
 
+from ..utils.profiling import span
+
 #: elements of one [m, columns] chunk of the discrete BH's int32 temps
 _CHUNK_ELEMS = 1 << 27
 
@@ -101,9 +103,10 @@ def apply_fdr(p_values, method: str = "fdr_bh", axis: int = 0,
     routes BH through the sort-free :func:`benjamini_hochberg_discrete`.
     """
     if method in ("fdr_bh", "bh"):
-        if n_levels:
-            return benjamini_hochberg_discrete(p_values, n_levels, axis=axis)
-        return benjamini_hochberg(p_values, axis=axis)
+        with span("ops.fdr.bh"):
+            if n_levels:
+                return benjamini_hochberg_discrete(p_values, n_levels, axis=axis)
+            return benjamini_hochberg(p_values, axis=axis)
     if method == "bonferroni":
         return bonferroni(p_values, axis=axis)
     if method in ("none", None):

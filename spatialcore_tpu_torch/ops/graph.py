@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.logging import get_logger
+from ..utils.profiling import traced
 
 logger = get_logger("ops.graph")
 
@@ -355,6 +356,7 @@ def radius_neighbors(coords, radius: float, k_max: int,
     return idx, dist, valid
 
 
+@traced("ops.graph.build_graph")
 def build_graph(coords, n_neighbors: int = 6, include_self: bool = False,
                 radius: Optional[float] = None, k_max: Optional[int] = None,
                 method: str = "auto", grid_threshold: int = 20_000,

@@ -28,6 +28,7 @@ import torch
 
 from ..core.rng import _choice, fold_in, key_for, permutation
 from ..kernels.band_cross import tree_sum
+from ..utils.profiling import traced
 from .banded import _p_from_counts
 from .graph import SpatialGraph, graph_rows, spatial_lag
 
@@ -451,6 +452,7 @@ def join_counts(graph: SpatialGraph, x: torch.Tensor, seed: int = 0,
 QUADRANT_LABELS = {0: "NS", 1: "HH", 2: "LL", 3: "HL", 4: "LH"}
 
 
+@traced("post.quadrants")
 def classify_quadrants(z: torch.Tensor, lag: torch.Tensor,
                        p_values: Optional[torch.Tensor] = None,
                        alpha: float = 0.05) -> torch.Tensor:

@@ -23,6 +23,9 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils import profiling
+from ..utils.profiling import read_back, span, synchronize, traced
+
 #: compact device dtypes of the local outputs: p as float16 keeps a
 #: 1/(P+1)-grained value to < 0.1%, quadrant is categorical, observed
 #: statistics downcast to bf16 (the precision class of the int8 null)
@@ -86,6 +89,7 @@ def _prep_chunk(graph, X: torch.Tensor, S0: float, stat: str, precision: str):
     return Z.to(torch.bfloat16), den, obs, torch.ones_like(den)
 
 
+@traced("ops.streaming.streaming_moran_null")
 def streaming_moran_null(
     graph,
     plan,
@@ -147,19 +151,22 @@ def streaming_moran_null(
     outs = ([], [], [], [])
     start = 0
     for w in widths:
+        profiling.count("tiles")
         parts = []
         for ci, s in enumerate(range(0, w, prep_chunk)):
             g = min(prep_chunk, w - s)
             avail = max(0, min(g, n_genes - (start + s)))
-            if avail > 0:
-                X = torch.as_tensor(get_tile(start + s, avail, ci)).to(
-                    device=device, dtype=torch.float32)
-                if avail < g:      # tail: inert zero-variance columns
-                    X = torch.nn.functional.pad(X, (0, g - avail))
-            else:
-                X = torch.zeros((n_cells, g), dtype=torch.float32, device=device)
-            parts.append(_prep_chunk(graph, X, S0, stat, precision))
-            del X
+            with span("prep"):
+                if avail > 0:
+                    X = torch.as_tensor(get_tile(start + s, avail, ci)).to(
+                        device=device, dtype=torch.float32)
+                    if avail < g:      # tail: inert zero-variance columns
+                        X = torch.nn.functional.pad(X, (0, g - avail))
+                else:
+                    X = torch.zeros((n_cells, g), dtype=torch.float32,
+                                    device=device)
+                parts.append(_prep_chunk(graph, X, S0, stat, precision))
+                del X
         if precision == "int4":
             if len(parts) > 1 and len(parts) % 2:
                 raise ValueError(
@@ -195,7 +202,7 @@ def streaming_moran_null(
         res = (obs, (count + 1.0) / (P + 1.0), mean,
                torch.sqrt(torch.clamp_min(m2_acc / P - mean ** 2, 0.0)))
         for lst, arr in zip(outs, res):
-            lst.append(arr.cpu().numpy())
+            lst.append(read_back(arr).numpy())
         start += w
     return tuple(np.concatenate(parts)[:n_genes] for parts in outs)
 
@@ -215,7 +222,7 @@ def host_local_sink(n_cells: int, n_genes: int):
                 fill = np.ones if key.startswith("p") else np.zeros
                 store[key] = fill((n_cells, n_genes), dt)
             store[key][:, start:start + avail] = (
-                arr[:, :avail].cpu().numpy().astype(store[key].dtype))
+                read_back(arr[:, :avail]).numpy().astype(store[key].dtype))
 
     return sink, store
 
@@ -320,6 +327,7 @@ def _lee_planes(graph, Zx, Zy, p, zero_var, n_permutations: int, fdr: str,
             "quadrant": torch.where(zv, torch.zeros_like(quad), quad)}
 
 
+@traced("ops.streaming.streaming_local_null")
 def streaming_local_null(
     graph,
     plan,
@@ -446,10 +454,11 @@ def streaming_local_null(
         kernel's integer counts; no float32 [N, tile] plane is kept."""
         parts = []
         for s in range(0, avail, min(512, tile)):
-            Zc, zvc = standardize(load(get_tile(start + s,
-                                                min(512, tile, avail - s))))
-            parts.append((_quantize_z(Zc)[0], Zc.to(torch.bfloat16), zvc))
-            del Zc
+            with span("prep"):
+                Zc, zvc = standardize(load(get_tile(start + s,
+                                                    min(512, tile, avail - s))))
+                parts.append((_quantize_z(Zc)[0], Zc.to(torch.bfloat16), zvc))
+                del Zc
         Zq, Zb = (torch.cat([p[i] for p in parts], dim=1) for i in (0, 1))
         zero_var = torch.cat([p[2] for p in parts])
         del parts
@@ -461,24 +470,26 @@ def streaming_local_null(
         """(Z columns, zero-variance mask, the tile's raw p)."""
         if counts_in:
             return prep_codes(start, avail)
-        tiles = get_tile(start, avail)
-        if stat == "lee":               # Z: the (Zx, Zy) pair of tiles
-            if not (isinstance(tiles, (tuple, list)) and len(tiles) == 2):
-                raise ValueError("stat='lee' needs get_tile to return an "
-                                 "(X, Y) pair of tiles")
-            (Zx, zvx), (Zy, zvy) = (standardize(load(t)) for t in tiles)
-            Z, zero_var = (Zx, Zy), zvx | zvy
-            del Zx, Zy
-        elif stat == "getis":
-            Z, zero_var = (load(tiles),), None
-        else:
-            Zs, zero_var = standardize(load(tiles))
-            Z = (Zs,)
-            del Zs
-        del tiles
+        with span("prep"):
+            tiles = get_tile(start, avail)
+            if stat == "lee":               # Z: the (Zx, Zy) pair of tiles
+                if not (isinstance(tiles, (tuple, list)) and len(tiles) == 2):
+                    raise ValueError("stat='lee' needs get_tile to return an "
+                                     "(X, Y) pair of tiles")
+                (Zx, zvx), (Zy, zvy) = (standardize(load(t)) for t in tiles)
+                Z, zero_var = (Zx, Zy), zvx | zvy
+                del Zx, Zy
+            elif stat == "getis":
+                Z, zero_var = (load(tiles),), None
+            else:
+                Zs, zero_var = standardize(load(tiles))
+                Z = (Zs,)
+                del Zs
+            del tiles
         return Z, zero_var, p_of(Z)
 
     for start in range(0, n_genes, tile):
+        profiling.count("tiles")
         avail = min(tile, n_genes - start)
         Z, zero_var, p_raw = prep(start, avail)
         Z_dev = Z[0].device
@@ -494,7 +505,8 @@ def streaming_local_null(
                     outs[k][:, s:s + c] = part[k].to(_COMPACT_DTYPES[k])
                 del part
         del Z, p_raw
-        if Z_dev.type == "cuda":
-            torch.cuda.synchronize(Z_dev)   # one host wait per tile
-        sink(start, avail, outs)
+        with span("ops.streaming.sink"):
+            if Z_dev.type == "cuda":
+                synchronize(Z_dev)          # one host wait per tile
+            sink(start, avail, outs)
         del outs

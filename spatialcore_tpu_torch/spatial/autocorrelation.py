@@ -52,6 +52,7 @@ from ..ops.moran import (QUADRANT_LABELS, classify_quadrants,
                          permutation_test_global, standardize)
 from ..ops.streaming import (device_local_sink, host_local_sink,
                              streaming_local_null)
+from ..utils.profiling import read_back, span, traced
 
 logger = get_logger("spatial.autocorrelation")
 
@@ -297,18 +298,19 @@ def _global_autocorr(adata, stats: Tuple[str, ...], genes, layer, spatial_key,
     rows = {s: [] for s in stats}
     for batch_start in range(0, len(gene_names), gene_batch_size):
         batch = gene_names[batch_start:batch_start + gene_batch_size]
-        Xb = _dense_expression(adata, batch, layer, device)
-        shard = _GeneShard(mesh, Xb) if mesh is not None else None
-        if shard is not None:
-            Xb = shard.columns(Xb)
-        Z, zero_var = standardize(Xb)
-        obs, expected, z_score = {}, {}, {}
-        for s in stats:
-            _, obs_fn, moments_fn, _ = _GLOBAL_STATS[s]
-            obs[s] = obs_fn(graph, Z, S0)
-            expected[s], var = moments_fn(Z, S0, S1, S2, assumption)
-            z_score[s] = (obs[s] - expected[s]) / torch.sqrt(
-                torch.clamp_min(var, 1e-30))
+        with span("prep"):
+            Xb = _dense_expression(adata, batch, layer, device)
+            shard = _GeneShard(mesh, Xb) if mesh is not None else None
+            if shard is not None:
+                Xb = shard.columns(Xb)
+            Z, zero_var = standardize(Xb)
+            obs, expected, z_score = {}, {}, {}
+            for s in stats:
+                _, obs_fn, moments_fn, _ = _GLOBAL_STATS[s]
+                obs[s] = obs_fn(graph, Z, S0)
+                expected[s], var = moments_fn(Z, S0, S1, S2, assumption)
+                z_score[s] = (obs[s] - expected[s]) / torch.sqrt(
+                    torch.clamp_min(var, 1e-30))
         if plan is not None:
             p_val, _, _ = banded_permutation_test(
                 plan, Z, S0, torch.stack([obs[s] for s in stats]) if fused
@@ -330,10 +332,11 @@ def _global_autocorr(adata, stats: Tuple[str, ...], genes, layer, spatial_key,
             for i, s in enumerate(stats):
                 obs[s], z_score[s], p_val[s] = parts[3 * i:3 * i + 3]
             zero_var = parts[-1] > 0
-        zv = zero_var.cpu().numpy()
+        zv = read_back(zero_var).numpy()
         for s in stats:
             col = _GLOBAL_STATS[s][0]
-            o, z, p = (t.cpu().numpy() for t in (obs[s], z_score[s], p_val[s]))
+            o, z, p = (read_back(t).numpy()
+                       for t in (obs[s], z_score[s], p_val[s]))
             rows[s].extend({
                 "gene": g, col: float(o[i]),
                 f"expected_{col}": float(expected[s]),
@@ -365,6 +368,7 @@ def _global_autocorr(adata, stats: Tuple[str, ...], genes, layer, spatial_key,
     return adata
 
 
+@traced("spatial.morans_i")
 def morans_i(adata, genes: Optional[Union[str, List[str]]] = None,
              layer: Optional[str] = None, spatial_key: str = "spatial",
              n_neighbors: int = 6, n_permutations: int = 10, seed: int = 0,
@@ -405,6 +409,7 @@ def morans_i(adata, genes: Optional[Union[str, List[str]]] = None,
         null_method=null_method, device=device)
 
 
+@traced("spatial.gearys_c")
 def gearys_c(adata, genes: Optional[Union[str, List[str]]] = None,
              layer: Optional[str] = None, spatial_key: str = "spatial",
              n_neighbors: int = 6, n_permutations: int = 10, seed: int = 0,
@@ -424,6 +429,7 @@ def gearys_c(adata, genes: Optional[Union[str, List[str]]] = None,
         null_method=null_method, device=device)
 
 
+@traced("spatial.global_autocorrelation")
 def global_autocorrelation(
         adata, genes: Optional[Union[str, List[str]]] = None,
         layer: Optional[str] = None, spatial_key: str = "spatial",
@@ -593,6 +599,7 @@ def _local_morans_compact(adata, gene_names, layer, graph, plan, n_neighbors,
     return adata
 
 
+@traced("spatial.local_morans_i")
 def local_morans_i(
     adata,
     genes: Optional[Union[str, List[str]]] = None,
@@ -696,7 +703,9 @@ def local_morans_i(
     zero_var_all = np.zeros(n_genes, bool)
     for bs in range(0, n_genes, batch_size):
         batch = gene_names[bs:bs + batch_size]
-        Z, zero_var = standardize(_dense_expression(adata, batch, layer, device))
+        with span("prep"):
+            Z, zero_var = standardize(_dense_expression(adata, batch, layer,
+                                                        device))
         if plan is not None:
             res = banded_local_moran(plan, graph, Z, seed=seed,
                                      n_permutations=n_permutations,
@@ -714,8 +723,8 @@ def local_morans_i(
                                                     np.float32)]
         sl = slice(bs, bs + len(batch))
         for plane, t in zip(planes, res):
-            plane[:, sl] = t.cpu().numpy()
-        zero_var_all[sl] = zero_var.cpu().numpy()
+            plane[:, sl] = read_back(t).numpy()
+        zero_var_all[sl] = read_back(zero_var).numpy()
 
     if X_is_device and batches:
         I_all, z_all, lag_all, p_all, zv = _concat_device_batches(batches)
@@ -724,7 +733,7 @@ def local_morans_i(
         z_all = torch.where(zv2, 0.0, z_all)
         lag_all = torch.where(zv2, 0.0, lag_all)
         p_all = torch.where(zv2, 1.0, p_all)
-        zero_var_all = zv.cpu().numpy()
+        zero_var_all = read_back(zv).numpy()
     else:
         X_is_device = False      # no genes: documented [N, 0] host planes
         if planes is None:
@@ -744,7 +753,7 @@ def local_morans_i(
         return a if X_is_device else torch.as_tensor(a, device=device)
 
     def out(t):
-        return t if X_is_device else t.cpu().numpy()
+        return t if X_is_device else read_back(t).numpy()
 
     if n_permutations > 0:
         p_adj_t = apply_fdr(dev(p_all), fdr_correction, axis=0,
@@ -824,6 +833,7 @@ def _local_null(null_method: str, n_cells: int, k_eff: int, n_permutations: int,
     return use, precision
 
 
+@traced("spatial.local_gearys_c")
 def local_gearys_c(
     adata,
     genes: Optional[Union[str, List[str]]] = None,
@@ -963,6 +973,7 @@ def local_gearys_c(
     return adata
 
 
+@traced("spatial.getis_ord_gi")
 def getis_ord_gi(
     adata,
     genes: Optional[Union[str, List[str]]] = None,
@@ -1178,6 +1189,7 @@ def _check_pair_genes(adata, pairs) -> None:
         raise ValueError(f"Genes not found in adata.var_names: {missing}")
 
 
+@traced("spatial.lees_l")
 def lees_l(adata, gene_pairs: Union[Tuple[str, str], List[Tuple[str, str]]],
            layer: Optional[str] = None, spatial_key: str = "spatial",
            n_neighbors: int = 6, n_permutations: int = 199, seed: int = 0,
@@ -1236,6 +1248,7 @@ def lees_l(adata, gene_pairs: Union[Tuple[str, str], List[Tuple[str, str]]],
     return results[0] if single else results
 
 
+@traced("spatial.lees_l_local")
 def lees_l_local(
     adata,
     gene_pairs: Optional[Union[Tuple[str, str], List[Tuple[str, str]]]] = None,
