@@ -39,13 +39,18 @@ Phases (the script stops with a non-zero exit at the first failure):
    ``gearys_c(null_method="banded")`` on a SpatialData of 1,000,000 cells ×
    1,024 genes whose X is a CUDA tensor; and a small input against the
    port's CPU path. Proof of path: every compact-band kernel mode (K1–K4)
-   launched during phases 3–4 (the dense-band K5 and K6 in phase 9).
+   launched during phases 3–4 (the dense-band K5 and K6 in phase 9), and
+   every Feistel evaluation there one launch of the cycle-walk kernel.
    Then, outside the counted window, the integer kernel on phase 3's 1M
    plan and data (``hold_int_1m``): K1 at 4,096 int4 genes, K2 and K3 at
    1,024 int8 genes, on one Feistel draw's gathered rows, held against
    their plain versions within 1e-5·Σ|terms| and timed beside the plain
    version, the bound and ``torch.sparse.mm``; K1's other launch shapes;
-   and one int4 draw split part by part (``int_draw_split``).
+   one int4 draw split part by part (``int_draw_split``); and the Feistel
+   cycle-walk kernel on the 1M plan's 1,000,704 padded positions, three
+   draws bitwise its plain version on the same card tensors, with its
+   passes, its time on the card alone and as enqueued, the plain walk's
+   and the bound (``hold_feistel``).
 5. Local Moran (LISA). The main path, with the launch counts set to 0
    just before it and read just after:
    ``local_morans_i(null_method="banded_int8", n_permutations=99)`` at
@@ -58,7 +63,9 @@ Phases (the script stops with a non-zero exit at the first failure):
    route ("auto" -> the float32 null in torch ops), and the int8 null's
    dense-far route (``band_impl="pallas"``) against its row-pointer route
    ("auto"), counts bitwise equal, and K8 held against its plain version
-   and timed there (``hold_k8``); a plan without far edges (cells on a
+   and timed there (``hold_k8``); the Feistel cycle-walk kernel on the
+   vignette plan's 367,616 padded positions (``hold_feistel``); a plan
+   without far edges (cells on a
    line: the band-only draw step); a small input on the card against the
    port's CPU path (p, p_adj, quadrants bitwise).
 6. Local Geary and Getis-Ord, each main path with counts of its own:
@@ -282,6 +289,7 @@ from spatialcore_tpu_torch.core.rng import (feistel_apply, fold_in, key_for,
                                             permutation)
 from spatialcore_tpu_torch.kernels import band_cross as kern
 from spatialcore_tpu_torch.kernels import build
+from spatialcore_tpu_torch.kernels import feistel as kern_feistel
 from spatialcore_tpu_torch.kernels import knn as kern_knn
 from spatialcore_tpu_torch.kernels import lisa_count as kern_lisa
 from spatialcore_tpu_torch.kernels import sass
@@ -300,6 +308,7 @@ from spatialcore_tpu_torch.ops.streaming import (device_local_sink,
                                                  streaming_local_null,
                                                  streaming_moran_null, tile_widths)
 from spatialcore_tpu_torch.spatial import autocorrelation as acorr
+from spatialcore_tpu_torch.utils import profiling
 from spatialcore_tpu_torch.spatial import domains as dom
 from spatialcore_tpu_torch.spatial import nhood
 from spatialcore_tpu_torch.spatial import (clark_evans, co_occurrence,
@@ -369,6 +378,12 @@ KNN_KERNELS = {
             "spatialcore_tpu_torch/csrc/knn_topk.cu",
             "spatialcore_tpu/ops/pallas_knn.py:29"),
 }
+FEISTEL_KERNELS = {
+    "walk": ("feistel_walk (the Feistel permutation's cycle walk, a thread a "
+             "value; the XLA while_loop)",
+             "spatialcore_tpu_torch/csrc/feistel_walk.cu",
+             "spatialcore_tpu/core/rng.py:106"),
+}
 #: the card's published peaks (H100 SXM data sheet): HBM bytes/s, and
 #: operations/s of the unit that could do each kernel's work
 HBM_BYTES_PER_S = 3.35e12
@@ -408,6 +423,24 @@ def event_ms(fn, reps: int) -> float:
         return float("nan")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of ``fn`` on the card alone: two warm-up
+    calls, then ``reps`` calls queued behind a spin kernel, so the card
+    runs them back to back whatever the host takes to launch them (CUDA
+    events)."""
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -1524,6 +1557,59 @@ def int_draw_split(plan, tile0, reps: int = 5):
     return split
 
 
+def hold_feistel(results: dict, plan, reps: int = 50) -> None:
+    """The Feistel cycle walk (``kernels.feistel``) on ``plan``'s padded
+    rows, the positions a draw of the main paths relabels: three draws'
+    rows from the kernel bitwise its plain version's (the torch-op walk) on
+    the same card tensors, one launch and no read-back a call, and the
+    kernel's passes (``rng.feistel_passes``) equal to the plain walk's.
+    Then the kernel timed on the card alone (``queued_ms``) and as the
+    host enqueues it, beside the plain walk and the bound (8 bytes in and
+    8 out a position); kept in ``results["walk"]``."""
+    dev = plan.order.device
+    rows_idx = banded._padded_rows(plan, dev)
+    n, L, bits = plan.n, rows_idx.numel(), rng.feistel_bits(plan.n)
+    base = key_for(0, "perm_feistel", 0)
+    kern_feistel.reset_launch_counts()
+    passes = 0
+    for step in range(3):
+        keys = rng.feistel_round_keys(fold_in(base, step))
+        c0 = profiling.counters()
+        got = kern_feistel.feistel_walk(rows_idx, keys, bits, n)
+        c1 = profiling.counters()
+        want = kern_feistel.feistel_walk_plain(rows_idx, keys, bits, n)
+        c2 = profiling.counters()
+        check(torch.equal(got, want), f"feistel_walk at {n:,} cells, draw "
+              f"{step}: rows differ from the plain walk's")
+        p_k = c1["rng.feistel_passes"] - c0.get("rng.feistel_passes", 0)
+        p_p = c2["rng.feistel_passes"] - c1["rng.feistel_passes"]
+        check(p_k == p_p, f"feistel_walk at {n:,} cells, draw {step}: "
+              f"{p_k} passes, the plain walk {p_p}")
+        check(c1.get("host_syncs", 0) == c0.get("host_syncs", 0),
+              f"feistel_walk at {n:,} cells read back")
+        passes += p_k
+    check(kern_feistel.LAUNCHES["walk"] == 3,
+          f"feistel_walk: {kern_feistel.LAUNCHES['walk']} launches for 3 calls")
+
+    def walk():
+        return kern_feistel.feistel_walk(rows_idx, keys, bits, n)
+
+    ms = queued_ms(walk, reps)
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        walk()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    sync(dev)
+    plain_ms = event_ms(lambda: kern_feistel.feistel_walk_plain(
+        rows_idx, keys, bits, n), 1)
+    report(results, "walk", f"feistel_walk at {n:,} cells ({L:,} padded "
+           f"positions, domain 4^{bits}; {passes / 3:.2f} passes a call; three "
+           f"draws bitwise the plain walk, passes equal, no read-back; host "
+           f"enqueue {host_ms:.4f} ms)", 0.0, ms, plain_ms, 16 * L, {}, "",
+           float("nan"), first="walk" not in results)
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the public API
 # ---------------------------------------------------------------------------
@@ -1720,7 +1806,8 @@ def phase_lisa_vignette(dev, gen, n_cells: int = 366_938, k: int = 50,
     (null_method "auto" -> the float32 null in torch ops, no LISA kernel),
     then the int8 null's dense-far route (band_impl="pallas", K8's
     function) against its row-pointer route ("auto"), counts bitwise
-    equal. Returns times, far_bmax and {band_impl: launch counts}."""
+    equal. Returns times, far_bmax, {band_impl: launch counts} and the
+    null plan."""
     d = lisa_adata(n_cells, n_genes, gen, dev)
     _, t_graph = timed(lambda: build_spatial_weights(d, n_neighbors=k,
                                                      device=dev), dev)
@@ -1765,7 +1852,7 @@ def phase_lisa_vignette(dev, gen, n_cells: int = 366_938, k: int = 50,
           f"band_impl='pallas' {launches['pallas']}, 'auto' {launches['auto']}")
     return {"f32_s": t_f32, "dense_s": res["pallas"][1],
             "rows_s": res["auto"][1], "far_bmax": plan.far_bmax,
-            "launches": launches}
+            "launches": launches, "plan": plan}
 
 
 def hold_k8(plan, Z) -> dict:
@@ -2984,16 +3071,23 @@ def reset_all_launches() -> None:
     kern.reset_launch_counts()
     kern_lisa.reset_launch_counts()
     kern_knn.reset_launch_counts()
+    kern_feistel.reset_launch_counts()
 
 
 def no_kernel(dev, label: str, fn) -> float:
     """Wall seconds of ``fn`` (synchronised), run with every launch count
-    at 0; fails if it launched any kernel (the slot nulls are torch ops)."""
+    at 0; fails if it launched any kernel but the Feistel walk (the slot
+    nulls are torch ops around the Feistel stream), or if it evaluated the
+    Feistel permutation other than by one walk launch a call."""
     reset_all_launches()
+    calls = profiling.counters().get("rng.feistel_calls", 0)
     _, t = timed(fn, dev)
-    launched = {k: v for k, v in {**kern.LAUNCHES, **kern_lisa.LAUNCHES,
-                                  **kern_knn.LAUNCHES}.items() if v}
-    check(not launched, f"{label} launched kernels: {launched}")
+    got = launched()
+    walks = got.pop("walk", 0)
+    calls = profiling.counters().get("rng.feistel_calls", 0) - calls
+    check(not got, f"{label} launched kernels: {got}")
+    check(walks == calls, f"{label}: {walks} Feistel walk launches for "
+          f"{calls} Feistel evaluations on the card")
     return t
 
 
@@ -3395,7 +3489,8 @@ RADIUS_MODES = ("int8_win", "int8_band", "float", "lisa_win", "lisa_obs")
 
 def launched() -> dict:
     return {k: v for k, v in {**kern.LAUNCHES, **kern_lisa.LAUNCHES,
-                              **kern_knn.LAUNCHES}.items() if v}
+                              **kern_knn.LAUNCHES,
+                              **kern_feistel.LAUNCHES}.items() if v}
 
 
 def counted(dev, tag: str, label: str, fn):
@@ -5009,15 +5104,24 @@ def main() -> None:
     # the global null's path
     kern.reset_launch_counts()
     kern_lisa.reset_launch_counts()
+    kern_feistel.reset_launch_counts()
+    calls = profiling.counters().get("rng.feistel_calls", 0)
     _, plan1m, tile0 = phase_workload(dev, 1_000_000, 8192, 4096, 16, 16, gen)
     phase_public(dev, 1_000_000, 1024, 19, gen)
     launches = dict(kern.LAUNCHES)
     print(f"[path] band-cross launches in phases 3-4: {launches}")
     for mode in GLOBAL_MODES:
         check(launches[mode] > 0, f"kernel mode {mode} never launched")
+    launches["walk"] = kern_feistel.LAUNCHES["walk"]
+    calls = profiling.counters()["rng.feistel_calls"] - calls
+    print(f"[path] Feistel walk launches in phases 3-4: {launches['walk']} "
+          f"for {calls} Feistel evaluations")
+    check(launches["walk"] == calls > 0, "the global path did not run each "
+          "Feistel evaluation as one walk launch")
     for mode, err in hold_int_1m(plan1m, tile0).items():
         kres[mode]["max_abs_err"] = max(kres[mode]["max_abs_err"], err)
     int_draw_split(plan1m, tile0)
+    hold_feistel(kres, plan1m)
     del plan1m, tile0
     torch.cuda.empty_cache()
     phase_small_reference(dev, gen)
@@ -5038,6 +5142,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     # the other routes, each with counts of its own
     vig = phase_lisa_vignette(dev, gen)
+    hold_feistel(kres, vig.pop("plan"))
     card, line = phase_lisa_vs_cpu(dev, "4,096 cells on a line x 32 genes (no "
                                    "far edges)", line_coords(), 32, 7)
     check(banded._n_live_far(card._null_plan_cache["value"]) == 0,
@@ -5242,7 +5347,8 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[mode], **kres[mode]}
         for mode, (name, src, rep) in {**KERNELS, **LISA_KERNELS,
-                                       **KNN_KERNELS}.items()]}
+                                       **KNN_KERNELS,
+                                       **FEISTEL_KERNELS}.items()]}
     print(smi)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ reference is a JAX threefry key derived from ``(seed, *stream_ids)``; the
 banded permutation null draws its rows from a keyed Feistel bijection whose
 8 round keys come from ``jax.random.randint``. To reproduce those draws
 bit for bit, this module implements the pieces of ``jax.random`` they use,
-in torch integer ops, under jax 0.9's default
+in torch integer ops (on Python ints where only a key or a few words come
+out: ``fold_in`` and the Feistel round keys), under jax 0.9's default
 ``jax_threefry_partitionable=True``:
 
 - threefry2x32 (``jax/_src/prng.py``: ``_threefry2x32_lowering``);
@@ -29,8 +30,9 @@ far below 2**63; a product of two 32-bit values can overflow int64, so
 
 A key is an int64 tensor of shape [2] holding the two uint32 words of the
 JAX key data (``jax.random.key_data``). Keys are tiny and live on the CPU;
-the per-cell work — the Feistel evaluation, and ``random_bits`` and the
-sorts of ``permutation`` — runs on the caller's device.
+the per-cell work — the Feistel evaluation (``kernels.feistel``), and
+``random_bits`` and the sorts of ``permutation`` — runs on the caller's
+device.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
-from ..utils.profiling import count, read_back, span
+from ..utils.profiling import count, span
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -94,12 +96,17 @@ def key(seed: int) -> torch.Tensor:
     return torch.tensor([hi, lo], dtype=torch.int64)
 
 
+def _words(k: torch.Tensor) -> tuple:
+    """A key's two uint32 words as Python ints."""
+    hi, lo = k.tolist()
+    return int(hi), int(lo)
+
+
 def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in``: threefry of the count pair (0, data)."""
-    zero = torch.zeros((), dtype=torch.int64)
-    d = torch.tensor(int(data) & _M32, dtype=torch.int64)
-    a, b = threefry2x32(k[0], k[1], zero, d)
-    return torch.stack([a, b])
+    """``jax.random.fold_in``: threefry of the count pair (0, data), on
+    Python ints."""
+    return torch.tensor(threefry2x32(*_words(k), 0, int(data) & _M32),
+                        dtype=torch.int64)
 
 
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
@@ -350,15 +357,19 @@ def randint(k: torch.Tensor, shape: Sequence[int], minval: int,
     if not (lo32 <= minval <= hi32 and lo32 <= maxval <= hi32):
         raise ValueError("randint bounds must lie in the int32 range")
     k1, k2 = split(k)
-    higher = random_bits(k1, shape)
-    lower = random_bits(k2, shape)
+    out = _randint_bits(random_bits(k1, shape), random_bits(k2, shape),
+                        minval, maxval)
+    return torch.where(out >= (1 << 31), out - (1 << 32), out)
+
+
+def _randint_bits(higher, lower, minval: int, maxval: int):
+    """``_randint``'s mapping of two 32-bit words to ``minval + offset``
+    modulo 2**32 (uint32 arithmetic; int64 tensors or Python ints)."""
     span = 1 if maxval <= minval else (maxval - minval) & _M32
     multiplier = (1 << 16) % span
     multiplier = ((multiplier * multiplier) & _M32) % span
     offset = (_mul32(higher % span, multiplier) + lower % span) & _M32
-    offset = offset % span
-    out = (minval + offset) & _M32
-    return torch.where(out >= (1 << 31), out - (1 << 32), out)
+    return (minval + offset % span) & _M32
 
 
 def _fnv1a(s: str) -> int:
@@ -419,30 +430,26 @@ def batch_permutations(seed: int, n: int, n_permutations: int,
 # ---------------------------------------------------------------------------
 
 
-def _feistel_bijection(x: torch.Tensor, round_keys: Sequence[int],
-                       bits: int) -> torch.Tensor:
-    """Keyed bijection on [0, 4**bits) via a balanced 8-round Feistel network.
-
-    ``x`` holds uint32 values in int64; ``round_keys`` are Python ints.
-    Each evaluation is one cycle-walk pass (counter ``rng.feistel_passes``).
-    """
-    count("rng.feistel_passes")
-    mask = (1 << bits) - 1
-    left = x >> bits
-    right = x & mask
-    for r in range(_FEISTEL_ROUNDS):
-        h = _mul32(right ^ round_keys[r], 0x9E3779B1)
-        h = h ^ (h >> 15)
-        h = _mul32(h, 0x85EBCA77)
-        h = h ^ (h >> 13)
-        left, right = right, (left ^ h) & mask
-    return (left << bits) | right
+def feistel_bits(n: int) -> int:
+    """Half the width of the Feistel domain of [0, n): the least ``bits``
+    with 4**bits >= n (at least 1)."""
+    bits = max((int(n - 1).bit_length() + 1) // 2, 1)
+    return bits + ((1 << (2 * bits)) < n)
 
 
 def feistel_round_keys(k: torch.Tensor) -> list:
-    """The 8 round keys ``feistel_apply`` draws with ``randint`` (one
-    read-back: the key is a host tensor, so it waits for no device work)."""
-    return read_back(randint(k, (_FEISTEL_ROUNDS,), 0, (1 << 31) - 1)).tolist()
+    """The 8 round keys ``feistel_apply`` draws, ``randint(k, (8,), 0,
+    2**31 - 1)`` bitwise, on Python ints: a split, then 8 words of each
+    half's ``random_bits`` (18 threefry, no tensor op, no read-back)."""
+    k0, k1 = _words(k)
+    higher, lower = (threefry2x32(k0, k1, 0, c) for c in (0, 1))
+
+    def bits(sub: tuple, i: int) -> int:
+        b1, b2 = threefry2x32(*sub, 0, i)
+        return b1 ^ b2
+
+    return [_randint_bits(bits(higher, i), bits(lower, i), 0, (1 << 31) - 1)
+            for i in range(_FEISTEL_ROUNDS)]
 
 
 def feistel_apply(k: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -451,24 +458,18 @@ def feistel_apply(k: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     ``feistel_apply(k, idx, n)[p] == feistel_permutation(k, n)[idx[p]]``,
     bitwise equal to the reference. Runs on ``idx``'s device and returns
     int64 (torch's index type; the reference returns int32 of the same
-    values). The cycle walk checks for out-of-range values once per pass,
-    which reads one flag back to the host. Runs inside a
-    ``core.rng.feistel`` span; counts ``rng.feistel_calls``.
+    values): on a CUDA tensor one launch of the cycle-walk kernel, which
+    reads nothing back; on a CPU tensor its plain version
+    (``kernels.feistel``). Runs inside a ``core.rng.feistel`` span; counts
+    ``rng.feistel_calls``.
     """
+    from ..kernels.feistel import feistel_walk
+
     if n < 2:
         return torch.zeros(idx.shape, dtype=torch.int64, device=idx.device)
-    bits = max((int(n - 1).bit_length() + 1) // 2, 1)
-    if (1 << (2 * bits)) < n:
-        bits += 1
     with span("core.rng.feistel"):
         count("rng.feistel_calls")
-        round_keys = feistel_round_keys(k)
-        y = _feistel_bijection(idx.to(torch.int64), round_keys, bits)
-        while True:
-            out = y >= n
-            if not bool(read_back(out.any())):
-                return y
-            y = torch.where(out, _feistel_bijection(y, round_keys, bits), y)
+        return feistel_walk(idx, feistel_round_keys(k), feistel_bits(n), n)
 
 
 def feistel_permutation(k: torch.Tensor, n: int,

@@ -70,6 +70,9 @@ _SIGNATURES = {
     # coords, order, rmax, n, k, include_self, threads, tile, stages,
     # out_d, out_i, stream
     "sct_knn": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # idx, out, count, the 8 round keys, bits, n, state, slot, stream
+    "sct_feistel_walk": [_P, _P, ctypes.c_longlong, *[ctypes.c_uint] * 8, _I,
+                         ctypes.c_uint, _P, _P],
 }
 
 _library: Optional[ctypes.CDLL] = None

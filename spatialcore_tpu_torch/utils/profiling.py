@@ -14,7 +14,8 @@ tracing module.
   trace's clock. :func:`spans` reads the records.
 - :func:`count` adds to a named counter; counters are always on (a dict
   increment) and read with :func:`counters`. The kernels' launch counts
-  live here too (:class:`CounterGroup`).
+  live here too (:class:`CounterGroup`), and counts a kernel keeps on the
+  card are folded in when the counters are read (:func:`fold_on_read`).
 - :func:`read_back` is the one way the null path reads a tensor back to
   the host (and :func:`synchronize` the one way it waits for the card):
   each counts ``host_syncs`` and, while tracing is on, adds the time it
@@ -48,6 +49,7 @@ _profiler_enabled = torch._C._autograd._profiler_enabled
 _tracing = 0            # depth of open tracing() blocks
 _records: list = []     # every recorded span, in the order opened
 _counts: dict = {}      # counter name -> int
+_folds: list = []       # callables that fold counts kept on the card in
 _calls = 0              # the last call id handed to a root span
 _ids = 0                # spans opened since the process started
 _local = threading.local()
@@ -174,10 +176,24 @@ def synchronize(device) -> None:
     _blocking(torch.cuda.synchronize, device)
 
 
+def fold_on_read(fold) -> None:
+    """Register ``fold()``, called whenever the counters are read or reset:
+    it adds counts that a kernel keeps on the card (with :func:`count`),
+    reading them back itself, so that no draw waits for them. The read
+    waits for the card: reading or resetting the counters in the middle of
+    a call stalls the host until the work queued so far has run, and that
+    wait is not counted in ``host_syncs``."""
+    _folds.append(fold)
+
+
 def counters() -> dict:
     """A copy of every counter: ``draws``, ``tiles``, ``rng.feistel_calls``,
     ``rng.feistel_passes``, ``host_syncs`` and the kernels' launches
-    (``kernels.<module>.<mode>``)."""
+    (``kernels.<module>.<mode>``), with the counts kept on the card folded
+    in first. Folding them reads them back, so the call waits for the work
+    queued on the card (see :func:`fold_on_read`)."""
+    for fold in _folds:
+        fold()
     return dict(_counts)
 
 
@@ -203,8 +219,12 @@ def spans() -> list:
 
 
 def reset() -> None:
-    """Clear the recorded spans and every counter."""
+    """Clear the recorded spans and every counter (counts kept on the card
+    up to now included, which waits for the card as :func:`counters`
+    does)."""
     global _calls
+    for fold in _folds:
+        fold()
     _records.clear()
     _counts.clear()
     _calls = 0

@@ -13,7 +13,10 @@ observed values equal — exact integers, and Gi's float32 centring and
 Lee's block partials round at the plain version's places, so those are
 equal too. The kNN kernel: indices and squared distances equal (the same
 float32 operations, ties by id). ``permutation`` on the card: equal to
-the CPU's.
+the CPU's. The Feistel cycle walk: rows equal the plain walk's bitwise,
+on the card over every position and on the CPU over a sample
+(``tests/test_torch_rng.py`` holds the CPU walk to the JAX package's at
+the same sizes), and its pass count equal the plain walk's.
 """
 
 import pytest
@@ -21,10 +24,12 @@ import torch
 
 from spatialcore_tpu_torch.core import rng
 from spatialcore_tpu_torch.kernels import band_cross as kern
+from spatialcore_tpu_torch.kernels import feistel as kern_feistel
 from spatialcore_tpu_torch.kernels import knn as kern_knn
 from spatialcore_tpu_torch.kernels import lisa_count as kern_lisa
 from spatialcore_tpu_torch.ops import banded
 from spatialcore_tpu_torch.ops.graph import build_graph
+from spatialcore_tpu_torch.utils import profiling as prof
 
 # One intra-op thread: xdist runs several test workers at once, and torch's
 # default of one thread per core in each slows small ops several-fold.
@@ -954,3 +959,74 @@ def test_lee_pvalues_on_the_card_equal_the_cpu(cuda_device, plan):
                                    perm_method=perm_method)
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
+
+
+FEISTEL_SIZES = [2, 3, 17, 4097, 4**10, 4**10 + 1, 366_938, 1_000_000]
+
+
+def _feistel_case(n: int, seed: int = 21, draw: int = 3):
+    k = rng.fold_in(rng.key_for(seed, "perm_feistel", 0), draw)
+    bits = max((int(n - 1).bit_length() + 1) // 2, 1)
+    return k, bits + ((1 << (2 * bits)) < n)
+
+
+def _plain_passes(idx, keys, bits, n):
+    """The plain walk's rows and passes (``rng.feistel_passes``) on ``idx``'s
+    device."""
+    before = prof.counters().get("rng.feistel_passes", 0)
+    rows = kern_feistel.feistel_walk_plain(idx, keys, bits, n)
+    return rows, prof.counters()["rng.feistel_passes"] - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", FEISTEL_SIZES)
+def test_feistel_walk_kernel_equals_plain(cuda_device, n):
+    """Every position of [0, n): the kernel's rows equal the plain walk's
+    on the card bitwise, and on the CPU at a sample of positions; one
+    launch, no read-back, and the plain walk's pass count."""
+    k, bits = _feistel_case(n)
+    keys = rng.feistel_round_keys(k)
+    idx = torch.arange(n, device=cuda_device)
+    want, passes = _plain_passes(idx, keys, bits, n)
+    prof.reset()
+    got = rng.feistel_apply(k, idx, n)
+    syncs = prof.counters().get("host_syncs", 0)
+    c = prof.counters()
+    assert got.dtype == torch.int64 and got.device.type == cuda_device.type
+    assert torch.equal(got, want)
+    assert syncs == 0 and c["kernels.feistel.walk"] == c["rng.feistel_calls"] == 1
+    assert c["rng.feistel_passes"] == passes
+    sample = torch.cat([torch.tensor([0, n - 1]),
+                        torch.randint(0, n, (4096,),
+                                      generator=torch.Generator().manual_seed(n))])
+    assert torch.equal(got.cpu()[sample],
+                       rng.feistel_apply(k, sample, n))
+    assert torch.equal(torch.sort(got).values, idx)
+
+
+@pytest.mark.cuda
+def test_feistel_walk_kernel_duplicates_plan_rows_and_empty(cuda_device, plan):
+    """Duplicate positions, int32 positions, a plan's padded ``rows_idx``
+    (as the draw loops build it) and an empty tensor; several calls in a
+    row, each with the plain walk's passes added to the running total."""
+    n, B = plan.n, plan.block
+    gidx = torch.clamp(torch.arange(plan.n_padded + 2 * B) - B, 0, n - 1)
+    gen = torch.Generator().manual_seed(4)
+    cases = [plan.order[gidx], torch.randint(0, n, (20_000,), generator=gen),
+             torch.randint(0, 97, (5_000,), generator=gen).to(torch.int32),
+             torch.zeros(0, dtype=torch.int64)]
+    prof.reset()
+    want_passes = 0
+    for draw, idx in enumerate(cases):
+        nn = 97 if idx.dtype == torch.int32 else n
+        k, bits = _feistel_case(nn, seed=6, draw=draw)
+        keys = rng.feistel_round_keys(k)
+        want, passes = _plain_passes(idx, keys, bits, nn)
+        got = rng.feistel_apply(k, idx.to(cuda_device), nn)
+        assert got.shape == idx.shape and torch.equal(got.cpu(), want)
+        want_passes += passes
+    c = prof.counters()
+    # the plain walks ran on the CPU: their passes are in the counter too
+    assert c["rng.feistel_passes"] == 2 * want_passes
+    assert c["kernels.feistel.walk"] == c["rng.feistel_calls"] == len(cases)
+

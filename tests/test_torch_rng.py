@@ -55,6 +55,51 @@ def test_feistel_round_keys_bitwise():
         want.tolist()
 
 
+def _fold_in_torch(k: torch.Tensor, data: int) -> torch.Tensor:
+    """``fold_in`` in torch ops on 0-d host tensors, as the port computed it
+    before keys were derived on Python ints."""
+    a, b = trng.threefry2x32(k[0], k[1], torch.zeros((), dtype=torch.int64),
+                             torch.tensor(int(data) & 0xFFFFFFFF))
+    return torch.stack([a, b])
+
+
+@pytest.mark.parametrize("seed,stream", [
+    (0, "perm_feistel"), (7, "perm_feistel_local"), (2**31 - 1, "perm_feistel"),
+    (3_000_000_101, "perm_feistel_local"), (-5, "perm_global")])
+@pytest.mark.parametrize("draw", [0, 1, 98, 999, 2**32 - 1])
+def test_scalar_fold_in_and_round_keys_match_torch_and_jax(seed, stream, draw):
+    """The Python-int ``fold_in`` and ``feistel_round_keys`` equal the torch
+    forms (``threefry2x32`` on tensors, ``randint``) and JAX's, over the
+    draw loops' keys ``fold_in(key_for(seed, stream, 0), draw)``."""
+    base = trng.key_for(seed, stream, 0)
+    k = trng.fold_in(base, draw)
+    jk = jax.random.fold_in(jrng.key_for(seed, stream, 0), draw)
+    assert k.dtype == torch.int64 and k.shape == (2,)
+    assert k.tolist() == _fold_in_torch(base, draw).tolist()
+    np.testing.assert_array_equal(k.numpy(),
+                                  np.asarray(jax.random.key_data(jk)))
+    want = np.asarray(jax.random.randint(
+        jk, (8,), 0, jnp.iinfo(jnp.int32).max, dtype=jnp.int32)).tolist()
+    assert trng.feistel_round_keys(k) == want
+    assert trng.randint(k, (8,), 0, 2**31 - 1).tolist() == want
+
+
+@pytest.mark.parametrize("n", [2, 3, 17, 4097, 4**10, 4**10 + 1, 366_938,
+                               1_000_000])
+def test_feistel_apply_bitwise_at_the_kernel_test_sizes(n):
+    """The CPU walk (the card kernel's plain version) equals the JAX
+    package's at the sizes the kernel is held to on the card, on 4,096
+    positions and both ends (the card test then compares the kernel with
+    this walk on every position)."""
+    r = np.random.default_rng(n)
+    idx = np.concatenate([[0, n - 1], r.integers(0, n, 4096)]).astype(np.int32)
+    jk = jax.random.fold_in(jrng.key_for(21, "perm_feistel", 0), 3)
+    want = np.asarray(jrng.feistel_apply(jk, jnp.asarray(idx), n))
+    tk = trng.fold_in(trng.key_for(21, "perm_feistel", 0), 3)
+    np.testing.assert_array_equal(
+        trng.feistel_apply(tk, torch.as_tensor(idx), n).numpy(), want)
+
+
 @pytest.mark.parametrize("n", [2, 3, 10, 17, 100, 1000, 4097, 12345])
 def test_feistel_permutation_bitwise(n):
     """n not a power of 4 exercises the cycle walk."""

@@ -6,7 +6,8 @@ counters and read-backs on the CPU.
 - Spans nest with the right parent and call ids; self time and total
   wait add up.
 - ``rng.feistel_passes`` equals a direct count of the cycle walk, and one
-  ``feistel_apply`` call reads back passes + 1 times.
+  ``feistel_apply`` call on the CPU reads back once a pass (the round keys
+  are Python ints).
 - Answers are bitwise the same with tracing on and off.
 - A ``profile_trace`` holds the program's ``spatialcore.*`` ranges one to
   one with the in-memory spans, nested alike and in the same order.
@@ -28,6 +29,7 @@ import torch
 from spatialcore_tpu_torch.core import SpatialData
 from spatialcore_tpu_torch.core import rng
 from spatialcore_tpu_torch.kernels import band_cross as kern
+from spatialcore_tpu_torch.kernels import feistel as kern_feistel
 from spatialcore_tpu_torch.kernels import knn as kern_knn
 from spatialcore_tpu_torch.kernels import lisa_count as kern_lisa
 from spatialcore_tpu_torch.ops import banded as tb
@@ -192,7 +194,8 @@ def test_span_left_open_by_an_exception_leaves_the_stack_clean():
 def test_launch_counts_live_in_the_registry():
     for mod, key, name in ((kern, "float", "kernels.band_cross.float"),
                            (kern_lisa, "lisa_win", "kernels.lisa_count.lisa_win"),
-                           (kern_knn, "knn", "kernels.knn.knn")):
+                           (kern_knn, "knn", "kernels.knn.knn"),
+                           (kern_feistel, "walk", "kernels.feistel.walk")):
         assert dict(mod.LAUNCHES) == {k: 0 for k in mod.LAUNCHES}
         mod.LAUNCHES[key] += 2
         assert prof.counters()[name] == 2 and mod.LAUNCHES[key] == 2
@@ -244,7 +247,40 @@ def test_feistel_passes_and_syncs_match_a_direct_count(n, seed):
     assert got.tolist() == [w[0] for w in walks]
     assert c["rng.feistel_calls"] == 1
     assert c["rng.feistel_passes"] == want
-    assert c["host_syncs"] == want + 1
+    assert c["host_syncs"] == want
+
+
+def test_counts_kept_on_the_card_fold_in_when_read_or_reset(monkeypatch):
+    held = {"n": 5}
+
+    def fold():
+        if held["n"]:
+            prof.count("test.folded", held["n"])
+            held["n"] = 0
+
+    monkeypatch.setattr(prof, "_folds", [*prof._folds, fold])
+    assert prof.counters()["test.folded"] == 5
+    assert prof.counters()["test.folded"] == 5
+    held["n"] = 2
+    prof.reset()
+    assert "test.folded" not in prof.counters() and held["n"] == 0
+
+
+def test_feistel_walk_on_the_cpu_launches_nothing_and_checks_its_arguments():
+    k = rng.fold_in(rng.key_for(3, "perm_feistel", 0), 1)
+    idx = torch.arange(300)
+    keys = rng.feistel_round_keys(k)
+    rows = rng.feistel_apply(k, idx, 300)
+    assert sorted(rows.tolist()) == list(range(300))
+    assert kern_feistel.feistel_walk(idx.to(torch.int32), keys, 5, 300).tolist() \
+        == rows.tolist()
+    assert prof.counters().get("kernels.feistel.walk", 0) == 0
+    for bad in (dict(idx=idx.float()), dict(bits=4), dict(bits=17, n=300),
+                dict(n=1), dict(round_keys=keys[:7]),
+                dict(idx=torch.arange(300, device="meta"))):
+        args = {**dict(idx=idx, round_keys=keys, bits=5, n=300), **bad}
+        with pytest.raises(ValueError):
+            kern_feistel.feistel_walk(**args)
 
 
 # --------------------------------------------------------------------------
