@@ -61,7 +61,7 @@ from ..core.logging import get_logger
 from ..core.rng import feistel_apply, fold_in, key_for, permutation
 from ..kernels import band_cross as kern
 from ..kernels import lisa_count as kern_lisa
-from ..utils.profiling import count, read_back, span, traced
+from ..utils.profiling import count, read_back, set_count, span, traced
 from .graph import SpatialGraph
 
 logger = get_logger("ops.banded")
@@ -241,6 +241,16 @@ class NullPlan(NamedTuple):
         return self.local_idx.shape[0]
 
 
+def _count_plan(n: int, k: int, n_live: int, n_far: int) -> None:
+    """The plan's sizes as counters: rows (cells), slots (rows × k), live
+    slots (edges of weight > 0, band and far) and far edges. A radius
+    graph's slots past a cell's degree are dead: 1 − live / slots."""
+    set_count("plan.rows", n)
+    set_count("plan.slots", n * k)
+    set_count("plan.live_slots", n_live)
+    set_count("plan.far_edges", n_far)
+
+
 @traced("ops.banded.build_null_plan")
 def build_null_plan(graph: SpatialGraph, coords=None, block: int = 256
                     ) -> NullPlan:
@@ -251,7 +261,8 @@ def build_null_plan(graph: SpatialGraph, coords=None, block: int = 256
     spatialcore_tpu/ops/banded.py:289-308). Numpy ``coords`` (or none, which
     orders by reverse Cuthill-McKee) takes the host path, bitwise equal to
     the reference's host path (:310-377); its tensors land on the graph's
-    device.
+    device. Either path sets the counters ``plan.rows``, ``plan.slots``,
+    ``plan.live_slots`` and ``plan.far_edges`` (:func:`_count_plan`).
     """
     dev = graph.neighbor_idx.device
     if (isinstance(coords, torch.Tensor) and coords.ndim == 2
@@ -262,9 +273,10 @@ def build_null_plan(graph: SpatialGraph, coords=None, block: int = 256
         idx_r, w_r, far, local_idx, w_local, rc = _plan_relabel(
             graph.neighbor_idx, graph.neighbor_w.to(torch.float32), order,
             rank, block)
-        n_far = int(far.sum())
+        n_far, n_live = torch.stack([far.sum(), (w_r > 0).sum()]).tolist()
+        _count_plan(n, k, n_live, n_far)
         logger.info(f"null plan (device): N={n:,} k={k} block={block} "
-                    f"far_edges={n_far:,} ({n_far / (n * k):.2%})")
+                    f"far_edges={n_far:,} ({n_far / max(n_live, 1):.2%})")
         far_src, far_dst, far_w = _plan_far(idx_r, w_r, far, block,
                                             _far_cap(n_far))
         nb = local_idx.shape[0] // block
@@ -291,9 +303,10 @@ def build_null_plan(graph: SpatialGraph, coords=None, block: int = 256
     valid = w_r > 0
     inwin = (rel >= 0) & (rel < 3 * block) & valid
     far = valid & ~inwin
-    n_far = int(far.sum())
+    n_far, n_live = int(far.sum()), int(valid.sum())
+    _count_plan(n, k, n_live, n_far)
     logger.info(f"null plan: N={n:,} k={k} block={block} "
-                f"far_edges={n_far:,} ({n_far / max(valid.sum(), 1):.2%})")
+                f"far_edges={n_far:,} ({n_far / max(n_live, 1):.2%})")
     local_idx = np.where(inwin, rel, 0).astype(np.int64)
     w_local = np.where(inwin, w_r, 0.0).astype(np.float32)
 
@@ -640,9 +653,10 @@ def _banded_stat_int(ops: _IntOps, rc_sum, Ztab, sz2, den, S0, rows, rowsf,
                 * Zp[far_dst].to(torch.float32))
 
         def sq():
-            z1 = Zp[B:B + nb * B]
-            z1 = (_unpack_nibbles(z1) if ops.packed else z1).to(torch.float32)
-            return rc_sum @ (z1 * z1 * sz2)
+            with span("ops.banded.geary_sq"):
+                z1 = Zp[B:B + nb * B]
+                z1 = (_unpack_nibbles(z1) if ops.packed else z1).to(torch.float32)
+                return rc_sum @ (z1 * z1 * sz2)
 
         return _finish_stat(cross_q * sz2, sq, den, S0, n, stat)
 
@@ -656,7 +670,8 @@ def _banded_stat_float(local_idx32, w_c, A, far_src, far_dst, far_w, rc_sum,
     kernel (K4), "pallas" the dense-band kernel on ``A`` (K5),
     "pallas_halo4" the ring kernel on the rotation-baked ``A`` (K6), "xla"
     the dense plain twin. The far-edge einsum stays in the table dtype
-    with float32 accumulation, as in the reference.
+    with float32 accumulation, as in the reference. Geary's degree term
+    Σ (r_i + c_i)·z_i² runs inside an ``ops.banded.geary_sq`` span.
     """
     B = block
     nb = local_idx32.shape[0] // B
@@ -676,8 +691,9 @@ def _banded_stat_float(local_idx32, w_c, A, far_src, far_dst, far_w, rc_sum,
         cross = cross + kern.tree_sum(fw[:, None] * fs * ft)
 
         def sq():
-            z1 = Zp[B:B + nb * B].to(torch.float32)
-            return rc_sum @ (z1 * z1)
+            with span("ops.banded.geary_sq"):
+                z1 = Zp[B:B + nb * B].to(torch.float32)
+                return rc_sum @ (z1 * z1)
 
         return _finish_stat(cross, sq, den, S0, n, stat)
 

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..core.logging import get_logger
-from ..utils.profiling import traced
+from ..utils.profiling import set_count, traced
 
 logger = get_logger("ops.graph")
 
@@ -312,6 +312,7 @@ def knn_grid(coords, k: int, include_self: bool = False,
 # ---------------------------------------------------------------------------
 
 
+@traced("ops.graph.radius_neighbors")
 def radius_neighbors(coords, radius: float, k_max: int,
                      include_self: bool = False, grid_threshold: int = 20_000,
                      device: Union[str, torch.device] = "cuda"
@@ -326,7 +327,8 @@ def radius_neighbors(coords, radius: float, k_max: int,
     one with more raises: the cap is checked, never silently truncated.
     2D inputs above ``grid_threshold`` cells take the bucket-grid search
     (:func:`knn_grid`), others the exact scan (:func:`knn_exact`). A tensor
-    ``coords`` stays on its device; others go to ``device``.
+    ``coords`` stays on its device; others go to ``device``. The cells with
+    no neighbour in radius are counted in ``graph.radius_isolated``.
     """
     c = (coords if isinstance(coords, torch.Tensor) else torch.as_tensor(
         np.asarray(coords, dtype=np.float32), device=device))
@@ -351,6 +353,7 @@ def radius_neighbors(coords, radius: float, k_max: int,
                 f"radius).")
         idx, dist = idx[:, :k_max], dist[:, :k_max]
     valid = dist <= r32
+    set_count("graph.radius_isolated", int((~valid.any(dim=1)).sum()))
     idx = torch.where(valid, idx, torch.full_like(idx, -1))
     dist = torch.where(valid, dist, torch.full_like(dist, float("inf")))
     return idx, dist, valid

@@ -12,8 +12,10 @@ tracing module.
   records, a span also opens ``record_function("spatialcore." + name)``, so
   it sits in the profiler's trace beside the card's kernels, on the
   trace's clock. :func:`spans` reads the records.
-- :func:`count` adds to a named counter; counters are always on (a dict
-  increment) and read with :func:`counters`. The kernels' launch counts
+- :func:`count` adds to a named counter and :func:`set_count` sets one
+  that holds a size (a plan's rows, slots and far edges, a graph's
+  isolated cells: the last one built); counters are always on (a dict
+  update) and read with :func:`counters`. The kernels' launch counts
   live here too (:class:`CounterGroup`), and counts a kernel keeps on the
   card are folded in when the counters are read (:func:`fold_on_read`).
 - :func:`read_back` is the one way the null path reads a tensor back to
@@ -148,6 +150,12 @@ def count(name: str, n: int = 1) -> None:
     _counts[name] = _counts.get(name, 0) + n
 
 
+def set_count(name: str, n: int) -> None:
+    """Set the counter ``name`` to ``n`` (always on): a size of the last
+    structure built, where :func:`count` tallies events."""
+    _counts[name] = int(n)
+
+
 def _blocking(fn, arg):
     """``fn(arg)``, a call that blocks the host on the card: counted in
     ``host_syncs``, and while tracing is on its time added to the innermost
@@ -188,8 +196,10 @@ def fold_on_read(fold) -> None:
 
 def counters() -> dict:
     """A copy of every counter: ``draws``, ``tiles``, ``rng.feistel_calls``,
-    ``rng.feistel_passes``, ``host_syncs`` and the kernels' launches
-    (``kernels.<module>.<mode>``), with the counts kept on the card folded
+    ``rng.feistel_passes``, ``host_syncs``, the kernels' launches
+    (``kernels.<module>.<mode>``), and the sizes of the last null plan
+    (``plan.rows``, ``plan.slots``, ``plan.live_slots``, ``plan.far_edges``)
+    and radius graph (``graph.radius_isolated``) built, with the counts kept on the card folded
     in first. Folding them reads them back, so the call waits for the work
     queued on the card (see :func:`fold_on_read`)."""
     for fold in _folds:
