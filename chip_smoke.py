@@ -60,13 +60,16 @@ Phases (the script stops with a non-zero exit at the first failure):
    entry. Then the per-draw split by CUDA events, and the other routes,
    each with counts of its own: the reference vignette's shape (366,938
    cells, k=50, 128 genes, 99 draws) through local_morans_i's default
-   route ("auto" -> the float32 null in torch ops), and the int8 null's
-   dense-far route (``band_impl="pallas"``) against its row-pointer route
-   ("auto"), counts bitwise equal, and K8 held against its plain version
-   and timed there (``hold_k8``); the Feistel cycle-walk kernel on the
-   vignette plan's 367,616 padded positions (``hold_feistel``); a plan
-   without far edges (cells on a
-   line: the band-only draw step); a small input on the card against the
+   route ("auto" -> the float32 null, one float draw-step launch a draw),
+   and the int8 null's dense-far route (``band_impl="pallas"``) against its
+   row-pointer route ("auto"), counts bitwise equal, K8 held against its
+   plain version and timed there (``hold_k8``), and the float draw step
+   (``csrc/lisa_float.cu``) at 100 genes in f32 and bf16, counts equal to
+   its plain version's, timed beside it, its bound and ``torch.sparse.mm``,
+   and at other launch shapes (``hold_lisa_float``); the Feistel
+   cycle-walk kernel on the vignette plan's 367,616 padded positions
+   (``hold_feistel``); a plan without far edges (cells on a line: the
+   band-only draw step); a small input on the card against the
    port's CPU path (p, p_adj, quadrants bitwise).
 6. Local Geary and Getis-Ord, each main path with counts of its own:
    ``local_gearys_c(null="total", null_method="banded_int8",
@@ -292,6 +295,7 @@ from spatialcore_tpu_torch.kernels import build
 from spatialcore_tpu_torch.kernels import feistel as kern_feistel
 from spatialcore_tpu_torch.kernels import knn as kern_knn
 from spatialcore_tpu_torch.kernels import lisa_count as kern_lisa
+from spatialcore_tpu_torch.kernels import lisa_float as kern_float
 from spatialcore_tpu_torch.kernels import sass
 from spatialcore_tpu_torch.ops import banded, geometry, moran
 from spatialcore_tpu_torch.ops.banded import (banded_local_moran_pvalues,
@@ -1803,23 +1807,29 @@ def phase_lisa_vignette(dev, gen, n_cells: int = 366_938, k: int = 50,
                         n_genes: int = 128, n_perms: int = 99):
     """The reference vignette's shape (k=50, far_bmax > 1024 there), each
     route with launch counts of its own: local_morans_i's default route
-    (null_method "auto" -> the float32 null in torch ops, no LISA kernel),
-    then the int8 null's dense-far route (band_impl="pallas", K8's
-    function) against its row-pointer route ("auto"), counts bitwise
-    equal. Returns times, far_bmax, {band_impl: launch counts} and the
-    null plan."""
+    (null_method "auto" -> the float32 null: one float draw-step launch a
+    draw, no int8 LISA kernel), then the int8 null's dense-far route
+    (band_impl="pallas", K8's function) against its row-pointer route
+    ("auto"), counts bitwise equal; K8 and the float draw step held at
+    this shape (``hold_k8``, ``hold_lisa_float``). Returns times,
+    far_bmax, {band_impl: launch counts} and the null plan."""
     d = lisa_adata(n_cells, n_genes, gen, dev)
     _, t_graph = timed(lambda: build_spatial_weights(d, n_neighbors=k,
                                                      device=dev), dev)
     kern_lisa.reset_launch_counts()
+    kern_float.reset_launch_counts()
     _, t_f32 = timed(lambda: local_morans_i(
         d, n_neighbors=k, n_permutations=n_perms, seed=5, batch_size=n_genes,
         output_mode="full", use_existing_graph=True, device=dev), dev)
     f32_launches = dict(kern_lisa.LAUNCHES)
+    float_launches = dict(kern_float.LAUNCHES)
     check(d.uns["local_morans_params"]["null_precision"] == "f32",
           "null_method='auto' did not resolve to the float32 null at k=50")
     check(not any(f32_launches.values()),
           f"the float32 null launched an int8 LISA kernel: {f32_launches}")
+    check(float_launches == {"moran_f32": n_perms, "moran_bf16": 0},
+          f"the float32 null did not run its draw step once a draw: "
+          f"{float_launches}")
     p = d.obsm["local_morans_p"]
     check(bool(torch.isfinite(d.obsm["local_morans_I"]).all()), "f32: non-finite I")
     check(bool(((p > 0) & (p <= 1)).all()), "f32: LISA p outside (0, 1]")
@@ -1841,14 +1851,15 @@ def phase_lisa_vignette(dev, gen, n_cells: int = 366_938, k: int = 50,
     check(torch.equal(res["pallas"][0], res["auto"][0]),
           "dense-far and row-pointer routes differ")
     hold_k8(plan, Z)
+    hold_lisa_float(plan, Z[:, :100].contiguous())
     print(f"[lisa] vignette shape {n_cells:,} cells k={k} (graph {t_graph:.3f} s, "
           f"far edges {banded._n_live_far(plan):,}, far_bmax {plan.far_bmax}), "
           f"{n_genes} genes x {n_perms} draws: local_morans_i('auto' -> float32 "
-          f"null, torch ops; plan included) {t_f32:.3f} s, HH/LL smooth {sig:.4f} "
+          f"null, float draw step; plan included) {t_f32:.3f} s, HH/LL smooth {sig:.4f} "
           f"noise {noise:.6f}; int8 dense far (band_impl='pallas') "
           f"{res['pallas'][1]:.3f} s, row-pointer far ('auto') "
           f"{res['auto'][1]:.3f} s; p bitwise equal")
-    print(f"[path] vignette launches: float32 null {f32_launches}, "
+    print(f"[path] vignette launches: float32 null {float_launches}, "
           f"band_impl='pallas' {launches['pallas']}, 'auto' {launches['auto']}")
     return {"f32_s": t_f32, "dense_s": res["pallas"][1],
             "rows_s": res["auto"][1], "far_bmax": plan.far_bmax,
@@ -1890,6 +1901,74 @@ def hold_k8(plan, Z) -> dict:
                      lambda: kern_lisa.lisa_count_plain(li, wq, Zp, blk, obs, cnt,
                                                         far=far),
                      lisa_work(plan, G, "dense"), band_csr(plan, Zq.device), Zp)
+
+
+def hold_lisa_float(plan, Z, reps: int = 20) -> dict:
+    """The float local Moran draw step (``csrc/lisa_float.cu``) at the
+    vignette's own shape, as the float null runs it (cell 2 of the
+    benchmark: 100 genes, float32 table, int16 counters), and in bf16: one
+    Feistel draw's gathered table against observed values that tie with
+    the identity placement's |z·lag|, the counts equal to the plain
+    version's (torch ops on the card), then timed (``hold_main``: kernel,
+    plain version, the bound of ``portbench/work/lisa_float.py`` and
+    ``torch.sparse.mm`` of the band against the float32 table), and the
+    kernel at other launch shapes."""
+    from portbench.work import lisa_float as work_float
+
+    blk, n_pad = plan.block, plan.n_padded
+    li = plan.local_idx.to(torch.int16).contiguous()
+    n_live = banded._n_live_far(plan)
+    far = dict(far_row_ptr=banded._row_ptr(plan.far_src, n_live, blk, n_pad),
+               far_dst=plan.far_dst[:n_live].to(torch.int32),
+               far_w=plan.far_w[:n_live].to(torch.float32))
+    slots = kern_float.far_slots(**far)
+    rows_idx = banded._padded_rows(plan, Z.device)
+    rows = feistel_apply(fold_in(key_for(5, "perm_feistel_local", 0), 0),
+                         rows_idx, plan.n)
+    csr = band_csr(plan, Z.device)
+    G = Z.shape[1]
+    out = {}
+    for dt, esz in ((torch.float32, 4), (torch.bfloat16, 2)):
+        Ztab = Z.to(dt)
+        w = plan.w_local.to(dt).contiguous()
+        Zp0 = Ztab[rows_idx]
+        obs = (Zp0[blk:blk + n_pad].to(torch.float32)
+               * kern_float.band_lag(plan.local_idx, w, Zp0, blk, slots, 0, n_pad)).abs()
+        obs[plan.n:] = float("inf")
+        Zp = Ztab[rows]
+        cnt = torch.zeros(obs.shape, dtype=torch.int16, device=Z.device)
+        got = kern_float.moran_count(li, w, Zp, blk, obs, cnt.clone(), **far)
+        want = kern_float.moran_count_plain(li, w, Zp, blk, obs, cnt.clone(), **far)
+        ties = kern_float.moran_count(li, w, Zp0, blk, obs, cnt.clone(), **far)
+        check(bool((ties[:plan.n] == 1).all()), f"lisa_float {dt}: the identity "
+              f"placement's ties did not all count")
+        check(0 < int(got.sum(dtype=torch.int64)) < plan.n * G,
+              f"lisa_float {dt}: counts all or none")
+        tag = "f32" if esz == 4 else "bf16"
+        out[tag] = hold_main(
+            f"lisa_float {tag} at {plan.n:,} cells k={li.shape[1]} x {G} genes "
+            f"({n_live:,} far edges)", got, want,
+            lambda: kern_float.moran_count(li, w, Zp, blk, obs, cnt, **far),
+            lambda: kern_float.moran_count_plain(li, w, Zp, blk, obs, cnt, **far),
+            work_float.work(plan.n, li.shape[1], G, esz, 2), csr, Zp, reps)
+        no_far = dict(far_row_ptr=torch.zeros_like(far["far_row_ptr"]),
+                      far_dst=far["far_dst"][:0], far_w=far["far_w"][:0])
+        ms = event_ms(lambda: kern_float.moran_count(li, w, Zp, blk, obs, cnt,
+                                                     **no_far), reps)
+        print(f"[main] lisa_float {tag} band only (far list emptied): {ms:.4f} ms")
+        t = kern_float.lisa_float_tiles(blk, li.shape[1], esz, G, n_pad // blk)
+        for label, tiles in (
+                ("64-byte ring rows", kern_float.lisa_float_tiles(
+                    blk, li.shape[1], esz, G, n_pad // blk, max_row_bytes=64)),
+                ("no narrow last tile", t._replace(tail=t.tile, tail_chunk=t.chunk,
+                                                    tail_far_cap=t.far_cap)),
+                ("no far value staged", t._replace(far_cap=0, tail_far_cap=0)),
+                ("run 1", t._replace(run=1)), ("run 5", t._replace(run=5))):
+            ms = event_ms(lambda: kern_float.moran_count(li, w, Zp, blk, obs, cnt,
+                                                         **far, tiles=tiles), reps)
+            print(f"[main] lisa_float {tag} {label} {tuple(tiles[:7])}: {ms:.4f} ms")
+        print(f"[main] lisa_float {tag} chooser {tuple(t[:7])}")
+    return out
 
 
 def exact_pair(coords: np.ndarray, n_genes: int, seed: int, dev):
@@ -3070,6 +3149,7 @@ def release() -> None:
 def reset_all_launches() -> None:
     kern.reset_launch_counts()
     kern_lisa.reset_launch_counts()
+    kern_float.reset_launch_counts()
     kern_knn.reset_launch_counts()
     kern_feistel.reset_launch_counts()
 
@@ -3489,7 +3569,7 @@ RADIUS_MODES = ("int8_win", "int8_band", "float", "lisa_win", "lisa_obs")
 
 def launched() -> dict:
     return {k: v for k, v in {**kern.LAUNCHES, **kern_lisa.LAUNCHES,
-                              **kern_knn.LAUNCHES,
+                              **kern_float.LAUNCHES, **kern_knn.LAUNCHES,
                               **kern_feistel.LAUNCHES}.items() if v}
 
 

@@ -67,6 +67,11 @@ _SIGNATURES = {
     # part, nb, B, k, G, cnt_bytes
     "sct_lee": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                 _I, _I, *_SHAPE],
+    # local_idx, w, zp, far_ptr, far_dst, far_w, obs, cnt, nb, B, k, G,
+    # is_bf16, cnt_bytes, tile, chunk, far_cap, tail, tail_chunk,
+    # tail_far_cap, run, stream
+    "sct_lisa_float": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _I, _P],
     # coords, order, rmax, n, k, include_self, threads, tile, stages,
     # out_d, out_i, stream
     "sct_knn": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],

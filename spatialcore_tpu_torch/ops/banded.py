@@ -36,7 +36,11 @@ Departure from the reference: ``band_impl="auto"`` always takes that kernel
 on a CUDA tensor (row-pointer far edges, or the dense far layer when the
 plan has no run structure); the reference's auto rule drops to XLA beyond
 the TPU kernels' VMEM limits (far_bmax > 1024), which a row-pointer read
-does not have. The counts are bitwise equal either way.
+does not have. The counts are bitwise equal either way. The bf16 / f32
+LISA null's draw step (float32 lag, ``|z·lag| ≥ obs`` against the exact
+observed |I|) runs on a CUDA tensor in the hand-written kernel of
+``kernels/lisa_float.py`` (``csrc/lisa_float.cu``; the reference has XLA
+ops there), rounding where its torch-op plain version does.
 
 Lee's L (:func:`banded_lees_l`) permutes only the y column of each gene
 pair; its int8 draw step adds the per-block partials of the global L,
@@ -61,6 +65,7 @@ from ..core.logging import get_logger
 from ..core.rng import feistel_apply, fold_in, key_for, permutation
 from ..kernels import band_cross as kern
 from ..kernels import lisa_count as kern_lisa
+from ..kernels import lisa_float as kern_float
 from ..utils.profiling import count, read_back, set_count, span, traced
 from .graph import SpatialGraph
 
@@ -1265,40 +1270,13 @@ def banded_local_moran_pvalues(
 
 
 def _far_slots(plan: NullPlan, n_live: int):
-    """The live far edges as slots: ``(dst, w)`` [n_padded, R], where slot t
-    of a row holds its t-th far edge in list order (value row, weight) and
-    R is the most far edges any row has. Empty slots read row 0 with weight
-    0. Built once per call, so the draw loop reads nothing back."""
-    B = plan.block
-    dev = plan.far_dst.device
-    rows = (plan.far_src[:n_live] - B).to(torch.int64)
-    ptr = _row_ptr(plan.far_src, n_live, B, plan.n_padded)
-    rank = torch.arange(n_live, device=dev) - ptr[rows].to(torch.int64)
-    R = int(read_back(rank.max())) + 1 if n_live else 0
-    dst = torch.zeros((plan.n_padded, R), dtype=torch.int64, device=dev)
-    w = torch.zeros((plan.n_padded, R), dtype=torch.float32, device=dev)
-    dst[rows, rank] = plan.far_dst[:n_live].to(torch.int64)
-    w[rows, rank] = plan.far_w[:n_live].to(torch.float32)
-    return dst, w
-
-
-def _banded_lag(local_idx, w, Zp, block: int, far, r0: int, r1: int
-                ) -> torch.Tensor:
-    """float32 spatial lag of padded rows [r0, r1): band slot by slot on the
-    compact band, then the far slots of :func:`_far_slots` (``far``) in
-    rank order. Every row adds its terms in one fixed order, so the sum is
-    bitwise reproducible; an empty far slot adds ±0."""
-    rows = torch.arange(r0, r1, device=Zp.device)
-    win0 = (rows // block) * block
-    lag = None
-    for s in range(local_idx.shape[1]):
-        term = (w[r0:r1, s:s + 1].to(torch.float32)
-                * Zp[win0 + local_idx[r0:r1, s]].to(torch.float32))
-        lag = term if lag is None else lag + term
-    fdst, fw = far
-    for t in range(fdst.shape[1]):
-        lag = lag + Zp[fdst[r0:r1, t]].to(torch.float32) * fw[r0:r1, t:t + 1]
-    return lag
+    """The live far edges as slots (:func:`kernels.lisa_float.far_slots`):
+    ``(dst, w)`` [n_padded, R], slot t of a row holding its t-th far edge
+    in list order. Built once per call, so the draw loop reads nothing
+    back."""
+    ptr = _row_ptr(plan.far_src, n_live, plan.block, plan.n_padded)
+    R = int(read_back((ptr[1:] - ptr[:-1]).max())) if n_live else 0
+    return kern_float.far_slots(ptr, plan.far_dst[:n_live], plan.far_w[:n_live], R)
 
 
 @traced("draws")
@@ -1307,29 +1285,33 @@ def _banded_local_moran_p(plan: NullPlan, Z: torch.Tensor, abs_obs_new,
                           precision: str, perm_method: str = "feistel"
                           ) -> torch.Tensor:
     """LISA permutation p through the bf16/f32 banded null (reference
-    ``_banded_local_moran_p``, ops/banded.py:2487; XLA there, torch ops
-    here): per draw one row gather and the band + far lag on the compact
-    band, compared with the exact observed |I| (``abs_obs_new``, relabeled
-    order, padded rows +inf). Products accumulate in float32."""
+    ``_banded_local_moran_p``, ops/banded.py:2487; XLA there). Per draw one
+    row gather and one draw step (``kernels.lisa_float``: the band + far
+    lag on the compact band, products rounded to float32 and added in slot
+    order, then each row's far edges in list order; |z·lag| compared with
+    the exact observed |I| (``abs_obs_new``, relabeled order, padded rows
+    +inf) and the int16 counters (int32 above 32,767 draws) updated in
+    place). A CUDA table goes through the hand-written kernel, a CPU one
+    through its torch-op plain version: the counts are equal bitwise."""
     B = plan.block
     n_padded = plan.n_padded
     G = Z.shape[1]
     wdt = torch.bfloat16 if precision == "bf16" else Z.dtype
-    w = plan.w_local.to(wdt)
+    w = plan.w_local.to(wdt).contiguous()
     Ztab = Z if Z.dtype == wdt else Z.to(wdt)
+    li16 = plan.local_idx.to(torch.int16).contiguous()   # rows < 3B ≤ 1536
     rows_idx = _padded_rows(plan, Z.device)
-    far = _far_slots(plan, _n_live_far(plan))
+    n_live = _n_live_far(plan)
+    far = dict(far_row_ptr=_row_ptr(plan.far_src, n_live, B, n_padded),
+               far_dst=plan.far_dst[:n_live].to(torch.int32),
+               far_w=plan.far_w[:n_live].to(torch.float32))
     rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n, "perm_local")
     cdt = torch.int16 if n_permutations <= 32767 else torch.int32
     count = torch.zeros((n_padded, G), dtype=cdt, device=Z.device)
-    spans = _row_spans(n_padded, B, G)
     for step in _draw_steps(n_permutations):
         Zp = _gather(Ztab, rows_of(step))
-        with span("ops.banded.local_lag"):
-            for r0, r1 in spans:
-                lag = _banded_lag(plan.local_idx, w, Zp, B, far, r0, r1)
-                Ip = Zp[B + r0:B + r1].to(torch.float32) * lag
-                count[r0:r1] += (Ip.abs() >= abs_obs_new[r0:r1]).to(cdt)
+        with span("kernels.lisa_float"):
+            kern_float.moran_count(li16, w, Zp, B, abs_obs_new, count, **far)
     return _p_from_counts(count[plan.rank], n_permutations)
 
 
@@ -1350,8 +1332,9 @@ def banded_local_moran(
     Returns a ``LocalMoranResult`` in the original cell order, on the
     device of ``Z``. ``precision="int8"`` runs the null in the per-gene
     quantized operator (:func:`banded_local_moran_pvalues`, the Hopper
-    kernel on a CUDA tensor); "bf16" / "f32" run the float null in torch
-    ops. ``perm_method="sort"`` draws the slot null's permutations (key
+    kernel on a CUDA tensor); "bf16" / "f32" run the float null
+    (:func:`_banded_local_moran_p`, ``csrc/lisa_float.cu`` on a CUDA
+    tensor). ``perm_method="sort"`` draws the slot null's permutations (key
     ``perm_local``): with ``precision="f32"`` the p-values then equal
     ``ops.moran.local_moran(null="total")``'s up to float32 summation
     order.
@@ -1489,8 +1472,8 @@ def _banded_local_geary_p(plan: NullPlan, Z: torch.Tensor, seed: int, *,
     def geary(Zp):
         Zp2 = (Zp.to(torch.float32) * Zp.to(torch.float32)).to(wdt)
         for r0, r1 in chunks:
-            lag1 = _banded_lag(plan.local_idx, w, Zp, B, far, r0, r1)
-            lag2 = _banded_lag(plan.local_idx, w, Zp2, B, far, r0, r1)
+            lag1 = kern_float.band_lag(plan.local_idx, w, Zp, B, far, r0, r1)
+            lag2 = kern_float.band_lag(plan.local_idx, w, Zp2, B, far, r0, r1)
             me = Zp[B + r0:B + r1].to(torch.float32)
             yield r0, r1, me * me * row_w[r0:r1, None] + lag2 - 2.0 * me * lag1
 
@@ -1683,7 +1666,7 @@ def _banded_getis_p(plan: NullPlan, X: torch.Tensor, seed: int, *,
 
     def center(Xp):
         for r0, r1 in chunks:
-            lag = _banded_lag(plan.local_idx, w, Xp, B, far, r0, r1)
+            lag = kern_float.band_lag(plan.local_idx, w, Xp, B, far, r0, r1)
             me = Xp[B + r0:B + r1].to(torch.float32)
             W = w_row[r0:r1]
             if star:
@@ -1766,8 +1749,9 @@ def _banded_lees_p(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
     """Lee's L permutation p through the bf16/f32 banded null (reference
     ``_banded_lees_p``, ops/banded.py:2539; XLA there, torch ops on the
     compact band here). Per draw one row gather of the permuted y columns
-    and the band + far lag (:func:`_banded_lag`: band slots, then each
-    row's far edges in list order, float32 accumulation); x stays fixed.
+    and the band + far lag (:func:`kernels.lisa_float.band_lag`: band
+    slots, then each row's far edges in list order, float32 accumulation);
+    x stays fixed.
     The observed values come from the same operator at the identity
     placement. Returns ``(p_global [G], p_local [n, G])`` in the original
     order (``p_local`` ones without ``compute_cell_pvalues``)."""
@@ -1785,8 +1769,8 @@ def _banded_lees_p(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
 
     def lees(Yp):
         for r0, r1 in spans:
-            yield r0, r1, zx[r0:r1] * _banded_lag(plan.local_idx, w, Yp, B, far,
-                                                  r0, r1)
+            yield r0, r1, zx[r0:r1] * kern_float.band_lag(
+                plan.local_idx, w, Yp, B, far, r0, r1)
 
     abs_l = (torch.empty((n_padded, G), dtype=torch.float32, device=dev)
              if compute_cell_pvalues else None)

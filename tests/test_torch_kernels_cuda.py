@@ -11,8 +11,9 @@ order only; the integer lags are exact in both versions. The local
 statistics' draw-step kernel (LISA, local Geary, Gi*, Gi, Lee): counts and
 observed values equal — exact integers, and Gi's float32 centring and
 Lee's block partials round at the plain version's places, so those are
-equal too. The kNN kernel: indices and squared distances equal (the same
-float32 operations, ties by id). ``permutation`` on the card: equal to
+equal too. The float local Moran draw step: counts equal (every product
+and add rounded where the plain version rounds). The kNN kernel: indices
+and squared distances equal (the same float32 operations, ties by id). ``permutation`` on the card: equal to
 the CPU's. The Feistel cycle walk: rows equal the plain walk's bitwise,
 on the card over every position and on the CPU over a sample
 (``tests/test_torch_rng.py`` holds the CPU walk to the JAX package's at
@@ -27,6 +28,7 @@ from spatialcore_tpu_torch.kernels import band_cross as kern
 from spatialcore_tpu_torch.kernels import feistel as kern_feistel
 from spatialcore_tpu_torch.kernels import knn as kern_knn
 from spatialcore_tpu_torch.kernels import lisa_count as kern_lisa
+from spatialcore_tpu_torch.kernels import lisa_float as kern_float
 from spatialcore_tpu_torch.ops import banded
 from spatialcore_tpu_torch.ops.graph import build_graph
 from spatialcore_tpu_torch.utils import profiling as prof
@@ -1030,3 +1032,171 @@ def test_feistel_walk_kernel_duplicates_plan_rows_and_empty(cuda_device, plan):
     assert c["rng.feistel_passes"] == 2 * want_passes
     assert c["kernels.feistel.walk"] == c["rng.feistel_calls"] == len(cases)
 
+
+
+# ---------------------------------------------------------------------------
+# The float local Moran draw step (csrc/lisa_float.cu): float32 rounded at
+# the plain version's places, so the counts are equal
+# ---------------------------------------------------------------------------
+
+
+def _float_operands(nb: int, G: int, k: int, blk: int, far_max: int, dtype,
+                    seed: int = 3):
+    """A compact band with dead slots, 0..far_max far entries a row (every
+    block's first and last row at far_max), a discrete table (few distinct
+    values: ties) and observed values equal to this table's own |z·lag| on
+    half the rows, +inf on the last block's last rows."""
+    gen = torch.Generator().manual_seed(seed)
+    n = nb * blk
+    li = torch.randint(0, 3 * blk, (n, k), generator=gen, dtype=torch.int16)
+    w = torch.rand((n, k), generator=gen)
+    w[torch.rand((n, k), generator=gen) < 0.2] = 0
+    per_row = torch.randint(0, far_max + 1, (n,), generator=gen)
+    per_row[0::blk] = far_max
+    per_row[blk - 1::blk] = far_max
+    ptr = torch.zeros(n + 1, dtype=torch.int32)
+    ptr[1:] = torch.cumsum(per_row, 0).to(torch.int32)
+    F = int(ptr[-1])
+    far = dict(far_row_ptr=ptr,
+               far_dst=torch.randint(0, n + 2 * blk, (F,), generator=gen,
+                                     dtype=torch.int32),
+               far_w=torch.rand((F,), generator=gen))
+    x = torch.poisson(torch.full((n + 2 * blk, G), 0.7), generator=gen)
+    zp = ((x - x.mean(0)) / x.std(0).clamp_min(1e-3)).to(dtype)
+    w = w.to(dtype)
+    lag = kern_float.band_lag(li, w, zp, blk, kern_float.far_slots(**far), 0, n)
+    obs = (zp[blk:blk + n].to(torch.float32) * lag).abs()
+    obs[1::2] = torch.rand((n // 2, G), generator=gen)
+    obs[-5:] = float("inf")
+    return li, w, zp, obs, far
+
+
+#: (B, k, nb, G, far_max, run): ragged G against the 4- and 8-gene lanes and
+#: the tile (1, 3, 100, 130); B of 64, 100 and 256; k of 6 and 50 (two
+#: slots a read) and 7 (a slot a read); no far entry and 0..9 a row; runs
+#: that do not divide nb (None: the chooser's)
+FLOAT_CASES = [(64, 6, 1, 1, 3, None), (64, 6, 5, 3, 3, 2), (100, 6, 7, 130, 9, 3),
+               (256, 50, 3, 100, 0, None), (256, 50, 5, 100, 9, 2),
+               (64, 50, 4, 64, 3, 3), (64, 7, 3, 100, 3, None)]
+FLOAT_IDS = ["B64_G1", "B64_G3_run2", "B100_G130_run3", "B256_k50_G100_no_far",
+             "B256_k50_G100_run2", "B64_k50_G64_run3", "B64_k7_odd"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLOAT_CASES, ids=FLOAT_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cdt", [torch.int16, torch.int32])
+def test_lisa_float_kernel_equals_plain(cuda_device, case, dtype, cdt):
+    blk, k, nb, G, far_max, run = case
+    li, w, zp, obs, far = _float_operands(nb, G, k, blk, far_max, dtype)
+    cnt0 = torch.randint(0, 100, obs.shape).to(cdt)
+    want = kern_float.moran_count_plain(li, w, zp, blk, obs, cnt0.clone(), **far)
+    moved = (want - cnt0)
+    assert 0 < int(moved.sum()) < moved.numel() and not bool(moved[-5:].any())
+    on = [t.to(cuda_device) for t in (li, w, zp, obs)]
+    far_dev = {x: v.to(cuda_device) for x, v in far.items()}
+    esz = zp.element_size()
+    t = kern_float.lisa_float_tiles(blk, k, esz, G, nb, run=run)
+    narrow = kern_float.lisa_float_tiles(blk, k, esz, G, nb, max_row_bytes=16, run=run)
+    mode = "moran_bf16" if dtype == torch.bfloat16 else "moran_f32"
+    # the chooser's shape, 16-byte ring rows, ragged chunks, no far value
+    # staged, a few staged (rows straddle the cap), whole tiles only
+    for tiles in (t, narrow, t._replace(chunk=min(7, t.chunk), tail_chunk=min(5, t.tail_chunk)),
+                  t._replace(far_cap=0, tail_far_cap=0), t._replace(far_cap=3, tail_far_cap=2),
+                  t._replace(tail=t.tile, tail_chunk=t.chunk, tail_far_cap=t.far_cap)):
+        for _ in range(2):
+            before = kern_float.LAUNCHES[mode]
+            got = kern_float.moran_count(*on[:3], blk, on[3], cnt0.to(cuda_device),
+                                         **far_dev, tiles=tiles)
+            torch.cuda.synchronize()
+            assert kern_float.LAUNCHES[mode] == before + 1, tiles
+            assert torch.equal(got.cpu(), want), tiles
+
+
+@pytest.fixture(scope="module")
+def vignette_plan():
+    """A 60,000-cell kNN plan at the CosMx vignette's k = 50, B = 256,
+    built on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    coords = torch.rand((60_000, 2), generator=gen, device=dev) * 1500
+    return banded.build_null_plan(build_graph(coords, n_neighbors=50, device=dev),
+                                  coords, block=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_lisa_float_kernel_at_k50_equals_plain(cuda_device, vignette_plan, precision):
+    """The draw step at the cell's k = 50 on a 60,000-cell plan with far
+    edges, discrete counts, observed values tied with the first draw's
+    |z·lag|: kernel and plain version (torch ops on the card) equal."""
+    plan = vignette_plan
+    B_, n_pad = plan.block, plan.n_padded
+    n_live = banded._n_live_far(plan)
+    assert n_live > 0
+    dt = torch.bfloat16 if precision == "bf16" else torch.float32
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    x = torch.poisson(torch.full((plan.n, 100), 0.4, device=cuda_device), generator=gen)
+    Ztab = ((x - x.mean(0)) / x.std(0).clamp_min(1e-3)).to(dt)
+    li = plan.local_idx.to(torch.int16).contiguous()
+    w = plan.w_local.to(dt).contiguous()
+    far = dict(far_row_ptr=banded._row_ptr(plan.far_src, n_live, B_, n_pad),
+               far_dst=plan.far_dst[:n_live].to(torch.int32),
+               far_w=plan.far_w[:n_live].to(torch.float32))
+    rows_idx = banded._padded_rows(plan, cuda_device)
+    rows_of = banded._draw_rows("feistel", 5, rows_idx, plan.n, "perm_local")
+    Zp0 = Ztab[rows_of(0)]
+    lag = kern_float.band_lag(plan.local_idx, w, Zp0, B_, kern_float.far_slots(**far),
+                              0, n_pad)
+    obs = (Zp0[B_:B_ + n_pad].to(torch.float32) * lag).abs()
+    obs[plan.n:] = float("inf")
+    want = torch.zeros(obs.shape, dtype=torch.int16, device=cuda_device)
+    got = want.clone()
+    kern_float.reset_launch_counts()
+    for step in range(4):
+        Zp = Ztab[rows_of(step)]
+        kern_float.moran_count_plain(li, w, Zp, B_, obs, want, **far)
+        kern_float.moran_count(li, w, Zp, B_, obs, got, **far)
+    torch.cuda.synchronize()
+    assert kern_float.LAUNCHES["moran_" + precision] == 4
+    assert torch.equal(got, want)
+    assert bool((want[:plan.n] >= 1).all())       # draw 0 ties everywhere
+
+
+@pytest.mark.cuda
+def test_float_null_on_the_card_equals_the_cpu(cuda_device, plan):
+    """The whole f32 / bf16 LISA null on the card (kernel route) against
+    the CPU (plain route): p bitwise, one ``kernels.lisa_float`` launch a
+    draw."""
+    gen = torch.Generator().manual_seed(4)
+    x = torch.poisson(torch.full((plan.n, 40), 0.5), generator=gen)
+    Z = (x - x.mean(0)) / x.std(0).clamp_min(1e-3)
+    obs = torch.rand((plan.n_padded, 40), generator=gen) * 0.3
+    on_card = banded.NullPlan(*[t.to(cuda_device) if isinstance(t, torch.Tensor)
+                                else t for t in plan])
+    for precision in ("f32", "bf16"):
+        want = banded._banded_local_moran_p(plan, Z, obs, 9, n_permutations=19,
+                                            precision=precision)
+        kern_float.reset_launch_counts()
+        got = banded._banded_local_moran_p(on_card, Z.to(cuda_device),
+                                           obs.to(cuda_device), 9,
+                                           n_permutations=19, precision=precision)
+        assert kern_float.LAUNCHES["moran_" + precision] == 19
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_lisa_float_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda_device):
+    li, w, zp, obs, far = _float_operands(2, 8, 6, 64, 2, torch.float32)
+    on = [t.to(cuda_device) for t in (li, w, zp, obs)]
+    far_dev = {x: v.to(cuda_device) for x, v in far.items()}
+    cnt = torch.zeros(obs.shape, dtype=torch.int16, device=cuda_device)
+    for bad in (dict(w=on[1].double(), zp=on[2].double()),
+                dict(cnt=cnt.to(torch.int8)), dict(obs=on[3].half())):
+        args = dict(local_idx=on[0], w=on[1], Zp=on[2], block=64, obs=on[3], cnt=cnt,
+                    **far_dev)
+        args.update({("Zp" if x == "zp" else x): v for x, v in bad.items()})
+        with pytest.raises(ValueError):
+            kern_float.moran_count(**args)
