@@ -594,8 +594,6 @@ def kernel_cases(dev, plan, gen, widths):
     library yardstick multiplies."""
     n_blocks = plan.n_padded // B
     n = plan.n_padded
-    rows_idx = torch.arange((n_blocks + 2) * B, device=dev) - B
-    rows_idx = plan.order[rows_idx.clamp(0, plan.n - 1)]
     li = plan.local_idx.to(torch.int32)
     for mode, G in widths:
         if mode in ("bf16", "f32"):
@@ -615,8 +613,8 @@ def kernel_cases(dev, plan, gen, widths):
             continue
         packed = mode == "int4_win"
         far_mode = "exact" if mode == "int8_band" else "win"
-        ops, _ = banded._int_ops(plan, "int4" if packed else "int8", far_mode,
-                                 rows_idx, use_plain=False)
+        ops = banded._int_ops(plan, "int4" if packed else "int8", far_mode,
+                              use_plain=False)
         lim = 7 if packed else 127
         cols = G // 2 if packed else G
 
@@ -835,11 +833,10 @@ def phase_lisa_kernels(dev, plan, gen, G: int, reps: int):
     nbk = plan.n_padded // B
     n = plan.n_padded
     wq, _, far_q = banded._full_row_codes(plan)
-    li = plan.local_idx.to(torch.int32).contiguous()
-    n_live = banded._n_live_far(plan)
-    ptr = banded._row_ptr(plan.far_src, n_live, B, n)
+    lo = banded._local_setup(plan, dev)
+    li, n_live, ptr = lo.li, lo.n_live, lo.ptr
     fq8 = far_q[:n_live].to(torch.int8).contiguous()
-    src, dst = plan.far_src[:n_live] - B, plan.far_dst[:n_live]
+    src, dst = lo.far_row, lo.far_dst
 
     def codes(rows):
         return torch.randint(-127, 128, (rows, G), generator=gen, device=dev,
@@ -906,10 +903,8 @@ def tail_operands(plan, gen, G: int, dev):
     W (Getis), the far list as row pointers; random codes (non-negative
     for Getis), and an observed placement of other codes."""
     n = plan.n_padded
-    li = plan.local_idx.to(torch.int32).contiguous()
-    n_live = banded._n_live_far(plan)
-    ptr = banded._row_ptr(plan.far_src, n_live, B, n)
-    src = plan.far_src[:n_live] - B
+    lo = banded._local_setup(plan, dev)
+    li, n_live, ptr, src = lo.li, lo.n_live, lo.ptr, lo.far_row
     wq, _, far_q = banded._full_row_codes(plan)
     w_code = wq.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
         0, src, far_q[:n_live].to(torch.int32))
@@ -1072,9 +1067,8 @@ def phase_lee_kernels(dev, plan, gen, G: int, reps: int):
     n = plan.n_padded
     wq, sw, far_q = banded._full_row_codes(plan)
     sw_row = sw.reshape(-1).contiguous()
-    li = plan.local_idx.to(torch.int32).contiguous()
-    n_live = banded._n_live_far(plan)
-    ptr = banded._row_ptr(plan.far_src, n_live, B, n)
+    lo = banded._local_setup(plan, dev)
+    li, n_live, ptr = lo.li, lo.n_live, lo.ptr
     fq8 = far_q[:n_live].to(torch.int8).contiguous()
 
     def codes(rows):
@@ -1422,20 +1416,18 @@ def int_operands(plan, tile0, mode: str, G: int, step: int = 0):
     else:
         Ztab = tile0["Zq8"][:, :G].contiguous()
     rows_idx = banded._padded_rows(plan, dev)
-    ops, rif = banded._int_ops(plan, "int4" if packed else "int8",
-                               "exact" if mode == "int8_band" else "win",
-                               rows_idx, use_plain=False)
-    idx_all = rows_idx if rif is None else torch.cat([rows_idx, rif])
+    ops = banded._int_ops(plan, "int4" if packed else "int8",
+                          "exact" if mode == "int8_band" else "win",
+                          use_plain=False)
     base = key_for(0, "perm_feistel", 0)
-    perm_rows = feistel_apply(fold_in(base, step), idx_all, plan.n)
-    L = rows_idx.shape[0]
-    zp = Ztab[perm_rows[:L]]
+    zp, zf = banded._gather(Ztab, feistel_apply(fold_in(base, step), rows_idx,
+                                                plan.n), ops.far_rows)
     kw = dict(packed=packed)
     if ops.win:
         kw.update(far_row_ptr=ops.far_ptr, far_q=ops.win_ops[3].reshape(-1),
-                  Zf=Ztab[perm_rows[L:]])
+                  Zf=zf)
     args = (ops.local_idx32, ops.wq, ops.sw.reshape(-1).contiguous(), zp, B)
-    return args, kw, dict(Ztab=Ztab, ops=ops, idx_all=idx_all, base=base, L=L)
+    return args, kw, dict(Ztab=Ztab, ops=ops, rows_idx=rows_idx, base=base)
 
 
 def shard_shapes(label: str, fn, whole: torch.Tensor, G: int, tiles_own,
@@ -1531,28 +1523,29 @@ def hold_int_1m(plan, tile0, modes=(("int4_win", 4096), ("int8_win", 1024),
 
 def int_draw_split(plan, tile0, reps: int = 5):
     """One int4 global draw (K1, windowed far) at 1M × 4,096 part by part
-    (CUDA events): Feistel rows (padded rows and far targets), the row
-    gather, the far gather, K1, and the whole draw (Feistel rows and
-    ``_banded_stat_int``, Moran)."""
+    (CUDA events): Feistel rows (the padded rows), the row gather, the far
+    values read from the gathered table, K1, and the whole draw (Feistel
+    rows, ``_gather`` and ``_banded_stat_int``, Moran)."""
     args, kw, p = int_operands(plan, tile0, "int4_win", 4096)
-    Ztab, ops, idx_all, base, L = (p[k] for k in ("Ztab", "ops", "idx_all",
-                                                  "base", "L"))
-    perm_rows = feistel_apply(fold_in(base, 0), idx_all, plan.n)
+    Ztab, ops, rows_idx, base = (p[k] for k in ("Ztab", "ops", "rows_idx",
+                                                "base"))
+    perm_rows = feistel_apply(fold_in(base, 0), rows_idx, plan.n)
+    zp = Ztab[perm_rows]
     sz2 = tile0["sz"] * tile0["sz"]
     S0 = float(plan.n)
     steps = iter(range(1, 1 << 20))
 
     def draw():
-        r = feistel_apply(fold_in(base, next(steps)), idx_all, plan.n)
-        return banded._banded_stat_int(ops, plan.rc_sum, Ztab, sz2, tile0["den"],
-                                       S0, r[:L], r[L:], n=plan.n, stat="moran",
-                                       use_plain=False)
+        r = feistel_apply(fold_in(base, next(steps)), rows_idx, plan.n)
+        return banded._banded_stat_int(
+            ops, plan.rc_sum, *banded._gather(Ztab, r, ops.far_rows), sz2,
+            tile0["den"], S0, n=plan.n, stat="moran", use_plain=False)
 
     split = dict(
-        feistel=event_ms(lambda: feistel_apply(fold_in(base, 1), idx_all,
+        feistel=event_ms(lambda: feistel_apply(fold_in(base, 1), rows_idx,
                                                plan.n), reps),
-        row_gather=event_ms(lambda: Ztab[perm_rows[:L]], reps),
-        far_gather=event_ms(lambda: Ztab[perm_rows[L:]], reps),
+        row_gather=event_ms(lambda: Ztab[perm_rows], reps),
+        far_gather=event_ms(lambda: zp[ops.far_rows], reps),
         kernel=event_ms(lambda: kern.band_cross_int8(*args, **kw), reps),
         whole_draw=event_ms(draw, reps))
     print(f"[int] one int4 draw (K1, windowed far, Moran) at {plan.n:,} x "
@@ -1740,12 +1733,9 @@ def lisa_draw_split(dev, d, reps: int = 5, tag: str = "lisa"):
     Zq = banded._quantize_z(standardize(d.X)[0])[0]
     G = Zq.shape[1]
     wq, _, far_q = banded._full_row_codes(plan)
-    li = plan.local_idx.to(torch.int32).contiguous()
-    n_live = banded._n_live_far(plan)
-    far = dict(far_row_ptr=banded._row_ptr(plan.far_src, n_live, B, plan.n_padded),
-               far_q=far_q[:n_live].to(torch.int8).contiguous())
-    rows_idx = banded._padded_rows(plan, Zq.device)
-    dst = plan.far_dst[:n_live]
+    lo = banded._local_setup(plan, Zq.device)
+    li, n_live, rows_idx, dst = lo.li, lo.n_live, lo.rows_idx, lo.far_dst
+    far = dict(far_row_ptr=lo.ptr, far_q=far_q[:n_live].to(torch.int8).contiguous())
     Zp0 = Zq[rows_idx]
     obs = kern_lisa.lisa_observed(li, wq, Zp0, B, Zf=Zp0[dst], **far)
     cnt = torch.zeros(obs.shape, dtype=torch.int8, device=Zq.device)
@@ -1875,11 +1865,9 @@ def hold_k8(plan, Z) -> dict:
     Zq = banded._pad_cols4(banded._quantize_z(Z)[0])
     G = Zq.shape[1]
     wq, _, far_q = banded._full_row_codes(plan)
-    li = plan.local_idx.to(torch.int32).contiguous()
-    rows_idx = banded._padded_rows(plan, Zq.device)
-    n_live = banded._n_live_far(plan)
-    src, dst = plan.far_src[:n_live] - blk, plan.far_dst[:n_live]
-    fq32 = far_q[:n_live].to(torch.int32)[:, None]
+    lo = banded._local_setup(plan, Zq.device)
+    li, rows_idx, src, dst = lo.li, lo.rows_idx, lo.far_row, lo.far_dst
+    fq32 = far_q[:lo.n_live].to(torch.int32)[:, None]
 
     def layer(Zp):
         out = torch.zeros((n_pad, G), dtype=torch.int32, device=Zq.device)
@@ -1916,13 +1904,11 @@ def hold_lisa_float(plan, Z, reps: int = 20) -> dict:
     from portbench.work import lisa_float as work_float
 
     blk, n_pad = plan.block, plan.n_padded
-    li = plan.local_idx.to(torch.int16).contiguous()
-    n_live = banded._n_live_far(plan)
-    far = dict(far_row_ptr=banded._row_ptr(plan.far_src, n_live, blk, n_pad),
-               far_dst=plan.far_dst[:n_live].to(torch.int32),
+    lo = banded._local_setup(plan, Z.device, li=torch.int16)
+    li, n_live, rows_idx = lo.li, lo.n_live, lo.rows_idx
+    far = dict(far_row_ptr=lo.ptr, far_dst=lo.far_dst.to(torch.int32),
                far_w=plan.far_w[:n_live].to(torch.float32))
     slots = kern_float.far_slots(**far)
-    rows_idx = banded._padded_rows(plan, Z.device)
     rows = feistel_apply(fold_in(key_for(5, "perm_feistel_local", 0), 0),
                          rows_idx, plan.n)
     csr = band_csr(plan, Z.device)
@@ -2229,11 +2215,9 @@ def tail_draw_split(dev, d, stat: str, reps: int = 5):
     against their plain versions there (``hold_main``)."""
     plan = d._null_plan_cache["value"]
     n, n_pad = plan.n, plan.n_padded
-    li = plan.local_idx.to(torch.int32).contiguous()
-    n_live = banded._n_live_far(plan)
-    ptr, dst = banded._rows_far(plan, n_live)
-    src = plan.far_src[:n_live] - B
-    rows_idx = banded._padded_rows(plan, d.X.device)
+    lo = banded._local_setup(plan, d.X.device)
+    li, n_live, ptr, dst = lo.li, lo.n_live, lo.ptr, lo.far_dst
+    src, rows_idx = lo.far_row, lo.rows_idx
     if stat == "geary":
         Zq = banded._pad_cols4(banded._quantize_z(standardize(d.X)[0])[0])
         w, _, far_q = banded._full_row_codes(plan)
@@ -2540,16 +2524,13 @@ def lee_path_operands(dev, d, pairs):
     zx = banded._relabeled_x(plan, banded._pad_cols4(banded._quantize_z(Zx)[0]))
     del Zx, Zy
     wq, sw, far_q = banded._full_row_codes(plan)
-    n_live = banded._n_live_far(plan)
-    ptr, dst = banded._rows_far(plan, n_live)
-    rows_idx = banded._padded_rows(plan, dev)
+    lo = banded._local_setup(plan, dev)
     o = dict(plan=plan, Yq=Yq, zx=zx, wq=wq, sw_row=sw.reshape(-1).contiguous(),
-             li=plan.local_idx.to(torch.int32).contiguous(), n_live=n_live,
-             dst=dst, rows_idx=rows_idx,
-             far=dict(far_row_ptr=ptr, far_q=far_q[:n_live].to(torch.int8)))
-    Yp0 = Yq[rows_idx]
+             li=lo.li, n_live=lo.n_live, dst=lo.far_dst, rows_idx=lo.rows_idx,
+             far=dict(far_row_ptr=lo.ptr, far_q=far_q[:lo.n_live].to(torch.int8)))
+    Yp0 = Yq[lo.rows_idx]
     o["obs"], _ = kern_lisa.lee_observed(o["li"], wq, Yp0, B, zx, o["sw_row"],
-                                         Zf=Yp0[dst], **o["far"])
+                                         Zf=Yp0[lo.far_dst], **o["far"])
     return o
 
 
@@ -2908,7 +2889,8 @@ def float_draw_split(plan, Zb, den, S0: float, reps: int = 5):
         r = feistel_apply(fold_in(base, next(steps)), rows_idx, plan.n)
         return banded._banded_stat_float(
             li, w, None, plan.far_src, plan.far_dst, plan.far_w, plan.rc_sum,
-            Zb, den, S0, r, block=B, n=plan.n, stat="moran", band_impl="auto")
+            banded._gather(Zb, r)[0], den, S0, block=B, n=plan.n, stat="moran",
+            band_impl="auto")
 
     split = dict(
         feistel=event_ms(lambda: feistel_apply(fold_in(base, 1), rows_idx,
@@ -3360,11 +3342,9 @@ def sort_operands(plan, stat: str, T: torch.Tensor):
     (codes padded to 4 columns), as ``ops.banded`` builds them: returns
     (observed fn, draw-step fn taking (Zp, counts, fn)) and the plain
     draw-step function."""
-    li = plan.local_idx.to(torch.int32).contiguous()
-    n_live = banded._n_live_far(plan)
-    ptr, dst = banded._rows_far(plan, n_live)
-    src = plan.far_src[:n_live] - B
-    rows_idx = banded._padded_rows(plan, T.device)
+    lo = banded._local_setup(plan, T.device)
+    li, n_live, ptr, dst = lo.li, lo.n_live, lo.ptr, lo.far_dst
+    src, rows_idx = lo.far_row, lo.rows_idx
     if stat in ("moran", "geary"):
         w, _, far_q = banded._full_row_codes(plan)
         fq = far_q[:n_live].to(torch.int8)
@@ -3473,7 +3453,8 @@ def phase_sort_streams(dev, gen, smi: str, n_cells: int = 1_000_000,
         T = banded._pad_cols4(banded._quantize_x(Xh)[0] if stat.startswith(
             "getis") else banded._quantize_z(Zt)[0])
         obs, step, fns, rows_idx = sort_operands(plan, stat, T)
-        Zp = T[banded._draw_rows("sort", 3, rows_idx, plan.n, stream)(0)]
+        Zp = T[banded._draw_rows("sort", 3, rows_idx, plan.n, stream,
+                                 "perm_feistel_" + stream[len("perm_"):])(0)]
         zero = torch.zeros(obs.shape, dtype=torch.int8, device=dev)
         got, want = step(Zp, zero.clone(), fns[0]), step(Zp, zero.clone(), fns[1])
         sync(dev)

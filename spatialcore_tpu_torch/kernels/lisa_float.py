@@ -71,6 +71,12 @@ _TABLE_DTYPES = (torch.float32, torch.bfloat16)
 _COUNTER_DTYPES = (torch.int16, torch.int32)
 
 
+def counter_dtype(n_permutations: int) -> torch.dtype:
+    """Narrowest counter this module takes that holds P draws: int16 ≤ 32767
+    (half the bytes of the [N, G] count update), int32 above."""
+    return torch.int16 if n_permutations <= 32767 else torch.int32
+
+
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
 

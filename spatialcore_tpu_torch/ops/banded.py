@@ -484,17 +484,19 @@ def _quantize_z4(Z: torch.Tensor, clip: float = 8.0):
 _unpack_nibbles = kern.unpack_nibbles
 
 
-def _win_far_pack(far_src, far_dst, far_w, far_q, far_starts, rows_idx,
-                  B: int, far_bmax: int):
+def _win_far_pack(far_src, far_dst, far_w, far_q, far_starts, B: int,
+                  far_bmax: int):
     """Pack the compact far list into the reference's windowed operands.
 
-    Returns ``(S, nw, rowp, qp, rif, w_idx, starts0, runs)`` as the
-    reference's ``_win_far_pack``: ``rowp``/``qp`` [nw, 1, S] hold each far
-    entry's row in its block and its int8 weight code; ``rif`` are the
-    original-space rows of each far target (per draw the caller gathers
-    ``Zq[perm∘rif]``; padding gathers row 0 with weight code 0). The
+    Returns ``(S, nw, rowp, qp, far_rows, w_idx, starts0, runs)`` as the
+    reference's ``_win_far_pack``, with the far targets' rows of the
+    gathered table ``far_rows`` [nw·S] in place of their original-space
+    rows: ``rowp``/``qp`` [nw, 1, S] hold each far entry's row in its
+    block and its int8 weight code; per draw the far values are
+    ``Zp[far_rows]``, the rows the reference gathers after walking the far
+    targets separately (padding reads row 0 with weight code 0). The
     Hopper kernel reads the same compact list through row pointers
-    (:func:`_far_row_ptr`) instead of the S-row windows.
+    (:func:`_row_ptr`) instead of the S-row windows.
     """
     S = _round_up(max(int(far_bmax), 1), 128)
     F = far_src.shape[0]
@@ -504,26 +506,21 @@ def _win_far_pack(far_src, far_dst, far_w, far_q, far_starts, rows_idx,
     rowp = pad1(torch.where(far_w > 0, (far_src - B) % B,
                             torch.zeros_like(far_src))).reshape(nw, 1, S)
     qp = pad1(torch.clamp(far_q, 0, 127).to(torch.int8)).reshape(nw, 1, S)
-    rif = rows_idx[pad1(far_dst)]
     w_idx = far_starts[:-1] // S
     starts0 = far_starts[:-1]
     runs = far_starts[1:] - far_starts[:-1]
-    return S, nw, rowp, qp, rif, w_idx, starts0, runs
-
-
-def _far_row_ptr(far_src, far_starts, block: int, n_padded: int) -> torch.Tensor:
-    """CSR row pointers [Npad+1] (int32) over the compact far list.
-
-    Entry e < far_starts[-1] adds into padded row ``far_src[e] − B``. Both
-    plan builders emit the list in row-major order, so these rows are
-    non-decreasing and row r's entries are ``[ptr[r], ptr[r+1])``; a list
-    in any other order is refused (one flag read back per call).
-    """
-    return _row_ptr(far_src, int(read_back(far_starts[-1])), block, n_padded)
+    return S, nw, rowp, qp, pad1(far_dst), w_idx, starts0, runs
 
 
 def _row_ptr(far_src, n_live: int, block: int, n_padded: int) -> torch.Tensor:
-    """Row pointers over the first ``n_live`` (live) entries of the far list."""
+    """CSR row pointers [Npad+1] (int32) over the first ``n_live`` (live)
+    entries of the compact far list.
+
+    Entry e adds into padded row ``far_src[e] − B``. Both plan builders
+    emit the list in row-major order, so these rows are non-decreasing and
+    row r's entries are ``[ptr[r], ptr[r+1])``; a list in any other order
+    is refused (one flag read back per call).
+    """
     rows = far_src[:n_live] - block
     if n_live > 1 and bool(read_back((rows[1:] < rows[:-1]).any())):
         raise ValueError("far-edge list is not sorted by source row; "
@@ -614,14 +611,15 @@ class _IntOps(NamedTuple):
     A8: Optional[torch.Tensor]  # int8 [nb, B, 3B] (plain twin only)
     far_ptr: Optional[torch.Tensor]   # int32 [Npad+1] (kernel, win)
     win_ops: Optional[tuple]    # (S, nw, rowp, qp, w_idx, starts0, runs)
+    far_rows: Optional[torch.Tensor]  # int64 [nw·S] far targets' rows (win)
     far_exact: Optional[tuple]  # (far_src, far_dst, far_w) for far_mode=exact
 
 
-def _banded_stat_int(ops: _IntOps, rc_sum, Ztab, sz2, den, S0, rows, rowsf,
-                     *, n: int, stat: str, use_plain: bool,
-                     genes: Optional[int] = None):
-    """One draw's statistic in the int8 (``Ztab`` codes) or int4
-    (``Ztab`` nibble-packed bytes) null system.
+def _banded_stat_int(ops: _IntOps, rc_sum, Zp, Zf, sz2, den, S0, *, n: int,
+                     stat: str, use_plain: bool, genes: Optional[int] = None):
+    """One draw's statistic in the int8 (``Zp`` codes) or int4 (``Zp``
+    nibble-packed bytes) null system, on the draw's gathered table ``Zp``
+    and (windowed far) its far values ``Zf = Zp[ops.far_rows]``.
 
     Covers the reference's ``_banded_stat_i4_win``, ``_banded_stat_i8_win``
     and ``_banded_stat_i8``: band products are exact integers scaled by the
@@ -630,8 +628,6 @@ def _banded_stat_int(ops: _IntOps, rc_sum, Ztab, sz2, den, S0, rows, rowsf,
     to z units.
     """
     B, nb = ops.block, ops.nb
-    Zp = _gather(Ztab, rows)                         # ONE random row gather
-    Zf = _gather(Ztab, rowsf) if ops.win else None   # compact far gather
     with span("kernels.band_cross"):
         if use_plain:
             unpack = _unpack_nibbles if ops.packed else (lambda t: t)
@@ -667,9 +663,10 @@ def _banded_stat_int(ops: _IntOps, rc_sum, Ztab, sz2, den, S0, rows, rowsf,
 
 
 def _banded_stat_float(local_idx32, w_c, A, far_src, far_dst, far_w, rc_sum,
-                       Ztab, den, S0, rows, *, block: int, n: int, stat: str,
+                       Zp, den, S0, *, block: int, n: int, stat: str,
                        band_impl: str, genes: Optional[int] = None):
-    """One draw's statistic in bf16/f32 (reference ``_banded_stat``).
+    """One draw's statistic in bf16/f32 (reference ``_banded_stat``) on the
+    draw's gathered table ``Zp``.
 
     The band cross by ``band_impl``: "auto"/"pallas_halo" the compact-band
     kernel (K4), "pallas" the dense-band kernel on ``A`` (K5),
@@ -680,7 +677,6 @@ def _banded_stat_float(local_idx32, w_c, A, far_src, far_dst, far_w, rc_sum,
     """
     B = block
     nb = local_idx32.shape[0] // B
-    Zp = _gather(Ztab, rows)                         # ONE random row gather
     with span("kernels.band_cross"):
         if band_impl == "xla":
             cross = kern.band_cross_dense_plain(A, Zp, B, genes)
@@ -709,20 +705,64 @@ def _banded_stat_float(local_idx32, w_c, A, far_src, far_dst, far_w, rc_sum,
 
 
 def _draw_steps(n_permutations: int, start: int = 0):
-    """The draw indices ``start, …, start + n_permutations − 1`` of a draw
-    loop, each draw's body inside a ``draw`` span and counted in ``draws``:
-    every draw loop here iterates through this."""
+    """The draw indices ``start, …, start + n_permutations − 1``, each
+    draw's body inside a ``draw`` span and counted in ``draws``: only
+    :func:`_draws` iterates through this."""
     for step in range(start, start + n_permutations):
         with span("draw"):
             count("draws")
             yield step
 
 
-def _gather(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """``table[rows]``, a draw's row gather, inside an
-    ``ops.banded.gather`` span."""
+def _draw_rows(perm_method: str, seed: int, rows_idx: torch.Tensor, n: int,
+               sort_stream: str, feistel_stream: str):
+    """Draw step → the padded table's rows ``perm[rows_idx]``: the one row
+    source of every banded null. "sort": ``jax.random.permutation``'s
+    stream bitwise, key base ``sort_stream`` (the slot nulls':
+    ``perm_global``, ``perm_local``, ``perm_local_geary``, ``perm_getis``,
+    ``perm_lee``); "feistel": the Feistel stream, key base
+    ``feistel_stream`` (``perm_feistel``, ``perm_feistel_local`` ...).
+    Draw d is keyed ``fold_in(base, d)``. ``feistel_apply`` is looked up
+    as this module's global at every draw."""
+    sort = perm_method == "sort"
+    base = key_for(seed, sort_stream if sort else feistel_stream, 0)
+
+    def rows(step: int) -> torch.Tensor:
+        key = fold_in(base, step)
+        if sort:
+            return permutation(key, n, device=rows_idx.device)[rows_idx]
+        return feistel_apply(key, rows_idx, n)
+
+    return rows
+
+
+def _gather(table: torch.Tensor, rows: torch.Tensor, far_dst=None):
+    """``(Zp, Zf)``: the row gather ``Zp = table[rows]`` and, with
+    ``far_dst``, the far values ``Zf = Zp[far_dst]`` (the far targets'
+    rows of the gathered table: one far-value source for every null),
+    inside an ``ops.banded.gather`` span."""
     with span("ops.banded.gather"):
-        return table[rows]
+        Zp = table[rows]
+        return Zp, None if far_dst is None else Zp[far_dst]
+
+
+def _draws(table: torch.Tensor, rows_of, n_permutations: int, far_dst=None,
+           start: int = 0):
+    """The draw loop of every banded null: draw d's rows (``rows_of``,
+    :func:`_draw_rows`) and their :func:`_gather`, yielded as ``(Zp, Zf)``
+    inside draw d's ``draw`` span (:func:`_draw_steps`), where the null
+    runs its step, for d in ``[start, start + n_permutations)``."""
+    for step in _draw_steps(n_permutations, start):
+        yield _gather(table, rows_of(step), far_dst)
+
+
+def _padded_rows(plan: NullPlan, device) -> torch.Tensor:
+    """Original-space row of every padded table position (fixed relabel
+    composition; per draw the rows are ``perm[rows_idx]``)."""
+    B = plan.block
+    gidx = torch.clamp(torch.arange(plan.n_padded + 2 * B, device=device) - B,
+                       0, plan.n - 1)
+    return plan.order[gidx]
 
 
 def _extreme(v, o, alt: str):
@@ -757,32 +797,31 @@ def _full_row_codes(plan: NullPlan):
     return wq, sw, far_q
 
 
-def _int_ops(plan: NullPlan, precision: str, far_mode: str, rows_idx,
-             use_plain: bool):
+def _int_ops(plan: NullPlan, precision: str, far_mode: str, use_plain: bool
+             ) -> _IntOps:
     """Build the int8/int4 operator once per call: band codes, row scales
-    and (windowed far) the packed far operands. Returns (ops, rif)."""
+    and (windowed far) the packed far operands."""
     block = plan.block
     nbb = plan.n_padded // block
     win = far_mode == "win"
-    rif = None
-    far_ptr = win_ops = far_exact = None
+    far_ptr = win_ops = far_rows = far_exact = None
     if win:
         wq, sw, far_q = _full_row_codes(plan)
-        S, nw, rowp, qp, rif, w_idx, starts0, runs = _win_far_pack(
+        S, nw, rowp, qp, far_rows, w_idx, starts0, runs = _win_far_pack(
             plan.far_src, plan.far_dst, plan.far_w, far_q, plan.far_starts,
-            rows_idx, block, plan.far_bmax)
+            block, plan.far_bmax)
         win_ops = (S, nw, rowp, qp, w_idx, starts0, runs)
         if not use_plain:
-            far_ptr = _far_row_ptr(plan.far_src, plan.far_starts, block,
-                                   plan.n_padded)
+            far_ptr = _row_ptr(plan.far_src, _n_live_far(plan), block,
+                               plan.n_padded)
     else:
         wq, sw = _band_codes_i8(plan.local_idx, plan.w_local, block)
         far_exact = (plan.far_src, plan.far_dst, plan.far_w)
     A8 = _build_band(plan.local_idx, wq, block, torch.int8) if use_plain else None
-    ops = _IntOps(packed=precision == "int4", win=win, block=block, nb=nbb,
-                  local_idx32=plan.local_idx.to(torch.int32), wq=wq, sw=sw,
-                  A8=A8, far_ptr=far_ptr, win_ops=win_ops, far_exact=far_exact)
-    return ops, rif
+    return _IntOps(packed=precision == "int4", win=win, block=block, nb=nbb,
+                   local_idx32=plan.local_idx.to(torch.int32), wq=wq, sw=sw,
+                   A8=A8, far_ptr=far_ptr, win_ops=win_ops, far_rows=far_rows,
+                   far_exact=far_exact)
 
 
 @traced("draws")
@@ -790,13 +829,15 @@ def _banded_test(plan: NullPlan, Z, S0, observed, seed: int, den, sz,
                  draw0: int, *, n_permutations: int, stat: str, alternative,
                  precision: str, band_impl: str, far_mode: str,
                  perm_method: str, genes: Optional[int] = None):
-    """The draw loop: permuted rows → row gather → band cross → counts.
+    """The global null: permuted rows → row gather → band cross → counts.
 
-    A Python loop over draws with three on-device accumulators (extreme
-    count, Σ value, Σ value²), the reference's ``lax.scan`` carry. Draw d's
-    rows come from the Feistel stream (key base ``perm_feistel``) or, with
+    :func:`_draws` with three on-device accumulators (extreme count,
+    Σ value, Σ value²), the reference's ``lax.scan`` carry. Draw d's rows
+    come from the Feistel stream (key base ``perm_feistel``) or, with
     ``perm_method="sort"``, from ``permutation`` (key base ``perm_global``,
-    the slot null's stream), each keyed by ``fold_in(base, d)``.
+    the slot null's stream), each keyed by ``fold_in(base, d)``. The
+    windowed far values are the gathered table's rows ``Zp[far_rows]``;
+    the reference walks the far targets separately, to the same rows.
     """
     use_plain = band_impl == "xla"
     n, block = plan.n, plan.block
@@ -815,16 +856,13 @@ def _banded_test(plan: NullPlan, Z, S0, observed, seed: int, den, sz,
                 den = den * sz * sz
         den = torch.where(den > 0, den, torch.ones_like(den))
     G = Z.shape[1] * (2 if prepacked else 1)
-    nbb = plan.n_padded // block
-    # padded row-relabel indices, fixed across draws: per draw the value
-    # rows are Z[perm[rows_idx]] — one Feistel evaluation + one row gather
-    gidx = torch.clamp(torch.arange((nbb + 2) * block, device=Z.device) - block,
-                       0, n - 1)
-    rows_idx = plan.order[gidx]
+    # per draw the value rows are Z[perm[rows_idx]]: one Feistel
+    # evaluation + one row gather
+    rows_idx = _padded_rows(plan, Z.device)
     if not use_plain and bool(read_back(((plan.local_idx < 0)
                                          | (plan.local_idx >= 3 * block)).any())):
         raise ValueError("plan.local_idx must lie in [0, 3·block)")
-    rif = None
+    far_rows = None
     if precision in ("int8", "int4"):
         if precision == "int4":
             Ztab, s_z = (Z, sz) if prepacked else _quantize_z4(Z)
@@ -835,16 +873,17 @@ def _banded_test(plan: NullPlan, Z, S0, observed, seed: int, den, sz,
         else:
             Ztab, s_z = _quantize_z(Z)
         sz2 = s_z * s_z
-        ops, rif = _int_ops(plan, precision, far_mode, rows_idx, use_plain)
+        ops = _int_ops(plan, precision, far_mode, use_plain)
+        far_rows = ops.far_rows
 
-        def stat_fn(rows, rowsf):
-            return _banded_stat_int(ops, plan.rc_sum, Ztab, sz2, den, S0, rows,
-                                    rowsf, n=n, stat=stat, use_plain=use_plain,
+        def stat_fn(Zp, Zf):
+            return _banded_stat_int(ops, plan.rc_sum, Zp, Zf, sz2, den, S0,
+                                    n=n, stat=stat, use_plain=use_plain,
                                     genes=genes)
 
         # draws compare against the observed value of the SAME quantized
         # operator (identity placement)
-        observed = stat_fn(rows_idx, rif)
+        observed = stat_fn(*_gather(Ztab, rows_idx, far_rows))
     else:
         wdt = torch.bfloat16 if precision == "bf16" else Z.dtype
         Ztab = Z if Z.dtype == wdt else Z.to(wdt)
@@ -858,29 +897,22 @@ def _banded_test(plan: NullPlan, Z, S0, observed, seed: int, den, sz,
             A = _build_band(plan.local_idx, w_c, block, wdt)
         local_idx32 = plan.local_idx.to(torch.int32)
 
-        def stat_fn(rows, rowsf=None):
+        def stat_fn(Zp, Zf):
             return _banded_stat_float(local_idx32, w_c, A, plan.far_src,
                                       plan.far_dst, plan.far_w, plan.rc_sum,
-                                      Ztab, den, S0, rows, block=block, n=n,
+                                      Zp, den, S0, block=block, n=n,
                                       stat=stat, band_impl=band_impl,
                                       genes=genes)
 
-    sort = perm_method == "sort"
-    base = key_for(seed, "perm_global" if sort else "perm_feistel", 0)
-    idx_all = rows_idx if rif is None else torch.cat([rows_idx, rif])
-    L = rows_idx.shape[0]
+    rows_of = _draw_rows(perm_method, seed, rows_idx, n, "perm_global",
+                         "perm_feistel")
     fused = stat == "moran_geary"
     shape = (2, G) if fused else (G,)
     count = torch.zeros(shape, dtype=torch.int32, device=Z.device)
     s1 = torch.zeros(shape, dtype=torch.float32, device=Z.device)
     s2 = torch.zeros(shape, dtype=torch.float32, device=Z.device)
-    for step in _draw_steps(n_permutations, draw0):
-        key = fold_in(base, step)
-        if sort:
-            perm_rows = permutation(key, n, device=Z.device)[idx_all]
-        else:
-            perm_rows = feistel_apply(key, idx_all, n)
-        vals = stat_fn(perm_rows[:L], perm_rows[L:] if rif is not None else None)
+    for Zp, Zf in _draws(Ztab, rows_of, n_permutations, far_rows, draw0):
+        vals = stat_fn(Zp, Zf)
         if fused:
             ext = torch.stack([_extreme(vals[i], observed[i], alternative[i])
                                for i in range(2)])
@@ -1053,41 +1085,11 @@ def _check_perm_method(perm_method: str) -> None:
                          f"got {perm_method!r}")
 
 
-def _draw_rows(perm_method: str, seed: int, rows_idx: torch.Tensor, n: int,
-               stream: str):
-    """Draw step → the padded table's rows ``perm[rows_idx]``, the local
-    nulls' draws. "sort": ``jax.random.permutation``'s stream bitwise, key
-    base ``stream`` (the slot null's: ``perm_local``, ``perm_local_geary``,
-    ``perm_getis``, ``perm_lee``); "feistel": the Feistel stream, key base
-    ``perm_feistel_`` + the name after ``perm_`` (``perm_feistel_local``
-    ...). Draw d is keyed ``fold_in(base, d)``."""
-    sort = perm_method == "sort"
-    base = key_for(seed, stream if sort else
-                   "perm_feistel_" + stream[len("perm_"):], 0)
-
-    def rows(step: int) -> torch.Tensor:
-        key = fold_in(base, step)
-        if sort:
-            return permutation(key, n, device=rows_idx.device)[rows_idx]
-        return feistel_apply(key, rows_idx, n)
-
-    return rows
-
-
 def _n_live_far(plan: NullPlan) -> int:
     """Number of live far edges (both plan builders put them first)."""
     if plan.far_starts is not None:
         return int(read_back(plan.far_starts[-1]))
     return int(read_back((plan.far_w > 0).sum()))
-
-
-def _padded_rows(plan: NullPlan, device) -> torch.Tensor:
-    """Original-space row of every padded table position (fixed relabel
-    composition; per draw the rows are ``perm[rows_idx]``)."""
-    B = plan.block
-    gidx = torch.clamp(torch.arange(plan.n_padded + 2 * B, device=device) - B,
-                       0, plan.n - 1)
-    return plan.order[gidx]
 
 
 def _p_from_counts(count: torch.Tensor, n_permutations: int) -> torch.Tensor:
@@ -1118,24 +1120,73 @@ def _check_impl(band_impl: str) -> None:
         raise ValueError(f"unknown band_impl {band_impl!r}")
 
 
-def _lisa_far_form(plan: NullPlan, band_impl: str, n_live: int) -> str:
+def _lisa_far_form(plan: NullPlan, band_impl: str) -> str:
     """How the int8 LISA draw step receives the far edges.
 
     "rows": row pointers into the compact far list (K7's function);
-    "dense": a dense int32 far layer per draw (K8's function); "none": the
-    plan has no far edges. "pallas" follows the reference's rule (windowed
-    when 0 < far_bmax and round_up(far_bmax, 128) ≤ 1024, else the dense
-    kernel); "auto" and "xla" take row pointers whenever the plan has
-    ``far_starts`` — the reference's far_bmax cap and VMEM gate are TPU
-    limits that a row-pointer read does not have.
+    "dense": a dense int32 far layer per draw (K8's function). "pallas"
+    follows the reference's rule (windowed when 0 < far_bmax and
+    round_up(far_bmax, 128) ≤ 1024, else the dense kernel); "auto" and
+    "xla" take row pointers whenever the plan has ``far_starts`` — the
+    reference's far_bmax cap and VMEM gate are TPU limits that a
+    row-pointer read does not have — and no far operand at all when the
+    plan has no live far edge.
     """
     has_runs = plan.far_starts is not None
     if band_impl == "pallas":
         return ("rows" if has_runs and 0 < plan.far_bmax
                 and _round_up(plan.far_bmax, 128) <= 1024 else "dense")
-    if n_live == 0:
-        return "none"
     return "rows" if has_runs else "dense"
+
+
+class _Local(NamedTuple):
+    """A local null's per-call operands (:func:`_local_setup`)."""
+
+    rows_idx: torch.Tensor       # int64 [Npad+2B] (:func:`_padded_rows`)
+    li: Optional[torch.Tensor]   # [Npad, k] band index, int32 or int16
+    n_live: int                  # live far edges: the far list's head
+    far_row: torch.Tensor        # int64 [n_live] padded row each adds into
+    far_dst: torch.Tensor        # int64 [n_live] its target's table row
+    ptr: Optional[torch.Tensor]  # int32 [Npad+1] row pointers ("rows")
+    slots: Optional[tuple]       # (dst, w) [Npad, R] ("slots")
+
+
+def _local_setup(plan: NullPlan, device, far: str = "rows",
+                 li: Optional[torch.dtype] = torch.int32) -> _Local:
+    """What every local null builds once per call: the padded rows, the
+    live far count (one read-back), the live far list's rows and targets,
+    and the band index in dtype ``li`` (None: not built). ``far`` is the
+    far list's form: "rows" its row pointers (:func:`_row_ptr`; one
+    read-back, the order check), "slots" the torch-op float nulls' slot
+    form (:func:`kernels.lisa_float.far_slots`; one more, the widest row),
+    "dense" neither (K8's dense far layer). The draw loop then reads
+    nothing back."""
+    n_live = _n_live_far(plan)
+    ptr = slots = None
+    dst = plan.far_dst[:n_live]
+    if far in ("rows", "slots"):
+        ptr = _row_ptr(plan.far_src, n_live, plan.block, plan.n_padded)
+    if far == "slots":
+        R = int(read_back((ptr[1:] - ptr[:-1]).max())) if n_live else 0
+        slots = kern_float.far_slots(ptr, dst, plan.far_w[:n_live], R)
+    return _Local(rows_idx=_padded_rows(plan, device),
+                  li=None if li is None else plan.local_idx.to(li).contiguous(),
+                  n_live=n_live, far_row=plan.far_src[:n_live] - plan.block,
+                  far_dst=dst, ptr=ptr, slots=slots)
+
+
+def _observed(fn, table: torch.Tensor, rows_idx, far_dst, chunked: bool):
+    """An int8 local null's observed pass at the identity placement:
+    ``fn(Zp, Zf)`` on ``table`` gathered at the padded rows ``rows_idx``
+    and its far values at ``far_dst`` (:func:`_gather`, as a draw's), a
+    gene-column chunk at a time when ``chunked`` (the plain versions:
+    bounds their temps)."""
+    def at_identity(T):
+        return fn(*_gather(T, rows_idx, far_dst))
+
+    if not chunked:
+        return at_identity(table)
+    return _chunked_cols(at_identity, (table,), table.shape[1]).contiguous()
 
 
 @traced("draws")
@@ -1163,8 +1214,6 @@ def _banded_local_moran_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
     counts with ``return_counts``.
     """
     B = plan.block
-    n_padded = plan.n_padded
-    n = plan.n
     k_total = plan.local_idx.shape[1]
     if k_total > _LISA_MAX_K:
         raise ValueError(
@@ -1173,61 +1222,39 @@ def _banded_local_moran_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
     Zq = Z if Z.dtype == torch.int8 else _quantize_z(Z)[0]
     G = Zq.shape[1]
     Zq = _pad_cols4(Zq)
-    Gp = Zq.shape[1]
-    dev = Zq.device
     wq, _, far_q = _full_row_codes(plan)
-    li32 = plan.local_idx.to(torch.int32).contiguous()
-    rows_idx = _padded_rows(plan, dev)
-    n_live = _n_live_far(plan)
-    form = _lisa_far_form(plan, band_impl, n_live)
-    use_plain = band_impl == "xla"
-    count_fn = kern_lisa.lisa_count_plain if use_plain else kern_lisa.lisa_count
-    obs_fn = kern_lisa.lisa_observed_plain if use_plain else kern_lisa.lisa_observed
+    form = _lisa_far_form(plan, band_impl)
+    lo = _local_setup(plan, Zq.device, form)
+    if lo.n_live == 0 and band_impl != "pallas":
+        form = "none"                             # the band-only step
+    far_dst = None if form == "none" else lo.far_dst
+    count_fn, obs_fn = ((kern_lisa.lisa_count_plain, kern_lisa.lisa_observed_plain)
+                        if band_impl == "xla" else
+                        (kern_lisa.lisa_count, kern_lisa.lisa_observed))
+    fq = far_q[:lo.n_live]
+    fq8, fq32 = fq.to(torch.int8), fq.to(torch.int32)[:, None]
 
-    # far targets' values come from the gathered table itself:
-    # Zp[far_dst] = Zq[perm(rows_idx[far_dst])], the reference's separate
-    # Feistel evaluation of the far targets (rif) gives the same rows
-    dst = plan.far_dst[:n_live]
-    if form == "rows":
-        ptr = _row_ptr(plan.far_src, n_live, B, n_padded)
-        fq8 = far_q[:n_live].to(torch.int8)
-
-        def far_of(Zp):
-            return dict(far_row_ptr=ptr, far_q=fq8, Zf=Zp[dst])
-    elif form == "dense":
-        src = plan.far_src[:n_live] - B
-        fq32 = far_q[:n_live].to(torch.int32)[:, None]
-
-        def far_of(Zp):
-            layer = torch.zeros((n_padded, Zp.shape[1]), dtype=torch.int32,
-                                device=dev)
+    def far(Zf):
+        if form == "rows":
+            return dict(far_row_ptr=lo.ptr, far_q=fq8, Zf=Zf)
+        if form == "dense":
+            layer = torch.zeros((plan.n_padded, Zf.shape[1]),
+                                dtype=torch.int32, device=Zf.device)
             # integer adds: exact in any order
-            return dict(far=layer.index_add_(0, src, Zp[dst].to(torch.int32)
-                                             * fq32))
-    else:
-        def far_of(Zp):
-            return {}
+            return dict(far=layer.index_add_(0, lo.far_row,
+                                             Zf.to(torch.int32) * fq32))
+        return {}
 
-    def abs_ip(Zc):
-        Zp = Zc[rows_idx]                         # ONE int8 row gather
-        return obs_fn(li32, wq, Zp, B, **far_of(Zp))
-
-    # observed via the SAME quantized operator, at the identity placement;
-    # the kernel takes any width, the plain version goes a column chunk at
-    # a time to bound its temps
-    abs_obs = (_chunked_cols(abs_ip, (Zq,), Gp).contiguous() if use_plain
-               else abs_ip(Zq))
-
-    rows_of = _draw_rows(perm_method, seed, rows_idx, n, "perm_local")
-    count = torch.zeros((n_padded, Gp), dtype=kern_lisa.counter_dtype(
-        n_permutations), device=dev)
-    for step in _draw_steps(n_permutations):
-        rows = rows_of(step)
-        with span("ops.banded.gather"):
-            Zp = Zq[rows]                         # ONE gather
-            far = far_of(Zp)
+    # observed via the SAME quantized operator, at the identity placement
+    abs_obs = _observed(lambda Zp, Zf: obs_fn(lo.li, wq, Zp, B, **far(Zf)),
+                        Zq, lo.rows_idx, far_dst, band_impl == "xla")
+    rows_of = _draw_rows(perm_method, seed, lo.rows_idx, plan.n, "perm_local",
+                         "perm_feistel_local")
+    count = torch.zeros(abs_obs.shape, dtype=kern_lisa.counter_dtype(
+        n_permutations), device=Zq.device)
+    for Zp, Zf in _draws(Zq, rows_of, n_permutations, far_dst):
         with span("kernels.lisa_count"):
-            count_fn(li32, wq, Zp, B, abs_obs, count, **far)
+            count_fn(lo.li, wq, Zp, B, abs_obs, count, **far(Zf))
     count = count[plan.rank, :G]                  # original order
     if return_counts:
         return count
@@ -1269,16 +1296,6 @@ def banded_local_moran_pvalues(
         perm_method=perm_method)
 
 
-def _far_slots(plan: NullPlan, n_live: int):
-    """The live far edges as slots (:func:`kernels.lisa_float.far_slots`):
-    ``(dst, w)`` [n_padded, R], slot t of a row holding its t-th far edge
-    in list order. Built once per call, so the draw loop reads nothing
-    back."""
-    ptr = _row_ptr(plan.far_src, n_live, plan.block, plan.n_padded)
-    R = int(read_back((ptr[1:] - ptr[:-1]).max())) if n_live else 0
-    return kern_float.far_slots(ptr, plan.far_dst[:n_live], plan.far_w[:n_live], R)
-
-
 @traced("draws")
 def _banded_local_moran_p(plan: NullPlan, Z: torch.Tensor, abs_obs_new,
                           seed: int, *, n_permutations: int,
@@ -1294,24 +1311,19 @@ def _banded_local_moran_p(plan: NullPlan, Z: torch.Tensor, abs_obs_new,
     place). A CUDA table goes through the hand-written kernel, a CPU one
     through its torch-op plain version: the counts are equal bitwise."""
     B = plan.block
-    n_padded = plan.n_padded
-    G = Z.shape[1]
     wdt = torch.bfloat16 if precision == "bf16" else Z.dtype
     w = plan.w_local.to(wdt).contiguous()
     Ztab = Z if Z.dtype == wdt else Z.to(wdt)
-    li16 = plan.local_idx.to(torch.int16).contiguous()   # rows < 3B ≤ 1536
-    rows_idx = _padded_rows(plan, Z.device)
-    n_live = _n_live_far(plan)
-    far = dict(far_row_ptr=_row_ptr(plan.far_src, n_live, B, n_padded),
-               far_dst=plan.far_dst[:n_live].to(torch.int32),
-               far_w=plan.far_w[:n_live].to(torch.float32))
-    rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n, "perm_local")
-    cdt = torch.int16 if n_permutations <= 32767 else torch.int32
-    count = torch.zeros((n_padded, G), dtype=cdt, device=Z.device)
-    for step in _draw_steps(n_permutations):
-        Zp = _gather(Ztab, rows_of(step))
+    lo = _local_setup(plan, Z.device, li=torch.int16)   # rows < 3B ≤ 1536
+    far = dict(far_row_ptr=lo.ptr, far_dst=lo.far_dst.to(torch.int32),
+               far_w=plan.far_w[:lo.n_live].to(torch.float32))
+    rows_of = _draw_rows(perm_method, seed, lo.rows_idx, plan.n, "perm_local",
+                         "perm_feistel_local")
+    count = torch.zeros((plan.n_padded, Z.shape[1]), device=Z.device,
+                        dtype=kern_float.counter_dtype(n_permutations))
+    for Zp, _ in _draws(Ztab, rows_of, n_permutations):
         with span("kernels.lisa_float"):
-            kern_float.moran_count(li16, w, Zp, B, abs_obs_new, count, **far)
+            kern_float.moran_count(lo.li, w, Zp, B, abs_obs_new, count, **far)
     return _p_from_counts(count[plan.rank], n_permutations)
 
 
@@ -1369,14 +1381,6 @@ def banded_local_moran(
 # ---------------------------------------------------------------------------
 
 
-def _rows_far(plan: NullPlan, n_live: int):
-    """The live far list as the kernels' row-pointer form: ``(ptr int32
-    [Npad+1], far targets [n_live])``. Per draw the far values are the
-    gathered table's rows ``Zp[dst]``."""
-    return (_row_ptr(plan.far_src, n_live, plan.block, plan.n_padded),
-            plan.far_dst[:n_live])
-
-
 @traced("draws")
 def _banded_local_geary_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
                              n_permutations: int, band_impl: str = "auto",
@@ -1392,8 +1396,9 @@ def _banded_local_geary_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
     exact int32 comparison (k ≤ 256). The observed value comes from the
     same operator at the identity placement. Per draw: one draw's rows
     (:func:`_draw_rows`), one int8 row gather, the far values
-    ``Zp[far_dst]``, and the geary draw step (``kernels.lisa_count.geary_count``; its plain
-    version with ``band_impl="xla"``). Counters are int8 for P ≤ 127.
+    ``Zp[far_dst]``, and the geary draw step
+    (``kernels.lisa_count.geary_count``; its plain version with
+    ``band_impl="xla"``). Counters are int8 for P ≤ 127.
     Returns ``(c_obs in code units, p)`` [n, G] in the original order.
     """
     B = plan.block
@@ -1405,42 +1410,26 @@ def _banded_local_geary_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
     Zq = Z if Z.dtype == torch.int8 else _quantize_z(Z)[0]
     G = Zq.shape[1]
     Zq = _pad_cols4(Zq)
-    dev = Zq.device
     wq, _, far_q = _full_row_codes(plan)
-    li32 = plan.local_idx.to(torch.int32).contiguous()
-    rows_idx = _padded_rows(plan, dev)
-    n_live = _n_live_far(plan)
-    ptr, dst = _rows_far(plan, n_live)
-    fq8 = far_q[:n_live].to(torch.int8)
+    lo = _local_setup(plan, Zq.device)
+    fq8 = far_q[:lo.n_live].to(torch.int8)
     # each row's TOTAL weight code: band codes + far codes
     w_code = wq.to(torch.int32).sum(dim=1, dtype=torch.int32).index_add_(
-        0, plan.far_src[:n_live] - B, far_q[:n_live].to(torch.int32))
-    use_plain = band_impl == "xla"
-    count_fn = (kern_lisa.geary_count_plain if use_plain
-                else kern_lisa.geary_count)
-    obs_fn = (kern_lisa.geary_observed_plain if use_plain
-              else kern_lisa.geary_observed)
-
-    def far_of(Zp):
-        return dict(far_row_ptr=ptr, far_q=fq8, Zf=Zp[dst])
-
-    def geary_q(Zc):
-        Zp = Zc[rows_idx]                          # ONE int8 row gather
-        return obs_fn(li32, wq, Zp, B, w_code, **far_of(Zp))
-
-    c_obs = (_chunked_cols(geary_q, (Zq,), Zq.shape[1]).contiguous()
-             if use_plain else geary_q(Zq))
-    rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n,
-                         "perm_local_geary")
+        0, lo.far_row, far_q[:lo.n_live].to(torch.int32))
+    count_fn, obs_fn = ((kern_lisa.geary_count_plain, kern_lisa.geary_observed_plain)
+                        if band_impl == "xla" else
+                        (kern_lisa.geary_count, kern_lisa.geary_observed))
+    c_obs = _observed(lambda Zp, Zf: obs_fn(lo.li, wq, Zp, B, w_code,
+                                            far_row_ptr=lo.ptr, far_q=fq8, Zf=Zf),
+                      Zq, lo.rows_idx, lo.far_dst, band_impl == "xla")
+    rows_of = _draw_rows(perm_method, seed, lo.rows_idx, plan.n,
+                         "perm_local_geary", "perm_feistel_local_geary")
     count = torch.zeros(c_obs.shape, dtype=kern_lisa.counter_dtype(
-        n_permutations), device=dev)
-    for step in _draw_steps(n_permutations):
-        rows = rows_of(step)
-        with span("ops.banded.gather"):
-            Zp = Zq[rows]
-            far = far_of(Zp)
+        n_permutations), device=Zq.device)
+    for Zp, Zf in _draws(Zq, rows_of, n_permutations, lo.far_dst):
         with span("kernels.lisa_count"):
-            count_fn(li32, wq, Zp, B, c_obs, count, w_code, **far)
+            count_fn(lo.li, wq, Zp, B, c_obs, count, w_code,
+                     far_row_ptr=lo.ptr, far_q=fq8, Zf=Zf)
     return (c_obs[plan.rank, :G],
             _p_from_counts(count[plan.rank, :G], n_permutations))
 
@@ -1461,31 +1450,28 @@ def _banded_local_geary_p(plan: NullPlan, Z: torch.Tensor, seed: int, *,
     w = plan.w_local.to(wdt)
     Ztab = Z.to(wdt)
     dev = Z.device
-    rows_idx = _padded_rows(plan, dev)
-    n_live = _n_live_far(plan)
-    far = _far_slots(plan, n_live)
+    lo = _local_setup(plan, dev, "slots", li=None)
     # each row's TOTAL weight (band + far)
     row_w = plan.w_local.to(torch.float32).sum(dim=1).index_add_(
-        0, plan.far_src[:n_live] - B, plan.far_w[:n_live].to(torch.float32))
+        0, lo.far_row, plan.far_w[:lo.n_live].to(torch.float32))
     chunks = _row_spans(n_padded, B, Z.shape[1])
 
     def geary(Zp):
         Zp2 = (Zp.to(torch.float32) * Zp.to(torch.float32)).to(wdt)
         for r0, r1 in chunks:
-            lag1 = kern_float.band_lag(plan.local_idx, w, Zp, B, far, r0, r1)
-            lag2 = kern_float.band_lag(plan.local_idx, w, Zp2, B, far, r0, r1)
+            lag1 = kern_float.band_lag(plan.local_idx, w, Zp, B, lo.slots, r0, r1)
+            lag2 = kern_float.band_lag(plan.local_idx, w, Zp2, B, lo.slots, r0, r1)
             me = Zp[B + r0:B + r1].to(torch.float32)
             yield r0, r1, me * me * row_w[r0:r1, None] + lag2 - 2.0 * me * lag1
 
     c_obs = torch.empty((n_padded, Z.shape[1]), dtype=torch.float32, device=dev)
-    for r0, r1, c in geary(Ztab[rows_idx]):
+    for r0, r1, c in geary(Ztab[lo.rows_idx]):
         c_obs[r0:r1] = c
-    rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n,
-                         "perm_local_geary")
-    cdt = torch.int16 if n_permutations <= 32767 else torch.int32
+    rows_of = _draw_rows(perm_method, seed, lo.rows_idx, plan.n,
+                         "perm_local_geary", "perm_feistel_local_geary")
+    cdt = kern_float.counter_dtype(n_permutations)
     count = torch.zeros(c_obs.shape, dtype=cdt, device=dev)
-    for step in _draw_steps(n_permutations):
-        Zp = _gather(Ztab, rows_of(step))
+    for Zp, _ in _draws(Ztab, rows_of, n_permutations):
         with span("ops.banded.local_lag"):
             for r0, r1, c in geary(Zp):
                 count[r0:r1] += (c <= c_obs[r0:r1]).to(cdt)
@@ -1575,60 +1561,49 @@ def _banded_getis_p_i8(plan: NullPlan, X: torch.Tensor, seed: int, *,
     values and the Getis draw step. Returns p_sim [n, G] in the original order.
     """
     B = plan.block
-    n_padded = plan.n_padded
     Xq = _quantize_x(X)[0]
     G = Xq.shape[1]
     Xq = _pad_cols4(Xq)
     dev = Xq.device
     wb = (plan.w_local > 0).to(torch.int8)
-    li32 = plan.local_idx.to(torch.int32).contiguous()
-    rows_idx = _padded_rows(plan, dev)
-    n_live = _n_live_far(plan)
-    ptr, dst = _rows_far(plan, n_live)
-    fb = torch.ones(n_live, dtype=torch.int8, device=dev)
+    lo = _local_setup(plan, dev)
+    fb = torch.ones(lo.n_live, dtype=torch.int8, device=dev)
     w_row = wb.to(torch.int32).sum(dim=1, dtype=torch.int32).index_add_(
-        0, plan.far_src[:n_live] - B,
-        torch.ones(n_live, dtype=torch.int32, device=dev)).to(torch.float32)
+        0, lo.far_row,
+        torch.ones(lo.n_live, dtype=torch.int32, device=dev)).to(torch.float32)
     tot, sq = _code_moments(Xq)
     inv_m = _inv_m(plan.n, star)
-    use_plain = band_impl == "xla"
-
-    def far_of(Xp):
-        return dict(far_row_ptr=ptr, far_q=fb, Zf=Xp[dst])
-
-    def lag_of(Xc):
-        Xp = Xc[rows_idx]                          # ONE int8 row gather
-        lag_fn = kern_lisa.getis_lag_plain if use_plain else kern_lisa.getis_lag
-        return lag_fn(li32, wb, Xp, B, **far_of(Xp))
-
-    lag_o = (_chunked_cols(lag_of, (Xq,), Xq.shape[1]).contiguous()
-             if use_plain else lag_of(Xq))
-    me_o = Xq[rows_idx[B:B + n_padded]]
+    if band_impl == "xla":
+        lag_fn, star_fn, g_fn = (kern_lisa.getis_lag_plain,
+                                 kern_lisa.getis_star_count_plain,
+                                 kern_lisa.getis_g_count_plain)
+    else:
+        lag_fn, star_fn, g_fn = (kern_lisa.getis_lag, kern_lisa.getis_star_count,
+                                 kern_lisa.getis_g_count)
+    lag_o = _observed(lambda Xp, Xf: lag_fn(lo.li, wb, Xp, B, far_row_ptr=lo.ptr,
+                                            far_q=fb, Zf=Xf),
+                      Xq, lo.rows_idx, lo.far_dst, band_impl == "xla")
+    me_o = Xq[lo.rows_idx[B:B + plan.n_padded]]
     if star:
         obs = lag_o + me_o.to(torch.int32)          # A_o, exact
         del lag_o, me_o
         kw = {}
         if alternative == "two-sided":
             kw = dict(wp1=w_row + 1.0, tm=tot * inv_m)
-        count_fn = (kern_lisa.getis_star_count_plain if use_plain
-                    else kern_lisa.getis_star_count)
+        count_fn = star_fn
     else:
         obs = kern_lisa.gi_center(lag_o, me_o, w_row, tot, sq, inv_m)
         kw = dict(w_row=w_row, tot=tot, sq=sq, inv_m=inv_m, lag_o=lag_o,
                   me_o=me_o)
-        count_fn = (kern_lisa.getis_g_count_plain if use_plain
-                    else kern_lisa.getis_g_count)
-    rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n, "perm_getis")
+        count_fn = g_fn
+    rows_of = _draw_rows(perm_method, seed, lo.rows_idx, plan.n, "perm_getis",
+                         "perm_feistel_getis")
     count = torch.zeros(obs.shape, dtype=kern_lisa.counter_dtype(
         n_permutations), device=dev)
-    for step in _draw_steps(n_permutations):
-        rows = rows_of(step)
-        with span("ops.banded.gather"):
-            Xp = Xq[rows]
-            far = far_of(Xp)
+    for Xp, Xf in _draws(Xq, rows_of, n_permutations, lo.far_dst):
         with span("kernels.lisa_count"):
-            count_fn(li32, wb, Xp, B, obs, count, alternative=alternative,
-                     **far, **kw)
+            count_fn(lo.li, wb, Xp, B, obs, count, alternative=alternative,
+                     far_row_ptr=lo.ptr, far_q=fb, Zf=Xf, **kw)
     return _p_from_counts(count[plan.rank, :G], n_permutations)
 
 
@@ -1651,13 +1626,12 @@ def _banded_getis_p(plan: NullPlan, X: torch.Tensor, seed: int, *,
     Xf = X.to(torch.float32)
     Xtab = Xf.to(wdt)
     dev = X.device
-    rows_idx = _padded_rows(plan, dev)
-    n_live = _n_live_far(plan)
-    fdst, fw = _far_slots(plan, n_live)
+    lo = _local_setup(plan, dev, "slots", li=None)
+    fdst, fw = lo.slots
     far = (fdst, (fw > 0).to(torch.float32))        # binary far weights
     w_row = wb.sum(dim=1).index_add_(
-        0, plan.far_src[:n_live] - B,
-        torch.ones(n_live, dtype=torch.float32, device=dev))[:, None]
+        0, lo.far_row,
+        torch.ones(lo.n_live, dtype=torch.float32, device=dev))[:, None]
     tot = Xf.sum(dim=0)
     sq = (Xf * Xf).sum(dim=0)
     del Xf
@@ -1678,13 +1652,13 @@ def _banded_getis_p(plan: NullPlan, X: torch.Tensor, seed: int, *,
             yield r0, r1, (lag - xbar * W) / s
 
     obs_c = torch.empty((n_padded, X.shape[1]), dtype=torch.float32, device=dev)
-    for r0, r1, c in center(Xtab[rows_idx]):
+    for r0, r1, c in center(Xtab[lo.rows_idx]):
         obs_c[r0:r1] = c
-    rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n, "perm_getis")
-    cdt = torch.int16 if n_permutations <= 32767 else torch.int32
+    rows_of = _draw_rows(perm_method, seed, lo.rows_idx, plan.n, "perm_getis",
+                         "perm_feistel_getis")
+    cdt = kern_float.counter_dtype(n_permutations)
     count = torch.zeros(obs_c.shape, dtype=cdt, device=dev)
-    for step in _draw_steps(n_permutations):
-        Xp = _gather(Xtab, rows_of(step))
+    for Xp, _ in _draws(Xtab, rows_of, n_permutations):
         with span("ops.banded.local_lag"):
             for r0, r1, c in center(Xp):
                 count[r0:r1] += _extreme(c, obs_c[r0:r1], alternative).to(cdt)
@@ -1763,30 +1737,29 @@ def _banded_lees_p(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
     w = plan.w_local.to(wdt)
     Ytab = Zy.to(wdt)
     zx = _relabeled_x(plan, Zx.to(torch.float32))
-    rows_idx = _padded_rows(plan, dev)
-    far = _far_slots(plan, _n_live_far(plan))
+    lo = _local_setup(plan, dev, "slots", li=None)
     spans = _row_spans(n_padded, B, G)
 
     def lees(Yp):
         for r0, r1 in spans:
             yield r0, r1, zx[r0:r1] * kern_float.band_lag(
-                plan.local_idx, w, Yp, B, far, r0, r1)
+                plan.local_idx, w, Yp, B, lo.slots, r0, r1)
 
     abs_l = (torch.empty((n_padded, G), dtype=torch.float32, device=dev)
              if compute_cell_pvalues else None)
     Lg = torch.zeros(G, dtype=torch.float32, device=dev)
-    for r0, r1, L in lees(Ytab[rows_idx]):
+    for r0, r1, L in lees(Ytab[lo.rows_idx]):
         if abs_l is not None:
             abs_l[r0:r1] = L.abs()
         Lg += L.sum(dim=0)
     abs_g = Lg.abs()
-    rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n, "perm_lee")
-    cdt = torch.int16 if n_permutations <= 32767 else torch.int32
+    rows_of = _draw_rows(perm_method, seed, lo.rows_idx, plan.n, "perm_lee",
+                         "perm_feistel_lee")
+    cdt = kern_float.counter_dtype(n_permutations)
     cg = torch.zeros(G, dtype=torch.int32, device=dev)
     cl = (torch.zeros((n_padded, G), dtype=cdt, device=dev)
           if compute_cell_pvalues else None)
-    for step in _draw_steps(n_permutations):
-        Yp = _gather(Ytab, rows_of(step))
+    for Yp, _ in _draws(Ytab, rows_of, n_permutations):
         with span("ops.banded.local_lag"):
             Lg = torch.zeros(G, dtype=torch.float32, device=dev)
             for r0, r1, L in lees(Yp):
@@ -1822,7 +1795,6 @@ def _banded_lees_p_i8(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
     for P ≤ 127. Returns ``(p_global [G], p_local [n, G])``.
     """
     B = plan.block
-    n_padded = plan.n_padded
     k_total = plan.local_idx.shape[1]
     if k_total > kern_lisa.LEE_MAX_K:
         raise ValueError(
@@ -1834,40 +1806,36 @@ def _banded_lees_p_i8(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
     zx = _relabeled_x(plan, _pad_cols4(_quantize_z(Zx)[0]))
     wq, sw, far_q = _full_row_codes(plan)
     sw_row = sw.reshape(-1).contiguous()
-    li32 = plan.local_idx.to(torch.int32).contiguous()
-    rows_idx = _padded_rows(plan, dev)
-    n_live = _n_live_far(plan)
-    ptr, dst = _rows_far(plan, n_live)
-    fq8 = far_q[:n_live].to(torch.int8)
-    plain = band_impl == "xla"
-    count_fn = kern_lisa.lee_count_plain if plain else kern_lisa.lee_count
-    obs_fn = kern_lisa.lee_observed_plain if plain else kern_lisa.lee_observed
-    part_fn = kern_lisa.lee_partial_plain if plain else kern_lisa.lee_partial
-
-    def far_of(Yp):
-        return dict(far_row_ptr=ptr, far_q=fq8, Zf=Yp[dst])
-
-    Yp = Zyq[rows_idx]                            # identity placement
-    if compute_cell_pvalues:
-        abs_l, part = obs_fn(li32, wq, Yp, B, zx, sw_row, **far_of(Yp))
+    lo = _local_setup(plan, dev)
+    fq8 = far_q[:lo.n_live].to(torch.int8)
+    if band_impl == "xla":
+        count_fn, obs_fn, part_fn = (kern_lisa.lee_count_plain,
+                                     kern_lisa.lee_observed_plain,
+                                     kern_lisa.lee_partial_plain)
     else:
-        part = part_fn(li32, wq, Yp, B, zx, sw_row, **far_of(Yp))
+        count_fn, obs_fn, part_fn = (kern_lisa.lee_count, kern_lisa.lee_observed,
+                                     kern_lisa.lee_partial)
+    # the identity placement: |Lq| per cell and the partials, or the
+    # partials alone
+    first_fn = obs_fn if compute_cell_pvalues else part_fn
+    obs = _observed(lambda Yp, Yf: first_fn(lo.li, wq, Yp, B, zx, sw_row,
+                                            far_row_ptr=lo.ptr, far_q=fq8, Zf=Yf),
+                    Zyq, lo.rows_idx, lo.far_dst, False)
+    abs_l, part = obs if compute_cell_pvalues else (None, obs)
     abs_g = _tree_sum(part).abs()
-    rows_of = _draw_rows(perm_method, seed, rows_idx, plan.n, "perm_lee")
+    rows_of = _draw_rows(perm_method, seed, lo.rows_idx, plan.n, "perm_lee",
+                         "perm_feistel_lee")
     cg = torch.zeros(Zyq.shape[1], dtype=torch.int32, device=dev)
-    cl = (torch.zeros((n_padded, Zyq.shape[1]), device=dev,
+    cl = (torch.zeros((plan.n_padded, Zyq.shape[1]), device=dev,
                       dtype=kern_lisa.counter_dtype(n_permutations))
           if compute_cell_pvalues else None)
-    for step in _draw_steps(n_permutations):
-        rows = rows_of(step)
-        with span("ops.banded.gather"):
-            Yp = Zyq[rows]                        # ONE int8 row gather
-            far = far_of(Yp)
+    for Yp, Yf in _draws(Zyq, rows_of, n_permutations, lo.far_dst):
         with span("kernels.lisa_count"):
+            far = dict(far_row_ptr=lo.ptr, far_q=fq8, Zf=Yf)
             if cl is not None:
-                part = count_fn(li32, wq, Yp, B, zx, sw_row, abs_l, cl, **far)
+                part = count_fn(lo.li, wq, Yp, B, zx, sw_row, abs_l, cl, **far)
             else:
-                part = part_fn(li32, wq, Yp, B, zx, sw_row, **far)
+                part = part_fn(lo.li, wq, Yp, B, zx, sw_row, **far)
             cg += (_tree_sum(part).abs() >= abs_g).to(torch.int32)
     p_l = (_p_from_counts(cl[plan.rank, :G], n_permutations)
            if compute_cell_pvalues

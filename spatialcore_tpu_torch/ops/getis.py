@@ -25,9 +25,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..core.rng import fold_in, key_for, permutation
+from ..kernels.lisa_float import counter_dtype
 from .banded import _extreme, _p_from_counts
 from .graph import SpatialGraph, graph_rows
-from .moran import _counter_dtype
 
 
 class GetisOrdResult(NamedTuple):
@@ -137,7 +137,7 @@ def getis_ord(graph: SpatialGraph, X: torch.Tensor, star: bool = True,
     if n_permutations == 0:
         return GetisOrdResult(G, z, p, torch.ones_like(p))
     base = key_for(seed, "perm_getis", 0)
-    cdt = _counter_dtype(n_permutations)
+    cdt = counter_dtype(n_permutations)
     count = torch.zeros(z.shape, dtype=cdt, device=X.device)
     for d in range(n_permutations):
         zp = _gi_z(graph, X, deg, tot, sq, star,

@@ -28,6 +28,7 @@ import torch
 
 from ..core.rng import _choice, fold_in, key_for, permutation
 from ..kernels.band_cross import tree_sum
+from ..kernels.lisa_float import counter_dtype
 from ..utils.profiling import traced
 from .banded import _p_from_counts
 from .graph import SpatialGraph, graph_rows, spatial_lag
@@ -266,12 +267,6 @@ def _slot_sum(graph: SpatialGraph, values) -> torch.Tensor:
     return acc
 
 
-def _counter_dtype(n_permutations: int) -> torch.dtype:
-    """int16 counters while they cannot overflow (half the bytes of the
-    [N, G] count update), int32 above."""
-    return torch.int16 if n_permutations <= 32767 else torch.int32
-
-
 class LocalMoranResult(NamedTuple):
     local_I: torch.Tensor   # [N, G]
     z: torch.Tensor         # [N, G]
@@ -313,7 +308,7 @@ def local_moran(graph: SpatialGraph, Z: torch.Tensor, seed: int,
         return LocalMoranResult(I_obs, Zr, lag, torch.ones_like(I_obs))
     abs_obs = I_obs.abs()
     base = key_for(seed, "perm_local", 0)
-    cdt = _counter_dtype(n_permutations)
+    cdt = counter_dtype(n_permutations)
     count = torch.zeros(I_obs.shape, dtype=cdt, device=Z.device)
     for d in range(n_permutations):
         key = fold_in(base, d)
@@ -376,7 +371,7 @@ def local_geary(graph: SpatialGraph, Z: torch.Tensor, seed: int = 0,
     if n_permutations == 0:
         return LocalGearyResult(c_obs, torch.ones_like(c_obs))
     base = key_for(seed, "perm_local_geary", 0)
-    cdt = _counter_dtype(n_permutations)
+    cdt = counter_dtype(n_permutations)
     count = torch.zeros(c_obs.shape, dtype=cdt, device=Z.device)
     for d in range(n_permutations):
         key = fold_in(base, d)

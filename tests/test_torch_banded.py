@@ -20,11 +20,13 @@ from spatialcore_tpu.ops import banded as jb
 from spatialcore_tpu.ops import graph as jg
 from spatialcore_tpu.ops import moran as jm
 from spatialcore_tpu.ops import streaming as js
+from spatialcore_tpu_torch.core.rng import feistel_apply, fold_in, key_for, permutation
 from spatialcore_tpu_torch.kernels import band_cross as kern
 from spatialcore_tpu_torch.ops import banded as tb
 from spatialcore_tpu_torch.ops import graph as tg
 from spatialcore_tpu_torch.ops import moran as tm
 from spatialcore_tpu_torch.ops import streaming as ts
+from spatialcore_tpu_torch.utils import profiling as prof
 
 # One intra-op thread: xdist runs several test workers at once, and torch's
 # default of one thread per core in each slows small ops several-fold.
@@ -145,9 +147,8 @@ def _int_operands(setup, G, packed, win, seed=0):
     lim = 7 if packed else 127
     zp = rng.integers(-lim, lim + 1, ((nbb + 2) * B, G)).astype(np.int8)
     gidx = np.clip(np.arange((nbb + 2) * B) - B, 0, pj.n - 1)
-    rows_idx_t = pt.order[torch.as_tensor(gidx)]
-    ops, _ = tb._int_ops(pt, "int4" if packed else "int8",
-                         "win" if win else "exact", rows_idx_t, use_plain=True)
+    ops = tb._int_ops(pt, "int4" if packed else "int8",
+                      "win" if win else "exact", use_plain=True)
     out = dict(zp=zp, ops=ops, nbb=nbb)
     if win:
         local_max = jnp.max(pj.w_local, axis=1)
@@ -195,8 +196,8 @@ def test_int8_cross_matches_reference(setup, win):
         plain = tb._band_cross_win_i8_plain(
             tw_idx, tstarts, truns, ops.A8, ops.sw, torch.as_tensor(zp3),
             torch.as_tensor(zf3), trowp, tqp)
-        ptr = tb._far_row_ptr(setup["pt"].far_src, setup["pt"].far_starts, B,
-                              ops.local_idx32.shape[0])
+        ptr = tb._row_ptr(setup["pt"].far_src, tb._n_live_far(setup["pt"]), B,
+                         ops.local_idx32.shape[0])
         far = dict(far_row_ptr=ptr, far_q=tqp.reshape(-1),
                    Zf=torch.as_tensor(o["zf"]))
         lag_dense = tb._band_lag_win_i8_plain(
@@ -240,8 +241,8 @@ def test_int4_cross_matches_reference(setup):
         tw_idx, tstarts, truns, ops.A8, ops.sw,
         tb._unpack_nibbles(torch.as_tensor(zpk3)),
         tb._unpack_nibbles(torch.as_tensor(zfk3)), trowp, tqp)
-    ptr = tb._far_row_ptr(setup["pt"].far_src, setup["pt"].far_starts, B,
-                          ops.local_idx32.shape[0])
+    ptr = tb._row_ptr(setup["pt"].far_src, tb._n_live_far(setup["pt"]), B,
+                     ops.local_idx32.shape[0])
     far = dict(far_row_ptr=ptr, far_q=tqp.reshape(-1), Zf=torch.as_tensor(zfk))
     compact = kern.band_cross_int8(ops.local_idx32, ops.wq, ops.sw.reshape(-1),
                                    torch.as_tensor(zpk), B, packed=True, **far)
@@ -483,6 +484,137 @@ def test_nonzero_tiles_counts_the_band_tiles(setup, width, rows, cols):
                for c in range(0, nz.shape[2], cols))
     assert kern.nonzero_tiles(A, rows, cols) == want
     assert 0 < want < nz.shape[0] * -(-B // rows) * (width * B // cols)
+
+
+# ---------------------------------------------------------------------------
+# The benchmark's contract: one row source, one draw loop
+# ---------------------------------------------------------------------------
+
+
+def _null_run(setup, null: str, precision: str, perm_method: str, P: int):
+    """One banded null on the tiny plan: its outputs."""
+    pt, Zt = setup["pt"], setup["Zt"]
+    kw = dict(perm_method=perm_method)
+    if null == "global":
+        obs = tm.moran_observed(setup["gt"], Zt, setup["S0"])
+        return tb.banded_permutation_test(pt, Zt, setup["S0"], obs, seed=5,
+                                          n_permutations=P, precision=precision,
+                                          draw_offset=2, **kw)
+    if null == "moran":
+        return tb.banded_local_moran(pt, setup["gt"], Zt, 3, P,
+                                     precision=precision, **kw).p_value
+    if null == "geary":
+        return tb.banded_local_geary(pt, Zt, 3, P, precision=precision, **kw)
+    if null == "getis":
+        return tb.banded_getis(pt, Zt.abs(), 3, P, precision=precision, **kw)
+    return tb.banded_lees_l(pt, Zt[:, :10], Zt[:, 10:], 3, P,
+                            precision=precision, compute_cell_pvalues=True, **kw)
+
+
+@pytest.mark.parametrize("perm_method", ["feistel", "sort"])
+@pytest.mark.parametrize("null,precision", [
+    ("global", "f32"), ("global", "int8"), ("global", "int4"),
+    ("moran", "int8"), ("moran", "f32"), ("geary", "int8"), ("geary", "f32"),
+    ("getis", "int8"), ("getis", "f32"), ("lee", "int8"), ("lee", "f32")])
+def test_draw_loop_calls_the_module_global_walk(setup, monkeypatch, null,
+                                                precision, perm_method):
+    """Every draw loop looks up ``ops.banded.feistel_apply`` once a draw,
+    on the padded rows alone (the traced benchmark run wraps that global),
+    and counts each draw in ``draws``; the "sort" stream never walks. The
+    global int nulls read their far values from the gathered table: p
+    bitwise the reference's, which walks the far targets separately."""
+    P = 7
+    walks = []
+    walk = tb.feistel_apply
+
+    def counting(k, idx, n):
+        walks.append(idx.numel())
+        return walk(k, idx, n)
+
+    monkeypatch.setattr(tb, "feistel_apply", counting)
+    draws0 = prof.counters().get("draws", 0)
+    got = _null_run(setup, null, precision, perm_method, P)
+    assert prof.counters()["draws"] - draws0 == P
+    if perm_method == "sort":
+        assert walks == []
+    else:
+        assert walks == [setup["pt"].n_padded + 2 * B] * P
+    if null == "global" and precision != "f32":
+        obs = jm.moran_observed(setup["gj"], setup["Zj"], setup["S0"])
+        want = jb.banded_permutation_test(
+            setup["pj"], setup["Zj"], setup["S0"], obs, seed=5, n_permutations=P,
+            precision=precision, perm_method=perm_method, draw_offset=2,
+            band_impl="xla")
+        np.testing.assert_array_equal(_np(got[0]), _np(want[0]))
+        for g, w in zip(got[1:], want[1:]):
+            _close(g, w)
+
+
+def _rif_walk_int_null(pt, Z, S0, seed, P, precision, perm_method, draw0,
+                       band_impl):
+    """The global int8/int4 windowed null as it drew before its far values
+    came from the gathered table: one walk over the padded rows AND the far
+    targets' original-space rows ``rif``, the far values gathered at the
+    walked ``rif`` (p, null mean, null std; Moran, "greater")."""
+    G = Z.shape[1]
+    Z = torch.nn.functional.pad(Z, (0, (-G) % (256 if precision == "int4" else 128)))
+    Ztab, s_z = tb._quantize_z4(Z) if precision == "int4" else tb._quantize_z(Z)
+    den = kern.tree_sum(Z.to(torch.float32) ** 2, 512)
+    den = torch.where(den > 0, den, torch.ones_like(den))
+    rows_idx = tb._padded_rows(pt, Z.device)
+    use_plain = band_impl == "xla"
+    ops = tb._int_ops(pt, precision, "win", use_plain)
+    S, nw = ops.win_ops[:2]
+    far_dst = pt.far_dst
+    rif = rows_idx[torch.nn.functional.pad(far_dst, (0, nw * S - far_dst.shape[0]))]
+
+    def value(rows, rowsf):
+        return tb._banded_stat_int(ops, pt.rc_sum, Ztab[rows], Ztab[rowsf],
+                                   s_z * s_z, den, S0, n=pt.n, stat="moran",
+                                   use_plain=use_plain)
+
+    observed = value(rows_idx, rif)
+    sort = perm_method == "sort"
+    base = key_for(seed, "perm_global" if sort else "perm_feistel", 0)
+    idx_all = torch.cat([rows_idx, rif])
+    L = rows_idx.shape[0]
+    count = torch.zeros(Z.shape[1], dtype=torch.int32)
+    s1 = torch.zeros(Z.shape[1], dtype=torch.float32)
+    s2 = torch.zeros(Z.shape[1], dtype=torch.float32)
+    for step in range(draw0, draw0 + P):
+        key = fold_in(base, step)
+        perm_rows = (permutation(key, pt.n, device=Z.device)[idx_all] if sort
+                     else feistel_apply(key, idx_all, pt.n))
+        vals = value(perm_rows[:L], perm_rows[L:])
+        count += (vals >= observed).to(torch.int32)
+        s1 += vals
+        s2 += vals * vals
+    inv_p = torch.tensor(1.0, dtype=torch.float32) / P
+    mean = s1 * inv_p
+    var = torch.clamp_min(s2 * inv_p - mean ** 2, 0.0)
+    return tb._p_from_counts(count, P)[:G], mean[:G], torch.sqrt(var)[:G]
+
+
+@pytest.mark.parametrize("band_impl", ["auto", "xla"])
+@pytest.mark.parametrize("perm_method", ["feistel", "sort"])
+@pytest.mark.parametrize("precision", ["int8", "int4"])
+def test_int_null_far_values_from_the_gathered_table_are_bitwise(
+        setup, precision, perm_method, band_impl):
+    """Reading the far values as the gathered table's rows ``Zp[far_rows]``
+    leaves the global int null bitwise what the separate walk of the far
+    targets gave: p, null mean and null std, on both streams, kernel
+    wrapper and plain twin."""
+    pt, Zt, S0 = setup["pt"], setup["Zt"], setup["S0"]
+    assert pt.far_starts is not None and tb._n_live_far(pt) > 0
+    obs = tm.moran_observed(setup["gt"], Zt, S0)
+    got = tb.banded_permutation_test(pt, Zt, S0, obs, seed=5, n_permutations=9,
+                                     precision=precision, perm_method=perm_method,
+                                     band_impl=band_impl, far_mode="win",
+                                     draw_offset=2)
+    want = _rif_walk_int_null(pt, Zt, S0, 5, 9, precision, perm_method, 2,
+                              band_impl)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_wrapper_refuses_bad_operands(setup):

@@ -122,11 +122,9 @@ def test_int8_kernel_matches_plain(cuda_device, plan, mode, G, blk, k, nb, run):
     gen = torch.Generator().manual_seed(1)
     lim = 7 if packed else 127
     if nb is None:
-        rows_idx = plan.order[(torch.arange(plan.n_padded + 2 * blk) - blk)
-                              .clamp(0, plan.n - 1)]
-        ops, _ = banded._int_ops(plan, "int4" if packed else "int8",
-                                 "win" if mode.endswith("win") else "exact",
-                                 rows_idx, use_plain=False)
+        ops = banded._int_ops(plan, "int4" if packed else "int8",
+                              "win" if mode.endswith("win") else "exact",
+                              use_plain=False)
         li, wq, sw = ops.local_idx32, ops.wq, ops.sw.reshape(-1)
         far = {}
         if ops.win:
@@ -1134,19 +1132,19 @@ def test_lisa_float_kernel_at_k50_equals_plain(cuda_device, vignette_plan, preci
     |z·lag|: kernel and plain version (torch ops on the card) equal."""
     plan = vignette_plan
     B_, n_pad = plan.block, plan.n_padded
-    n_live = banded._n_live_far(plan)
+    lo = banded._local_setup(plan, cuda_device, li=torch.int16)
+    n_live = lo.n_live
     assert n_live > 0
     dt = torch.bfloat16 if precision == "bf16" else torch.float32
     gen = torch.Generator(device=cuda_device).manual_seed(8)
     x = torch.poisson(torch.full((plan.n, 100), 0.4, device=cuda_device), generator=gen)
     Ztab = ((x - x.mean(0)) / x.std(0).clamp_min(1e-3)).to(dt)
-    li = plan.local_idx.to(torch.int16).contiguous()
+    li = lo.li
     w = plan.w_local.to(dt).contiguous()
-    far = dict(far_row_ptr=banded._row_ptr(plan.far_src, n_live, B_, n_pad),
-               far_dst=plan.far_dst[:n_live].to(torch.int32),
+    far = dict(far_row_ptr=lo.ptr, far_dst=lo.far_dst.to(torch.int32),
                far_w=plan.far_w[:n_live].to(torch.float32))
-    rows_idx = banded._padded_rows(plan, cuda_device)
-    rows_of = banded._draw_rows("feistel", 5, rows_idx, plan.n, "perm_local")
+    rows_of = banded._draw_rows("feistel", 5, lo.rows_idx, plan.n, "perm_local",
+                                "perm_feistel_local")
     Zp0 = Ztab[rows_of(0)]
     lag = kern_float.band_lag(plan.local_idx, w, Zp0, B_, kern_float.far_slots(**far),
                               0, n_pad)

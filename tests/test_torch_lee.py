@@ -191,14 +191,12 @@ def test_int8_lee_int16_counters_and_no_launches(setup):
 def _lee_operands(pt, Zx, Zy):
     """The int8 Lee operands of one plan at the identity placement."""
     wq, sw, far_q = tb._full_row_codes(pt)
-    n_live = tb._n_live_far(pt)
-    ptr, dst = tb._rows_far(pt, n_live)
-    Yp = tb._pad_cols4(tb._quantize_z(torch.as_tensor(Zy))[0])[
-        tb._padded_rows(pt, "cpu")]
+    lo = tb._local_setup(pt, "cpu")
+    Yp = tb._pad_cols4(tb._quantize_z(torch.as_tensor(Zy))[0])[lo.rows_idx]
     zx = tb._relabeled_x(pt, tb._pad_cols4(tb._quantize_z(torch.as_tensor(Zx))[0]))
-    far = dict(far_row_ptr=ptr, far_q=far_q[:n_live].to(torch.int8), Zf=Yp[dst])
-    return (pt.local_idx.to(torch.int32), wq, Yp, B, zx,
-            sw.reshape(-1).contiguous()), far
+    far = dict(far_row_ptr=lo.ptr, far_q=far_q[:lo.n_live].to(torch.int8),
+               Zf=Yp[lo.far_dst])
+    return (lo.li, wq, Yp, B, zx, sw.reshape(-1).contiguous()), far
 
 
 def test_lee_partials_follow_the_fixed_order(setup):

@@ -75,7 +75,8 @@ def _old_null_p(plan, Z, abs_obs_new, seed, n_permutations, precision):
     Ztab = Z if Z.dtype == wdt else Z.to(wdt)
     rows_idx = banded._padded_rows(plan, Z.device)
     far = _old_far_slots(plan, banded._n_live_far(plan))
-    rows_of = banded._draw_rows("feistel", seed, rows_idx, plan.n, "perm_local")
+    rows_of = banded._draw_rows("feistel", seed, rows_idx, plan.n, "perm_local",
+                                "perm_feistel_local")
     count = torch.zeros((plan.n_padded, Z.shape[1]), dtype=torch.int16)
     for step in range(n_permutations):
         _old_step(plan.local_idx, w, Ztab[rows_of(step)], Bp, far, abs_obs_new,
