@@ -125,7 +125,13 @@ Phases (the script stops with a non-zero exit at the first failure):
    timed; K4 held against its plain version there (bf16 at
    1,024 genes, f32 at 512), with its plain and ``torch.sparse.mm`` times,
    other launch shapes of it timed, and one bf16 draw split part by part
-   (Feistel rows, row gather, K4, far-edge terms, Geary's Σ z1² term);
+   (Feistel rows, row gather, K4, the far-edge and degree terms' kernel
+   and their torch-op plain version); the far-edge and degree terms'
+   kernel (``csrc/global_terms.cu``) at the cell's 512 bf16 genes on that
+   plan's table, with and without Geary's degree term, against its plain
+   version, timed beside its byte bound, the plain chain and
+   ``torch.einsum`` + ``rc @ z²`` (``hold_global_terms``; phase 11 holds it
+   on the radius plan);
    ``streaming_moran_null(precision="int4",
    tile=4096)`` at 1M × 18,432 genes × 8 draws (data made per tile on the
    card from a seed; prep and draw time) and ``(precision="bf16",
@@ -295,6 +301,7 @@ from spatialcore_tpu_torch.kernels import build
 from spatialcore_tpu_torch.kernels import feistel as kern_feistel
 from spatialcore_tpu_torch.kernels import knn as kern_knn
 from spatialcore_tpu_torch.kernels import lisa_count as kern_lisa
+from spatialcore_tpu_torch.kernels import global_terms as kern_terms
 from spatialcore_tpu_torch.kernels import lisa_float as kern_float
 from spatialcore_tpu_torch.kernels import sass
 from spatialcore_tpu_torch.ops import banded, geometry, moran
@@ -381,6 +388,12 @@ KNN_KERNELS = {
     "knn": ("knn_topk (exact 2D all-pairs kNN by (d2, id) keys; K9)",
             "spatialcore_tpu_torch/csrc/knn_topk.cu",
             "spatialcore_tpu/ops/pallas_knn.py:29"),
+}
+GLOBAL_TERMS_KERNELS = {
+    "global_terms": ("global_terms (the float global null's far-edge cross "
+                     "and Geary degree term, one launch a draw; XLA einsum "
+                     "and square)", "spatialcore_tpu_torch/csrc/global_terms.cu",
+                     "spatialcore_tpu/ops/banded.py:1812"),
 }
 FEISTEL_KERNELS = {
     "walk": ("feistel_walk (the Feistel permutation's cycle walk, a thread a "
@@ -2831,6 +2844,8 @@ def phase_dense_routes(dev, gen, n_cells: int = 1_000_000, n_genes: int = 1024,
     errs = {"float": hold_float_1m(plan, li, zp32, n_genes // 2)}
     errs["float"] = max(errs["float"], hold_float_1m(plan, li, zp, n_genes))
     float_draw_split(plan, Zb, den, S0)
+    errs["global_terms"] = hold_global_terms(plan, zp[:, :512].contiguous(),
+                                             "dense")
     times = {}
     for mode, build_fn, fn, plain in (
             ("dense", banded._build_band, kern.band_cross_dense,
@@ -2864,46 +2879,121 @@ def phase_dense_routes(dev, gen, n_cells: int = 1_000_000, n_genes: int = 1024,
 def float_draw_split(plan, Zb, den, S0: float, reps: int = 5):
     """One bf16 global draw through "auto" (K4) at the phase's shape, part
     by part (CUDA events): Feistel rows, the row gather, K4, the far-edge
-    terms, Geary's Σ z1² term (only ``stat="geary"`` pays it), and the
-    whole Moran draw (Feistel rows and ``_banded_stat_float``)."""
+    and degree terms' kernel with Geary's degree term and without (Moran
+    pays only the far edges), their torch-op plain version, and the whole
+    Moran draw (Feistel rows, the gather and ``_banded_stat_float``)."""
     li = plan.local_idx.to(torch.int32)
     w = plan.w_local.to(torch.bfloat16)
     rows_idx = banded._padded_rows(plan, Zb.device)
     base = key_for(3, "perm_feistel", 0)
     rows = feistel_apply(fold_in(base, 0), rows_idx, plan.n)
     zp = Zb[rows]
-    fw = plan.far_w.to(torch.bfloat16).to(torch.float32)
-    nb = plan.n_padded // B
-
-    def far_terms():
-        return (fw[:, None] * zp[plan.far_src].to(torch.float32)
-                * zp[plan.far_dst].to(torch.float32)).sum(dim=0)
-
-    def geary_sq():
-        z1 = zp[B:B + nb * B].to(torch.float32)
-        return plan.rc_sum @ (z1 * z1)
-
+    heads = banded._global_far(plan, True)
+    full = banded._global_far(plan, False)
     steps = iter(range(1, 1 << 20))
 
     def draw():
         r = feistel_apply(fold_in(base, next(steps)), rows_idx, plan.n)
         return banded._banded_stat_float(
-            li, w, None, plan.far_src, plan.far_dst, plan.far_w, plan.rc_sum,
-            banded._gather(Zb, r)[0], den, S0, block=B, n=plan.n, stat="moran",
-            band_impl="auto")
+            li, w, None, heads, plan.rc_sum, banded._gather(Zb, r)[0], den, S0,
+            block=B, n=plan.n, stat="moran", band_impl="auto")
 
     split = dict(
         feistel=event_ms(lambda: feistel_apply(fold_in(base, 1), rows_idx,
                                                plan.n), reps),
         row_gather=event_ms(lambda: Zb[rows], reps),
         kernel=event_ms(lambda: kern.band_cross_float(li, w, zp, B), reps),
-        far_terms=event_ms(far_terms, reps),
-        geary_sq=event_ms(geary_sq, reps),
+        far_terms=event_ms(lambda: kern_terms.global_terms(
+            zp, *heads, plan.rc_sum, B, False), reps),
+        far_and_geary_terms=event_ms(lambda: kern_terms.global_terms(
+            zp, *heads, plan.rc_sum, B, True), reps),
+        far_terms_plain=event_ms(lambda: kern_terms.global_terms_plain(
+            zp, *full, plan.rc_sum, B, False), reps),
+        geary_terms_plain=event_ms(lambda: kern_terms.global_terms_plain(
+            zp, *full, plan.rc_sum, B, True), reps),
         whole_draw=event_ms(draw, reps))
     print(f"[dense] one bf16 draw ('auto' -> K4, Moran) at {plan.n:,} x "
           f"{Zb.shape[1]:,} (CUDA events, ms): "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     return split
+
+
+def terms_bytes(plan, heads, G: int, esz: int, geary: bool) -> float:
+    """Least bytes of the far-edge (and degree) terms: every table row they
+    read, once (the far edges' sources and targets; with the degree term
+    every padded row with a nonzero r + c, which holds them all), and the
+    far list and degree weights."""
+    src, dst, _ = heads
+    if geary:
+        rows = int((plan.rc_sum != 0).sum())
+    else:
+        rows = int(torch.unique(torch.cat([src, dst])).numel())
+    return (rows * G * esz + src.numel() * 12
+            + (plan.rc_sum.numel() * 4 if geary else 0))
+
+
+def hold_global_terms(plan, zp, tag: str, reps: int = 20) -> dict:
+    """The far-edge and degree terms' kernel (``kern_terms.global_terms``)
+    on one gathered table ``zp`` of ``plan``, with and without Geary's
+    degree term: within REL_TOL·Σ|terms| of its plain version, two runs
+    bitwise equal, one launch a call; timed (CUDA events) beside its byte
+    bound (:func:`terms_bytes`), the plain chain and, as the library
+    yardstick, ``torch.einsum("f,fg,fg->g")`` over the live far edges plus
+    ``rc @ z²`` on a float32 copy. Returns the numbers of the Geary run
+    and the larger error."""
+    heads = banded._global_far(plan, True)
+    full = banded._global_far(plan, False)
+    G, esz = zp.shape[1], zp.element_size()
+    mode_dt = "bf16" if esz == 2 else "f32"
+    label = (f"global_terms {mode_dt} at {plan.n:,} cells x {G} genes, "
+             f"{heads[0].numel():,} live far edges")
+    out, err_max = {}, 0.0
+    for geary in (False, True):
+        mode = f"{'geary' if geary else 'moran'}_{mode_dt}"
+        before = kern_terms.LAUNCHES[mode]
+        got = kern_terms.global_terms(zp, *heads, plan.rc_sum, B, geary)
+        again = kern_terms.global_terms(zp, *heads, plan.rc_sum, B, geary)
+        sync(zp.device)
+        check(kern_terms.LAUNCHES[mode] == before + 2,
+              f"{label}: not one launch a call")
+        want = kern_terms.global_terms_plain(zp, *full, plan.rc_sum, B, geary)
+        scale = kern_terms.global_terms_plain(zp.abs(), full[0], full[1],
+                                              full[2].abs(), plan.rc_sum.abs(),
+                                              B, geary)
+        for i in range(2 if geary else 1):
+            check(torch.equal(got[i], again[i]), f"{label}: two runs differ")
+            e = (got[i].double() - want[i].double()).abs()
+            check(bool((e <= REL_TOL * scale[i].double() + 1e-30).all()),
+                  f"{label}: kernel disagrees with plain (max err "
+                  f"{float(e.max()):.3e})")
+            err_max = max(err_max, float(e.max()))
+        del want, scale
+        ms = event_ms(lambda: kern_terms.global_terms(zp, *heads, plan.rc_sum,
+                                                      B, geary), reps)
+        plain_ms = event_ms(lambda: kern_terms.global_terms_plain(
+            zp, *full, plan.rc_sum, B, geary), 3)
+        wl = heads[2].to(zp.dtype)
+
+        def library():
+            far = torch.einsum("f,fg,fg->g", wl, zp[heads[0].long()],
+                               zp[heads[1].long()])
+            if geary:
+                z1 = zp[B:B + plan.n_padded].to(torch.float32)
+                return far, plan.rc_sum @ (z1 * z1)
+            return far
+
+        lib_ms = event_ms(library, 3)
+        nbytes = terms_bytes(plan, heads, G, esz, geary)
+        b_ms, by = bound(nbytes, 3 * heads[0].numel() * G
+                         + (3 * plan.n_padded * G if geary else 0), "f32")
+        out = dict(max_abs_err=err_max, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=by, library_ms=lib_ms)
+        print(f"[{tag}] {label}, {'far + degree' if geary else 'far only'}: "
+              f"max_abs_err={err_max:.3e} (tolerance {REL_TOL:g}·Σ|terms|) "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} "
+              f"ms ({by}; {nbytes / 1e9:.4f} GB)  library {lib_ms:.4f} ms")
+        torch.cuda.empty_cache()
+    return out
 
 
 def hold_float_1m(plan, li, zp, G: int, tag: str = "dense") -> float:
@@ -3132,6 +3222,7 @@ def reset_all_launches() -> None:
     kern.reset_launch_counts()
     kern_lisa.reset_launch_counts()
     kern_float.reset_launch_counts()
+    kern_terms.reset_launch_counts()
     kern_knn.reset_launch_counts()
     kern_feistel.reset_launch_counts()
 
@@ -3550,7 +3641,8 @@ RADIUS_MODES = ("int8_win", "int8_band", "float", "lisa_win", "lisa_obs")
 
 def launched() -> dict:
     return {k: v for k, v in {**kern.LAUNCHES, **kern_lisa.LAUNCHES,
-                              **kern_float.LAUNCHES, **kern_knn.LAUNCHES,
+                              **kern_float.LAUNCHES, **kern_terms.LAUNCHES,
+                              **kern_knn.LAUNCHES,
                               **kern_feistel.LAUNCHES}.items() if v}
 
 
@@ -3636,6 +3728,8 @@ def phase_radius(dev, gen, smi: str, n_cells: int = 1_000_000,
     zp = Z.to(torch.bfloat16)[banded._padded_rows(plan, dev)]
     errs["float"] = hold_float_1m(plan, plan.local_idx.to(torch.int32), zp,
                                   n_genes, tag="radius")
+    errs["global_terms"] = hold_global_terms(plan, zp[:, :512].contiguous(),
+                                             "radius")
     del Z, zp
     torch.cuda.empty_cache()
     _, holds = lisa_draw_split(dev, d, tag="radius")
@@ -5165,6 +5259,7 @@ def main() -> None:
     # the global null's path
     kern.reset_launch_counts()
     kern_lisa.reset_launch_counts()
+    kern_terms.reset_launch_counts()
     kern_feistel.reset_launch_counts()
     calls = profiling.counters().get("rng.feistel_calls", 0)
     _, plan1m, tile0 = phase_workload(dev, 1_000_000, 8192, 4096, 16, 16, gen)
@@ -5174,6 +5269,11 @@ def main() -> None:
     for mode in GLOBAL_MODES:
         check(launches[mode] > 0, f"kernel mode {mode} never launched")
     launches["walk"] = kern_feistel.LAUNCHES["walk"]
+    launches["global_terms"] = sum(kern_terms.LAUNCHES.values())
+    print(f"[path] far-edge and degree-term launches in phases 3-4: "
+          f"{dict(kern_terms.LAUNCHES)}")
+    check(kern_terms.LAUNCHES["geary_bf16"] == 19, "gearys_c(banded) at 1M x "
+          "1,024 x 19 did not launch the global terms once a draw")
     calls = profiling.counters()["rng.feistel_calls"] - calls
     print(f"[path] Feistel walk launches in phases 3-4: {launches['walk']} "
           f"for {calls} Feistel evaluations")
@@ -5314,6 +5414,7 @@ def main() -> None:
     dense, dense_err = phase_dense_routes(dev, gen)
     launches.update(dense=dense["pallas"]["dense"],
                     rot4=dense["pallas_halo4"]["rot4"])
+    kres["global_terms"] = dense_err.pop("global_terms")
     for mode, err in dense_err.items():
         kres[mode]["max_abs_err"] = max(kres[mode]["max_abs_err"], err)
     torch.cuda.empty_cache()
@@ -5347,6 +5448,9 @@ def main() -> None:
     # patterns, each call with counts of its own
     t11 = time.perf_counter()
     radius, radius_err, _ = phase_radius(dev, gen, smi)
+    kres["global_terms"]["max_abs_err"] = max(
+        kres["global_terms"]["max_abs_err"],
+        radius_err.pop("global_terms")["max_abs_err"])
     for mode, err in radius_err.items():
         kres[mode]["max_abs_err"] = max(kres[mode]["max_abs_err"], err)
     for mode in ("int8_win", "float", "lisa_win", "lisa_obs"):
@@ -5408,7 +5512,7 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[mode], **kres[mode]}
         for mode, (name, src, rep) in {**KERNELS, **LISA_KERNELS,
-                                       **KNN_KERNELS,
+                                       **KNN_KERNELS, **GLOBAL_TERMS_KERNELS,
                                        **FEISTEL_KERNELS}.items()]}
     print(smi)
     print(json.dumps(summary))

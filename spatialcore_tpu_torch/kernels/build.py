@@ -75,6 +75,11 @@ _SIGNATURES = {
     # coords, order, rmax, n, k, include_self, threads, tile, stages,
     # out_d, out_i, stream
     "sct_knn": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # zp, src, dst, w, n_far, rc, n_rows, row0, partial, out, sem, G,
+    # is_bf16, vec16, far_ctas, sq_ctas, stream
+    "sct_global_terms": [_P, _P, _P, _P, ctypes.c_longlong, _P,
+                         ctypes.c_longlong, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _P],
     # idx, out, count, the 8 round keys, bits, n, state, slot, stream
     "sct_feistel_walk": [_P, _P, ctypes.c_longlong, *[ctypes.c_uint] * 8, _I,
                          ctypes.c_uint, _P, _P],

@@ -19,7 +19,9 @@ hand-written Hopper kernels of ``kernels/band_cross.py`` (int8/int4:
 ``csrc/band_cross_float.cu`` on the compact band, replacing K4, and
 ``csrc/band_cross_dense.cu`` on the dense band ``A[nb, B, 3B]`` or its
 rotation-baked form ``A4[nb, B, 4B]``, replacing K5 and K6 behind
-``band_impl="pallas"`` and ``"pallas_halo4"``). ``band_impl="xla"``
+``band_impl="pallas"`` and ``"pallas_halo4"``); the bf16/f32 null's
+far-edge cross and Geary's degree term in one more launch a draw
+(``kernels/global_terms.py``, ``csrc/global_terms.cu``). ``band_impl="xla"``
 selects the plain PyTorch twins below instead, which keep the reference's
 dense band layout (``_plain`` suffix; counterparts of the reference's
 ``_xla`` functions). Draws come from the Feistel stream, or with
@@ -64,6 +66,7 @@ import torch
 from ..core.logging import get_logger
 from ..core.rng import feistel_apply, fold_in, key_for, permutation
 from ..kernels import band_cross as kern
+from ..kernels import global_terms as kern_terms
 from ..kernels import lisa_count as kern_lisa
 from ..kernels import lisa_float as kern_float
 from ..utils.profiling import count, read_back, set_count, span, traced
@@ -662,21 +665,22 @@ def _banded_stat_int(ops: _IntOps, rc_sum, Zp, Zf, sz2, den, S0, *, n: int,
         return _finish_stat(cross_q * sz2, sq, den, S0, n, stat)
 
 
-def _banded_stat_float(local_idx32, w_c, A, far_src, far_dst, far_w, rc_sum,
-                       Zp, den, S0, *, block: int, n: int, stat: str,
-                       band_impl: str, genes: Optional[int] = None):
+def _banded_stat_float(local_idx32, w_c, A, far, rc_sum, Zp, den, S0, *,
+                       block: int, n: int, stat: str, band_impl: str,
+                       genes: Optional[int] = None):
     """One draw's statistic in bf16/f32 (reference ``_banded_stat``) on the
     draw's gathered table ``Zp``.
 
     The band cross by ``band_impl``: "auto"/"pallas_halo" the compact-band
     kernel (K4), "pallas" the dense-band kernel on ``A`` (K5),
     "pallas_halo4" the ring kernel on the rotation-baked ``A`` (K6), "xla"
-    the dense plain twin. The far-edge einsum stays in the table dtype
-    with float32 accumulation, as in the reference. Geary's degree term
-    Σ (r_i + c_i)·z_i² runs inside an ``ops.banded.geary_sq`` span.
+    the dense plain twin. The far-edge cross and Geary's degree term
+    Σ (r_i + c_i)·z_i² (``kernels.global_terms``, one launch on a CUDA
+    table; "xla" its plain version) on ``far``, the far list as
+    :func:`_global_far` gives it, inside a ``kernels.global_terms`` span;
+    both in the table dtype with float32 sums, as in the reference.
     """
     B = block
-    nb = local_idx32.shape[0] // B
     with span("kernels.band_cross"):
         if band_impl == "xla":
             cross = kern.band_cross_dense_plain(A, Zp, B, genes)
@@ -686,17 +690,21 @@ def _banded_stat_float(local_idx32, w_c, A, far_src, far_dst, far_w, rc_sum,
             cross = kern.band_cross_rot4(A, Zp, B, genes)
         else:
             cross = kern.band_cross_float(local_idx32, w_c, Zp, B, genes)
-        fs = Zp[far_src].to(torch.float32)
-        ft = Zp[far_dst].to(torch.float32)
-        fw = far_w.to(Zp.dtype).to(torch.float32)
-        cross = cross + kern.tree_sum(fw[:, None] * fs * ft)
+    terms = (kern_terms.global_terms_plain if band_impl == "xla"
+             else kern_terms.global_terms)
+    with span("kernels.global_terms"):
+        far_cross, sq = terms(Zp, *far, rc_sum, B, geary=stat != "moran")
+    return _finish_stat(cross + far_cross, lambda: sq, den, S0, n, stat)
 
-        def sq():
-            with span("ops.banded.geary_sq"):
-                z1 = Zp[B:B + nb * B].to(torch.float32)
-                return rc_sum @ (z1 * z1)
 
-        return _finish_stat(cross, sq, den, S0, n, stat)
+def _global_far(plan: NullPlan, kernel: bool):
+    """The far list of the float global null's terms, once a call: for the
+    kernel its live head as int32 rows and float32 weights (one read-back,
+    :func:`_n_live_far`), for the plain version the plan's padded list."""
+    if not kernel:
+        return plan.far_src, plan.far_dst, plan.far_w
+    return kern_terms.far_heads(plan.far_src, plan.far_dst, plan.far_w,
+                                _n_live_far(plan))
 
 
 # ---------------------------------------------------------------------------
@@ -896,10 +904,10 @@ def _banded_test(plan: NullPlan, Z, S0, observed, seed: int, den, sz,
         elif band_impl in ("pallas", "xla"):
             A = _build_band(plan.local_idx, w_c, block, wdt)
         local_idx32 = plan.local_idx.to(torch.int32)
+        far = _global_far(plan, Z.device.type == "cuda" and not use_plain)
 
         def stat_fn(Zp, Zf):
-            return _banded_stat_float(local_idx32, w_c, A, plan.far_src,
-                                      plan.far_dst, plan.far_w, plan.rc_sum,
+            return _banded_stat_float(local_idx32, w_c, A, far, plan.rc_sum,
                                       Zp, den, S0, block=block, n=n,
                                       stat=stat, band_impl=band_impl,
                                       genes=genes)

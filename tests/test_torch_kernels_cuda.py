@@ -17,7 +17,10 @@ and squared distances equal (the same float32 operations, ties by id). ``permuta
 the CPU's. The Feistel cycle walk: rows equal the plain walk's bitwise,
 on the card over every position and on the CPU over a sample
 (``tests/test_torch_rng.py`` holds the CPU walk to the JAX package's at
-the same sizes), and its pass count equal the plain walk's.
+the same sizes), and its pass count equal the plain walk's. The float
+global null's far-edge cross and Geary degree term: within 1e-5·Σ|terms|
+of the plain version (float32 sums in another order), two runs and a
+block of genes bitwise the whole launch's.
 """
 
 import pytest
@@ -26,6 +29,7 @@ import torch
 from spatialcore_tpu_torch.core import rng
 from spatialcore_tpu_torch.kernels import band_cross as kern
 from spatialcore_tpu_torch.kernels import feistel as kern_feistel
+from spatialcore_tpu_torch.kernels import global_terms as kern_terms
 from spatialcore_tpu_torch.kernels import knn as kern_knn
 from spatialcore_tpu_torch.kernels import lisa_count as kern_lisa
 from spatialcore_tpu_torch.kernels import lisa_float as kern_float
@@ -1198,3 +1202,192 @@ def test_lisa_float_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda_device):
         args.update({("Zp" if x == "zp" else x): v for x, v in bad.items()})
         with pytest.raises(ValueError):
             kern_float.moran_count(**args)
+
+
+# ---------------------------------------------------------------------------
+# The float global null's far-edge cross and Geary degree term
+# (csrc/global_terms.cu): float32 sums in another order than the plain
+# version's, so within 1e-5·Σ|terms|; bitwise run to run and across widths
+# ---------------------------------------------------------------------------
+
+
+def _radius_plan_with_isolated_rows(n: int = 6000):
+    gen = torch.Generator().manual_seed(11)
+    coords = torch.rand((n, 2), generator=gen) * 400
+    lone = torch.tensor([[900.0, 900.0], [960.0, 900.0], [900.0, 960.0]])
+    coords = torch.cat([coords, lone])
+    graph = build_graph(coords, radius=9.0, k_max=24, device="cpu")
+    return banded.build_null_plan(graph, coords, block=B)
+
+
+def _terms_on_card(plan, dev, G: int, dtype, geary: bool, seed: int = 6):
+    """The kernel's and the plain version's terms on one gathered table on
+    the card, the plain version's Σ|terms|, and the operands."""
+    on = banded.NullPlan(*[t.to(dev) if isinstance(t, torch.Tensor) else t
+                           for t in plan])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Zp = torch.randn((plan.n_padded + 2 * plan.block, G), generator=gen,
+                     device=dev).to(dtype)
+    heads = banded._global_far(on, True)
+    full = banded._global_far(on, False)
+    want = kern_terms.global_terms_plain(Zp, *full, on.rc_sum, plan.block, geary)
+    scale = kern_terms.global_terms_plain(Zp.abs(), full[0], full[1],
+                                          full[2].abs(), on.rc_sum.abs(),
+                                          plan.block, geary)
+    return Zp, heads, on.rc_sum, want, scale
+
+
+#: (plan, dtype, G): ragged G against the 16-byte vector and the 64-vector
+#: tile (bf16 512 genes, f32 256), odd G (element loads), several tiles
+TERMS_CASES = [("knn", torch.bfloat16, 1), ("knn", torch.bfloat16, 96),
+               ("knn", torch.bfloat16, 512), ("knn", torch.bfloat16, 1000),
+               ("knn", torch.float32, 33), ("knn", torch.float32, 256),
+               ("knn", torch.float32, 700), ("radius", torch.bfloat16, 512),
+               ("radius", torch.float32, 3), ("radius", torch.bfloat16, 4100)]
+TERMS_IDS = [f"{k}-{'bf16' if d == torch.bfloat16 else 'f32'}-G{g}"
+             for k, d, g in TERMS_CASES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TERMS_CASES, ids=TERMS_IDS)
+@pytest.mark.parametrize("geary", [False, True], ids=["moran", "geary"])
+def test_global_terms_kernel_equals_plain(cuda_device, plan, case, geary):
+    """The kernel against its plain version on the card's own operands (a
+    kNN plan, a radius plan with dead slots and isolated rows), one launch
+    a call, two runs bitwise equal, and every block of genes and the
+    element-load path bitwise the whole launch's."""
+    kind, dtype, G = case
+    p = plan if kind == "knn" else _radius_plan_with_isolated_rows()
+    Zp, heads, rc, want, scale = _terms_on_card(p, cuda_device, G, dtype, geary)
+    assert heads[0].numel() > 0
+    mode = f"{'geary' if geary else 'moran'}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+    before = kern_terms.LAUNCHES[mode]
+    far, sq = kern_terms.global_terms(Zp, *heads, rc, p.block, geary)
+    torch.cuda.synchronize()
+    assert kern_terms.LAUNCHES[mode] == before + 1
+    _assert_close(far, want[0].cpu(), scale[0].cpu().double())
+    if geary:
+        _assert_close(sq, want[1].cpu(), scale[1].cpu().double())
+    else:
+        assert sq is None
+    again = kern_terms.global_terms(Zp, *heads, rc, p.block, geary)
+    assert torch.equal(far, again[0]) and (not geary or torch.equal(sq, again[1]))
+    # a block of genes, and the table at an address off 16 bytes (element
+    # loads): the same values bitwise
+    g0, g1 = G // 3, max(G // 3 + 1, (2 * G) // 3)
+    part = kern_terms.global_terms(Zp[:, g0:g1].contiguous(), *heads, rc,
+                                   p.block, geary)
+    assert torch.equal(part[0], far[g0:g1])
+    buf = torch.empty(Zp.numel() + 1, dtype=dtype, device=cuda_device)
+    odd = buf[1:].view(Zp.shape)
+    odd.copy_(Zp)
+    assert odd.data_ptr() % 16 != 0
+    elem = kern_terms.global_terms(odd, *heads, rc, p.block, geary)
+    assert torch.equal(elem[0], far)
+    if geary:
+        assert torch.equal(part[1], sq[g0:g1]) and torch.equal(elem[1], sq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_global_terms_kernel_on_an_empty_far_list(cuda_device, plan, dtype):
+    """No live far edge: Moran's far term is zeros with nothing launched;
+    with Geary the launch runs the degree term alone."""
+    Zp, _, rc, _, _ = _terms_on_card(plan, cuda_device, 40, dtype, True)
+    none = (torch.zeros(0, dtype=torch.int32, device=cuda_device),
+            torch.zeros(0, dtype=torch.int32, device=cuda_device),
+            torch.zeros(0, dtype=torch.float32, device=cuda_device))
+    kern_terms.reset_launch_counts()
+    far, sq = kern_terms.global_terms(Zp, *none, rc, B, False)
+    assert torch.equal(far.cpu(), torch.zeros(40)) and sq is None
+    assert not any(kern_terms.LAUNCHES.values())
+    far, sq = kern_terms.global_terms(Zp, *none, rc, B, True)
+    want = kern_terms.global_terms_plain(Zp, *none, rc, B, True)
+    scale = kern_terms.global_terms_plain(Zp.abs(), *none, rc.abs(), B, True)
+    assert sum(kern_terms.LAUNCHES.values()) == 1
+    assert torch.equal(far.cpu(), torch.zeros(40))
+    _assert_close(sq, want[1].cpu(), scale[1].cpu().double())
+
+
+@pytest.mark.cuda
+def test_global_terms_kernel_at_k50_equals_plain(cuda_device, vignette_plan):
+    """A 60,000-cell k = 50 plan built on the card, 512 bf16 genes, both
+    terms: the cell's table width at a larger far list."""
+    Zp, heads, rc, want, scale = _terms_on_card(vignette_plan, cuda_device, 512,
+                                                torch.bfloat16, True)
+    assert heads[0].numel() > 10_000
+    far, sq = kern_terms.global_terms(Zp, *heads, rc, vignette_plan.block, True)
+    _assert_close(far, want[0].cpu(), scale[0].cpu().double())
+    _assert_close(sq, want[1].cpu(), scale[1].cpu().double())
+
+
+@pytest.mark.cuda
+def test_global_null_launches_the_terms_once_a_draw(cuda_device, plan):
+    """``banded_permutation_test`` in bf16 and f32 with each statistic: one
+    ``kernels.global_terms`` launch a draw, of the statistic's mode."""
+    gen = torch.Generator().manual_seed(13)
+    Z = torch.randn((plan.n, 24), generator=gen).to(cuda_device)
+    on = banded.NullPlan(*[t.to(cuda_device) if isinstance(t, torch.Tensor)
+                           else t for t in plan])
+    for precision in ("bf16", "f32"):
+        for stat, mode in (("moran", "moran"), ("geary", "geary"),
+                           ("moran_geary", "geary")):
+            obs = torch.zeros((2, 24) if stat == "moran_geary" else (24,),
+                              device=cuda_device)
+            kern_terms.reset_launch_counts()
+            banded.banded_permutation_test(on, Z, float(plan.n), obs, 3, 9,
+                                           stat=stat, precision=precision)
+            assert dict(kern_terms.LAUNCHES) == {
+                k: (9 if k == f"{mode}_{precision}" else 0)
+                for k in kern_terms.LAUNCHES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,mode", [("morans_i", "moran_bf16"),
+                                     ("gearys_c", "geary_bf16")])
+def test_global_pvalues_on_the_card_equal_the_cpu(cuda_device, fn, mode):
+    """The public ``morans_i`` / ``gearys_c`` banded null on the card
+    (K4 and the terms kernel) against the CPU (plain versions) on a small
+    section: p-values equal, 19 launches of the terms kernel."""
+    import numpy as np
+
+    from spatialcore_tpu_torch import spatial
+    from spatialcore_tpu_torch.core.container import SpatialData
+
+    gen = torch.Generator().manual_seed(12)
+    coords = torch.rand((4096, 2), generator=gen) * 400
+    X = torch.randn((4096, 24), generator=gen)
+    X[:, :8] += torch.sin(coords[:, :1] / 40)       # a third of the genes
+
+    def run(dev):
+        ad = SpatialData(X=X.clone().to(dev))
+        ad.obsm["spatial"] = coords.clone().to(dev)
+        kern_terms.reset_launch_counts()
+        getattr(spatial, fn)(ad, n_permutations=19, seed=3,
+                             null_method="banded", device=dev)
+        return ad.uns[fn]
+
+    want = run("cpu")
+    assert not any(kern_terms.LAUNCHES.values())
+    got = run(cuda_device)
+    assert kern_terms.LAUNCHES[mode] == 19
+    assert np.array_equal(got["p_value"].to_numpy(), want["p_value"].to_numpy())
+
+
+@pytest.mark.cuda
+def test_global_terms_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda_device, plan):
+    Zp, heads, rc, _, _ = _terms_on_card(plan, cuda_device, 16, torch.float32, True)
+    full = banded._global_far(banded.NullPlan(
+        *[t.to(cuda_device) if isinstance(t, torch.Tensor) else t for t in plan]),
+        False)
+    good = dict(Zp=Zp, far_src=heads[0], far_dst=heads[1], far_w=heads[2],
+                rc_sum=rc, block=B, geary=True)
+    for bad in (dict(Zp=Zp.double()), dict(Zp=Zp.t().contiguous().t()),
+                dict(Zp=Zp[:-1]), dict(far_src=full[0], far_dst=full[1],
+                                       far_w=full[2]),
+                dict(far_w=heads[2].to(torch.bfloat16)),
+                dict(far_src=heads[0][::2], far_dst=heads[1][::2],
+                     far_w=heads[2][::2]),
+                dict(rc_sum=rc.cpu()), dict(rc_sum=rc.double())):
+        with pytest.raises(ValueError):
+            kern_terms.global_terms(**{**good, **bad})

@@ -221,8 +221,9 @@ def test_plan_counters_on_both_plan_paths(sec, coords_as):
 
 def test_radius_and_geary_spans(sec):
     """The radius search records ``ops.graph.radius_neighbors`` and the
-    fused null one ``ops.banded.geary_sq`` a draw while tracing is on, and
-    nothing while it is off."""
+    fused null one ``kernels.global_terms`` a draw (its far-edge cross and
+    Geary's degree term) while tracing is on, and nothing while it is
+    off."""
     prof.reset()
     graph = tg.build_graph(sec["coords"], radius=RADIUS, k_max=K_MAX,
                            device="cpu")
@@ -241,7 +242,7 @@ def test_radius_and_geary_spans(sec):
         run()
     names = [s["name"] for s in prof.spans()]
     assert names.count("ops.graph.radius_neighbors") == 1
-    assert names.count("ops.banded.geary_sq") == 3
+    assert names.count("kernels.global_terms") == 3
 
 
 _TINY_RADIUS = """
