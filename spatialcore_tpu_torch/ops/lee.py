@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..core.rng import fold_in, key_for, permutation
+from ..utils.profiling import traced
 from .banded import _p_from_counts
 from .graph import SpatialGraph, graph_rows, spatial_lag
 
@@ -49,6 +50,7 @@ def lees_global_p(L_global: torch.Tensor, draw_sums: torch.Tensor
     return _p_from_counts(count, draw_sums.shape[0])
 
 
+@traced("ops.lee.lees_l_pairs")
 def lees_l_pairs(graph: SpatialGraph, Zx: torch.Tensor, Zy: torch.Tensor,
                  seed: int, n_permutations: int = 0,
                  compute_cell_pvalues: bool = False,

@@ -52,6 +52,7 @@ from ..ops.moran import (QUADRANT_LABELS, classify_quadrants,
                          permutation_test_global, standardize)
 from ..ops.streaming import (device_local_sink, host_local_sink,
                              streaming_local_null)
+from ..utils import profiling
 from ..utils.profiling import read_back, span, traced
 
 logger = get_logger("spatial.autocorrelation")
@@ -528,6 +529,7 @@ def _run_compact_stream(adata, stat: str, names, layer, graph, plan,
         n_items = len(gx)
 
         def get_tile(s, w):
+            _count_pair_columns(gx[s:s + w], gy[s:s + w])
             return (_dense_expression(adata, gx[s:s + w], layer, device),
                     _dense_expression(adata, gy[s:s + w], layer, device))
     else:
@@ -1165,6 +1167,15 @@ def _normalize_pairs(gene_pairs) -> Tuple[List[Tuple[str, str]], bool]:
     return list(gene_pairs), False
 
 
+def _count_pair_columns(gx: List[str], gy: List[str]) -> None:
+    """Add one set of pair columns to the ``lee.pairs``, ``lee.x_genes`` and
+    ``lee.y_genes`` counters: the columns built and the distinct x and y
+    genes among them (host-side counts of names)."""
+    profiling.count("lee.pairs", len(gx))
+    profiling.count("lee.x_genes", len(set(gx)))
+    profiling.count("lee.y_genes", len(set(gy)))
+
+
 def _lees_columns(adata, pairs, layer, device: Device):
     """Standardized x and y columns of the pairs whose genes both vary:
     ``(ok_pairs, Zx, Zy)`` ([N, len(ok_pairs)] each, on ``device``)."""
@@ -1175,6 +1186,7 @@ def _lees_columns(adata, pairs, layer, device: Device):
     gi = {g: i for i, g in enumerate(all_genes)}
     ok = [(gx, gy) for gx, gy in pairs
           if not (zero_var[gi[gx]] or zero_var[gi[gy]])]
+    _count_pair_columns([gx for gx, _ in ok], [gy for _, gy in ok])
     ix = torch.as_tensor([gi[gx] for gx, _ in ok], dtype=torch.int64,
                          device=Z.device)
     iy = torch.as_tensor([gi[gy] for _, gy in ok], dtype=torch.int64,

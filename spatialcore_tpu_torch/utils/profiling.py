@@ -199,9 +199,12 @@ def counters() -> dict:
     ``rng.feistel_passes``, ``host_syncs``, the kernels' launches
     (``kernels.<module>.<mode>``), and the sizes of the last null plan
     (``plan.rows``, ``plan.slots``, ``plan.live_slots``, ``plan.far_edges``)
-    and radius graph (``graph.radius_isolated``) built, with the counts kept on the card folded
-    in first. Folding them reads them back, so the call waits for the work
-    queued on the card (see :func:`fold_on_read`)."""
+    and radius graph (``graph.radius_isolated``) built, Lee's L pair
+    columns (``lee.pairs``: the columns built, ``lee.x_genes`` /
+    ``lee.y_genes``: the distinct x and y genes among each set built,
+    summed), with the counts kept on the card folded in first. Folding
+    them reads them back, so the call waits for the work queued on the
+    card (see :func:`fold_on_read`)."""
     for fold in _folds:
         fold()
     return dict(_counts)
