@@ -840,6 +840,16 @@ def lisa_shapes(mode: str, stat: str, form: str, cnt_bytes: int, G: int,
     return times
 
 
+def draw_rows(plan, gen, dev):
+    """One draw's rows on ``plan``: the padded rows through a random
+    permutation of the cells (the int8 local draw steps read a table of
+    the cells through them), and the far targets' rows."""
+    lo = banded._local_setup(plan, dev, li=None)
+    perm = torch.randperm(plan.n, generator=gen, device=dev)
+    rows = perm[lo.rows_idx].contiguous()
+    return rows, rows[lo.far_dst]
+
+
 def phase_lisa_kernels(dev, plan, gen, G: int, reps: int):
     """The LISA kernel's modes against its plain version on the card:
     counts and observed values must be equal. Returns {mode: numbers}."""
@@ -855,28 +865,30 @@ def phase_lisa_kernels(dev, plan, gen, G: int, reps: int):
         return torch.randint(-127, 128, (rows, G), generator=gen, device=dev,
                              dtype=torch.int8)
 
-    def dense(zp):
+    # a table of the cells read through one draw's rows
+    table = codes(plan.n)
+    rows, far_rows = draw_rows(plan, gen, dev)
+
+    def dense():
         layer = torch.zeros((n, G), dtype=torch.int32, device=dev)
-        return layer.index_add_(0, src, zp[dst].to(torch.int32)
+        return layer.index_add_(0, src, table[far_rows].to(torch.int32)
                                 * far_q[:n_live].to(torch.int32)[:, None])
 
-    zp, zf = codes(n + 2 * B), codes(n_live)
-    rows_far = dict(far_row_ptr=ptr, far_q=fq8, Zf=zf)
+    zp = (table, rows)
+    rows_far = dict(far_row_ptr=ptr, far_q=fq8, far_rows=far_rows)
     # observed values of another placement: draws that tie, win and lose
-    obs = kern_lisa.lisa_observed_plain(li, wq, codes(n + 2 * B), B,
-                                        far_row_ptr=ptr, far_q=fq8,
-                                        Zf=codes(n_live))
+    obs = kern_lisa.lisa_observed_plain(li, wq, codes(plan.n), rows, B, **rows_far)
     cases = [("lisa_win", "rows", torch.int8, rows_far),
              ("lisa_win", "rows", torch.int16, rows_far),
-             ("lisa_dense", "dense", torch.int8, dict(far=dense(zp))),
+             ("lisa_dense", "dense", torch.int8, dict(far=dense())),
              ("lisa_band", "none", torch.int8, {})]
     csr = band_csr(plan, dev)
-    lib = library_ms(csr, zp)
+    lib = library_ms(csr, table[rows])
     results = {}
     for mode, form, cdt, far in cases:
         cnt0 = torch.randint(0, 60, (n, G), generator=gen, device=dev).to(cdt)
-        got = kern_lisa.lisa_count(li, wq, zp, B, obs, cnt0.clone(), **far)
-        want = kern_lisa.lisa_count_plain(li, wq, zp, B, obs, cnt0.clone(), **far)
+        got = kern_lisa.lisa_count(li, wq, *zp, B, obs, cnt0.clone(), **far)
+        want = kern_lisa.lisa_count_plain(li, wq, *zp, B, obs, cnt0.clone(), **far)
         sync(dev)
         err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         check(torch.equal(got, want), f"{mode} {cdt}: counts differ from plain "
@@ -884,29 +896,29 @@ def phase_lisa_kernels(dev, plan, gen, G: int, reps: int):
         moved = (int((got != cnt0).sum()))
         check(0 < moved < got.numel(), f"{mode}: degenerate comparison case")
         scratch = cnt0.clone()
-        ms = event_ms(lambda: kern_lisa.lisa_count(li, wq, zp, B, obs, scratch,
+        ms = event_ms(lambda: kern_lisa.lisa_count(li, wq, *zp, B, obs, scratch,
                                                    **far), reps)
         plain_ms = event_ms(lambda: kern_lisa.lisa_count_plain(
-            li, wq, zp, B, obs, scratch, **far), max(1, reps // 10))
+            li, wq, *zp, B, obs, scratch, **far), max(1, reps // 10))
         report(results, mode, f"{mode} {str(cdt)[6:]} counters G={G} "
                f"({nbk} blocks, {moved:,} counts moved; equal)", err, ms,
                plain_ms, *lisa_work(plan, G, form, cnt0.element_size()), lib,
                first=cdt == torch.int8)
         if cdt == torch.int8:
             lisa_shapes(mode, "moran", form, 1, G, nbk, lambda tiles: kern_lisa.lisa_count(
-                li, wq, zp, B, obs, scratch, tiles=tiles, **far))
-    got = kern_lisa.lisa_observed(li, wq, zp, B, **rows_far)
-    want = kern_lisa.lisa_observed_plain(li, wq, zp, B, **rows_far)
+                li, wq, *zp, B, obs, scratch, tiles=tiles, **far))
+    got = kern_lisa.lisa_observed(li, wq, *zp, B, **rows_far)
+    want = kern_lisa.lisa_observed_plain(li, wq, *zp, B, **rows_far)
     sync(dev)
     err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     check(torch.equal(got, want), f"lisa_obs: observed differs from plain ({err})")
-    ms = event_ms(lambda: kern_lisa.lisa_observed(li, wq, zp, B, **rows_far), reps)
+    ms = event_ms(lambda: kern_lisa.lisa_observed(li, wq, *zp, B, **rows_far), reps)
     plain_ms = event_ms(lambda: kern_lisa.lisa_observed_plain(
-        li, wq, zp, B, **rows_far), max(1, reps // 10))
+        li, wq, *zp, B, **rows_far), max(1, reps // 10))
     report(results, "lisa_obs", f"lisa_obs G={G} ({nbk} blocks; equal)", err,
            ms, plain_ms, *lisa_work(plan, G, "rows", observed=True), lib)
     lisa_shapes("lisa_obs", "moran", "rows", 0, G, nbk, lambda tiles:
-                kern_lisa.lisa_observed(li, wq, zp, B, tiles=tiles, **rows_far))
+                kern_lisa.lisa_observed(li, wq, *zp, B, tiles=tiles, **rows_far))
     return results
 
 
@@ -930,17 +942,17 @@ def tail_operands(plan, gen, G: int, dev):
         return torch.randint(lo, 128, (rows, G), generator=gen, device=dev,
                              dtype=torch.int8)
 
-    geary = dict(li=li, w=wq, zp=codes(n + 2 * B, -127), other=codes(n + 2 * B, -127),
+    # tables of the cells read through one draw's rows
+    rows, far_rows = draw_rows(plan, gen, dev)
+    geary = dict(li=li, w=wq, zp=codes(plan.n, -127), rows=rows,
+                 other=codes(plan.n, -127),
                  far=dict(far_row_ptr=ptr, far_q=far_q[:n_live].to(torch.int8),
-                          Zf=codes(n_live, -127)),
-                 far_other=dict(far_row_ptr=ptr,
-                                far_q=far_q[:n_live].to(torch.int8),
-                                Zf=codes(n_live, -127)))
-    getis = dict(li=li, w=wb, zp=codes(n + 2 * B, 0), other=codes(n + 2 * B, 0),
+                          far_rows=far_rows))
+    getis = dict(li=li, w=wb, zp=codes(plan.n, 0), rows=rows, other=codes(plan.n, 0),
                  far=dict(far_row_ptr=ptr, far_q=ones.to(torch.int8),
-                          Zf=codes(n_live, 0)),
-                 far_other=dict(far_row_ptr=ptr, far_q=ones.to(torch.int8),
-                                Zf=codes(n_live, 0)))
+                          far_rows=far_rows))
+    for o in (geary, getis):
+        o["far_other"] = o["far"]
     return geary, w_code, getis, w_bin
 
 
@@ -952,7 +964,7 @@ def phase_tail_kernels(dev, plan, gen, G: int, reps: int):
     nbk = plan.n_padded // B
     n = plan.n_padded
     ge, w_code, gt, w_bin = tail_operands(plan, gen, G, dev)
-    lib = library_ms(band_csr(plan, dev), ge["zp"])
+    lib = library_ms(band_csr(plan, dev), ge["zp"][ge["rows"]])
     results = {}
 
     def equal(mode, label, got, want, first=True, moved=None):
@@ -968,9 +980,9 @@ def phase_tail_kernels(dev, plan, gen, G: int, reps: int):
         return event_ms(kfn, reps), event_ms(pfn, max(1, reps // 10))
 
     # geary: observed entry, then the draw step against another placement
-    args = (ge["li"], ge["w"], ge["zp"], B)
-    obs = kern_lisa.geary_observed_plain(ge["li"], ge["w"], ge["other"], B, w_code,
-                                         **ge["far_other"])
+    args = (ge["li"], ge["w"], ge["zp"], ge["rows"], B)
+    obs = kern_lisa.geary_observed_plain(ge["li"], ge["w"], ge["other"], ge["rows"], B,
+                                         w_code, **ge["far_other"])
     got = kern_lisa.geary_observed(*args, w_code, **ge["far"])
     want = kern_lisa.geary_observed_plain(*args, w_code, **ge["far"])
     err = equal("geary_obs", "geary_obs", got, want)
@@ -998,7 +1010,7 @@ def phase_tail_kernels(dev, plan, gen, G: int, reps: int):
                                       **ge["far"]))
 
     # Getis: the binary-lag observed entry, then Gi* and Gi draw steps
-    args = (gt["li"], gt["w"], gt["zp"], B)
+    args = (gt["li"], gt["w"], gt["zp"], gt["rows"], B)
     got = kern_lisa.getis_lag(*args, **gt["far"])
     want = kern_lisa.getis_lag_plain(*args, **gt["far"])
     err = equal("getis_obs", "getis_obs", got, want)
@@ -1008,10 +1020,10 @@ def phase_tail_kernels(dev, plan, gen, G: int, reps: int):
            ms, pms, *tail_work(plan, G, "getis_obs"), lib)
     lisa_shapes("getis_obs", "getis_star", "rows", 0, G, nbk, lambda tiles:
                 kern_lisa.getis_lag(*args, tiles=tiles, **gt["far"]))
-    lag_o = kern_lisa.getis_lag_plain(gt["li"], gt["w"], gt["other"], B,
+    lag_o = kern_lisa.getis_lag_plain(gt["li"], gt["w"], gt["other"], gt["rows"], B,
                                       **gt["far_other"])
-    me_o = gt["other"][B:B + n].contiguous()
-    codes = gt["zp"][B:B + plan.n].to(torch.int64)
+    me_o = gt["other"][gt["rows"][B:B + n]].contiguous()
+    codes = gt["zp"].to(torch.int64)
     tot = codes.sum(0).to(torch.float32)
     sq = (codes * codes).sum(0).to(torch.float32)
     for star, mode, fn, pfn in (
@@ -1088,14 +1100,15 @@ def phase_lee_kernels(dev, plan, gen, G: int, reps: int):
         return torch.randint(-127, 128, (rows, G), generator=gen, device=dev,
                              dtype=torch.int8)
 
-    zp, zx = codes(n + 2 * B), codes(n)
-    far = dict(far_row_ptr=ptr, far_q=fq8, Zf=codes(n_live))
-    args = (li, wq, zp, B, zx, sw_row)
+    # the y codes: a table of the cells read through one draw's rows
+    table, zx = codes(plan.n), codes(n)
+    rows, far_rows = draw_rows(plan, gen, dev)
+    far = dict(far_row_ptr=ptr, far_q=fq8, far_rows=far_rows)
+    args = (li, wq, table, rows, B, zx, sw_row)
     # observed values of another placement: draws that tie, win and lose
-    obs, _ = kern_lisa.lee_observed_plain(li, wq, codes(n + 2 * B), B, zx,
-                                          sw_row, far_row_ptr=ptr, far_q=fq8,
-                                          Zf=codes(n_live))
-    lib = library_ms(band_csr(plan, dev), zp)
+    obs, _ = kern_lisa.lee_observed_plain(li, wq, codes(plan.n), rows, B, zx,
+                                          sw_row, **far)
+    lib = library_ms(band_csr(plan, dev), table[rows])
     results = {}
 
     def equal(label, got, want):
@@ -1739,9 +1752,10 @@ def phase_lisa_public(dev, n_cells: int, n_genes: int, n_perms: int, gen):
 
 def lisa_draw_split(dev, d, reps: int = 5, tag: str = "lisa"):
     """One LISA draw at the public run's shape, part by part (CUDA events):
-    Feistel rows, row gather, far gather, the draw-step kernel; then the
-    draw step and the observed entry held against their plain versions on
-    that plan (``hold_main``). Returns the split and the two holds."""
+    Feistel rows, the far targets' rows, the draw-step kernel reading the
+    table through them; then the draw step and the observed entry held
+    against their plain versions on that plan (``hold_main``). Returns the
+    split and the two holds."""
     plan = d._null_plan_cache["value"]
     Zq = banded._quantize_z(standardize(d.X)[0])[0]
     G = Zq.shape[1]
@@ -1749,27 +1763,25 @@ def lisa_draw_split(dev, d, reps: int = 5, tag: str = "lisa"):
     lo = banded._local_setup(plan, Zq.device)
     li, n_live, rows_idx, dst = lo.li, lo.n_live, lo.rows_idx, lo.far_dst
     far = dict(far_row_ptr=lo.ptr, far_q=far_q[:n_live].to(torch.int8).contiguous())
-    Zp0 = Zq[rows_idx]
-    obs = kern_lisa.lisa_observed(li, wq, Zp0, B, Zf=Zp0[dst], **far)
+    f0 = dict(far_rows=rows_idx[dst], **far)
+    obs = kern_lisa.lisa_observed(li, wq, Zq, rows_idx, B, **f0)
     cnt = torch.zeros(obs.shape, dtype=torch.int8, device=Zq.device)
     base = key_for(3, "perm_feistel_local", 0)
     perm = feistel_apply(fold_in(base, 0), rows_idx, plan.n)
-    Zp = Zq[perm]
-    Zf = Zp[dst]
+    fwd = dict(far_rows=perm[dst], **far)
     split = dict(
         feistel=event_ms(lambda: feistel_apply(fold_in(base, 1), rows_idx, plan.n),
                          reps),
-        row_gather=event_ms(lambda: Zq[perm], reps),
-        far_gather=event_ms(lambda: Zp[dst], reps),
-        kernel=event_ms(lambda: kern_lisa.lisa_count(li, wq, Zp, B, obs, cnt,
-                                                     Zf=Zf, **far), reps),
+        far_rows=event_ms(lambda: perm[dst], reps),
+        kernel=event_ms(lambda: kern_lisa.lisa_count(li, wq, Zq, perm, B, obs, cnt,
+                                                     **fwd), reps),
         observed=event_ms(lambda: kern_lisa.lisa_observed(
-            li, wq, Zp0, B, Zf=Zp0[dst], **far), 2))
+            li, wq, Zq, rows_idx, B, **f0), 2))
     steps = iter(range(1, 1 << 20))
 
     def draw():
-        zp = Zq[feistel_apply(fold_in(base, next(steps)), rows_idx, plan.n)]
-        kern_lisa.lisa_count(li, wq, zp, B, obs, cnt, Zf=zp[dst], **far)
+        rows = feistel_apply(fold_in(base, next(steps)), rows_idx, plan.n)
+        kern_lisa.lisa_count(li, wq, Zq, rows, B, obs, cnt, far_rows=rows[dst], **far)
 
     split["whole_draw"] = event_ms(draw, reps)
     split["bound"], by = bound(*lisa_work(plan, G, "rows"))
@@ -1779,24 +1791,23 @@ def lisa_draw_split(dev, d, reps: int = 5, tag: str = "lisa"):
           + f" ({by}-bound); far edges {n_live:,}, far_bmax {plan.far_bmax}")
     # the draw step and the observed entry against their plain versions here
     csr = band_csr(plan, Zq.device)
-    fwd, f0 = dict(Zf=Zf, **far), dict(Zf=Zp0[dst], **far)
     zero = torch.zeros_like(cnt)
-    got = kern_lisa.lisa_count(li, wq, Zp, B, obs, zero.clone(), **fwd)
-    want = kern_lisa.lisa_count_plain(li, wq, Zp, B, obs, zero.clone(), **fwd)
+    got = kern_lisa.lisa_count(li, wq, Zq, perm, B, obs, zero.clone(), **fwd)
+    want = kern_lisa.lisa_count_plain(li, wq, Zq, perm, B, obs, zero.clone(), **fwd)
     check(int(got.sum(dtype=torch.int64)) > 0, "lisa_win at 1M: no count moved")
     shape = f"{plan.n:,} cells x {G} genes, k={plan.local_idx.shape[1]}"
     holds = {"lisa_win": hold_main(
         f"lisa_win at {shape}", got, want,
-        lambda: kern_lisa.lisa_count(li, wq, Zp, B, obs, cnt, **fwd),
-        lambda: kern_lisa.lisa_count_plain(li, wq, Zp, B, obs, cnt, **fwd),
-        lisa_work(plan, G, "rows"), csr, Zp)}
+        lambda: kern_lisa.lisa_count(li, wq, Zq, perm, B, obs, cnt, **fwd),
+        lambda: kern_lisa.lisa_count_plain(li, wq, Zq, perm, B, obs, cnt, **fwd),
+        lisa_work(plan, G, "rows"), csr, Zq[perm])}
     del got, want
     holds["lisa_obs"] = hold_main(
-        f"lisa_obs at {shape}", kern_lisa.lisa_observed(li, wq, Zp0, B, **f0),
-        kern_lisa.lisa_observed_plain(li, wq, Zp0, B, **f0),
-        lambda: kern_lisa.lisa_observed(li, wq, Zp0, B, **f0),
-        lambda: kern_lisa.lisa_observed_plain(li, wq, Zp0, B, **f0),
-        lisa_work(plan, G, "rows", observed=True), csr, Zp0)
+        f"lisa_obs at {shape}", kern_lisa.lisa_observed(li, wq, Zq, rows_idx, B, **f0),
+        kern_lisa.lisa_observed_plain(li, wq, Zq, rows_idx, B, **f0),
+        lambda: kern_lisa.lisa_observed(li, wq, Zq, rows_idx, B, **f0),
+        lambda: kern_lisa.lisa_observed_plain(li, wq, Zq, rows_idx, B, **f0),
+        lisa_work(plan, G, "rows", observed=True), csr, Zq[rows_idx])
     return split, holds
 
 
@@ -1882,26 +1893,26 @@ def hold_k8(plan, Z) -> dict:
     li, rows_idx, src, dst = lo.li, lo.rows_idx, lo.far_row, lo.far_dst
     fq32 = far_q[:lo.n_live].to(torch.int32)[:, None]
 
-    def layer(Zp):
+    def layer(rows):
         out = torch.zeros((n_pad, G), dtype=torch.int32, device=Zq.device)
-        return out.index_add_(0, src, Zp[dst].to(torch.int32) * fq32)
+        return out.index_add_(0, src, Zq[rows[dst]].to(torch.int32) * fq32)
 
-    Zp0 = Zq[rows_idx]
-    obs = kern_lisa.lisa_observed(li, wq, Zp0, blk, far=layer(Zp0))
-    Zp = Zq[feistel_apply(fold_in(key_for(5, "perm_feistel_local", 0), 0),
-                          rows_idx, plan.n)]
-    far = layer(Zp)
+    obs = kern_lisa.lisa_observed(li, wq, Zq, rows_idx, blk, far=layer(rows_idx))
+    perm = feistel_apply(fold_in(key_for(5, "perm_feistel_local", 0), 0),
+                         rows_idx, plan.n)
+    far = layer(perm)
     cnt = torch.zeros(obs.shape, dtype=torch.int8, device=Zq.device)
-    got = kern_lisa.lisa_count(li, wq, Zp, blk, obs, cnt.clone(), far=far)
-    want = kern_lisa.lisa_count_plain(li, wq, Zp, blk, obs, cnt.clone(), far=far)
+    got = kern_lisa.lisa_count(li, wq, Zq, perm, blk, obs, cnt.clone(), far=far)
+    want = kern_lisa.lisa_count_plain(li, wq, Zq, perm, blk, obs, cnt.clone(), far=far)
     check(int(got.sum(dtype=torch.int64)) > 0, "lisa_dense at the vignette: no "
           "count moved")
     return hold_main(f"lisa_dense (K8) at {plan.n:,} cells k={li.shape[1]} x {G} "
                      f"genes", got, want,
-                     lambda: kern_lisa.lisa_count(li, wq, Zp, blk, obs, cnt, far=far),
-                     lambda: kern_lisa.lisa_count_plain(li, wq, Zp, blk, obs, cnt,
-                                                        far=far),
-                     lisa_work(plan, G, "dense"), band_csr(plan, Zq.device), Zp)
+                     lambda: kern_lisa.lisa_count(li, wq, Zq, perm, blk, obs, cnt,
+                                                  far=far),
+                     lambda: kern_lisa.lisa_count_plain(li, wq, Zq, perm, blk, obs,
+                                                        cnt, far=far),
+                     lisa_work(plan, G, "dense"), band_csr(plan, Zq.device), Zq[perm])
 
 
 def hold_lisa_float(plan, Z, reps: int = 20) -> dict:
@@ -2223,9 +2234,10 @@ def phase_local_vs_cpu(dev, coords: np.ndarray, n_genes: int, seed: int,
 def tail_draw_split(dev, d, stat: str, reps: int = 5):
     """One draw of local Geary ("geary"), Gi* two-sided ("getis_star") or Gi
     "greater" ("getis_g") at the public run's shape, part by part (CUDA
-    events): Feistel rows, row gather, far gather, the draw-step kernel; the
-    observed pass once. Then the draw step and the observed entry held
-    against their plain versions there (``hold_main``)."""
+    events): Feistel rows, the far targets' rows, the draw-step kernel
+    reading the table through them; the observed pass once. Then the draw
+    step and the observed entry held against their plain versions there
+    (``hold_main``)."""
     plan = d._null_plan_cache["value"]
     n, n_pad = plan.n, plan.n_padded
     lo = banded._local_setup(plan, d.X.device)
@@ -2240,13 +2252,14 @@ def tail_draw_split(dev, d, stat: str, reps: int = 5):
         key = "perm_feistel_local_geary"
         obs_fns = (kern_lisa.geary_observed, kern_lisa.geary_observed_plain)
 
-        def observed(Zp, fn=kern_lisa.geary_observed):
-            return fn(li, w, Zp, B, w_code, far_row_ptr=ptr, far_q=fq, Zf=Zp[dst])
-        obs = observed(Zq[rows_idx])
+        def observed(rows, fn=kern_lisa.geary_observed):
+            return fn(li, w, Zq, rows, B, w_code, far_row_ptr=ptr, far_q=fq,
+                      far_rows=rows[dst])
+        obs = observed(rows_idx)
 
-        def step(Zp, Zf, cnt, fn=kern_lisa.geary_count):
-            return fn(li, w, Zp, B, obs, cnt, w_code, far_row_ptr=ptr, far_q=fq,
-                      Zf=Zf)
+        def step(rows, cnt, fn=kern_lisa.geary_count):
+            return fn(li, w, Zq, rows, B, obs, cnt, w_code, far_row_ptr=ptr,
+                      far_q=fq, far_rows=rows[dst])
         plain_step = kern_lisa.geary_count_plain
     else:
         star = stat == "getis_star"
@@ -2260,12 +2273,11 @@ def tail_draw_split(dev, d, stat: str, reps: int = 5):
         key = "perm_feistel_getis"
         obs_fns = (kern_lisa.getis_lag, kern_lisa.getis_lag_plain)
 
-        def observed(Zp, fn=kern_lisa.getis_lag):
-            return fn(li, w, Zp, B, far_row_ptr=ptr, far_q=fq, Zf=Zp[dst])
-        Zp0 = Zq[rows_idx]
-        lag_o = observed(Zp0)
-        me_o = Zp0[B:B + n_pad].contiguous()
-        del Zp0
+        def observed(rows, fn=kern_lisa.getis_lag):
+            return fn(li, w, Zq, rows, B, far_row_ptr=ptr, far_q=fq,
+                      far_rows=rows[dst])
+        lag_o = observed(rows_idx)
+        me_o = Zq[rows_idx[B:B + n_pad]].contiguous()
         if star:
             obs = lag_o + me_o.to(torch.int32)
             del lag_o, me_o
@@ -2279,27 +2291,23 @@ def tail_draw_split(dev, d, stat: str, reps: int = 5):
             tail = dict(w_row=w_bin, tot=tot, sq=sq, inv_m=inv_m, lag_o=lag_o,
                         me_o=me_o)
 
-        def step(Zp, Zf, cnt, fn=fns[0]):
-            return fn(li, w, Zp, B, obs, cnt, alternative=alt, far_row_ptr=ptr,
-                      far_q=fq, Zf=Zf, **tail)
+        def step(rows, cnt, fn=fns[0]):
+            return fn(li, w, Zq, rows, B, obs, cnt, alternative=alt,
+                      far_row_ptr=ptr, far_q=fq, far_rows=rows[dst], **tail)
         plain_step = fns[1]
     G = Zq.shape[1]
     cnt = torch.zeros(obs.shape, dtype=torch.int8, device=d.X.device)
     base = key_for(3, key, 0)
     perm = feistel_apply(fold_in(base, 0), rows_idx, n)
-    Zp = Zq[perm]
-    Zf = Zp[dst]
     split = dict(
         feistel=event_ms(lambda: feistel_apply(fold_in(base, 1), rows_idx, n), reps),
-        row_gather=event_ms(lambda: Zq[perm], reps),
-        far_gather=event_ms(lambda: Zp[dst], reps),
-        kernel=event_ms(lambda: step(Zp, Zf, cnt), reps),
-        observed=event_ms(lambda: observed(Zq[rows_idx]), 2))
+        far_rows=event_ms(lambda: perm[dst], reps),
+        kernel=event_ms(lambda: step(perm, cnt), reps),
+        observed=event_ms(lambda: observed(rows_idx), 2))
     steps = iter(range(1, 1 << 20))
 
     def draw():
-        zp = Zq[feistel_apply(fold_in(base, next(steps)), rows_idx, n)]
-        step(zp, zp[dst], cnt)
+        step(feistel_apply(fold_in(base, next(steps)), rows_idx, n), cnt)
 
     split["whole_draw"] = event_ms(draw, reps)
     mode = f"{stat}_win"
@@ -2311,17 +2319,16 @@ def tail_draw_split(dev, d, stat: str, reps: int = 5):
           + f" ({by}-bound); far edges {n_live:,}")
     csr = band_csr(plan, Zq.device)
     zero = torch.zeros_like(cnt)
-    got, want = step(Zp, Zf, zero.clone()), step(Zp, Zf, zero.clone(), fn=plain_step)
+    got, want = step(perm, zero.clone()), step(perm, zero.clone(), fn=plain_step)
     check(int(got.sum(dtype=torch.int64)) > 0, f"{mode} at 1M: no count moved")
     hold_main(f"{mode} at {n:,} cells x {G} genes", got, want,
-              lambda: step(Zp, Zf, cnt), lambda: step(Zp, Zf, cnt, fn=plain_step),
-              tail_work(plan, G, mode), csr, Zp)
+              lambda: step(perm, cnt), lambda: step(perm, cnt, fn=plain_step),
+              tail_work(plan, G, mode), csr, Zq[perm])
     del got, want
-    Zp0 = Zq[rows_idx]
-    hold_main(f"{obs_mode} at {n:,} cells x {G} genes", observed(Zp0),
-              observed(Zp0, fn=obs_fns[1]), lambda: observed(Zp0),
-              lambda: observed(Zp0, fn=obs_fns[1]), tail_work(plan, G, obs_mode),
-              csr, Zp0)
+    hold_main(f"{obs_mode} at {n:,} cells x {G} genes", observed(rows_idx),
+              observed(rows_idx, fn=obs_fns[1]), lambda: observed(rows_idx),
+              lambda: observed(rows_idx, fn=obs_fns[1]), tail_work(plan, G, obs_mode),
+              csr, Zq[rows_idx])
     return split
 
 
@@ -2541,9 +2548,10 @@ def lee_path_operands(dev, d, pairs):
     o = dict(plan=plan, Yq=Yq, zx=zx, wq=wq, sw_row=sw.reshape(-1).contiguous(),
              li=lo.li, n_live=lo.n_live, dst=lo.far_dst, rows_idx=lo.rows_idx,
              far=dict(far_row_ptr=lo.ptr, far_q=far_q[:lo.n_live].to(torch.int8)))
-    Yp0 = Yq[lo.rows_idx]
-    o["obs"], _ = kern_lisa.lee_observed(o["li"], wq, Yp0, B, zx, o["sw_row"],
-                                         Zf=Yp0[lo.far_dst], **o["far"])
+    o["obs"], _ = kern_lisa.lee_observed(o["li"], wq, Yq, lo.rows_idx, B, zx,
+                                         o["sw_row"],
+                                         far_rows=lo.rows_idx[lo.far_dst],
+                                         **o["far"])
     return o
 
 
@@ -2556,10 +2564,9 @@ def phase_lee_path_kernels(dev, d, pairs, seed: int = 3):
     o = lee_path_operands(dev, d, pairs)
     args = (o["li"], o["wq"])
     tail = (B, o["zx"], o["sw_row"])
-    Yp0 = o["Yq"][o["rows_idx"]]
     rows = feistel_apply(fold_in(key_for(seed, "perm_feistel_lee", 0), 0),
                          o["rows_idx"], o["plan"].n)
-    Yp = o["Yq"][rows]
+    Yp0, Yp = (o["Yq"], o["rows_idx"]), (o["Yq"], rows)
     errs = {}
 
     def equal(label, got, want):
@@ -2568,42 +2575,36 @@ def phase_lee_path_kernels(dev, d, pairs, seed: int = 3):
               f"differs from plain (max |diff| {err})")
         errs[label] = err
 
-    got_o, got_p = kern_lisa.lee_observed(*args, Yp0, *tail, Zf=Yp0[o["dst"]],
-                                          **o["far"])
-    want_o, want_p = kern_lisa.lee_observed_plain(*args, Yp0, *tail,
-                                                  Zf=Yp0[o["dst"]], **o["far"])
+    f0 = dict(far_rows=o["rows_idx"][o["dst"]], **o["far"])
+    got_o, got_p = kern_lisa.lee_observed(*args, *Yp0, *tail, **f0)
+    want_o, want_p = kern_lisa.lee_observed_plain(*args, *Yp0, *tail, **f0)
     equal("lee_obs", got_o, want_o)
     equal("lee_obs partials", got_p, want_p)
     got_op, want_p0 = got_p, want_p
     got_c = torch.zeros(o["obs"].shape, dtype=torch.int8, device=dev)
     want_c = got_c.clone()
-    Zf = Yp[o["dst"]]
-    got_p = kern_lisa.lee_count(*args, Yp, *tail, o["obs"], got_c, Zf=Zf,
-                                **o["far"])
-    want_p = kern_lisa.lee_count_plain(*args, Yp, *tail, o["obs"], want_c, Zf=Zf,
-                                       **o["far"])
+    fr = dict(far_rows=rows[o["dst"]], **o["far"])
+    got_p = kern_lisa.lee_count(*args, *Yp, *tail, o["obs"], got_c, **fr)
+    want_p = kern_lisa.lee_count_plain(*args, *Yp, *tail, o["obs"], want_c, **fr)
     equal("lee_win counts", got_c, want_c)
     equal("lee_win partials", got_p, want_p)
     moved = int(got_c.sum(dtype=torch.int64))
     check(0 < moved < got_c.numel(), "lee_win at the main path's shape: "
           "degenerate case")
-    equal("lee_partial", kern_lisa.lee_partial(*args, Yp, *tail, Zf=Zf,
-                                               **o["far"]), want_p)
+    equal("lee_partial", kern_lisa.lee_partial(*args, *Yp, *tail, **fr), want_p)
     # times at the tile's own width (hold_main checks the pairs again)
     G, plan, csr = o["Yq"].shape[1], o["plan"], band_csr(o["plan"], dev)
     cnt = got_c.clone()
     shape = f"{plan.n:,} cells x {G} pairs"
     hold_main(f"lee_win at {shape}", (got_c, got_p), (want_c, want_p),
-              lambda: kern_lisa.lee_count(*args, Yp, *tail, o["obs"], cnt, Zf=Zf,
-                                          **o["far"]),
-              lambda: kern_lisa.lee_count_plain(*args, Yp, *tail, o["obs"], cnt,
-                                                Zf=Zf, **o["far"]),
-              lee_work(plan, G, "lee_win"), csr, Yp)
-    f0 = dict(Zf=Yp0[o["dst"]], **o["far"])
+              lambda: kern_lisa.lee_count(*args, *Yp, *tail, o["obs"], cnt, **fr),
+              lambda: kern_lisa.lee_count_plain(*args, *Yp, *tail, o["obs"], cnt,
+                                                **fr),
+              lee_work(plan, G, "lee_win"), csr, o["Yq"][rows])
     hold_main(f"lee_obs at {shape}", (got_o, got_op), (want_o, want_p0),
-              lambda: kern_lisa.lee_observed(*args, Yp0, *tail, **f0),
-              lambda: kern_lisa.lee_observed_plain(*args, Yp0, *tail, **f0),
-              lee_work(plan, G, "lee_obs"), csr, Yp0)
+              lambda: kern_lisa.lee_observed(*args, *Yp0, *tail, **f0),
+              lambda: kern_lisa.lee_observed_plain(*args, *Yp0, *tail, **f0),
+              lee_work(plan, G, "lee_obs"), csr, o["Yq"][o["rows_idx"]])
     print(f"[lee] lee entries at the main path's shape ({o['plan'].n_padded:,} "
           f"rows x {o['Yq'].shape[1]} pairs, one draw, {moved:,} counts): "
           f"counts, |Lq| and partials equal their plain versions; max |diff| "
@@ -2614,39 +2615,37 @@ def phase_lee_path_kernels(dev, d, pairs, seed: int = 3):
 def lee_draw_split(dev, d, pairs, reps: int = 5):
     """One int8 Lee draw at the public run's shape over every pair, part by
     part (CUDA events): Feistel rows, permutation rows (the "sort"
-    stream), row gather, far gather, the draw-step kernel, the fixed-order
-    reduction of the block partials; the observed entry once."""
+    stream), the far targets' rows, the draw-step kernel reading the y
+    codes through them, the fixed-order reduction of the block partials;
+    the observed entry once."""
     o = lee_path_operands(dev, d, pairs)
     plan, Yq, zx, wq, sw_row, li = (o[k] for k in ("plan", "Yq", "zx", "wq",
                                                    "sw_row", "li"))
     dst, rows_idx, far, obs = o["dst"], o["rows_idx"], o["far"], o["obs"]
     G = Yq.shape[1]
-    Yp0 = Yq[rows_idx]
     cnt = torch.zeros(obs.shape, dtype=torch.int8, device=dev)
     base = key_for(3, "perm_feistel_lee", 0)
     sort_base = key_for(3, "perm_lee", 0)
     rows = feistel_apply(fold_in(base, 0), rows_idx, plan.n)
-    Yp = Yq[rows]
-    Zf = Yp[dst]
-    part = kern_lisa.lee_count(li, wq, Yp, B, zx, sw_row, obs, cnt, Zf=Zf, **far)
+    fr = dict(far_rows=rows[dst], **far)
+    part = kern_lisa.lee_count(li, wq, Yq, rows, B, zx, sw_row, obs, cnt, **fr)
     split = dict(
         feistel=event_ms(lambda: feistel_apply(fold_in(base, 1), rows_idx, plan.n),
                          reps),
         permutation=event_ms(lambda: permutation(fold_in(sort_base, 1), plan.n,
                                                  device=dev)[rows_idx], reps),
-        row_gather=event_ms(lambda: Yq[rows], reps),
-        far_gather=event_ms(lambda: Yp[dst], reps),
-        kernel=event_ms(lambda: kern_lisa.lee_count(li, wq, Yp, B, zx, sw_row,
-                                                    obs, cnt, Zf=Zf, **far), reps),
+        far_rows=event_ms(lambda: rows[dst], reps),
+        kernel=event_ms(lambda: kern_lisa.lee_count(li, wq, Yq, rows, B, zx, sw_row,
+                                                    obs, cnt, **fr), reps),
         partial_sum=event_ms(lambda: banded._tree_sum(part), reps),
         observed=event_ms(lambda: kern_lisa.lee_observed(
-            li, wq, Yp0, B, zx, sw_row, Zf=Yp0[dst], **far), 2))
+            li, wq, Yq, rows_idx, B, zx, sw_row, far_rows=rows_idx[dst], **far), 2))
     steps = iter(range(1, 1 << 20))
 
     def draw():
-        yp = Yq[feistel_apply(fold_in(base, next(steps)), rows_idx, plan.n)]
-        banded._tree_sum(kern_lisa.lee_count(li, wq, yp, B, zx, sw_row, obs, cnt,
-                                             Zf=yp[dst], **far))
+        r = feistel_apply(fold_in(base, next(steps)), rows_idx, plan.n)
+        banded._tree_sum(kern_lisa.lee_count(li, wq, Yq, r, B, zx, sw_row, obs, cnt,
+                                             far_rows=r[dst], **far))
 
     split["whole_draw"] = event_ms(draw, reps)
     split["bound"], by = bound(*lee_work(plan, G, "lee_win"))
@@ -3431,8 +3430,9 @@ def slot_draw_split(dev, smi: str, n_cells: int = 1_000_000,
 def sort_operands(plan, stat: str, T: torch.Tensor):
     """The K7 tail's fixed operands on ``plan`` for the int8 table ``T``
     (codes padded to 4 columns), as ``ops.banded`` builds them: returns
-    (observed fn, draw-step fn taking (Zp, counts, fn)) and the plain
-    draw-step function."""
+    the observed values, the draw step (taking a draw's rows, the counts
+    and the entry, and reading ``T`` through the rows), the kernel and
+    plain draw-step functions and the padded rows."""
     lo = banded._local_setup(plan, T.device)
     li, n_live, ptr, dst = lo.li, lo.n_live, lo.ptr, lo.far_dst
     src, rows_idx = lo.far_row, lo.rows_idx
@@ -3442,26 +3442,26 @@ def sort_operands(plan, stat: str, T: torch.Tensor):
     else:
         w = (plan.w_local > 0).to(torch.int8)
         fq = torch.ones(n_live, dtype=torch.int8, device=T.device)
-    far = lambda Zp: dict(far_row_ptr=ptr, far_q=fq, Zf=Zp[dst])
-    Zp0 = T[rows_idx]
+    far = lambda rows: dict(far_row_ptr=ptr, far_q=fq, far_rows=rows[dst])
+    Zp0 = (T, rows_idx)
     if stat == "moran":
-        obs = kern_lisa.lisa_observed(li, w, Zp0, B, **far(Zp0))
+        obs = kern_lisa.lisa_observed(li, w, *Zp0, B, **far(rows_idx))
         fns = (kern_lisa.lisa_count, kern_lisa.lisa_count_plain)
-        step = lambda Zp, c, fn: fn(li, w, Zp, B, obs, c, **far(Zp))
+        step = lambda rows, c, fn: fn(li, w, T, rows, B, obs, c, **far(rows))
     elif stat == "geary":
         w_code = w.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
             0, src, fq.to(torch.int32))
-        obs = kern_lisa.geary_observed(li, w, Zp0, B, w_code, **far(Zp0))
+        obs = kern_lisa.geary_observed(li, w, *Zp0, B, w_code, **far(rows_idx))
         fns = (kern_lisa.geary_count, kern_lisa.geary_count_plain)
-        step = lambda Zp, c, fn: fn(li, w, Zp, B, obs, c, w_code, **far(Zp))
+        step = lambda rows, c, fn: fn(li, w, T, rows, B, obs, c, w_code, **far(rows))
     else:
         star = stat == "getis_star"
         w_bin = w.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
             0, src, fq.to(torch.int32)).to(torch.float32)
         tot, sq = banded._code_moments(T)
         inv_m = banded._inv_m(plan.n, star)
-        lag_o = kern_lisa.getis_lag(li, w, Zp0, B, **far(Zp0))
-        me_o = Zp0[B:B + plan.n_padded].contiguous()
+        lag_o = kern_lisa.getis_lag(li, w, *Zp0, B, **far(rows_idx))
+        me_o = T[rows_idx[B:B + plan.n_padded]].contiguous()
         if star:
             obs, alt = lag_o + me_o.to(torch.int32), "two-sided"
             tail = dict(wp1=w_bin + 1.0, tm=tot * inv_m)
@@ -3472,8 +3472,8 @@ def sort_operands(plan, stat: str, T: torch.Tensor):
             tail = dict(w_row=w_bin, tot=tot, sq=sq, inv_m=inv_m, lag_o=lag_o,
                         me_o=me_o)
             fns = (kern_lisa.getis_g_count, kern_lisa.getis_g_count_plain)
-        step = lambda Zp, c, fn: fn(li, w, Zp, B, obs, c, alternative=alt,
-                                    **far(Zp), **tail)
+        step = lambda rows, c, fn: fn(li, w, T, rows, B, obs, c, alternative=alt,
+                                      **far(rows), **tail)
     return obs, step, fns, rows_idx
 
 
@@ -3544,8 +3544,8 @@ def phase_sort_streams(dev, gen, smi: str, n_cells: int = 1_000_000,
         T = banded._pad_cols4(banded._quantize_x(Xh)[0] if stat.startswith(
             "getis") else banded._quantize_z(Zt)[0])
         obs, step, fns, rows_idx = sort_operands(plan, stat, T)
-        Zp = T[banded._draw_rows("sort", 3, rows_idx, plan.n, stream,
-                                 "perm_feistel_" + stream[len("perm_"):])(0)]
+        Zp = banded._draw_rows("sort", 3, rows_idx, plan.n, stream,
+                               "perm_feistel_" + stream[len("perm_"):])(0)
         zero = torch.zeros(obs.shape, dtype=torch.int8, device=dev)
         got, want = step(Zp, zero.clone(), fns[0]), step(Zp, zero.clone(), fns[1])
         sync(dev)

@@ -4,6 +4,8 @@
 //
 //   lag_i[g]  = sum_slots wq * z[window + local_idx][g]             (band)
 //             + far_i[g]                                            (far)
+//   z[p][g]   = table[rows[p]][g]       (the draw's codes, read through
+//               its rows: rows[p] is the table row at padded position p)
 //   lag2_i[g] = the same sum over z^2                          (geary only)
 //   draw step:  cnt_i[g] += extreme_i[g]     (counter updated in place)
 //   observed:   out_i[g]  = the statistic    (identity placement)
@@ -43,7 +45,9 @@
 // :3184). The moran far term also arrives densely (K8, _band_lag_count_
 // kernel_i8 :1291); the far term comes in one of three forms (template FAR):
 //   kFarRows  row pointers into the compact far list: far_ptr int32 [Npad+1],
-//             far_q int8 [F] weight codes, zf int8 [F, G] gathered far values
+//             far_q int8 [F] weight codes, far_rows int64 [F] each entry's
+//             table row (the draw's rows at the far targets), so far values
+//             are read through the permutation too
 //             (the function of K7; the list is sorted by source row, so row
 //             r's entries are [far_ptr[r], far_ptr[r+1]) -- no S-row windows
 //             and no one-hot operator, which were BlockSpec artefacts);
@@ -51,8 +55,9 @@
 //   kFarNone  no far edges (moran; the other statistics take an empty list).
 //
 // What bounds it on the H100: bytes, and their latency. Per draw at 1M
-// cells x 1,024 genes the function must read ~1.0 GB of gathered codes,
-// 4.3 GB of int32 (or f32) observed values, ~0.27 GB of far values and the
+// cells x 1,024 genes the function must read ~1.0 GB of codes (random rows
+// of the table: 128-byte row segments at a 128-gene tile), 4.3 GB of
+// int32 (or f32) observed values, ~0.27 GB of far values and the
 // int8 counters (1.0 GB), and write the counters back (1.0 GB): ~7.5 GB,
 // ~2.2 ms at 3.35 TB/s. Gi adds its observed int32 lag and int8 own codes,
 // Lee 1.0 GB of fixed x codes, K8 4.3 GB of dense far layer. The integer
@@ -65,8 +70,12 @@
 // - A CTA of 512 threads owns a column tile of rb genes (a power of two,
 //   16..128) and walks a run of R consecutive band blocks on K4's 4-slot
 //   slab ring (slab_ring.cuh): slab m+2 is copied by cp.async while block
-//   m-1 computes, so Zp crosses HBM (R+2)/R times, 16 bytes a copy (4-byte
-//   loads for a ragged G).
+//   m-1 computes, so the draw's codes cross HBM (R+2)/R times, 16 bytes a
+//   copy (4 for a ragged G). Per draw nothing is gathered first: a slab's
+//   ring row r comes straight from table row rows[s*B + r]
+//   (fill_slot_rows), a far entry's values from table row far_rows[e].
+//   The row indices are staged in shared memory by cp.async ahead of the
+//   copies that read them, so neither a copy nor a register waits on one.
 // - A block's rows go in chunks of up to four rows a thread. Each chunk's
 //   band rows (local_idx, wq, the row vector, far row pointers) and its
 //   first far entries are staged by cp.async S - 1 chunks ahead, one group
@@ -94,7 +103,13 @@
 // barrier waits for its slowest row, so the rows a thread sums between two
 // barriers set the pace; staging the planes through shared memory a chunk
 // ahead, at any depth, left them latency-bound behind those barriers, and
-// reading them a row ahead into registers does not.
+// reading them a row ahead into registers does not. The draw's row indices
+// take the opposite road: every counting instance already uses the 128
+// registers a thread may have, and holding the next copies' indices in
+// registers (loaded an issue ahead) left the moran and lee draw steps at 1M
+// cells 24% and 35% slower than on a gathered table; loading them as each
+// copy is issued, 20% and 47% slower. Staged in shared memory they cost 3%
+// and 6% (lee's buffers then fit two rows a thread at 64-gene tiles only).
 
 #include "int_dot.cuh"
 
@@ -127,17 +142,18 @@ struct Tail {
 struct Args {
   const int32_t* local_idx;
   const int8_t* wq;
-  const int8_t* zp;
+  const int8_t* table;    // value codes [T, G]
+  const int64_t* rows;    // the draw's table row of each padded position [(nb+2)*B]
   const int32_t* far_ptr;
   const int8_t* far_q;
-  const int8_t* zf;
+  const int64_t* far_rows;  // the table row of each far entry [F]
   const int32_t* far_dense;
   const int32_t* obs;
   void* cnt;
   int32_t* out;
   int nb, B, k, G;
   int rb_shift, run, chunk, far_cap, stages, n_ct;
-  bool vec;               // byte planes and Zp rows in whole 16-byte copies
+  bool vec;               // byte planes and table rows in whole 16-byte copies
 };
 
 // Shared-memory layout, mirrored by lisa_count.lisa_smem_bytes: the ring
@@ -145,7 +161,7 @@ struct Args {
 // far buffer, then Getis's two column vectors [rb] f32, Lee's products
 // [chunk, rb] f32 and group sums [16, rb] f32.
 struct Layout {
-  size_t band, far, colv, prod, red, total;
+  size_t band, far, colv, prod, red, sidx, fidx, frng, total;
 };
 __host__ __device__ inline Layout layout(int B, int rb, int chunk, int k, int far_cap,
                                          int stages, bool rows_far, bool colv, bool lee) {
@@ -162,15 +178,14 @@ __host__ __device__ inline Layout layout(int B, int rb, int chunk, int k, int fa
   if (lee) o += static_cast<size_t>(chunk) * rb * 4;
   L.red = o;
   if (lee) o += static_cast<size_t>(kLeeGroups) * rb * 4;
+  L.sidx = o;                                   // three slabs' row indices
+  o += 3 * stage_buf_bytes(static_cast<size_t>(B) * 8);
+  L.fidx = o;                                   // a stage's far rows, S of them
+  if (rows_far) o += stages * stage_buf_bytes(static_cast<size_t>(far_cap) * 8);
+  L.frng = o;                                   // 2S - 1 chunks' far ranges
+  if (rows_far) o += round16((2 * static_cast<size_t>(stages) - 1) * 8);
   L.total = o;
   return L;
-}
-
-// A 4-byte cp.async (far values of a ragged G).
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
 }
 
 // Four counters of any type, loaded and stored.
@@ -399,7 +414,9 @@ lisa_kernel(const Args a, const Tail t) {
                      : STAT == kMoran ? nullptr : static_cast<const void*>(t.row_f);
   const unsigned char* li = reinterpret_cast<const unsigned char*>(a.local_idx);
   const unsigned char* wqb = reinterpret_cast<const unsigned char*>(a.wq);
-  const FarRow<NW> far{reinterpret_cast<const unsigned char*>(a.zf) + col, G, G - col, a.vec};
+  const unsigned char* tab = reinterpret_cast<const unsigned char*>(a.table);
+  // far values past a chunk's staged ones: the entry's table row, read here
+  const FarRow<NW> far{tab + col, G, G - col, a.vec};
 
   auto chunk_rows = [&](int st, size_t& r0, int& rows) {
     const int c = st % nc;
@@ -422,30 +439,70 @@ lisa_kernel(const Args a, const Tail t) {
                             reinterpret_cast<const unsigned char*>(a.far_ptr), r0 * 4,
                             (rows + 1) * 4);
   };
-  // the first far_cap far entries [p.x, p.y) of chunk st into far buffer
-  // st % S (their range read from far_ptr a stage earlier)
+  // The draw's row indices pass through shared memory, staged by cp.async
+  // as the copies are, so no copy waits on an index and no register holds
+  // one: slab s's B rows in slot s % 3, a ring step before its fill; chunk
+  // st's far range (2 ints of far_ptr) in slot st % R, 2(S - 1) stages
+  // before its values, and its first far_cap far rows in slot st % S, S - 1
+  // stages before.
+  unsigned char* sidx = smem + L.sidx;
+  unsigned char* fidx = smem + L.fidx;
+  int2* frng = reinterpret_cast<int2*>(smem + L.frng);
+  const int sb = static_cast<int>(stage_buf_bytes(static_cast<size_t>(B) * 8));
+  const int fb = static_cast<int>(stage_buf_bytes(static_cast<size_t>(a.far_cap) * 8));
+  const int R = 2 * S - 1;
+  auto slab_rows = [&](int s) {
+    return reinterpret_cast<int64_t*>(sidx + (s % 3) * sb +
+                                      ((static_cast<size_t>(s) * B * 8) & 15));
+  };
+  auto stage_slab_rows = [&](int s) {
+    stage_bytes<kThreads>(sidx + (s % 3) * sb, reinterpret_cast<const unsigned char*>(a.rows),
+                          static_cast<size_t>(s) * B * 8, B * 8);
+  };
   auto far_range = [&](int st) {
     size_t r0;
     int rows;
     chunk_rows(st, r0, rows);
     return make_int2(__ldg(a.far_ptr + r0), __ldg(a.far_ptr + r0 + rows));
   };
-  auto stage_far = [&](int st, int2 p) {
+  auto stage_range = [&](int st) {                  // threads 0 and 1
+    if (threadIdx.x < 2) {
+      size_t r0;
+      int rows;
+      chunk_rows(st, r0, rows);
+      cp_async4(reinterpret_cast<int*>(frng + st % R) + threadIdx.x,
+                a.far_ptr + r0 + (threadIdx.x ? rows : 0), 4);
+    }
+  };
+  auto far_rows = [&](int st, int2 p) {
+    return reinterpret_cast<int64_t*>(fidx + (st % S) * fb +
+                                      ((static_cast<size_t>(p.x) * 8) & 15));
+  };
+  auto stage_far_rows = [&](int st) {
+    const int2 p = frng[st % R];
+    stage_bytes<kThreads>(fidx + (st % S) * fb,
+                          reinterpret_cast<const unsigned char*>(a.far_rows),
+                          static_cast<size_t>(p.x) * 8, min(p.y - p.x, a.far_cap) * 8);
+  };
+  // the first far_cap far entries of chunk st into far buffer st % S, each
+  // from the table row its staged far row names
+  auto stage_far = [&](int st) {
+    const int2 p = frng[st % R];
     const int n = min(p.y - p.x, a.far_cap);
+    const int64_t* src_rows = far_rows(st, p);
     unsigned char* f = fbuf + (st % S) * fbuf_b;
-    const unsigned char* zf = reinterpret_cast<const unsigned char*>(a.zf);
     const int q_shift = rb_shift - 4;               // 16-byte copies of a row
     for (int v = threadIdx.x; v < n << q_shift; v += kThreads) {
       const int x = v >> q_shift, l = v & ((1 << q_shift) - 1);
       const int g = c0 + 16 * l;
-      const unsigned char* src = zf + static_cast<size_t>(p.x + x) * G + g;
+      const unsigned char* src = tab + static_cast<size_t>(src_rows[x]) * G + g;
       unsigned char* dst = f + (x << rb_shift) + 16 * l;
       if (a.vec) {
-        cp_async16(dst, g < G ? src : zf, g < G ? 16 : 0);
+        cp_async16(dst, g < G ? src : tab, g < G ? 16 : 0);
       } else {
 #pragma unroll
         for (int w = 0; w < 4; ++w)
-          cp_async4(dst + 4 * w, g + 4 * w < G ? src + 4 * w : zf, g + 4 * w < G ? 4 : 0);
+          cp_async4(dst + 4 * w, g + 4 * w < G ? src + 4 * w : tab, g + 4 * w < G ? 4 : 0);
       }
     }
     stage_bytes<kThreads>(f + a.far_cap * rb, reinterpret_cast<const unsigned char*>(a.far_q),
@@ -459,34 +516,62 @@ lisa_kernel(const Args a, const Tail t) {
       colv[rb + g] = in && t.col_b != nullptr ? t.col_b[c0 + g] : 0.f;
     }
   }
-  const int G4 = G >> 2;
-  const unsigned char* zp = reinterpret_cast<const unsigned char*>(a.zp);
   // Pipeline: stage st's copies (band, far entries and, at a block's first
   // chunk, its window's last slab) go out S - 1 stages ahead, one cp.async
-  // group a stage. Slab m + 2 (block m's last) lands in the slot slab m - 2
-  // held; with S - 1 <= chunks a block, block m - 2 is done when it is
-  // issued. The streamed planes bypass shared memory: each thread reads
-  // its next row's while it sums the current one.
+  // group a stage, with the row indices of later copies. Slab m + 2 (block
+  // m's last) lands in the slot slab m - 2 held; with S - 1 <= chunks a
+  // block, block m - 2 is done when it is issued, and so is every index
+  // staged for it. The streamed planes bypass shared memory: each thread
+  // reads its next row's while it sums the current one.
   const int ahead = S - 1;
-  int2 pn = make_int2(0, 0);                        // far range of the next stage issued
-  if (FAR == kFarRows) pn = far_range(0);
   auto issue = [&](int st) {
     if (st < steps) {
       stage(st);
       if (FAR == kFarRows) {
-        stage_far(st, pn);
-        if (st + 1 < steps) pn = far_range(st + 1);
+        stage_far(st);
+        if (st + ahead < steps) stage_far_rows(st + ahead);
+        if (st + 2 * ahead < steps) stage_range(st + 2 * ahead);
       }
       const int m = n0 + st / nc;
-      if (st % nc == 0 && m > n0) fill_slot<kThreads, 4>(ring, zp, m + 2, B, G4, c0 >> 2,
-                                                          rb_shift, a.vec);
+      if (st % nc == 0) {
+        if (m > n0)
+          fill_slot_rows<kThreads>(ring, tab, slab_rows(m + 2), m + 2, B, G, c0, rb_shift,
+                                   a.vec);
+        if (m + 3 <= n1 + 1) stage_slab_rows(m + 3);
+      }
     }
     cp_async_commit();
   };
-  fill_slot<kThreads, 4>(ring, zp, n0, B, G4, c0 >> 2, rb_shift, a.vec);
-  fill_slot<kThreads, 4>(ring, zp, n0 + 1, B, G4, c0 >> 2, rb_shift, a.vec);
-  fill_slot<kThreads, 4>(ring, zp, n0 + 2, B, G4, c0 >> 2, rb_shift, a.vec);
-  for (int st = 0; st < ahead; ++st) issue(st);
+  // the first three slabs' rows, the first 2(S - 1) far ranges and the
+  // first S - 1 chunks' far rows, read directly
+  if (threadIdx.x < B) {
+    int64_t r[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      r[i] = __ldg(a.rows + static_cast<size_t>(n0 + i) * B + threadIdx.x);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) slab_rows(n0 + i)[threadIdx.x] = r[i];
+  }
+  if (FAR == kFarRows)
+    for (int j = threadIdx.x; j < min(2 * ahead, steps); j += kThreads) frng[j % R] = far_range(j);
+  __syncthreads();
+  if (FAR == kFarRows) {
+    for (int j = 0; j < min(ahead, steps); ++j) {
+      const int2 p = frng[j % R];
+      int64_t* fr = far_rows(j, p);
+      for (int x = threadIdx.x; x < min(p.y - p.x, a.far_cap); x += kThreads)
+        fr[x] = __ldg(a.far_rows + p.x + x);
+    }
+  }
+  fill_slot_rows<kThreads>(ring, tab, slab_rows(n0), n0, B, G, c0, rb_shift, a.vec);
+  fill_slot_rows<kThreads>(ring, tab, slab_rows(n0 + 1), n0 + 1, B, G, c0, rb_shift, a.vec);
+  fill_slot_rows<kThreads>(ring, tab, slab_rows(n0 + 2), n0 + 2, B, G, c0, rb_shift, a.vec);
+  // a barrier before each issue, as in the loop: issue(st) restages index
+  // slots that issue(st - 1) read (issue(0): slab n0's)
+  for (int st = 0; st < ahead; ++st) {
+    __syncthreads();
+    issue(st);
+  }
 
   // this thread's first row at or after stage st (false: none)
   auto first_row = [&](int st, size_t& r) {
@@ -563,7 +648,7 @@ lisa_kernel(const Args a, const Tail t) {
           const int x = e - fs.e0;
           const bool staged = x < fs.n;
           const LT v = staged ? *reinterpret_cast<const LT*>(fs.vals + (x << rb_shift))
-                                 : far.load(e);
+                                 : far.load(static_cast<int>(__ldg(a.far_rows + e)));
           const int q = staged ? fs.q[x] : a.far_q[e];
           far1<false>(s, v, q);
           if constexpr (STAT == kGeary) {
@@ -720,7 +805,8 @@ cudaError_t launch(Args a, const Tail& t, const Shape& sh, cudaStream_t stream) 
   int rb_shift = 4;
   while ((1 << rb_shift) < sh.tile) ++rb_shift;
   if (sh.tile != (1 << rb_shift) || sh.tile > 128 || sh.run < 1 || sh.chunk < 1 ||
-      sh.chunk > a.B || sh.far_cap < 0 || a.nb < 1 || a.B < 1 || a.k < 1 || a.G < 4 ||
+      sh.chunk > a.B || sh.far_cap < 0 || a.nb < 1 || a.B < 1 || a.B > kThreads ||
+      a.k < 1 || a.G < 4 ||
       a.G % 4 || sh.stages < 2 || sh.stages > 4 ||
       sh.stages - 1 > (a.B + sh.chunk - 1) / sh.chunk)
     return cudaErrorInvalidValue;
@@ -731,17 +817,18 @@ cudaError_t launch(Args a, const Tail& t, const Shape& sh, cudaStream_t stream) 
   const void* rowv = STAT == kGeary ? static_cast<const void*>(t.row_i)
                      : STAT == kLee ? static_cast<const void*>(t.sw)
                      : STAT == kMoran ? nullptr : static_cast<const void*>(t.row_f);
-  // the band's copies need 16-byte-aligned arrays, the int32 / f32 planes
-  // 16-byte rows (the wrappers see to both)
+  // the band's and the row indices' copies need 16-byte-aligned arrays,
+  // the int32 / f32 planes 16-byte rows (the wrappers see to both)
   for (const void* p : {static_cast<const void*>(a.local_idx), static_cast<const void*>(a.wq),
                         rowv, static_cast<const void*>(a.far_ptr),
                         static_cast<const void*>(a.far_q), static_cast<const void*>(a.obs),
-                        static_cast<const void*>(t.lag_o), static_cast<const void*>(a.far_dense)})
+                        static_cast<const void*>(t.lag_o), static_cast<const void*>(a.far_dense),
+                        static_cast<const void*>(a.rows), static_cast<const void*>(a.far_rows)})
     if (!aligned(p, 16)) return cudaErrorMisalignedAddress;
-  if (!aligned(a.zp, 4) || !aligned(a.zf, 4) || !aligned(a.cnt, 4 * sizeof(CT)) ||
-      !aligned(t.me_o, 4) || !aligned(t.zx, 4))
+  if (!aligned(a.table, 4) || !aligned(a.cnt, 4 * sizeof(CT)) || !aligned(t.me_o, 4) ||
+      !aligned(t.zx, 4))
     return cudaErrorMisalignedAddress;
-  a.vec = a.G % 16 == 0 && aligned(a.zp, 16) && aligned(a.zf, 16) && aligned(a.cnt, 16) &&
+  a.vec = a.G % 16 == 0 && aligned(a.table, 16) && aligned(a.cnt, 16) &&
           aligned(t.me_o, 16) && aligned(t.zx, 16);
   a.rb_shift = rb_shift;
   a.run = sh.run;
@@ -796,16 +883,17 @@ cudaError_t by_counter(int cnt_bytes, F f) {
   }
 }
 
-Args common(const int32_t* local_idx, const int8_t* wq, const int8_t* zp,
-            const int32_t* far_ptr, const int8_t* far_q, const int8_t* zf, int nb, int B, int k,
-            int G) {
+Args common(const int32_t* local_idx, const int8_t* wq, const int8_t* table,
+            const int64_t* rows, const int32_t* far_ptr, const int8_t* far_q,
+            const int64_t* far_rows, int nb, int B, int k, int G) {
   Args a{};
   a.local_idx = local_idx;
   a.wq = wq;
-  a.zp = zp;
+  a.table = table;
+  a.rows = rows;
   a.far_ptr = far_ptr;
   a.far_q = far_q;
-  a.zf = zf;
+  a.far_rows = far_rows;
   a.nb = nb;
   a.B = B;
   a.k = k;
@@ -821,13 +909,14 @@ Args common(const int32_t* local_idx, const int8_t* wq, const int8_t* zp,
 // LISA draw step: cnt [Npad, G] (cnt_bytes 1, 2 or 4: int8/int16/int32) +=
 // (|z*lag| >= obs), in place. far_form: 0 none, 1 row pointers, 2 dense.
 extern "C" int sct_lisa_count(const int32_t* local_idx, const int8_t* wq,
-                              const int8_t* zp, const int32_t* far_ptr,
-                              const int8_t* far_q, const int8_t* zf,
+                              const int8_t* table, const int64_t* rows,
+                              const int32_t* far_ptr, const int8_t* far_q,
+                              const int64_t* far_rows,
                               const int32_t* far_dense, const int32_t* obs,
                               void* cnt, int nb, int B, int k, int G,
                               int far_form, int cnt_bytes, int tile, int run,
                               int chunk, int far_cap, int stages, void* stream) {
-  Args a = common(local_idx, wq, zp, far_ptr, far_q, zf, nb, B, k, G);
+  Args a = common(local_idx, wq, table, rows, far_ptr, far_q, far_rows, nb, B, k, G);
   a.far_dense = far_dense;
   a.obs = obs;
   a.cnt = cnt;
@@ -839,15 +928,16 @@ extern "C" int sct_lisa_count(const int32_t* local_idx, const int8_t* wq,
 }
 
 // LISA observed: out int32 [Npad, G] = |z*lag| at the placement the caller
-// gathered into zp (the identity placement for the observed statistic).
+// given by rows (the identity placement for the observed statistic).
 extern "C" int sct_lisa_observed(const int32_t* local_idx, const int8_t* wq,
-                                 const int8_t* zp, const int32_t* far_ptr,
-                                 const int8_t* far_q, const int8_t* zf,
+                                 const int8_t* table, const int64_t* rows,
+                                 const int32_t* far_ptr, const int8_t* far_q,
+                                 const int64_t* far_rows,
                                  const int32_t* far_dense, int32_t* out, int nb,
                                  int B, int k, int G, int far_form, int tile,
                                  int run, int chunk, int far_cap, int stages,
                                  void* stream) {
-  Args a = common(local_idx, wq, zp, far_ptr, far_q, zf, nb, B, k, G);
+  Args a = common(local_idx, wq, table, rows, far_ptr, far_q, far_rows, nb, B, k, G);
   a.far_dense = far_dense;
   a.out = out;
   return static_cast<int>(moran_by_far<false, int8_t>(
@@ -859,16 +949,17 @@ extern "C" int sct_lisa_observed(const int32_t* local_idx, const int8_t* wq,
 // the tail operands are as struct Tail documents; alt: 0 two-sided,
 // 1 greater, 2 less.
 extern "C" int sct_local_count(int stat, int alt, const int32_t* local_idx,
-                               const int8_t* wq, const int8_t* zp,
-                               const int32_t* far_ptr, const int8_t* far_q,
-                               const int8_t* zf, const void* obs, void* cnt,
+                               const int8_t* wq, const int8_t* table,
+                               const int64_t* rows, const int32_t* far_ptr,
+                               const int8_t* far_q, const int64_t* far_rows,
+                               const void* obs, void* cnt,
                                const int32_t* row_i, const float* row_f,
                                const float* col_a, const float* col_b,
                                const int32_t* lag_o, const int8_t* me_o,
                                float inv_m, int nb, int B, int k, int G,
                                int cnt_bytes, int tile, int run, int chunk,
                                int far_cap, int stages, void* stream) {
-  Args a = common(local_idx, wq, zp, far_ptr, far_q, zf, nb, B, k, G);
+  Args a = common(local_idx, wq, table, rows, far_ptr, far_q, far_rows, nb, B, k, G);
   a.obs = static_cast<const int32_t*>(obs);
   a.cnt = cnt;
   const Tail t{row_i, row_f, col_a, col_b, lag_o, me_o, inv_m, alt};
@@ -880,15 +971,16 @@ extern "C" int sct_local_count(int stat, int alt, const int32_t* local_idx,
 }
 
 // Observed pass of local Geary (stat 1: the int32 geary value, row_i = W)
-// or Getis-Ord (stat 2 or 3: the binary lag) at the placement in zp.
+// or Getis-Ord (stat 2 or 3: the binary lag) at the placement in rows.
 extern "C" int sct_local_observed(int stat, const int32_t* local_idx,
-                                  const int8_t* wq, const int8_t* zp,
-                                  const int32_t* far_ptr, const int8_t* far_q,
-                                  const int8_t* zf, const int32_t* row_i,
+                                  const int8_t* wq, const int8_t* table,
+                                  const int64_t* rows, const int32_t* far_ptr,
+                                  const int8_t* far_q, const int64_t* far_rows,
+                                  const int32_t* row_i,
                                   int32_t* out, int nb, int B, int k, int G,
                                   int tile, int run, int chunk, int far_cap,
                                   int stages, void* stream) {
-  Args a = common(local_idx, wq, zp, far_ptr, far_q, zf, nb, B, k, G);
+  Args a = common(local_idx, wq, table, rows, far_ptr, far_q, far_rows, nb, B, k, G);
   a.out = out;
   Tail t{};
   t.row_i = row_i;
@@ -902,13 +994,14 @@ extern "C" int sct_local_observed(int stat, const int32_t* local_idx,
 // (the global-only null). Every mode writes part f32 [nb, G], the per-block
 // partials of the global L. zx int8 [Npad, G]: fixed x codes; sw f32 [Npad].
 extern "C" int sct_lee(int mode, const int32_t* local_idx, const int8_t* wq,
-                       const int8_t* zp, const int32_t* far_ptr,
-                       const int8_t* far_q, const int8_t* zf, const int8_t* zx,
+                       const int8_t* table, const int64_t* rows,
+                       const int32_t* far_ptr, const int8_t* far_q,
+                       const int64_t* far_rows, const int8_t* zx,
                        const float* sw, const int32_t* obs, void* cnt,
                        int32_t* out, float* part, int nb, int B, int k, int G,
                        int cnt_bytes, int tile, int run, int chunk, int far_cap,
                        int stages, void* stream) {
-  Args a = common(local_idx, wq, zp, far_ptr, far_q, zf, nb, B, k, G);
+  Args a = common(local_idx, wq, table, rows, far_ptr, far_q, far_rows, nb, B, k, G);
   Tail t{};
   t.zx = zx;
   t.sw = sw;

@@ -11,6 +11,12 @@
 // band rows are staged beside it in the same pipeline stage by
 // stage_bytes. Everything here is device code for sm_90a with a plain C
 // launch interface; the kernels fix the CTA size (THREADS) at compile time.
+//
+// The local draw step (lisa_count_int8.cu, K7/K8) fills the same ring
+// through the permutation instead (fill_slot_rows): ring row r of slab s
+// is the value table's row rows[s*B + r], so the draw's permuted table is
+// never written to device memory. The slab's row indices are staged in
+// shared memory a ring step earlier, so no copy waits on an index.
 
 #pragma once
 
@@ -83,6 +89,40 @@ __device__ __forceinline__ void fill_slot(unsigned char* ring, const unsigned ch
       const int c = v & ((1 << gt_shift) - 1);
       reinterpret_cast<Raw*>(dst + (r << rb_shift))[c] =
           g0 + c < G ? src[(row0 + r) * G + g0 + c] : Raw(0);
+    }
+  }
+}
+
+// A 4-byte cp.async (zero-filled past src_bytes).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
+// Slab s read through the permutation into ring slot s % 4: ring row r is
+// bytes [g0, g0 + rb) of the table's row idx[r] (rows of G bytes; bytes
+// past G are zeros), rb = 1 << rb_shift. `idx` holds the slab's B row
+// indices (rows[s*B .. s*B + B), staged in shared memory a ring step
+// ahead), so each copy reads its source row from shared memory and the
+// copies move whole row segments as fill_slot's do. Rows repeat freely (a
+// padded slab clamps to the first and last cell). `vec`: 16-byte copies
+// (G % 16 == 0, table 16-byte aligned), else 4-byte ones (G % 4 == 0).
+template <int THREADS>
+__device__ __forceinline__ void fill_slot_rows(unsigned char* ring, const unsigned char* table,
+                                               const int64_t* idx, int s, int B, int G,
+                                               int g0, int rb_shift, bool vec) {
+  unsigned char* dst = ring + (static_cast<size_t>(s & 3) * B << rb_shift);
+  const int p_shift = rb_shift - (vec ? 4 : 2);   // copies a row (log2)
+  for (int v = threadIdx.x; v < B << p_shift; v += THREADS) {
+    const int r = v >> p_shift, q = v & ((1 << p_shift) - 1);
+    const unsigned char* from = table + static_cast<size_t>(idx[r]) * G;
+    if (vec) {
+      const int g = g0 + 16 * q;
+      cp_async16(dst + (r << rb_shift) + 16 * q, g < G ? from + g : table, g < G ? 16 : 0);
+    } else {
+      const int g = g0 + 4 * q;
+      cp_async4(dst + (r << rb_shift) + 4 * q, g < G ? from + g : table, g < G ? 4 : 0);
     }
   }
 }

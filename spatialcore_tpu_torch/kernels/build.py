@@ -48,25 +48,27 @@ _SIGNATURES = {
     "sct_band_cross_rot4": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # The local draw step's entries end with its launch shape (tile, run,
     # chunk, far_cap, stages) and the stream.
-    # local_idx, wq, zp, far_ptr, far_q, zf, far_dense, obs, cnt, nb, B, k,
-    # G, far_form, cnt_bytes
-    "sct_lisa_count": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, *_SHAPE],
-    # local_idx, wq, zp, far_ptr, far_q, zf, far_dense, out, nb, B, k, G,
-    # far_form
-    "sct_lisa_observed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          *_SHAPE],
-    # stat, alt, local_idx, wq, zp, far_ptr, far_q, zf, obs, cnt, row_i,
-    # row_f, col_a, col_b, lag_o, me_o, inv_m, nb, B, k, G, cnt_bytes
+    # local_idx, wq, table, rows, far_ptr, far_q, far_rows, far_dense, obs,
+    # cnt, nb, B, k, G, far_form, cnt_bytes
+    "sct_lisa_count": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _I, _I, *_SHAPE],
+    # local_idx, wq, table, rows, far_ptr, far_q, far_rows, far_dense, out,
+    # nb, B, k, G, far_form
+    "sct_lisa_observed": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, *_SHAPE],
+    # stat, alt, local_idx, wq, table, rows, far_ptr, far_q, far_rows, obs,
+    # cnt, row_i, row_f, col_a, col_b, lag_o, me_o, inv_m, nb, B, k, G,
+    # cnt_bytes
     "sct_local_count": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, *_SHAPE],
-    # stat, local_idx, wq, zp, far_ptr, far_q, zf, row_i, out, nb, B, k, G
-    "sct_local_observed": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           *_SHAPE],
-    # mode, local_idx, wq, zp, far_ptr, far_q, zf, zx, sw, obs, cnt, out,
-    # part, nb, B, k, G, cnt_bytes
-    "sct_lee": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                _I, _I, *_SHAPE],
+                        _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, *_SHAPE],
+    # stat, local_idx, wq, table, rows, far_ptr, far_q, far_rows, row_i, out,
+    # nb, B, k, G
+    "sct_local_observed": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, *_SHAPE],
+    # mode, local_idx, wq, table, rows, far_ptr, far_q, far_rows, zx, sw, obs,
+    # cnt, out, part, nb, B, k, G, cnt_bytes
+    "sct_lee": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                _I, _I, _I, *_SHAPE],
     # local_idx, w, zp, far_ptr, far_dst, far_w, obs, cnt, nb, B, k, G,
     # is_bf16, cnt_bytes, tile, chunk, far_cap, tail, tail_chunk,
     # tail_far_cap, run, stream

@@ -27,7 +27,7 @@ Lee's L        Lq = x·lag: ``|Lq| ≥ obs``, and the         ``|Lq|`` and the
 
 Lee's x is the row's FIXED code of the pair's first gene (``zx``, an int8
 plane in the relabeled order: Lee's null permutes y only), never the
-gathered table's own row. Every Lee entry — the draw step, the observed
+table's row at the padded position. Every Lee entry — the draw step, the observed
 entry and a partial-only entry for the global-only null — also writes the
 per-block partials ``part[n, g] = Σ_rows sw_row·f32(Lq)`` of the global L in
 one fixed order (:func:`lee_block_partial`): row group q of the kernel's 16
@@ -47,14 +47,21 @@ float32 reciprocal, as XLA compiles the reference's ``x / m``.
 
 All take the compact band — ``local_idx`` int32 [Npad, k] (window-relative
 rows in [0, 3B)) and ``wq`` int8 [Npad, k] weight codes (0/1 for Getis) —
-and ``Zp`` int8 [(nb+2)·B, G], the draw's gathered codes (block n's window
-is rows [n·B, n·B + 3B), its own rows [n·B + B, n·B + 2B)). The far term
-comes in one of three forms:
+and the draw's codes as a value table read through its rows: ``table``
+int8 [T, G] and ``rows`` int64 [(nb+2)·B], the table row at each padded
+position (a draw's ``perm[rows_idx]``, or ``rows_idx`` itself for the
+observed statistic; block n's window is positions [n·B, n·B + 3B), its own
+rows [n·B + B, n·B + 2B)). The kernel copies each slab's rows from the
+table as it fills its ring, so the permuted table ``table[rows]`` is
+never written; rows may repeat (the padding clamps to the first and last
+cell). The far term comes in one of three forms:
 
 * row pointers (K7's function): ``far_row_ptr`` int32 [Npad+1] into the
-  compact far list, ``far_q`` int8 [F] weight codes, ``Zf`` int8 [F, G] the
-  gathered far values; row r's entries are ``[ptr[r], ptr[r+1])``. Geary
-  and Getis always take this form (an empty list when a plan has none);
+  compact far list, ``far_q`` int8 [F] weight codes, ``far_rows`` int64
+  [F] each entry's table row (``rows[far_dst]``: its target's row of the
+  draw), read through as the slabs are; row r's entries are
+  ``[ptr[r], ptr[r+1])``. Geary and Getis always take this form (an empty
+  list when a plan has none);
 * a dense int32 far layer ``far`` [Npad, G] (K8's function; Moran only);
 * none (Moran, a plan without far edges).
 
@@ -64,15 +71,19 @@ other shapes and to test runs that do not divide the block count.
 
 Each wrapper checks device, dtype, shape, contiguity and alignment, then:
 
-* on a CPU tensor, runs the plain version (bitwise the kernel's result:
-  integer arithmetic, and the f32 tails round at the same places);
+* on a CPU tensor, runs the plain version, which gathers ``table[rows]``
+  and ``table[far_rows]`` and computes on them (bitwise the kernel's
+  result: integer arithmetic, and the f32 tails round at the same places);
 * on a CUDA tensor, launches the kernel on the current stream and adds one
-  to its entry in :data:`LAUNCHES` — or raises. There is no fallback.
+  to its entry in :data:`LAUNCHES` and to ``kernels.lisa_count.indirect``
+  (the launches that read the table through ``rows``: every one) — or
+  raises. There is no fallback.
 
 Preconditions the wrappers do not check (a device readback per launch):
-``local_idx`` values lie in [0, 3B), ``far_row_ptr`` is non-decreasing with
-``far_row_ptr[-1]`` ≤ F, and k ≤ 1000 (Moran: |z·lag| ≤ k·127³ < 2³¹;
-Lee: checked) or k ≤ 256 (Geary: Σ w·(Δz)² ≤ k·127·254² < 2³¹; checked).
+``rows`` and ``far_rows`` lie in [0, T), ``local_idx`` values lie in
+[0, 3B), ``far_row_ptr`` is non-decreasing with ``far_row_ptr[-1]`` ≤ F,
+and k ≤ 1000 (Moran: |z·lag| ≤ k·127³ < 2³¹; Lee: checked) or k ≤ 256
+(Geary: Σ w·(Δz)² ≤ k·127·254² < 2³¹; checked).
 """
 
 from __future__ import annotations
@@ -82,7 +93,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..utils.profiling import CounterGroup
+from ..utils.profiling import CounterGroup, count
 from . import build
 from .band_cross import (MAX_BLOCK, SMEM_LIMIT, _aligned16, _r16, _run_for,
                          band_lag_int8_plain)
@@ -159,8 +170,12 @@ def lisa_smem_bytes(block: int, k: int, stat: str, far_form: int, cnt_bytes: int
     row pointers, each with 15 spare bytes for its copies' alignment phase,
     and (row-pointer far) a far buffer of ``far_cap`` entries' values and
     weight codes; then Getis's draw steps two [tile] f32 column vectors, Lee
-    [chunk + 16, tile] f32 of products and group sums. ``cnt_bytes`` 0: an
-    observed entry. The streamed planes do not pass through it."""
+    [chunk + 16, tile] f32 of products and group sums; last the draw's row
+    indices staged ahead of the copies that read through them: three slabs'
+    (int64 [B] each) and, with row-pointer far edges, ``stages`` chunks'
+    far rows (int64 [far_cap]) and 2·stages − 1 chunks' far ranges (two
+    int32). ``cnt_bytes`` 0: an observed entry. The streamed planes do not
+    pass through it."""
     o = 4 * block * tile + stages * (_r16(chunk * k * 4 + 15) + _r16(chunk * k + 8 + 15)
                                      + _r16(chunk * 4 + 15) + _r16((chunk + 1) * 4 + 15))
     if far_form == _FAR_ROWS:
@@ -170,6 +185,9 @@ def lisa_smem_bytes(block: int, k: int, stat: str, far_form: int, cnt_bytes: int
         o += 2 * tile * 4
     if stat == "lee":
         o += (chunk + ROW_GROUPS) * tile * 4
+    o += 3 * _r16(block * 8 + 15)
+    if far_form == _FAR_ROWS:
+        o += stages * _r16(far_cap * 8 + 15) + _r16((2 * stages - 1) * 8)
     return o
 
 
@@ -235,6 +253,12 @@ def lisa_tiles(block: int, k: int, stat: str, far_form: int, cnt_bytes: int,
 # ---------------------------------------------------------------------------
 
 
+def _gathered(table, rows, far_rows):
+    """``(Zp, Zf)``: the codes the kernel reads through ``rows`` and
+    ``far_rows``, gathered (the plain versions compute on these)."""
+    return table[rows], None if far_rows is None else table[far_rows]
+
+
 def _row_chunks(n_rows: int, block: int, G: int):
     step = max(block, (_PLAIN_CHUNK_ELEMS // max(G, 1)) // block * block)
     return [(r0, min(r0 + step, n_rows)) for r0 in range(0, n_rows, step)]
@@ -257,10 +281,11 @@ def _abs_ip_plain(local_idx, wq, Zp, block: int, far_row_ptr, far_q, Zf, far,
     return (z1 * lag).abs_()
 
 
-def lisa_count_plain(local_idx, wq, Zp, block: int, obs, cnt, *,
-                     far_row_ptr=None, far_q=None, Zf=None, far=None
+def lisa_count_plain(local_idx, wq, table, rows, block: int, obs, cnt, *,
+                     far_row_ptr=None, far_q=None, far_rows=None, far=None
                      ) -> torch.Tensor:
     """Plain version of :func:`lisa_count`: updates ``cnt`` in place."""
+    Zp, Zf = _gathered(table, rows, far_rows)
     for r0, r1 in _row_chunks(local_idx.shape[0], block, Zp.shape[1]):
         val = _abs_ip_plain(local_idx, wq, Zp, block, far_row_ptr, far_q, Zf,
                             far, r0, r1)
@@ -268,9 +293,11 @@ def lisa_count_plain(local_idx, wq, Zp, block: int, obs, cnt, *,
     return cnt
 
 
-def lisa_observed_plain(local_idx, wq, Zp, block: int, *, far_row_ptr=None,
-                        far_q=None, Zf=None, far=None) -> torch.Tensor:
+def lisa_observed_plain(local_idx, wq, table, rows, block: int, *,
+                        far_row_ptr=None, far_q=None, far_rows=None, far=None
+                        ) -> torch.Tensor:
     """Plain version of :func:`lisa_observed`."""
+    Zp, Zf = _gathered(table, rows, far_rows)
     n_rows, G = local_idx.shape[0], Zp.shape[1]
     out = torch.empty((n_rows, G), dtype=torch.int32, device=Zp.device)
     for r0, r1 in _row_chunks(n_rows, block, G):
@@ -314,9 +341,10 @@ def _geary_plain(local_idx, wq, Zp, block: int, w_row, far_row_ptr, far_q, Zf,
     return z * z * w_row[r0:r1, None] + lag2 - 2 * z * lag
 
 
-def geary_count_plain(local_idx, wq, Zp, block: int, obs, cnt, w_row, *,
-                      far_row_ptr, far_q, Zf) -> torch.Tensor:
+def geary_count_plain(local_idx, wq, table, rows, block: int, obs, cnt, w_row,
+                      *, far_row_ptr, far_q, far_rows) -> torch.Tensor:
     """Plain version of :func:`geary_count`: updates ``cnt`` in place."""
+    Zp, Zf = _gathered(table, rows, far_rows)
     for r0, r1 in _row_chunks(local_idx.shape[0], block, Zp.shape[1]):
         val = _geary_plain(local_idx, wq, Zp, block, w_row, far_row_ptr, far_q,
                            Zf, r0, r1)
@@ -324,9 +352,10 @@ def geary_count_plain(local_idx, wq, Zp, block: int, obs, cnt, w_row, *,
     return cnt
 
 
-def geary_observed_plain(local_idx, wq, Zp, block: int, w_row, *, far_row_ptr,
-                         far_q, Zf) -> torch.Tensor:
+def geary_observed_plain(local_idx, wq, table, rows, block: int, w_row, *,
+                         far_row_ptr, far_q, far_rows) -> torch.Tensor:
     """Plain version of :func:`geary_observed`."""
+    Zp, Zf = _gathered(table, rows, far_rows)
     n_rows, G = local_idx.shape[0], Zp.shape[1]
     out = torch.empty((n_rows, G), dtype=torch.int32, device=Zp.device)
     for r0, r1 in _row_chunks(n_rows, block, G):
@@ -335,9 +364,10 @@ def geary_observed_plain(local_idx, wq, Zp, block: int, w_row, *, far_row_ptr,
     return out
 
 
-def getis_lag_plain(local_idx, wb, Zp, block: int, *, far_row_ptr, far_q, Zf
-                    ) -> torch.Tensor:
+def getis_lag_plain(local_idx, wb, table, rows, block: int, *, far_row_ptr,
+                    far_q, far_rows) -> torch.Tensor:
     """Plain version of :func:`getis_lag`."""
+    Zp, Zf = _gathered(table, rows, far_rows)
     n_rows, G = local_idx.shape[0], Zp.shape[1]
     out = torch.empty((n_rows, G), dtype=torch.int32, device=Zp.device)
     for r0, r1 in _row_chunks(n_rows, block, G):
@@ -375,10 +405,11 @@ def gi_center(lag, me, w_row, tot, sq, inv_m: float) -> torch.Tensor:
     return out
 
 
-def getis_star_count_plain(local_idx, wb, Zp, block: int, obs, cnt, *,
-                           alternative: str, far_row_ptr, far_q, Zf, wp1=None,
-                           tm=None) -> torch.Tensor:
+def getis_star_count_plain(local_idx, wb, table, rows, block: int, obs, cnt, *,
+                           alternative: str, far_row_ptr, far_q, far_rows,
+                           wp1=None, tm=None) -> torch.Tensor:
     """Plain version of :func:`getis_star_count`: updates ``cnt`` in place."""
+    Zp, Zf = _gathered(table, rows, far_rows)
     for r0, r1 in _row_chunks(local_idx.shape[0], block, Zp.shape[1]):
         A = (_int_lag_plain(local_idx, wb, Zp, block, far_row_ptr, far_q, Zf,
                             r0, r1) + Zp[block + r0:block + r1].to(torch.int32))
@@ -395,10 +426,11 @@ def getis_star_count_plain(local_idx, wb, Zp, block: int, obs, cnt, *,
     return cnt
 
 
-def getis_g_count_plain(local_idx, wb, Zp, block: int, obs, cnt, *,
-                        alternative: str, far_row_ptr, far_q, Zf, w_row, tot,
-                        sq, inv_m: float, lag_o, me_o) -> torch.Tensor:
+def getis_g_count_plain(local_idx, wb, table, rows, block: int, obs, cnt, *,
+                        alternative: str, far_row_ptr, far_q, far_rows, w_row,
+                        tot, sq, inv_m: float, lag_o, me_o) -> torch.Tensor:
     """Plain version of :func:`getis_g_count`: updates ``cnt`` in place."""
+    Zp, Zf = _gathered(table, rows, far_rows)
     for r0, r1 in _row_chunks(local_idx.shape[0], block, Zp.shape[1]):
         lag = _int_lag_plain(local_idx, wb, Zp, block, far_row_ptr, far_q, Zf,
                              r0, r1)
@@ -452,17 +484,19 @@ def _lee_plain(local_idx, wq, Zp, block: int, zx, sw_row, obs, cnt, out, *,
     return part
 
 
-def lee_count_plain(local_idx, wq, Zp, block: int, zx, sw_row, obs, cnt, *,
-                    far_row_ptr, far_q, Zf) -> torch.Tensor:
+def lee_count_plain(local_idx, wq, table, rows, block: int, zx, sw_row, obs,
+                    cnt, *, far_row_ptr, far_q, far_rows) -> torch.Tensor:
     """Plain version of :func:`lee_count`: updates ``cnt`` in place and
     returns the partials."""
+    Zp, Zf = _gathered(table, rows, far_rows)
     return _lee_plain(local_idx, wq, Zp, block, zx, sw_row, obs, cnt, None,
                       far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
 
 
-def lee_observed_plain(local_idx, wq, Zp, block: int, zx, sw_row, *,
-                       far_row_ptr, far_q, Zf):
+def lee_observed_plain(local_idx, wq, table, rows, block: int, zx, sw_row, *,
+                       far_row_ptr, far_q, far_rows):
     """Plain version of :func:`lee_observed`."""
+    Zp, Zf = _gathered(table, rows, far_rows)
     out = torch.empty((local_idx.shape[0], Zp.shape[1]), dtype=torch.int32,
                       device=Zp.device)
     part = _lee_plain(local_idx, wq, Zp, block, zx, sw_row, None, None, out,
@@ -470,9 +504,10 @@ def lee_observed_plain(local_idx, wq, Zp, block: int, zx, sw_row, *,
     return out, part
 
 
-def lee_partial_plain(local_idx, wq, Zp, block: int, zx, sw_row, *,
-                      far_row_ptr, far_q, Zf) -> torch.Tensor:
+def lee_partial_plain(local_idx, wq, table, rows, block: int, zx, sw_row, *,
+                      far_row_ptr, far_q, far_rows) -> torch.Tensor:
     """Plain version of :func:`lee_partial`."""
+    Zp, Zf = _gathered(table, rows, far_rows)
     return _lee_plain(local_idx, wq, Zp, block, zx, sw_row, None, None, None,
                       far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
 
@@ -491,12 +526,12 @@ def _plane(t, name: str, dtypes, shape, align: int, dev) -> None:
     _check(t.dtype in dtypes and tuple(t.shape) == tuple(shape),
            f"{name} must be {dtypes} {list(shape)}")
     _check(t.device == dev and t.is_contiguous(),
-           f"{name} must be contiguous on Zp's device")
+           f"{name} must be contiguous on the table's device")
     _check(t.data_ptr() % align == 0, f"{name} must be {align}-byte aligned")
 
 
-def _check_operands(local_idx, wq, Zp, block: int, far_row_ptr, far_q, Zf,
-                    far) -> int:
+def _check_operands(local_idx, wq, table, rows, block: int, far_row_ptr, far_q,
+                    far_rows, far) -> int:
     """Validate the common operands; returns the far form."""
     _check(local_idx.dtype == torch.int32 and local_idx.ndim == 2,
            "local_idx must be int32 [Npad, k]")
@@ -504,28 +539,29 @@ def _check_operands(local_idx, wq, Zp, block: int, far_row_ptr, far_q, Zf,
     _check(k >= 1, "the band needs at least one slot")
     _check(1 <= block <= MAX_BLOCK and n_rows % block == 0,
            f"block must be in [1, {MAX_BLOCK}] and divide Npad={n_rows}")
-    dev = Zp.device
+    dev = table.device
     _check(dev.type in ("cpu", "cuda"), f"unsupported device {dev}")
-    _check(Zp.dtype == torch.int8 and Zp.ndim == 2
-           and Zp.shape[0] == n_rows + 2 * block,
-           "Zp must be int8 [(nb+2)·B, G]")
-    G = Zp.shape[1]
+    _check(table.dtype == torch.int8 and table.ndim == 2,
+           "table must be int8 [T, G]")
+    G = table.shape[1]
     _check(G % 4 == 0, "G must be a multiple of 4 (the kernel reads 4 genes "
                        "per thread)")
-    _plane(Zp, "Zp", (torch.int8,), (n_rows + 2 * block, G), 4, dev)
+    _check(table.shape[0] < 2 ** 31, "the table's rows must fit int32")
+    _plane(table, "table", (torch.int8,), table.shape, 4, dev)
+    _plane(rows, "rows", (torch.int64,), (n_rows + 2 * block,), 8, dev)
     _plane(local_idx, "local_idx", (torch.int32,), (n_rows, k), 4, dev)
     _plane(wq, "wq", (torch.int8,), (n_rows, k), 1, dev)
     if far_row_ptr is not None:
         _check(far is None, "give the far term as row pointers or as a "
                             "dense layer, not both")
         _plane(far_row_ptr, "far_row_ptr", (torch.int32,), (n_rows + 1,), 4, dev)
-        _check(far_q is not None and Zf is not None,
-               "row-pointer far edges need far_q and Zf")
+        _check(far_q is not None and far_rows is not None,
+               "row-pointer far edges need far_q and far_rows")
         _check(far_q.ndim == 1, "far_q must be int8 [F]")
         _plane(far_q, "far_q", (torch.int8,), far_q.shape, 1, dev)
-        _plane(Zf, "Zf", (torch.int8,), (far_q.shape[0], G), 4, dev)
+        _plane(far_rows, "far_rows", (torch.int64,), far_q.shape, 8, dev)
         return _FAR_ROWS
-    _check(far_q is None and Zf is None, "far_q and Zf need far_row_ptr")
+    _check(far_q is None and far_rows is None, "far_q and far_rows need far_row_ptr")
     if far is not None:
         _plane(far, "far", (torch.int32,), (n_rows, G), 16, dev)
         return _FAR_DENSE
@@ -538,7 +574,8 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _aligned(*ts):
     """Each of ``ts`` (None kept), or a 16-byte-aligned copy: the kernel
-    stages the band, its row vectors and the far list with 16-byte copies."""
+    stages the band, its row vectors, the far list and the draw's row
+    indices with 16-byte copies."""
     return tuple(None if t is None else _aligned16(t) for t in ts)
 
 
@@ -550,179 +587,209 @@ def _shape(tiles: Optional[LisaTiles], block: int, k: int, stat: str,
     return tiles.tile, tiles.run, tiles.chunk, tiles.far_cap, tiles.stages
 
 
+def _launched(mode: str) -> None:
+    """One launch of ``mode``: its count and ``kernels.lisa_count.indirect``
+    (a launch that read the table through the draw's rows)."""
+    LAUNCHES[mode] += 1
+    count("kernels.lisa_count.indirect")
+
+
 _MODE = {_FAR_ROWS: "lisa_win", _FAR_DENSE: "lisa_dense", _FAR_NONE: "lisa_band"}
 
 
-def lisa_count(local_idx, wq, Zp, block: int, obs, cnt, *, far_row_ptr=None,
-               far_q=None, Zf=None, far=None,
+def lisa_count(local_idx, wq, table, rows, block: int, obs, cnt, *,
+               far_row_ptr=None, far_q=None, far_rows=None, far=None,
                tiles: Optional[LisaTiles] = None) -> torch.Tensor:
     """One draw's counter update, in place: ``cnt += (|z·lag| ≥ obs)``.
 
-    ``obs`` int32 [Npad, G]; ``cnt`` int8, int16 or int32 [Npad, G]. Other
-    operands as the module docstring says; ``tiles`` (every entry takes it)
-    sets the kernel's launch shape (None: :func:`lisa_tiles`), for timing
-    other shapes and for testing runs that do not divide the block count.
-    Returns ``cnt``.
+    ``table`` int8 [T, G] and ``rows`` int64 [Npad+2B]: the draw's codes,
+    ``table[rows]``, read through the rows; ``obs`` int32 [Npad, G];
+    ``cnt`` int8, int16 or int32 [Npad, G]. Other operands as the module
+    docstring says; ``tiles`` (every entry takes it) sets the kernel's
+    launch shape (None: :func:`lisa_tiles`), for timing other shapes and
+    for testing runs that do not divide the block count. Returns ``cnt``.
     """
-    form = _check_operands(local_idx, wq, Zp, block, far_row_ptr, far_q, Zf, far)
+    form = _check_operands(local_idx, wq, table, rows, block, far_row_ptr, far_q,
+                           far_rows, far)
     n_rows, k = local_idx.shape
-    G = Zp.shape[1]
-    _plane(obs, "obs", (torch.int32,), (n_rows, G), 16, Zp.device)
+    G = table.shape[1]
+    _plane(obs, "obs", (torch.int32,), (n_rows, G), 16, table.device)
     _plane(cnt, "cnt", _COUNTER_DTYPES, (n_rows, G), 4 * cnt.element_size(),
-           Zp.device)
-    if Zp.device.type == "cpu":
-        return lisa_count_plain(local_idx, wq, Zp, block, obs, cnt,
-                                far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf,
-                                far=far)
-    local_idx, wq, far_row_ptr, far_q = _aligned(local_idx, wq, far_row_ptr, far_q)
+           table.device)
+    if table.device.type == "cpu":
+        return lisa_count_plain(local_idx, wq, table, rows, block, obs, cnt,
+                                far_row_ptr=far_row_ptr, far_q=far_q,
+                                far_rows=far_rows, far=far)
+    local_idx, wq, rows, far_row_ptr, far_q, far_rows = _aligned(
+        local_idx, wq, rows, far_row_ptr, far_q, far_rows)
     lib = build.load_library()
-    with torch.cuda.device(Zp.device):
+    with torch.cuda.device(table.device):
         err = lib.sct_lisa_count(
-            _ptr(local_idx), _ptr(wq), _ptr(Zp), _ptr(far_row_ptr),
-            _ptr(far_q), _ptr(Zf), _ptr(far), _ptr(obs), _ptr(cnt),
+            _ptr(local_idx), _ptr(wq), _ptr(table), _ptr(rows), _ptr(far_row_ptr),
+            _ptr(far_q), _ptr(far_rows), _ptr(far), _ptr(obs), _ptr(cnt),
             n_rows // block, block, k, G, form, cnt.element_size(),
             *_shape(tiles, block, k, "moran", form, cnt.element_size(), G, n_rows),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"lisa_count launch failed: CUDA error {err}")
-    LAUNCHES[_MODE[form]] += 1
+    _launched(_MODE[form])
     return cnt
 
 
-def lisa_observed(local_idx, wq, Zp, block: int, *, far_row_ptr=None,
-                  far_q=None, Zf=None, far=None,
+def lisa_observed(local_idx, wq, table, rows, block: int, *, far_row_ptr=None,
+                  far_q=None, far_rows=None, far=None,
                   tiles: Optional[LisaTiles] = None) -> torch.Tensor:
-    """|z·lag| as int32 [Npad, G] at the placement gathered into ``Zp``."""
-    form = _check_operands(local_idx, wq, Zp, block, far_row_ptr, far_q, Zf, far)
-    if Zp.device.type == "cpu":
-        return lisa_observed_plain(local_idx, wq, Zp, block,
-                                   far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf,
-                                   far=far)
+    """|z·lag| as int32 [Npad, G] at the placement ``rows`` gives (the
+    identity placement: the plan's padded rows)."""
+    form = _check_operands(local_idx, wq, table, rows, block, far_row_ptr, far_q,
+                           far_rows, far)
+    if table.device.type == "cpu":
+        return lisa_observed_plain(local_idx, wq, table, rows, block,
+                                   far_row_ptr=far_row_ptr, far_q=far_q,
+                                   far_rows=far_rows, far=far)
     n_rows, k = local_idx.shape
-    G = Zp.shape[1]
-    local_idx, wq, far_row_ptr, far_q = _aligned(local_idx, wq, far_row_ptr, far_q)
+    G = table.shape[1]
+    local_idx, wq, rows, far_row_ptr, far_q, far_rows = _aligned(
+        local_idx, wq, rows, far_row_ptr, far_q, far_rows)
     lib = build.load_library()
-    with torch.cuda.device(Zp.device):
-        out = torch.empty((n_rows, G), dtype=torch.int32, device=Zp.device)
+    with torch.cuda.device(table.device):
+        out = torch.empty((n_rows, G), dtype=torch.int32, device=table.device)
         err = lib.sct_lisa_observed(
-            _ptr(local_idx), _ptr(wq), _ptr(Zp), _ptr(far_row_ptr),
-            _ptr(far_q), _ptr(Zf), _ptr(far), _ptr(out), n_rows // block, block,
-            k, G, form, *_shape(tiles, block, k, "moran", form, 0, G, n_rows),
+            _ptr(local_idx), _ptr(wq), _ptr(table), _ptr(rows), _ptr(far_row_ptr),
+            _ptr(far_q), _ptr(far_rows), _ptr(far), _ptr(out), n_rows // block,
+            block, k, G, form, *_shape(tiles, block, k, "moran", form, 0, G, n_rows),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"lisa_observed launch failed: CUDA error {err}")
-    LAUNCHES["lisa_obs"] += 1
+    _launched("lisa_obs")
     return out
 
 
-def _check_rows_far(local_idx, wq, Zp, block: int, far_row_ptr, far_q, Zf):
+def _check_rows_far(local_idx, wq, table, rows, block: int, far_row_ptr, far_q,
+                    far_rows):
     """Common checks of the geary / Getis entries: far edges as row
     pointers, possibly an empty list."""
     _check(far_row_ptr is not None, "geary, Getis and Lee take the far edges "
-                                    "as row pointers (far_row_ptr, far_q, Zf)")
-    _check_operands(local_idx, wq, Zp, block, far_row_ptr, far_q, Zf, None)
-    return local_idx.shape[0], local_idx.shape[1], Zp.shape[1]
+                                    "as row pointers (far_row_ptr, far_q, "
+                                    "far_rows)")
+    _check_operands(local_idx, wq, table, rows, block, far_row_ptr, far_q,
+                    far_rows, None)
+    return local_idx.shape[0], local_idx.shape[1], table.shape[1]
 
 
-def _launch_count(stat: int, alternative: str, mode: str, local_idx, wq, Zp,
-                  block: int, obs, cnt, far_row_ptr, far_q, Zf, tiles,
+def _launch_count(stat: int, alternative: str, mode: str, local_idx, wq, table,
+                  rows, block: int, obs, cnt, far_row_ptr, far_q, far_rows, tiles,
                   row_i=None, row_f=None, col_a=None, col_b=None, lag_o=None,
                   me_o=None, inv_m: float = 0.0):
     n_rows, k = local_idx.shape
-    G = Zp.shape[1]
-    local_idx, wq, far_row_ptr, far_q, row_i, row_f = _aligned(
-        local_idx, wq, far_row_ptr, far_q, row_i, row_f)
+    G = table.shape[1]
+    local_idx, wq, rows, far_row_ptr, far_q, far_rows, row_i, row_f = _aligned(
+        local_idx, wq, rows, far_row_ptr, far_q, far_rows, row_i, row_f)
     lib = build.load_library()
-    with torch.cuda.device(Zp.device):
+    with torch.cuda.device(table.device):
         err = lib.sct_local_count(
-            stat, _ALTS[alternative], _ptr(local_idx), _ptr(wq), _ptr(Zp),
-            _ptr(far_row_ptr), _ptr(far_q), _ptr(Zf), _ptr(obs), _ptr(cnt),
-            _ptr(row_i), _ptr(row_f), _ptr(col_a), _ptr(col_b), _ptr(lag_o),
-            _ptr(me_o), inv_m, n_rows // block, block, k, G, cnt.element_size(),
+            stat, _ALTS[alternative], _ptr(local_idx), _ptr(wq), _ptr(table),
+            _ptr(rows), _ptr(far_row_ptr), _ptr(far_q), _ptr(far_rows), _ptr(obs),
+            _ptr(cnt), _ptr(row_i), _ptr(row_f), _ptr(col_a), _ptr(col_b),
+            _ptr(lag_o), _ptr(me_o), inv_m, n_rows // block, block, k, G,
+            cnt.element_size(),
             *_shape(tiles, block, k, _STATS[stat], _FAR_ROWS, cnt.element_size(),
                     G, n_rows),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{mode} launch failed: CUDA error {err}")
-    LAUNCHES[mode] += 1
+    _launched(mode)
     return cnt
 
 
-def _launch_observed(stat: int, mode: str, local_idx, wq, Zp, block: int,
-                     far_row_ptr, far_q, Zf, tiles, row_i=None) -> torch.Tensor:
+def _launch_observed(stat: int, mode: str, local_idx, wq, table, rows,
+                     block: int, far_row_ptr, far_q, far_rows, tiles,
+                     row_i=None) -> torch.Tensor:
     n_rows, k = local_idx.shape
-    G = Zp.shape[1]
-    local_idx, wq, far_row_ptr, far_q, row_i = _aligned(
-        local_idx, wq, far_row_ptr, far_q, row_i)
+    G = table.shape[1]
+    local_idx, wq, rows, far_row_ptr, far_q, far_rows, row_i = _aligned(
+        local_idx, wq, rows, far_row_ptr, far_q, far_rows, row_i)
     lib = build.load_library()
-    with torch.cuda.device(Zp.device):
-        out = torch.empty((n_rows, G), dtype=torch.int32, device=Zp.device)
+    with torch.cuda.device(table.device):
+        out = torch.empty((n_rows, G), dtype=torch.int32, device=table.device)
         err = lib.sct_local_observed(
-            stat, _ptr(local_idx), _ptr(wq), _ptr(Zp), _ptr(far_row_ptr),
-            _ptr(far_q), _ptr(Zf), _ptr(row_i), _ptr(out), n_rows // block,
-            block, k, G, *_shape(tiles, block, k, _STATS[stat], _FAR_ROWS, 0, G,
-                                 n_rows),
+            stat, _ptr(local_idx), _ptr(wq), _ptr(table), _ptr(rows),
+            _ptr(far_row_ptr), _ptr(far_q), _ptr(far_rows), _ptr(row_i),
+            _ptr(out), n_rows // block, block, k, G,
+            *_shape(tiles, block, k, _STATS[stat], _FAR_ROWS, 0, G, n_rows),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{mode} launch failed: CUDA error {err}")
-    LAUNCHES[mode] += 1
+    _launched(mode)
     return out
 
 
-def _check_geary(local_idx, wq, Zp, block, w_row, far_row_ptr, far_q, Zf):
-    n_rows, k, _ = _check_rows_far(local_idx, wq, Zp, block, far_row_ptr,
-                                   far_q, Zf)
+def _check_geary(local_idx, wq, table, rows, block, w_row, far_row_ptr, far_q,
+                 far_rows):
+    n_rows, k, _ = _check_rows_far(local_idx, wq, table, rows, block,
+                                   far_row_ptr, far_q, far_rows)
     _check(k <= GEARY_MAX_K, f"the int8 geary value is exact int32 for k <= "
                              f"{GEARY_MAX_K} (k*127*254^2 < 2^31), got k={k}")
-    _plane(w_row, "w_row", (torch.int32,), (n_rows,), 4, Zp.device)
+    _plane(w_row, "w_row", (torch.int32,), (n_rows,), 4, table.device)
 
 
-def geary_count(local_idx, wq, Zp, block: int, obs, cnt, w_row, *, far_row_ptr,
-                far_q, Zf, tiles: Optional[LisaTiles] = None) -> torch.Tensor:
+def geary_count(local_idx, wq, table, rows, block: int, obs, cnt, w_row, *,
+                far_row_ptr, far_q, far_rows, tiles: Optional[LisaTiles] = None
+                ) -> torch.Tensor:
     """One local-Geary draw's counter update, in place:
     ``cnt += (z²·W + lag(z²) − 2·z·lag ≤ obs)``, exact int32.
 
     ``w_row`` int32 [Npad]: each row's total weight code (band + far);
-    ``obs`` int32 [Npad, G]; ``cnt`` int8 / int16 / int32 [Npad, G]. Far
-    edges as row pointers (module docstring). Returns ``cnt``.
+    ``obs`` int32 [Npad, G]; ``cnt`` int8 / int16 / int32 [Npad, G]. The
+    codes (``table``, ``rows``) and far edges (row pointers) as the module
+    docstring says. Returns ``cnt``.
     """
-    _check_geary(local_idx, wq, Zp, block, w_row, far_row_ptr, far_q, Zf)
-    n_rows, G = local_idx.shape[0], Zp.shape[1]
-    _plane(obs, "obs", (torch.int32,), (n_rows, G), 16, Zp.device)
+    _check_geary(local_idx, wq, table, rows, block, w_row, far_row_ptr, far_q,
+                 far_rows)
+    n_rows, G = local_idx.shape[0], table.shape[1]
+    _plane(obs, "obs", (torch.int32,), (n_rows, G), 16, table.device)
     _plane(cnt, "cnt", _COUNTER_DTYPES, (n_rows, G), 4 * cnt.element_size(),
-           Zp.device)
-    if Zp.device.type == "cpu":
-        return geary_count_plain(local_idx, wq, Zp, block, obs, cnt, w_row,
-                                 far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
-    return _launch_count(_GEARY, "two-sided", "geary_win", local_idx, wq, Zp,
-                         block, obs, cnt, far_row_ptr, far_q, Zf, tiles, row_i=w_row)
+           table.device)
+    if table.device.type == "cpu":
+        return geary_count_plain(local_idx, wq, table, rows, block, obs, cnt,
+                                 w_row, far_row_ptr=far_row_ptr, far_q=far_q,
+                                 far_rows=far_rows)
+    return _launch_count(_GEARY, "two-sided", "geary_win", local_idx, wq, table,
+                         rows, block, obs, cnt, far_row_ptr, far_q, far_rows, tiles,
+                         row_i=w_row)
 
 
-def geary_observed(local_idx, wq, Zp, block: int, w_row, *, far_row_ptr, far_q,
-                   Zf, tiles: Optional[LisaTiles] = None) -> torch.Tensor:
-    """The int32 geary value [Npad, G] at the placement gathered into ``Zp``."""
-    _check_geary(local_idx, wq, Zp, block, w_row, far_row_ptr, far_q, Zf)
-    if Zp.device.type == "cpu":
-        return geary_observed_plain(local_idx, wq, Zp, block, w_row,
-                                    far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
-    return _launch_observed(_GEARY, "geary_obs", local_idx, wq, Zp, block,
-                            far_row_ptr, far_q, Zf, tiles, row_i=w_row)
+def geary_observed(local_idx, wq, table, rows, block: int, w_row, *,
+                   far_row_ptr, far_q, far_rows,
+                   tiles: Optional[LisaTiles] = None) -> torch.Tensor:
+    """The int32 geary value [Npad, G] at the placement ``rows`` gives."""
+    _check_geary(local_idx, wq, table, rows, block, w_row, far_row_ptr, far_q,
+                 far_rows)
+    if table.device.type == "cpu":
+        return geary_observed_plain(local_idx, wq, table, rows, block, w_row,
+                                    far_row_ptr=far_row_ptr, far_q=far_q,
+                                    far_rows=far_rows)
+    return _launch_observed(_GEARY, "geary_obs", local_idx, wq, table, rows,
+                            block, far_row_ptr, far_q, far_rows, tiles,
+                            row_i=w_row)
 
 
-def getis_lag(local_idx, wb, Zp, block: int, *, far_row_ptr, far_q, Zf,
-              tiles: Optional[LisaTiles] = None) -> torch.Tensor:
-    """The binary lag int32 [Npad, G] at the placement gathered into ``Zp``
+def getis_lag(local_idx, wb, table, rows, block: int, *, far_row_ptr, far_q,
+              far_rows, tiles: Optional[LisaTiles] = None) -> torch.Tensor:
+    """The binary lag int32 [Npad, G] at the placement ``rows`` gives
     (Getis's observed entry; ``wb`` holds 0/1 codes)."""
-    _check_rows_far(local_idx, wb, Zp, block, far_row_ptr, far_q, Zf)
-    if Zp.device.type == "cpu":
-        return getis_lag_plain(local_idx, wb, Zp, block,
-                               far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
-    return _launch_observed(_GETIS_STAR, "getis_obs", local_idx, wb, Zp, block,
-                            far_row_ptr, far_q, Zf, tiles)
+    _check_rows_far(local_idx, wb, table, rows, block, far_row_ptr, far_q,
+                    far_rows)
+    if table.device.type == "cpu":
+        return getis_lag_plain(local_idx, wb, table, rows, block,
+                               far_row_ptr=far_row_ptr, far_q=far_q,
+                               far_rows=far_rows)
+    return _launch_observed(_GETIS_STAR, "getis_obs", local_idx, wb, table, rows,
+                            block, far_row_ptr, far_q, far_rows, tiles)
 
 
-def getis_star_count(local_idx, wb, Zp, block: int, obs, cnt, *,
-                     alternative: str, far_row_ptr, far_q, Zf, wp1=None,
+def getis_star_count(local_idx, wb, table, rows, block: int, obs, cnt, *,
+                     alternative: str, far_row_ptr, far_q, far_rows, wp1=None,
                      tm=None, tiles: Optional[LisaTiles] = None) -> torch.Tensor:
     """One Gi* draw's counter update, in place, with A = lag + z against
     ``obs`` = A_o (int32 [Npad, G]): ``A ≥ A_o`` ("greater"), ``A ≤ A_o``
@@ -730,38 +797,39 @@ def getis_star_count(local_idx, wb, Zp, block: int, obs, cnt, *,
     (``tm`` f32 [G] = f32(tot/m), ``wp1`` f32 [Npad] = W + 1). Returns
     ``cnt``."""
     _check(alternative in _ALTS, f"invalid alternative {alternative!r}")
-    n_rows, _, G = _check_rows_far(local_idx, wb, Zp, block, far_row_ptr,
-                                   far_q, Zf)
-    _plane(obs, "obs", (torch.int32,), (n_rows, G), 16, Zp.device)
-    _plane(cnt, "cnt", _COUNTER_DTYPES, (n_rows, G), 4 * cnt.element_size(),
-           Zp.device)
+    n_rows, _, G = _check_rows_far(local_idx, wb, table, rows, block,
+                                   far_row_ptr, far_q, far_rows)
+    dev = table.device
+    _plane(obs, "obs", (torch.int32,), (n_rows, G), 16, dev)
+    _plane(cnt, "cnt", _COUNTER_DTYPES, (n_rows, G), 4 * cnt.element_size(), dev)
     if alternative == "two-sided":
         _check(wp1 is not None and tm is not None,
                "the two-sided Gi* test needs wp1 and tm")
-        _plane(wp1, "wp1", (torch.float32,), (n_rows,), 4, Zp.device)
-        _plane(tm, "tm", (torch.float32,), (G,), 16, Zp.device)
-    if Zp.device.type == "cpu":
-        return getis_star_count_plain(local_idx, wb, Zp, block, obs, cnt,
+        _plane(wp1, "wp1", (torch.float32,), (n_rows,), 4, dev)
+        _plane(tm, "tm", (torch.float32,), (G,), 16, dev)
+    if dev.type == "cpu":
+        return getis_star_count_plain(local_idx, wb, table, rows, block, obs, cnt,
                                       alternative=alternative,
                                       far_row_ptr=far_row_ptr, far_q=far_q,
-                                      Zf=Zf, wp1=wp1, tm=tm)
+                                      far_rows=far_rows, wp1=wp1, tm=tm)
     return _launch_count(_GETIS_STAR, alternative, "getis_star_win", local_idx,
-                         wb, Zp, block, obs, cnt, far_row_ptr, far_q, Zf, tiles,
-                         row_f=wp1, col_a=tm)
+                         wb, table, rows, block, obs, cnt, far_row_ptr, far_q,
+                         far_rows, tiles, row_f=wp1, col_a=tm)
 
 
-def getis_g_count(local_idx, wb, Zp, block: int, obs, cnt, *, alternative: str,
-                  far_row_ptr, far_q, Zf, w_row, tot, sq, inv_m: float, lag_o,
-                  me_o, tiles: Optional[LisaTiles] = None) -> torch.Tensor:
+def getis_g_count(local_idx, wb, table, rows, block: int, obs, cnt, *,
+                  alternative: str, far_row_ptr, far_q, far_rows, w_row, tot,
+                  sq, inv_m: float, lag_o, me_o,
+                  tiles: Optional[LisaTiles] = None) -> torch.Tensor:
     """One Gi draw's counter update, in place: the centred lag cp (module
     docstring) against ``obs`` = cp_o (f32 [Npad, G]) per ``alternative``,
     or an exact tie of (lag, z) with (``lag_o`` int32, ``me_o`` int8
     [Npad, G]). ``w_row`` f32 [Npad] (W), ``tot`` / ``sq`` f32 [G] (the
     codes' column sums), ``inv_m`` = f32(1/m). Returns ``cnt``."""
     _check(alternative in _ALTS, f"invalid alternative {alternative!r}")
-    n_rows, _, G = _check_rows_far(local_idx, wb, Zp, block, far_row_ptr,
-                                   far_q, Zf)
-    dev = Zp.device
+    n_rows, _, G = _check_rows_far(local_idx, wb, table, rows, block,
+                                   far_row_ptr, far_q, far_rows)
+    dev = table.device
     _plane(obs, "obs", (torch.float32,), (n_rows, G), 16, dev)
     _plane(cnt, "cnt", _COUNTER_DTYPES, (n_rows, G), 4 * cnt.element_size(), dev)
     _plane(lag_o, "lag_o", (torch.int32,), (n_rows, G), 16, dev)
@@ -770,56 +838,57 @@ def getis_g_count(local_idx, wb, Zp, block: int, obs, cnt, *, alternative: str,
     _plane(tot, "tot", (torch.float32,), (G,), 16, dev)
     _plane(sq, "sq", (torch.float32,), (G,), 16, dev)
     if dev.type == "cpu":
-        return getis_g_count_plain(local_idx, wb, Zp, block, obs, cnt,
+        return getis_g_count_plain(local_idx, wb, table, rows, block, obs, cnt,
                                    alternative=alternative,
-                                   far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf,
-                                   w_row=w_row, tot=tot, sq=sq, inv_m=inv_m,
-                                   lag_o=lag_o, me_o=me_o)
-    return _launch_count(_GETIS_G, alternative, "getis_g_win", local_idx, wb, Zp,
-                         block, obs, cnt, far_row_ptr, far_q, Zf, tiles,
-                         row_f=w_row, col_a=tot, col_b=sq, lag_o=lag_o, me_o=me_o,
-                         inv_m=inv_m)
+                                   far_row_ptr=far_row_ptr, far_q=far_q,
+                                   far_rows=far_rows, w_row=w_row, tot=tot,
+                                   sq=sq, inv_m=inv_m, lag_o=lag_o, me_o=me_o)
+    return _launch_count(_GETIS_G, alternative, "getis_g_win", local_idx, wb,
+                         table, rows, block, obs, cnt, far_row_ptr, far_q,
+                         far_rows, tiles, row_f=w_row, col_a=tot, col_b=sq,
+                         lag_o=lag_o, me_o=me_o, inv_m=inv_m)
 
 
-def _check_lee(local_idx, wq, Zp, block: int, zx, sw_row, far_row_ptr, far_q,
-               Zf):
-    n_rows, k, G = _check_rows_far(local_idx, wq, Zp, block, far_row_ptr,
-                                   far_q, Zf)
+def _check_lee(local_idx, wq, table, rows, block: int, zx, sw_row, far_row_ptr,
+               far_q, far_rows):
+    n_rows, k, G = _check_rows_far(local_idx, wq, table, rows, block,
+                                   far_row_ptr, far_q, far_rows)
     _check(k <= LEE_MAX_K, f"the int8 Lee statistic is exact int32 for k <= "
                            f"{LEE_MAX_K} (k*127^3 < 2^31), got k={k}")
-    _plane(zx, "zx", (torch.int8,), (n_rows, G), 4, Zp.device)
-    _plane(sw_row, "sw_row", (torch.float32,), (n_rows,), 4, Zp.device)
+    _plane(zx, "zx", (torch.int8,), (n_rows, G), 4, table.device)
+    _plane(sw_row, "sw_row", (torch.float32,), (n_rows,), 4, table.device)
     return n_rows, G
 
 
-def _launch_lee(mode: int, name: str, local_idx, wq, Zp, block: int, zx,
-                sw_row, far_row_ptr, far_q, Zf, tiles, obs=None, cnt=None):
+def _launch_lee(mode: int, name: str, local_idx, wq, table, rows, block: int,
+                zx, sw_row, far_row_ptr, far_q, far_rows, tiles, obs=None,
+                cnt=None):
     n_rows, k = local_idx.shape
-    G = Zp.shape[1]
-    local_idx, wq, far_row_ptr, far_q, sw_row = _aligned(
-        local_idx, wq, far_row_ptr, far_q, sw_row)
+    G = table.shape[1]
+    local_idx, wq, rows, far_row_ptr, far_q, far_rows, sw_row = _aligned(
+        local_idx, wq, rows, far_row_ptr, far_q, far_rows, sw_row)
     lib = build.load_library()
-    with torch.cuda.device(Zp.device):
+    with torch.cuda.device(table.device):
         part = torch.empty((n_rows // block, G), dtype=torch.float32,
-                           device=Zp.device)
-        out = (torch.empty((n_rows, G), dtype=torch.int32, device=Zp.device)
+                           device=table.device)
+        out = (torch.empty((n_rows, G), dtype=torch.int32, device=table.device)
                if mode == _LEE_OBSERVED else None)
         cnt_bytes = cnt.element_size() if cnt is not None else 0
         err = lib.sct_lee(
-            mode, _ptr(local_idx), _ptr(wq), _ptr(Zp), _ptr(far_row_ptr),
-            _ptr(far_q), _ptr(Zf), _ptr(zx), _ptr(sw_row), _ptr(obs),
-            _ptr(cnt), _ptr(out), _ptr(part), n_rows // block, block, k, G,
-            cnt_bytes, *_shape(tiles, block, k, "lee", _FAR_ROWS, cnt_bytes, G,
-                               n_rows),
+            mode, _ptr(local_idx), _ptr(wq), _ptr(table), _ptr(rows),
+            _ptr(far_row_ptr), _ptr(far_q), _ptr(far_rows), _ptr(zx),
+            _ptr(sw_row), _ptr(obs), _ptr(cnt), _ptr(out), _ptr(part),
+            n_rows // block, block, k, G, cnt_bytes,
+            *_shape(tiles, block, k, "lee", _FAR_ROWS, cnt_bytes, G, n_rows),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    _launched(name)
     return out, part
 
 
-def lee_count(local_idx, wq, Zp, block: int, zx, sw_row, obs, cnt, *,
-              far_row_ptr, far_q, Zf, tiles: Optional[LisaTiles] = None
+def lee_count(local_idx, wq, table, rows, block: int, zx, sw_row, obs, cnt, *,
+              far_row_ptr, far_q, far_rows, tiles: Optional[LisaTiles] = None
               ) -> torch.Tensor:
     """One Lee draw: ``cnt += (|x·lag| ≥ obs)`` in place, and the draw's
     per-block partials of the global L, returned as float32 [nb, G].
@@ -827,40 +896,47 @@ def lee_count(local_idx, wq, Zp, block: int, zx, sw_row, obs, cnt, *,
     ``zx`` int8 [Npad, G]: the fixed x codes in the relabeled order;
     ``sw_row`` f32 [Npad]: each row's weight scale; ``obs`` int32 [Npad, G]
     (|Lq| of the observed placement); ``cnt`` int8 / int16 / int32
-    [Npad, G]. The band, ``Zp`` (the draw's gathered y codes) and the far
-    edges (row pointers) as the module docstring says.
+    [Npad, G]. The band, the y codes (``table`` read through the draw's
+    ``rows``) and the far edges (row pointers) as the module docstring says.
     """
-    n_rows, G = _check_lee(local_idx, wq, Zp, block, zx, sw_row, far_row_ptr,
-                           far_q, Zf)
-    _plane(obs, "obs", (torch.int32,), (n_rows, G), 16, Zp.device)
+    n_rows, G = _check_lee(local_idx, wq, table, rows, block, zx, sw_row,
+                           far_row_ptr, far_q, far_rows)
+    _plane(obs, "obs", (torch.int32,), (n_rows, G), 16, table.device)
     _plane(cnt, "cnt", _COUNTER_DTYPES, (n_rows, G), 4 * cnt.element_size(),
-           Zp.device)
-    if Zp.device.type == "cpu":
-        return lee_count_plain(local_idx, wq, Zp, block, zx, sw_row, obs, cnt,
-                               far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
-    return _launch_lee(_LEE_COUNT, "lee_win", local_idx, wq, Zp, block, zx,
-                       sw_row, far_row_ptr, far_q, Zf, tiles, obs=obs, cnt=cnt)[1]
+           table.device)
+    if table.device.type == "cpu":
+        return lee_count_plain(local_idx, wq, table, rows, block, zx, sw_row, obs,
+                               cnt, far_row_ptr=far_row_ptr, far_q=far_q,
+                               far_rows=far_rows)
+    return _launch_lee(_LEE_COUNT, "lee_win", local_idx, wq, table, rows, block,
+                       zx, sw_row, far_row_ptr, far_q, far_rows, tiles, obs=obs,
+                       cnt=cnt)[1]
 
 
-def lee_observed(local_idx, wq, Zp, block: int, zx, sw_row, *, far_row_ptr,
-                 far_q, Zf, tiles: Optional[LisaTiles] = None):
+def lee_observed(local_idx, wq, table, rows, block: int, zx, sw_row, *,
+                 far_row_ptr, far_q, far_rows, tiles: Optional[LisaTiles] = None):
     """``(|Lq| int32 [Npad, G], partials f32 [nb, G])`` at the placement
-    gathered into ``Zp`` (operands as :func:`lee_count`)."""
-    _check_lee(local_idx, wq, Zp, block, zx, sw_row, far_row_ptr, far_q, Zf)
-    if Zp.device.type == "cpu":
-        return lee_observed_plain(local_idx, wq, Zp, block, zx, sw_row,
-                                  far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
-    return _launch_lee(_LEE_OBSERVED, "lee_obs", local_idx, wq, Zp, block, zx,
-                       sw_row, far_row_ptr, far_q, Zf, tiles)
+    ``rows`` gives (operands as :func:`lee_count`)."""
+    _check_lee(local_idx, wq, table, rows, block, zx, sw_row, far_row_ptr, far_q,
+               far_rows)
+    if table.device.type == "cpu":
+        return lee_observed_plain(local_idx, wq, table, rows, block, zx, sw_row,
+                                  far_row_ptr=far_row_ptr, far_q=far_q,
+                                  far_rows=far_rows)
+    return _launch_lee(_LEE_OBSERVED, "lee_obs", local_idx, wq, table, rows,
+                       block, zx, sw_row, far_row_ptr, far_q, far_rows, tiles)
 
 
-def lee_partial(local_idx, wq, Zp, block: int, zx, sw_row, *, far_row_ptr,
-                far_q, Zf, tiles: Optional[LisaTiles] = None) -> torch.Tensor:
+def lee_partial(local_idx, wq, table, rows, block: int, zx, sw_row, *,
+                far_row_ptr, far_q, far_rows, tiles: Optional[LisaTiles] = None
+                ) -> torch.Tensor:
     """The partials f32 [nb, G] alone (the global-only Lee null; operands
     as :func:`lee_count`)."""
-    _check_lee(local_idx, wq, Zp, block, zx, sw_row, far_row_ptr, far_q, Zf)
-    if Zp.device.type == "cpu":
-        return lee_partial_plain(local_idx, wq, Zp, block, zx, sw_row,
-                                 far_row_ptr=far_row_ptr, far_q=far_q, Zf=Zf)
-    return _launch_lee(_LEE_PARTIAL, "lee_partial", local_idx, wq, Zp, block,
-                       zx, sw_row, far_row_ptr, far_q, Zf, tiles)[1]
+    _check_lee(local_idx, wq, table, rows, block, zx, sw_row, far_row_ptr, far_q,
+               far_rows)
+    if table.device.type == "cpu":
+        return lee_partial_plain(local_idx, wq, table, rows, block, zx, sw_row,
+                                 far_row_ptr=far_row_ptr, far_q=far_q,
+                                 far_rows=far_rows)
+    return _launch_lee(_LEE_PARTIAL, "lee_partial", local_idx, wq, table, rows,
+                       block, zx, sw_row, far_row_ptr, far_q, far_rows, tiles)[1]

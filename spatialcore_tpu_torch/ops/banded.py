@@ -748,20 +748,33 @@ def _gather(table: torch.Tensor, rows: torch.Tensor, far_dst=None):
     """``(Zp, Zf)``: the row gather ``Zp = table[rows]`` and, with
     ``far_dst``, the far values ``Zf = Zp[far_dst]`` (the far targets'
     rows of the gathered table: one far-value source for every null),
-    inside an ``ops.banded.gather`` span."""
+    inside an ``ops.banded.gather`` span. The rows it writes add to the
+    counter ``ops.banded.gather_rows`` (sizes known on the host: no
+    read-back)."""
     with span("ops.banded.gather"):
+        count("ops.banded.gather_rows",
+              rows.numel() + (0 if far_dst is None else far_dst.numel()))
         Zp = table[rows]
         return Zp, None if far_dst is None else Zp[far_dst]
 
 
 def _draws(table: torch.Tensor, rows_of, n_permutations: int, far_dst=None,
-           start: int = 0):
+           start: int = 0, gather: bool = True):
     """The draw loop of every banded null: draw d's rows (``rows_of``,
     :func:`_draw_rows`) and their :func:`_gather`, yielded as ``(Zp, Zf)``
     inside draw d's ``draw`` span (:func:`_draw_steps`), where the null
-    runs its step, for d in ``[start, start + n_permutations)``."""
+    runs its step, for d in ``[start, start + n_permutations)``. With
+    ``gather=False`` (the int8 local nulls, whose draw step reads ``table``
+    through the rows itself) it yields ``(rows, far_rows)`` instead: the
+    draw's rows and the far targets' rows ``rows[far_dst]``, no code
+    copied."""
     for step in _draw_steps(n_permutations, start):
-        yield _gather(table, rows_of(step), far_dst)
+        rows = rows_of(step)
+        if gather:
+            yield _gather(table, rows, far_dst)
+        else:
+            count("ops.banded.gather_rows", 0)
+            yield rows, None if far_dst is None else rows[far_dst]
 
 
 def _padded_rows(plan: NullPlan, device) -> torch.Tensor:
@@ -1185,12 +1198,15 @@ def _local_setup(plan: NullPlan, device, far: str = "rows",
 
 def _observed(fn, table: torch.Tensor, rows_idx, far_dst, chunked: bool):
     """An int8 local null's observed pass at the identity placement:
-    ``fn(Zp, Zf)`` on ``table`` gathered at the padded rows ``rows_idx``
-    and its far values at ``far_dst`` (:func:`_gather`, as a draw's), a
-    gene-column chunk at a time when ``chunked`` (the plain versions:
-    bounds their temps)."""
+    ``fn(T, rows, far_rows)`` on ``table`` read at the padded rows
+    ``rows_idx`` and the far targets' rows ``rows_idx[far_dst]`` (as a
+    draw's, :func:`_draws` with ``gather=False``), a gene-column chunk of
+    ``table`` at a time when ``chunked`` (the plain versions: bounds their
+    temps)."""
+    far_rows = None if far_dst is None else rows_idx[far_dst]
+
     def at_identity(T):
-        return fn(*_gather(T, rows_idx, far_dst))
+        return fn(T, rows_idx, far_rows)
 
     if not chunked:
         return at_identity(table)
@@ -1214,9 +1230,11 @@ def _banded_local_moran_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
     for P ≤ 32767, int32 above.
 
     Per draw: the padded rows of one draw (:func:`_draw_rows`, Feistel or
-    "sort"), one int8 row gather ``Zp = Zq[rows]``, one compact far gather
-    ``Zp[far_dst]`` (row-pointer form), and the draw-step kernel
-    (``kernels.lisa_count``), which updates the counters in place.
+    "sort"), the far targets' rows ``rows[far_dst]``, and the draw-step
+    kernel (``kernels.lisa_count``), which reads ``Zq`` through those rows
+    (no permuted table is written) and updates the counters in place;
+    K8's dense far form gathers the far values ``Zq[far_rows]`` for its
+    layer.
     ``band_impl="xla"`` runs the kernel's plain version instead, on any
     device. Returns p [n, G] in the original cell order, or the integer
     counts with ``return_counts``.
@@ -1242,10 +1260,11 @@ def _banded_local_moran_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
     fq = far_q[:lo.n_live]
     fq8, fq32 = fq.to(torch.int8), fq.to(torch.int32)[:, None]
 
-    def far(Zf):
+    def far(T, far_rows):
         if form == "rows":
-            return dict(far_row_ptr=lo.ptr, far_q=fq8, Zf=Zf)
+            return dict(far_row_ptr=lo.ptr, far_q=fq8, far_rows=far_rows)
         if form == "dense":
+            Zf = _gather(T, far_rows)[0]
             layer = torch.zeros((plan.n_padded, Zf.shape[1]),
                                 dtype=torch.int32, device=Zf.device)
             # integer adds: exact in any order
@@ -1254,15 +1273,17 @@ def _banded_local_moran_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
         return {}
 
     # observed via the SAME quantized operator, at the identity placement
-    abs_obs = _observed(lambda Zp, Zf: obs_fn(lo.li, wq, Zp, B, **far(Zf)),
+    abs_obs = _observed(lambda T, rows, fr: obs_fn(lo.li, wq, T, rows, B,
+                                                   **far(T, fr)),
                         Zq, lo.rows_idx, far_dst, band_impl == "xla")
     rows_of = _draw_rows(perm_method, seed, lo.rows_idx, plan.n, "perm_local",
                          "perm_feistel_local")
     count = torch.zeros(abs_obs.shape, dtype=kern_lisa.counter_dtype(
         n_permutations), device=Zq.device)
-    for Zp, Zf in _draws(Zq, rows_of, n_permutations, far_dst):
+    for rows, far_rows in _draws(Zq, rows_of, n_permutations, far_dst,
+                                 gather=False):
         with span("kernels.lisa_count"):
-            count_fn(lo.li, wq, Zp, B, abs_obs, count, **far(Zf))
+            count_fn(lo.li, wq, Zq, rows, B, abs_obs, count, **far(Zq, far_rows))
     count = count[plan.rank, :G]                  # original order
     if return_counts:
         return count
@@ -1403,10 +1424,10 @@ def _banded_local_geary_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
     shares the positive factor s_g²·sw_row, so ``c_perm ≤ c_obs`` is an
     exact int32 comparison (k ≤ 256). The observed value comes from the
     same operator at the identity placement. Per draw: one draw's rows
-    (:func:`_draw_rows`), one int8 row gather, the far values
-    ``Zp[far_dst]``, and the geary draw step
-    (``kernels.lisa_count.geary_count``; its plain version with
-    ``band_impl="xla"``). Counters are int8 for P ≤ 127.
+    (:func:`_draw_rows`) and the far targets' rows ``rows[far_dst]``, and
+    the geary draw step (``kernels.lisa_count.geary_count``, which reads
+    ``Zq`` through them; its plain version with ``band_impl="xla"``).
+    Counters are int8 for P ≤ 127.
     Returns ``(c_obs in code units, p)`` [n, G] in the original order.
     """
     B = plan.block
@@ -1427,17 +1448,19 @@ def _banded_local_geary_p_i8(plan: NullPlan, Z: torch.Tensor, seed: int, *,
     count_fn, obs_fn = ((kern_lisa.geary_count_plain, kern_lisa.geary_observed_plain)
                         if band_impl == "xla" else
                         (kern_lisa.geary_count, kern_lisa.geary_observed))
-    c_obs = _observed(lambda Zp, Zf: obs_fn(lo.li, wq, Zp, B, w_code,
-                                            far_row_ptr=lo.ptr, far_q=fq8, Zf=Zf),
+    c_obs = _observed(lambda T, rows, fr: obs_fn(lo.li, wq, T, rows, B, w_code,
+                                                 far_row_ptr=lo.ptr, far_q=fq8,
+                                                 far_rows=fr),
                       Zq, lo.rows_idx, lo.far_dst, band_impl == "xla")
     rows_of = _draw_rows(perm_method, seed, lo.rows_idx, plan.n,
                          "perm_local_geary", "perm_feistel_local_geary")
     count = torch.zeros(c_obs.shape, dtype=kern_lisa.counter_dtype(
         n_permutations), device=Zq.device)
-    for Zp, Zf in _draws(Zq, rows_of, n_permutations, lo.far_dst):
+    for rows, far_rows in _draws(Zq, rows_of, n_permutations, lo.far_dst,
+                                 gather=False):
         with span("kernels.lisa_count"):
-            count_fn(lo.li, wq, Zp, B, c_obs, count, w_code,
-                     far_row_ptr=lo.ptr, far_q=fq8, Zf=Zf)
+            count_fn(lo.li, wq, Zq, rows, B, c_obs, count, w_code,
+                     far_row_ptr=lo.ptr, far_q=fq8, far_rows=far_rows)
     return (c_obs[plan.rank, :G],
             _p_from_counts(count[plan.rank, :G], n_permutations))
 
@@ -1565,8 +1588,9 @@ def _banded_getis_p_i8(plan: NullPlan, X: torch.Tensor, seed: int, *,
     comparisons and two-sided the sign test against c2 = f32(tot/m)·(W+1).
     Gi: the leave-one-out centred lag cp in float32, with an exact
     (lag, own) tie counted as extreme (``kernels.lisa_count``). Per draw:
-    one draw's rows (:func:`_draw_rows`), one int8 row gather, the far
-    values and the Getis draw step. Returns p_sim [n, G] in the original order.
+    one draw's rows (:func:`_draw_rows`), the far targets' rows, and the
+    Getis draw step, which reads ``Xq`` through them. Returns p_sim [n, G]
+    in the original order.
     """
     B = plan.block
     Xq = _quantize_x(X)[0]
@@ -1588,8 +1612,9 @@ def _banded_getis_p_i8(plan: NullPlan, X: torch.Tensor, seed: int, *,
     else:
         lag_fn, star_fn, g_fn = (kern_lisa.getis_lag, kern_lisa.getis_star_count,
                                  kern_lisa.getis_g_count)
-    lag_o = _observed(lambda Xp, Xf: lag_fn(lo.li, wb, Xp, B, far_row_ptr=lo.ptr,
-                                            far_q=fb, Zf=Xf),
+    lag_o = _observed(lambda T, rows, fr: lag_fn(lo.li, wb, T, rows, B,
+                                                 far_row_ptr=lo.ptr, far_q=fb,
+                                                 far_rows=fr),
                       Xq, lo.rows_idx, lo.far_dst, band_impl == "xla")
     me_o = Xq[lo.rows_idx[B:B + plan.n_padded]]
     if star:
@@ -1608,10 +1633,11 @@ def _banded_getis_p_i8(plan: NullPlan, X: torch.Tensor, seed: int, *,
                          "perm_feistel_getis")
     count = torch.zeros(obs.shape, dtype=kern_lisa.counter_dtype(
         n_permutations), device=dev)
-    for Xp, Xf in _draws(Xq, rows_of, n_permutations, lo.far_dst):
+    for rows, far_rows in _draws(Xq, rows_of, n_permutations, lo.far_dst,
+                                 gather=False):
         with span("kernels.lisa_count"):
-            count_fn(lo.li, wb, Xp, B, obs, count, alternative=alternative,
-                     far_row_ptr=lo.ptr, far_q=fb, Zf=Xf, **kw)
+            count_fn(lo.li, wb, Xq, rows, B, obs, count, alternative=alternative,
+                     far_row_ptr=lo.ptr, far_q=fb, far_rows=far_rows, **kw)
     return _p_from_counts(count[plan.rank, :G], n_permutations)
 
 
@@ -1795,9 +1821,10 @@ def _banded_lees_p_i8(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
     L re-applies the row scale in float32: the draw step returns per-block
     partials Σ_rows sw_row·f32(Lq) in a fixed order, which
     :func:`_tree_sum` reduces in a fixed order, the same for the observed
-    value and every draw. Per draw: one row gather of the y codes (Feistel
-    or ``permutation`` rows), the far values, and one Lee entry of
-    ``kernels.lisa_count`` — the draw step with ``compute_cell_pvalues``,
+    value and every draw. Per draw: the draw's rows (Feistel or
+    ``permutation``) and the far targets' rows, and one Lee entry of
+    ``kernels.lisa_count``, which reads the y codes through them — the
+    draw step with ``compute_cell_pvalues``,
     the partial-only entry without (the kernel on a CUDA tensor, its plain
     version on a CPU tensor or with ``band_impl="xla"``). Counters are int8
     for P ≤ 127. Returns ``(p_global [G], p_local [n, G])``.
@@ -1826,8 +1853,9 @@ def _banded_lees_p_i8(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
     # the identity placement: |Lq| per cell and the partials, or the
     # partials alone
     first_fn = obs_fn if compute_cell_pvalues else part_fn
-    obs = _observed(lambda Yp, Yf: first_fn(lo.li, wq, Yp, B, zx, sw_row,
-                                            far_row_ptr=lo.ptr, far_q=fq8, Zf=Yf),
+    obs = _observed(lambda T, rows, fr: first_fn(lo.li, wq, T, rows, B, zx, sw_row,
+                                                 far_row_ptr=lo.ptr, far_q=fq8,
+                                                 far_rows=fr),
                     Zyq, lo.rows_idx, lo.far_dst, False)
     abs_l, part = obs if compute_cell_pvalues else (None, obs)
     abs_g = _tree_sum(part).abs()
@@ -1837,13 +1865,15 @@ def _banded_lees_p_i8(plan: NullPlan, Zx: torch.Tensor, Zy: torch.Tensor,
     cl = (torch.zeros((plan.n_padded, Zyq.shape[1]), device=dev,
                       dtype=kern_lisa.counter_dtype(n_permutations))
           if compute_cell_pvalues else None)
-    for Yp, Yf in _draws(Zyq, rows_of, n_permutations, lo.far_dst):
+    for rows, far_rows in _draws(Zyq, rows_of, n_permutations, lo.far_dst,
+                                 gather=False):
         with span("kernels.lisa_count"):
-            far = dict(far_row_ptr=lo.ptr, far_q=fq8, Zf=Yf)
+            far = dict(far_row_ptr=lo.ptr, far_q=fq8, far_rows=far_rows)
             if cl is not None:
-                part = count_fn(lo.li, wq, Yp, B, zx, sw_row, abs_l, cl, **far)
+                part = count_fn(lo.li, wq, Zyq, rows, B, zx, sw_row, abs_l, cl,
+                                **far)
             else:
-                part = part_fn(lo.li, wq, Yp, B, zx, sw_row, **far)
+                part = part_fn(lo.li, wq, Zyq, rows, B, zx, sw_row, **far)
             cg += (_tree_sum(part).abs() >= abs_g).to(torch.int32)
     p_l = (_p_from_counts(cl[plan.rank, :G], n_permutations)
            if compute_cell_pvalues

@@ -202,9 +202,10 @@ def counters() -> dict:
     and radius graph (``graph.radius_isolated``) built, Lee's L pair
     columns (``lee.pairs``: the columns built, ``lee.x_genes`` /
     ``lee.y_genes``: the distinct x and y genes among each set built,
-    summed), with the counts kept on the card folded in first. Folding
-    them reads them back, so the call waits for the work queued on the
-    card (see :func:`fold_on_read`)."""
+    summed), the value-table rows the draw loops gather
+    (``ops.banded.gather_rows``), with the counts kept on the card folded
+    in first. Folding them reads them back, so the call waits for the work
+    queued on the card (see :func:`fold_on_read`)."""
     for fold in _folds:
         fold()
     return dict(_counts)

@@ -22,6 +22,7 @@ from spatialcore_tpu.ops import moran as jm
 from spatialcore_tpu.ops import streaming as js
 from spatialcore_tpu_torch.core.rng import feistel_apply, fold_in, key_for, permutation
 from spatialcore_tpu_torch.kernels import band_cross as kern
+from spatialcore_tpu_torch.kernels import lisa_count as kern_lisa
 from spatialcore_tpu_torch.ops import banded as tb
 from spatialcore_tpu_torch.ops import graph as tg
 from spatialcore_tpu_torch.ops import moran as tm
@@ -548,6 +549,112 @@ def test_draw_loop_calls_the_module_global_walk(setup, monkeypatch, null,
         np.testing.assert_array_equal(_np(got[0]), _np(want[0]))
         for g, w in zip(got[1:], want[1:]):
             _close(g, w)
+
+
+def _gathered_rows(setup, null: str, precision: str, P: int, **kw) -> int:
+    """``ops.banded.gather_rows`` counted over one banded null of P draws."""
+    before = prof.counters().get("ops.banded.gather_rows", 0)
+    if kw:
+        tb.banded_local_moran_pvalues(setup["pt"]._replace(far_starts=None,
+                                                            far_bmax=0),
+                                      setup["Zt"], 3, P, **kw)
+    else:
+        _null_run(setup, null, precision, "feistel", P)
+    return prof.counters()["ops.banded.gather_rows"] - before
+
+
+@pytest.mark.parametrize("null,precision,dense", [
+    ("global", "f32", False), ("global", "int8", False), ("global", "int4", False),
+    ("moran", "int8", False), ("moran", "int8", True), ("moran", "f32", False),
+    ("geary", "int8", False), ("geary", "f32", False), ("getis", "int8", False),
+    ("getis", "f32", False), ("lee", "int8", False), ("lee", "f32", False)])
+def test_draw_loop_gathers_only_what_its_step_copies(setup, null, precision,
+                                                     dense):
+    """The rows ``ops.banded.gather_rows`` counts a draw (the difference of
+    runs of 6 and 3 draws): none for the int8 local nulls, whose draw steps
+    read the table through the draw's rows, but the far values of K8's
+    dense layer; every padded row (and the global int null's far rows) for
+    the float nulls and the global nulls, which still gather."""
+    pt = setup["pt"]
+    kw = dict(band_impl="pallas") if dense else {}
+    per_draw = (_gathered_rows(setup, null, precision, 6, **kw)
+                - _gathered_rows(setup, null, precision, 3, **kw)) / 3
+    rows = pt.n_padded + 2 * B
+    if dense:
+        want = tb._n_live_far(pt)
+    elif precision == "int8" and null != "global":
+        want = 0
+    elif null == "global" and precision != "f32":
+        want = rows + tb._int_ops(pt, precision, "win", use_plain=True
+                                  ).far_rows.numel()
+    else:
+        want = rows
+    assert per_draw == want
+
+
+def _k7_operands(pt, seed: int = 11):
+    """A random draw of ``pt``'s int8 local operands: codes of the cells read
+    through a random permutation's padded rows (whose padding repeats the
+    first and last cell), the far list as row pointers and as K8's dense
+    layer."""
+    gen = torch.Generator().manual_seed(seed)
+    wq, _, far_q = tb._full_row_codes(pt)
+    lo = tb._local_setup(pt, "cpu")
+    table = torch.randint(-127, 128, (pt.n, 12), generator=gen, dtype=torch.int8)
+    rows = torch.randperm(pt.n, generator=gen)[lo.rows_idx]
+    assert rows[:B].unique().numel() == 1 and rows[-B:].unique().numel() == 1
+    fq = far_q[:lo.n_live]
+    Zp = table[rows]
+    Zf = Zp[lo.far_dst]
+    dense = torch.zeros((pt.n_padded, 12), dtype=torch.int32).index_add_(
+        0, lo.far_row, Zf.to(torch.int32) * fq.to(torch.int32)[:, None])
+    far = dict(far_row_ptr=lo.ptr, far_q=fq.to(torch.int8))
+    return lo.li, wq, table, rows, Zp, Zf, far, rows[lo.far_dst], dense
+
+
+@pytest.mark.parametrize("form", ["rows", "dense", "none"])
+def test_lisa_plain_reads_through_rows_as_the_gathered_table(setup, form):
+    """K7's moran entries on ``(table, rows)``: bitwise the old form, the
+    statistic on the gathered table ``Zp = table[rows]`` and far values
+    ``Zp[far_dst]``, for each far form, on a random permutation's rows."""
+    li, wq, table, rows, Zp, Zf, far, far_rows, dense = _k7_operands(setup["pt"])
+    n = li.shape[0]
+    if form == "rows":
+        kw = dict(far, far_rows=far_rows)
+        old = (far["far_row_ptr"], far["far_q"], Zf, None)
+    elif form == "dense":
+        kw, old = dict(far=dense), (None, None, None, dense)
+    else:
+        kw, old = {}, (None, None, None, None)
+    want = kern_lisa._abs_ip_plain(li, wq, Zp, B, *old, 0, n)
+    got = kern_lisa.lisa_observed(li, wq, table, rows, B, **kw)
+    assert torch.equal(got, want)
+    obs = want.flip(0).contiguous()
+    cnt = torch.zeros_like(want, dtype=torch.int16)
+    kern_lisa.lisa_count(li, wq, table, rows, B, obs, cnt, **kw)
+    assert torch.equal(cnt, (want >= obs).to(torch.int16))
+    assert 0 < int(cnt.sum()) < cnt.numel()
+
+
+def test_geary_plain_reads_through_rows_as_the_gathered_table(setup):
+    """K7's geary entries on ``(table, rows)``: bitwise the geary value of
+    the gathered table and its far values, on a random permutation's rows
+    with the plan's repeated padding rows."""
+    li, wq, table, rows, Zp, Zf, far, far_rows, _ = _k7_operands(setup["pt"], 12)
+    n = li.shape[0]
+    lo = tb._local_setup(setup["pt"], "cpu")
+    w_code = wq.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
+        0, lo.far_row, far["far_q"].to(torch.int32))
+    want = kern_lisa._geary_plain(li, wq, Zp, B, w_code, far["far_row_ptr"],
+                                  far["far_q"], Zf, 0, n)
+    got = kern_lisa.geary_observed(li, wq, table, rows, B, w_code,
+                                   far_rows=far_rows, **far)
+    assert torch.equal(got, want)
+    obs = want.flip(0).contiguous()
+    cnt = torch.zeros_like(want, dtype=torch.int8)
+    kern_lisa.geary_count(li, wq, table, rows, B, obs, cnt, w_code,
+                          far_rows=far_rows, **far)
+    assert torch.equal(cnt, (want <= obs).to(torch.int8))
 
 
 def _rif_walk_int_null(pt, Z, S0, seed, P, precision, perm_method, draw0,

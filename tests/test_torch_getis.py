@@ -191,31 +191,78 @@ def test_getis_null_refusals(setup):
     np.testing.assert_array_equal(_np(got), np.asarray(want))
 
 
+@pytest.mark.parametrize("star", [True, False], ids=["getis_star", "getis_g"])
+def test_getis_plain_reads_through_rows_as_the_gathered_table(setup, star):
+    """The Getis entries on raw codes read through a random permutation's
+    rows (padding repeating the first and last cell): the binary lag, and
+    the Gi* / Gi draw steps, bitwise the old form on the gathered table
+    ``Xq[rows]`` and its far values ``Xp[far_dst]``."""
+    pt = setup["pt"]
+    Xq = tb._pad_cols4(tb._quantize_x(setup["Xt"])[0])
+    wb = (pt.w_local > 0).to(torch.int8)
+    lo = tb._local_setup(pt, "cpu")
+    fb = torch.ones(lo.n_live, dtype=torch.int8)
+    rows = torch.randperm(pt.n, generator=torch.Generator().manual_seed(4))[
+        lo.rows_idx]
+    far = dict(far_row_ptr=lo.ptr, far_q=fb, far_rows=rows[lo.far_dst])
+    Xp = Xq[rows]
+    n = pt.n_padded
+    lag = kern_lisa._int_lag_plain(lo.li, wb, Xp, B, lo.ptr, fb, Xp[lo.far_dst],
+                                   0, n)
+    assert torch.equal(kern_lisa.getis_lag(lo.li, wb, Xq, rows, B, **far), lag)
+    # observed values of the identity placement against this draw
+    lag_o = kern_lisa.getis_lag(lo.li, wb, Xq, lo.rows_idx, B, far_row_ptr=lo.ptr,
+                                far_q=fb, far_rows=lo.rows_idx[lo.far_dst])
+    me_o = Xq[lo.rows_idx[B:B + n]].contiguous()
+    z = Xp[B:B + n]
+    w_row = wb.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
+        0, lo.far_row, fb.to(torch.int32)).to(torch.float32)
+    tot, sq = tb._code_moments(Xq)
+    inv_m = tb._inv_m(pt.n, star)
+    cnt = torch.zeros(lag.shape, dtype=torch.int8)
+    if star:
+        obs = lag_o + me_o.to(torch.int32)
+        kern_lisa.getis_star_count(lo.li, wb, Xq, rows, B, obs, cnt,
+                                   alternative="greater", **far)
+        want = lag + z.to(torch.int32) >= obs
+    else:
+        obs = kern_lisa.gi_center(lag_o, me_o, w_row, tot, sq, inv_m)
+        kern_lisa.getis_g_count(lo.li, wb, Xq, rows, B, obs, cnt,
+                                alternative="less", w_row=w_row, tot=tot, sq=sq,
+                                inv_m=inv_m, lag_o=lag_o, me_o=me_o, **far)
+        cp = kern_lisa.gi_center(lag, z, w_row, tot, sq, inv_m)
+        want = (cp <= obs) | ((lag == lag_o) & (z == me_o))
+    assert torch.equal(cnt, want.to(torch.int8))
+    assert 0 < int(cnt.sum()) < cnt.numel()
+
+
 def test_getis_wrapper_refuses_bad_operands(setup):
     pt = setup["pt"]
     li = pt.local_idx.to(torch.int32)
     wb = torch.zeros_like(li, dtype=torch.int8)
-    zp = torch.zeros(li.shape[0] + 2 * B, 16, dtype=torch.int8)
+    table = torch.zeros(li.shape[0] + 2 * B, 16, dtype=torch.int8)
+    rows = torch.arange(li.shape[0] + 2 * B)
     far = dict(far_row_ptr=torch.zeros(li.shape[0] + 1, dtype=torch.int32),
                far_q=torch.zeros(0, dtype=torch.int8),
-               Zf=torch.zeros(0, 16, dtype=torch.int8))
+               far_rows=torch.zeros(0, dtype=torch.int64))
     obs = torch.zeros(li.shape[0], 16, dtype=torch.int32)
     cnt = torch.zeros_like(obs, dtype=torch.int8)
     with pytest.raises(ValueError, match="wp1 and tm"):
-        kern_lisa.getis_star_count(li, wb, zp, B, obs, cnt,
+        kern_lisa.getis_star_count(li, wb, table, rows, B, obs, cnt,
                                    alternative="two-sided", **far)
     with pytest.raises(ValueError, match="alternative"):
-        kern_lisa.getis_star_count(li, wb, zp, B, obs, cnt, alternative="x",
-                                   **far)
+        kern_lisa.getis_star_count(li, wb, table, rows, B, obs, cnt,
+                                   alternative="x", **far)
     with pytest.raises(ValueError, match="obs"):
         kern_lisa.getis_g_count(
-            li, wb, zp, B, obs, cnt, alternative="less", w_row=torch.zeros(
-                li.shape[0]), tot=torch.zeros(16), sq=torch.zeros(16),
-            inv_m=1.0, lag_o=obs, me_o=zp[B:-B].contiguous(), **far)
-    assert kern_lisa.getis_star_count(li, wb, zp, B, obs, cnt,
+            li, wb, table, rows, B, obs, cnt, alternative="less",
+            w_row=torch.zeros(li.shape[0]), tot=torch.zeros(16),
+            sq=torch.zeros(16), inv_m=1.0, lag_o=obs,
+            me_o=table[B:-B].contiguous(), **far)
+    assert kern_lisa.getis_star_count(li, wb, table, rows, B, obs, cnt,
                                       alternative="greater", **far) is cnt
     assert bool((cnt == 1).all())                 # 0 >= 0 everywhere
-    assert bool((kern_lisa.getis_lag(li, wb, zp, B, **far) == 0).all())
+    assert bool((kern_lisa.getis_lag(li, wb, table, rows, B, **far) == 0).all())
 
 
 # ---------------------------------------------------------------------------

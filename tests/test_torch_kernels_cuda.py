@@ -373,8 +373,11 @@ def _lisa_operands(nb: int, G: int, k: int = 6, blk: int = B, seed: int = 3,
     """Synthetic LISA operands: a compact band with some zero weights (with
     ``one_code_a_row`` every nonzero weight of a row is one code, as in a
     kNN band), and a far list of 0–3 entries a row whose rows include every
-    block's first and last row. At k = 256 every code is ±127 (geary's
-    exactness bound)."""
+    block's first and last row. The codes are a table of n cells read
+    through a draw's rows: a random permutation at the padded positions,
+    the padding clamped to the first and last cell as a plan's is, so rows
+    repeat; far entries read the rows of random positions. At k = 256
+    every code is ±127 (geary's exactness bound)."""
     gen = torch.Generator().manual_seed(seed)
     n = nb * blk
     li = torch.randint(0, 3 * blk, (n, k), generator=gen, dtype=torch.int32)
@@ -397,14 +400,30 @@ def _lisa_operands(nb: int, G: int, k: int = 6, blk: int = B, seed: int = 3,
     ptr[1:] = torch.cumsum(per_row, 0).to(torch.int32)
     F = int(ptr[-1])
     far_q = torch.randint(0, 128, (F,), generator=gen).to(torch.int8)
-    zp, zf = codes(n + 2 * blk), codes(F)
+    table = codes(n)
+    perm = torch.randperm(n, generator=gen)
+    rows = perm[torch.clamp(torch.arange(n + 2 * blk) - blk, 0, n - 1)]
+    far_rows = rows[torch.randint(0, n + 2 * blk, (F,), generator=gen)]
     dense = torch.randint(-k * 127 * 127, k * 127 * 127, (n, G), generator=gen,
                           dtype=torch.int32)
-    obs = kern_lisa.lisa_observed(li, wq, codes(n + 2 * blk), blk,
-                                  far_row_ptr=ptr, far_q=far_q, Zf=codes(F))
-    return dict(li=li, wq=wq, zp=zp, obs=obs, blk=blk,
-                far={"rows": dict(far_row_ptr=ptr, far_q=far_q, Zf=zf),
+    obs = kern_lisa.lisa_observed(li, wq, codes(n), rows, blk, far_row_ptr=ptr,
+                                  far_q=far_q, far_rows=far_rows)
+    return dict(li=li, wq=wq, table=table, rows=rows, obs=obs, blk=blk,
+                far={"rows": dict(far_row_ptr=ptr, far_q=far_q, far_rows=far_rows),
                      "dense": dict(far=dense), "none": {}})
+
+
+def _gathered(o, far):
+    """The same draw as the old gathered operands: the table ``table[rows]``
+    read at the identity rows, far values ``table[far_rows]`` at their own
+    rows, so the kernel reads the permuted table the torch gather wrote."""
+    zp = o["table"][o["rows"]]
+    ident = torch.arange(zp.shape[0])
+    if "far_rows" not in far:
+        return zp, ident, far
+    zf = o["table"][far["far_rows"]]
+    return (torch.cat([zp, zf]), ident,
+            dict(far, far_rows=torch.arange(zf.shape[0]) + zp.shape[0]))
 
 
 def _on(t, dev):
@@ -425,14 +444,17 @@ def _shapes(case, stat: str, form: int, cnt_bytes: int):
 
 def _equal_at_every_shape(fn, mode: str, want, shapes):
     """``fn(tiles)`` at every launch shape, twice each: one launch a call,
-    and both runs equal to ``want`` (a tensor or a tuple) bitwise."""
+    read through the draw's rows (``kernels.lisa_count.indirect``), and
+    both runs equal to ``want`` (a tensor or a tuple) bitwise."""
     want = want if isinstance(want, tuple) else (want,)
     for tiles in shapes:
         for _ in range(2):
             before = kern_lisa.LAUNCHES[mode]
+            indirect = prof.counters().get("kernels.lisa_count.indirect", 0)
             got = fn(tiles)
             torch.cuda.synchronize()
             assert kern_lisa.LAUNCHES[mode] == before + 1, tiles
+            assert prof.counters()["kernels.lisa_count.indirect"] == indirect + 1
             got = got if isinstance(got, tuple) else (got,)
             for g, w in zip(got, want):
                 assert torch.equal(g.cpu(), w), tiles
@@ -447,17 +469,19 @@ def test_lisa_count_kernel_equals_plain(cuda_device, case, form, cdt):
     o = _lisa_operands(nb, G, k=k, blk=blk)
     far = o["far"][form]
     cnt0 = torch.randint(0, 100, o["obs"].shape).to(cdt)
-    want = kern_lisa.lisa_count(o["li"], o["wq"], o["zp"], blk, o["obs"],
-                                cnt0.clone(), **far)
+    want = kern_lisa.lisa_count(o["li"], o["wq"], o["table"], o["rows"], blk,
+                                o["obs"], cnt0.clone(), **far)
     assert 0 < int((want != cnt0).sum()) < want.numel()
-    args = [_on(o[x], cuda_device) for x in ("li", "wq", "zp")]
     obs, cnt = o["obs"].to(cuda_device), cnt0.to(cuda_device)
-    far_dev = {x: _on(v, cuda_device) for x, v in far.items()}
     mode = {"rows": "lisa_win", "dense": "lisa_dense", "none": "lisa_band"}[form]
-    _equal_at_every_shape(
-        lambda tiles: kern_lisa.lisa_count(*args, blk, obs, cnt.clone(), **far_dev,
-                                           tiles=tiles),
-        mode, want, _shapes(case, "moran", _FORMS[form], cnt0.element_size()))
+    zp, ident, far_g = _gathered(o, far)
+    for table, rows, fr in ((o["table"], o["rows"], far), (zp, ident, far_g)):
+        args = [_on(t, cuda_device) for t in (o["li"], o["wq"], table, rows)]
+        far_dev = {x: _on(v, cuda_device) for x, v in fr.items()}
+        _equal_at_every_shape(
+            lambda tiles: kern_lisa.lisa_count(*args, blk, obs, cnt.clone(),
+                                               **far_dev, tiles=tiles),
+            mode, want, _shapes(case, "moran", _FORMS[form], cnt0.element_size()))
 
 
 @pytest.mark.cuda
@@ -467,12 +491,16 @@ def test_lisa_observed_kernel_equals_plain(cuda_device, case, form):
     blk, k, nb, G, _ = case
     o = _lisa_operands(nb, G, k=k, blk=blk)
     far = o["far"][form]
-    want = kern_lisa.lisa_observed(o["li"], o["wq"], o["zp"], blk, **far)
-    args = [_on(o[x], cuda_device) for x in ("li", "wq", "zp")]
-    far_dev = {x: _on(v, cuda_device) for x, v in far.items()}
-    _equal_at_every_shape(
-        lambda tiles: kern_lisa.lisa_observed(*args, blk, **far_dev, tiles=tiles),
-        "lisa_obs", want, _shapes(case, "moran", _FORMS[form], 0))
+    want = kern_lisa.lisa_observed(o["li"], o["wq"], o["table"], o["rows"], blk,
+                                   **far)
+    zp, ident, far_g = _gathered(o, far)
+    for table, rows, fr in ((o["table"], o["rows"], far), (zp, ident, far_g)):
+        args = [_on(t, cuda_device) for t in (o["li"], o["wq"], table, rows)]
+        far_dev = {x: _on(v, cuda_device) for x, v in fr.items()}
+        _equal_at_every_shape(
+            lambda tiles: kern_lisa.lisa_observed(*args, blk, **far_dev,
+                                                  tiles=tiles),
+            "lisa_obs", want, _shapes(case, "moran", _FORMS[form], 0))
 
 
 @pytest.mark.cuda
@@ -508,8 +536,7 @@ def _tail_operands(case, getis: bool, seed: int = 5, one_code_a_row: bool = Fals
     if getis:
         wq = (wq != 0).to(torch.int8)
         far["far_q"] = torch.ones_like(far["far_q"])
-        o["zp"] = o["zp"].abs()
-        far["Zf"] = far["Zf"].abs()
+        o["table"] = o["table"].abs()
     w_row = wq.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
         0, src, far["far_q"].to(torch.int32))
     def codes(shape):                   # at k = 256 ±127, as the draw's
@@ -518,10 +545,9 @@ def _tail_operands(case, getis: bool, seed: int = 5, one_code_a_row: bool = Fals
         return torch.randint(0 if getis else -127, 128, shape, generator=gen,
                              dtype=torch.int8)
 
-    other = codes(o["zp"].shape)
-    other_far = dict(far, Zf=codes(far["Zf"].shape))
-    return dict(li=o["li"], wq=wq, zp=o["zp"], far=far, w_row=w_row,
-                other=other, other_far=other_far)
+    other = codes(o["table"].shape)
+    return dict(li=o["li"], wq=wq, table=o["table"], rows=o["rows"], far=far,
+                w_row=w_row, other=other)
 
 
 @pytest.mark.cuda
@@ -533,13 +559,13 @@ def test_geary_kernel_equals_plain(cuda_device, case, cdt, one_code_a_row):
     where a row's nonzero weights are one code."""
     blk = case[0]
     o = _tail_operands(case, getis=False, one_code_a_row=one_code_a_row)
-    obs = kern_lisa.geary_observed(o["li"], o["wq"], o["other"], blk, o["w_row"],
-                                   **o["other_far"])
+    obs = kern_lisa.geary_observed(o["li"], o["wq"], o["other"], o["rows"], blk,
+                                   o["w_row"], **o["far"])
     cnt0 = torch.randint(0, 100, obs.shape).to(cdt)
-    want = kern_lisa.geary_count(o["li"], o["wq"], o["zp"], blk, obs, cnt0.clone(),
-                                 o["w_row"], **o["far"])
+    want = kern_lisa.geary_count(o["li"], o["wq"], o["table"], o["rows"], blk, obs,
+                                 cnt0.clone(), o["w_row"], **o["far"])
     assert 0 < int((want != cnt0).sum()) < want.numel()
-    args = [_on(o[x], cuda_device) for x in ("li", "wq", "zp")]
+    args = [_on(o[x], cuda_device) for x in ("li", "wq", "table", "rows")]
     obs, cnt, w_row = (t.to(cuda_device) for t in (obs, cnt0, o["w_row"]))
     far_dev = {x: _on(v, cuda_device) for x, v in o["far"].items()}
     _equal_at_every_shape(
@@ -557,7 +583,7 @@ def test_geary_and_getis_observed_kernels_equal_plain(cuda_device, case, getis,
     blk = case[0]
     o = _tail_operands(case, getis=getis, one_code_a_row=one_code_a_row)
     far_dev = {x: _on(v, cuda_device) for x, v in o["far"].items()}
-    args = [o["li"], o["wq"], o["zp"]]
+    args = [o["li"], o["wq"], o["table"], o["rows"]]
     args_dev = [t.to(cuda_device) for t in args]
     if getis:
         want = kern_lisa.getis_lag(*args, blk, **o["far"])
@@ -588,7 +614,7 @@ def _radius_rows(wq: torch.Tensor, far: dict, seed: int = 7):
     ptr[1:] = torch.cumsum(per_row, 0).to(ptr.dtype)
     F = int(ptr[-1])
     rows = dict(far, far_row_ptr=ptr, far_q=torch.full((F,), 127, dtype=torch.int8),
-                Zf=far["Zf"][:F])
+                far_rows=far["far_rows"][:F])
     return torch.where(live, 127, 0).to(torch.int8), rows
 
 
@@ -608,7 +634,7 @@ def test_draw_step_on_radius_rows(cuda_device, k, stat):
     src = torch.repeat_interleave(torch.arange(n), far["far_row_ptr"].diff().long())
     w_row = wq.to(torch.int32).sum(1, dtype=torch.int32).index_add_(
         0, src, far["far_q"].to(torch.int32))
-    host = [o["li"], wq, o["zp"]]
+    host = [o["li"], wq, o["table"], o["rows"]]
     dev = [t.to(cuda_device) for t in host]
     far_dev = {x: _on(v, cuda_device) for x, v in far.items()}
     if stat == "moran":
@@ -617,7 +643,8 @@ def test_draw_step_on_radius_rows(cuda_device, k, stat):
             lambda tiles: kern_lisa.lisa_observed(*dev, blk, **far_dev, tiles=tiles),
             "lisa_obs", obs, _shapes(case, "moran", 1, 0))
         # the count compares one placement's value with another's
-        obs = kern_lisa.lisa_observed(o["li"], wq, o["zp"].flip(0), blk, **far)
+        obs = kern_lisa.lisa_observed(o["li"], wq, o["table"], o["rows"].flip(0),
+                                      blk, **far)
         cnt0 = torch.randint(0, 100, obs.shape).to(torch.int8)
         want = kern_lisa.lisa_count(*host, blk, obs, cnt0.clone(), **far)
         fn = lambda tiles: kern_lisa.lisa_count(  # noqa: E731
@@ -631,8 +658,8 @@ def test_draw_step_on_radius_rows(cuda_device, k, stat):
             lambda tiles: kern_lisa.geary_observed(*dev, blk, w_dev, **far_dev,
                                                    tiles=tiles),
             "geary_obs", obs, _shapes(case, "geary", 1, 0))
-        obs = kern_lisa.geary_observed(o["li"], wq, o["zp"].flip(0), blk, w_row,
-                                       **far)
+        obs = kern_lisa.geary_observed(o["li"], wq, o["table"], o["rows"].flip(0),
+                                       blk, w_row, **far)
         cnt0 = torch.randint(0, 100, obs.shape).to(torch.int8)
         want = kern_lisa.geary_count(*host, blk, obs, cnt0.clone(), w_row, **far)
         fn = lambda tiles: kern_lisa.geary_count(  # noqa: E731
@@ -643,8 +670,8 @@ def test_draw_step_on_radius_rows(cuda_device, k, stat):
     _equal_at_every_shape(fn, mode, want, _shapes(case, stat, 1, 1))
 
 
-def _getis_moments(zp, blk: int, n_rows: int, star: bool):
-    codes = zp[blk:blk + n_rows].to(torch.int64)
+def _getis_moments(table, rows, blk: int, n_rows: int, star: bool):
+    codes = table[rows[blk:blk + n_rows]].to(torch.int64)
     tot, sq = codes.sum(0).float(), (codes * codes).sum(0).float()
     inv_m = float(torch.tensor(1.0) / (n_rows if star else n_rows - 1))
     return tot, sq, inv_m
@@ -658,9 +685,10 @@ def test_getis_count_kernels_equal_plain(cuda_device, case, star, alternative):
     blk = case[0]
     o = _tail_operands(case, getis=True)
     n = o["li"].shape[0]
-    lag_o = kern_lisa.getis_lag(o["li"], o["wq"], o["other"], blk, **o["other_far"])
-    me_o = o["other"][blk:blk + n].contiguous()
-    tot, sq, inv_m = _getis_moments(o["zp"], blk, n, star)
+    lag_o = kern_lisa.getis_lag(o["li"], o["wq"], o["other"], o["rows"], blk,
+                                **o["far"])
+    me_o = o["other"][o["rows"][blk:blk + n]].contiguous()
+    tot, sq, inv_m = _getis_moments(o["table"], o["rows"], blk, n, star)
     w = o["w_row"].to(torch.float32)
     if star:
         obs = lag_o + me_o.to(torch.int32)
@@ -671,10 +699,10 @@ def test_getis_count_kernels_equal_plain(cuda_device, case, star, alternative):
         kw = dict(w_row=w, tot=tot, sq=sq, inv_m=inv_m, lag_o=lag_o, me_o=me_o)
         fn, mode = kern_lisa.getis_g_count, "getis_g_win"
     cnt0 = torch.randint(0, 100, obs.shape).to(torch.int8)
-    want = fn(o["li"], o["wq"], o["zp"], blk, obs, cnt0.clone(),
+    want = fn(o["li"], o["wq"], o["table"], o["rows"], blk, obs, cnt0.clone(),
               alternative=alternative, **o["far"], **kw)
     assert 0 < int((want != cnt0).sum()) < want.numel()
-    args = [o[x].to(cuda_device) for x in ("li", "wq", "zp")]
+    args = [o[x].to(cuda_device) for x in ("li", "wq", "table", "rows")]
     obs, cnt = obs.to(cuda_device), cnt0.to(cuda_device)
     kw_dev = {x: _on(v, cuda_device) for x, v in {**o["far"], **kw}.items()}
     _equal_at_every_shape(
@@ -787,39 +815,49 @@ def _lee_operands(case, seed: int = 7):
     zx = torch.randint(-127, 128, (n, G), generator=gen, dtype=torch.int8)
     sw = torch.rand(n, generator=gen) * 0.01 + 1e-4
     far = dict(o["far"]["rows"])
-    other = torch.randint(-127, 128, o["zp"].shape, generator=gen,
+    other = torch.randint(-127, 128, o["table"].shape, generator=gen,
                           dtype=torch.int8)
-    obs, _ = kern_lisa.lee_observed(o["li"], o["wq"], other, blk, zx, sw, **far)
-    return dict(args=(o["li"], o["wq"], o["zp"], blk, zx, sw), far=far, obs=obs)
+    obs, _ = kern_lisa.lee_observed(o["li"], o["wq"], other, o["rows"], blk, zx,
+                                    sw, **far)
+    return dict(args=(o["li"], o["wq"], o["table"], o["rows"], blk, zx, sw),
+                far=far, obs=obs, o=o)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", LEE_CASES, ids=LEE_IDS)
 @pytest.mark.parametrize("cdt", [torch.int8, torch.int16, torch.int32])
 def test_lee_kernels_equal_plain(cuda_device, case, cdt):
+    """Lee's draw step, observed and partial-only entries read the y codes
+    through a permuted draw's rows, and through the identity rows of the
+    table gathered from them: both bitwise the plain version."""
     o = _lee_operands(case)
-    args_dev = tuple(_on(t, cuda_device) for t in o["args"])
-    far_dev = {x: _on(v, cuda_device) for x, v in o["far"].items()}
     cnt0 = torch.randint(0, 100, o["obs"].shape).to(cdt)
     want_cnt = cnt0.clone()
     want_part = kern_lisa.lee_count(*o["args"], o["obs"], want_cnt, **o["far"])
     assert 0 < int((want_cnt != cnt0).sum()) < want_cnt.numel()
     want_obs, want_opart = kern_lisa.lee_observed(*o["args"], **o["far"])
     obs, cnt = o["obs"].to(cuda_device), cnt0.to(cuda_device)
+    li, wq, _, _, blk, zx, sw = o["args"]
+    zp, ident, far_g = _gathered(o["o"], o["far"])
+    for table, rows, far in ((o["o"]["table"], o["o"]["rows"], o["far"]),
+                             (zp, ident, far_g)):
+        args_dev = tuple(_on(t, cuda_device)
+                         for t in (li, wq, table, rows, blk, zx, sw))
+        far_dev = {x: _on(v, cuda_device) for x, v in far.items()}
 
-    def count(tiles):
-        c = cnt.clone()
-        part = kern_lisa.lee_count(*args_dev, obs, c, **far_dev, tiles=tiles)
-        return c, part
+        def count(tiles):
+            c = cnt.clone()
+            part = kern_lisa.lee_count(*args_dev, obs, c, **far_dev, tiles=tiles)
+            return c, part
 
-    _equal_at_every_shape(count, "lee_win", (want_cnt, want_part),
-                          _shapes(case, "lee", 1, cnt0.element_size()))
-    _equal_at_every_shape(
-        lambda tiles: kern_lisa.lee_observed(*args_dev, **far_dev, tiles=tiles),
-        "lee_obs", (want_obs, want_opart), _shapes(case, "lee", 1, 0))
-    _equal_at_every_shape(
-        lambda tiles: kern_lisa.lee_partial(*args_dev, **far_dev, tiles=tiles),
-        "lee_partial", want_opart, _shapes(case, "lee", 1, 0))
+        _equal_at_every_shape(count, "lee_win", (want_cnt, want_part),
+                              _shapes(case, "lee", 1, cnt0.element_size()))
+        _equal_at_every_shape(
+            lambda tiles: kern_lisa.lee_observed(*args_dev, **far_dev, tiles=tiles),
+            "lee_obs", (want_obs, want_opart), _shapes(case, "lee", 1, 0))
+        _equal_at_every_shape(
+            lambda tiles: kern_lisa.lee_partial(*args_dev, **far_dev, tiles=tiles),
+            "lee_partial", want_opart, _shapes(case, "lee", 1, 0))
 
 
 def _knn_shapes(n: int, k: int, every: bool = True):

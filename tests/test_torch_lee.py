@@ -189,14 +189,15 @@ def test_int8_lee_int16_counters_and_no_launches(setup):
 
 
 def _lee_operands(pt, Zx, Zy):
-    """The int8 Lee operands of one plan at the identity placement."""
+    """The int8 Lee operands of one plan at the identity placement: the y
+    codes' table read through the padded rows."""
     wq, sw, far_q = tb._full_row_codes(pt)
     lo = tb._local_setup(pt, "cpu")
-    Yp = tb._pad_cols4(tb._quantize_z(torch.as_tensor(Zy))[0])[lo.rows_idx]
+    Yq = tb._pad_cols4(tb._quantize_z(torch.as_tensor(Zy))[0])
     zx = tb._relabeled_x(pt, tb._pad_cols4(tb._quantize_z(torch.as_tensor(Zx))[0]))
     far = dict(far_row_ptr=lo.ptr, far_q=far_q[:lo.n_live].to(torch.int8),
-               Zf=Yp[lo.far_dst])
-    return (lo.li, wq, Yp, B, zx, sw.reshape(-1).contiguous()), far
+               far_rows=lo.rows_idx[lo.far_dst])
+    return (lo.li, wq, Yq, lo.rows_idx, B, zx, sw.reshape(-1).contiguous()), far
 
 
 def test_lee_partials_follow_the_fixed_order(setup):
@@ -205,10 +206,11 @@ def test_lee_partials_follow_the_fixed_order(setup):
     order, then the 16 group sums in group order, each step rounded to
     float32; the three entries agree."""
     args, far = _lee_operands(setup["pt"], setup["Zx"], setup["Zy"])
-    li, wq, Yp, _, zx, sw = args
+    li, wq, Yq, rows, _, zx, sw = args
     abs_l, part = kern_lisa.lee_observed(*args, **far)
-    lag = kern_lisa._int_lag_plain(li, wq, Yp, B, far["far_row_ptr"],
-                                   far["far_q"], far["Zf"], 0, li.shape[0])
+    lag = kern_lisa._int_lag_plain(li, wq, Yq[rows], B, far["far_row_ptr"],
+                                   far["far_q"], Yq[far["far_rows"]], 0,
+                                   li.shape[0])
     Lq = (zx.to(torch.int32) * lag).numpy()
     np.testing.assert_array_equal(abs_l.numpy(), np.abs(Lq))
     swn = sw.numpy()
@@ -236,21 +238,52 @@ def test_lee_partials_follow_the_fixed_order(setup):
     assert torch.equal(tb._tree_sum(part5), want5)
 
 
+def test_lee_plain_reads_through_rows_as_the_gathered_table(setup):
+    """The three Lee entries on the y codes read through a random
+    permutation's rows (padding repeating the first and last cell): bitwise
+    the old form, Lee's statistic on the gathered table ``Yq[rows]`` and its
+    far values ``Yp[far_dst]``."""
+    args, far = _lee_operands(setup["pt"], setup["Zx"], setup["Zy"])
+    li, wq, Yq, rows_idx, _, zx, sw = args
+    lo = tb._local_setup(setup["pt"], "cpu")
+    rows = torch.randperm(setup["pt"].n, generator=torch.Generator().manual_seed(3))[
+        rows_idx]
+    fr = dict(far, far_rows=rows[lo.far_dst])
+    Yp = Yq[rows]
+    old = dict(far_row_ptr=far["far_row_ptr"], far_q=far["far_q"], Zf=Yp[lo.far_dst])
+    want_o = torch.empty((li.shape[0], Yq.shape[1]), dtype=torch.int32)
+    want_p = kern_lisa._lee_plain(li, wq, Yp, B, zx, sw, None, None, want_o, **old)
+    got_o, got_p = kern_lisa.lee_observed(li, wq, Yq, rows, B, zx, sw, **fr)
+    assert torch.equal(got_o, want_o) and torch.equal(got_p, want_p)
+    assert torch.equal(kern_lisa.lee_partial(li, wq, Yq, rows, B, zx, sw, **fr),
+                       want_p)
+    obs = want_o.flip(0).contiguous()
+    cnt, want_c = (torch.zeros(obs.shape, dtype=torch.int8) for _ in range(2))
+    kern_lisa._lee_plain(li, wq, Yp, B, zx, sw, obs, want_c, None, **old)
+    assert torch.equal(kern_lisa.lee_count(li, wq, Yq, rows, B, zx, sw, obs, cnt,
+                                           **fr), want_p)
+    assert torch.equal(cnt, want_c) and 0 < int(cnt.sum()) < cnt.numel()
+
+
 def test_lee_wrappers_refuse_bad_operands(setup):
     args, far = _lee_operands(setup["pt"], setup["Zx"][:, :4],
                               setup["Zy"][:, :4])
-    li, wq, Yp, _, zx, sw = args
+    li, wq, Yq, rows, _, zx, sw = args
     with pytest.raises(ValueError, match="zx"):
-        kern_lisa.lee_partial(li, wq, Yp, B, zx[:, :3].contiguous(), sw, **far)
+        kern_lisa.lee_partial(li, wq, Yq, rows, B, zx[:, :3].contiguous(), sw,
+                              **far)
     with pytest.raises(ValueError, match="sw_row"):
-        kern_lisa.lee_partial(li, wq, Yp, B, zx, sw.double(), **far)
+        kern_lisa.lee_partial(li, wq, Yq, rows, B, zx, sw.double(), **far)
     with pytest.raises(ValueError, match="row pointers"):
-        kern_lisa.lee_partial(li, wq, Yp, B, zx, sw, far_row_ptr=None,
-                              far_q=None, Zf=None)
+        kern_lisa.lee_partial(li, wq, Yq, rows, B, zx, sw, far_row_ptr=None,
+                              far_q=None, far_rows=None)
+    with pytest.raises(ValueError, match="far_rows"):
+        kern_lisa.lee_partial(li, wq, Yq, rows, B, zx, sw,
+                              **{**far, "far_rows": far["far_rows"][:-1]})
     wide = torch.zeros((li.shape[0], 1001), dtype=torch.int32)
     with pytest.raises(ValueError, match="k <= 1000"):
         kern_lisa.lee_partial(wide, torch.zeros_like(wide, dtype=torch.int8),
-                              Yp, B, zx, sw, **far)
+                              Yq, rows, B, zx, sw, **far)
 
 
 # ---------------------------------------------------------------------------

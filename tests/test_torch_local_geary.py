@@ -177,22 +177,26 @@ def test_geary_wrapper_refuses_bad_operands(setup):
     pt = setup["pt"]
     li = pt.local_idx.to(torch.int32)
     wq = torch.zeros_like(li, dtype=torch.int8)
-    zp = torch.zeros(li.shape[0] + 2 * B, 16, dtype=torch.int8)
+    table = torch.zeros(li.shape[0] + 2 * B, 16, dtype=torch.int8)
+    rows = torch.arange(li.shape[0] + 2 * B)
     w_row = torch.zeros(li.shape[0], dtype=torch.int32)
     far = dict(far_row_ptr=torch.zeros(li.shape[0] + 1, dtype=torch.int32),
                far_q=torch.zeros(0, dtype=torch.int8),
-               Zf=torch.zeros(0, 16, dtype=torch.int8))
+               far_rows=torch.zeros(0, dtype=torch.int64))
     with pytest.raises(ValueError, match="row pointers"):
-        kern_lisa.geary_observed(li, wq, zp, B, w_row, far_row_ptr=None,
-                                 far_q=None, Zf=None)
+        kern_lisa.geary_observed(li, wq, table, rows, B, w_row, far_row_ptr=None,
+                                 far_q=None, far_rows=None)
     with pytest.raises(ValueError, match="w_row"):
-        kern_lisa.geary_observed(li, wq, zp, B, w_row.to(torch.float32), **far)
+        kern_lisa.geary_observed(li, wq, table, rows, B, w_row.to(torch.float32),
+                                 **far)
     wide = torch.zeros((li.shape[0], 257), dtype=torch.int32)
     with pytest.raises(ValueError, match="k <= 256"):
-        kern_lisa.geary_observed(wide, wide.to(torch.int8), zp, B, w_row, **far)
+        kern_lisa.geary_observed(wide, wide.to(torch.int8), table, rows, B, w_row,
+                                 **far)
     obs = torch.zeros(li.shape[0], 16, dtype=torch.int32)
     cnt = torch.zeros_like(obs, dtype=torch.int16)
-    assert kern_lisa.geary_count(li, wq, zp, B, obs, cnt, w_row, **far) is cnt
+    assert kern_lisa.geary_count(li, wq, table, rows, B, obs, cnt, w_row,
+                                 **far) is cnt
     assert bool((cnt == 1).all())                 # 0 <= 0 everywhere
 
 

@@ -220,20 +220,33 @@ def test_wrapper_refuses_bad_operands(setup):
     pt = setup["pt"]
     li = pt.local_idx.to(torch.int32)
     wq = torch.zeros_like(li, dtype=torch.int8)
-    zp = torch.zeros(li.shape[0] + 2 * B, 16, dtype=torch.int8)
+    table = torch.zeros(pt.n, 16, dtype=torch.int8)
+    rows = tb._padded_rows(pt, "cpu")
     obs = torch.zeros(li.shape[0], 16, dtype=torch.int32)
     with pytest.raises(ValueError, match="multiple of 4"):
-        kern_lisa.lisa_observed(li, wq, zp[:, :14].contiguous(), B)
+        kern_lisa.lisa_observed(li, wq, table[:, :14].contiguous(), rows, B)
+    with pytest.raises(ValueError, match="rows"):
+        kern_lisa.lisa_observed(li, wq, table, rows.to(torch.int32), B)
+    with pytest.raises(ValueError, match="rows"):
+        kern_lisa.lisa_observed(li, wq, table, rows[:-1], B)
+    with pytest.raises(ValueError, match="table's device"):
+        kern_lisa.lisa_observed(li, wq, table, rows.to("meta"), B)
+    with pytest.raises(ValueError, match="table"):
+        kern_lisa.lisa_observed(li, wq, table.to(torch.int16), rows, B)
     with pytest.raises(ValueError, match="cnt"):
-        kern_lisa.lisa_count(li, wq, zp, B, obs, obs.to(torch.float32))
+        kern_lisa.lisa_count(li, wq, table, rows, B, obs, obs.to(torch.float32))
+    ptr = torch.zeros(li.shape[0] + 1, dtype=torch.int32)
     with pytest.raises(ValueError, match="not both"):
-        kern_lisa.lisa_count(li, wq, zp, B, obs, torch.zeros_like(obs),
-                             far_row_ptr=torch.zeros(li.shape[0] + 1,
-                                                     dtype=torch.int32),
+        kern_lisa.lisa_count(li, wq, table, rows, B, obs, torch.zeros_like(obs),
+                             far_row_ptr=ptr,
                              far_q=torch.zeros(0, dtype=torch.int8),
-                             Zf=torch.zeros(0, 16, dtype=torch.int8), far=obs)
+                             far_rows=torch.zeros(0, dtype=torch.int64), far=obs)
+    with pytest.raises(ValueError, match="far_rows"):
+        kern_lisa.lisa_count(li, wq, table, rows, B, obs, torch.zeros_like(obs),
+                             far_row_ptr=ptr,
+                             far_q=torch.zeros(0, dtype=torch.int8))
     cnt = torch.zeros_like(obs, dtype=torch.int16)
-    assert kern_lisa.lisa_count(li, wq, zp, B, obs, cnt) is cnt
+    assert kern_lisa.lisa_count(li, wq, table, rows, B, obs, cnt) is cnt
     assert bool((cnt == 1).all())                 # |0·0| >= 0 everywhere
 
 
@@ -302,7 +315,7 @@ def test_lisa_tiles_fit_shared_memory(stat, k):
                 assert 2 <= t.stages <= 4 and t.stages - 1 <= -(-block // t.chunk)
     if (stat, k) == ("moran", 6):
         assert kern_lisa.lisa_tiles(256, 6, "moran", 1, 1, 1024, 3907) == (
-            128, 29, 256, 128, 2, 183_776)
+            128, 29, 256, 128, 2, 192_080)
 
 
 def _params(d, key):
