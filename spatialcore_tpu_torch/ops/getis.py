@@ -26,6 +26,7 @@ import torch
 
 from ..core.rng import fold_in, key_for, permutation
 from ..kernels.lisa_float import counter_dtype
+from ..utils.profiling import traced
 from .banded import _extreme, _p_from_counts
 from .graph import SpatialGraph, graph_rows
 
@@ -95,6 +96,7 @@ def _gi_z(graph: SpatialGraph, X: torch.Tensor, deg: torch.Tensor,
     return lag_s, z
 
 
+@traced("ops.getis.getis_ord")
 def getis_ord(graph: SpatialGraph, X: torch.Tensor, star: bool = True,
               alternative: str = "two-sided", seed: int = 0,
               n_permutations: int = 0,

@@ -275,6 +275,7 @@ def _moran_planes(graph, Z, p, zero_var, n_permutations: int, fdr: str,
             "quadrant": torch.where(zv, torch.zeros_like(quad), quad)}
 
 
+@traced("post.geary")
 def _geary_planes(graph, Z, p, zero_var, n_permutations: int, fdr: str
                   ) -> Dict[str, torch.Tensor]:
     """The three local Geary planes of one set of gene columns: observed C
@@ -293,15 +294,17 @@ def _geary_planes(graph, Z, p, zero_var, n_permutations: int, fdr: str
 def _getis_planes(graph, X, p_sim, n_permutations: int, fdr: str, alpha: float,
                   star: bool, alternative: str) -> Dict[str, torch.Tensor]:
     """The six Getis-Ord planes of one set of raw gene columns: observed G,
-    z and analytic p from one exact pass, p_sim and its per-gene FDR, and
-    the hotspot code (1 hot / −1 cold where p_adj < alpha, else 0)."""
+    z and analytic p from one exact pass (``ops.getis.getis_ord``), p_sim
+    and its per-gene FDR, and the hotspot code (1 hot / −1 cold where
+    p_adj < alpha, else 0), the last two inside a ``post.hotspot`` span."""
     from .fdr import apply_fdr
     from .getis import getis_ord
 
     obs = getis_ord(graph, X, star=star, alternative=alternative)
-    p_adj = apply_fdr(p_sim, fdr, axis=0, n_levels=n_permutations + 1)
-    hot = torch.where(p_adj < alpha, torch.sign(obs.z_score).to(torch.int8),
-                      torch.zeros((), dtype=torch.int8, device=X.device))
+    with span("post.hotspot"):
+        p_adj = apply_fdr(p_sim, fdr, axis=0, n_levels=n_permutations + 1)
+        hot = torch.where(p_adj < alpha, torch.sign(obs.z_score).to(torch.int8),
+                          torch.zeros((), dtype=torch.int8, device=X.device))
     return {"G": obs.G, "z_score": obs.z_score, "p": obs.p_value,
             "p_sim": p_sim, "p_adj": p_adj, "hotspot": hot}
 
